@@ -1,0 +1,23 @@
+"""PyTorch + CUDA port of ``iron_weight_only_quant_tpu`` for NVIDIA Hopper.
+
+The JAX package beside this one is the reference; module names and public
+function names match it so each counterpart is easy to find.  This package
+imports torch and numpy only.  The W4 dequant-matmul runs as hand-written
+CUDA kernels (``csrc/``), built with ``nvcc`` at first use; every other op
+is plain PyTorch.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no device named and no GPU present they raise.
+"""
+
+from .config import (  # noqa: F401
+    PER_CHANNEL,
+    PER_TENSOR,
+    AlignSpec,
+    EngineConfig,
+    FloatFormat,
+    KVCacheConfig,
+    MeshConfig,
+    QuantSpec,
+)
+from .device import resolve_device  # noqa: F401

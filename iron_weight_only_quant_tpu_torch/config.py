@@ -1,0 +1,156 @@
+"""Typed, hashable configuration objects (the port's own copy).
+
+Same dataclasses, fields and defaults as the JAX package's ``config.py``, so
+artifacts and engine settings mean the same thing in both packages.  The
+port keeps its own copy instead of importing the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+# Group-size sentinels (same convention as the reference CLI:
+# reference main.py:155 "--w_group_size ... -1: per-tensor, -2: per-channel").
+PER_TENSOR = -1
+PER_CHANNEL = -2
+
+
+@dataclass(frozen=True)
+class FloatFormat:
+    """A parametric minifloat format: 1 sign bit + ``exp_bits`` + ``mant_bits``.
+
+    Only what the port reads so far; the minifloat codec (with the
+    format's bias and range) is still to be ported (ROADMAP queue A).
+    """
+
+    exp_bits: int
+    mant_bits: int
+
+    def __post_init__(self):
+        if self.exp_bits < 1 or self.mant_bits < 0:
+            raise ValueError(f"invalid minifloat format E{self.exp_bits}M{self.mant_bits}")
+
+    @property
+    def total_bits(self) -> int:
+        return 1 + self.exp_bits + self.mant_bits
+
+
+@dataclass(frozen=True)
+class AlignSpec:
+    """Knobs of the approximate aligned minifloat decode (same fields as the
+    JAX package's ``AlignSpec``; the decode itself is not ported yet)."""
+
+    hi_align_start: int
+    hi_align_exp_field: int
+    tail_pad_bits: int = 0
+    align_subnorm_exp_as_one: bool = True
+    limit_align_exp_to_field: bool = True
+    handle_max_outlier: bool = True
+
+
+@dataclass(frozen=True)
+class QuantSpec:
+    """Full description of one weight-quantization scheme.
+
+    ``fmt`` selects the codec:
+      * ``"int"``       -- uniform integer, ``bits`` wide (C3 in SURVEY.md)
+      * ``"fp"``        -- minifloat via ``float_format``          (C4)
+      * ``"bfp"``       -- block floating point, ``bits`` wide     (C6)
+      * ``"fp4_e1m2"``  -- standalone two-step FP4 scheme          (C8)
+
+    ``group_size`` follows the reference convention: -1 per-tensor,
+    -2 per-channel, >0 per-group along the reduction dim.
+
+    ``quant_axis``: 0 groups along the input-feature (reduction) axis of the
+    ``[in, out]`` weight -- the reference's default ``quant_dim=0`` on its
+    ``[out, in]`` weights; 1 groups along output features (reference
+    ``quant_dim=1``, transpose-first grouping, quant_linear.py:640-647).
+    """
+
+    fmt: str = "int"
+    bits: int = 4
+    group_size: int = 128
+    symmetric: bool = True
+    quant_axis: int = 0
+    float_format: Optional[FloatFormat] = None
+    approximate: bool = False
+    double_approximate: bool = False
+    align: Optional[AlignSpec] = None
+
+    def __post_init__(self):
+        if self.fmt not in ("int", "fp", "bfp", "fp4_e1m2"):
+            raise ValueError(f"unknown fmt {self.fmt!r}")
+        if self.fmt == "int" and not (2 <= self.bits < 16):
+            raise ValueError("int quantization supports 2..15 bits")
+        if self.fmt == "fp" and self.float_format is None:
+            raise ValueError("fmt='fp' requires float_format")
+        if self.fmt in ("bfp",) and self.group_size <= 0:
+            # Mirrors reference quant_wrapper.py:19-20.
+            raise ValueError("BFP requires per-group quantization (group_size > 0)")
+        if self.approximate and self.group_size <= 0:
+            # Mirrors reference quant_linear.py:475-476.
+            raise ValueError("approximate decode requires per-group quantization")
+        if self.quant_axis not in (0, 1):
+            raise ValueError("quant_axis must be 0 or 1")
+
+    @property
+    def storage_bits(self) -> int:
+        if self.fmt == "int" or self.fmt == "bfp":
+            return self.bits
+        if self.fmt == "fp":
+            return self.float_format.total_bits
+        return 4  # fp4_e1m2
+
+
+@dataclass(frozen=True)
+class KVCacheConfig:
+    """KV-cache layout + quantization (same fields as the JAX package's).
+
+    The port has contiguous 16-bit caches only so far; ``kv_bits`` 8 / 4 and
+    ``paged`` are still to be ported and its ``make_caches`` raises for them.
+    """
+
+    max_seq_len: int = 2048
+    kv_bits: int = 16  # 16 = no quantization
+    kv_group_size: int = 128
+    # paged layout: KV lives in a shared page pool instead of per-slot slabs
+    # of max_seq_len; continuous batching allocates/frees pages per request,
+    # so pool memory tracks the *live* token count, not worst-case x batch.
+    paged: bool = False
+    page_size: int = 64
+    # pool size in pages; 0 = worst case (batch * ceil(max_seq_len/page) + 1)
+    num_pages: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh: data x model (tensor-parallel) axes."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def ndevices(self) -> int:
+        return self.data * self.model
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    mesh: MeshConfig = MeshConfig()
+    kv: KVCacheConfig = KVCacheConfig()
+    max_batch_size: int = 8
+    prefill_chunk: int = 512
+    activation_dtype: str = "bfloat16"
+    # 8 = W4A8/W8A8 (int8 activations), 16 = split-int8 fixed point; the
+    # port has no kernel for either yet, so its engine rejects both
+    activation_bits: Optional[int] = None
+    # activation bits for prefill phases only; None = inherit activation_bits
+    prefill_activation_bits: Optional[int] = None
+    # fuse q|k|v and gate|up packed artifacts at engine build (an exact
+    # column concat: fewer, wider kernel launches).  llama family only.
+    fuse_projections: bool = False
+    # generate() samples this many decode steps on the device per host
+    # sync; tokens are identical to per-token stepping (post-EOS tokens
+    # are discarded on the host).  1 = per-token stepping.
+    decode_chunk: int = 16

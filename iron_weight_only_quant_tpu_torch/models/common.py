@@ -1,0 +1,201 @@
+"""Shared model building blocks (port of ``models/common.py``).
+
+Plain PyTorch ops, eager.  Attention, RoPE and KV writes were plain XLA in
+the reference, not kernels, so they are plain torch ops here too; the only
+kernels on the model path are the W4 dequant-matmuls behind :func:`linear`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from ..ops.qmatmul import quantized_matmul
+from ..quantize.qtensor import QuantizedTensor
+
+
+def _rms_nogamma(x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+
+
+@dataclass
+class FusedLinear:
+    """Several projections sharing one input, packed as ONE artifact.
+
+    Built by ``concat_n`` over the member weights; ``spans`` are the
+    (start, end) column ranges of each member's logical output inside the
+    fused (padding-inclusive) output width.
+    """
+
+    w: Any
+    b: Optional[torch.Tensor]
+    spans: Tuple[Tuple[int, int], ...]
+
+    def apply(self, x: torch.Tensor,
+              pre_norm: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
+        y = linear(x, {"w": self.w, "b": self.b}, pre_norm=pre_norm)
+        return tuple(y[..., a:b] for a, b in self.spans)
+
+
+def linear(x: torch.Tensor, p: Any,
+           pre_norm: Optional[float] = None) -> torch.Tensor:
+    """Apply a linear layer whose weight is dense ``[K, N]`` or quantized.
+
+    ``pre_norm`` (the RMS eps) applies a weightless RMSNorm to x first --
+    inside the kernel for quantized weights on the card.  The norm gamma
+    must already be folded into the weights (``fold_llama_norms``).
+    """
+    w, b = p["w"], p.get("b")
+    if isinstance(w, QuantizedTensor):
+        return quantized_matmul(x, w, bias=b, pre_norm=pre_norm)
+    if pre_norm is not None:
+        x = _rms_nogamma(x, pre_norm)
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)).to(dt)
+
+
+# ------------------------------------------------------------------ RoPE
+
+def rope_tables(
+    positions: torch.Tensor,
+    head_dim: int,
+    theta: float = 10000.0,
+    condense_ratio: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables ``[..., head_dim]`` (half-rotation convention), on
+    ``positions``' device.
+
+    ``condense_ratio > 1`` is RoPE position interpolation: positions are
+    divided by the ratio before the frequency product.
+    """
+    dev = positions.device
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=dev), exps)
+    t = positions.to(torch.float32) / condense_ratio
+    freqs = t[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; cos/sin: [B, S, D] or [S, D]."""
+    if cos.dim() == 2:
+        cos = cos[None]
+        sin = sin[None]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return (x.to(torch.float32) * cos + rotated.to(torch.float32) * sin).to(x.dtype)
+
+
+# ------------------------------------------------------------- attention
+
+class KVCacheView(NamedTuple):
+    """Per-layer cache slab: k/v ``[B, T_max, H_kv, D]`` + current length.
+
+    ``length`` is a Python int (one shared timeline) or a ``[B]`` int tensor
+    (slot-local timelines).  ``valid`` (optional, ``[B]``, slot-local only)
+    marks how many of the next write's S tokens are real per slot: writes
+    beyond a slot's count are dropped and its length advances by the count.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: Union[int, torch.Tensor]
+    valid: Optional[torch.Tensor] = None
+
+
+def attend(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k: torch.Tensor,  # [B, T, Hkv, D]
+    v: torch.Tensor,  # [B, T, Hkv, D]
+    mask: torch.Tensor,  # [B|1, 1, S, T] boolean (True = keep)
+    *,
+    scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Softmax attention with GQA head expansion and f32 accumulation.
+
+    The reference's op order: f32 scores, masked with the f32 minimum, f32
+    softmax, probabilities cast to ``v.dtype``, f32 product, cast to
+    ``q.dtype``.
+    """
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    if hq != hkv:
+        rep = hq // hkv
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if bias is not None:
+        scores = scores + bias
+    scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def causal_mask(s: int, t: Optional[int] = None, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """Boolean mask [1, 1, S, T]; query i attends to keys <= i + offset."""
+    t = t if t is not None else s
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(t, device=device)[None, :]
+    return (cols <= rows + offset)[None, None]
+
+
+def update_kv_cache(
+    cache: KVCacheView, k_new: torch.Tensor, v_new: torch.Tensor
+) -> KVCacheView:
+    """Write S new tokens at position ``cache.length``.
+
+    The buffers are updated IN PLACE (the reference returned new arrays);
+    the returned view shares them and carries the advanced length.  As in
+    the reference, a start too close to the end is clamped so that the S
+    tokens fit, and a ``[B]`` length writes each row at its own start.
+    """
+    start = cache.length
+    s = k_new.shape[1]
+    t_max = cache.k.shape[1]
+    bsz = cache.k.shape[0]
+    if cache.valid is not None:
+        if not (torch.is_tensor(start) and start.dim() == 1):
+            raise ValueError("KVCacheView.valid requires [B] slot-local lengths")
+        ar = torch.arange(s, device=start.device)
+        t = start[:, None] + ar[None, :]  # [B, S]
+        keep = (ar[None, :] < cache.valid[:, None]) & (t < t_max)
+        b_idx = torch.arange(bsz, device=start.device)[:, None].expand(bsz, s)
+        cache.k[b_idx[keep], t[keep]] = k_new[keep].to(cache.k.dtype)
+        cache.v[b_idx[keep], t[keep]] = v_new[keep].to(cache.v.dtype)
+        return KVCacheView(cache.k, cache.v, start + cache.valid)
+    if torch.is_tensor(start) and start.dim() == 1:
+        st = start.clamp(0, t_max - s)
+        t = st[:, None] + torch.arange(s, device=start.device)[None, :]
+        b_idx = torch.arange(bsz, device=start.device)[:, None]
+        cache.k[b_idx, t] = k_new.to(cache.k.dtype)
+        cache.v[b_idx, t] = v_new.to(cache.v.dtype)
+    else:
+        st = min(max(int(start), 0), t_max - s)
+        cache.k[:, st : st + s] = k_new.to(cache.k.dtype)
+        cache.v[:, st : st + s] = v_new.to(cache.v.dtype)
+    return KVCacheView(cache.k, cache.v, start + s)

@@ -1,0 +1,121 @@
+"""Quantized matmul: the dequantize oracle and the dispatch to the kernels
+(port of ``ops/qmatmul.py``).
+
+``dequantize_weight`` followed by a matmul is the correctness oracle.
+``quantized_matmul`` goes to ``ops/kernels/dequant_matmul.py``: on a CPU
+tensor that takes the plain PyTorch version, on a CUDA tensor it launches a
+hand-written kernel or raises for a layout that has no kernel yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..quantize.qtensor import QuantizedTensor
+from .packing import unpack_codes_sharded
+
+
+def packed_bits(qt: QuantizedTensor) -> int:
+    b = qt.spec.storage_bits
+    if qt.mode == "lut":  # codebook indexing needs plain unsigned sub-byte
+        if b == 6:
+            # nq42 stores [3K/4, N] bytes; byte-per-code fp6 stores [K, N]
+            k_rows = qt.qweight.shape[-2]
+            per_shard = qt.k_stored // qt.k_shards
+            return 6 if k_rows * 4 == qt.k_stored * 3 and per_shard % 4 == 0 else 8
+        return b if b in (2, 4) else 8
+    return b if b in (2, 3, 4, 8) else 8
+
+
+def dequantize_weight(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    """Packed (flat) artifact -> dense ``[K, N]`` weight (the oracle)."""
+    codes = unpack_codes_sharded(
+        qt.qweight, packed_bits(qt), qt.k_stored, qt.k_shards
+    )
+    k = qt.k_stored
+    scales, zeros_arr = qt.scales, qt.zeros
+    if qt.side_pad:  # stack-time row padding of the side info
+        scales = scales[: scales.shape[0] - qt.side_pad]
+        if zeros_arr is not None and zeros_arr.shape[0] == scales.shape[0] + qt.side_pad:
+            zeros_arr = zeros_arr[: scales.shape[0]]
+    scales = scales.to(torch.float32)
+
+    def expand(side):  # per-group side info [K/G, N] -> [K, N]
+        if side.shape[0] == 1:
+            return side
+        return side.repeat_interleave(k // side.shape[0], dim=0)
+
+    if qt.mode == "affine":
+        zeros = (expand(zeros_arr.to(torch.float32))
+                 if zeros_arr is not None else 0.0)
+        w = (codes.to(torch.float32) - zeros) * expand(scales)
+    else:  # lut
+        if packed_bits(qt) == 8:
+            codes = codes + 128  # byte layout stores code-128
+        w = qt.codebook[codes.long()] * expand(scales)
+        if zeros_arr is not None:
+            w = w + expand(zeros_arr.to(torch.float32))
+    if qt.k_pad:
+        w = w[: qt.k]
+    if qt.n_pad:
+        w = w[:, : qt.n]
+    return w.to(dtype)
+
+
+def _check_activation_bits(x: torch.Tensor, activation_bits: Optional[int]) -> None:
+    # the plain path keeps full-precision activations, as the reference's
+    # plain path does; on the card there is no A8/A16 kernel yet
+    if activation_bits is not None and x.is_cuda:
+        raise NotImplementedError(
+            f"activation_bits={activation_bits}: the A8/A16 kernels are not "
+            "ported yet (ROADMAP queue B)")
+
+
+def quantized_matmul(
+    x: torch.Tensor,
+    qt: QuantizedTensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    activation_bits: Optional[int] = None,
+    pre_norm: Optional[float] = None,
+) -> torch.Tensor:
+    """``y = x @ dequant(qt) (+ bias)``, cast to ``x.dtype``.
+
+    ``pre_norm`` (the RMS eps) applies a weightless RMSNorm to x, inside the
+    kernel on the card; the norm gamma must be folded into the weights.
+    The bias is added before the final cast, as in the reference.
+    """
+    from .kernels.dequant_matmul import fused_quantized_matmul
+
+    _check_activation_bits(x, activation_bits)
+    out = fused_quantized_matmul(x, qt, pre_norm=pre_norm)
+    if bias is not None:
+        out = out + bias
+    return out.to(x.dtype)
+
+
+def index_stacked(qt: QuantizedTensor, layer_idx) -> QuantizedTensor:
+    """One layer of a layer-stacked artifact (views, no copy)."""
+    return qt.map_arrays(lambda a: a[layer_idx])
+
+
+def quantized_matmul_stacked(
+    x: torch.Tensor,
+    qt: QuantizedTensor,
+    layer_idx,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    activation_bits: Optional[int] = None,
+    pre_norm: Optional[float] = None,
+) -> torch.Tensor:
+    """``y = x @ dequant(qt[layer_idx]) (+ bias)`` for layer-stacked artifacts;
+    the kernel reads the selected layer in place."""
+    from .kernels.dequant_matmul import fused_quantized_matmul_stacked
+
+    _check_activation_bits(x, activation_bits)
+    out = fused_quantized_matmul_stacked(x, qt, layer_idx, pre_norm=pre_norm)
+    if bias is not None:
+        out = out + bias
+    return out.to(x.dtype)
