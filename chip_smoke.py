@@ -3,27 +3,41 @@
 
     python3 chip_smoke.py
 
-Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through five
+Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through eight
 phases; any failing phase ends the run with a non-zero exit code.
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
    per source, all at once) and print the card's name and power limit.
-2. Kernel vs plain: each W4 kernel against its plain PyTorch version at the
-   five main-path shapes of a LLaMA-2-7B W4 g128 model, at decode M=8 and a
-   prefill M, plus a ``k_pad`` artifact and a layer-stacked call with
-   layer > 0.  Prints error, kernel time, plain time, ``torch.matmul`` on
-   a pre-dequantized bf16 weight (a yardstick, never used by the port) and
-   the byte/operation bound of each call.
-3. Two-layer model: ``llama_forward`` logits at full 7B width with the
+2. W4 kernels vs plain: each W4 kernel against its plain PyTorch version at
+   the five main-path shapes of a LLaMA-2-7B W4 g128 model, at decode M=8
+   and a prefill M, plus a ``k_pad`` artifact and a layer-stacked call with
+   layer > 0; untimed, at every other row count the main paths give the
+   kernels (serve's prefill waves, generate's prefill).  Prints error,
+   kernel time, plain time, ``torch.matmul`` on a pre-dequantized bf16
+   weight (a yardstick, never used by the port) and the byte/operation
+   bound of each call.
+3. W4 two-layer model: ``llama_forward`` logits at full 7B width with the
    kernels on the card against the same params through the plain path on
    the CPU, in float32 and in bfloat16.
-4. Full model: 32-layer 7B-width W4 model quantized layer by layer on the
-   card, ``InferenceEngine.generate`` on 8 prompts of different lengths,
-   greedy, 32 new tokens.  The launch counters are zeroed just before this
-   run and read just after: both kernels must have run exactly as often
-   as the model's shape says, and the plain versions never.
-5. Report: the per-kernel JSON line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+4. W4 full model: 32-layer 7B-width W4 model quantized layer by layer on
+   the card, ``InferenceEngine.generate`` on 8 prompts of different
+   lengths, greedy, 32 new tokens; then two ``InferenceEngine.serve`` runs
+   of the serving traffic (phase 7).  The launch counters are zeroed just
+   before each run and read just after: both kernels must have run exactly
+   as often as the model's shape says, and the plain versions never.
+5. W8 kernels vs plain: phase 2 for the int8 g128 kernels, plus a
+   per-channel symmetric artifact.
+6. W8 two-layer model: phase 3 with int8 g128 weights.
+7. W8 serve: 32-layer 7B-width W8 model, ``InferenceEngine.serve`` with
+   the traffic of the JAX package's ``bench.py`` ``serve_throughput`` (8
+   slots, 16 requests of 16-64 tokens, 32 new tokens, 16 steps per sync,
+   greedy): one warm-up run, then 3 timed runs, reported by their median
+   (the best beside it).  Launch counts are exact per run, the tokens
+   repeat across runs.  One more run under
+   ``torch.profiler`` (W4 in phase 4 too) gives the device's busy time,
+   idle share and device time by kernel.
+8. Report: the generate and serve JSON lines, the card line, the
+   per-kernel JSON line, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the port's package is not beside it.
@@ -48,6 +62,25 @@ BATCH = 8
 NEW_TOKENS = 32
 PROMPT_LENS = (9, 13, 17, 21, 25, 29, 33, 37)
 EXTRA_K, EXTRA_N = 11008, 4096  # the down shape, for the k_pad and stacked calls
+SERVE_SLOTS = 8  # bench.py serve_throughput: 2 * slots requests, seed 3
+SERVE_CHUNK = 16
+SERVE_RUNS = 3  # timed runs after one warm-up; the median is reported
+# Row counts the main paths give the kernels beside DECODE_M and PREFILL_M,
+# checked untimed: serve's prefill waves are [slots, bucket] forwards with
+# a power-of-2 bucket from 8 up (the traffic's prompts of at most 64 tokens
+# stop at 64), generate's prefill is [BATCH, longest prompt]
+WAVE_M = tuple(sorted(({SERVE_SLOTS * b for b in (8, 16, 32, 64)}
+                       | {BATCH * max(PROMPT_LENS)}) - {DECODE_M, PREFILL_M}))
+KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
+    "w4_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w4_matmul.cu",
+                  "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:319"),
+    "w4_matmul_prenorm": ("iron_weight_only_quant_tpu_torch/csrc/w4_matmul_prenorm.cu",
+                          "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:328"),
+    "w8_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w8_matmul.cu",
+                  "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:1057"),
+    "w8_matmul_prenorm": ("iron_weight_only_quant_tpu_torch/csrc/w8_matmul_prenorm.cu",
+                          "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:380"),
+}
 
 
 def fail(msg: str) -> None:
@@ -65,10 +98,10 @@ def card_line() -> str:
 # ------------------------------------------------------------------ model
 
 def build_quantized_llama(cfg, generator, spec, dtype, device):
-    """Random W4 LLaMA built on the card, quantizing each linear as it is
-    made, so the dense model never exists whole.  Norm gammas are 1, so
-    marking them folded (``None``) is exact; every linear, the lm_head
-    included, is an int4 artifact with N padded to 512."""
+    """Random quantized LLaMA built on the card, quantizing each linear as
+    it is made, so the dense model never exists whole.  Norm gammas are 1,
+    so marking them folded (``None``) is exact; every linear, the lm_head
+    included, is a ``spec`` artifact with N padded to 512."""
     import torch
 
     from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
@@ -200,15 +233,16 @@ def check_call(torch, name, qt, x, run, run_plain, w_lib=None):
     return rec
 
 
-def phase_kernels(torch, device):
-    from iron_weight_only_quant_tpu_torch.config import QuantSpec
+def phase_kernels(torch, device, spec, names, extra_specs=()):
+    """Both kernels of a layout (``names``: flat, prenorm) against their
+    plain versions; ``extra_specs`` are further (label, spec) artifacts
+    checked once at the down shape, untimed."""
     from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
-    spec = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    per_kernel = {dm.W4: [], dm.W4_PRENORM: []}
+    per_kernel = {name: [] for name in names}
     eps = 1e-5
 
     def runner(prenorm, layer=None):
@@ -224,11 +258,13 @@ def phase_kernels(torch, device):
         qt, spans = make_artifact(torch, gen, spec, k, widths, device)
         w_lib = dequantize_weight(qt, torch.bfloat16)
         run, run_plain = runner(prenorm)
-        kname = dm.W4_PRENORM if prenorm else dm.W4
-        for m in (DECODE_M, PREFILL_M):
+        kname = names[prenorm]
+        if dm.kernel_name(qt, eps if prenorm else None) != kname:
+            fail(f"{name}: the artifact does not dispatch to {kname}")
+        for m in (DECODE_M, PREFILL_M) + WAVE_M:
             x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-            rec = check_call(torch, f"{kname}:{name}:M={m}", qt, x, run,
-                             run_plain, w_lib)
+            rec = check_call(torch, f"{kname}:{name}:M={m}", qt, x, run, run_plain,
+                             w_lib if m in (DECODE_M, PREFILL_M) else None)
             rec.update(kernel=kname, shape=name, per_step=per_step,
                        stored_n=qt.qweight.shape[-1], spans=spans)
             per_kernel[kname].append(rec)
@@ -239,7 +275,13 @@ def phase_kernels(torch, device):
     # of 3, with side info padded by 2 rows (side_pad=2), for both kernels
     for prenorm in (False, True):
         run, run_plain = runner(prenorm)
-        kname = dm.W4_PRENORM if prenorm else dm.W4
+        kname = names[prenorm]
+        for label, extra in extra_specs:
+            qt, _ = make_artifact(torch, gen, extra, EXTRA_K, (EXTRA_N,), device)
+            x = torch.randn((DECODE_M, EXTRA_K), generator=gen,
+                            device=device).to(torch.bfloat16)
+            check_call(torch, f"{kname}:{label}", qt, x, run, run_plain)
+            del qt
         qt, _ = make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device,
                               pad_k_to=1024)
         if qt.k_pad == 0:
@@ -307,21 +349,52 @@ def phase_two_layers(torch, device, spec, cfg_full):
 
 # ------------------------------------------------------------- phase 4
 
+def expected_launches(names, forwards: int, n_layers: int):
+    """Launch counts of ``forwards`` model forwards whose linears all take
+    the kernels ``names`` (flat, prenorm): o, down and the lm_head go to the
+    flat kernel, the fused qkv and gate_up to the prenorm one."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    want = {name: 0 for name in dm.LAUNCHES}
+    want[names[0]] = forwards * (2 * n_layers + 1)
+    want[names[1]] = forwards * 2 * n_layers
+    return want
+
+
+def check_counts(what, names, forwards, n_layers):
+    """Read the counters after a run: exact launches, no plain call."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    launches, plain = dict(dm.LAUNCHES), dict(dm.PLAIN_CALLS)
+    want = expected_launches(names, forwards, n_layers)
+    print(f"  {what}: launches {launches}, expected {want}, plain calls {plain}",
+          flush=True)
+    if launches != want:
+        fail(f"{what}: kernel launches {launches} != expected {want}")
+    if any(plain.values()):
+        fail(f"{what}: the plain path ran on the main path: {plain}")
+    return launches
+
+
+def build_model(torch, device, spec, cfg, label, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = build_quantized_llama(cfg, gen, spec, torch.bfloat16, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"  built {cfg.num_layers}-layer {label} model in {build_s:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+    return params, gen, build_s
+
+
 def phase_generate(torch, device, spec, cfg, card):
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    t0 = time.perf_counter()
-    params = build_quantized_llama(cfg, gen, spec, torch.bfloat16, device)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    print(f"  built {cfg.num_layers}-layer W4 model in {build_s:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
-
+    params, gen, build_s = build_model(torch, device, spec, cfg, "W4", 0)
     ecfg = EngineConfig(fuse_projections=True,
                         kv=KVCacheConfig(max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8))
     eng = InferenceEngine(params, cfg, llama_forward, family="llama",
@@ -342,17 +415,8 @@ def phase_generate(torch, device, spec, cfg, card):
     out = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = dict(dm.LAUNCHES)
-    plain = dict(dm.PLAIN_CALLS)
-
-    forwards = 1 + (NEW_TOKENS - 1)
-    want = {dm.W4_PRENORM: forwards * 2 * cfg.num_layers,
-            dm.W4: forwards * (2 * cfg.num_layers + 1)}
-    print(f"  launches {launches}, expected {want}, plain calls {plain}", flush=True)
-    if launches != want:
-        fail(f"kernel launches {launches} != expected {want}")
-    if any(plain.values()):
-        fail(f"the plain path ran on the main path: {plain}")
+    launches = check_counts("generate", (dm.W4, dm.W4_PRENORM),
+                            1 + (NEW_TOKENS - 1), cfg.num_layers)
     if len(out) != BATCH or any(len(o) != NEW_TOKENS for o in out):
         fail(f"generate returned {[len(o) for o in out]} tokens")
     if any(not 0 <= t < cfg.vocab_size for o in out for t in o):
@@ -370,6 +434,169 @@ def phase_generate(torch, device, spec, cfg, card):
           f"{prefill_s * 1e3:.1f} ms for {BATCH}x{max(PROMPT_LENS)} tokens, on {card}",
           flush=True)
     print("  first tokens: " + json.dumps([o[:8] for o in out[:2]]), flush=True)
+
+    print("  -- W4 serve (one warm-up run, one timed run)", flush=True)
+    serve = phase_serve(torch, eng.params, cfg, (dm.W4, dm.W4_PRENORM), 1, card)
+    del eng, params
+    torch.cuda.empty_cache()
+    return res, serve
+
+
+# ------------------------------------------------------------- phase 7
+
+def serve_requests(vocab_size: int):
+    """The traffic of the JAX package's bench.py serve_throughput: 2 *
+    slots requests of 16-64 tokens, uniform in [1, vocab), seed 3."""
+    import random
+
+    rng = random.Random(3)
+    return [[rng.randint(1, vocab_size - 1) for _ in range(rng.randint(16, 64))]
+            for _ in range(2 * SERVE_SLOTS)]
+
+
+def percentile_ms(series, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(series, np.float64) * 1e3, q))
+
+
+def serve_engine(torch, params, cfg):
+    """(engine, requests) of the serving traffic; the cache holds the
+    longest request plus the new tokens, as bench.py sizes it."""
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
+
+    reqs = serve_requests(cfg.vocab_size)
+    t_need = max(len(r) for r in reqs) + NEW_TOKENS
+    ecfg = EngineConfig(kv=KVCacheConfig(max_seq_len=t_need),
+                        max_batch_size=SERVE_SLOTS, fuse_projections=True)
+    eng = InferenceEngine(params, cfg, llama_forward, family="llama",
+                          engine_cfg=ecfg, dtype=torch.bfloat16,
+                          device=params["embed"].device)
+    return eng, reqs
+
+
+def profile_serve(torch, eng, reqs):
+    """One more serve run under ``torch.profiler``: its wall time, the
+    device's busy time (the sum of its kernel and copy intervals: one
+    stream, so they do not overlap), the idle share, and the device time
+    by kernel.  The profiler slows the host, so the idle share is an upper
+    bound for an unprofiled run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not by_name:
+        print("  profiler: no device events; device busy time not measured", flush=True)
+        return {"wall_s": wall, "device_busy_ms": "not measured",
+                "device_idle_share": "not measured"}
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    res = {"wall_s": wall, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / (wall * 1e3),
+           "device_events": sum(n for n, _ in by_name.values()),
+           "top_device_ms": [[k[:80], n, us / 1e3] for k, (n, us) in top]}
+    print(f"  profiled serve run: wall {wall:.3f} s, device busy {busy_ms:.1f} ms "
+          f"(idle {100 * res['device_idle_share']:.1f}%), "
+          f"{res['device_events']} device events", flush=True)
+    for k, n, ms in res["top_device_ms"]:
+        print(f"    {ms:9.2f} ms {n:6d}x  {k}", flush=True)
+    return res
+
+
+def phase_serve(torch, params, cfg, names, runs, card):
+    """``InferenceEngine.serve`` of the serving traffic: one warm-up run,
+    then ``runs`` timed runs (the median run is reported, the best wall
+    time beside it), then one profiled run.  ``params`` may be fused
+    already (fusing is idempotent).  Every counted run must launch
+    the kernels ``names`` exactly ``n_steps`` forwards' worth, never the
+    plain path, and give 32 in-vocabulary tokens per request, the same in
+    every run."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    eng, reqs = serve_engine(torch, params, cfg)
+    first = None
+    timed = []
+    for i in range(1 + runs):
+        stats = {}
+        torch.cuda.synchronize()
+        dm.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK,
+                        stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_counts(f"serve run {i}", names, stats["n_steps"],
+                                cfg.num_layers)
+        if [len(o) for o in out] != [NEW_TOKENS] * len(reqs):
+            fail(f"serve returned {[len(o) for o in out]} tokens")
+        if any(not 0 <= t < cfg.vocab_size for o in out for t in o):
+            fail("a served token is out of the vocabulary")
+        if first is None:
+            first = out
+        elif out != first:
+            fail("greedy serve tokens differ between runs of the same requests")
+        print(f"  serve run {i}{' (warm-up)' if i == 0 else ''}: {wall:.3f} s", flush=True)
+        if i > 0:
+            timed.append((wall, stats, launches))
+    timed.sort(key=lambda t: t[0])
+    wall, stats, launches = timed[len(timed) // 2]
+    n_gen = sum(len(o) for o in first)
+    n_prompt = sum(len(r) for r in reqs)
+    res = {
+        "kernels": list(names), "requests": len(reqs), "slots": SERVE_SLOTS,
+        "chunk": SERVE_CHUNK, "max_new_tokens": NEW_TOKENS, "timed_runs": runs,
+        "wall_s": wall, "toks_per_s": n_gen / wall,
+        "total_toks_per_s": (n_gen + n_prompt) / wall,
+        "walls_s": [t[0] for t in timed], "best_toks_per_s": n_gen / timed[0][0],
+        "n_generated": n_gen, "n_prompt": n_prompt,
+        "syncs": stats["n_combos"] + stats["n_chunks"],
+        "n_combos": stats["n_combos"], "n_chunks": stats["n_chunks"],
+        "device_steps": stats["n_steps"],
+        "t_combos_s": stats["t_combos_s"], "t_chunks_s": stats["t_chunks_s"],
+        "ttft_p50_ms": percentile_ms(stats["ttft_s"], 50),
+        "ttft_p95_ms": percentile_ms(stats["ttft_s"], 95),
+        "tpot_p50_ms": percentile_ms(stats["tpot_s"], 50),
+        "tpot_p95_ms": percentile_ms(stats["tpot_s"], 95),
+        "latency_granularity": "host sync (a token counts when the host fetches it)",
+        "launches": launches, "card": card,
+    }
+    print(f"  serve {res['toks_per_s']:.1f} generated tok/s, "
+          f"{res['total_toks_per_s']:.1f} total tok/s, wall {wall:.3f} s (median of "
+          f"{runs}; best {res['best_toks_per_s']:.1f} tok/s), {res['syncs']} syncs, "
+          f"{res['device_steps']} device steps; "
+          f"TTFT p50/p95 {res['ttft_p50_ms']:.1f}/{res['ttft_p95_ms']:.1f} ms, "
+          f"TPOT p50/p95 {res['tpot_p50_ms']:.1f}/{res['tpot_p95_ms']:.1f} ms "
+          f"(measured at sync granularity), on {card}", flush=True)
+    print("  first tokens: " + json.dumps([o[:8] for o in first[:2]]), flush=True)
+    res["profile"] = profile_serve(torch, eng, reqs)
+    del eng
+    return res
+
+
+def phase_w8_serve(torch, device, spec, cfg, card):
+    from iron_weight_only_quant_tpu_torch.models.llama import fuse_llama_projections
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    torch.cuda.reset_peak_memory_stats()
+    params, _, build_s = build_model(torch, device, spec, cfg, "W8", 0)
+    params = fuse_llama_projections(params)  # drops the unfused artifacts
+    res = phase_serve(torch, params, cfg, (dm.W8, dm.W8_PRENORM), SERVE_RUNS, card)
+    res["build_s"] = build_s
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
     return res
 
 
@@ -377,15 +604,8 @@ def phase_generate(torch, device, spec, cfg, card):
 
 def kernel_rows(per_kernel, launches):
     """One row per kernel: times summed over the launches one decode step
-    (M=8) makes at each main-path shape."""
-    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
-
-    meta = {
-        dm.W4: ("iron_weight_only_quant_tpu_torch/csrc/w4_matmul.cu",
-                "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:319"),
-        dm.W4_PRENORM: ("iron_weight_only_quant_tpu_torch/csrc/w4_matmul_prenorm.cu",
-                        "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:328"),
-    }
+    (M=8) makes at each main-path shape; ``launches`` from the run of the
+    kernel's main path."""
     rows = []
     for name, recs in per_kernel.items():
         dec = [r for r in recs if r["M"] == DECODE_M]
@@ -393,8 +613,8 @@ def kernel_rows(per_kernel, launches):
         nbytes, ops = step("bytes"), step("ops")
         bound_ms, bound_by = bound(nbytes, ops)
         rows.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
+            "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": step("ms"), "plain_ms": step("plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -439,22 +659,45 @@ def main() -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    print("== phase 2: kernels vs plain versions (tolerance "
-          f"max|y-y_ref|/max|y_ref| <= {REL_TOL_BF16}, bf16 x)", flush=True)
-    per_kernel = phase_kernels(torch, device)
+    from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
-    spec = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+    w4 = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+    w8 = QuantSpec(fmt="int", bits=8, group_size=128, symmetric=False)
     cfg = LlamaConfig.llama2_7b()
-    print("== phase 3: two-layer 7B-width logits, kernels vs plain path", flush=True)
-    phase_two_layers(torch, device, spec, cfg)
+    tol = f"tolerance max|y-y_ref|/max|y_ref| <= {REL_TOL_BF16}, bf16 x"
 
-    print("== phase 4: 32-layer 7B-width W4 generate", flush=True)
-    res = phase_generate(torch, device, spec, cfg, card)
+    print(f"== phase 2: W4 kernels vs plain versions ({tol})", flush=True)
+    per_kernel = phase_kernels(torch, device, w4, (dm.W4, dm.W4_PRENORM))
 
-    print("== phase 5: report", flush=True)
-    rows = kernel_rows(per_kernel, res["launches"])
+    print("== phase 3: W4 two-layer 7B-width logits, kernels vs plain path", flush=True)
+    phase_two_layers(torch, device, w4, cfg)
+
+    print("== phase 4: 32-layer 7B-width W4 generate and serve", flush=True)
+    res, serve_w4 = phase_generate(torch, device, w4, cfg, card)
+
+    print(f"== phase 5: W8 kernels vs plain versions ({tol})", flush=True)
+    per_kernel.update(phase_kernels(
+        torch, device, w8, (dm.W8, dm.W8_PRENORM),
+        extra_specs=(("perchannel_sym", QuantSpec(fmt="int", bits=8,
+                                                  group_size=PER_CHANNEL,
+                                                  symmetric=True)),)))
+
+    print("== phase 6: W8 two-layer 7B-width logits, kernels vs plain path", flush=True)
+    phase_two_layers(torch, device, w8, cfg)
+
+    print("== phase 7: 32-layer 7B-width W8 serve", flush=True)
+    serve_w8 = phase_w8_serve(torch, device, w8, cfg, card)
+
+    print("== phase 8: report", flush=True)
+    launches = {**{k: v for k, v in res["launches"].items() if k in (dm.W4, dm.W4_PRENORM)},
+                **{k: v for k, v in serve_w8["launches"].items()
+                   if k in (dm.W8, dm.W8_PRENORM)}}
+    rows = kernel_rows(per_kernel, launches)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"generate": {k: v for k, v in res.items() if k != "launches"}}))
+    print(json.dumps({"serve_w4": serve_w4}))
+    print(json.dumps({"serve_w8": serve_w8}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 The JAX package beside this one is the reference; module names and public
 function names match it so each counterpart is easy to find.  This package
-imports torch and numpy only.  The W4 dequant-matmul runs as hand-written
-CUDA kernels (``csrc/``), built with ``nvcc`` at first use; every other op
-is plain PyTorch.
+imports torch and numpy only.  The W4 and W8 dequant-matmuls run as
+hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use;
+every other op is plain PyTorch.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device named and no GPU present they raise.

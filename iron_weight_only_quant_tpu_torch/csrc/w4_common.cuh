@@ -58,6 +58,56 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16_rn(v);
 }
 
+// Row factors of the prenorm form, by the block's warps (one row each):
+// r[m] = rsqrt(sum_k x[m,k]^2 / K_logical + eps) over the real columns.
+template <typename XT>
+__device__ __forceinline__ void prenorm_rows(const XT* __restrict__ x, int ldx,
+                                             int m0, int M, int k_logical,
+                                             float eps, float* __restrict__ rnorm) {
+  const int lane = threadIdx.x;
+  const int m = m0 + threadIdx.y;
+  if (m >= M) return;
+  const XT* xr = x + (size_t)m * ldx;
+  float ss = 0.f;
+  for (int k = lane; k < k_logical; k += kLanes) {
+    const float v = to_f32(xr[k]);
+    ss = fmaf(v, v, ss);
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (lane == 0) rnorm[m] = 1.0f / sqrtf(ss / (float)k_logical + eps);
+}
+
+// Sum the kKWarps K-slices of the block in shared memory (smem must hold
+// kKWarps * kTileM * kBlockN floats) and write the block's partial tile to
+// ws[blockIdx.z, m, n].
+__device__ __forceinline__ void store_partials(
+    const float (&acc)[kTileM][kColsPerThread], float* smem,
+    float* __restrict__ ws, int m0, int M, int N) {
+  const int lane = threadIdx.x;
+  const int wy = threadIdx.y;
+  const int tid = wy * kLanes + lane;
+  __syncthreads();
+  float* red = smem;  // [kKWarps][kTileM][kBlockN]
+#pragma unroll
+  for (int m = 0; m < kTileM; ++m)
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j)
+      red[(wy * kTileM + m) * kBlockN + lane * kColsPerThread + j] = acc[m][j];
+  __syncthreads();
+  for (int i = tid; i < kTileM * kBlockN; i += kThreads) {
+    const int m = i / kBlockN;
+    const int c = i - m * kBlockN;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kKWarps; ++w) v += red[(w * kTileM + m) * kBlockN + c];
+    const int gm = m0 + m;
+    const int gn = blockIdx.x * kBlockN + c;
+    if (gm < M && gn < N) ws[((size_t)blockIdx.z * M + gm) * N + gn] = v;
+  }
+}
+
 // Partial products of one (N-tile, M-tile, K-split) block into ws.
 template <bool PRENORM, typename XT>
 __global__ void __launch_bounds__(kThreads)
@@ -79,22 +129,8 @@ w4_partial_kernel(const XT* __restrict__ x, int ldx,
   const int words_per_row = N / kColsPerThread;
   const int hi_row0 = Kp / G;
 
-  if (PRENORM && blockIdx.x == 0 && blockIdx.z == 0) {
-    // r[m] = rsqrt(sum_k x[m,k]^2 / K_logical + eps) over the real columns
-    const int m = m0 + wy;
-    if (m < M) {
-      const XT* xr = x + (size_t)m * ldx;
-      float ss = 0.f;
-      for (int k = lane; k < k_logical; k += kLanes) {
-        const float v = to_f32(xr[k]);
-        ss = fmaf(v, v, ss);
-      }
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
-        ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      if (lane == 0) rnorm[m] = 1.0f / sqrtf(ss / (float)k_logical + eps);
-    }
-  }
+  if (PRENORM && blockIdx.x == 0 && blockIdx.z == 0)
+    prenorm_rows(x, ldx, m0, M, k_logical, eps, rnorm);
 
   float acc[kTileM][kColsPerThread];
 #pragma unroll
@@ -165,25 +201,7 @@ w4_partial_kernel(const XT* __restrict__ x, int ldx,
     }
   }
 
-  // sum the kKWarps K-slices of the block in shared memory
-  __syncthreads();
-  float* red = smem;  // [kKWarps][kTileM][kBlockN]
-#pragma unroll
-  for (int m = 0; m < kTileM; ++m)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j)
-      red[(wy * kTileM + m) * kBlockN + lane * kColsPerThread + j] = acc[m][j];
-  __syncthreads();
-  for (int i = tid; i < kTileM * kBlockN; i += kThreads) {
-    const int m = i / kBlockN;
-    const int c = i - m * kBlockN;
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < kKWarps; ++w) v += red[(w * kTileM + m) * kBlockN + c];
-    const int gm = m0 + m;
-    const int gn = blockIdx.x * kBlockN + c;
-    if (gm < M && gn < N) ws[((size_t)blockIdx.z * M + gm) * N + gn] = v;
-  }
+  store_partials(acc, smem, ws, m0, M, N);
 }
 
 // out[m, n] = cast(r[m] * sum_s ws[s, m, n]) for n < n_out (drops n_pad).
@@ -204,6 +222,20 @@ __global__ void w4_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+// Second pass of both layouts: the fixed-order K-split sum, row factor and cast.
+template <bool PRENORM, typename OT>
+cudaError_t launch_reduce(void* ws, void* rnorm, void* out, int M, int N,
+                          int n_out, int splits, cudaStream_t stream) {
+  const long long total = (long long)M * n_out;
+  const int threads = 256;
+  const long long want = (total + threads - 1) / threads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  w4_reduce_kernel<PRENORM, OT><<<blocks, threads, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const float*>(rnorm),
+      static_cast<OT*>(out), M, N, n_out, splits);
+  return cudaGetLastError();
+}
+
 template <bool PRENORM, typename XT>
 cudaError_t launch_typed(const void* x, int ldx, const void* qw,
                          const void* s, long long s_rs, long long s_cs,
@@ -220,14 +252,7 @@ cudaError_t launch_typed(const void* x, int ldx, const void* qw,
       Kp, G, kc, k_logical, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long total = (long long)M * n_out;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 4096 ? want : 4096);
-  w4_reduce_kernel<PRENORM, XT><<<blocks, threads, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(rnorm),
-      static_cast<XT*>(out), M, N, n_out, splits);
-  return cudaGetLastError();
+  return launch_reduce<PRENORM, XT>(ws, rnorm, out, M, N, n_out, splits, stream);
 }
 
 template <bool PRENORM>

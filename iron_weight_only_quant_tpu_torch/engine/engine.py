@@ -1,19 +1,27 @@
-"""Inference engine (port of ``engine/engine.py``): batched ``generate``.
+"""Inference engine (port of ``engine/engine.py``): batched ``generate``
+and continuous-batching ``serve``.
 
-Left-padded batched prefill, in chunks of ``EngineConfig.prefill_chunk``
-tokens, then decode steps; greedy, temperature or top-k sampling.  PyTorch
-runs eagerly, so the JAX package's jitted ``_prefill`` / ``_decode_step`` /
-``_generate_chunk`` become plain functions; ``decode_chunk`` keeps its
-meaning: that many decode steps run on the device between two host syncs,
-with the same tokens as per-token stepping.
+``generate``: left-padded batched prefill, in chunks of
+``EngineConfig.prefill_chunk`` tokens, then decode steps; greedy,
+temperature or top-k sampling.  ``serve``: Orca-style continuous batching
+over a request queue with slot-local KV timelines, prefill waves that
+decode-ready slots ride along in, and ``chunk`` decode steps on the device
+between two host syncs.
+
+PyTorch runs eagerly, so the JAX package's jitted ``_prefill`` /
+``_generate_chunk`` / ``_serve_chunk`` / ``_serve_combo`` become plain
+functions.  They keep the property the JIT gave: between two host syncs
+nothing reads a device value on the host, so the host enqueues a whole
+chunk of steps while the device runs them.
 
 Single device only.  Meshes, tensor parallelism, the scan path, quantized
-or paged KV caches, activation quantization and ``serve`` are still to be
-ported (ROADMAP queue A); asking for them raises.
+or paged KV caches and activation quantization are still to be ported
+(ROADMAP queue A); asking for them raises.
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -65,6 +73,123 @@ def _generate_chunk(params, tok0, pads, cur0, caches, generator, forward, cfg,
         sampled.append(nxt)
         tok = nxt[:, None]
     return torch.stack(sampled, dim=1), caches
+
+
+def _stamp(caches, lens: torch.Tensor, valid: Optional[torch.Tensor]):
+    """Set the per-slot lengths ``[B]`` (and ``valid``) on every layer's view.
+
+    Both are slices of the one meta vector copied to the device per sync,
+    so no per-layer host->device copy is made.  The reference also stamps
+    a paged cache's page table and a layer-stacked view; neither cache is
+    ported yet, so ``caches`` is always a list of views.
+    """
+    return [c._replace(length=lens, valid=valid) for c in caches]
+
+
+def _clear_valid(caches):
+    """valid=None on every view (per-slot partial-write scope ends)."""
+    return [c._replace(valid=None) for c in caches]
+
+
+def _serve_steps(params, tok, caches, lens, feed_next, feed_len, generator,
+                 forward, cfg, temperature, top_k, cols, t_max, c):
+    """``c`` decode steps on slot-local timelines, with no host sync.
+
+    Per step, each slot's next input is its queued prompt token while its
+    prompt is still streaming (``i + 1 < feed_len``), else the token just
+    sampled: the device-side mirror of the host's per-token bookkeeping.
+    Returns ([B, c] sampled tokens on the device, caches).
+    """
+    sampled = []
+    for i in range(c):
+        lens_c = torch.clamp(lens, max=t_max - 1)
+        positions = lens_c[:, None]
+        mask = cols[None, None, None, :] <= lens_c[:, None, None, None]
+        logits, caches = forward(params, tok, cfg, caches=caches,
+                                 positions=positions, attn_mask=mask)
+        nxt = sample_tokens(logits[:, -1], generator, temperature, top_k)
+        sampled.append(nxt)
+        tok = torch.where(feed_len > i + 1, feed_next[:, i], nxt)[:, None]
+        lens = lens + 1
+    return torch.stack(sampled, dim=1), caches
+
+
+def _serve_chunk(params, meta, caches, generator, forward, cfg, temperature,
+                 top_k, t_max, c):
+    """``c`` decode steps between two host syncs (continuous batching).
+
+    ``meta`` packs [tok0 | feed_next.ravel | feed_len | lens0] into ONE int
+    vector on the device (one host->device copy per sync).  Returns the
+    [B, c] sampled tokens; the host decides which are real outputs.
+    """
+    ns = meta.shape[0] // (c + 3)
+    tok0 = meta[:ns][:, None]
+    feed_next = meta[ns : ns + ns * c].reshape(ns, c)
+    feed_len = meta[ns + ns * c : 2 * ns + ns * c]
+    lens0 = meta[2 * ns + ns * c :]
+    caches = _stamp(caches, lens0, None)
+    cols = torch.arange(t_max, device=meta.device)
+    return _serve_steps(params, tok0, caches, lens0, feed_next, feed_len,
+                        generator, forward, cfg, temperature, top_k, cols,
+                        t_max, c)
+
+
+def _serve_combo(params, meta, caches, generator, forward, cfg, temperature,
+                 top_k, t_max, s_len, c):
+    """One prefill wave + ``c`` decode steps between two host syncs.
+
+    The wave feeds each slot's pending prompt tokens ([B, S] right-padded,
+    per-slot ``valid``); decode-ready slots ride along as 1-valid-token
+    columns (Orca).  The chunk then decodes ``c`` further tokens for every
+    slot, starting from ``where(tok_src, wave_sample, tok0_else)``: the host
+    sets ``tok_src`` where a slot's prompt completes in the wave; a slot
+    with prompt left starts from its next prompt token and streams the rest
+    through the chunk's feed (``_serve_chunk`` conventions).
+
+    ``meta`` packs [toks.ravel | n_valid | lens0 | tok_src | tok0_else |
+    feed_next.ravel | feed_len] into ONE int vector, and the wave sample
+    rides as column 0 of the returned [B, 1 + c] tensor (one fetch).
+    """
+    ns = meta.shape[0] // (s_len + c + 5)
+    off = 0
+
+    def take(count):
+        nonlocal off
+        v = meta[off : off + count]
+        off += count
+        return v
+
+    toks = take(ns * s_len).reshape(ns, s_len)
+    n_valid = take(ns)
+    lens0 = take(ns)
+    tok_src = take(ns) != 0
+    tok0_else = take(ns)
+    feed_next = take(ns * c).reshape(ns, c)
+    feed_len = take(ns)
+
+    caches = _stamp(caches, lens0, n_valid)
+    dev = meta.device
+    cols = torch.arange(t_max, device=dev)
+    lens_c = torch.clamp(lens0, max=t_max - 1)
+    positions = torch.clamp(lens_c[:, None] + torch.arange(s_len, device=dev)[None, :],
+                            max=t_max - 1)
+    mask = cols[None, None, None, :] <= positions[:, None, :, None]
+    logits, caches = forward(params, toks, cfg, caches=caches,
+                             positions=positions, attn_mask=mask)
+    idx = torch.clamp(n_valid - 1, 0, s_len - 1)
+    last = torch.take_along_dim(logits, idx[:, None, None], dim=1)[:, 0]
+    wave_tok = sample_tokens(last, generator, temperature, top_k)
+
+    # chunk phase: lengths advanced by the wave's valid counts; every chunk
+    # step writes one token per slot.  The flat per-layer views consumed
+    # their valid on write; the reference's stacked view keeps it, so the
+    # scope is ended here either way
+    caches = _clear_valid(caches)
+    tok0 = torch.where(tok_src, wave_tok, tok0_else)[:, None]
+    sampled, caches = _serve_steps(params, tok0, caches, lens0 + n_valid,
+                                   feed_next, feed_len, generator, forward,
+                                   cfg, temperature, top_k, cols, t_max, c)
+    return torch.cat([wave_tok[:, None], sampled], dim=1), caches
 
 
 class InferenceEngine:
@@ -204,3 +329,239 @@ class InferenceEngine:
                         done[i] = True
             tok = sampled[:, -1:]
         return out
+
+    # ------------------------------------------- continuous batching (Orca)
+
+    @torch.inference_mode()
+    def serve(
+        self,
+        requests: Sequence[Sequence[int]],
+        max_new_tokens: int = 32,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        seed: int = 0,
+        chunk: int = 1,
+        stats: Optional[Dict[str, Any]] = None,
+    ) -> List[List[int]]:
+        """Token-level continuous batching over a request queue.
+
+        Idle slots admit the next queued request.  A slot's prompt goes in
+        by prefill waves (``[B, S]`` forwards, ``S`` a power-of-2 bucket of
+        at most ``max(8, prefill_chunk)``) in which decode-ready slots ride
+        along with their pending token; then ``chunk`` decode steps run on
+        the device before the host looks at the tokens.  KV timelines are
+        *slot-local*: each slot writes at its own cache column, so a slot
+        admitted late starts at column 0 and ``max_seq_len`` bounds each
+        request, not the batch's history.
+
+        Each combo (wave + chunk) or pure chunk costs ONE host->device copy
+        (a packed meta vector) and ONE device->host copy (the sampled
+        tokens).  A slot that finishes inside a chunk computes garbage for
+        the rest of it; the host discards it and recycles the slot.
+
+        ``stats`` (if given) receives the reference's keys: ``n_combos``,
+        ``n_chunks``, ``n_steps``, ``n_generated``, ``n_prompt_fed``,
+        ``t_combos_s``, ``t_chunks_s``, and per-request ``ttft_s`` and
+        ``tpot_s`` taken at sync granularity (a token is visible to a
+        client when the host fetches it).
+        """
+        if any(len(r) == 0 for r in requests):
+            raise ValueError("empty prompts are not allowed")
+        dev = self.device
+        nslots = min(self.engine_cfg.max_batch_size, max(1, len(requests)))
+        caches = self._fresh_caches(nslots)
+        t_max = cache_max_len(caches[0])
+        for r in requests:
+            if len(r) + max_new_tokens > t_max:
+                raise ValueError(
+                    f"request ({len(r)} tokens) + max_new ({max_new_tokens}) "
+                    f"exceeds kv.max_seq_len ({t_max})")
+
+        t_serve0 = time.perf_counter()
+        sync_t = [t_serve0]  # wall time of the last device sync (fetch)
+        first_tok_t: Dict[int, float] = {}  # request -> first-token time
+        done_t: Dict[int, float] = {}       # request -> completion time
+        queue = list(range(len(requests)))
+        results: Dict[int, List[int]] = {}
+        # per-slot state
+        slot_req = [-1] * nslots                  # request id
+        slot_len = np.zeros(nslots, np.int64)     # slot-local cache column
+        slot_fed = np.zeros(nslots, np.int64)     # prompt tokens fed
+        slot_gen = np.zeros(nslots, np.int64)     # tokens generated
+        pending_tok = np.zeros(nslots, np.int64)  # next token to feed
+
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+
+        def note_tok(rid):
+            if len(results[rid]) == 1:
+                first_tok_t[rid] = sync_t[0]
+
+        def release(s):
+            done_t[slot_req[s]] = sync_t[0]
+            slot_req[s] = -1
+            slot_len[s] = 0
+
+        def admit(s):
+            rid = queue.pop(0)
+            slot_req[s] = rid
+            slot_len[s] = 0
+            slot_fed[s] = 0
+            slot_gen[s] = 0
+            results[rid] = []
+            pending_tok[s] = requests[rid][0]
+
+        def fetch(out):
+            """The one device->host copy of a sync; returns (tokens, dt)."""
+            out_np = out.cpu().numpy()
+            t_prev, sync_t[0] = sync_t[0], time.perf_counter()
+            return out_np, sync_t[0] - t_prev
+
+        chunk = max(1, int(chunk))
+        c = chunk
+        prefill_cap = max(8, self.engine_cfg.prefill_chunk)
+        if stats is not None:
+            stats.update(n_combos=0, n_chunks=0, n_steps=0,
+                         n_generated=0, n_prompt_fed=0,
+                         t_combos_s=0.0, t_chunks_s=0.0)
+        while queue or any(r >= 0 for r in slot_req):
+            for s in range(nslots):
+                if slot_req[s] < 0 and queue:
+                    admit(s)
+
+            remaining = np.array([
+                len(requests[slot_req[s]]) - slot_fed[s] if slot_req[s] >= 0
+                else 0
+                for s in range(nslots)
+            ])
+            if remaining.max(initial=0) > 0:
+                # ---- combo: prefill wave + chunk (one host sync).  Slots
+                # with unfed prompt tokens get up to S of them; decode-ready
+                # slots ride along with their pending token (valid = 1)
+                cap = int(min(remaining.max(), prefill_cap))
+                sbkt = 8
+                while sbkt < cap:
+                    sbkt *= 2
+                toks_np = np.zeros((nslots, sbkt), np.int64)
+                valid_np = np.zeros(nslots, np.int64)
+                piggyback = np.zeros(nslots, bool)
+                for s in range(nslots):
+                    if slot_req[s] >= 0 and remaining[s] == 0:
+                        toks_np[s, 0] = pending_tok[s]
+                        valid_np[s] = 1
+                        piggyback[s] = True
+                        continue
+                    cnt = int(min(remaining[s], sbkt))
+                    if cnt <= 0:
+                        continue
+                    rid = slot_req[s]
+                    toks_np[s, :cnt] = requests[rid][slot_fed[s] : slot_fed[s] + cnt]
+                    valid_np[s] = cnt
+                # chunk-phase inputs: slots whose prompt completes in the
+                # wave decode from their wave sample (tok_src); slots with
+                # prompt left stream it through the chunk's feed
+                tok_src = np.zeros(nslots, bool)
+                tok0_else = np.zeros(nslots, np.int64)
+                feed_next = np.zeros((nslots, c), np.int64)
+                feed_len = np.zeros(nslots, np.int64)
+                for s in range(nslots):
+                    if slot_req[s] < 0:
+                        continue
+                    if piggyback[s] or remaining[s] <= valid_np[s]:
+                        tok_src[s] = True
+                    else:
+                        rid = slot_req[s]
+                        rem = requests[rid][slot_fed[s] + valid_np[s]:]
+                        tok0_else[s] = rem[0]
+                        nfeed = int(min(len(rem), c))
+                        feed_next[s, : max(nfeed - 1, 0)] = rem[1:nfeed]
+                        feed_len[s] = nfeed
+                lens_np = np.minimum(slot_len, t_max - 1)
+                if stats is not None:
+                    stats["n_combos"] += 1
+                    stats["n_steps"] += 1 + c  # wave ~= one step + c chunk
+                meta = np.concatenate([
+                    toks_np.ravel(), valid_np, lens_np, tok_src.astype(np.int64),
+                    tok0_else, feed_next.ravel(), feed_len,
+                ])
+                out, caches = _serve_combo(
+                    self.params, torch.from_numpy(meta).to(dev), caches,
+                    generator, self.forward, self.cfg, temperature, top_k,
+                    t_max, sbkt, c)
+                out_np, dt = fetch(out)
+                if stats is not None:
+                    stats["t_combos_s"] = round(stats["t_combos_s"] + dt, 4)
+                wave_np, sampled = out_np[:, 0], out_np[:, 1:]
+                # the device advanced every slot by valid + c; releases
+                # below reset their slots to 0 (admit() also resets)
+                slot_len += valid_np + c
+                for s in range(nslots):
+                    if valid_np[s] <= 0:
+                        continue
+                    rid = slot_req[s]
+                    if not piggyback[s]:
+                        slot_fed[s] += valid_np[s]
+                        if stats is not None:
+                            stats["n_prompt_fed"] += int(valid_np[s])
+                        if slot_fed[s] < len(requests[rid]):
+                            continue  # prompt continues via the chunk feed
+                    tok = int(wave_np[s])  # next generated token
+                    results[rid].append(tok)
+                    note_tok(rid)
+                    if stats is not None:
+                        stats["n_generated"] += 1
+                    slot_gen[s] += 1
+                    if tok == self.eos_token or slot_gen[s] >= max_new_tokens:
+                        release(s)  # its chunk tokens are discarded garbage
+                    else:
+                        pending_tok[s] = tok
+            else:
+                # ---- pure decode: prompts all fed, no wave needed.  Idle
+                # slots keep writing (and reading) garbage nothing consumes
+                feed_next = np.zeros((nslots, c), np.int64)
+                feed_len = np.zeros(nslots, np.int64)
+                lens_np = np.minimum(slot_len, t_max - 1)
+                if stats is not None:
+                    stats["n_chunks"] += 1
+                    stats["n_steps"] += c
+                meta = np.concatenate([pending_tok, feed_next.ravel(),
+                                       feed_len, lens_np])
+                out, caches = _serve_chunk(
+                    self.params, torch.from_numpy(meta).to(dev), caches,
+                    generator, self.forward, self.cfg, temperature, top_k,
+                    t_max, c)
+                sampled, dt = fetch(out)
+                if stats is not None:
+                    stats["t_chunks_s"] = round(stats["t_chunks_s"] + dt, 4)
+                slot_len += c
+            for s in range(nslots):
+                rid = slot_req[s]
+                if rid < 0:
+                    continue
+                prompt = requests[rid]
+                for i in range(c):
+                    if slot_fed[s] < len(prompt):
+                        slot_fed[s] += 1
+                        if stats is not None:
+                            stats["n_prompt_fed"] += 1
+                    if slot_fed[s] < len(prompt):
+                        continue  # this step consumed a prompt token
+                    tok = int(sampled[s, i])
+                    results[rid].append(tok)
+                    note_tok(rid)
+                    if stats is not None:
+                        stats["n_generated"] += 1
+                    slot_gen[s] += 1
+                    if tok == self.eos_token or slot_gen[s] >= max_new_tokens:
+                        release(s)  # rest of the chunk is discarded garbage
+                        break
+                if slot_req[s] >= 0:
+                    pending_tok[s] = (prompt[slot_fed[s]] if slot_fed[s] < len(prompt)
+                                      else int(sampled[s, c - 1]))
+        if stats is not None:
+            stats["ttft_s"] = [round(first_tok_t[r] - t_serve0, 4)
+                               for r in sorted(first_tok_t)]
+            stats["tpot_s"] = [
+                round((done_t[r] - first_tok_t[r]) / max(len(results[r]) - 1, 1), 4)
+                for r in sorted(done_t) if r in first_tok_t]
+        return [results[i] for i in range(len(requests))]

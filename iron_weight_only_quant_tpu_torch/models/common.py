@@ -2,7 +2,7 @@
 
 Plain PyTorch ops, eager.  Attention, RoPE and KV writes were plain XLA in
 the reference, not kernels, so they are plain torch ops here too; the only
-kernels on the model path are the W4 dequant-matmuls behind :func:`linear`.
+kernels on the model path are the W4/W8 dequant-matmuls behind :func:`linear`.
 """
 
 from __future__ import annotations
@@ -84,7 +84,9 @@ def rope_tables(
     """
     dev = positions.device
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=dev), exps)
+    # a Python-scalar base: a tensor made from theta on a CUDA device would
+    # be a host->device copy, which synchronises the stream every step
+    inv_freq = 1.0 / torch.pow(float(theta), exps)
     t = positions.to(torch.float32) / condense_ratio
     freqs = t[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
@@ -173,6 +175,15 @@ def update_kv_cache(
     the returned view shares them and carries the advanced length.  As in
     the reference, a start too close to the end is clamped so that the S
     tokens fit, and a ``[B]`` length writes each row at its own start.
+
+    With ``valid``, token i of slot b lands at column ``start[b] + i`` when
+    ``i < valid[b]`` and the column exists, and is dropped otherwise (the
+    reference's ``mode="drop"`` scatter).  No boolean mask selects the kept
+    tokens (on a CUDA tensor that would be a device->host sync per layer):
+    every token is written, the dropped ones to the slot's first column with
+    the bytes that column ends up holding anyway -- its kept token 0 if the
+    slot keeps any, else its current content -- so duplicate writes carry
+    equal bytes and the result does not depend on their order.
     """
     start = cache.length
     s = k_new.shape[1]
@@ -184,9 +195,14 @@ def update_kv_cache(
         ar = torch.arange(s, device=start.device)
         t = start[:, None] + ar[None, :]  # [B, S]
         keep = (ar[None, :] < cache.valid[:, None]) & (t < t_max)
-        b_idx = torch.arange(bsz, device=start.device)[:, None].expand(bsz, s)
-        cache.k[b_idx[keep], t[keep]] = k_new[keep].to(cache.k.dtype)
-        cache.v[b_idx[keep], t[keep]] = v_new[keep].to(cache.v.dtype)
+        first = start.clamp(0, t_max - 1)[:, None]  # [B, 1]
+        col = torch.where(keep, t, first)
+        b_idx = torch.arange(bsz, device=start.device)[:, None]
+        for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+            new = new.to(buf.dtype)
+            anchor = torch.where(keep[:, :1, None, None], new[:, :1],
+                                 buf[b_idx, first])
+            buf[b_idx, col] = torch.where(keep[:, :, None, None], new, anchor)
         return KVCacheView(cache.k, cache.v, start + cache.valid)
     if torch.is_tensor(start) and start.dim() == 1:
         st = start.clamp(0, t_max - s)

@@ -4,7 +4,8 @@
 ``dequantize_weight`` followed by a matmul is the correctness oracle.
 ``quantized_matmul`` goes to ``ops/kernels/dequant_matmul.py``: on a CPU
 tensor that takes the plain PyTorch version, on a CUDA tensor it launches a
-hand-written kernel or raises for a layout that has no kernel yet.
+hand-written kernel (affine int4 nib4 and int8 byte layouts with f32 side
+info so far) or raises for a layout that has no kernel yet.
 """
 
 from __future__ import annotations
@@ -66,11 +67,13 @@ def dequantize_weight(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
 
 def _check_activation_bits(x: torch.Tensor, activation_bits: Optional[int]) -> None:
     # the plain path keeps full-precision activations, as the reference's
-    # plain path does; on the card there is no A8/A16 kernel yet
+    # plain path does; on the card the ported kernels take bf16/f32
+    # activations only
     if activation_bits is not None and x.is_cuda:
         raise NotImplementedError(
-            f"activation_bits={activation_bits}: the A8/A16 kernels are not "
-            "ported yet (ROADMAP queue B)")
+            f"activation_bits={activation_bits}: the A8/A16 kernels (rows 8-9 "
+            "of the kernel table) are not ported yet; the ported W4/W8 "
+            "kernels take bf16/f32 activations (ROADMAP queue B)")
 
 
 def quantized_matmul(

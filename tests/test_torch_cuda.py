@@ -8,7 +8,11 @@ reason.  They run without the JAX package's conftest:
 Shapes are small and chosen for the edges: M not a multiple of the row tile,
 N padding, K padding, group rows that straddle the two K halves of the
 nibble layout, per-channel and per-tensor side info, float32 and bfloat16 x.
+The W4 (nib4) and W8 (byte) kernels run the same grid.  The serve loop's
+KV write and a tiny ``serve`` run are checked for host syncs and repeatability.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -27,6 +31,11 @@ SPECS = {
     "perchannel_sym": QuantSpec(fmt="int", bits=4, group_size=PER_CHANNEL, symmetric=True),
     "pertensor_asym": QuantSpec(fmt="int", bits=4, group_size=PER_TENSOR, symmetric=False),
 }
+# (storage bits, pre_norm, the kernel the artifact dispatches to)
+KERNELS = [pytest.param((4, None, dm.W4), id="w4"),
+           pytest.param((4, EPS, dm.W4_PRENORM), id="w4_prenorm"),
+           pytest.param((8, None, dm.W8), id="w8"),
+           pytest.param((8, EPS, dm.W8_PRENORM), id="w8_prenorm")]
 SHAPES = {  # (K, N, quantize_tensor kwargs)
     "512x256": (512, 256, {}),
     "384x300_npad": (384, 300, dict(pad_n_to=512)),
@@ -45,7 +54,10 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _artifact(dev, k, n, spec, seed=0, **kw):
+def _artifact(dev, k, n, spec, seed=0, bits=None, **kw):
+    """``spec``, stored at ``bits`` where given, on random weights."""
+    if bits is not None:
+        spec = dataclasses.replace(spec, bits=bits)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     w = torch.randn((k, n), generator=g, device=dev) * 0.05
@@ -68,32 +80,37 @@ def _close(y, y_ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["w4", "w4_prenorm"])
+@pytest.mark.parametrize("kern", KERNELS)
 @pytest.mark.parametrize("m", [1, 3, 17])
 @pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
-def test_kernel_matches_plain_shapes(dev, shape, m, pre_norm, dtype):
+def test_kernel_matches_plain_shapes(dev, shape, m, kern, dtype):
+    bits, pre_norm, name = kern
     k, n, kw = SHAPES[shape]
-    qt = _artifact(dev, k, n, SPECS["g128_asym"], **kw)
-    assert dm.kernel_supported(qt)
+    qt = _artifact(dev, k, n, SPECS["g128_asym"], bits=bits, **kw)
+    assert dm.kernel_supported(qt) and dm.kernel_name(qt, pre_norm) == name
     x = _x(dev, (m, k), dtype)
     y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
     _close(y, dm.dequant_matmul_plain(x, qt, pre_norm), dtype)
 
 
-@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["w4", "w4_prenorm"])
+@pytest.mark.parametrize("kern", KERNELS)
 @pytest.mark.parametrize("spec", list(SPECS), ids=list(SPECS))
-def test_kernel_matches_plain_side_layouts(dev, spec, pre_norm):
-    qt = _artifact(dev, 512, 256, SPECS[spec], seed=2)
+def test_kernel_matches_plain_side_layouts(dev, spec, kern):
+    bits, pre_norm, name = kern
+    qt = _artifact(dev, 512, 256, SPECS[spec], seed=2, bits=bits)
+    assert dm.kernel_name(qt, pre_norm) == name
     x = _x(dev, (2, 4, 512), torch.float32)
     y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
     assert y.shape == (2, 4, 256)
     _close(y, dm.dequant_matmul_plain(x, qt, pre_norm), torch.float32)
 
 
-@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["w4", "w4_prenorm"])
+@pytest.mark.parametrize("kern", KERNELS)
 @pytest.mark.parametrize("layer", [0, 2])
-def test_stacked_kernel_reads_the_layer_in_place(dev, layer, pre_norm):
-    qts = [_artifact(dev, 1408, 256, SPECS["g128_asym"], seed=10 + i) for i in range(3)]
+def test_stacked_kernel_reads_the_layer_in_place(dev, layer, kern):
+    bits, pre_norm, _ = kern
+    qts = [_artifact(dev, 1408, 256, SPECS["g128_asym"], seed=10 + i, bits=bits)
+           for i in range(3)]
     pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 5))  # noqa: E731
     st = qts[0].replace(qweight=torch.stack([q.qweight for q in qts]),
                         scales=torch.stack([pad(q.scales) for q in qts]),
@@ -104,21 +121,25 @@ def test_stacked_kernel_reads_the_layer_in_place(dev, layer, pre_norm):
     _close(y, dm.dequant_matmul_plain(x, qts[layer], pre_norm), torch.float32)
 
 
-def test_launches_are_counted_and_the_plain_path_is_not_taken(dev):
-    qt = _artifact(dev, 512, 256, SPECS["g128_asym"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_launches_are_counted_and_the_plain_path_is_not_taken(dev, bits):
+    qt = _artifact(dev, 512, 256, SPECS["g128_asym"], bits=bits)
     x = _x(dev, (8, 512), torch.bfloat16)
     dm.reset_counts()
     qmatmul.quantized_matmul(x, qt, pre_norm=EPS)
     qmatmul.quantized_matmul(x, qt)
     qmatmul.quantized_matmul(x, qt)
     torch.cuda.synchronize()
-    assert dm.LAUNCHES == {dm.W4: 2, dm.W4_PRENORM: 1}
-    assert dm.PLAIN_CALLS == {dm.W4: 0, dm.W4_PRENORM: 0}
+    flat, prenorm = (dm.W4, dm.W4_PRENORM) if bits == 4 else (dm.W8, dm.W8_PRENORM)
+    want = {name: 0 for name in dm.LAUNCHES}
+    want.update({flat: 2, prenorm: 1})
+    assert dm.LAUNCHES == want
+    assert not any(dm.PLAIN_CALLS.values())
 
 
-@pytest.mark.parametrize("case", ["int8", "side_f16", "k_shards_2"])
+@pytest.mark.parametrize("case", ["int3", "side_f16", "k_shards_2"])
 def test_layouts_without_a_kernel_raise_on_the_card(dev, case):
-    spec = QuantSpec(fmt="int", bits=8 if case == "int8" else 4, group_size=128,
+    spec = QuantSpec(fmt="int", bits=3 if case == "int3" else 4, group_size=128,
                      symmetric=False)
     kw = {"side_f16": dict(side_dtype=torch.float16),
           "k_shards_2": dict(k_shards=2)}.get(case, {})
@@ -131,3 +152,89 @@ def test_activation_bits_raise_on_the_card(dev):
     qt = _artifact(dev, 512, 256, SPECS["g128_asym"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         qmatmul.quantized_matmul(_x(dev, (8, 512), torch.bfloat16), qt, activation_bits=8)
+
+
+# ------------------------------------------------------------------- serve
+
+def test_valid_kv_write_does_not_sync(dev):
+    from iron_weight_only_quant_tpu_torch.models.common import KVCacheView, update_kv_cache
+
+    k = torch.zeros((4, 12, 2, 8), device=dev)
+    view = KVCacheView(k, k.clone(), torch.tensor([0, 3, 11, 4], device=dev),
+                       torch.tensor([5, 1, 5, 0], device=dev))
+    new = torch.ones((4, 5, 2, 8), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = update_kv_cache(view, new, new)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.k[0, :5].eq(1).all() and out.k[1, 3].eq(1).all()
+    assert out.k[1, 4:].eq(0).all() and out.k[2, 11].eq(1).all() and out.k[3].eq(0).all()
+
+
+def _tiny_engine(dev, bits):
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                            num_layers=2, num_heads=4, num_kv_heads=2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = llama.fold_llama_norms(llama.llama_init(cfg, g, device=dev))
+    spec = QuantSpec(fmt="int", bits=bits, group_size=128, symmetric=False)
+    for lin in [params["lm_head"]] + [v for p in params["layers"] for v in p.values()
+                                      if isinstance(v, dict)]:
+        lin["w"] = quantize_tensor(lin["w"], spec, pad_n_to=512)
+    return InferenceEngine(params, cfg, llama.llama_forward, family="llama",
+                           engine_cfg=EngineConfig(kv=KVCacheConfig(max_seq_len=48),
+                                                   max_batch_size=4, fuse_projections=True),
+                           dtype=torch.bfloat16, device=dev)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_tiny_serve_on_the_card_is_repeatable(dev, bits):
+    eng = _tiny_engine(dev, bits)
+    n_layers = eng.cfg.num_layers
+    reqs = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
+    outs, stats = [], {}
+    for _ in range(2):
+        dm.reset_counts()
+        outs.append(eng.serve(reqs, max_new_tokens=8, chunk=4, stats=stats))
+    assert outs[0] == outs[1] and [len(o) for o in outs[0]] == [8] * 6
+    names = (dm.W4, dm.W4_PRENORM) if bits == 4 else (dm.W8, dm.W8_PRENORM)
+    assert dm.LAUNCHES[names[0]] == stats["n_steps"] * (2 * n_layers + 1)
+    assert dm.LAUNCHES[names[1]] == stats["n_steps"] * 2 * n_layers
+    assert sum(dm.LAUNCHES.values()) == stats["n_steps"] * (4 * n_layers + 1)
+    assert not any(dm.PLAIN_CALLS.values())
+
+
+def test_serve_device_calls_do_not_sync(dev):
+    """Between the meta copy and the token fetch, nothing waits for the card."""
+    from iron_weight_only_quant_tpu_torch.engine.engine import _serve_chunk, _serve_combo
+
+    eng = _tiny_engine(dev, 8)
+    c, s_len, ns = 4, 8, 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    combo_meta = torch.cat([
+        torch.randint(1, 255, (ns * s_len,)), torch.tensor([8, 3, 1, 0]),
+        torch.zeros(ns, dtype=torch.long), torch.tensor([1, 1, 1, 0]),
+        torch.zeros(ns, dtype=torch.long), torch.zeros(ns * c, dtype=torch.long),
+        torch.zeros(ns, dtype=torch.long)]).to(dev)
+    chunk_meta = torch.cat([torch.tensor([5, 6, 7, 8]), torch.zeros(ns * c, dtype=torch.long),
+                            torch.zeros(ns, dtype=torch.long),
+                            torch.tensor([12, 7, 5, 0])]).to(dev)
+    caches = eng._fresh_caches(ns)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            out, caches = _serve_combo(eng.params, combo_meta, caches, gen, eng.forward,
+                                       eng.cfg, 0.0, 0, 48, s_len, c)
+            out2, caches = _serve_chunk(eng.params, chunk_meta, caches, gen, eng.forward,
+                                        eng.cfg, 0.0, 0, 48, c)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (ns, 1 + c) and out2.shape == (ns, c)

@@ -109,10 +109,11 @@ def test_sampling_is_seeded_and_top_k_bounded():
 ], ids=["mesh", "kv_int8", "paged", "w4a8"])
 def test_unported_engine_options_raise(models, ecfg):
     _, tp = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng = InferenceEngine(tp, T_CFG, t_llama.llama_forward, family="llama",
-                              engine_cfg=EngineConfig(**ecfg), device="cpu")
-        eng.generate(PROMPTS, max_new_tokens=2)
+    for entry in ("generate", "serve"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng = InferenceEngine(tp, T_CFG, t_llama.llama_forward, family="llama",
+                                  engine_cfg=EngineConfig(**ecfg), device="cpu")
+            getattr(eng, entry)(PROMPTS, max_new_tokens=2)
 
 
 def test_generate_refuses_an_overlong_request(models):
