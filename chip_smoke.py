@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through eight
+Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through twelve
 phases; any failing phase ends the run with a non-zero exit code.
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
@@ -36,8 +36,24 @@ phases; any failing phase ends the run with a non-zero exit code.
    repeat across runs.  One more run under
    ``torch.profiler`` (W4 in phase 4 too) gives the device's busy time,
    idle share and device time by kernel.
-8. Report: the generate and serve JSON lines, the card line, the
-   per-kernel JSON line, and as the last line ``{"ok": true, "device": ...}``.
+8. Int-activation kernels vs plain: the W4A8, W4A16, W8A8 and W8A16
+   kernels (``activation_bits`` 8 and 16) against their plain versions at
+   the five main-path shapes (qkv and gate_up with the norm applied before
+   quantizing, as the main path calls them), timed at M=8 and M=256 as in
+   phase 2, untimed at the other main-path row counts; per kernel also a
+   layer-stacked call, a ``k_pad`` artifact, a per-channel symmetric one
+   and an f32 x; and the row pass's int8 planes and row scales bit-equal
+   to the plain ``quantize_activations`` on the card.
+9. Two-layer logits with activation bits: phase 3 under A8 and A16, W4
+   and W8.
+10. W4 A-serve: the 32-layer W4 model of phase 4, ``serve`` of phase 7's
+    traffic with ``prefill_activation_bits=8`` and ``activation_bits=16``
+    (waves on W4A8, decode steps on W4A16); warm-up, median of 3, one
+    profiled run; launch counts exact per run.
+11. W8 A-serve: the W8 model of phase 7 with ``prefill_activation_bits=16``
+    and ``activation_bits=8`` (waves on W8A16, decode steps on W8A8).
+12. Report: the generate and serve JSON lines, the card line, the
+    per-kernel JSON line, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the port's package is not beside it.
@@ -54,8 +70,19 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
 REL_TOL_BF16 = 1e-2  # kernel vs plain, max|y - y_ref| / max|y_ref|, bf16 x
+REL_TOL_F32 = 1e-4  # the same for f32 x (int-activation kernels)
 LOGITS_TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # same measure on logits
+# Under A8 the logits of two runs whose activations differ in the last bit
+# differ by the A8 quantizer's own noise, not by rounding: one code rounding
+# the other way (a step of 1/127 of the row's maximum) shifts the next
+# layer's inputs enough to move many more codes, so a one-ulp change of the
+# embedding moves two-layer 7B-width A8 logits by a few percent of their
+# maximum.  A8 is held to this limit in both dtypes (the kernels themselves
+# are held to their plain versions on equal inputs in phase 8); A16, whose
+# step is 1/32512, to LOGITS_TOL.
+LOGITS_TOL_A8 = 1e-1
 DECODE_M = 8
 PREFILL_M = 256
 BATCH = 8
@@ -80,6 +107,14 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
                   "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:1057"),
     "w8_matmul_prenorm": ("iron_weight_only_quant_tpu_torch/csrc/w8_matmul_prenorm.cu",
                           "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:380"),
+    "w4a8_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w4a8_matmul.cu",
+                    "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:319"),
+    "w8a8_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w8a8_matmul.cu",
+                    "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:1057"),
+    "w4a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w4a16_matmul.cu",
+                     "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:418"),
+    "w8a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w8a16_matmul.cu",
+                     "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:449"),
 }
 
 
@@ -187,22 +222,26 @@ def make_artifact(torch, gen, spec, k, widths, device, pad_k_to=1):
     return concat_n(qts), stored_spans(qts)
 
 
-def call_cost(qt, m: int, x_bytes: int):
-    """(bytes, operations) the call needs: each input read once, the
-    output written once; operations 2*M*K*N."""
+def call_cost(qt, m: int, x_bytes: int, abits=None):
+    """(bytes, operations, operations peak) the call needs: each input read
+    once, the output written once; operations 2*M*K*N.  With activation
+    bits x is read as its int8 planes (one for A8, two for A16) and the
+    product is int8, twice over for A16."""
     k, n = qt.shape
     side = qt.scales.numel() * qt.scales.element_size()
     side += qt.zeros.numel() * qt.zeros.element_size()
-    nbytes = qt.qweight.numel() + side + m * k * x_bytes + m * n * x_bytes
-    return nbytes, 2 * m * k * n
+    planes = 1 if abits is None else abits // 8
+    x_in = m * k * (x_bytes if abits is None else planes)
+    nbytes = qt.qweight.numel() + side + x_in + m * n * x_bytes
+    return nbytes, 2 * m * k * n * planes, (BF16_FLOPS if abits is None else INT8_OPS)
 
 
-def bound(nbytes: int, ops: int):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+def bound(nbytes: int, ops: int, peak: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_call(torch, name, qt, x, run, run_plain, w_lib=None):
+def check_call(torch, name, qt, x, run, run_plain, w_lib=None, abits=None):
     """One kernel call against its plain version; records errors and times."""
     y = run(x, qt)
     y_ref = run_plain(x, qt)
@@ -212,11 +251,13 @@ def check_call(torch, name, qt, x, run, run_plain, w_lib=None):
     diff = (y.float() - y_ref.float()).abs().max().item()
     ref_max = y_ref.float().abs().max().item()
     rel = diff / max(ref_max, 1e-30)
-    ok = rel <= REL_TOL_BF16
+    tol = REL_TOL_F32 if x.dtype == torch.float32 else REL_TOL_BF16
+    ok = rel <= tol
     rec = {"call": name, "M": x.shape[0], "K": qt.shape[0], "N": qt.shape[1],
-           "max_abs_err": diff, "rel_err": rel, "ok": ok}
+           "dtype": str(x.dtype).split(".")[-1], "max_abs_err": diff, "rel_err": rel,
+           "tol": tol, "ok": ok}
     if w_lib is not None:  # timed: a main-path shape
-        nbytes, ops = call_cost(qt, x.shape[0], x.element_size())
+        nbytes, ops, peak = call_cost(qt, x.shape[0], x.element_size(), abits)
         reps = copies_for(qt.qweight.numel())
         qts = [qt] + [qt.map_arrays(torch.clone) for _ in range(reps - 1)]
         rec["ms"] = device_ms(lambda i: run(x, qts[i % reps]), 20)
@@ -224,12 +265,12 @@ def check_call(torch, name, qt, x, run, run_plain, w_lib=None):
         lib_reps = copies_for(w_lib.numel() * w_lib.element_size())
         ws = [w_lib] + [w_lib.clone() for _ in range(lib_reps - 1)]
         rec["library_ms"] = device_ms(lambda i: torch.matmul(x, ws[i % lib_reps]), 20)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
-        rec["bytes"], rec["ops"] = nbytes, ops
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, peak)
+        rec["bytes"], rec["ops"], rec["peak"] = nbytes, ops, peak
         del qts, ws
     print("  " + json.dumps(rec), flush=True)
     if not ok:
-        fail(f"{name}: kernel vs plain rel err {rel:.3e} > {REL_TOL_BF16}")
+        fail(f"{name}: kernel vs plain rel err {rel:.3e} > {tol}")
     return rec
 
 
@@ -306,7 +347,10 @@ def phase_kernels(torch, device, spec, names, extra_specs=()):
 
 # ------------------------------------------------------------- phase 3
 
-def phase_two_layers(torch, device, spec, cfg_full):
+def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,)):
+    """Two-layer logits, kernels on the card against the plain path on the
+    CPU, in f32 and bf16, under each activation-bits setting of
+    ``abits_list`` (None: bf16/f32 activations)."""
     import dataclasses
 
     from iron_weight_only_quant_tpu_torch.interop import params_from_numpy
@@ -314,6 +358,7 @@ def phase_two_layers(torch, device, spec, cfg_full):
         fuse_llama_projections,
         llama_forward,
     )
+    from iron_weight_only_quant_tpu_torch.ops.qmatmul import activation_quant
 
     cfg = dataclasses.replace(cfg_full, num_layers=2)
     gen = torch.Generator(device=device)
@@ -323,11 +368,11 @@ def phase_two_layers(torch, device, spec, cfg_full):
     cpu_params = params_from_numpy(params, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, abits in [(d, a) for a in abits_list for d in (torch.float32, torch.bfloat16)]:
         for p in (params, cpu_params):
             p["embed"] = p["embed"].to(dtype)
             p["final_norm"] = p["final_norm"].to(dtype)
-        with torch.inference_mode():
+        with torch.inference_mode(), activation_quant(abits):
             lg, _ = llama_forward(params, tokens, cfg)
             lg_ref, _ = llama_forward(cpu_params, tokens.cpu(), cfg)
         torch.cuda.synchronize()
@@ -337,11 +382,13 @@ def phase_two_layers(torch, device, spec, cfg_full):
         rel = ((lg - lg_ref).abs().max() / lg_ref.abs().max()).item()
         agree = (lg.argmax(-1) == lg_ref.argmax(-1)).float().mean().item()
         name = str(dtype).split(".")[-1]
-        out[name] = {"rel_err": rel, "tol": LOGITS_TOL[name], "argmax_agree": agree}
-        print(f"  logits {name}: max|d|/max|ref| = {rel:.3e} (tol "
-              f"{LOGITS_TOL[name]}), argmax agreement {agree:.4f}", flush=True)
-        if rel > LOGITS_TOL[name]:
-            fail(f"two-layer logits ({name}) rel err {rel:.3e} > {LOGITS_TOL[name]}")
+        label = name if abits is None else f"{name} A{abits}"
+        tol = LOGITS_TOL_A8 if abits == 8 else LOGITS_TOL[name]
+        out[label] = {"rel_err": rel, "tol": tol, "argmax_agree": agree}
+        print(f"  logits {label}: max|d|/max|ref| = {rel:.3e} (tol "
+              f"{tol}), argmax agreement {agree:.4f}", flush=True)
+        if rel > tol:
+            fail(f"two-layer logits ({label}) rel err {rel:.3e} > {tol}")
     del params, cpu_params
     torch.cuda.empty_cache()
     return out
@@ -361,12 +408,25 @@ def expected_launches(names, forwards: int, n_layers: int):
     return want
 
 
-def check_counts(what, names, forwards, n_layers):
-    """Read the counters after a run: exact launches, no plain call."""
+def expected_a_launches(names, waves: int, steps: int, n_layers: int):
+    """Launch counts of ``waves`` prefill forwards on ``names[0]`` and
+    ``steps`` decode forwards on ``names[1]``: under activation bits every
+    linear of a forward (4 per layer and the lm_head) takes the phase's
+    int-activation kernel."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    want = {name: 0 for name in dm.LAUNCHES}
+    want[names[0]] += waves * (4 * n_layers + 1)
+    want[names[1]] += steps * (4 * n_layers + 1)
+    return want
+
+
+def check_counts(what, want):
+    """Read the counters after a run: exactly the launches ``want``, no
+    plain call."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     launches, plain = dict(dm.LAUNCHES), dict(dm.PLAIN_CALLS)
-    want = expected_launches(names, forwards, n_layers)
     print(f"  {what}: launches {launches}, expected {want}, plain calls {plain}",
           flush=True)
     if launches != want:
@@ -415,8 +475,8 @@ def phase_generate(torch, device, spec, cfg, card):
     out = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = check_counts("generate", (dm.W4, dm.W4_PRENORM),
-                            1 + (NEW_TOKENS - 1), cfg.num_layers)
+    launches = check_counts("generate", expected_launches(
+        (dm.W4, dm.W4_PRENORM), 1 + (NEW_TOKENS - 1), cfg.num_layers))
     if len(out) != BATCH or any(len(o) != NEW_TOKENS for o in out):
         fail(f"generate returned {[len(o) for o in out]} tokens")
     if any(not 0 <= t < cfg.vocab_size for o in out for t in o):
@@ -437,9 +497,10 @@ def phase_generate(torch, device, spec, cfg, card):
 
     print("  -- W4 serve (one warm-up run, one timed run)", flush=True)
     serve = phase_serve(torch, eng.params, cfg, (dm.W4, dm.W4_PRENORM), 1, card)
+    fused = eng.params  # kept for the A-serve of phase 10
     del eng, params
     torch.cuda.empty_cache()
-    return res, serve
+    return res, serve, fused
 
 
 # ------------------------------------------------------------- phase 7
@@ -460,9 +521,10 @@ def percentile_ms(series, q):
     return float(np.percentile(np.asarray(series, np.float64) * 1e3, q))
 
 
-def serve_engine(torch, params, cfg):
+def serve_engine(torch, params, cfg, **ecfg):
     """(engine, requests) of the serving traffic; the cache holds the
-    longest request plus the new tokens, as bench.py sizes it."""
+    longest request plus the new tokens, as bench.py sizes it.  ``ecfg``
+    adds engine options (the activation bits)."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
@@ -470,7 +532,7 @@ def serve_engine(torch, params, cfg):
     reqs = serve_requests(cfg.vocab_size)
     t_need = max(len(r) for r in reqs) + NEW_TOKENS
     ecfg = EngineConfig(kv=KVCacheConfig(max_seq_len=t_need),
-                        max_batch_size=SERVE_SLOTS, fuse_projections=True)
+                        max_batch_size=SERVE_SLOTS, fuse_projections=True, **ecfg)
     eng = InferenceEngine(params, cfg, llama_forward, family="llama",
                           engine_cfg=ecfg, dtype=torch.bfloat16,
                           device=params["embed"].device)
@@ -515,17 +577,22 @@ def profile_serve(torch, eng, reqs):
     return res
 
 
-def phase_serve(torch, params, cfg, names, runs, card):
+def phase_serve(torch, params, cfg, names, runs, card, abits=None):
     """``InferenceEngine.serve`` of the serving traffic: one warm-up run,
     then ``runs`` timed runs (the median run is reported, the best wall
     time beside it), then one profiled run.  ``params`` may be fused
     already (fusing is idempotent).  Every counted run must launch
     the kernels ``names`` exactly ``n_steps`` forwards' worth, never the
     plain path, and give 32 in-vocabulary tokens per request, the same in
-    every run."""
+    every run.  With ``abits`` = (prefill_activation_bits,
+    activation_bits), ``names`` are the (wave, decode) int-activation
+    kernels: the waves (one per combo) launch the first, the other device
+    steps the second."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
-    eng, reqs = serve_engine(torch, params, cfg)
+    ecfg = {} if abits is None else dict(prefill_activation_bits=abits[0],
+                                         activation_bits=abits[1])
+    eng, reqs = serve_engine(torch, params, cfg, **ecfg)
     first = None
     timed = []
     for i in range(1 + runs):
@@ -537,8 +604,13 @@ def phase_serve(torch, params, cfg, names, runs, card):
                         stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = check_counts(f"serve run {i}", names, stats["n_steps"],
-                                cfg.num_layers)
+        if abits is None:
+            want = expected_launches(names, stats["n_steps"], cfg.num_layers)
+        else:  # one wave per combo
+            want = expected_a_launches(names, stats["n_combos"],
+                                       stats["n_steps"] - stats["n_combos"],
+                                       cfg.num_layers)
+        launches = check_counts(f"serve run {i}", want)
         if [len(o) for o in out] != [NEW_TOKENS] * len(reqs):
             fail(f"serve returned {[len(o) for o in out]} tokens")
         if any(not 0 <= t < cfg.vocab_size for o in out for t in o):
@@ -555,7 +627,8 @@ def phase_serve(torch, params, cfg, names, runs, card):
     n_gen = sum(len(o) for o in first)
     n_prompt = sum(len(r) for r in reqs)
     res = {
-        "kernels": list(names), "requests": len(reqs), "slots": SERVE_SLOTS,
+        "kernels": list(names), "activation_bits": abits,
+        "requests": len(reqs), "slots": SERVE_SLOTS,
         "chunk": SERVE_CHUNK, "max_new_tokens": NEW_TOKENS, "timed_runs": runs,
         "wall_s": wall, "toks_per_s": n_gen / wall,
         "total_toks_per_s": (n_gen + n_prompt) / wall,
@@ -595,9 +668,112 @@ def phase_w8_serve(torch, device, spec, cfg, card):
     res = phase_serve(torch, params, cfg, (dm.W8, dm.W8_PRENORM), SERVE_RUNS, card)
     res["build_s"] = build_s
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    del params
     torch.cuda.empty_cache()
-    return res
+    return res, params  # params kept for the A-serve of phase 11
+
+
+# ------------------------------------------------------------- phase 8
+
+def stacked_of(torch, layers):
+    """Layer-stacked artifact of ``layers``, side info padded by 2 rows."""
+    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 2))  # noqa: E731
+    return layers[0].replace(
+        qweight=torch.stack([q.qweight for q in layers]),
+        scales=torch.stack([pad(q.scales) for q in layers]),
+        zeros=torch.stack([pad(q.zeros) for q in layers]), side_pad=2)
+
+
+def check_row_pass(torch, gen, device):
+    """The int-activation kernels' row pass against the plain
+    ``quantize_activations`` on the card: int8 planes and f32 row scales
+    bit-equal, at the main path's K (4096, 11008 padded to 11264) and row
+    counts, bf16 and f32 x, with an all-zero row."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    checked = 0
+    for bits in dm.ACTIVATION_BITS:
+        for k, k_stored in ((4096, 4096), (11008, 11264)):
+            for m in (DECODE_M, 512):
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = (torch.randn((m, k), generator=gen, device=device) * 3).to(dtype)
+                    x[1] = 0
+                    planes, sx = dm.quantize_activations_kernel(x, bits, k_stored)
+                    want, want_sx = dm.quantize_activations(x, bits)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(planes[..., :k], want) and torch.equal(sx, want_sx)
+                            and not planes[..., k:].any()):
+                        fail(f"row pass A{bits} K={k} M={m} {dtype}: codes or row "
+                             "scales differ from quantize_activations")
+                    checked += 1
+    print(f"  row pass: int8 planes and row scales bit-equal to the plain version "
+          f"in {checked} calls", flush=True)
+    return checked
+
+
+def phase_a_kernels(torch, device, specs):
+    """The int-activation kernels against their plain versions.  ``specs``
+    maps storage bits (4, 8) to the model's QuantSpec.  Every main-path
+    shape takes the kernel of the phase's activation bits; qkv and gate_up
+    with ``pre_norm`` (normalized in the row pass before quantizing)."""
+    from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL, QuantSpec
+    from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    per_kernel = {}
+    eps = 1e-5
+
+    def runner(pre, abits, layer=None):
+        kw = dict(pre_norm=pre, activation_bits=abits)
+        if layer is None:
+            return (lambda x, qt: dm.fused_quantized_matmul(x, qt, **kw),
+                    lambda x, qt: dm.dequant_matmul_plain(x, qt, **kw))
+        return (lambda x, qt: dm.fused_quantized_matmul_stacked(x, qt, layer, **kw),
+                lambda x, qt: dm.dequant_matmul_plain(x, qt, layer=layer, **kw))
+
+    for wbits, spec in specs.items():
+        for name, k, widths, prenorm, per_step in MAIN_SHAPES:
+            qt, spans = make_artifact(torch, gen, spec, k, widths, device)
+            w_lib = dequantize_weight(qt, torch.bfloat16)
+            pre = eps if prenorm else None
+            for abits in dm.ACTIVATION_BITS:
+                kname = dm.kernel_name(qt, pre, abits)
+                if not dm.kernel_supported(qt, abits):
+                    fail(f"{name}: no int-activation kernel takes the W{wbits} artifact")
+                for m in (DECODE_M, PREFILL_M) + WAVE_M:
+                    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+                    timed = m in (DECODE_M, PREFILL_M)
+                    rec = check_call(torch, f"{kname}:{name}:M={m}", qt, x,
+                                     *runner(pre, abits), w_lib if timed else None, abits)
+                    rec.update(kernel=kname, shape=name, per_step=per_step,
+                               stored_n=qt.qweight.shape[-1], spans=spans)
+                    per_kernel.setdefault(kname, []).append(rec)
+            del qt, w_lib
+            torch.cuda.empty_cache()
+
+        # once per kernel at the down shape: an f32 x, a per-channel
+        # symmetric artifact, a k_pad artifact (11008 stored as 11264) and a
+        # stacked call (layer 2 of 3, side_pad=2)
+        perchannel = QuantSpec(fmt="int", bits=wbits, group_size=PER_CHANNEL, symmetric=True)
+        qt = make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device)[0]
+        qt_pc = make_artifact(torch, gen, perchannel, EXTRA_K, (EXTRA_N,), device)[0]
+        qt_kp = make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device, pad_k_to=1024)[0]
+        if qt_kp.k_pad == 0:
+            fail("the k_pad artifact has no padding")
+        st = stacked_of(torch, [qt] + [
+            make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device)[0] for _ in range(2)])
+        x = torch.randn((DECODE_M, EXTRA_K), generator=gen, device=device)
+        xb = x.to(torch.bfloat16)
+        for abits in dm.ACTIVATION_BITS:
+            kname = dm.kernel_name(qt, None, abits)
+            check_call(torch, f"{kname}:f32", qt, x, *runner(None, abits))
+            check_call(torch, f"{kname}:perchannel_sym", qt_pc, xb, *runner(None, abits))
+            check_call(torch, f"{kname}:k_pad", qt_kp, xb, *runner(None, abits))
+            check_call(torch, f"{kname}:stacked:layer=2", st, xb, *runner(None, abits, 2))
+        del qt, qt_pc, qt_kp, st
+        torch.cuda.empty_cache()
+    return per_kernel, check_row_pass(torch, gen, device)
 
 
 # --------------------------------------------------------------- report
@@ -611,7 +787,7 @@ def kernel_rows(per_kernel, launches):
         dec = [r for r in recs if r["M"] == DECODE_M]
         step = lambda key: sum(r[key] * r["per_step"] for r in dec)  # noqa: E731
         nbytes, ops = step("bytes"), step("ops")
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by = bound(nbytes, ops, dec[0]["peak"])
         rows.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
             "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
@@ -674,7 +850,7 @@ def main() -> int:
     phase_two_layers(torch, device, w4, cfg)
 
     print("== phase 4: 32-layer 7B-width W4 generate and serve", flush=True)
-    res, serve_w4 = phase_generate(torch, device, w4, cfg, card)
+    res, serve_w4, params_w4 = phase_generate(torch, device, w4, cfg, card)
 
     print(f"== phase 5: W8 kernels vs plain versions ({tol})", flush=True)
     per_kernel.update(phase_kernels(
@@ -687,17 +863,45 @@ def main() -> int:
     phase_two_layers(torch, device, w8, cfg)
 
     print("== phase 7: 32-layer 7B-width W8 serve", flush=True)
-    serve_w8 = phase_w8_serve(torch, device, w8, cfg, card)
+    serve_w8, params_w8 = phase_w8_serve(torch, device, w8, cfg, card)
 
-    print("== phase 8: report", flush=True)
-    launches = {**{k: v for k, v in res["launches"].items() if k in (dm.W4, dm.W4_PRENORM)},
-                **{k: v for k, v in serve_w8["launches"].items()
-                   if k in (dm.W8, dm.W8_PRENORM)}}
+    tol_a = f"{tol}; {REL_TOL_F32} for f32 x"
+    print(f"== phase 8: int-activation kernels vs plain versions ({tol_a})", flush=True)
+    per_kernel_a, row_pass_checks = phase_a_kernels(torch, device, {4: w4, 8: w8})
+    per_kernel.update(per_kernel_a)
+
+    print("== phase 9: two-layer 7B-width logits under A8 and A16, kernels vs "
+          "plain path", flush=True)
+    for spec in (w4, w8):
+        phase_two_layers(torch, device, spec, cfg, abits_list=dm.ACTIVATION_BITS)
+
+    print("== phase 10: 32-layer 7B-width W4 serve, A8 waves, A16 decode", flush=True)
+    serve_w4_a = phase_serve(torch, params_w4, cfg, (dm.W4A8, dm.W4A16), SERVE_RUNS,
+                             card, abits=(8, 16))
+    del params_w4
+    torch.cuda.empty_cache()
+
+    print("== phase 11: 32-layer 7B-width W8 serve, A16 waves, A8 decode", flush=True)
+    serve_w8_a = phase_serve(torch, params_w8, cfg, (dm.W8A16, dm.W8A8), SERVE_RUNS,
+                             card, abits=(16, 8))
+    del params_w8
+    torch.cuda.empty_cache()
+
+    print("== phase 12: report", flush=True)
+    names_of = lambda run, names: {k: v for k, v in run["launches"].items()  # noqa: E731
+                                   if k in names}
+    launches = {**names_of(res, (dm.W4, dm.W4_PRENORM)),
+                **names_of(serve_w8, (dm.W8, dm.W8_PRENORM)),
+                **names_of(serve_w4_a, (dm.W4A8, dm.W4A16)),
+                **names_of(serve_w8_a, (dm.W8A8, dm.W8A16))}
     rows = kernel_rows(per_kernel, launches)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"generate": {k: v for k, v in res.items() if k != "launches"}}))
     print(json.dumps({"serve_w4": serve_w4}))
     print(json.dumps({"serve_w8": serve_w8}))
+    print(json.dumps({"serve_w4_a8_waves_a16_decode": serve_w4_a}))
+    print(json.dumps({"serve_w8_a16_waves_a8_decode": serve_w8_a}))
+    print(json.dumps({"row_pass_bit_equal_calls": row_pass_checks}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -142,11 +142,17 @@ class EngineConfig:
     max_batch_size: int = 8
     prefill_chunk: int = 512
     activation_dtype: str = "bfloat16"
-    # 8 = W4A8/W8A8 (int8 activations), 16 = split-int8 fixed point; the
-    # port has no kernel for either yet, so its engine rejects both
+    # 8 = W4A8/W8A8 (int8 activations), 16 = split-int8 fixed point (A16);
+    # None = bf16/f32 activations
     activation_bits: Optional[int] = None
-    # activation bits for prefill phases only; None = inherit activation_bits
+    # activation bits for prefill phases only (generate's chunked prefill,
+    # serve's waves); None = inherit activation_bits
     prefill_activation_bits: Optional[int] = None
+
+    def prefill_abits(self) -> Optional[int]:
+        return (self.prefill_activation_bits
+                if self.prefill_activation_bits is not None
+                else self.activation_bits)
     # fuse q|k|v and gate|up packed artifacts at engine build (an exact
     # column concat: fewer, wider kernel launches).  llama family only.
     fuse_projections: bool = False

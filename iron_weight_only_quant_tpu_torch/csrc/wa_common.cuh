@@ -1,0 +1,352 @@
+// Int-activation dequant-matmul for Hopper (sm_90a):
+//   y[M,N] = sx[M] * (quantize(x)[M,K] @ dequant(qw)[K,N]),
+// int8 activation planes against the packed int4 (nib4) or int8 (byte)
+// weight codes, one __dp4a per four K values.
+//
+// Replaces the int-activation paths of the Pallas TPU kernels in
+// iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
+//   A8  (one plane):  _int4_kernel (:319) and _int8_kernel (:1057, body
+//       _int8_body :1040) with int8 x, i.e. the int path of _group_accum
+//       (:226-249); stacked forms _int4_kernel_pfx (:1712), _int8_kernel_pfx
+//       (:1717);
+//   A16 (two planes): _int4_kernel_a16 (:418), _int8_kernel_a16 (:449)
+//       (_group_accum_a16 :253-286); stacked forms _int4_kernel_a16_pfx
+//       (:1722), _int8_kernel_a16_pfx (:1727).
+// The stacked forms are the same kernels: the wrapper offsets the weight and
+// side-info base pointers by the layer.  The JAX package quantized the
+// activations in XLA (_prep_x :1270-1316); here a row pass of the same
+// library does it, launched by the same C entry point.
+//
+// Three kernels per call, on one stream:
+//  1. quantize_rows_kernel, one block per activation row.  Optionally the
+//     weightless RMSNorm of the row (x * 1/sqrt(mean(x^2) + eps) over the
+//     real columns, cast back to x's type: under activation bits the fused
+//     pre-norm is applied before quantizing, as fused_quantized_matmul does
+//     at :1518-1522).  Then
+//       A8:  sx = max(max|x|, 1e-8) / 127,   q = clip(rint(x / sx), +-127);
+//       A16: sx = max(max|x|, 1e-8) / 32512, xi = rint(x / sx),
+//            hi = (xi + 128) >> 8, lo = xi - (hi << 8);
+//     with IEEE division and rintf (round half to even, as jnp.round), so
+//     the codes are bit-equal to the plain version's.  Writes the int8
+//     planes [PLANES, M, K_stored] (zero K-pad columns appended after
+//     quantizing, so the row max sees only the real columns) and sx [M].
+//  2. wa_partial_kernel: the W4 kernel's grid (w4_common.cuh: 128 columns x
+//     8 rows per block, eight warps splitting the block's K range, a grid
+//     K-split).  Each thread loads four packed rows of its four columns with
+//     32-bit loads, transposes the 4x4 bytes with __byte_perm into four
+//     words of four K-consecutive codes (one per column), decodes the nibble
+//     layout to logical codes 0..15 (the high nibble is stored MSB-flipped)
+//     or keeps the byte layout's signed code - 128 (zeros are stored shifted
+//     by -128 alike), and runs one __dp4a per column and activation row and
+//     plane against the int8 activations staged in shared memory.  The
+//     activation sum of the same rows is one more __dp4a against 0x01010101.
+//     Per group and plane the int32 sums stay separate; at each group end
+//       part = (float)pa [* 256 + (float)pb],  acc += part*s - xsum*(s*z),
+//     as _group_accum / _group_accum_a16 (each plane converted to f32 before
+//     the 256 recombination: a fused 16-bit activation times a code would
+//     overflow int32 for a per-channel artifact).  Overflow: one plane's
+//     sum is at most 127 * 128 * G < 2^31 for groups G up to 131072, the
+//     A16 activation sum 256*sum(hi) + sum(lo) at most 32640 * G < 2^31
+//     for G up to 65793 (a per-channel group spans K, or each nib4 half).
+//  3. the W4 reduce (w4_reduce_kernel with the row factor): the fixed-order
+//     K-split sum, times sx in f32, cast to x's type -- _finish's order.
+//
+// What bounds it: at decode (M = 8) each launch streams its packed weight
+// once, so A8 is bound by bytes (int8 x, codes, f32 sides, output) over
+// 3.35 TB/s; A16 moves the same bytes and does twice the integer work.  At
+// prefill M the bound is 2*M*K*N int8 operations (x2 for A16) over 1,979
+// dense int8 TOP/s, which only tensor cores reach: this kernel runs the
+// products on CUDA cores (__dp4a), the simple and correct first version.
+// An mma.sync s8.s8.s32 or wgmma path for M >= 64 is later work.
+#pragma once
+
+#include "w4_common.cuh"
+
+namespace iwoq {
+
+constexpr int kRowThreads = 256;  // threads of the row pass, one block per row
+constexpr int kStageA = 512;      // packed K rows of int8 x staged at a time
+
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Sum (MAX=false) or maximum (MAX=true) of one value per thread of the block.
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  const int t = threadIdx.x;
+  red[t] = v;
+  __syncthreads();
+  for (int off = kRowThreads / 2; off > 0; off >>= 1) {
+    if (t < off) red[t] = MAX ? fmaxf(red[t], red[t + off]) : red[t] + red[t + off];
+    __syncthreads();
+  }
+  const float out = red[0];
+  __syncthreads();
+  return out;
+}
+
+// Row pass: int8 planes [PLANES, M, k_stored] and sx [M] from x [M, ldx].
+template <typename XT, int PLANES, bool NORM>
+__global__ void __launch_bounds__(kRowThreads)
+quantize_rows_kernel(const XT* __restrict__ x, int ldx, int k_logical, int k_stored,
+                     float eps, int8_t* __restrict__ xq, float* __restrict__ sx, int M) {
+  __shared__ float red[kRowThreads];
+  const int m = blockIdx.x;
+  const int t = threadIdx.x;
+  const XT* xr = x + (size_t)m * ldx;
+  float r = 1.f;
+  if (NORM) {
+    float ss = 0.f;
+    for (int k = t; k < k_logical; k += kRowThreads) {
+      const float v = to_f32(xr[k]);
+      ss = fmaf(v, v, ss);
+    }
+    ss = block_reduce<false>(ss, red);
+    r = 1.0f / sqrtf(ss / (float)k_logical + eps);
+  }
+  // the value the quantizer sees: x, or its weightless RMSNorm in x's type
+  auto val = [&](int k) {
+    const float v = to_f32(xr[k]);
+    return NORM ? round_to(v * r, XT()) : v;
+  };
+  float amax = 0.f;
+  for (int k = t; k < k_logical; k += kRowThreads) amax = fmaxf(amax, fabsf(val(k)));
+  amax = block_reduce<true>(amax, red);
+  const float s = fmaxf(amax, 1e-8f) / (PLANES == 1 ? 127.0f : 32512.0f);
+  int8_t* q0 = xq + (size_t)m * k_stored;
+  int8_t* q1 = q0 + (size_t)M * k_stored;  // A16: the lo plane
+  for (int k = t; k < k_stored; k += kRowThreads) {
+    int hi = 0, lo = 0;
+    if (k < k_logical) {
+      const float q = rintf(val(k) / s);
+      if (PLANES == 1) {
+        hi = (int)fminf(fmaxf(q, -127.f), 127.f);
+      } else {
+        const int xi = (int)q;
+        hi = (xi + 128) >> 8;
+        lo = xi - (hi << 8);
+      }
+    }
+    q0[k] = (int8_t)hi;
+    if (PLANES == 2) q1[k] = (int8_t)lo;
+  }
+  if (t == 0) sx[m] = s;
+}
+
+// Four packed rows w[0..3] of four byte columns -> four words, word j
+// holding column j's bytes of rows 0..3 (byte i = row i).
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&c)[4]) {
+  const uint32_t a_lo = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
+  const uint32_t a_hi = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
+  const uint32_t b_lo = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t b_hi = __byte_perm(w[2], w[3], 0x7362);
+  c[0] = __byte_perm(a_lo, b_lo, 0x5410);
+  c[1] = __byte_perm(a_lo, b_lo, 0x7632);
+  c[2] = __byte_perm(a_hi, b_hi, 0x5410);
+  c[3] = __byte_perm(a_hi, b_hi, 0x7632);
+}
+
+// Partial products of one (N-tile, M-tile, K-split) block into ws.
+// xq: int8 planes [PLANES, M, ldq]; for NIB4 packed row r meets K columns r
+// (low nibbles) and Kp + r (high nibbles), and ldq = 2 * Kp.
+template <bool NIB4, int PLANES>
+__global__ void __launch_bounds__(kThreads)
+wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
+                  const uint32_t* __restrict__ qw,  // [Kp, N/4] words
+                  const float* __restrict__ s, long long s_rs, long long s_cs,
+                  const float* __restrict__ z, long long z_rs, long long z_cs,
+                  float* __restrict__ ws, int N, int Kp, int G, int kc) {
+  constexpr int H = NIB4 ? 2 : 1;  // K streams per packed row
+  constexpr int kStage4 = kStageA / 4;
+  static_assert(H * PLANES * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
+                "the x stage must fit in the reduction buffer");
+  __shared__ __align__(16) float smem[kKWarps * kTileM * kBlockN];
+  int* xs = reinterpret_cast<int*>(smem);  // [H][PLANES][kStage4][kTileM] words
+  const int lane = threadIdx.x;
+  const int wy = threadIdx.y;
+  const int tid = wy * kLanes + lane;
+  const int n0 = blockIdx.x * kBlockN + lane * kColsPerThread;
+  const bool active = n0 < N;
+  const int m0 = blockIdx.y * kTileM;
+  const int k0 = blockIdx.z * kc;
+  const int k1 = min(Kp, k0 + kc);
+  const int words_per_row = N / kColsPerThread;
+  const int hi_row0 = Kp / G;
+
+  float acc[kTileM][kColsPerThread];
+#pragma unroll
+  for (int m = 0; m < kTileM; ++m)
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) acc[m][j] = 0.f;
+
+  for (int c0 = k0; c0 < k1; c0 += kStageA) {
+    const int rows4 = min(kStageA, k1 - c0) / 4;  // k0, k1 and c0 are multiples of 4
+    __syncthreads();
+    for (int i = tid; i < H * PLANES * kTileM * rows4; i += kThreads) {
+      const int w = i % rows4;  // fastest: coalesced reads of an x row
+      const int m = (i / rows4) % kTileM;
+      const int hp = i / (rows4 * kTileM);  // h * PLANES + p
+      const int h = hp / PLANES, p = hp % PLANES;
+      int v = 0;
+      if (m0 + m < M)
+        v = *reinterpret_cast<const int*>(
+            xq + ((size_t)p * M + m0 + m) * ldq + h * Kp + c0 + 4 * w);
+      xs[(hp * kStage4 + w) * kTileM + m] = v;
+    }
+    __syncthreads();
+
+    const int per4 = (rows4 + kKWarps - 1) / kKWarps;
+    int r = c0 + 4 * wy * per4;
+    const int r_end = min(c0 + 4 * rows4, r + 4 * per4);
+    if (active) {
+      while (r < r_end) {
+        const int g = r / G;
+        const int seg_end = min(r_end, (g + 1) * G);
+        float sg[H][kColsPerThread], zg[H][kColsPerThread];
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int j = 0; j < kColsPerThread; ++j) {
+            const long long c = (long long)(n0 + j);
+            const long long gr = g + h * hi_row0;
+            sg[h][j] = __ldg(s + gr * s_rs + c * s_cs);
+            zg[h][j] = __ldg(z + gr * z_rs + c * z_cs);
+          }
+        int ia[H][PLANES][kTileM][kColsPerThread];
+        int isum[H][kTileM];
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int m = 0; m < kTileM; ++m) {
+            isum[h][m] = 0;
+#pragma unroll
+            for (int p = 0; p < PLANES; ++p)
+#pragma unroll
+              for (int j = 0; j < kColsPerThread; ++j) ia[h][p][m][j] = 0;
+          }
+        for (; r < seg_end; r += 4) {
+          uint32_t w[4], col[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            w[i] = __ldg(qw + (size_t)(r + i) * words_per_row + (n0 / kColsPerThread));
+          transpose4x4(w, col);
+          const int w4 = (r - c0) / 4;
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            int code[kColsPerThread];
+#pragma unroll
+            for (int j = 0; j < kColsPerThread; ++j)
+              code[j] = !NIB4 ? (int)col[j]
+                      : h == 0 ? (int)(col[j] & 0x0F0F0F0Fu)
+                               : (int)(((col[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
+#pragma unroll
+            for (int p = 0; p < PLANES; ++p) {
+              const int4* x4 = reinterpret_cast<const int4*>(
+                  xs + ((h * PLANES + p) * kStage4 + w4) * kTileM);
+              const int4 a0 = x4[0], a1 = x4[1];
+              const int xv[kTileM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+              for (int m = 0; m < kTileM; ++m) {
+                const int xsum4 = __dp4a(xv[m], 0x01010101, 0);
+                isum[h][m] += (PLANES == 2 && p == 0) ? 256 * xsum4 : xsum4;
+#pragma unroll
+                for (int j = 0; j < kColsPerThread; ++j)
+                  ia[h][p][m][j] = __dp4a(xv[m], code[j], ia[h][p][m][j]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int m = 0; m < kTileM; ++m) {
+            const float xsum = (float)isum[h][m];
+#pragma unroll
+            for (int j = 0; j < kColsPerThread; ++j) {
+              const float part = PLANES == 2
+                  ? (float)ia[h][0][m][j] * 256.f + (float)ia[h][PLANES - 1][m][j]
+                  : (float)ia[h][0][m][j];
+              acc[m][j] = acc[m][j] + part * sg[h][j] - xsum * (sg[h][j] * zg[h][j]);
+            }
+          }
+      }
+    }
+  }
+
+  store_partials(acc, smem, ws, m0, M, N);
+}
+
+template <typename XT, int PLANES>
+cudaError_t launch_quantize_rows(const void* x, int k_logical, int k_stored, int norm,
+                                 float eps, void* xq, void* sx, int M,
+                                 cudaStream_t stream) {
+  const XT* xp = static_cast<const XT*>(x);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* sp = static_cast<float*>(sx);
+  if (norm)
+    quantize_rows_kernel<XT, PLANES, true><<<M, kRowThreads, 0, stream>>>(
+        xp, k_logical, k_logical, k_stored, eps, q, sp, M);
+  else
+    quantize_rows_kernel<XT, PLANES, false><<<M, kRowThreads, 0, stream>>>(
+        xp, k_logical, k_logical, k_stored, eps, q, sp, M);
+  return cudaGetLastError();
+}
+
+template <int PLANES>
+cudaError_t quantize_rows(const void* x, int x_bf16, int k_logical, int k_stored,
+                          int norm, float eps, void* xq, void* sx, int M,
+                          cudaStream_t stream) {
+  return x_bf16 ? launch_quantize_rows<__nv_bfloat16, PLANES>(
+                      x, k_logical, k_stored, norm, eps, xq, sx, M, stream)
+                : launch_quantize_rows<float, PLANES>(
+                      x, k_logical, k_stored, norm, eps, xq, sx, M, stream);
+}
+
+// The whole call: row pass, partial products, reduce.  x is [M, k_logical]
+// contiguous; xq [PLANES, M, K_stored] int8 and sx [M] f32 are scratch from
+// the wrapper, as is ws [splits, M, N].
+template <bool NIB4, int PLANES>
+int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
+              const void* qw, const void* s, long long s_rs, long long s_cs,
+              const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
+              void* ws, void* out, int M, int N, int n_out, int Kp, int G, int kc,
+              int splits, void* stream) {
+  const int k_stored = NIB4 ? 2 * Kp : Kp;
+  if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 || Kp % 4 ||
+      G <= 0 || G % 4 || Kp % G || kc <= 0 || kc % 4 || splits <= 0 ||
+      (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = quantize_rows<PLANES>(x, x_bf16, k_logical, k_stored, norm, eps,
+                                          xq, sx, M, st);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(kLanes, kKWarps);
+  const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kTileM - 1) / kTileM, splits);
+  wa_partial_kernel<NIB4, PLANES><<<grid, block, 0, st>>>(
+      static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
+      static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
+      z_cs, static_cast<float*>(ws), N, Kp, G, kc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = x_bf16 ? launch_reduce<true, __nv_bfloat16>(ws, sx, out, M, N, n_out, splits, st)
+               : launch_reduce<true, float>(ws, sx, out, M, N, n_out, splits, st);
+  return (int)err;
+}
+
+}  // namespace iwoq
+
+// The row pass alone (bits 8 or 16), for checking its codes against the
+// plain version.
+extern "C" int iwoq_quantize_rows(const void* x, int x_bf16, int k_logical,
+                                  int k_stored, int bits, int norm, float eps,
+                                  void* xq, void* sx, int M, void* stream) {
+  if (M <= 0 || k_logical <= 0 || k_logical > k_stored || (bits != 8 && bits != 16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bits == 8 ? iwoq::quantize_rows<1>(x, x_bf16, k_logical, k_stored, norm, eps, xq, sx, M, st)
+                : iwoq::quantize_rows<2>(x, x_bf16, k_logical, k_stored, norm, eps, xq, sx, M, st);
+  return (int)err;
+}

@@ -14,9 +14,15 @@ functions.  They keep the property the JIT gave: between two host syncs
 nothing reads a device value on the host, so the host enqueues a whole
 chunk of steps while the device runs them.
 
-Single device only.  Meshes, tensor parallelism, the scan path, quantized
-or paged KV caches and activation quantization are still to be ported
-(ROADMAP queue A); asking for them raises.
+``EngineConfig.activation_bits`` (8 or 16) runs every linear of the
+decode steps through the int-activation kernels, and
+``prefill_activation_bits`` (default: the same) those of ``generate``'s
+prefill and ``serve``'s waves, by the ambient ``activation_quant`` setting
+around each phase, as the reference does.
+
+Single device only.  Meshes, tensor parallelism, the scan path and
+quantized or paged KV caches are still to be ported (ROADMAP queue A);
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from ..config import EngineConfig
 from ..device import resolve_device
+from ..ops.qmatmul import activation_quant
 from .kvcache import cache_max_len, make_caches
 
 
@@ -51,14 +58,15 @@ def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def _prefill(params, tokens, positions, mask, caches, forward, cfg):
-    logits, caches = forward(params, tokens, cfg, caches=caches,
-                             positions=positions, attn_mask=mask)
+def _prefill(params, tokens, positions, mask, caches, forward, cfg, abits=None):
+    with activation_quant(abits):
+        logits, caches = forward(params, tokens, cfg, caches=caches,
+                                 positions=positions, attn_mask=mask)
     return logits[:, -1], caches
 
 
 def _generate_chunk(params, tok0, pads, cur0, caches, generator, forward, cfg,
-                    temperature, top_k, cols, c):
+                    temperature, top_k, cols, c, abits=None):
     """``c`` decode steps on the shared left-padded timeline, with no host
     sync.  Returns ([B, c] sampled tokens on the device, caches)."""
     tok = tok0
@@ -67,8 +75,9 @@ def _generate_chunk(params, tok0, pads, cur0, caches, generator, forward, cfg,
         positions = (cur - pads)[:, None]
         mask = ((cols[None, None, None, :] <= cur)
                 & (cols[None, None, None, :] >= pads[:, None, None, None]))
-        logits, caches = forward(params, tok, cfg, caches=caches,
-                                 positions=positions, attn_mask=mask)
+        with activation_quant(abits):
+            logits, caches = forward(params, tok, cfg, caches=caches,
+                                     positions=positions, attn_mask=mask)
         nxt = sample_tokens(logits[:, -1], generator, temperature, top_k)
         sampled.append(nxt)
         tok = nxt[:, None]
@@ -92,7 +101,7 @@ def _clear_valid(caches):
 
 
 def _serve_steps(params, tok, caches, lens, feed_next, feed_len, generator,
-                 forward, cfg, temperature, top_k, cols, t_max, c):
+                 forward, cfg, temperature, top_k, cols, t_max, c, abits=None):
     """``c`` decode steps on slot-local timelines, with no host sync.
 
     Per step, each slot's next input is its queued prompt token while its
@@ -105,8 +114,9 @@ def _serve_steps(params, tok, caches, lens, feed_next, feed_len, generator,
         lens_c = torch.clamp(lens, max=t_max - 1)
         positions = lens_c[:, None]
         mask = cols[None, None, None, :] <= lens_c[:, None, None, None]
-        logits, caches = forward(params, tok, cfg, caches=caches,
-                                 positions=positions, attn_mask=mask)
+        with activation_quant(abits):
+            logits, caches = forward(params, tok, cfg, caches=caches,
+                                     positions=positions, attn_mask=mask)
         nxt = sample_tokens(logits[:, -1], generator, temperature, top_k)
         sampled.append(nxt)
         tok = torch.where(feed_len > i + 1, feed_next[:, i], nxt)[:, None]
@@ -115,7 +125,7 @@ def _serve_steps(params, tok, caches, lens, feed_next, feed_len, generator,
 
 
 def _serve_chunk(params, meta, caches, generator, forward, cfg, temperature,
-                 top_k, t_max, c):
+                 top_k, t_max, c, abits=None):
     """``c`` decode steps between two host syncs (continuous batching).
 
     ``meta`` packs [tok0 | feed_next.ravel | feed_len | lens0] into ONE int
@@ -131,12 +141,13 @@ def _serve_chunk(params, meta, caches, generator, forward, cfg, temperature,
     cols = torch.arange(t_max, device=meta.device)
     return _serve_steps(params, tok0, caches, lens0, feed_next, feed_len,
                         generator, forward, cfg, temperature, top_k, cols,
-                        t_max, c)
+                        t_max, c, abits)
 
 
 def _serve_combo(params, meta, caches, generator, forward, cfg, temperature,
-                 top_k, t_max, s_len, c):
-    """One prefill wave + ``c`` decode steps between two host syncs.
+                 top_k, t_max, s_len, c, abits=None, p_abits=None):
+    """One prefill wave (under ``p_abits``) + ``c`` decode steps (under
+    ``abits``) between two host syncs.
 
     The wave feeds each slot's pending prompt tokens ([B, S] right-padded,
     per-slot ``valid``); decode-ready slots ride along as 1-valid-token
@@ -174,8 +185,9 @@ def _serve_combo(params, meta, caches, generator, forward, cfg, temperature,
     positions = torch.clamp(lens_c[:, None] + torch.arange(s_len, device=dev)[None, :],
                             max=t_max - 1)
     mask = cols[None, None, None, :] <= positions[:, None, :, None]
-    logits, caches = forward(params, toks, cfg, caches=caches,
-                             positions=positions, attn_mask=mask)
+    with activation_quant(p_abits):
+        logits, caches = forward(params, toks, cfg, caches=caches,
+                                 positions=positions, attn_mask=mask)
     idx = torch.clamp(n_valid - 1, 0, s_len - 1)
     last = torch.take_along_dim(logits, idx[:, None, None], dim=1)[:, 0]
     wave_tok = sample_tokens(last, generator, temperature, top_k)
@@ -188,7 +200,7 @@ def _serve_combo(params, meta, caches, generator, forward, cfg, temperature,
     tok0 = torch.where(tok_src, wave_tok, tok0_else)[:, None]
     sampled, caches = _serve_steps(params, tok0, caches, lens0 + n_valid,
                                    feed_next, feed_len, generator, forward,
-                                   cfg, temperature, top_k, cols, t_max, c)
+                                   cfg, temperature, top_k, cols, t_max, c, abits)
     return torch.cat([wave_tok[:, None], sampled], dim=1), caches
 
 
@@ -212,11 +224,6 @@ class InferenceEngine:
             raise NotImplementedError(
                 "multi-device engines (mesh, tp_block) are not ported yet "
                 "(ROADMAP queue A, 'Parallelism'); the port runs on one device")
-        if engine_cfg.activation_bits is not None \
-                or engine_cfg.prefill_activation_bits is not None:
-            raise NotImplementedError(
-                "activation_bits: the A8/A16 kernels are not ported yet "
-                "(ROADMAP queue B)")
         if "layers" not in params:
             raise NotImplementedError(
                 "layer-stacked params (the scan path) are not ported yet "
@@ -298,7 +305,7 @@ class InferenceEngine:
                     & (cols[None, None, None, :] >= pads_t[:, None, None, None]))
             logits, caches = _prefill(self.params, toks_t[:, start:end],
                                       positions, mask, caches, self.forward,
-                                      self.cfg)
+                                      self.cfg, self.engine_cfg.prefill_abits())
 
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
@@ -315,7 +322,8 @@ class InferenceEngine:
             step_c = min(chunk_c, remaining)
             sampled, caches = _generate_chunk(
                 self.params, tok, pads_t, cur, caches, generator,
-                self.forward, self.cfg, temperature, top_k, cols, step_c)
+                self.forward, self.cfg, temperature, top_k, cols, step_c,
+                self.engine_cfg.activation_bits)
             cur += step_c
             remaining -= step_c
             toks_np = sampled.cpu().numpy()  # the one host sync per chunk
@@ -487,7 +495,8 @@ class InferenceEngine:
                 out, caches = _serve_combo(
                     self.params, torch.from_numpy(meta).to(dev), caches,
                     generator, self.forward, self.cfg, temperature, top_k,
-                    t_max, sbkt, c)
+                    t_max, sbkt, c, self.engine_cfg.activation_bits,
+                    self.engine_cfg.prefill_abits())
                 out_np, dt = fetch(out)
                 if stats is not None:
                     stats["t_combos_s"] = round(stats["t_combos_s"] + dt, 4)
@@ -529,7 +538,7 @@ class InferenceEngine:
                 out, caches = _serve_chunk(
                     self.params, torch.from_numpy(meta).to(dev), caches,
                     generator, self.forward, self.cfg, temperature, top_k,
-                    t_max, c)
+                    t_max, c, self.engine_cfg.activation_bits)
                 sampled, dt = fetch(out)
                 if stats is not None:
                     stats["t_chunks_s"] = round(stats["t_chunks_s"] + dt, 4)

@@ -12,14 +12,8 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..ops.qmatmul import quantized_matmul
+from ..ops.qmatmul import _rms_nogamma, quantized_matmul
 from ..quantize.qtensor import QuantizedTensor
-
-
-def _rms_nogamma(x: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    ms = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
 
 
 @dataclass

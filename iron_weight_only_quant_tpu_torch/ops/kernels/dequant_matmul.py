@@ -1,23 +1,34 @@
 """Dequant-matmul: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``ops/pallas/dequant_matmul.py`` in the JAX package.  Four
+Counterpart of ``ops/pallas/dequant_matmul.py`` in the JAX package.  Eight
 hand-written CUDA kernels compute ``y = x @ dequant(qt)`` for affine
-artifacts with f32 side info, two per storage layout, the second of each
-pair with the weightless RMSNorm ``r = rsqrt(mean(x^2) + eps)`` applied to
-the f32 sum:
+artifacts with f32 side info, four per storage layout:
 
   nib4 (int4):  ``csrc/w4_matmul.cu``, ``csrc/w4_matmul_prenorm.cu``
-                (design notes in ``csrc/w4_common.cuh``);
+                (design notes in ``csrc/w4_common.cuh``),
+                ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``;
   byte (int8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
-                (design notes in ``csrc/w8_common.cuh``).
+                (design notes in ``csrc/w8_common.cuh``),
+                ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu``.
 
-The layer-stacked entry point reuses them with the layer as a pointer
-offset.
+The first two of each take bf16/f32 activations, the second of them with
+the weightless RMSNorm ``r = rsqrt(mean(x^2) + eps)`` applied to the f32
+sum.  The ``a8``/``a16`` kernels (design notes in ``csrc/wa_common.cuh``)
+take ``activation_bits`` 8 or 16: a row pass quantizes x to one int8
+plane (A8, ``sx = absmax/127``) or two (A16, ``x ~= sx*(256*hi + lo)``,
+``sx = absmax/32512``), the product runs on integer codes, and the f32
+result is scaled by the row's ``sx``.  Under activation bits a ``pre_norm``
+is applied to x before quantizing (in the row pass), as the JAX package
+does, so no prenorm kernel runs.  The layer-stacked entry point reuses the
+kernels with the layer as a pointer offset.
 
 Dispatch is by the activation's device: a CPU tensor takes the plain
 PyTorch version (:func:`dequant_matmul_plain`), a CUDA tensor launches the
 kernel or raises ``NotImplementedError`` for a layout no kernel takes yet.
-Nothing falls back quietly.
+Nothing falls back quietly.  The plain version computes what the kernel
+computes, activation quantization included; this deliberately differs from
+the JAX package's XLA fallback, which ignores activation bits: here the
+CPU path stands in for the kernel.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of the plain
 version, per name of the kernel it stands in for (a layout no kernel takes
@@ -33,15 +44,21 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ...quantize.qtensor import QuantizedTensor
-from ..qmatmul import dequantize_weight, index_stacked, packed_bits
+from ..packing import unpack_codes_sharded
+from ..qmatmul import _rms_nogamma, dequantize_weight, index_stacked, packed_bits
 
 W4 = "w4_matmul"
 W4_PRENORM = "w4_matmul_prenorm"
 W8 = "w8_matmul"
 W8_PRENORM = "w8_matmul_prenorm"
-# packed storage bits -> (kernel, prenorm kernel)
-_KERNELS = {4: (W4, W4_PRENORM), 8: (W8, W8_PRENORM)}
-LAUNCHES: Dict[str, int] = {name: 0 for pair in _KERNELS.values() for name in pair}
+W4A8 = "w4a8_matmul"
+W4A16 = "w4a16_matmul"
+W8A8 = "w8a8_matmul"
+W8A16 = "w8a16_matmul"
+ACTIVATION_BITS = (8, 16)
+# packed storage bits -> (kernel, prenorm kernel, A8 kernel, A16 kernel)
+_KERNELS = {4: (W4, W4_PRENORM, W4A8, W4A16), 8: (W8, W8_PRENORM, W8A8, W8A16)}
+LAUNCHES: Dict[str, int] = {name: 0 for names in _KERNELS.values() for name in names}
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
 _ARGTYPES = [
@@ -52,6 +69,20 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,         # M, N, n_out, stored rows
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
     ctypes.c_int, ctypes.c_float, ctypes.c_void_p,                  # k_logical, eps, stream
+]
+_ARGTYPES_A = [  # the int-activation kernels (csrc/wa_common.cuh launch_wa)
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, x_bf16, k_logical, norm
+    ctypes.c_float, ctypes.c_void_p,                                # eps, qw
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # s, s_rs, s_cs
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # z, z_rs, z_cs
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # xq, sx, ws, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,         # M, N, n_out, stored rows
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,      # G, kc, splits, stream
+]
+_ARGTYPES_ROWS = [  # iwoq_quantize_rows, the row pass alone
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, x_bf16, k_logical, k_stored
+    ctypes.c_int, ctypes.c_int, ctypes.c_float,                     # bits, norm, eps
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # xq, sx, M, stream
 ]
 _BLOCK_N, _TILE_M = 128, 8  # must match kBlockN / kTileM in w4_common.cuh
 _MIN_ROWS_PER_SPLIT = 64
@@ -65,13 +96,41 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-def kernel_name(qt: QuantizedTensor, pre_norm: Optional[float] = None) -> Optional[str]:
-    """The kernel that takes ``qt``'s storage layout (None: no kernel)."""
-    pair = _KERNELS.get(packed_bits(qt)) if qt.mode == "affine" else None
-    return None if pair is None else pair[pre_norm is not None]
+def kernel_name(qt: QuantizedTensor, pre_norm: Optional[float] = None,
+                activation_bits: Optional[int] = None) -> Optional[str]:
+    """The kernel that takes ``qt``'s storage layout (None: no kernel).
+
+    Under ``activation_bits`` (8 or 16) the int-activation kernel of the
+    layout runs and ``pre_norm`` does not pick a kernel: the norm is
+    applied to x before quantizing.
+    """
+    names = _KERNELS.get(packed_bits(qt)) if qt.mode == "affine" else None
+    if names is None:
+        return None
+    if activation_bits is not None:
+        return names[2 + ACTIVATION_BITS.index(activation_bits)]
+    return names[pre_norm is not None]
 
 
-def _layout_supported(qt: QuantizedTensor, rows: int) -> bool:
+def a16_supported(qt: QuantizedTensor) -> bool:
+    """Whether the split-plane A16 activation path exists for this artifact's
+    format: every affine artifact.  The LUT formats' A16 decode (queue B
+    rows 13 and 16 of ``ROADMAP.md``) is not ported."""
+    return qt.mode == "affine"
+
+
+def _group_size(qt: QuantizedTensor, rows: int) -> int:
+    """K columns per side row as the kernel walks them (nib4: a group never
+    straddles the two K halves; ``_nib4_groups`` splits those that do)."""
+    ks = qt.k_stored
+    if packed_bits(qt) != 4:
+        return ks // rows
+    kp = ks // 2
+    return kp if rows == 1 else math.gcd(ks // rows, kp)
+
+
+def _layout_supported(qt: QuantizedTensor, rows: int,
+                      activation_bits: Optional[int] = None) -> bool:
     if kernel_name(qt) is None or qt.k_shards != 1:
         return False
     if qt.zeros is None:
@@ -83,37 +142,126 @@ def _layout_supported(qt: QuantizedTensor, rows: int) -> bool:
         return False
     if packed_bits(qt) == 4 and ks % 2:
         return False
+    if activation_bits is not None and (activation_bits not in ACTIVATION_BITS
+                                        or _group_size(qt, rows) % 4):
+        return False  # __dp4a takes K four at a time (the group divides K)
     z_rows = qt.zeros.shape[-2] - (qt.side_pad if qt.zeros.shape[-2] > 1 else 0)
     return z_rows in (1, rows)
 
 
-def kernel_supported(qt: QuantizedTensor) -> bool:
+def kernel_supported(qt: QuantizedTensor,
+                     activation_bits: Optional[int] = None) -> bool:
     """Whether a CUDA kernel takes this flat (2-D) artifact."""
-    return qt.qweight.dim() == 2 and _layout_supported(qt, qt.scales.shape[0])
+    return qt.qweight.dim() == 2 and _layout_supported(
+        qt, qt.scales.shape[0], activation_bits)
 
 
-def kernel_supported_stacked(qt: QuantizedTensor) -> bool:
+def kernel_supported_stacked(qt: QuantizedTensor,
+                             activation_bits: Optional[int] = None) -> bool:
     """Whether a CUDA kernel takes this layer-stacked ([L, ...]) artifact."""
     return qt.qweight.dim() == 3 and _layout_supported(
-        qt, qt.scales.shape[1] - qt.side_pad)
+        qt, qt.scales.shape[1] - qt.side_pad, activation_bits)
 
 
 # ---------------------------------------------------------------- plain
 
+def quantize_activations(x2: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row activation quantization of ``x2`` ``[M, K]`` (the A8 and A16
+    branches of the JAX package's ``_prep_x``), all in f32.
+
+    Returns ``(planes, sx)``: int8 planes ``[P, M, K]`` and f32 ``sx [M]``.
+    A8 (P = 1): ``sx = max(absmax, 1e-8) / 127``, ``q = clip(round(x / sx),
+    -127, 127)``.  A16 (P = 2): ``sx = max(absmax, 1e-8) / 32512``, ``xi =
+    round(x / sx)``, planes ``hi = (xi + 128) >> 8`` and ``lo = xi - (hi <<
+    8)``, so ``x ~= sx * (256 * hi + lo)``.  ``round`` is half to even.  A
+    K padding is appended by the caller after this, so the row maximum sees
+    only the real columns.
+    """
+    if bits not in ACTIVATION_BITS:
+        raise NotImplementedError(f"activation_bits={bits}: must be None, 8 or 16")
+    xf = x2.to(torch.float32)
+    amax = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-8)
+    # a tensor divisor: on CUDA torch turns division by a Python scalar into
+    # a product with its reciprocal, which is not the IEEE quotient
+    # (32512 = 127 * 256 keeps hi in [-127, 127])
+    sx = amax / torch.full_like(amax, 127.0 if bits == 8 else 32512.0)
+    if bits == 8:
+        planes = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)[None]
+    else:
+        xi = torch.round(xf / sx).to(torch.int32)
+        hi = (xi + 128) >> 8
+        planes = torch.stack([hi, xi - (hi << 8)]).to(torch.int8)
+    return planes, sx[:, 0]
+
+
+def _side_rows(qt: QuantizedTensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 (scales, zeros) ``[R, N_stored]`` of a flat artifact, side_pad
+    rows dropped, per-channel/per-tensor rows broadcast."""
+    s, z = qt.scales, qt.zeros
+    rows = s.shape[0] - qt.side_pad
+    s = s[:rows].to(torch.float32)
+    z = (z[:rows] if z.shape[0] > 1 else z).to(torch.float32)
+    n = qt.qweight.shape[-1]
+    return s.expand(rows, n), z.expand(rows, n)
+
+
+def int_matmul_plain(planes: torch.Tensor, sx: torch.Tensor, qt: QuantizedTensor,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """``sx * (planes @ dequant(qt))`` for a flat affine artifact, as the
+    int-activation kernels compute it (the int paths of ``_group_accum`` and
+    ``_group_accum_a16``): per group of side rows, each plane's integer
+    product with the stored codes (exact, in f64) becomes f32, ``part =
+    256*pa + pb`` (A16) or ``pa`` (A8), the activation sum ``xsum = 256*Σhi
+    + Σlo`` (or ``Σq``), and ``acc += part*s - xsum*(s*z)`` in f32, group
+    after group; then ``acc * sx`` in f32, cast to ``out_dtype``, with the
+    ``n_pad`` columns dropped.  ``planes`` is ``[P, M, K_stored]``.
+    """
+    codes = unpack_codes_sharded(qt.qweight, packed_bits(qt), qt.k_stored,
+                                 qt.k_shards).to(torch.float64)
+    s, z = _side_rows(qt)
+    rows = s.shape[0]
+    g = qt.k_stored // rows
+    p, m = planes.shape[0], planes.shape[1]
+    xq = planes.to(torch.float64)
+    acc = torch.zeros((m, codes.shape[1]), dtype=torch.float32, device=planes.device)
+    for r in range(rows):
+        xg = xq[:, :, r * g:(r + 1) * g]
+        pg = (xg @ codes[r * g:(r + 1) * g]).to(torch.float32)  # [P, M, N]
+        isum = xg.sum(dim=-1).to(torch.int64)                  # [P, M]
+        part = pg[0] if p == 1 else pg[0] * 256.0 + pg[1]
+        xsum = (isum[0] if p == 1 else isum[0] * 256 + isum[1]).to(torch.float32)
+        acc = acc + part * s[r] - xsum[:, None] * (s[r] * z[r])
+    return (acc * sx[:, None]).to(out_dtype)[:, :qt.n]
+
+
 def dequant_matmul_plain(x: torch.Tensor, qt: QuantizedTensor,
                          pre_norm: Optional[float] = None,
-                         layer: Optional[int] = None) -> torch.Tensor:
+                         layer: Optional[int] = None,
+                         activation_bits: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernels, for any packed layout.
 
-    ``dequantize_weight`` in f32, an f32 matmul, then (``pre_norm``) the
-    row factor ``rsqrt(mean(x^2) + eps)`` over the logical K applied to the
-    f32 result, then a cast to ``x.dtype`` -- the order of the kernels'
-    epilogue.  ``layer`` selects one layer of a stacked artifact.
+    Without ``activation_bits``: ``dequantize_weight`` in f32, an f32
+    matmul, then (``pre_norm``) the row factor ``rsqrt(mean(x^2) + eps)``
+    over the logical K applied to the f32 result, then a cast to
+    ``x.dtype`` -- the order of the kernels' epilogue.  With
+    ``activation_bits`` (affine artifacts): ``pre_norm`` normalizes x first,
+    then :func:`quantize_activations`, K padding, and
+    :func:`int_matmul_plain`.  ``layer`` selects one layer of a stacked
+    artifact.
     """
-    name = kernel_name(qt, pre_norm)
+    name = kernel_name(qt, pre_norm, activation_bits)
     if name is not None:
         PLAIN_CALLS[name] += 1
-    w = dequantize_weight(qt if layer is None else index_stacked(qt, layer))
+    qt = qt if layer is None else index_stacked(qt, layer)
+    if activation_bits is not None:
+        if pre_norm is not None:
+            x = _rms_nogamma(x, pre_norm)
+        planes, sx = quantize_activations(x.reshape(-1, qt.shape[0]), activation_bits)
+        if qt.k_pad:
+            planes = torch.nn.functional.pad(planes, (0, qt.k_pad))
+        y = int_matmul_plain(planes, sx, qt, x.dtype)
+        return y.reshape(x.shape[:-1] + (qt.shape[1],))
+    w = dequantize_weight(qt)
     xf = x.to(torch.float32)
     y = xf @ w
     if pre_norm is not None:
@@ -183,17 +331,39 @@ def _byte_groups(ks: int, kp: int, rows: int) -> int:
     return ks // rows
 
 
-def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
-            qw: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
-            rows: int, k_logical: int, n_out: int) -> torch.Tensor:
-    """Launch the ``bits``-storage kernel (its prenorm form if ``pre_norm``)
-    on 2-D operands; x2 is [M, K_stored] contiguous."""
+def _load_fn(name: str, symbol: str, argtypes):
     from .build import load
 
-    name = _KERNELS[bits][pre_norm is not None]
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _raise_if(err: int, lib, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.iwoq_cuda_error_string(err).decode()})")
+
+
+def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
+            qw: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+            rows: int, k_logical: int, n_out: int,
+            activation_bits: Optional[int] = None) -> torch.Tensor:
+    """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
+    if ``pre_norm``, its int-activation form if ``activation_bits``.
+
+    x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
+    contiguous (the row pass appends the K padding to the int8 planes).
+    """
+    names = _KERNELS[bits]
+    name = (names[pre_norm is not None] if activation_bits is None
+            else names[2 + ACTIVATION_BITS.index(activation_bits)])
     dev = x2.device
-    m, ks = x2.shape
+    m = x2.shape[0]
     kp, n = qw.shape
+    ks = x2.shape[1] if activation_bits is None else (2 * kp if bits == 4 else kp)
     _check(x2.dtype in (torch.bfloat16, torch.float32),
            f"x dtype {x2.dtype} is not bfloat16 or float32")
     for name_, t in (("qweight", qw), ("scales", scales), ("zeros", zeros)):
@@ -205,6 +375,9 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     _check(qw.dtype == torch.uint8 and qw.is_contiguous()
            and qw.data_ptr() % 4 == 0, "qweight must be contiguous uint8")
     _check(x2.is_contiguous(), "x must be contiguous")
+    if activation_bits is not None:
+        _check(x2.shape[1] == k_logical <= ks,
+               f"x has {x2.shape[1]} columns, the artifact K={k_logical}")
     if bits == 4:
         g, rows, scales, zeros = _nib4_groups(ks, kp, rows, scales, zeros)
     else:
@@ -216,85 +389,147 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
         return out
     kc, splits = plan_splits(m, n, kp, _sm_count(dev))
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-    rnorm = None if pre_norm is None else \
-        torch.empty((m,), dtype=torch.float32, device=dev)
-    lib = load(name)
-    fn = getattr(lib, f"iwoq_{name}")
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), ks,
-                 qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z2.data_ptr(),
-                 z_rs, z_cs, ws.data_ptr(),
-                 None if rnorm is None else rnorm.data_ptr(), out.data_ptr(),
-                 m, n, n_out, kp, g, kc, splits, k_logical,
-                 0.0 if pre_norm is None else float(pre_norm), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.iwoq_cuda_error_string(err).decode()})")
+    x_bf16 = int(x2.dtype == torch.bfloat16)
+    eps = 0.0 if pre_norm is None else float(pre_norm)
+    if activation_bits is None:
+        rnorm = None if pre_norm is None else \
+            torch.empty((m,), dtype=torch.float32, device=dev)
+        lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(x2.data_ptr(), x_bf16, ks, qw.data_ptr(), s2.data_ptr(), s_rs,
+                     s_cs, z2.data_ptr(), z_rs, z_cs, ws.data_ptr(),
+                     None if rnorm is None else rnorm.data_ptr(), out.data_ptr(),
+                     m, n, n_out, kp, g, kc, splits, k_logical, eps, stream)
+    else:
+        planes = 1 if activation_bits == 8 else 2
+        xq = torch.empty((planes, m, ks), dtype=torch.int8, device=dev)
+        sx = torch.empty((m,), dtype=torch.float32, device=dev)
+        lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES_A)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(x2.data_ptr(), x_bf16, k_logical, int(pre_norm is not None), eps,
+                     qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z2.data_ptr(), z_rs,
+                     z_cs, xq.data_ptr(), sx.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), m, n, n_out, kp, g, kc, splits, stream)
+    _raise_if(err, lib, name)
     LAUNCHES[name] += 1
     return out
 
 
-def _prep_x(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+def quantize_activations_kernel(x2: torch.Tensor, bits: int, k_stored: int,
+                                pre_norm: Optional[float] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int-activation kernels' row pass alone, on the card: ``(planes
+    [P, M, k_stored] int8, sx [M] f32)`` for ``x2`` ``[M, K]`` (``pre_norm``
+    normalizes each row first).  It is part of every ``a8``/``a16`` launch;
+    this entry point exists to hold its codes against
+    :func:`quantize_activations` and is not counted."""
+    _check(x2.is_cuda and x2.dim() == 2 and x2.is_contiguous()
+           and x2.dtype in (torch.bfloat16, torch.float32),
+           "x must be a contiguous 2-D bf16/f32 CUDA tensor")
+    m, k = x2.shape
+    _check(bits in ACTIVATION_BITS and k <= k_stored and m > 0,
+           f"bits={bits}, K={k}, k_stored={k_stored}, M={m}")
+    dev = x2.device
+    xq = torch.empty((1 if bits == 8 else 2, m, k_stored), dtype=torch.int8, device=dev)
+    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    name = W4A8 if bits == 8 else W4A16  # every int-activation library has the pass
+    lib, fn = _load_fn(name, "iwoq_quantize_rows", _ARGTYPES_ROWS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), k, k_stored, bits,
+                 int(pre_norm is not None), 0.0 if pre_norm is None else float(pre_norm),
+                 xq.data_ptr(), sx.data_ptr(), m, stream)
+    _raise_if(err, lib, "iwoq_quantize_rows")
+    return xq, sx
+
+
+def _prep_x(x: torch.Tensor, qt: QuantizedTensor,
+            activation_bits: Optional[int] = None) -> torch.Tensor:
     k = qt.shape[0]
     if x.shape[-1] != k:
         raise ValueError(f"x has K={x.shape[-1]}, the artifact K={k}")
     x2 = x.reshape(-1, k)
-    if qt.k_pad:
-        # stored K carries whole zero groups; zero x columns meet them
+    if qt.k_pad and activation_bits is None:
+        # stored K carries whole zero groups; zero x columns meet them (the
+        # int-activation row pass pads its planes after quantizing instead)
         x2 = torch.nn.functional.pad(x2, (0, qt.k_pad))
     return x2.contiguous()
 
 
-def _unsupported(qt: QuantizedTensor) -> NotImplementedError:
+def _unsupported(qt: QuantizedTensor,
+                 activation_bits: Optional[int] = None) -> NotImplementedError:
+    what = "" if activation_bits is None else f" with activation_bits={activation_bits}"
     return NotImplementedError(
-        f"no CUDA kernel yet for this artifact (mode={qt.mode}, "
+        f"no CUDA kernel yet for this artifact{what} (mode={qt.mode}, "
         f"{packed_bits(qt)}-bit storage, k_shards={qt.k_shards}, side dtype "
         f"{qt.scales.dtype}); ported so far: affine nib4 (int4) and byte "
-        "(int8) layouts with f32 side info and k_shards=1. See ROADMAP queue "
-        "B for the kernels still to port")
+        "(int8) layouts with f32 side info and k_shards=1, with bf16/f32 "
+        "activations or activation_bits 8/16 (group size a multiple of 4). "
+        "See ROADMAP queue B for the kernels still to port")
+
+
+def _check_activation_bits(qt: QuantizedTensor, activation_bits: Optional[int]) -> None:
+    if activation_bits is None:
+        return
+    if activation_bits not in ACTIVATION_BITS:
+        raise NotImplementedError(
+            f"activation_bits={activation_bits}: must be None, 8 or 16")
+    if not a16_supported(qt):
+        raise NotImplementedError(
+            f"activation_bits={activation_bits} with a {qt.mode} artifact: the "
+            "LUT formats' codecs and kernels are not ported yet (ROADMAP queue "
+            "A, 'Format zoo', and queue B rows 12-16)")
 
 
 def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
-                           pre_norm: Optional[float] = None) -> torch.Tensor:
+                           pre_norm: Optional[float] = None,
+                           activation_bits: Optional[int] = None) -> torch.Tensor:
     """``y = x @ dequant(qt)`` for ``x`` ``[..., K]``, output in ``x.dtype``.
 
     ``pre_norm`` (the RMS eps) applies the weightless RMSNorm in the
     kernel's epilogue; the norm's gamma must already be folded into the
-    weights (``models.llama.fold_llama_norms``).
+    weights (``models.llama.fold_llama_norms``).  ``activation_bits`` 8 or
+    16 quantizes x per row first and runs the int-activation kernel; a
+    ``pre_norm`` then normalizes x before it is quantized.
     """
+    _check_activation_bits(qt, activation_bits)
     if x.device.type == "cpu":
-        return dequant_matmul_plain(x, qt, pre_norm)
+        return dequant_matmul_plain(x, qt, pre_norm, activation_bits=activation_bits)
     if not x.is_cuda:
         raise NotImplementedError(f"no dequant-matmul for device {x.device}")
-    if not kernel_supported(qt):
-        raise _unsupported(qt)
-    out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt), qt.qweight, qt.scales,
-                  qt.zeros, qt.scales.shape[0], qt.shape[0], qt.shape[1])
+    if not kernel_supported(qt, activation_bits):
+        raise _unsupported(qt, activation_bits)
+    out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
+                  qt.qweight, qt.scales, qt.zeros, qt.scales.shape[0], qt.shape[0],
+                  qt.shape[1], activation_bits)
     return out.reshape(x.shape[:-1] + (qt.shape[1],))
 
 
 def fused_quantized_matmul_stacked(x: torch.Tensor, qt: QuantizedTensor,
                                    layer_idx,
-                                   pre_norm: Optional[float] = None) -> torch.Tensor:
+                                   pre_norm: Optional[float] = None,
+                                   activation_bits: Optional[int] = None) -> torch.Tensor:
     """``y = x @ dequant(qt[layer_idx])`` for a layer-stacked artifact.
 
     The kernel reads the layer's weights and side info in place: the
     wrapper passes ``qweight[layer]`` and ``scales[layer]`` views, so no
     layer copy is made and ``side_pad`` rows are simply never read.
     """
+    _check_activation_bits(qt, activation_bits)
     layer = int(layer_idx)
     if x.device.type == "cpu":
-        return dequant_matmul_plain(x, qt, pre_norm, layer=layer)
+        return dequant_matmul_plain(x, qt, pre_norm, layer=layer,
+                                    activation_bits=activation_bits)
     if not x.is_cuda:
         raise NotImplementedError(f"no dequant-matmul for device {x.device}")
-    if not kernel_supported_stacked(qt):
-        raise _unsupported(qt)
+    if not kernel_supported_stacked(qt, activation_bits):
+        raise _unsupported(qt, activation_bits)
     if not 0 <= layer < qt.qweight.shape[0]:
         raise IndexError(f"layer {layer} of a {qt.qweight.shape[0]}-layer artifact")
     rows = qt.scales.shape[1] - qt.side_pad
-    out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt), qt.qweight[layer],
-                  qt.scales[layer], qt.zeros[layer], rows, qt.shape[0], qt.shape[1])
+    out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
+                  qt.qweight[layer], qt.scales[layer], qt.zeros[layer], rows,
+                  qt.shape[0], qt.shape[1], activation_bits)
     return out.reshape(x.shape[:-1] + (qt.shape[1],))

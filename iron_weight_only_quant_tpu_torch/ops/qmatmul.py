@@ -5,7 +5,10 @@
 ``quantized_matmul`` goes to ``ops/kernels/dequant_matmul.py``: on a CPU
 tensor that takes the plain PyTorch version, on a CUDA tensor it launches a
 hand-written kernel (affine int4 nib4 and int8 byte layouts with f32 side
-info so far) or raises for a layout that has no kernel yet.
+info so far, with bf16/f32 activations or int8/A16 ones) or raises for a
+layout that has no kernel yet.  ``activation_quant`` sets the activation
+bits that calls without an explicit ``activation_bits`` use, as in the
+reference; the engine wraps its prefill and decode phases in it.
 """
 
 from __future__ import annotations
@@ -65,15 +68,37 @@ def dequantize_weight(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     return w.to(dtype)
 
 
-def _check_activation_bits(x: torch.Tensor, activation_bits: Optional[int]) -> None:
-    # the plain path keeps full-precision activations, as the reference's
-    # plain path does; on the card the ported kernels take bf16/f32
-    # activations only
-    if activation_bits is not None and x.is_cuda:
-        raise NotImplementedError(
-            f"activation_bits={activation_bits}: the A8/A16 kernels (rows 8-9 "
-            "of the kernel table) are not ported yet; the ported W4/W8 "
-            "kernels take bf16/f32 activations (ROADMAP queue B)")
+def _rms_nogamma(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Weightless RMSNorm in f32, cast back to ``x.dtype``: what ``pre_norm``
+    applies to x where no kernel applies it in its epilogue (dense weights,
+    and before activation quantization)."""
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+
+
+_DEFAULT_ACTIVATION_BITS: Optional[int] = None
+
+
+class activation_quant:
+    """Context manager setting the activation bits (None, 8 or 16) that
+    ``quantized_matmul`` and ``quantized_matmul_stacked`` use when their
+    ``activation_bits`` argument is None: 8 = int8 activations (W4A8/W8A8),
+    16 = split-int8 16-bit fixed point (A16)."""
+
+    def __init__(self, bits: Optional[int] = 8):
+        self.bits = bits
+
+    def __enter__(self):
+        global _DEFAULT_ACTIVATION_BITS
+        self._prev = _DEFAULT_ACTIVATION_BITS
+        _DEFAULT_ACTIVATION_BITS = self.bits
+        return self
+
+    def __exit__(self, *exc):
+        global _DEFAULT_ACTIVATION_BITS
+        _DEFAULT_ACTIVATION_BITS = self._prev
+        return False
 
 
 def quantized_matmul(
@@ -88,12 +113,17 @@ def quantized_matmul(
 
     ``pre_norm`` (the RMS eps) applies a weightless RMSNorm to x, inside the
     kernel on the card; the norm gamma must be folded into the weights.
-    The bias is added before the final cast, as in the reference.
+    ``activation_bits`` (None: the ambient ``activation_quant`` setting)
+    quantizes x per row to int8 (8) or two int8 planes (16) first; LUT
+    artifacts refuse it.  The bias is added before the final cast, as in
+    the reference.
     """
     from .kernels.dequant_matmul import fused_quantized_matmul
 
-    _check_activation_bits(x, activation_bits)
-    out = fused_quantized_matmul(x, qt, pre_norm=pre_norm)
+    if activation_bits is None:
+        activation_bits = _DEFAULT_ACTIVATION_BITS
+    out = fused_quantized_matmul(x, qt, pre_norm=pre_norm,
+                                 activation_bits=activation_bits)
     if bias is not None:
         out = out + bias
     return out.to(x.dtype)
@@ -117,8 +147,10 @@ def quantized_matmul_stacked(
     the kernel reads the selected layer in place."""
     from .kernels.dequant_matmul import fused_quantized_matmul_stacked
 
-    _check_activation_bits(x, activation_bits)
-    out = fused_quantized_matmul_stacked(x, qt, layer_idx, pre_norm=pre_norm)
+    if activation_bits is None:
+        activation_bits = _DEFAULT_ACTIVATION_BITS
+    out = fused_quantized_matmul_stacked(x, qt, layer_idx, pre_norm=pre_norm,
+                                         activation_bits=activation_bits)
     if bias is not None:
         out = out + bias
     return out.to(x.dtype)

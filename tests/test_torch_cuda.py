@@ -8,8 +8,11 @@ reason.  They run without the JAX package's conftest:
 Shapes are small and chosen for the edges: M not a multiple of the row tile,
 N padding, K padding, group rows that straddle the two K halves of the
 nibble layout, per-channel and per-tensor side info, float32 and bfloat16 x.
-The W4 (nib4) and W8 (byte) kernels run the same grid.  The serve loop's
-KV write and a tiny ``serve`` run are checked for host syncs and repeatability.
+The W4 (nib4) and W8 (byte) kernels run the same grid, with bf16/f32
+activations and with int8 (A8) or split-plane (A16) ones; the int-activation
+row pass must give the plain version's codes bit for bit.  The serve loop's
+KV write, a wave and a chunk (also under activation bits) and tiny ``serve``
+runs are checked for host syncs, launch counts and repeatability.
 """
 
 import dataclasses
@@ -149,9 +152,81 @@ def test_layouts_without_a_kernel_raise_on_the_card(dev, case):
 
 
 def test_activation_bits_raise_on_the_card(dev):
-    qt = _artifact(dev, 512, 256, SPECS["g128_asym"])
+    """Activation bits on a layout no int-activation kernel takes raise."""
+    qt = _artifact(dev, 512, 256, dataclasses.replace(SPECS["g128_asym"], bits=3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         qmatmul.quantized_matmul(_x(dev, (8, 512), torch.bfloat16), qt, activation_bits=8)
+
+
+# -------------------------------------------------- int-activation kernels
+
+# (storage bits, activation bits, the kernel the artifact dispatches to)
+A_KERNELS = [pytest.param((4, 8, dm.W4A8), id="w4a8"),
+             pytest.param((4, 16, dm.W4A16), id="w4a16"),
+             pytest.param((8, 8, dm.W8A8), id="w8a8"),
+             pytest.param((8, 16, dm.W8A16), id="w8a16")]
+
+
+def _close_a(y, y_ref, dtype):
+    """The integer sums are exact; the f32 epilogue runs in another order."""
+    assert y.shape == y_ref.shape and y.dtype == y_ref.dtype == dtype
+    err = (y.float() - y_ref.float()).abs().max() / y_ref.float().abs().max()
+    assert err.item() <= (1e-4 if dtype == torch.float32 else 1e-2), err.item()
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kern", A_KERNELS)
+@pytest.mark.parametrize("m", [1, 3, 17])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+def test_a_kernel_matches_plain_shapes(dev, shape, m, kern, dtype, pre_norm):
+    bits, abits, name = kern
+    k, n, kw = SHAPES[shape]
+    qt = _artifact(dev, k, n, SPECS["g128_asym"], bits=bits, **kw)
+    assert dm.kernel_supported(qt, abits) and dm.kernel_name(qt, pre_norm, abits) == name
+    x = _x(dev, (m, k), dtype) * 3
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm, activation_bits=abits)
+    assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm, activation_bits=abits), dtype)
+
+
+@pytest.mark.parametrize("kern", A_KERNELS)
+@pytest.mark.parametrize("spec", list(SPECS), ids=list(SPECS))
+def test_a_kernel_matches_plain_side_layouts(dev, spec, kern):
+    bits, abits, _ = kern
+    qt = _artifact(dev, 512, 256, SPECS[spec], seed=2, bits=bits)
+    x = _x(dev, (2, 4, 512), torch.float32)
+    y = dm.fused_quantized_matmul(x, qt, activation_bits=abits)
+    assert y.shape == (2, 4, 256)
+    _close_a(y, dm.dequant_matmul_plain(x, qt, activation_bits=abits), torch.float32)
+
+
+@pytest.mark.parametrize("kern", A_KERNELS)
+@pytest.mark.parametrize("layer", [0, 2])
+def test_a_stacked_kernel_reads_the_layer_in_place(dev, layer, kern):
+    bits, abits, _ = kern
+    qts = [_artifact(dev, 1408, 256, SPECS["g128_asym"], seed=10 + i, bits=bits)
+           for i in range(3)]
+    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 5))  # noqa: E731
+    st = qts[0].replace(qweight=torch.stack([q.qweight for q in qts]),
+                        scales=torch.stack([pad(q.scales) for q in qts]),
+                        zeros=torch.stack([pad(q.zeros) for q in qts]), side_pad=5)
+    assert dm.kernel_supported_stacked(st, abits)
+    x = _x(dev, (8, 1408), torch.float32)
+    y = dm.fused_quantized_matmul_stacked(x, st, layer, activation_bits=abits)
+    _close_a(y, dm.dequant_matmul_plain(x, qts[layer], activation_bits=abits), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_row_pass_codes_are_bit_equal_to_plain(dev, bits, dtype):
+    x = _x(dev, (17, 1408), dtype) * 3
+    x[4] = 0
+    planes, sx = dm.quantize_activations_kernel(x, bits, 1536)
+    want, want_sx = dm.quantize_activations(x, bits)
+    assert torch.equal(planes[..., :1408], want) and not planes[..., 1408:].any()
+    assert torch.equal(sx, want_sx)
 
 
 # ------------------------------------------------------------------- serve
@@ -173,7 +248,7 @@ def test_valid_kv_write_does_not_sync(dev):
     assert out.k[1, 4:].eq(0).all() and out.k[2, 11].eq(1).all() and out.k[3].eq(0).all()
 
 
-def _tiny_engine(dev, bits):
+def _tiny_engine(dev, bits, **ecfg):
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models import llama
@@ -189,7 +264,8 @@ def _tiny_engine(dev, bits):
         lin["w"] = quantize_tensor(lin["w"], spec, pad_n_to=512)
     return InferenceEngine(params, cfg, llama.llama_forward, family="llama",
                            engine_cfg=EngineConfig(kv=KVCacheConfig(max_seq_len=48),
-                                                   max_batch_size=4, fuse_projections=True),
+                                                   max_batch_size=4, fuse_projections=True,
+                                                   **ecfg),
                            dtype=torch.bfloat16, device=dev)
 
 
@@ -210,10 +286,12 @@ def test_tiny_serve_on_the_card_is_repeatable(dev, bits):
     assert not any(dm.PLAIN_CALLS.values())
 
 
-def test_serve_device_calls_do_not_sync(dev):
+@pytest.mark.parametrize("abits", [None, (8, 16)], ids=["bf16", "a8_wave_a16_chunk"])
+def test_serve_device_calls_do_not_sync(dev, abits):
     """Between the meta copy and the token fetch, nothing waits for the card."""
     from iron_weight_only_quant_tpu_torch.engine.engine import _serve_chunk, _serve_combo
 
+    p_abits, d_abits = abits or (None, None)
     eng = _tiny_engine(dev, 8)
     c, s_len, ns = 4, 8, 4
     gen = torch.Generator(device=dev)
@@ -231,10 +309,35 @@ def test_serve_device_calls_do_not_sync(dev):
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.inference_mode():
+            dm.reset_counts()
             out, caches = _serve_combo(eng.params, combo_meta, caches, gen, eng.forward,
-                                       eng.cfg, 0.0, 0, 48, s_len, c)
+                                       eng.cfg, 0.0, 0, 48, s_len, c, d_abits, p_abits)
             out2, caches = _serve_chunk(eng.params, chunk_meta, caches, gen, eng.forward,
-                                        eng.cfg, 0.0, 0, 48, c)
+                                        eng.cfg, 0.0, 0, 48, c, d_abits)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.shape == (ns, 1 + c) and out2.shape == (ns, c)
+    if abits is not None:  # W8: the wave on A8, the 2 * c steps on A16
+        per_forward = 4 * eng.cfg.num_layers + 1
+        assert dm.LAUNCHES[dm.W8A8] == per_forward
+        assert dm.LAUNCHES[dm.W8A16] == 2 * c * per_forward
+
+
+@pytest.mark.parametrize("abits", [(8, 16), (16, 8)], ids=["a8_waves", "a16_waves"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_tiny_a_serve_on_the_card_is_repeatable(dev, bits, abits):
+    eng = _tiny_engine(dev, bits, prefill_activation_bits=abits[0],
+                       activation_bits=abits[1])
+    n_layers = eng.cfg.num_layers
+    reqs = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
+    outs, stats = [], {}
+    for _ in range(2):
+        dm.reset_counts()
+        outs.append(eng.serve(reqs, max_new_tokens=8, chunk=4, stats=stats))
+    assert outs[0] == outs[1] and [len(o) for o in outs[0]] == [8] * 6
+    wave, step = (dm.kernel_name(eng.params["lm_head"]["w"], None, b) for b in abits)
+    per_forward = 4 * n_layers + 1
+    assert dm.LAUNCHES[wave] == stats["n_combos"] * per_forward
+    assert dm.LAUNCHES[step] == (stats["n_steps"] - stats["n_combos"]) * per_forward
+    assert sum(dm.LAUNCHES.values()) == stats["n_steps"] * per_forward
+    assert not any(dm.PLAIN_CALLS.values())

@@ -105,8 +105,7 @@ def test_sampling_is_seeded_and_top_k_bounded():
     dict(mesh=MeshConfig(model=2)),
     dict(kv=KVCacheConfig(kv_bits=8)),
     dict(kv=KVCacheConfig(paged=True)),
-    dict(activation_bits=8),
-], ids=["mesh", "kv_int8", "paged", "w4a8"])
+], ids=["mesh", "kv_int8", "paged"])
 def test_unported_engine_options_raise(models, ecfg):
     _, tp = models
     for entry in ("generate", "serve"):

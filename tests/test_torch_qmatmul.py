@@ -179,10 +179,13 @@ def test_cpu_tensor_takes_the_plain_version():
     dm.fused_quantized_matmul(torch.zeros((2, 512)), tq8)
     dm.fused_quantized_matmul(torch.zeros((2, 512)), tq8)
     dm.fused_quantized_matmul(torch.zeros((2, 512)), tq8, pre_norm=EPS)
-    assert dm.PLAIN_CALLS == {dm.W4: 1, dm.W4_PRENORM: 1, dm.W8: 2, dm.W8_PRENORM: 1}
-    assert dm.LAUNCHES == {dm.W4: 0, dm.W4_PRENORM: 0, dm.W8: 0, dm.W8_PRENORM: 0}
+    none = {name: 0 for name in (dm.W4, dm.W4_PRENORM, dm.W8, dm.W8_PRENORM,
+                                 dm.W4A8, dm.W4A16, dm.W8A8, dm.W8A16)}
+    assert dm.PLAIN_CALLS == {**none, dm.W4: 1, dm.W4_PRENORM: 1, dm.W8: 2,
+                              dm.W8_PRENORM: 1}
+    assert dm.LAUNCHES == none
     dm.reset_counts()
-    assert dm.PLAIN_CALLS == {dm.W4: 0, dm.W4_PRENORM: 0, dm.W8: 0, dm.W8_PRENORM: 0}
+    assert dm.PLAIN_CALLS == none
 
 
 @pytest.mark.parametrize("case", ["int3", "side_f16", "k_shards_2", "int2"])
