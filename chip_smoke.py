@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through twelve
+Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through fifteen
 phases; any failing phase ends the run with a non-zero exit code.
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
@@ -52,7 +52,26 @@ phases; any failing phase ends the run with a non-zero exit code.
     profiled run; launch counts exact per run.
 11. W8 A-serve: the W8 model of phase 7 with ``prefill_activation_bits=16``
     and ``activation_bits=8`` (waves on W8A16, decode steps on W8A8).
-12. Report: the generate and serve JSON lines, the card line, the
+12. W3 kernels vs plain: the three s21 3-bit kernels (``w3_matmul``,
+    ``w3a8_matmul``, ``w3a16_matmul``) against their plain versions at the
+    five main-path shapes of a LLaMA-2-7B W3 g128 model (down's K=11008
+    stored as 11264, ``pad_k_to=1024``; lm_head N padded to 32256), timed at
+    M=8 and M=256 as in phase 2, untimed at the other main-path row counts;
+    qkv and gate_up also once with ``pre_norm`` (x normalized in torch
+    before ``w3_matmul``, in the row pass of the A-kernels); per kernel also
+    an f32 x, g128 symmetric, per-channel asymmetric and per-tensor
+    symmetric artifacts, and a layer-stacked call (layer 2 of 3, side info
+    padded by 2 rows).
+13. W3 two-layer logits: phase 3 with the W3 model, with bf16/f32
+    activations, A8 and A16.
+14. W3 full model: 32-layer 7B-width W3 model (every linear int3 g128
+    asym, ``pad_n_to=512``, ``pad_k_to=1024``) built on the card;
+    ``generate`` as in phase 4; ``serve`` of phase 7's traffic (warm-up,
+    median of 3, profiled run); and the A-serve of phase 10 (A8 waves on
+    ``w3a8_matmul``, A16 decode on ``w3a16_matmul``).  Every linear of a
+    forward takes ``w3_matmul`` (4 per layer and the lm_head), so the
+    launch counts are ``forwards * (4L + 1)``.
+15. Report: the generate and serve JSON lines, the card line, the
     per-kernel JSON line, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -115,7 +134,14 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
                      "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:418"),
     "w8a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w8a16_matmul.cu",
                      "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:449"),
+    "w3_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w3_matmul.cu",
+                  "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:467"),
+    "w3a8_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w3a8_matmul.cu",
+                    "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:467"),
+    "w3a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w3a16_matmul.cu",
+                     "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:533"),
 }
+W3_PAD_K = 1024  # down's K=11008 stored as 11264: K/8 = 1408 = 11 groups of 128
 
 
 def fail(msg: str) -> None:
@@ -132,11 +158,12 @@ def card_line() -> str:
 
 # ------------------------------------------------------------------ model
 
-def build_quantized_llama(cfg, generator, spec, dtype, device):
+def build_quantized_llama(cfg, generator, spec, dtype, device, pad_k_to=1):
     """Random quantized LLaMA built on the card, quantizing each linear as
     it is made, so the dense model never exists whole.  Norm gammas are 1,
     so marking them folded (``None``) is exact; every linear, the lm_head
-    included, is a ``spec`` artifact with N padded to 512."""
+    included, is a ``spec`` artifact with N padded to 512 and K to
+    ``pad_k_to``."""
     import torch
 
     from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
@@ -151,7 +178,7 @@ def build_quantized_llama(cfg, generator, spec, dtype, device):
     def qlin(kin, kout, scale=None):
         scale = kin**-0.5 if scale is None else scale
         return {"w": quantize_tensor(normal(kin, kout) * scale, spec,
-                                     pad_n_to=512), "b": None}
+                                     pad_n_to=512, pad_k_to=pad_k_to), "b": None}
 
     layers = [{
         "input_norm": None,
@@ -347,7 +374,7 @@ def phase_kernels(torch, device, spec, names, extra_specs=()):
 
 # ------------------------------------------------------------- phase 3
 
-def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,)):
+def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,), pad_k_to=1):
     """Two-layer logits, kernels on the card against the plain path on the
     CPU, in f32 and bf16, under each activation-bits setting of
     ``abits_list`` (None: bf16/f32 activations)."""
@@ -364,7 +391,7 @@ def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,)):
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     params = fuse_llama_projections(
-        build_quantized_llama(cfg, gen, spec, torch.float32, device))
+        build_quantized_llama(cfg, gen, spec, torch.float32, device, pad_k_to))
     cpu_params = params_from_numpy(params, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
     out = {}
@@ -399,12 +426,13 @@ def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,)):
 def expected_launches(names, forwards: int, n_layers: int):
     """Launch counts of ``forwards`` model forwards whose linears all take
     the kernels ``names`` (flat, prenorm): o, down and the lm_head go to the
-    flat kernel, the fused qkv and gate_up to the prenorm one."""
+    flat kernel, the fused qkv and gate_up to the prenorm one (the same
+    kernel for W3, whose pre-norm runs in torch)."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     want = {name: 0 for name in dm.LAUNCHES}
-    want[names[0]] = forwards * (2 * n_layers + 1)
-    want[names[1]] = forwards * 2 * n_layers
+    want[names[0]] += forwards * (2 * n_layers + 1)
+    want[names[1]] += forwards * 2 * n_layers
     return want
 
 
@@ -436,11 +464,11 @@ def check_counts(what, want):
     return launches
 
 
-def build_model(torch, device, spec, cfg, label, seed):
+def build_model(torch, device, spec, cfg, label, seed, pad_k_to=1):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     t0 = time.perf_counter()
-    params = build_quantized_llama(cfg, gen, spec, torch.bfloat16, device)
+    params = build_quantized_llama(cfg, gen, spec, torch.bfloat16, device, pad_k_to)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     print(f"  built {cfg.num_layers}-layer {label} model in {build_s:.1f} s, "
@@ -448,13 +476,18 @@ def build_model(torch, device, spec, cfg, label, seed):
     return params, gen, build_s
 
 
-def phase_generate(torch, device, spec, cfg, card):
+def phase_generate(torch, device, spec, cfg, card, names=None, label="W4", pad_k_to=1,
+                   serve_runs=1):
+    """``generate`` on the 32-layer model whose linears take ``names``
+    (flat, prenorm kernel; W4's by default), then ``serve_runs`` timed
+    serve runs.  Returns (generate result, serve result, fused params)."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
-    params, gen, build_s = build_model(torch, device, spec, cfg, "W4", 0)
+    names = names or (dm.W4, dm.W4_PRENORM)
+    params, gen, build_s = build_model(torch, device, spec, cfg, label, 0, pad_k_to)
     ecfg = EngineConfig(fuse_projections=True,
                         kv=KVCacheConfig(max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8))
     eng = InferenceEngine(params, cfg, llama_forward, family="llama",
@@ -476,7 +509,7 @@ def phase_generate(torch, device, spec, cfg, card):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = check_counts("generate", expected_launches(
-        (dm.W4, dm.W4_PRENORM), 1 + (NEW_TOKENS - 1), cfg.num_layers))
+        names, 1 + (NEW_TOKENS - 1), cfg.num_layers))
     if len(out) != BATCH or any(len(o) != NEW_TOKENS for o in out):
         fail(f"generate returned {[len(o) for o in out]} tokens")
     if any(not 0 <= t < cfg.vocab_size for o in out for t in o):
@@ -495,9 +528,9 @@ def phase_generate(torch, device, spec, cfg, card):
           flush=True)
     print("  first tokens: " + json.dumps([o[:8] for o in out[:2]]), flush=True)
 
-    print("  -- W4 serve (one warm-up run, one timed run)", flush=True)
-    serve = phase_serve(torch, eng.params, cfg, (dm.W4, dm.W4_PRENORM), 1, card)
-    fused = eng.params  # kept for the A-serve of phase 10
+    print(f"  -- {label} serve (one warm-up run, {serve_runs} timed)", flush=True)
+    serve = phase_serve(torch, eng.params, cfg, names, serve_runs, card)
+    fused = eng.params  # kept for the A-serve
     del eng, params
     torch.cuda.empty_cache()
     return res, serve, fused
@@ -544,7 +577,10 @@ def profile_serve(torch, eng, reqs):
     device's busy time (the sum of its kernel and copy intervals: one
     stream, so they do not overlap), the idle share, and the device time
     by kernel.  The profiler slows the host, so the idle share is an upper
-    bound for an unprofiled run."""
+    bound for an unprofiled run.  The device intervals are read from the
+    profiler's raw records: ``prof.events()`` would first build a Python
+    event for each of the run's host and device records, hundreds of
+    thousands, which is slow."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -555,10 +591,10 @@ def profile_serve(torch, eng, reqs):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, us = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
     if not by_name:
         print("  profiler: no device events; device busy time not measured", flush=True)
         return {"wall_s": wall, "device_busy_ms": "not measured",
@@ -683,6 +719,19 @@ def stacked_of(torch, layers):
         zeros=torch.stack([pad(q.zeros) for q in layers]), side_pad=2)
 
 
+def a_runner(pre, abits, layer=None):
+    """(kernel call, plain call) with ``pre_norm`` and ``activation_bits``
+    given; ``layer`` for a stacked artifact."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    kw = dict(pre_norm=pre, activation_bits=abits)
+    if layer is None:
+        return (lambda x, qt: dm.fused_quantized_matmul(x, qt, **kw),
+                lambda x, qt: dm.dequant_matmul_plain(x, qt, **kw))
+    return (lambda x, qt: dm.fused_quantized_matmul_stacked(x, qt, layer, **kw),
+            lambda x, qt: dm.dequant_matmul_plain(x, qt, layer=layer, **kw))
+
+
 def check_row_pass(torch, gen, device):
     """The int-activation kernels' row pass against the plain
     ``quantize_activations`` on the card: int8 planes and f32 row scales
@@ -724,14 +773,6 @@ def phase_a_kernels(torch, device, specs):
     per_kernel = {}
     eps = 1e-5
 
-    def runner(pre, abits, layer=None):
-        kw = dict(pre_norm=pre, activation_bits=abits)
-        if layer is None:
-            return (lambda x, qt: dm.fused_quantized_matmul(x, qt, **kw),
-                    lambda x, qt: dm.dequant_matmul_plain(x, qt, **kw))
-        return (lambda x, qt: dm.fused_quantized_matmul_stacked(x, qt, layer, **kw),
-                lambda x, qt: dm.dequant_matmul_plain(x, qt, layer=layer, **kw))
-
     for wbits, spec in specs.items():
         for name, k, widths, prenorm, per_step in MAIN_SHAPES:
             qt, spans = make_artifact(torch, gen, spec, k, widths, device)
@@ -745,7 +786,7 @@ def phase_a_kernels(torch, device, specs):
                     x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
                     timed = m in (DECODE_M, PREFILL_M)
                     rec = check_call(torch, f"{kname}:{name}:M={m}", qt, x,
-                                     *runner(pre, abits), w_lib if timed else None, abits)
+                                     *a_runner(pre, abits), w_lib if timed else None, abits)
                     rec.update(kernel=kname, shape=name, per_step=per_step,
                                stored_n=qt.qweight.shape[-1], spans=spans)
                     per_kernel.setdefault(kname, []).append(rec)
@@ -767,13 +808,79 @@ def phase_a_kernels(torch, device, specs):
         xb = x.to(torch.bfloat16)
         for abits in dm.ACTIVATION_BITS:
             kname = dm.kernel_name(qt, None, abits)
-            check_call(torch, f"{kname}:f32", qt, x, *runner(None, abits))
-            check_call(torch, f"{kname}:perchannel_sym", qt_pc, xb, *runner(None, abits))
-            check_call(torch, f"{kname}:k_pad", qt_kp, xb, *runner(None, abits))
-            check_call(torch, f"{kname}:stacked:layer=2", st, xb, *runner(None, abits, 2))
+            check_call(torch, f"{kname}:f32", qt, x, *a_runner(None, abits))
+            check_call(torch, f"{kname}:perchannel_sym", qt_pc, xb, *a_runner(None, abits))
+            check_call(torch, f"{kname}:k_pad", qt_kp, xb, *a_runner(None, abits))
+            check_call(torch, f"{kname}:stacked:layer=2", st, xb, *a_runner(None, abits, 2))
         del qt, qt_pc, qt_kp, st
         torch.cuda.empty_cache()
     return per_kernel, check_row_pass(torch, gen, device)
+
+
+# ------------------------------------------------------------- phase 12
+
+def phase_w3_kernels(torch, device, spec):
+    """The three s21 kernels against their plain versions: ``w3_matmul``
+    (bf16/f32 x), ``w3a8_matmul`` and ``w3a16_matmul`` (activation bits 8
+    and 16), at the five main-path shapes with down's K padded to 11264.
+    The kernels are timed alone; qkv and gate_up are then checked once with
+    ``pre_norm`` as the main path calls them (x normalized in torch before
+    ``w3_matmul``, in the row pass of the A-kernels)."""
+    from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL, PER_TENSOR, QuantSpec
+    from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    per_kernel = {}
+    eps = 1e-5
+    abits_all = (None,) + dm.ACTIVATION_BITS
+
+    for name, k, widths, prenorm, per_step in MAIN_SHAPES:
+        qt, spans = make_artifact(torch, gen, spec, k, widths, device, pad_k_to=W3_PAD_K)
+        w_lib = dequantize_weight(qt, torch.bfloat16)
+        for abits in abits_all:
+            kname = dm.kernel_name(qt, eps if prenorm else None, abits)
+            if not dm.kernel_supported(qt, abits) or kname not in KERNEL_SOURCES:
+                fail(f"{name}: no W3 kernel takes the artifact (activation bits {abits})")
+            for m in (DECODE_M, PREFILL_M) + WAVE_M:
+                x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+                timed = m in (DECODE_M, PREFILL_M)
+                rec = check_call(torch, f"{kname}:{name}:M={m}", qt, x, *a_runner(None, abits),
+                                 w_lib if timed else None, abits)
+                rec.update(kernel=kname, shape=name, per_step=per_step,
+                           stored_n=qt.qweight.shape[-1], spans=spans)
+                per_kernel.setdefault(kname, []).append(rec)
+            if prenorm:
+                x = torch.randn((DECODE_M, k), generator=gen, device=device).to(torch.bfloat16)
+                check_call(torch, f"{kname}:{name}:pre_norm", qt, x, *a_runner(eps, abits))
+        del qt, w_lib
+        torch.cuda.empty_cache()
+
+    # once per kernel at the down shape: an f32 x, the other side layouts
+    # and a stacked call (layer 2 of 3, side_pad=2)
+    others = {label: make_artifact(torch, gen, other, EXTRA_K, (EXTRA_N,), device,
+                                   pad_k_to=W3_PAD_K)[0]
+              for label, other in (
+                  ("g128_sym", QuantSpec(fmt="int", bits=3, group_size=128, symmetric=True)),
+                  ("perchannel_asym", QuantSpec(fmt="int", bits=3, group_size=PER_CHANNEL,
+                                                symmetric=False)),
+                  ("pertensor_sym", QuantSpec(fmt="int", bits=3, group_size=PER_TENSOR,
+                                              symmetric=True)))}
+    layers = [make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device,
+                            pad_k_to=W3_PAD_K)[0] for _ in range(3)]
+    st = stacked_of(torch, layers)
+    x = torch.randn((DECODE_M, EXTRA_K), generator=gen, device=device)
+    xb = x.to(torch.bfloat16)
+    for abits in abits_all:
+        kname = dm.kernel_name(layers[0], None, abits)
+        check_call(torch, f"{kname}:f32", layers[0], x, *a_runner(None, abits))
+        for label, qt in others.items():
+            check_call(torch, f"{kname}:{label}", qt, xb, *a_runner(None, abits))
+        check_call(torch, f"{kname}:stacked:layer=2", st, xb, *a_runner(None, abits, 2))
+    del others, layers, st
+    torch.cuda.empty_cache()
+    return per_kernel
 
 
 # --------------------------------------------------------------- report
@@ -818,7 +925,10 @@ def main() -> int:
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
 
-    print("== phase 1: build", flush=True)
+    def header(text: str) -> None:
+        print(f"{text} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    header("== phase 1: build")
     from iron_weight_only_quant_tpu_torch.config import QuantSpec
     from iron_weight_only_quant_tpu_torch.models.llama import LlamaConfig
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
@@ -843,57 +953,79 @@ def main() -> int:
     cfg = LlamaConfig.llama2_7b()
     tol = f"tolerance max|y-y_ref|/max|y_ref| <= {REL_TOL_BF16}, bf16 x"
 
-    print(f"== phase 2: W4 kernels vs plain versions ({tol})", flush=True)
+    header(f"== phase 2: W4 kernels vs plain versions ({tol})")
     per_kernel = phase_kernels(torch, device, w4, (dm.W4, dm.W4_PRENORM))
 
-    print("== phase 3: W4 two-layer 7B-width logits, kernels vs plain path", flush=True)
+    header("== phase 3: W4 two-layer 7B-width logits, kernels vs plain path")
     phase_two_layers(torch, device, w4, cfg)
 
-    print("== phase 4: 32-layer 7B-width W4 generate and serve", flush=True)
+    header("== phase 4: 32-layer 7B-width W4 generate and serve")
     res, serve_w4, params_w4 = phase_generate(torch, device, w4, cfg, card)
 
-    print(f"== phase 5: W8 kernels vs plain versions ({tol})", flush=True)
+    header(f"== phase 5: W8 kernels vs plain versions ({tol})")
     per_kernel.update(phase_kernels(
         torch, device, w8, (dm.W8, dm.W8_PRENORM),
         extra_specs=(("perchannel_sym", QuantSpec(fmt="int", bits=8,
                                                   group_size=PER_CHANNEL,
                                                   symmetric=True)),)))
 
-    print("== phase 6: W8 two-layer 7B-width logits, kernels vs plain path", flush=True)
+    header("== phase 6: W8 two-layer 7B-width logits, kernels vs plain path")
     phase_two_layers(torch, device, w8, cfg)
 
-    print("== phase 7: 32-layer 7B-width W8 serve", flush=True)
+    header("== phase 7: 32-layer 7B-width W8 serve")
     serve_w8, params_w8 = phase_w8_serve(torch, device, w8, cfg, card)
 
     tol_a = f"{tol}; {REL_TOL_F32} for f32 x"
-    print(f"== phase 8: int-activation kernels vs plain versions ({tol_a})", flush=True)
+    header(f"== phase 8: int-activation kernels vs plain versions ({tol_a})")
     per_kernel_a, row_pass_checks = phase_a_kernels(torch, device, {4: w4, 8: w8})
     per_kernel.update(per_kernel_a)
 
-    print("== phase 9: two-layer 7B-width logits under A8 and A16, kernels vs "
-          "plain path", flush=True)
+    header("== phase 9: two-layer 7B-width logits under A8 and A16, kernels vs "
+           "plain path")
     for spec in (w4, w8):
         phase_two_layers(torch, device, spec, cfg, abits_list=dm.ACTIVATION_BITS)
 
-    print("== phase 10: 32-layer 7B-width W4 serve, A8 waves, A16 decode", flush=True)
+    header("== phase 10: 32-layer 7B-width W4 serve, A8 waves, A16 decode")
     serve_w4_a = phase_serve(torch, params_w4, cfg, (dm.W4A8, dm.W4A16), SERVE_RUNS,
                              card, abits=(8, 16))
     del params_w4
     torch.cuda.empty_cache()
 
-    print("== phase 11: 32-layer 7B-width W8 serve, A16 waves, A8 decode", flush=True)
+    header("== phase 11: 32-layer 7B-width W8 serve, A16 waves, A8 decode")
     serve_w8_a = phase_serve(torch, params_w8, cfg, (dm.W8A16, dm.W8A8), SERVE_RUNS,
                              card, abits=(16, 8))
     del params_w8
     torch.cuda.empty_cache()
 
-    print("== phase 12: report", flush=True)
+    w3 = QuantSpec(fmt="int", bits=3, group_size=128, symmetric=False)
+    header(f"== phase 12: W3 kernels vs plain versions ({tol_a})")
+    per_kernel.update(phase_w3_kernels(torch, device, w3))
+
+    header("== phase 13: W3 two-layer 7B-width logits, kernels vs plain path "
+           "(bf16/f32 activations, A8, A16)")
+    phase_two_layers(torch, device, w3, cfg, abits_list=(None,) + dm.ACTIVATION_BITS,
+                     pad_k_to=W3_PAD_K)
+
+    header("== phase 14: 32-layer 7B-width W3 generate, serve, and serve with A8 waves, "
+           "A16 decode")
+    res_w3, serve_w3, params_w3 = phase_generate(
+        torch, device, w3, cfg, card, names=(dm.W3, dm.W3), label="W3",
+        pad_k_to=W3_PAD_K, serve_runs=SERVE_RUNS)
+    print("  -- W3 serve, A8 waves, A16 decode", flush=True)
+    serve_w3_a = phase_serve(torch, params_w3, cfg, (dm.W3A8, dm.W3A16), SERVE_RUNS,
+                             card, abits=(8, 16))
+    del params_w3
+    torch.cuda.empty_cache()
+
+    header("== phase 15: report")
     names_of = lambda run, names: {k: v for k, v in run["launches"].items()  # noqa: E731
                                    if k in names}
     launches = {**names_of(res, (dm.W4, dm.W4_PRENORM)),
                 **names_of(serve_w8, (dm.W8, dm.W8_PRENORM)),
                 **names_of(serve_w4_a, (dm.W4A8, dm.W4A16)),
-                **names_of(serve_w8_a, (dm.W8A8, dm.W8A16))}
+                **names_of(serve_w8_a, (dm.W8A8, dm.W8A16)),
+                **names_of(serve_w3, (dm.W3,)),
+                **names_of(serve_w3_a, (dm.W3A8, dm.W3A16))}
     rows = kernel_rows(per_kernel, launches)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"generate": {k: v for k, v in res.items() if k != "launches"}}))
@@ -901,6 +1033,9 @@ def main() -> int:
     print(json.dumps({"serve_w8": serve_w8}))
     print(json.dumps({"serve_w4_a8_waves_a16_decode": serve_w4_a}))
     print(json.dumps({"serve_w8_a16_waves_a8_decode": serve_w8_a}))
+    print(json.dumps({"generate_w3": {k: v for k, v in res_w3.items() if k != "launches"}}))
+    print(json.dumps({"serve_w3": serve_w3}))
+    print(json.dumps({"serve_w3_a8_waves_a16_decode": serve_w3_a}))
     print(json.dumps({"row_pass_bit_equal_calls": row_pass_checks}))
     print(card)
     print(json.dumps({"kernels": rows}))

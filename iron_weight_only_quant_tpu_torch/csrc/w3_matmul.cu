@@ -1,0 +1,34 @@
+// iwoq_w3_matmul: y = x @ dequant(qw), 3-bit s21-layout affine, bf16 or f32 x.
+// Replaces _int3_kernel (:467) with bf16/f32 x and its stacked form
+// _int3_kernel_pfx (:1360), called through _call_int3 (:1365), of
+// iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py.
+// Bound by bytes at decode: per launch, 3/8 byte per weight + f32 scales and
+// zeros + x + output, over 3.35 TB/s.  The design that answers it (one warp
+// per K slab, exact decode in registers, one read of each weight byte from
+// device memory per row tile, deterministic K-split) is described in
+// w3_common.cuh.  The signature is W4's (rnorm and eps unused: no prenorm
+// form), with Kp = Kb, the B rows.
+#include "w3_common.cuh"
+
+// x is [M, ldx] with ldx = 8 * Kb (the K padding already appended).
+extern "C" int iwoq_w3_matmul(const void* x, int x_bf16, int ldx, const void* qw,
+                              const void* s, long long s_rs, long long s_cs,
+                              const void* z, long long z_rs, long long z_cs,
+                              void* ws, void* rnorm, void* out, int M, int N,
+                              int n_out, int Kb, int G, int kc, int splits,
+                              int k_logical, float eps, void* stream) {
+  (void)rnorm;
+  (void)k_logical;
+  (void)eps;
+  if (M <= 0 || N <= 0 || N % iwoq::kColsPerThread || n_out > N || Kb <= 0 || G <= 0 ||
+      Kb % G || kc <= 0 || splits <= 0 || (long long)kc * splits < Kb ||
+      (long long)ldx != 8LL * Kb)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      x_bf16 ? iwoq::launch_w3_typed<__nv_bfloat16>(x, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs,
+                                                    ws, out, M, N, n_out, Kb, G, kc, splits, st)
+             : iwoq::launch_w3_typed<float>(x, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws, out,
+                                            M, N, n_out, Kb, G, kc, splits, st);
+  return (int)err;
+}

@@ -1,0 +1,24 @@
+// iwoq_w3a16_matmul: y = sx * (quantize(x) @ dequant(qw)), 3-bit s21-layout affine weights,
+// split-plane 16-bit activations (A16: x ~= sx * (256 * hi + lo), two int8 planes);
+// bf16 or f32 x, quantized per row by the row pass of the same call.
+// Replaces _int3_kernel_a16 (:533) (_group_accum_a16 :253-286), called through
+// _call_int3 (:1365) from :1572, and its stacked form _int3_kernel_a16_pfx
+// (:588, from :1794) of iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py.
+// Bound by bytes at decode: per launch, 3/8 byte per weight + f32 scales
+// and zeros + two int8 planes of x + output, over 3.35 TB/s; at prefill M by
+// 2 * 2*M*K*N int8 operations over 1,979 TOP/s.
+// The design (row pass, one warp per K slab, __dp4a per plane with each
+// plane's int32 sum turned f32 before the 256 recombination, deterministic
+// K-split) is described in wa_common.cuh and w3_common.cuh.  Kp = Kb, the B rows.
+#include "wa_common.cuh"
+
+extern "C" int iwoq_w3a16_matmul(const void* x, int x_bf16, int k_logical, int norm,
+                                 float eps, const void* qw, const void* s, long long s_rs,
+                                 long long s_cs, const void* z, long long z_rs,
+                                 long long z_cs, void* xq, void* sx, void* ws, void* out,
+                                 int M, int N, int n_out, int Kp, int G, int kc, int splits,
+                                 void* stream) {
+  return iwoq::launch_wa<iwoq::kS21, 2>(x, x_bf16, k_logical, norm, eps, qw, s, s_rs, s_cs,
+                                        z, z_rs, z_cs, xq, sx, ws, out, M, N, n_out, Kp,
+                                        G, kc, splits, stream);
+}

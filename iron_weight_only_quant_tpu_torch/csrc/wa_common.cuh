@@ -1,7 +1,7 @@
 // Int-activation dequant-matmul for Hopper (sm_90a):
 //   y[M,N] = sx[M] * (quantize(x)[M,K] @ dequant(qw)[K,N]),
-// int8 activation planes against the packed int4 (nib4) or int8 (byte)
-// weight codes, one __dp4a per four K values.
+// int8 activation planes against the packed int4 (nib4), int8 (byte) or
+// 3-bit (s21) weight codes, one __dp4a per four K values.
 //
 // Replaces the int-activation paths of the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -11,7 +11,10 @@
 //       (:1717);
 //   A16 (two planes): _int4_kernel_a16 (:418), _int8_kernel_a16 (:449)
 //       (_group_accum_a16 :253-286); stacked forms _int4_kernel_a16_pfx
-//       (:1722), _int8_kernel_a16_pfx (:1727).
+//       (:1722), _int8_kernel_a16_pfx (:1727);
+//   s21 3-bit: _int3_kernel (:467) with int8 x (A8) and _int3_kernel_a16
+//       (:533) (A16), stacked forms _int3_kernel_pfx (:1360) and
+//       _int3_kernel_a16_pfx (:588), all through _call_int3 (:1365).
 // The stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.  The JAX package quantized the
 // activations in XLA (_prep_x :1270-1316); here a row pass of the same
@@ -30,7 +33,7 @@
 //     the codes are bit-equal to the plain version's.  Writes the int8
 //     planes [PLANES, M, K_stored] (zero K-pad columns appended after
 //     quantizing, so the row max sees only the real columns) and sx [M].
-//  2. wa_partial_kernel: the W4 kernel's grid (w4_common.cuh: 128 columns x
+//  2. wa_partial_kernel (nib4, byte): the W4 kernel's grid (w4_common.cuh: 128 columns x
 //     8 rows per block, eight warps splitting the block's K range, a grid
 //     K-split).  Each thread loads four packed rows of its four columns with
 //     32-bit loads, transposes the 4x4 bytes with __byte_perm into four
@@ -48,6 +51,13 @@
 //     sum is at most 127 * 128 * G < 2^31 for groups G up to 131072, the
 //     A16 activation sum 256*sum(hi) + sum(lo) at most 32640 * G < 2^31
 //     for G up to 65793 (a per-channel group spans K, or each nib4 half).
+//     wa_s21_partial_kernel (s21, the third layout case): the same grid with
+//     W3's warp-per-slab split (w3_common.cuh): warp i walks the block's B
+//     rows four at a time, transposes four A words (rows (i % 2) * Kb + r..)
+//     and four B words (rows 2 Kb + r..) into per-column words, assembles
+//     slab i's four K-consecutive codes (field i / 2, un-flipped, plus 4 *
+//     bit i) and runs the same __dp4a sums and per-group epilogue against
+//     slab i's activations (K = i * Kb + r..).
 //  3. the W4 reduce (w4_reduce_kernel with the row factor): the fixed-order
 //     K-split sum, times sx in f32, cast to x's type -- _finish's order.
 //
@@ -60,12 +70,14 @@
 // An mma.sync s8.s8.s32 or wgmma path for M >= 64 is later work.
 #pragma once
 
-#include "w4_common.cuh"
+#include "w3_common.cuh"
 
 namespace iwoq {
 
+enum Layout { kNib4 = 0, kByte = 1, kS21 = 2 };  // packed weight layouts
 constexpr int kRowThreads = 256;  // threads of the row pass, one block per row
 constexpr int kStageA = 512;      // packed K rows of int8 x staged at a time
+constexpr int kStageA3 = 256;     // s21: B rows of int8 x staged at a time (all slabs)
 
 __device__ __forceinline__ float round_to(float v, float) { return v; }
 __device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
@@ -278,6 +290,128 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   store_partials(acc, smem, ws, m0, M, N);
 }
 
+// Partial products of one (N-tile, M-tile, K-split) block into ws for the
+// s21 layout.  xq: int8 planes [PLANES, M, ldq], ldq = 8 * Kb; slab i's
+// activations for B row r sit at K = i * Kb + r.
+template <int PLANES>
+__global__ void __launch_bounds__(kThreads)
+wa_s21_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
+                      const uint32_t* __restrict__ qw,  // [3 Kb, N/4] words
+                      const float* __restrict__ s, long long s_rs, long long s_cs,
+                      const float* __restrict__ z, long long z_rs, long long z_cs,
+                      float* __restrict__ ws, int N, int Kb, int G, int kc) {
+  constexpr int kStage4 = kStageA3 / 4;
+  static_assert(kSlabs * PLANES * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
+                "the x stage must fit in the reduction buffer");
+  __shared__ __align__(16) float smem[kKWarps * kTileM * kBlockN];
+  int* xs = reinterpret_cast<int*>(smem);  // [kSlabs][PLANES][kStage4][kTileM] words
+  const int lane = threadIdx.x;
+  const int slab = threadIdx.y;
+  const int tid = slab * kLanes + lane;
+  const int n0 = blockIdx.x * kBlockN + lane * kColsPerThread;
+  const bool active = n0 < N;
+  const int m0 = blockIdx.y * kTileM;
+  const int k0 = blockIdx.z * kc;
+  const int k1 = min(Kb, k0 + kc);
+  const int words_per_row = N / kColsPerThread;
+  const int col_word = n0 / kColsPerThread;
+  const uint32_t* qa = qw + (size_t)(slab & 1) * Kb * words_per_row;  // A rows of this slab
+  const uint32_t* qb = qw + (size_t)2 * Kb * words_per_row;           // B rows
+  const int grow0 = slab * (Kb / G);  // first group row of this slab
+
+  float acc[kTileM][kColsPerThread];
+#pragma unroll
+  for (int m = 0; m < kTileM; ++m)
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) acc[m][j] = 0.f;
+
+  for (int c0 = k0; c0 < k1; c0 += kStageA3) {
+    const int rows4 = min(kStageA3, k1 - c0) / 4;  // k0, k1 and c0 are multiples of 4
+    __syncthreads();
+    for (int i = tid; i < kSlabs * PLANES * kTileM * rows4; i += kThreads) {
+      const int w = i % rows4;  // fastest: coalesced reads of an x row
+      const int m = (i / rows4) % kTileM;
+      const int sp = i / (rows4 * kTileM);  // slab * PLANES + p
+      const int sl = sp / PLANES, p = sp % PLANES;
+      int v = 0;
+      if (m0 + m < M)
+        v = *reinterpret_cast<const int*>(
+            xq + ((size_t)p * M + m0 + m) * ldq + (size_t)sl * Kb + c0 + 4 * w);
+      xs[(sp * kStage4 + w) * kTileM + m] = v;
+    }
+    __syncthreads();
+
+    if (active) {
+      int r = c0;
+      const int r_end = c0 + 4 * rows4;
+      while (r < r_end) {
+        const int g = r / G;
+        const int seg_end = min(r_end, (g + 1) * G);
+        const long long gr = grow0 + g;
+        float sg[kColsPerThread], zg[kColsPerThread];
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j) {
+          const long long c = (long long)(n0 + j);
+          sg[j] = __ldg(s + gr * s_rs + c * s_cs);
+          zg[j] = __ldg(z + gr * z_rs + c * z_cs);
+        }
+        int ia[PLANES][kTileM][kColsPerThread];
+        int isum[kTileM];
+#pragma unroll
+        for (int m = 0; m < kTileM; ++m) {
+          isum[m] = 0;
+#pragma unroll
+          for (int p = 0; p < PLANES; ++p)
+#pragma unroll
+            for (int j = 0; j < kColsPerThread; ++j) ia[p][m][j] = 0;
+        }
+        for (; r < seg_end; r += 4) {
+          uint32_t wa[4], wb[4], ca[4], cb[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            wa[t] = __ldg(qa + (size_t)(r + t) * words_per_row + col_word);
+            wb[t] = __ldg(qb + (size_t)(r + t) * words_per_row + col_word);
+          }
+          transpose4x4(wa, ca);
+          transpose4x4(wb, cb);
+          int code[kColsPerThread];
+#pragma unroll
+          for (int j = 0; j < kColsPerThread; ++j) code[j] = (int)s21_codes(ca[j], cb[j], slab);
+          const int w4 = (r - c0) / 4;
+#pragma unroll
+          for (int p = 0; p < PLANES; ++p) {
+            const int4* x4 = reinterpret_cast<const int4*>(
+                xs + ((slab * PLANES + p) * kStage4 + w4) * kTileM);
+            const int4 a0 = x4[0], a1 = x4[1];
+            const int xv[kTileM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+            for (int m = 0; m < kTileM; ++m) {
+              const int xsum4 = __dp4a(xv[m], 0x01010101, 0);
+              isum[m] += (PLANES == 2 && p == 0) ? 256 * xsum4 : xsum4;
+#pragma unroll
+              for (int j = 0; j < kColsPerThread; ++j)
+                ia[p][m][j] = __dp4a(xv[m], code[j], ia[p][m][j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kTileM; ++m) {
+          const float xsum = (float)isum[m];
+#pragma unroll
+          for (int j = 0; j < kColsPerThread; ++j) {
+            const float part = PLANES == 2
+                ? (float)ia[0][m][j] * 256.f + (float)ia[PLANES - 1][m][j]
+                : (float)ia[0][m][j];
+            acc[m][j] = acc[m][j] + part * sg[j] - xsum * (sg[j] * zg[j]);
+          }
+        }
+      }
+    }
+  }
+
+  store_partials(acc, smem, ws, m0, M, N);
+}
+
 template <typename XT, int PLANES>
 cudaError_t launch_quantize_rows(const void* x, int k_logical, int k_stored, int norm,
                                  float eps, void* xq, void* sx, int M,
@@ -306,14 +440,15 @@ cudaError_t quantize_rows(const void* x, int x_bf16, int k_logical, int k_stored
 
 // The whole call: row pass, partial products, reduce.  x is [M, k_logical]
 // contiguous; xq [PLANES, M, K_stored] int8 and sx [M] f32 are scratch from
-// the wrapper, as is ws [splits, M, N].
-template <bool NIB4, int PLANES>
+// the wrapper, as is ws [splits, M, N].  Kp is the number of packed rows the
+// kernel walks: K/2 (nib4), K (byte), or the B rows Kb = K/8 (s21).
+template <int LAYOUT, int PLANES>
 int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
               const void* qw, const void* s, long long s_rs, long long s_cs,
               const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
               void* ws, void* out, int M, int N, int n_out, int Kp, int G, int kc,
               int splits, void* stream) {
-  const int k_stored = NIB4 ? 2 * Kp : Kp;
+  const int k_stored = LAYOUT == kNib4 ? 2 * Kp : LAYOUT == kS21 ? 8 * Kp : Kp;
   if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 || Kp % 4 ||
       G <= 0 || G % 4 || Kp % G || kc <= 0 || kc % 4 || splits <= 0 ||
       (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored)
@@ -324,10 +459,16 @@ int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
   if (err != cudaSuccess) return (int)err;
   const dim3 block(kLanes, kKWarps);
   const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kTileM - 1) / kTileM, splits);
-  wa_partial_kernel<NIB4, PLANES><<<grid, block, 0, st>>>(
-      static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
-      static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
-      z_cs, static_cast<float*>(ws), N, Kp, G, kc);
+  if constexpr (LAYOUT == kS21)
+    wa_s21_partial_kernel<PLANES><<<grid, block, 0, st>>>(
+        static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
+        static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
+        z_cs, static_cast<float*>(ws), N, Kp, G, kc);
+  else
+    wa_partial_kernel<LAYOUT == kNib4, PLANES><<<grid, block, 0, st>>>(
+        static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
+        static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
+        z_cs, static_cast<float*>(ws), N, Kp, G, kc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = x_bf16 ? launch_reduce<true, __nv_bfloat16>(ws, sx, out, M, N, n_out, splits, st)

@@ -1,26 +1,32 @@
 """Dequant-matmul: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``ops/pallas/dequant_matmul.py`` in the JAX package.  Eight
+Counterpart of ``ops/pallas/dequant_matmul.py`` in the JAX package.  Eleven
 hand-written CUDA kernels compute ``y = x @ dequant(qt)`` for affine
-artifacts with f32 side info, four per storage layout:
+artifacts with f32 side info, per storage layout:
 
   nib4 (int4):  ``csrc/w4_matmul.cu``, ``csrc/w4_matmul_prenorm.cu``
                 (design notes in ``csrc/w4_common.cuh``),
                 ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``;
   byte (int8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
                 (design notes in ``csrc/w8_common.cuh``),
-                ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu``.
+                ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu``;
+  s21 (3-bit):  ``csrc/w3_matmul.cu`` (design notes in
+                ``csrc/w3_common.cuh``), ``csrc/w3a8_matmul.cu``,
+                ``csrc/w3a16_matmul.cu``.
 
-The first two of each take bf16/f32 activations, the second of them with
-the weightless RMSNorm ``r = rsqrt(mean(x^2) + eps)`` applied to the f32
-sum.  The ``a8``/``a16`` kernels (design notes in ``csrc/wa_common.cuh``)
-take ``activation_bits`` 8 or 16: a row pass quantizes x to one int8
-plane (A8, ``sx = absmax/127``) or two (A16, ``x ~= sx*(256*hi + lo)``,
-``sx = absmax/32512``), the product runs on integer codes, and the f32
-result is scaled by the row's ``sx``.  Under activation bits a ``pre_norm``
-is applied to x before quantizing (in the row pass), as the JAX package
-does, so no prenorm kernel runs.  The layer-stacked entry point reuses the
-kernels with the layer as a pointer offset.
+The ``w4``/``w8``/``w3`` kernels take bf16/f32 activations; the nib4 and
+byte layouts also have a prenorm kernel, which applies the weightless
+RMSNorm ``r = rsqrt(mean(x^2) + eps)`` to the f32 sum.  The s21 layout has
+none, as in the JAX package (``prenorm_supported``): a ``pre_norm``
+normalizes x first (:func:`_rms_nogamma`, cast back to x's type), then the
+``w3`` kernel runs.  The ``a8``/``a16`` kernels (design notes in
+``csrc/wa_common.cuh``) take ``activation_bits`` 8 or 16: a row pass
+quantizes x to one int8 plane (A8, ``sx = absmax/127``) or two (A16, ``x ~=
+sx*(256*hi + lo)``, ``sx = absmax/32512``), the product runs on integer
+codes, and the f32 result is scaled by the row's ``sx``.  Under activation
+bits a ``pre_norm`` is applied to x before quantizing (in the row pass), as
+the JAX package does, so no prenorm kernel runs.  The layer-stacked entry
+point reuses the kernels with the layer as a pointer offset.
 
 Dispatch is by the activation's device: a CPU tensor takes the plain
 PyTorch version (:func:`dequant_matmul_plain`), a CUDA tensor launches the
@@ -55,10 +61,15 @@ W4A8 = "w4a8_matmul"
 W4A16 = "w4a16_matmul"
 W8A8 = "w8a8_matmul"
 W8A16 = "w8a16_matmul"
+W3 = "w3_matmul"
+W3A8 = "w3a8_matmul"
+W3A16 = "w3a16_matmul"
 ACTIVATION_BITS = (8, 16)
-# packed storage bits -> (kernel, prenorm kernel, A8 kernel, A16 kernel)
-_KERNELS = {4: (W4, W4_PRENORM, W4A8, W4A16), 8: (W8, W8_PRENORM, W8A8, W8A16)}
-LAUNCHES: Dict[str, int] = {name: 0 for names in _KERNELS.values() for name in names}
+# packed storage bits -> (kernel, prenorm kernel or None, A8 kernel, A16 kernel)
+_KERNELS = {4: (W4, W4_PRENORM, W4A8, W4A16), 8: (W8, W8_PRENORM, W8A8, W8A16),
+            3: (W3, None, W3A8, W3A16)}
+LAUNCHES: Dict[str, int] = {name: 0 for names in _KERNELS.values() for name in names
+                            if name is not None}
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 
 _ARGTYPES = [
@@ -96,20 +107,35 @@ def reset_counts() -> None:
             d[k] = 0
 
 
+def _names(qt: QuantizedTensor):
+    """The ``_KERNELS`` entry of ``qt``'s storage layout (None: no kernel)."""
+    return _KERNELS.get(packed_bits(qt)) if qt.mode == "affine" else None
+
+
 def kernel_name(qt: QuantizedTensor, pre_norm: Optional[float] = None,
                 activation_bits: Optional[int] = None) -> Optional[str]:
     """The kernel that takes ``qt``'s storage layout (None: no kernel).
 
     Under ``activation_bits`` (8 or 16) the int-activation kernel of the
     layout runs and ``pre_norm`` does not pick a kernel: the norm is
-    applied to x before quantizing.
+    applied to x before quantizing.  A layout without a prenorm kernel
+    (s21) names its flat kernel for a ``pre_norm`` too: x is normalized
+    before it runs.
     """
-    names = _KERNELS.get(packed_bits(qt)) if qt.mode == "affine" else None
+    names = _names(qt)
     if names is None:
         return None
     if activation_bits is not None:
         return names[2 + ACTIVATION_BITS.index(activation_bits)]
-    return names[pre_norm is not None]
+    return names[1] if pre_norm is not None and names[1] else names[0]
+
+
+def prenorm_supported(qt: QuantizedTensor) -> bool:
+    """Whether a kernel applies ``pre_norm`` in its epilogue for this
+    artifact (the nib4 and byte layouts, as ``prenorm_supported`` of the JAX
+    package); elsewhere x is normalized first."""
+    names = _names(qt)
+    return names is not None and names[1] is not None
 
 
 def a16_supported(qt: QuantizedTensor) -> bool:
@@ -121,11 +147,12 @@ def a16_supported(qt: QuantizedTensor) -> bool:
 
 def _group_size(qt: QuantizedTensor, rows: int) -> int:
     """K columns per side row as the kernel walks them (nib4: a group never
-    straddles the two K halves; ``_nib4_groups`` splits those that do)."""
-    ks = qt.k_stored
-    if packed_bits(qt) != 4:
+    straddles the two K halves; ``_nib4_groups`` splits those that do; s21:
+    one side row spans the K/8 rows of a slab or divides them)."""
+    ks, bits = qt.k_stored, packed_bits(qt)
+    if bits not in (3, 4):
         return ks // rows
-    kp = ks // 2
+    kp = ks // 2 if bits == 4 else ks // 8
     return kp if rows == 1 else math.gcd(ks // rows, kp)
 
 
@@ -142,6 +169,8 @@ def _layout_supported(qt: QuantizedTensor, rows: int,
         return False
     if packed_bits(qt) == 4 and ks % 2:
         return False
+    if packed_bits(qt) == 3 and (ks % 8 or (rows > 1 and (ks // 8) % (ks // rows))):
+        return False  # a group must not straddle two K slabs (as _layout3_supported)
     if activation_bits is not None and (activation_bits not in ACTIVATION_BITS
                                         or _group_size(qt, rows) % 4):
         return False  # __dp4a takes K four at a time (the group divides K)
@@ -241,9 +270,13 @@ def dequant_matmul_plain(x: torch.Tensor, qt: QuantizedTensor,
     """Plain PyTorch version of the kernels, for any packed layout.
 
     Without ``activation_bits``: ``dequantize_weight`` in f32, an f32
-    matmul, then (``pre_norm``) the row factor ``rsqrt(mean(x^2) + eps)``
-    over the logical K applied to the f32 result, then a cast to
-    ``x.dtype`` -- the order of the kernels' epilogue.  With
+    matmul, then a cast to ``x.dtype``.  A ``pre_norm`` on a layout with a
+    prenorm kernel (nib4, byte) applies the row factor ``rsqrt(mean(x^2) +
+    eps)`` over the logical K to the f32 result before the cast -- the
+    order of that kernel's epilogue; on any other layout (s21, and those
+    without a kernel) it normalizes x first (:func:`_rms_nogamma`, cast
+    back to ``x.dtype``), as the JAX package does where no prenorm kernel
+    exists (``fused_quantized_matmul``'s fallback and the XLA path).  With
     ``activation_bits`` (affine artifacts): ``pre_norm`` normalizes x first,
     then :func:`quantize_activations`, K padding, and
     :func:`int_matmul_plain`.  ``layer`` selects one layer of a stacked
@@ -253,9 +286,11 @@ def dequant_matmul_plain(x: torch.Tensor, qt: QuantizedTensor,
     if name is not None:
         PLAIN_CALLS[name] += 1
     qt = qt if layer is None else index_stacked(qt, layer)
+    if pre_norm is not None and (activation_bits is not None
+                                 or not prenorm_supported(qt)):
+        x = _rms_nogamma(x, pre_norm)
+        pre_norm = None
     if activation_bits is not None:
-        if pre_norm is not None:
-            x = _rms_nogamma(x, pre_norm)
         planes, sx = quantize_activations(x.reshape(-1, qt.shape[0]), activation_bits)
         if qt.k_pad:
             planes = torch.nn.functional.pad(planes, (0, qt.k_pad))
@@ -331,6 +366,16 @@ def _byte_groups(ks: int, kp: int, rows: int) -> int:
     return ks // rows
 
 
+def _s21_groups(ks: int, kb: int, rows: int) -> int:
+    """Group size for the s21 layout, in B rows: B row r of slab i holds K
+    column i*Kb + r, so the kernel needs G | Kb (per-channel: G = Kb)."""
+    _check(ks == 8 * kb, f"x has {ks} columns, the s21 artifact stores {8 * kb}")
+    _check(ks % rows == 0, f"{rows} side rows do not divide K={ks}")
+    g = kb if rows == 1 else ks // rows
+    _check(kb % g == 0, f"group {g} straddles the K/8 = {kb} slabs of the s21 layout")
+    return g
+
+
 def _load_fn(name: str, symbol: str, argtypes):
     from .build import load
 
@@ -352,18 +397,25 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
             rows: int, k_logical: int, n_out: int,
             activation_bits: Optional[int] = None) -> torch.Tensor:
     """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
-    if ``pre_norm``, its int-activation form if ``activation_bits``.
+    if ``pre_norm`` (nib4, byte), its int-activation form if
+    ``activation_bits``.
 
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
     """
     names = _KERNELS[bits]
+    _check(pre_norm is None or activation_bits is not None or names[1] is not None,
+           f"the {bits}-bit layout has no prenorm kernel: normalize x first")
     name = (names[pre_norm is not None] if activation_bits is None
             else names[2 + ACTIVATION_BITS.index(activation_bits)])
     dev = x2.device
     m = x2.shape[0]
     kp, n = qw.shape
-    ks = x2.shape[1] if activation_bits is None else (2 * kp if bits == 4 else kp)
+    if bits == 3:  # the kernel walks the B rows (stored rows 2Kb..3Kb)
+        _check(kp % 3 == 0, f"an s21 artifact stores 3*K/8 rows, not {kp}")
+        kp //= 3
+    # stored K: 2 columns a packed row (nib4), 8 a B row (s21), 1 (byte)
+    ks = x2.shape[1] if activation_bits is None else {4: 2, 3: 8}.get(bits, 1) * kp
     _check(x2.dtype in (torch.bfloat16, torch.float32),
            f"x dtype {x2.dtype} is not bfloat16 or float32")
     for name_, t in (("qweight", qw), ("scales", scales), ("zeros", zeros)):
@@ -380,6 +432,8 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
                f"x has {x2.shape[1]} columns, the artifact K={k_logical}")
     if bits == 4:
         g, rows, scales, zeros = _nib4_groups(ks, kp, rows, scales, zeros)
+    elif bits == 3:
+        g = _s21_groups(ks, kp, rows)
     else:
         g = _byte_groups(ks, kp, rows)
     s2, s_rs, s_cs = _side_view(scales, rows)
@@ -463,11 +517,13 @@ def _unsupported(qt: QuantizedTensor,
     what = "" if activation_bits is None else f" with activation_bits={activation_bits}"
     return NotImplementedError(
         f"no CUDA kernel yet for this artifact{what} (mode={qt.mode}, "
-        f"{packed_bits(qt)}-bit storage, k_shards={qt.k_shards}, side dtype "
-        f"{qt.scales.dtype}); ported so far: affine nib4 (int4) and byte "
-        "(int8) layouts with f32 side info and k_shards=1, with bf16/f32 "
-        "activations or activation_bits 8/16 (group size a multiple of 4). "
-        "See ROADMAP queue B for the kernels still to port")
+        f"{packed_bits(qt)}-bit storage, K={qt.k_stored}, side rows "
+        f"{qt.scales.shape[-2]}, k_shards={qt.k_shards}, side dtype "
+        f"{qt.scales.dtype}); ported so far: affine nib4 (int4), byte (int8) "
+        "and s21 (3-bit, groups that do not straddle the K/8 slabs) layouts "
+        "with f32 side info and k_shards=1, with bf16/f32 activations or "
+        "activation_bits 8/16 (group size a multiple of 4). See ROADMAP "
+        "queue B for the kernels still to port")
 
 
 def _check_activation_bits(qt: QuantizedTensor, activation_bits: Optional[int]) -> None:
@@ -489,7 +545,8 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
     """``y = x @ dequant(qt)`` for ``x`` ``[..., K]``, output in ``x.dtype``.
 
     ``pre_norm`` (the RMS eps) applies the weightless RMSNorm in the
-    kernel's epilogue; the norm's gamma must already be folded into the
+    kernel's epilogue (nib4, byte) or to x before the kernel (s21, as the
+    JAX package does); the norm's gamma must already be folded into the
     weights (``models.llama.fold_llama_norms``).  ``activation_bits`` 8 or
     16 quantizes x per row first and runs the int-activation kernel; a
     ``pre_norm`` then normalizes x before it is quantized.
@@ -501,6 +558,8 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
         raise NotImplementedError(f"no dequant-matmul for device {x.device}")
     if not kernel_supported(qt, activation_bits):
         raise _unsupported(qt, activation_bits)
+    if pre_norm is not None and activation_bits is None and not prenorm_supported(qt):
+        x, pre_norm = _rms_nogamma(x, pre_norm), None
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
                   qt.qweight, qt.scales, qt.zeros, qt.scales.shape[0], qt.shape[0],
                   qt.shape[1], activation_bits)
@@ -528,6 +587,8 @@ def fused_quantized_matmul_stacked(x: torch.Tensor, qt: QuantizedTensor,
         raise _unsupported(qt, activation_bits)
     if not 0 <= layer < qt.qweight.shape[0]:
         raise IndexError(f"layer {layer} of a {qt.qweight.shape[0]}-layer artifact")
+    if pre_norm is not None and activation_bits is None and not prenorm_supported(qt):
+        x, pre_norm = _rms_nogamma(x, pre_norm), None
     rows = qt.scales.shape[1] - qt.side_pad
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
                   qt.qweight[layer], qt.scales[layer], qt.zeros[layer], rows,

@@ -4,9 +4,9 @@
 ``dequantize_weight`` followed by a matmul is the correctness oracle.
 ``quantized_matmul`` goes to ``ops/kernels/dequant_matmul.py``: on a CPU
 tensor that takes the plain PyTorch version, on a CUDA tensor it launches a
-hand-written kernel (affine int4 nib4 and int8 byte layouts with f32 side
-info so far, with bf16/f32 activations or int8/A16 ones) or raises for a
-layout that has no kernel yet.  ``activation_quant`` sets the activation
+hand-written kernel (affine int4 nib4, int8 byte and 3-bit s21 layouts with
+f32 side info so far, with bf16/f32 activations or int8/A16 ones) or raises
+for a layout that has no kernel yet.  ``activation_quant`` sets the activation
 bits that calls without an explicit ``activation_bits`` use, as in the
 reference; the engine wraps its prefill and decode phases in it.
 """
@@ -112,7 +112,9 @@ def quantized_matmul(
     """``y = x @ dequant(qt) (+ bias)``, cast to ``x.dtype``.
 
     ``pre_norm`` (the RMS eps) applies a weightless RMSNorm to x, inside the
-    kernel on the card; the norm gamma must be folded into the weights.
+    kernel on the card where the layout has a prenorm kernel (nib4, byte),
+    else to x first (s21, as the JAX package does); the norm gamma must be
+    folded into the weights.
     ``activation_bits`` (None: the ambient ``activation_quant`` setting)
     quantizes x per row to int8 (8) or two int8 planes (16) first; LUT
     artifacts refuse it.  The bias is added before the final cast, as in

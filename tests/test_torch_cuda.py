@@ -8,11 +8,13 @@ reason.  They run without the JAX package's conftest:
 Shapes are small and chosen for the edges: M not a multiple of the row tile,
 N padding, K padding, group rows that straddle the two K halves of the
 nibble layout, per-channel and per-tensor side info, float32 and bfloat16 x.
-The W4 (nib4) and W8 (byte) kernels run the same grid, with bf16/f32
-activations and with int8 (A8) or split-plane (A16) ones; the int-activation
-row pass must give the plain version's codes bit for bit.  The serve loop's
-KV write, a wave and a chunk (also under activation bits) and tiny ``serve``
-runs are checked for host syncs, launch counts and repeatability.
+The W4 (nib4), W8 (byte) and W3 (s21) kernels run the same grid, with
+bf16/f32 activations and with int8 (A8) or split-plane (A16) ones; the W3
+shapes keep K/8 a multiple of the group (K=512 with g64 or per-channel side
+info, which the TPU kernel refuses, included); the int-activation row pass
+must give the plain version's codes bit for bit.  The serve loop's KV write,
+a wave and a chunk (also under activation bits, and on a W3 model) and tiny
+``serve`` runs are checked for host syncs, launch counts and repeatability.
 """
 
 import dataclasses
@@ -45,6 +47,14 @@ SHAPES = {  # (K, N, quantize_tensor kwargs)
     "1408x128_straddle": (1408, 128, {}),
     "384x256_kpad": (384, 256, dict(pad_k_to=512)),
 }
+# the s21 layout needs the group to divide K/8 (a slab)
+SHAPES3 = {
+    "1024x256": (1024, 256, {}),
+    "1024x300_npad": (1024, 300, dict(pad_n_to=512)),
+    "3072x128": (3072, 128, {}),
+    "896x256_kpad": (896, 256, dict(pad_k_to=1024)),
+}
+W3_SPEC = dataclasses.replace(SPECS["g128_asym"], bits=3)
 
 
 @pytest.fixture(scope="module")
@@ -65,6 +75,14 @@ def _artifact(dev, k, n, spec, seed=0, bits=None, **kw):
     g.manual_seed(seed)
     w = torch.randn((k, n), generator=g, device=dev) * 0.05
     return quantize_tensor(w, spec, **kw)
+
+
+def _stacked(qts):
+    """Layer-stacked artifact of ``qts``, side info padded by 5 rows."""
+    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 5))  # noqa: E731
+    return qts[0].replace(qweight=torch.stack([q.qweight for q in qts]),
+                          scales=torch.stack([pad(q.scales) for q in qts]),
+                          zeros=torch.stack([pad(q.zeros) for q in qts]), side_pad=5)
 
 
 def _x(dev, shape, dtype, seed=1):
@@ -114,46 +132,104 @@ def test_stacked_kernel_reads_the_layer_in_place(dev, layer, kern):
     bits, pre_norm, _ = kern
     qts = [_artifact(dev, 1408, 256, SPECS["g128_asym"], seed=10 + i, bits=bits)
            for i in range(3)]
-    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 5))  # noqa: E731
-    st = qts[0].replace(qweight=torch.stack([q.qweight for q in qts]),
-                        scales=torch.stack([pad(q.scales) for q in qts]),
-                        zeros=torch.stack([pad(q.zeros) for q in qts]), side_pad=5)
+    st = _stacked(qts)
     assert dm.kernel_supported_stacked(st)
     x = _x(dev, (8, 1408), torch.float32)
     y = dm.fused_quantized_matmul_stacked(x, st, layer, pre_norm=pre_norm)
     _close(y, dm.dequant_matmul_plain(x, qts[layer], pre_norm), torch.float32)
 
 
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 3, 17])
+@pytest.mark.parametrize("shape", list(SHAPES3), ids=list(SHAPES3))
+def test_w3_kernel_matches_plain_shapes(dev, shape, m, dtype, pre_norm):
+    """The s21 kernel; a ``pre_norm`` normalizes x in torch before it."""
+    k, n, kw = SHAPES3[shape]
+    qt = _artifact(dev, k, n, W3_SPEC, **kw)
+    assert dm.kernel_supported(qt) and dm.kernel_name(qt, pre_norm) == dm.W3
+    x = _x(dev, (m, k), dtype) * 3
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
+    assert dm.LAUNCHES[dm.W3] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close(y, dm.dequant_matmul_plain(x, qt, pre_norm), dtype)
+
+
+@pytest.mark.parametrize("spec", list(SPECS), ids=list(SPECS))
+def test_w3_kernel_matches_plain_side_layouts(dev, spec):
+    qt = _artifact(dev, 1024, 256, SPECS[spec], seed=2, bits=3)
+    x = _x(dev, (2, 4, 1024), torch.float32)
+    y = dm.fused_quantized_matmul(x, qt)
+    assert y.shape == (2, 4, 256)
+    _close(y, dm.dequant_matmul_plain(x, qt), torch.float32)
+
+
+@pytest.mark.parametrize("abits", [None, 8, 16], ids=["w3", "w3a8", "w3a16"])
+@pytest.mark.parametrize("spec", ["g64_asym", "perchannel_sym"])
+def test_w3_kernels_take_k_the_tpu_kernel_refuses(dev, spec, abits):
+    """K=512: K/8 = 64 is not a multiple of the TPU's 128-row tile."""
+    qt = _artifact(dev, 512, 256, SPECS[spec], seed=3, bits=3)
+    assert dm.kernel_supported(qt, abits)
+    x = _x(dev, (5, 512), torch.float32)
+    y = dm.fused_quantized_matmul(x, qt, activation_bits=abits)
+    _close(y, dm.dequant_matmul_plain(x, qt, activation_bits=abits), torch.float32)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_w3_stacked_kernel_reads_the_layer_in_place(dev, layer, pre_norm):
+    qts = [_artifact(dev, 2048, 256, W3_SPEC, seed=10 + i) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st)
+    x = _x(dev, (8, 2048), torch.float32)
+    y = dm.fused_quantized_matmul_stacked(x, st, layer, pre_norm=pre_norm)
+    _close(y, dm.dequant_matmul_plain(x, qts[layer], pre_norm), torch.float32)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 3])
 def test_launches_are_counted_and_the_plain_path_is_not_taken(dev, bits):
-    qt = _artifact(dev, 512, 256, SPECS["g128_asym"], bits=bits)
-    x = _x(dev, (8, 512), torch.bfloat16)
+    k = 1024 if bits == 3 else 512
+    qt = _artifact(dev, k, 256, SPECS["g128_asym"], bits=bits)
+    x = _x(dev, (8, k), torch.bfloat16)
     dm.reset_counts()
     qmatmul.quantized_matmul(x, qt, pre_norm=EPS)
     qmatmul.quantized_matmul(x, qt)
     qmatmul.quantized_matmul(x, qt)
     torch.cuda.synchronize()
-    flat, prenorm = (dm.W4, dm.W4_PRENORM) if bits == 4 else (dm.W8, dm.W8_PRENORM)
+    flat, prenorm = {4: (dm.W4, dm.W4_PRENORM), 8: (dm.W8, dm.W8_PRENORM),
+                     3: (dm.W3, dm.W3)}[bits]  # s21: x normalized first, then W3
     want = {name: 0 for name in dm.LAUNCHES}
-    want.update({flat: 2, prenorm: 1})
+    want[flat] += 2
+    want[prenorm] += 1
     assert dm.LAUNCHES == want
     assert not any(dm.PLAIN_CALLS.values())
 
 
 @pytest.mark.parametrize("case", ["int3", "side_f16", "k_shards_2"])
 def test_layouts_without_a_kernel_raise_on_the_card(dev, case):
-    spec = QuantSpec(fmt="int", bits=3 if case == "int3" else 4, group_size=128,
-                     symmetric=False)
+    """``int3``: K=1088 with g64, a group straddles the K/8 = 136 slabs."""
+    spec = QuantSpec(fmt="int", bits=3 if case == "int3" else 4,
+                     group_size=64 if case == "int3" else 128, symmetric=False)
     kw = {"side_f16": dict(side_dtype=torch.float16),
           "k_shards_2": dict(k_shards=2)}.get(case, {})
-    qt = _artifact(dev, 512, 256, spec, **kw)
+    k = 1088 if case == "int3" else 512
+    qt = _artifact(dev, k, 256, spec, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul.quantized_matmul(_x(dev, (8, 512), torch.bfloat16), qt)
+        qmatmul.quantized_matmul(_x(dev, (8, k), torch.bfloat16), qt)
+
+
+@pytest.mark.parametrize("abits", [None, 8, 16])
+def test_w3_with_16_bit_side_info_raises_on_the_card(dev, abits):
+    qt = _artifact(dev, 1024, 256, W3_SPEC, side_dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        qmatmul.quantized_matmul(_x(dev, (8, 1024), torch.bfloat16), qt,
+                                 activation_bits=abits)
 
 
 def test_activation_bits_raise_on_the_card(dev):
-    """Activation bits on a layout no int-activation kernel takes raise."""
-    qt = _artifact(dev, 512, 256, dataclasses.replace(SPECS["g128_asym"], bits=3))
+    """Activation bits on a layout no int-activation kernel takes (int2)
+    raise."""
+    qt = _artifact(dev, 512, 256, dataclasses.replace(SPECS["g128_asym"], bits=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         qmatmul.quantized_matmul(_x(dev, (8, 512), torch.bfloat16), qt, activation_bits=8)
 
@@ -202,16 +278,51 @@ def test_a_kernel_matches_plain_side_layouts(dev, spec, kern):
     _close_a(y, dm.dequant_matmul_plain(x, qt, activation_bits=abits), torch.float32)
 
 
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("abits", [8, 16], ids=["w3a8", "w3a16"])
+@pytest.mark.parametrize("m", [1, 3, 17])
+@pytest.mark.parametrize("shape", list(SHAPES3), ids=list(SHAPES3))
+def test_w3_a_kernel_matches_plain_shapes(dev, shape, m, abits, dtype, pre_norm):
+    k, n, kw = SHAPES3[shape]
+    qt = _artifact(dev, k, n, W3_SPEC, **kw)
+    name = dm.W3A8 if abits == 8 else dm.W3A16
+    assert dm.kernel_supported(qt, abits) and dm.kernel_name(qt, pre_norm, abits) == name
+    x = _x(dev, (m, k), dtype) * 3
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm, activation_bits=abits)
+    assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm, activation_bits=abits), dtype)
+
+
+@pytest.mark.parametrize("abits", [8, 16], ids=["w3a8", "w3a16"])
+@pytest.mark.parametrize("spec", list(SPECS), ids=list(SPECS))
+def test_w3_a_kernel_matches_plain_side_layouts(dev, spec, abits):
+    qt = _artifact(dev, 1024, 256, SPECS[spec], seed=2, bits=3)
+    x = _x(dev, (2, 4, 1024), torch.float32)
+    y = dm.fused_quantized_matmul(x, qt, activation_bits=abits)
+    assert y.shape == (2, 4, 256)
+    _close_a(y, dm.dequant_matmul_plain(x, qt, activation_bits=abits), torch.float32)
+
+
+@pytest.mark.parametrize("abits", [8, 16], ids=["w3a8", "w3a16"])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_w3_a_stacked_kernel_reads_the_layer_in_place(dev, layer, abits):
+    qts = [_artifact(dev, 2048, 256, W3_SPEC, seed=10 + i) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st, abits)
+    x = _x(dev, (8, 2048), torch.float32)
+    y = dm.fused_quantized_matmul_stacked(x, st, layer, activation_bits=abits)
+    _close_a(y, dm.dequant_matmul_plain(x, qts[layer], activation_bits=abits), torch.float32)
+
+
 @pytest.mark.parametrize("kern", A_KERNELS)
 @pytest.mark.parametrize("layer", [0, 2])
 def test_a_stacked_kernel_reads_the_layer_in_place(dev, layer, kern):
     bits, abits, _ = kern
     qts = [_artifact(dev, 1408, 256, SPECS["g128_asym"], seed=10 + i, bits=bits)
            for i in range(3)]
-    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 5))  # noqa: E731
-    st = qts[0].replace(qweight=torch.stack([q.qweight for q in qts]),
-                        scales=torch.stack([pad(q.scales) for q in qts]),
-                        zeros=torch.stack([pad(q.zeros) for q in qts]), side_pad=5)
+    st = _stacked(qts)
     assert dm.kernel_supported_stacked(st, abits)
     x = _x(dev, (8, 1408), torch.float32)
     y = dm.fused_quantized_matmul_stacked(x, st, layer, activation_bits=abits)
@@ -249,12 +360,15 @@ def test_valid_kv_write_does_not_sync(dev):
 
 
 def _tiny_engine(dev, bits, **ecfg):
+    """Tiny 2-layer LLaMA, every linear ``bits``-bit g128; W3 at hidden 1024
+    and FFN 2048, the least widths whose K/8 the group divides."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models import llama
 
-    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
-                            num_layers=2, num_heads=4, num_kv_heads=2)
+    h, f, heads = (1024, 2048, 8) if bits == 3 else (256, 512, 4)
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=h, intermediate_size=f,
+                            num_layers=2, num_heads=heads, num_kv_heads=heads // 2)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     params = llama.fold_llama_norms(llama.llama_init(cfg, g, device=dev))
@@ -269,7 +383,7 @@ def _tiny_engine(dev, bits, **ecfg):
                            dtype=torch.bfloat16, device=dev)
 
 
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8, 3])
 def test_tiny_serve_on_the_card_is_repeatable(dev, bits):
     eng = _tiny_engine(dev, bits)
     n_layers = eng.cfg.num_layers
@@ -279,9 +393,12 @@ def test_tiny_serve_on_the_card_is_repeatable(dev, bits):
         dm.reset_counts()
         outs.append(eng.serve(reqs, max_new_tokens=8, chunk=4, stats=stats))
     assert outs[0] == outs[1] and [len(o) for o in outs[0]] == [8] * 6
-    names = (dm.W4, dm.W4_PRENORM) if bits == 4 else (dm.W8, dm.W8_PRENORM)
-    assert dm.LAUNCHES[names[0]] == stats["n_steps"] * (2 * n_layers + 1)
-    assert dm.LAUNCHES[names[1]] == stats["n_steps"] * 2 * n_layers
+    if bits == 3:  # no prenorm kernel: every linear on w3_matmul
+        assert dm.LAUNCHES[dm.W3] == stats["n_steps"] * (4 * n_layers + 1)
+    else:
+        names = (dm.W4, dm.W4_PRENORM) if bits == 4 else (dm.W8, dm.W8_PRENORM)
+        assert dm.LAUNCHES[names[0]] == stats["n_steps"] * (2 * n_layers + 1)
+        assert dm.LAUNCHES[names[1]] == stats["n_steps"] * 2 * n_layers
     assert sum(dm.LAUNCHES.values()) == stats["n_steps"] * (4 * n_layers + 1)
     assert not any(dm.PLAIN_CALLS.values())
 
@@ -289,10 +406,21 @@ def test_tiny_serve_on_the_card_is_repeatable(dev, bits):
 @pytest.mark.parametrize("abits", [None, (8, 16)], ids=["bf16", "a8_wave_a16_chunk"])
 def test_serve_device_calls_do_not_sync(dev, abits):
     """Between the meta copy and the token fetch, nothing waits for the card."""
+    _serve_wave_and_chunk_without_sync(dev, 8, abits)
+
+
+@pytest.mark.parametrize("abits", [None, (8, 16)], ids=["bf16", "a8_wave_a16_chunk"])
+def test_w3_serve_device_calls_do_not_sync(dev, abits):
+    """The same on a W3 model: the torch pre-norm before each W3 launch
+    does not sync either."""
+    _serve_wave_and_chunk_without_sync(dev, 3, abits)
+
+
+def _serve_wave_and_chunk_without_sync(dev, bits, abits):
     from iron_weight_only_quant_tpu_torch.engine.engine import _serve_chunk, _serve_combo
 
     p_abits, d_abits = abits or (None, None)
-    eng = _tiny_engine(dev, 8)
+    eng = _tiny_engine(dev, bits)
     c, s_len, ns = 4, 8, 4
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -317,14 +445,17 @@ def test_serve_device_calls_do_not_sync(dev, abits):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.shape == (ns, 1 + c) and out2.shape == (ns, c)
-    if abits is not None:  # W8: the wave on A8, the 2 * c steps on A16
-        per_forward = 4 * eng.cfg.num_layers + 1
-        assert dm.LAUNCHES[dm.W8A8] == per_forward
-        assert dm.LAUNCHES[dm.W8A16] == 2 * c * per_forward
+    per_forward = 4 * eng.cfg.num_layers + 1
+    if abits is not None:  # the wave on A8, the 2 * c steps on A16
+        wave, step = (dm.W8A8, dm.W8A16) if bits == 8 else (dm.W3A8, dm.W3A16)
+        assert dm.LAUNCHES[wave] == per_forward
+        assert dm.LAUNCHES[step] == 2 * c * per_forward
+    elif bits == 3:
+        assert dm.LAUNCHES[dm.W3] == (1 + 2 * c) * per_forward
 
 
 @pytest.mark.parametrize("abits", [(8, 16), (16, 8)], ids=["a8_waves", "a16_waves"])
-@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8, 3])
 def test_tiny_a_serve_on_the_card_is_repeatable(dev, bits, abits):
     eng = _tiny_engine(dev, bits, prefill_activation_bits=abits[0],
                        activation_bits=abits[1])

@@ -180,7 +180,8 @@ def test_cpu_tensor_takes_the_plain_version():
     dm.fused_quantized_matmul(torch.zeros((2, 512)), tq8)
     dm.fused_quantized_matmul(torch.zeros((2, 512)), tq8, pre_norm=EPS)
     none = {name: 0 for name in (dm.W4, dm.W4_PRENORM, dm.W8, dm.W8_PRENORM,
-                                 dm.W4A8, dm.W4A16, dm.W8A8, dm.W8A16)}
+                                 dm.W4A8, dm.W4A16, dm.W8A8, dm.W8A16,
+                                 dm.W3, dm.W3A8, dm.W3A16)}
     assert dm.PLAIN_CALLS == {**none, dm.W4: 1, dm.W4_PRENORM: 1, dm.W8: 2,
                               dm.W8_PRENORM: 1}
     assert dm.LAUNCHES == none
@@ -192,15 +193,17 @@ def test_cpu_tensor_takes_the_plain_version():
 def test_layouts_without_a_kernel_are_refused(case):
     spec = dict(W4)
     kw = {}
-    if case == "int3":
-        spec["bits"] = 3
+    k = 512
+    if case == "int3":  # a group of 64 straddles the K/8 = 136 slabs of K=1088
+        spec.update(bits=3, group_size=64)
+        k = 1088
     elif case == "int2":
         spec["bits"] = 2
     elif case == "side_f16":
         kw["side_dtype"] = torch.float16
     else:
         kw["k_shards"] = 2
-    w = torch.from_numpy(_x((512, 256)) * 0.05)
+    w = torch.from_numpy(_x((k, 256)) * 0.05)
     tq = quantize_tensor(w, TSpec(**spec), **kw)
     assert not dm.kernel_supported(tq)
 

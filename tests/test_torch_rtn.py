@@ -42,6 +42,9 @@ CASES = [
      dict(side_dtype="float16"), (256, 96)),
     ("int4_k_shards_2", dict(bits=4, group_size=64, symmetric=False),
      dict(k_shards=2), (256, 96)),
+    # the W3 main path's artifact: g128 asym, N padded to 512, K to 1024
+    ("int3_g128_pad_n_512_pad_k_1024", dict(bits=3, group_size=128, symmetric=False),
+     dict(pad_n_to=512, pad_k_to=1024), (1408, 200)),
 ]
 
 
