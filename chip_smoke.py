@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through fifteen
+Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through twenty-one
 phases; any failing phase ends the run with a non-zero exit code.
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
@@ -71,7 +71,36 @@ phases; any failing phase ends the run with a non-zero exit code.
     ``w3a8_matmul``, A16 decode on ``w3a16_matmul``).  Every linear of a
     forward takes ``w3_matmul`` (4 per layer and the lm_head), so the
     launch counts are ``forwards * (4L + 1)``.
-15. Report: the generate and serve JSON lines, the card line, the
+15. The XLA route on the card: at the o shape (4096x4096), the artifacts
+    the JAX package computes on its XLA path by their format (16-bit side
+    info, ``k_shards=2``, int2, approximate fp4, and int3 K=1088 g64) each
+    take the route once (``ROUTE_CALLS``, no launch) and match the same
+    route on the CPU; an fp6 nq42 artifact (no kernel yet) still raises.
+16. Format zoo on the card: for a K=4096 and a K=11008 weight, the
+    card-built fp4 E2M1 g128 asymmetric, fp8 E4M3 g128 symmetric, bfp4 g128
+    and bfp8 g128 artifacts (``pad_n_to=512``) are byte-equal to CPU-built
+    ones, scales, zeros and codebooks included.
+17. LUT kernels vs plain: ``lut4_matmul`` (fp4 E2M1 g128 asymmetric),
+    ``lut4a16_matmul`` (the same under A16) and ``lut8_matmul`` (fp8 E4M3
+    g128 symmetric) at the five main-path shapes, timed at M=8 and M=256
+    as in phase 2, untimed at the other main-path row counts; qkv and
+    gate_up also once with ``pre_norm`` (x normalized in torch first, in
+    the row pass under A16); at the down shape fp4 E2M1 symmetric and
+    E1M2 g64 (lut4, lut4a16), fp8 E4M3 per-channel asymmetric and E3M4
+    g128 (lut8), an f32 x and a layer-stacked call per kernel; and bfp4 and
+    bfp8 artifacts on ``w4_matmul``, ``w4a16_matmul``, ``w8_matmul`` and
+    ``w8a16_matmul``.
+18. Two-layer 7B-width fp4 (also under A16) and fp8 logits, kernels vs
+    the plain path on the CPU, as phase 3.
+19. FP4 full model: 32-layer 7B-width fp4 E2M1 g128 asymmetric model built
+    on the card (``pad_n_to=512``, the lm_head included); ``generate`` as
+    in phase 4, ``serve`` of phase 7's traffic (warm-up, median of 3,
+    profiled run) and a serve with A16 waves and A16 decode (LUT has no
+    A8).  Every linear takes ``lut4_matmul`` (``lut4a16_matmul`` under
+    A16): ``forwards * (4L + 1)`` launches, no plain call, no route call.
+20. FP8 full model: 32-layer 7B-width fp8 E4M3 g128 symmetric model,
+    ``serve`` as in phase 7, every linear on ``lut8_matmul``.
+21. Report: the generate and serve JSON lines, the card line, the
     per-kernel JSON line, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -140,6 +169,12 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
                     "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:467"),
     "w3a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/w3a16_matmul.cu",
                      "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:533"),
+    "lut4_matmul": ("iron_weight_only_quant_tpu_torch/csrc/lut4_matmul.cu",
+                    "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:739"),
+    "lut4a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/lut4a16_matmul.cu",
+                       "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:771"),
+    "lut8_matmul": ("iron_weight_only_quant_tpu_torch/csrc/lut8_matmul.cu",
+                    "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:811"),
 }
 W3_PAD_K = 1024  # down's K=11008 stored as 11264: K/8 = 1408 = 11 groups of 128
 
@@ -256,7 +291,8 @@ def call_cost(qt, m: int, x_bytes: int, abits=None):
     product is int8, twice over for A16."""
     k, n = qt.shape
     side = qt.scales.numel() * qt.scales.element_size()
-    side += qt.zeros.numel() * qt.zeros.element_size()
+    if qt.zeros is not None:
+        side += qt.zeros.numel() * qt.zeros.element_size()
     planes = 1 if abits is None else abits // 8
     x_in = m * k * (x_bytes if abits is None else planes)
     nbytes = qt.qweight.numel() + side + x_in + m * n * x_bytes
@@ -451,16 +487,18 @@ def expected_a_launches(names, waves: int, steps: int, n_layers: int):
 
 def check_counts(what, want):
     """Read the counters after a run: exactly the launches ``want``, no
-    plain call."""
+    plain call, no call of the XLA route."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     launches, plain = dict(dm.LAUNCHES), dict(dm.PLAIN_CALLS)
-    print(f"  {what}: launches {launches}, expected {want}, plain calls {plain}",
-          flush=True)
+    print(f"  {what}: launches {launches}, expected {want}, plain calls {plain}, "
+          f"route calls {dm.ROUTE_CALLS}", flush=True)
     if launches != want:
         fail(f"{what}: kernel launches {launches} != expected {want}")
     if any(plain.values()):
         fail(f"{what}: the plain path ran on the main path: {plain}")
+    if any(dm.ROUTE_CALLS.values()):
+        fail(f"{what}: the XLA route ran on the main path: {dm.ROUTE_CALLS}")
     return launches
 
 
@@ -694,14 +732,17 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None):
     return res
 
 
-def phase_w8_serve(torch, device, spec, cfg, card):
+def phase_w8_serve(torch, device, spec, cfg, card, names=None, label="W8"):
+    """Build the 32-layer model of ``spec`` and ``serve`` it on the kernels
+    ``names`` (flat, prenorm; W8's by default)."""
     from iron_weight_only_quant_tpu_torch.models.llama import fuse_llama_projections
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     torch.cuda.reset_peak_memory_stats()
-    params, _, build_s = build_model(torch, device, spec, cfg, "W8", 0)
+    params, _, build_s = build_model(torch, device, spec, cfg, label, 0)
     params = fuse_llama_projections(params)  # drops the unfused artifacts
-    res = phase_serve(torch, params, cfg, (dm.W8, dm.W8_PRENORM), SERVE_RUNS, card)
+    res = phase_serve(torch, params, cfg, names or (dm.W8, dm.W8_PRENORM), SERVE_RUNS,
+                      card)
     res["build_s"] = build_s
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
@@ -713,10 +754,10 @@ def phase_w8_serve(torch, device, spec, cfg, card):
 def stacked_of(torch, layers):
     """Layer-stacked artifact of ``layers``, side info padded by 2 rows."""
     pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 2))  # noqa: E731
+    zeros = None if layers[0].zeros is None else torch.stack([pad(q.zeros) for q in layers])
     return layers[0].replace(
         qweight=torch.stack([q.qweight for q in layers]),
-        scales=torch.stack([pad(q.scales) for q in layers]),
-        zeros=torch.stack([pad(q.zeros) for q in layers]), side_pad=2)
+        scales=torch.stack([pad(q.scales) for q in layers]), zeros=zeros, side_pad=2)
 
 
 def a_runner(pre, abits, layer=None):
@@ -883,6 +924,170 @@ def phase_w3_kernels(torch, device, spec):
     return per_kernel
 
 
+# ------------------------------------------------------------- phase 15
+
+def phase_route(torch, device):
+    """The artifacts the JAX package computes on its XLA path by their
+    format, at the o shape: each takes the route once on the card and
+    matches the same route on the CPU; fp6 nq42 (no kernel yet) raises."""
+    from iron_weight_only_quant_tpu_torch.config import QuantSpec, fp_spec
+    from iron_weight_only_quant_tpu_torch.ops import qmatmul
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    w4 = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+    cases = {  # label: (spec, quantize_tensor kwargs, K)
+        "side_f16": (w4, dict(side_dtype=torch.float16), 4096),
+        "k_shards_2": (w4, dict(k_shards=2), 4096),
+        "int2": (QuantSpec(fmt="int", bits=2, group_size=128, symmetric=False), {}, 4096),
+        "fp4_approx": (fp_spec("fp4", 2, 1, group_size=128, approximate=True), {}, 4096),
+        "int3_k1088_g64": (QuantSpec(fmt="int", bits=3, group_size=64, symmetric=False),
+                           {}, 1088),
+    }
+    out = {}
+    for label, (spec, kw, k) in cases.items():
+        w = torch.randn((k, 4096), generator=gen, device=device) * k**-0.5
+        qt = quantize_tensor(w, spec, **kw)
+        if not dm.xla_route(qt) or dm.kernel_supported(qt):
+            fail(f"route {label}: the artifact does not take the route")
+        x = torch.randn((DECODE_M, k), generator=gen, device=device).to(torch.bfloat16)
+        dm.reset_counts()
+        y = qmatmul.quantized_matmul(x, qt, pre_norm=1e-5, activation_bits=16)
+        torch.cuda.synchronize()
+        counts = (dict(dm.ROUTE_CALLS), sum(dm.LAUNCHES.values()),
+                  sum(dm.PLAIN_CALLS.values()))
+        y_ref = qmatmul.quantized_matmul(x.cpu(), qt.map_arrays(lambda a: a.cpu()),
+                                         pre_norm=1e-5)
+        rel = ((y.float().cpu() - y_ref.float()).abs().max()
+               / y_ref.float().abs().max()).item()
+        out[label] = {"rel_err": rel, "route_calls": counts[0][dm.ROUTE]}
+        print(f"  route {label}: route calls {counts[0]}, launches {counts[1]}, plain "
+              f"calls {counts[2]}, rel err vs the CPU route {rel:.3e} (tol {REL_TOL_BF16})",
+              flush=True)
+        if counts != ({dm.ROUTE: 1}, 0, 0) or not torch.isfinite(y).all() \
+                or rel > REL_TOL_BF16:
+            fail(f"route {label}: counts {counts}, rel err {rel:.3e}")
+    qt = quantize_tensor(torch.randn((4096, 4096), generator=gen, device=device) * 0.02,
+                         fp_spec("fp6", 3, 2, group_size=128))
+    try:
+        qmatmul.quantized_matmul(torch.zeros((DECODE_M, 4096), dtype=torch.bfloat16,
+                                              device=device), qt)
+    except NotImplementedError as e:
+        if "ROADMAP" not in str(e):
+            fail(f"fp6 nq42 raised without naming the ROADMAP: {e}")
+        print("  fp6 nq42: raises NotImplementedError (rows 15-16 not ported yet)", flush=True)
+    else:
+        fail("fp6 nq42 did not raise on the card")
+    return out
+
+
+# ------------------------------------------------------------- phase 16
+
+def phase_zoo_bytes(torch, device):
+    """Card-built fp4/fp8/bfp artifacts byte-equal to CPU-built ones."""
+    from iron_weight_only_quant_tpu_torch.config import QuantSpec, fp_spec
+    from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    specs = {"fp4_e2m1_g128_asym": fp_spec("fp4", 2, 1, group_size=128, symmetric=False),
+             "fp8_e4m3_g128_sym": fp_spec("fp8", 4, 3, group_size=128),
+             "bfp4_g128": QuantSpec(fmt="bfp", bits=4, group_size=128),
+             "bfp8_g128": QuantSpec(fmt="bfp", bits=8, group_size=128)}
+    checked = 0
+    for k in (4096, 11008):
+        w = torch.randn((k, 4096), generator=gen, device=device) * k**-0.5
+        w_cpu = w.cpu()
+        for label, spec in specs.items():
+            on_card = quantize_tensor(w, spec, pad_n_to=512)
+            on_cpu = quantize_tensor(w_cpu, spec, pad_n_to=512)
+            for name in ("qweight", "scales", "zeros", "codebook"):
+                a, b = getattr(on_card, name), getattr(on_cpu, name)
+                if (a is None) != (b is None) or (a is not None and not torch.equal(
+                        a.cpu().view(torch.uint8), b.view(torch.uint8))):
+                    fail(f"{label} K={k}: the card-built {name} differs from the CPU-built")
+            checked += 1
+            print(f"  {label} K={k}: card-built artifact byte-equal to the CPU-built",
+                  flush=True)
+    return checked
+
+
+# ------------------------------------------------------------- phase 17
+
+def phase_lut_kernels(torch, device, fp4, fp8):
+    """The three LUT kernels against their plain versions (``fp4``: the
+    lut4/lut4a16 spec, ``fp8``: the lut8 spec), and BFP artifacts on the
+    int kernels."""
+    from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL, QuantSpec, fp_spec
+    from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    per_kernel = {}
+    eps = 1e-5
+    for spec, abits_all in ((fp4, (None, 16)), (fp8, (None,))):
+        for name, k, widths, prenorm, per_step in MAIN_SHAPES:
+            qt, spans = make_artifact(torch, gen, spec, k, widths, device)
+            w_lib = dequantize_weight(qt, torch.bfloat16)
+            for abits in abits_all:
+                kname = dm.kernel_name(qt, eps if prenorm else None, abits)
+                if not dm.kernel_supported(qt, abits) or kname not in KERNEL_SOURCES:
+                    fail(f"{name}: no LUT kernel takes the artifact (activation bits {abits})")
+                for m in (DECODE_M, PREFILL_M) + WAVE_M:
+                    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+                    timed = m in (DECODE_M, PREFILL_M)
+                    rec = check_call(torch, f"{kname}:{name}:M={m}", qt, x,
+                                     *a_runner(None, abits), w_lib if timed else None, abits)
+                    rec.update(kernel=kname, shape=name, per_step=per_step,
+                               stored_n=qt.qweight.shape[-1], spans=spans)
+                    per_kernel.setdefault(kname, []).append(rec)
+                if prenorm:
+                    x = torch.randn((DECODE_M, k), generator=gen, device=device).to(torch.bfloat16)
+                    check_call(torch, f"{kname}:{name}:pre_norm", qt, x, *a_runner(eps, abits))
+            del qt, w_lib
+            torch.cuda.empty_cache()
+
+    # once at the down shape: other formats and side layouts, an f32 x and
+    # a stacked call (layer 2 of 3, side_pad=2) per kernel
+    def down(spec):
+        return make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device)[0]
+
+    x = torch.randn((DECODE_M, EXTRA_K), generator=gen, device=device)
+    xb = x.to(torch.bfloat16)
+    others = {
+        fp4: {"fp4_e2m1_g128_sym": fp_spec("fp4", 2, 1, group_size=128),
+              "fp4_e1m2_g64_sym": fp_spec("fp4", 1, 2, group_size=64)},
+        fp8: {"fp8_e4m3_perchannel_asym": fp_spec("fp8", 4, 3, group_size=PER_CHANNEL,
+                                                  symmetric=False),
+              "fp8_e3m4_g128_sym": fp_spec("fp8", 3, 4, group_size=128)},
+    }
+    for spec, abits_all in ((fp4, (None, 16)), (fp8, (None,))):
+        layers = [down(spec) for _ in range(3)]
+        st = stacked_of(torch, layers)
+        extra = {label: down(o) for label, o in others[spec].items()}
+        for abits in abits_all:
+            kname = dm.kernel_name(layers[0], None, abits)
+            check_call(torch, f"{kname}:f32", layers[0], x, *a_runner(None, abits))
+            for label, qt in extra.items():
+                check_call(torch, f"{kname}:{label}", qt, xb, *a_runner(None, abits))
+            check_call(torch, f"{kname}:stacked:layer=2", st, xb, *a_runner(None, abits, 2))
+        del layers, st, extra
+        torch.cuda.empty_cache()
+
+    # BFP artifacts are affine: the int kernels of their storage take them
+    for bits in (4, 8):
+        qt = down(QuantSpec(fmt="bfp", bits=bits, group_size=128))
+        for abits in (None, 16):
+            kname = dm.kernel_name(qt, None, abits)
+            check_call(torch, f"{kname}:bfp{bits}", qt, xb, *a_runner(None, abits))
+        del qt
+    torch.cuda.empty_cache()
+    return per_kernel
+
+
 # --------------------------------------------------------------- report
 
 def kernel_rows(per_kernel, launches):
@@ -929,7 +1134,7 @@ def main() -> int:
         print(f"{text} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
 
     header("== phase 1: build")
-    from iron_weight_only_quant_tpu_torch.config import QuantSpec
+    from iron_weight_only_quant_tpu_torch.config import QuantSpec, fp_spec
     from iron_weight_only_quant_tpu_torch.models.llama import LlamaConfig
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
 
@@ -1017,7 +1222,41 @@ def main() -> int:
     del params_w3
     torch.cuda.empty_cache()
 
-    header("== phase 15: report")
+    header("== phase 15: the XLA route on the card (artifacts the JAX package "
+           "computes on its XLA path)")
+    route = phase_route(torch, device)
+
+    header("== phase 16: format zoo, card-built artifacts vs CPU-built")
+    zoo_checks = phase_zoo_bytes(torch, device)
+
+    fp4 = fp_spec("fp4", 2, 1, group_size=128, symmetric=False)
+    fp8 = fp_spec("fp8", 4, 3, group_size=128)
+    header(f"== phase 17: LUT kernels vs plain versions, BFP on the int kernels ({tol_a})")
+    per_kernel.update(phase_lut_kernels(torch, device, fp4, fp8))
+
+    header("== phase 18: fp4 (also A16) and fp8 two-layer 7B-width logits, kernels vs "
+           "plain path")
+    phase_two_layers(torch, device, fp4, cfg, abits_list=(None, 16))
+    phase_two_layers(torch, device, fp8, cfg)
+
+    header("== phase 19: 32-layer 7B-width fp4 generate, serve, and serve with A16 "
+           "waves and decode")
+    res_fp4, serve_fp4, params_fp4 = phase_generate(
+        torch, device, fp4, cfg, card, names=(dm.LUT4, dm.LUT4), label="FP4",
+        serve_runs=SERVE_RUNS)
+    print("  -- FP4 serve, A16 waves, A16 decode", flush=True)
+    serve_fp4_a = phase_serve(torch, params_fp4, cfg, (dm.LUT4A16, dm.LUT4A16), SERVE_RUNS,
+                              card, abits=(16, 16))
+    del params_fp4
+    torch.cuda.empty_cache()
+
+    header("== phase 20: 32-layer 7B-width fp8 serve")
+    serve_fp8, params_fp8 = phase_w8_serve(torch, device, fp8, cfg, card,
+                                           names=(dm.LUT8, dm.LUT8), label="FP8")
+    del params_fp8
+    torch.cuda.empty_cache()
+
+    header("== phase 21: report")
     names_of = lambda run, names: {k: v for k, v in run["launches"].items()  # noqa: E731
                                    if k in names}
     launches = {**names_of(res, (dm.W4, dm.W4_PRENORM)),
@@ -1025,7 +1264,10 @@ def main() -> int:
                 **names_of(serve_w4_a, (dm.W4A8, dm.W4A16)),
                 **names_of(serve_w8_a, (dm.W8A8, dm.W8A16)),
                 **names_of(serve_w3, (dm.W3,)),
-                **names_of(serve_w3_a, (dm.W3A8, dm.W3A16))}
+                **names_of(serve_w3_a, (dm.W3A8, dm.W3A16)),
+                **names_of(serve_fp4, (dm.LUT4,)),
+                **names_of(serve_fp4_a, (dm.LUT4A16,)),
+                **names_of(serve_fp8, (dm.LUT8,))}
     rows = kernel_rows(per_kernel, launches)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"generate": {k: v for k, v in res.items() if k != "launches"}}))
@@ -1037,6 +1279,11 @@ def main() -> int:
     print(json.dumps({"serve_w3": serve_w3}))
     print(json.dumps({"serve_w3_a8_waves_a16_decode": serve_w3_a}))
     print(json.dumps({"row_pass_bit_equal_calls": row_pass_checks}))
+    print(json.dumps({"generate_fp4": {k: v for k, v in res_fp4.items() if k != "launches"}}))
+    print(json.dumps({"serve_fp4": serve_fp4}))
+    print(json.dumps({"serve_fp4_a16": serve_fp4_a}))
+    print(json.dumps({"serve_fp8": serve_fp8}))
+    print(json.dumps({"route": route, "zoo_bytes_equal_artifacts": zoo_checks}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

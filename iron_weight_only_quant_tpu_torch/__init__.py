@@ -2,10 +2,10 @@
 
 The JAX package beside this one is the reference; module names and public
 function names match it so each counterpart is easy to find.  This package
-imports torch and numpy only.  The W4 and W8 dequant-matmuls, with
-bf16/f32 or int8/A16 activations, run as hand-written CUDA kernels
-(``csrc/``), built with ``nvcc`` at first use; every other op is plain
-PyTorch.
+imports torch and numpy only.  The dequant-matmuls of the int (W4, W8,
+W3), BFP and exact-minifloat (fp4, fp8) artifacts, with bf16/f32 or
+int8/A16 activations, run as hand-written CUDA kernels (``csrc/``), built
+with ``nvcc`` at first use; every other op is plain PyTorch.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device named and no GPU present they raise.

@@ -20,8 +20,9 @@ PER_CHANNEL = -2
 class FloatFormat:
     """A parametric minifloat format: 1 sign bit + ``exp_bits`` + ``mant_bits``.
 
-    Only what the port reads so far; the minifloat codec (with the
-    format's bias and range) is still to be ported (ROADMAP queue A).
+    The bias is ``2**(exp_bits-1) - 1``; subnormals are supported and the
+    top exponent field is a normal value (no inf/nan encodings), as in the
+    JAX package.
     """
 
     exp_bits: int
@@ -32,14 +33,53 @@ class FloatFormat:
             raise ValueError(f"invalid minifloat format E{self.exp_bits}M{self.mant_bits}")
 
     @property
+    def bias(self) -> int:
+        return 2 ** (self.exp_bits - 1) - 1
+
+    @property
     def total_bits(self) -> int:
         return 1 + self.exp_bits + self.mant_bits
+
+    @property
+    def max_exp_field(self) -> int:
+        return (1 << self.exp_bits) - 1
+
+    @property
+    def max_value(self) -> float:
+        """Largest magnitude, ``(1 + (2^M-1)/2^M) * 2^(2^E - 1 - bias)``."""
+        m = self.mant_bits
+        return (1.0 + ((1 << m) - 1) / (1 << m)) * 2.0 ** (self.max_exp_field - self.bias)
+
+    @property
+    def min_normal_exp(self) -> int:
+        return 1 - self.bias
+
+
+# The default formats of the JAX package.
+FP4_E2M1 = FloatFormat(2, 1)
+FP4_E1M2 = FloatFormat(1, 2)
+FP6_E3M2 = FloatFormat(3, 2)
+FP6_E2M3 = FloatFormat(2, 3)
+FP8_E4M3 = FloatFormat(4, 3)
+FP8_E3M4 = FloatFormat(3, 4)
+FP8_E2M5 = FloatFormat(2, 5)
 
 
 @dataclass(frozen=True)
 class AlignSpec:
     """Knobs of the approximate aligned minifloat decode (same fields as the
-    JAX package's ``AlignSpec``; the decode itself is not ported yet)."""
+    JAX package's ``AlignSpec``):
+
+    * codewords whose exponent field is in ``[hi_align_start,
+      hi_align_exp_field]`` decode by right-shifting their mantissa to the
+      shared exponent ``hi_align_exp_field`` instead of exactly;
+    * ``tail_pad_bits`` zero-pads (or, if negative, pre-truncates) the
+      mantissa before the alignment shift;
+    * ``align_subnorm_exp_as_one`` treats subnormal codes as exponent 1
+      when deciding alignment;
+    * ``handle_max_outlier`` (double-approximate decode only): a group of 4
+      holding a max-exponent outlier aligns to the max exponent field.
+    """
 
     hi_align_start: int
     hi_align_exp_field: int
@@ -47,6 +87,14 @@ class AlignSpec:
     align_subnorm_exp_as_one: bool = True
     limit_align_exp_to_field: bool = True
     handle_max_outlier: bool = True
+
+
+# Default alignment per minifloat width (the JAX package's DEFAULT_ALIGN).
+DEFAULT_ALIGN = {
+    "fp4": AlignSpec(hi_align_start=1, hi_align_exp_field=1, tail_pad_bits=0),
+    "fp6": AlignSpec(hi_align_start=4, hi_align_exp_field=7, tail_pad_bits=2),
+    "fp8": AlignSpec(hi_align_start=12, hi_align_exp_field=15, tail_pad_bits=1),
+}
 
 
 @dataclass(frozen=True)
@@ -101,6 +149,17 @@ class QuantSpec:
         if self.fmt == "fp":
             return self.float_format.total_bits
         return 4  # fp4_e1m2
+
+    def effective_align(self, kind: str) -> AlignSpec:
+        return self.align if self.align is not None else DEFAULT_ALIGN[kind]
+
+
+def fp_spec(kind: str, exp_bits: int, mant_bits: int, **kw) -> QuantSpec:
+    """A minifloat (``fmt="fp"``) spec of E``exp_bits``M``mant_bits``, as
+    the JAX package's ``fp_spec``; ``kind`` ("fp4", "fp6", "fp8") names the
+    width, as there, and is not read."""
+    fmt = FloatFormat(exp_bits, mant_bits)
+    return QuantSpec(fmt="fp", bits=fmt.total_bits, float_format=fmt, **kw)
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
 // Int-activation dequant-matmul for Hopper (sm_90a):
 //   y[M,N] = sx[M] * (quantize(x)[M,K] @ dequant(qw)[K,N]),
 // int8 activation planes against the packed int4 (nib4), int8 (byte) or
-// 3-bit (s21) weight codes, one __dp4a per four K values.
+// 3-bit (s21) weight codes, or 4-bit minifloat codes (LUT nib4) decoded to
+// their exact int8 grid, one __dp4a per four K values.
 //
 // Replaces the int-activation paths of the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -14,7 +15,9 @@
 //       (:1722), _int8_kernel_a16_pfx (:1727);
 //   s21 3-bit: _int3_kernel (:467) with int8 x (A8) and _int3_kernel_a16
 //       (:533) (A16), stacked forms _int3_kernel_pfx (:1360) and
-//       _int3_kernel_a16_pfx (:588), all through _call_int3 (:1365).
+//       _int3_kernel_a16_pfx (:588), all through _call_int3 (:1365);
+//   LUT nib4 with A16: _lut4_kernel_a16 (:771, called at :1607) and its
+//       stacked form _lut4_kernel_a16_pfx (:806, through :1927).
 // The stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.  The JAX package quantized the
 // activations in XLA (_prep_x :1270-1316); here a row pass of the same
@@ -58,6 +61,15 @@
 //     slab i's four K-consecutive codes (field i / 2, un-flipped, plus 4 *
 //     bit i) and runs the same __dp4a sums and per-group epilogue against
 //     slab i's activations (K = i * Kb + r..).
+//     The LUT case (kLut4, A16 only, as in the JAX package): the nib4 grid
+//     and byte transpose of the affine case; each nibble code becomes the
+//     int8 byte of its exact grid value ival (_minifloat_decode_int :683,
+//     value = ival * 2^-t, t = M + bias - 1, built into a 16-entry table per
+//     block from exp_bits and mant_bits), so __dp4a runs signed int8 against
+//     signed int8 (the affine codes are non-negative bytes of the same
+//     signed form).  Per group and plane the int32 sums become f32 and
+//       part = 256*pa + pb,  acc += part * (s * 2^-t),  then acc += xsum * z
+//     where the artifact has zeros (_lut_accum_a16 :698).
 //  3. the W4 reduce (w4_reduce_kernel with the row factor): the fixed-order
 //     K-split sum, times sx in f32, cast to x's type -- _finish's order.
 //
@@ -70,11 +82,12 @@
 // An mma.sync s8.s8.s32 or wgmma path for M >= 64 is later work.
 #pragma once
 
+#include "lut_common.cuh"
 #include "w3_common.cuh"
 
 namespace iwoq {
 
-enum Layout { kNib4 = 0, kByte = 1, kS21 = 2 };  // packed weight layouts
+enum Layout { kNib4 = 0, kByte = 1, kS21 = 2, kLut4 = 3 };  // packed weight layouts
 constexpr int kRowThreads = 256;  // threads of the row pass, one block per row
 constexpr int kStageA = 512;      // packed K rows of int8 x staged at a time
 constexpr int kStageA3 = 256;     // s21: B rows of int8 x staged at a time (all slabs)
@@ -160,16 +173,26 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&
   c[3] = __byte_perm(a_hi, b_hi, 0x7632);
 }
 
+// Four nibble codes (one a byte) -> the four int8 bytes tab[code].
+__device__ __forceinline__ uint32_t lut_bytes(const uint32_t* tab, uint32_t c) {
+  return tab[c & 0xFu] | (tab[(c >> 8) & 0xFu] << 8) | (tab[(c >> 16) & 0xFu] << 16) |
+         (tab[c >> 24] << 24);
+}
+
 // Partial products of one (N-tile, M-tile, K-split) block into ws.
 // xq: int8 planes [PLANES, M, ldq]; for NIB4 packed row r meets K columns r
-// (low nibbles) and Kp + r (high nibbles), and ldq = 2 * Kp.
-template <bool NIB4, int PLANES>
+// (low nibbles) and Kp + r (high nibbles), and ldq = 2 * Kp.  LUT (with
+// NIB4): the nibbles are minifloat codes of E exp_bits, M mant_bits, and z
+// may be null (no zero points).
+template <bool NIB4, int PLANES, bool LUT = false>
 __global__ void __launch_bounds__(kThreads)
 wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
                   const uint32_t* __restrict__ qw,  // [Kp, N/4] words
                   const float* __restrict__ s, long long s_rs, long long s_cs,
                   const float* __restrict__ z, long long z_rs, long long z_cs,
-                  float* __restrict__ ws, int N, int Kp, int G, int kc) {
+                  float* __restrict__ ws, int N, int Kp, int G, int kc,
+                  int exp_bits, int mant_bits) {
+  static_assert(!LUT || NIB4, "the LUT case reads the nib4 layout");
   constexpr int H = NIB4 ? 2 : 1;  // K streams per packed row
   constexpr int kStage4 = kStageA / 4;
   static_assert(H * PLANES * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
@@ -186,6 +209,14 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   const int k1 = min(Kp, k0 + kc);
   const int words_per_row = N / kColsPerThread;
   const int hi_row0 = Kp / G;
+  const bool has_z = !LUT || z != nullptr;
+  __shared__ uint32_t itab[16];  // LUT: the int8 grid byte of each code
+  float mult = 1.f;              // LUT: 2^-t
+  if (LUT) {
+    if (tid < 16) itab[tid] = (uint32_t)minifloat_int(tid, exp_bits, mant_bits) & 0xFFu;
+    mult = ldexpf(1.f, 1 - mant_bits - ((1 << (exp_bits - 1)) - 1));
+    // (the stage loop's first __syncthreads orders the table before its use)
+  }
 
   float acc[kTileM][kColsPerThread];
 #pragma unroll
@@ -224,7 +255,7 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
             const long long c = (long long)(n0 + j);
             const long long gr = g + h * hi_row0;
             sg[h][j] = __ldg(s + gr * s_rs + c * s_cs);
-            zg[h][j] = __ldg(z + gr * z_rs + c * z_cs);
+            zg[h][j] = has_z ? __ldg(z + gr * z_rs + c * z_cs) : 0.f;
           }
         int ia[H][PLANES][kTileM][kColsPerThread];
         int isum[H][kTileM];
@@ -249,10 +280,12 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
           for (int h = 0; h < H; ++h) {
             int code[kColsPerThread];
 #pragma unroll
-            for (int j = 0; j < kColsPerThread; ++j)
+            for (int j = 0; j < kColsPerThread; ++j) {
               code[j] = !NIB4 ? (int)col[j]
                       : h == 0 ? (int)(col[j] & 0x0F0F0F0Fu)
                                : (int)(((col[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
+              if (LUT) code[j] = (int)lut_bytes(itab, (uint32_t)code[j]);
+            }
 #pragma unroll
             for (int p = 0; p < PLANES; ++p) {
               const int4* x4 = reinterpret_cast<const int4*>(
@@ -280,7 +313,12 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
               const float part = PLANES == 2
                   ? (float)ia[h][0][m][j] * 256.f + (float)ia[h][PLANES - 1][m][j]
                   : (float)ia[h][0][m][j];
-              acc[m][j] = acc[m][j] + part * sg[h][j] - xsum * (sg[h][j] * zg[h][j]);
+              if (LUT) {
+                acc[m][j] = acc[m][j] + part * (sg[h][j] * mult);
+                if (has_z) acc[m][j] = acc[m][j] + xsum * zg[h][j];
+              } else {
+                acc[m][j] = acc[m][j] + part * sg[h][j] - xsum * (sg[h][j] * zg[h][j]);
+              }
             }
           }
       }
@@ -441,17 +479,22 @@ cudaError_t quantize_rows(const void* x, int x_bf16, int k_logical, int k_stored
 // The whole call: row pass, partial products, reduce.  x is [M, k_logical]
 // contiguous; xq [PLANES, M, K_stored] int8 and sx [M] f32 are scratch from
 // the wrapper, as is ws [splits, M, N].  Kp is the number of packed rows the
-// kernel walks: K/2 (nib4), K (byte), or the B rows Kb = K/8 (s21).
+// kernel walks: K/2 (nib4, LUT nib4), K (byte), or the B rows Kb = K/8
+// (s21).  exp_bits and mant_bits are the LUT case's minifloat format; its z
+// may be null.
 template <int LAYOUT, int PLANES>
 int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
               const void* qw, const void* s, long long s_rs, long long s_cs,
               const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
               void* ws, void* out, int M, int N, int n_out, int Kp, int G, int kc,
-              int splits, void* stream) {
-  const int k_stored = LAYOUT == kNib4 ? 2 * Kp : LAYOUT == kS21 ? 8 * Kp : Kp;
+              int splits, void* stream, int exp_bits = 0, int mant_bits = 0) {
+  const int k_stored = LAYOUT == kNib4 || LAYOUT == kLut4 ? 2 * Kp
+                     : LAYOUT == kS21 ? 8 * Kp : Kp;
   if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 || Kp % 4 ||
       G <= 0 || G % 4 || Kp % G || kc <= 0 || kc % 4 || splits <= 0 ||
-      (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored)
+      (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored ||
+      (LAYOUT == kLut4 && (PLANES != 2 || exp_bits < 1 || mant_bits < 0 ||
+                           1 + exp_bits + mant_bits > 4)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = quantize_rows<PLANES>(x, x_bf16, k_logical, k_stored, norm, eps,
@@ -465,10 +508,10 @@ int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
         z_cs, static_cast<float*>(ws), N, Kp, G, kc);
   else
-    wa_partial_kernel<LAYOUT == kNib4, PLANES><<<grid, block, 0, st>>>(
+    wa_partial_kernel<LAYOUT != kByte, PLANES, LAYOUT == kLut4><<<grid, block, 0, st>>>(
         static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
-        z_cs, static_cast<float*>(ws), N, Kp, G, kc);
+        z_cs, static_cast<float*>(ws), N, Kp, G, kc, exp_bits, mant_bits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = x_bf16 ? launch_reduce<true, __nv_bfloat16>(ws, sx, out, M, N, n_out, splits, st)

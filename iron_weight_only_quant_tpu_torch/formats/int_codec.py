@@ -62,3 +62,28 @@ def decode_int(
             raise ValueError("symmetric codes carry no zero-points")
         return q * scales
     return (q - zeros) * scales
+
+
+def pseudo_quantize(
+    tensor: torch.Tensor,
+    bits: int = 8,
+    zero_point: bool = True,
+    group_size: int = -1,
+    per_tensor: bool = False,
+) -> torch.Tensor:
+    """Fake-quant round trip over the last dim, for activations and KV: rows
+    of a 2-D view are the quantization unit (optionally regrouped to
+    ``group_size``, or one unit for ``per_tensor``)."""
+    shape = tensor.shape
+    t = tensor.to(torch.float32)
+    if group_size > 0:
+        if shape[-1] % group_size != 0:
+            raise ValueError("last dim must divide group_size")
+        t = t.reshape(-1, group_size)
+    else:
+        t = t.reshape(-1, shape[-1])
+    if per_tensor:
+        t = t.reshape(1, -1)
+    codes, scales, zeros = encode_int(t, bits, symmetric=not zero_point)
+    out = decode_int(codes, scales, zeros, symmetric=not zero_point)
+    return out.reshape(shape).to(tensor.dtype)

@@ -1,56 +1,82 @@
 """Dequant-matmul: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``ops/pallas/dequant_matmul.py`` in the JAX package.  Eleven
-hand-written CUDA kernels compute ``y = x @ dequant(qt)`` for affine
-artifacts with f32 side info, per storage layout:
+Counterpart of ``ops/pallas/dequant_matmul.py`` in the JAX package.  Fourteen
+hand-written CUDA kernels compute ``y = x @ dequant(qt)`` for artifacts with
+f32 side info, per storage layout:
 
-  nib4 (int4):  ``csrc/w4_matmul.cu``, ``csrc/w4_matmul_prenorm.cu``
+  nib4 (int4, bfp4):  ``csrc/w4_matmul.cu``, ``csrc/w4_matmul_prenorm.cu``
                 (design notes in ``csrc/w4_common.cuh``),
                 ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``;
-  byte (int8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
+  byte (int8, bfp8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
                 (design notes in ``csrc/w8_common.cuh``),
                 ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu``;
   s21 (3-bit):  ``csrc/w3_matmul.cu`` (design notes in
                 ``csrc/w3_common.cuh``), ``csrc/w3a8_matmul.cu``,
-                ``csrc/w3a16_matmul.cu``.
+                ``csrc/w3a16_matmul.cu``;
+  LUT nib4 (4-bit minifloat): ``csrc/lut4_matmul.cu`` (design notes in
+                ``csrc/lut_common.cuh``), ``csrc/lut4a16_matmul.cu``;
+  LUT byte (fp8, byte-per-code fp6): ``csrc/lut8_matmul.cu``.
 
-The ``w4``/``w8``/``w3`` kernels take bf16/f32 activations; the nib4 and
-byte layouts also have a prenorm kernel, which applies the weightless
-RMSNorm ``r = rsqrt(mean(x^2) + eps)`` to the f32 sum.  The s21 layout has
-none, as in the JAX package (``prenorm_supported``): a ``pre_norm``
-normalizes x first (:func:`_rms_nogamma`, cast back to x's type), then the
-``w3`` kernel runs.  The ``a8``/``a16`` kernels (design notes in
-``csrc/wa_common.cuh``) take ``activation_bits`` 8 or 16: a row pass
-quantizes x to one int8 plane (A8, ``sx = absmax/127``) or two (A16, ``x ~=
-sx*(256*hi + lo)``, ``sx = absmax/32512``), the product runs on integer
-codes, and the f32 result is scaled by the row's ``sx``.  Under activation
-bits a ``pre_norm`` is applied to x before quantizing (in the row pass), as
-the JAX package does, so no prenorm kernel runs.  The layer-stacked entry
-point reuses the kernels with the layer as a pointer offset.
+The ``w4``/``w8``/``w3``/``lut`` kernels take bf16/f32 activations; the
+affine nib4 and byte layouts also have a prenorm kernel, which applies the
+weightless RMSNorm ``r = rsqrt(mean(x^2) + eps)`` to the f32 sum.  The s21
+and LUT layouts have none, as in the JAX package (``prenorm_supported``): a
+``pre_norm`` normalizes x first (:func:`_rms_nogamma`, cast back to x's
+type), then the kernel runs.  A LUT kernel decodes each code to its exact
+minifloat value from the format's exponent and mantissa widths (never from
+the artifact's codebook) and computes ``w = val*s (+ z)``.  The
+``a8``/``a16`` kernels (design notes in ``csrc/wa_common.cuh``) take
+``activation_bits`` 8 or 16: a row pass quantizes x to one int8 plane (A8,
+``sx = absmax/127``) or two (A16, ``x ~= sx*(256*hi + lo)``, ``sx =
+absmax/32512``), the product runs on integer codes, and the f32 result is
+scaled by the row's ``sx``.  Under activation bits a ``pre_norm`` is applied
+to x before quantizing (in the row pass), as the JAX package does, so no
+prenorm kernel runs.  LUT artifacts take A16 where the format's exact values
+form an int8 grid (fp4 E2M1 and E1M2: ``lut4a16``; fp6 E2M3 in the nq42
+layout has no kernel yet); A16 on a wide-exponent format (fp8, fp6 E3M2)
+warns and runs with full-precision activations, and A8 raises, as in the JAX
+package.  The layer-stacked entry point reuses the kernels with the layer
+as a pointer offset.
 
-Dispatch is by the activation's device: a CPU tensor takes the plain
-PyTorch version (:func:`dequant_matmul_plain`), a CUDA tensor launches the
-kernel or raises ``NotImplementedError`` for a layout no kernel takes yet.
-Nothing falls back quietly.  The plain version computes what the kernel
-computes, activation quantization included; this deliberately differs from
-the JAX package's XLA fallback, which ignores activation bits: here the
-CPU path stands in for the kernel.
+Some artifacts the JAX package never sends to a Pallas kernel, by their
+format alone (:func:`xla_route`): affine artifacts of another format than
+int or bfp, approximate or non-minifloat LUT artifacts, ``k_shards > 1``,
+16-bit side info, storage bits outside {3, 4, 6, 8}, and 3-bit groups that
+straddle the K/8 slabs.  There it computes ``dequantize_weight`` in f32 and
+a plain matmul (its XLA path), with ``pre_norm`` applied to x first and the
+activation bits ignored.  :func:`route_matmul` does the same here, on the
+CPU and on the card alike, counted in ``ROUTE_CALLS``; the product is
+``torch.matmul``, as the JAX package leaves it to XLA.  The route is chosen
+by the artifact's format before any launch and never stands in for a kernel
+that fails.
 
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of the plain
-version, per name of the kernel it stands in for (a layout no kernel takes
-is not counted); :func:`reset_counts` zeroes both.
+Otherwise dispatch is by the activation's device: a CPU tensor takes the
+plain PyTorch version (:func:`dequant_matmul_plain`), a CUDA tensor launches
+the kernel or raises ``NotImplementedError`` for an artifact the JAX kernels
+take but no CUDA kernel takes yet (fp6 in the nq42 layout).  Nothing falls
+back quietly.  The plain version computes what the kernel computes,
+activation quantization included; this deliberately differs from the JAX
+package's XLA path, which ignores activation bits: here the CPU path stands
+in for the kernel.
+
+``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the plain
+version per name of the kernel it stands in for (an artifact no kernel
+takes is not counted), ``ROUTE_CALLS`` the route's calls;
+:func:`reset_counts` zeroes all three.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ...quantize.qtensor import QuantizedTensor
 from ..packing import unpack_codes_sharded
+from ...formats.minifloat import code_to_float
 from ..qmatmul import _rms_nogamma, dequantize_weight, index_stacked, packed_bits
 
 W4 = "w4_matmul"
@@ -64,13 +90,21 @@ W8A16 = "w8a16_matmul"
 W3 = "w3_matmul"
 W3A8 = "w3a8_matmul"
 W3A16 = "w3a16_matmul"
+LUT4 = "lut4_matmul"
+LUT4A16 = "lut4a16_matmul"
+LUT8 = "lut8_matmul"
 ACTIVATION_BITS = (8, 16)
-# packed storage bits -> (kernel, prenorm kernel or None, A8 kernel, A16 kernel)
+# packed storage bits -> (kernel, prenorm kernel or None, A8 kernel or None,
+# A16 kernel or None), for affine and for LUT artifacts
 _KERNELS = {4: (W4, W4_PRENORM, W4A8, W4A16), 8: (W8, W8_PRENORM, W8A8, W8A16),
             3: (W3, None, W3A8, W3A16)}
-LAUNCHES: Dict[str, int] = {name: 0 for names in _KERNELS.values() for name in names
+_LUT_KERNELS = {4: (LUT4, None, None, LUT4A16), 8: (LUT8, None, None, None)}
+LAUNCHES: Dict[str, int] = {name: 0 for table in (_KERNELS, _LUT_KERNELS)
+                            for names in table.values() for name in names
                             if name is not None}
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
+ROUTE = "xla_route"
+ROUTE_CALLS: Dict[str, int] = {ROUTE: 0}
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,   # x, x_bf16, ldx, qw
@@ -90,6 +124,17 @@ _ARGTYPES_A = [  # the int-activation kernels (csrc/wa_common.cuh launch_wa)
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,         # M, N, n_out, stored rows
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,      # G, kc, splits, stream
 ]
+_ARGTYPES_LUT = [  # the LUT kernels (csrc/lut_common.cuh launch_lut)
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,   # x, x_bf16, ldx, qw
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # s, s_rs, s_cs
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # z or NULL, z_rs, z_cs
+    ctypes.c_void_p, ctypes.c_void_p,                               # ws, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,         # M, N, n_out, stored rows
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,                    # exp_bits, mant_bits, stream
+]
+_ARGTYPES_A_LUT = _ARGTYPES_A[:-1] + [  # the LUT A16 kernel: launch_wa's, then
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # exp_bits, mant_bits, stream
 _ARGTYPES_ROWS = [  # iwoq_quantize_rows, the row pass alone
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, x_bf16, k_logical, k_stored
     ctypes.c_int, ctypes.c_int, ctypes.c_float,                     # bits, norm, eps
@@ -102,29 +147,109 @@ _SM_COUNT: Dict[int, int] = {}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, ROUTE_CALLS):
         for k in d:
             d[k] = 0
 
 
+def xla_route(qt: QuantizedTensor) -> bool:
+    """Whether the JAX package computes this artifact on its XLA path by its
+    format alone (the format conditions of its ``_layout_supported``; its
+    TPU tile conditions are not ported): an affine artifact of another
+    format than int or bfp, a LUT artifact that is not an exact minifloat,
+    ``k_shards > 1``, 16-bit scales or zeros, storage bits outside {3, 4, 6,
+    8}, or a 3-bit group that straddles the K/8 slabs of the s21 layout."""
+    if qt.mode == "affine":
+        if qt.spec.fmt not in ("int", "bfp"):
+            return True
+    elif qt.mode == "lut":
+        if qt.spec.fmt != "fp" or qt.spec.approximate:
+            return True
+    else:
+        return True
+    if qt.k_shards > 1:
+        return True
+    if qt.scales.element_size() != 4 or (qt.zeros is not None
+                                         and qt.zeros.element_size() != 4):
+        return True
+    bits = packed_bits(qt)
+    if bits not in (3, 4, 6, 8):
+        return True
+    if bits == 3:
+        ks = qt.k_stored
+        rows = qt.scales.shape[-2] - qt.side_pad
+        return bool(ks % 8 or (rows > 1 and (ks // 8) % (ks // rows)))
+    return False
+
+
 def _names(qt: QuantizedTensor):
-    """The ``_KERNELS`` entry of ``qt``'s storage layout (None: no kernel)."""
-    return _KERNELS.get(packed_bits(qt)) if qt.mode == "affine" else None
+    """The kernel table entry of ``qt``'s storage layout (None: no kernel)."""
+    table = _KERNELS if qt.mode == "affine" else _LUT_KERNELS
+    return table.get(packed_bits(qt))
+
+
+def _lut_a16_mult(fmt) -> Optional[float]:
+    """The scale ``2**-t`` of the exact int8 grid of a minifloat format, or
+    None.  With ``t = mant_bits + bias - 1`` every exact value times ``2**t``
+    is the integer ``+-(mant_full << (max(exp_field, 1) - 1))``; it fits
+    int8 iff the largest one, ``(2**(mant_bits+1) - 1) << (max_exp_field -
+    1)``, is at most 127: fp4 E2M1 (12) and E1M2 (7), fp6 E2M3 (60)."""
+    top = ((1 << (fmt.mant_bits + 1)) - 1) << max(fmt.max_exp_field - 1, 0)
+    if top > 127:
+        return None
+    return 2.0 ** -(fmt.mant_bits + fmt.bias - 1)
+
+
+def a16_supported(qt: QuantizedTensor) -> bool:
+    """Whether the split-plane A16 activation path exists for this
+    artifact's format: every affine artifact, and the LUT minifloats of 4 or
+    6 stored bits whose exact values form an int8 grid
+    (:func:`_lut_a16_mult`).  Wide-exponent LUT formats (fp8, fp6 E3M2)
+    run with full-precision activations under A16, with a warning."""
+    if qt.mode == "lut":
+        return packed_bits(qt) in (4, 6) and _lut_a16_mult(qt.spec.float_format) is not None
+    return True
+
+
+def _effective_activation_bits(qt: QuantizedTensor,
+                               activation_bits: Optional[int],
+                               warn: bool = False) -> Optional[int]:
+    """The activation bits a kernel call runs with: A16 on an artifact
+    without the A16 path drops to full precision (with a warning when
+    ``warn``), A8 on a LUT artifact raises, as in the JAX package."""
+    if activation_bits is None:
+        return None
+    if activation_bits not in ACTIVATION_BITS:
+        raise NotImplementedError(
+            f"activation_bits={activation_bits}: must be None, 8 or 16")
+    if activation_bits == 16 and not a16_supported(qt):
+        if warn:
+            warnings.warn(
+                f"activation_bits=16 is unsupported for {qt.mode}/{packed_bits(qt)}-bit "
+                "artifacts; running this matmul with full-precision activations",
+                stacklevel=3)
+        return None
+    if qt.mode == "lut" and activation_bits == 8:
+        raise NotImplementedError("int8 activations with LUT artifacts")
+    return activation_bits
 
 
 def kernel_name(qt: QuantizedTensor, pre_norm: Optional[float] = None,
                 activation_bits: Optional[int] = None) -> Optional[str]:
-    """The kernel that takes ``qt``'s storage layout (None: no kernel).
+    """The kernel that takes ``qt``'s storage layout (None: no kernel, or
+    an artifact of the route).
 
     Under ``activation_bits`` (8 or 16) the int-activation kernel of the
     layout runs and ``pre_norm`` does not pick a kernel: the norm is
-    applied to x before quantizing.  A layout without a prenorm kernel
-    (s21) names its flat kernel for a ``pre_norm`` too: x is normalized
+    applied to x before quantizing; A16 on a LUT format without the A16
+    path names the flat kernel.  A layout without a prenorm kernel (s21,
+    LUT) names its flat kernel for a ``pre_norm`` too: x is normalized
     before it runs.
     """
-    names = _names(qt)
+    names = None if xla_route(qt) else _names(qt)
     if names is None:
         return None
+    activation_bits = _effective_activation_bits(qt, activation_bits)
     if activation_bits is not None:
         return names[2 + ACTIVATION_BITS.index(activation_bits)]
     return names[1] if pre_norm is not None and names[1] else names[0]
@@ -132,17 +257,10 @@ def kernel_name(qt: QuantizedTensor, pre_norm: Optional[float] = None,
 
 def prenorm_supported(qt: QuantizedTensor) -> bool:
     """Whether a kernel applies ``pre_norm`` in its epilogue for this
-    artifact (the nib4 and byte layouts, as ``prenorm_supported`` of the JAX
-    package); elsewhere x is normalized first."""
+    artifact (the affine nib4 and byte layouts, as ``prenorm_supported`` of
+    the JAX package); elsewhere x is normalized first."""
     names = _names(qt)
     return names is not None and names[1] is not None
-
-
-def a16_supported(qt: QuantizedTensor) -> bool:
-    """Whether the split-plane A16 activation path exists for this artifact's
-    format: every affine artifact.  The LUT formats' A16 decode (queue B
-    rows 13 and 16 of ``ROADMAP.md``) is not ported."""
-    return qt.mode == "affine"
 
 
 def _group_size(qt: QuantizedTensor, rows: int) -> int:
@@ -158,22 +276,23 @@ def _group_size(qt: QuantizedTensor, rows: int) -> int:
 
 def _layout_supported(qt: QuantizedTensor, rows: int,
                       activation_bits: Optional[int] = None) -> bool:
-    if kernel_name(qt) is None or qt.k_shards != 1:
+    if activation_bits is not None and (activation_bits not in ACTIVATION_BITS or (
+            qt.mode == "lut" and activation_bits == 8)):
         return False
-    if qt.zeros is None:
+    if xla_route(qt) or kernel_name(qt, None, activation_bits) is None:
         return False
-    if qt.scales.dtype != torch.float32 or qt.zeros.dtype != torch.float32:
-        return False  # 16-bit side info: no kernel yet
+    if qt.zeros is None and qt.mode != "lut":
+        return False  # affine artifacts carry zeros; symmetric LUT ones do not
     ks, n = qt.k_stored, qt.n + qt.n_pad
     if n % 4 or rows < 1 or ks % rows:
         return False
     if packed_bits(qt) == 4 and ks % 2:
         return False
-    if packed_bits(qt) == 3 and (ks % 8 or (rows > 1 and (ks // 8) % (ks // rows))):
-        return False  # a group must not straddle two K slabs (as _layout3_supported)
-    if activation_bits is not None and (activation_bits not in ACTIVATION_BITS
-                                        or _group_size(qt, rows) % 4):
+    activation_bits = _effective_activation_bits(qt, activation_bits)
+    if activation_bits is not None and _group_size(qt, rows) % 4:
         return False  # __dp4a takes K four at a time (the group divides K)
+    if qt.zeros is None:
+        return True
     z_rows = qt.zeros.shape[-2] - (qt.side_pad if qt.zeros.shape[-2] > 1 else 0)
     return z_rows in (1, rows)
 
@@ -223,15 +342,93 @@ def quantize_activations(x2: torch.Tensor, bits: int) -> Tuple[torch.Tensor, tor
     return planes, sx[:, 0]
 
 
-def _side_rows(qt: QuantizedTensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 (scales, zeros) ``[R, N_stored]`` of a flat artifact, side_pad
-    rows dropped, per-channel/per-tensor rows broadcast."""
+def _side_rows(qt: QuantizedTensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """f32 (scales, zeros or None) ``[R, N_stored]`` of a flat artifact,
+    side_pad rows dropped, per-channel/per-tensor rows broadcast."""
     s, z = qt.scales, qt.zeros
     rows = s.shape[0] - qt.side_pad
-    s = s[:rows].to(torch.float32)
-    z = (z[:rows] if z.shape[0] > 1 else z).to(torch.float32)
     n = qt.qweight.shape[-1]
-    return s.expand(rows, n), z.expand(rows, n)
+    s = s[:rows].to(torch.float32).expand(rows, n)
+    if z is not None:
+        z = (z[:rows] if z.shape[0] > 1 else z).to(torch.float32).expand(rows, n)
+    return s, z
+
+
+def _lut_decode(qt: QuantizedTensor, decode) -> torch.Tensor:
+    """``decode`` (codes -> values) of every code of a flat LUT artifact,
+    ``[K_stored, N_stored]``: a table of the format's ``2**total_bits``
+    codewords, gathered (the byte layout stores code - 128)."""
+    fmt = qt.spec.float_format
+    table = decode(torch.arange(1 << fmt.total_bits, dtype=torch.int32,
+                                device=qt.qweight.device), fmt)
+    bits = packed_bits(qt)
+    codes = unpack_codes_sharded(qt.qweight, bits, qt.k_stored, qt.k_shards).long()
+    return table[codes + 128 if bits == 8 else codes]
+
+
+def _minifloat_int(codes: torch.Tensor, fmt) -> torch.Tensor:
+    """The exact int8 grid of the A16 LUT path (``_minifloat_decode_int`` of
+    the JAX package): ``code_to_float(code) * 2**t`` as an integer,
+    ``+-(mant_full << (max(exp_field, 1) - 1))``."""
+    e, m = fmt.exp_bits, fmt.mant_bits
+    sign = (codes >> (e + m)) & 1
+    expf = (codes >> m) & ((1 << e) - 1)
+    mant_full = ((expf != 0).to(torch.int32) << m) | (codes & ((1 << m) - 1))
+    ival = mant_full << (expf.clamp(min=1) - 1)
+    return torch.where(sign == 1, -ival, ival)
+
+
+def lut_matmul_plain(x2: torch.Tensor, qt: QuantizedTensor,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """``x2 @ dequant(qt)`` for a flat LUT artifact, as the LUT kernels
+    compute it (``_lut_accum`` of the JAX package): the codes decode to
+    their exact minifloat values ``val`` (from the format, not the
+    codebook), and per group of side rows ``acc += (x . val) * s``, then
+    ``acc += sum(x) * z`` where the artifact has zeros, in f32, group after
+    group; cast to ``out_dtype``, the ``n_pad`` columns dropped.  ``x2`` is
+    ``[M, K_stored]``."""
+    vals = _lut_decode(qt, code_to_float)
+    s, z = _side_rows(qt)
+    rows = s.shape[0]
+    g = qt.k_stored // rows
+    xf = x2.to(torch.float32)
+    acc = torch.zeros((xf.shape[0], vals.shape[1]), dtype=torch.float32, device=x2.device)
+    for r in range(rows):
+        xg = xf[:, r * g:(r + 1) * g]
+        acc = acc + (xg @ vals[r * g:(r + 1) * g]) * s[r]
+        if z is not None:
+            acc = acc + xg.sum(dim=1, keepdim=True) * z[r]
+    return acc.to(out_dtype)[:, :qt.n]
+
+
+def lut_int_matmul_plain(planes: torch.Tensor, sx: torch.Tensor, qt: QuantizedTensor,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """``sx * (planes @ dequant(qt))`` for a flat LUT artifact under A16, as
+    ``lut4a16`` computes it (``_lut_accum_a16`` of the JAX package): the
+    codes decode to the exact int8 grid ``ival`` (:func:`_minifloat_int`,
+    ``val = ival * mult``, ``mult = 2**-t``); per group of side rows each
+    plane's integer product with ``ival`` (exact, in f64) becomes f32,
+    ``part = 256*pa + pb``, ``acc += part * (s*mult)``, then ``acc +=
+    xsum * z`` (``xsum = 256*Σhi + Σlo``) where the artifact has zeros;
+    then ``acc * sx``, cast to ``out_dtype``, the ``n_pad`` columns
+    dropped.  ``planes`` is ``[2, M, K_stored]``."""
+    fmt = qt.spec.float_format
+    mult = _lut_a16_mult(fmt)
+    ivals = _lut_decode(qt, _minifloat_int).to(torch.float64)
+    s, z = _side_rows(qt)
+    rows = s.shape[0]
+    g = qt.k_stored // rows
+    xq = planes.to(torch.float64)
+    acc = torch.zeros((planes.shape[1], ivals.shape[1]), dtype=torch.float32,
+                      device=planes.device)
+    for r in range(rows):
+        xg = xq[:, :, r * g:(r + 1) * g]
+        pg = (xg @ ivals[r * g:(r + 1) * g]).to(torch.float32)  # [2, M, N]
+        acc = acc + (pg[0] * 256.0 + pg[1]) * (s[r] * mult)
+        if z is not None:
+            isum = xg.sum(dim=-1).to(torch.int64)
+            acc = acc + (isum[0] * 256 + isum[1]).to(torch.float32)[:, None] * z[r]
+    return (acc * sx[:, None]).to(out_dtype)[:, :qt.n]
 
 
 def int_matmul_plain(planes: torch.Tensor, sx: torch.Tensor, qt: QuantizedTensor,
@@ -269,32 +466,43 @@ def dequant_matmul_plain(x: torch.Tensor, qt: QuantizedTensor,
                          activation_bits: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernels, for any packed layout.
 
-    Without ``activation_bits``: ``dequantize_weight`` in f32, an f32
-    matmul, then a cast to ``x.dtype``.  A ``pre_norm`` on a layout with a
-    prenorm kernel (nib4, byte) applies the row factor ``rsqrt(mean(x^2) +
+    Without ``activation_bits``: for an affine artifact ``dequantize_weight``
+    in f32, an f32 matmul, then a cast to ``x.dtype``; for a LUT artifact
+    :func:`lut_matmul_plain`.  A ``pre_norm`` on a layout with a prenorm
+    kernel (affine nib4, byte) applies the row factor ``rsqrt(mean(x^2) +
     eps)`` over the logical K to the f32 result before the cast -- the
-    order of that kernel's epilogue; on any other layout (s21, and those
-    without a kernel) it normalizes x first (:func:`_rms_nogamma`, cast
-    back to ``x.dtype``), as the JAX package does where no prenorm kernel
-    exists (``fused_quantized_matmul``'s fallback and the XLA path).  With
-    ``activation_bits`` (affine artifacts): ``pre_norm`` normalizes x first,
-    then :func:`quantize_activations`, K padding, and
-    :func:`int_matmul_plain`.  ``layer`` selects one layer of a stacked
-    artifact.
+    order of that kernel's epilogue; on any other layout (s21, LUT, and
+    those without a kernel) it normalizes x first (:func:`_rms_nogamma`,
+    cast back to ``x.dtype``), as the JAX package does where no prenorm
+    kernel exists (``fused_quantized_matmul``'s fallback and the XLA path).
+    With ``activation_bits``: ``pre_norm`` normalizes x first, then
+    :func:`quantize_activations`, K padding, and :func:`int_matmul_plain`
+    (affine) or :func:`lut_int_matmul_plain` (LUT); A16 on a LUT format
+    without the A16 path runs with full-precision activations (the caller
+    warns) and A8 on a LUT artifact raises.  ``layer`` selects one layer of
+    a stacked artifact.
     """
     name = kernel_name(qt, pre_norm, activation_bits)
     if name is not None:
         PLAIN_CALLS[name] += 1
+    activation_bits = _effective_activation_bits(qt, activation_bits)
     qt = qt if layer is None else index_stacked(qt, layer)
     if pre_norm is not None and (activation_bits is not None
                                  or not prenorm_supported(qt)):
         x = _rms_nogamma(x, pre_norm)
         pre_norm = None
+    lut = qt.mode == "lut"
     if activation_bits is not None:
         planes, sx = quantize_activations(x.reshape(-1, qt.shape[0]), activation_bits)
         if qt.k_pad:
             planes = torch.nn.functional.pad(planes, (0, qt.k_pad))
-        y = int_matmul_plain(planes, sx, qt, x.dtype)
+        y = (lut_int_matmul_plain if lut else int_matmul_plain)(planes, sx, qt, x.dtype)
+        return y.reshape(x.shape[:-1] + (qt.shape[1],))
+    if lut:
+        x2 = x.reshape(-1, qt.shape[0])
+        if qt.k_pad:
+            x2 = torch.nn.functional.pad(x2, (0, qt.k_pad))
+        y = lut_matmul_plain(x2, qt, x.dtype)
         return y.reshape(x.shape[:-1] + (qt.shape[1],))
     w = dequantize_weight(qt)
     xf = x.to(torch.float32)
@@ -340,7 +548,7 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _nib4_groups(ks: int, kp: int, rows: int, scales: torch.Tensor,
-                 zeros: torch.Tensor):
+                 zeros: Optional[torch.Tensor]):
     """(group size, rows, scales, zeros) for the nib4 layout: packed row kp
     holds K columns kp and kp + Kp, so the kernel needs G | Kp."""
     _check(ks == 2 * kp, f"x has {ks} columns, the nib4 artifact stores {2 * kp}")
@@ -353,7 +561,7 @@ def _nib4_groups(ks: int, kp: int, rows: int, scales: torch.Tensor,
         # main-path artifact takes this branch)
         f = g // math.gcd(g, kp)
         scales = scales[:rows].repeat_interleave(f, dim=0)
-        if zeros.shape[0] > 1:
+        if zeros is not None and zeros.shape[0] > 1:
             zeros = zeros[:rows].repeat_interleave(f, dim=0)
         rows, g = rows * f, g // f
     return g, rows, scales, zeros
@@ -393,21 +601,24 @@ def _raise_if(err: int, lib, name: str) -> None:
 
 
 def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
-            qw: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+            qw: torch.Tensor, scales: torch.Tensor, zeros: Optional[torch.Tensor],
             rows: int, k_logical: int, n_out: int,
-            activation_bits: Optional[int] = None) -> torch.Tensor:
+            activation_bits: Optional[int] = None, fmt=None) -> torch.Tensor:
     """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
-    if ``pre_norm`` (nib4, byte), its int-activation form if
-    ``activation_bits``.
+    if ``pre_norm`` (affine nib4, byte), its int-activation form if
+    ``activation_bits``; a LUT kernel of minifloat format ``fmt`` where one
+    is given (``zeros`` may then be None).
 
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
     """
-    names = _KERNELS[bits]
+    names = (_KERNELS if fmt is None else _LUT_KERNELS)[bits]
     _check(pre_norm is None or activation_bits is not None or names[1] is not None,
            f"the {bits}-bit layout has no prenorm kernel: normalize x first")
     name = (names[pre_norm is not None] if activation_bits is None
             else names[2 + ACTIVATION_BITS.index(activation_bits)])
+    _check(name is not None, f"no {bits}-bit kernel for activation_bits={activation_bits}")
+    _check(zeros is not None or fmt is not None, "an affine artifact needs zeros")
     dev = x2.device
     m = x2.shape[0]
     kp, n = qw.shape
@@ -418,9 +629,10 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     ks = x2.shape[1] if activation_bits is None else {4: 2, 3: 8}.get(bits, 1) * kp
     _check(x2.dtype in (torch.bfloat16, torch.float32),
            f"x dtype {x2.dtype} is not bfloat16 or float32")
-    for name_, t in (("qweight", qw), ("scales", scales), ("zeros", zeros)):
+    sides = (("scales", scales),) + ((("zeros", zeros),) if zeros is not None else ())
+    for name_, t in (("qweight", qw),) + sides:
         _check(t.device == dev, f"{name_} is on {t.device}, x on {dev}")
-    for name_, t in (("scales", scales), ("zeros", zeros)):
+    for name_, t in sides:
         _check(t.dim() == 2 and t.dtype == torch.float32
                and t.shape[1] in (1, n) and (t.shape[0] == 1 or t.shape[0] >= rows),
                f"{name_} {tuple(t.shape)} {t.dtype} is not f32 [1|{rows}+, 1|{n}]")
@@ -437,7 +649,8 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     else:
         g = _byte_groups(ks, kp, rows)
     s2, s_rs, s_cs = _side_view(scales, rows)
-    z2, z_rs, z_cs = _side_view(zeros, rows)
+    z2, z_rs, z_cs = _side_view(zeros, rows) if zeros is not None else (None, 0, 0)
+    z_ptr = None if z2 is None else z2.data_ptr()
     out = torch.empty((m, n_out), dtype=x2.dtype, device=dev)
     if m == 0:
         return out
@@ -445,27 +658,39 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
     x_bf16 = int(x2.dtype == torch.bfloat16)
     eps = 0.0 if pre_norm is None else float(pre_norm)
-    if activation_bits is None:
+    if activation_bits is None and fmt is not None:
+        lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES_LUT)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(x2.data_ptr(), x_bf16, ks, qw.data_ptr(), s2.data_ptr(), s_rs,
+                     s_cs, z_ptr, z_rs, z_cs, ws.data_ptr(), out.data_ptr(),
+                     m, n, n_out, kp, g, kc, splits, fmt.exp_bits, fmt.mant_bits, stream)
+    elif activation_bits is None:
         rnorm = None if pre_norm is None else \
             torch.empty((m,), dtype=torch.float32, device=dev)
         lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(x2.data_ptr(), x_bf16, ks, qw.data_ptr(), s2.data_ptr(), s_rs,
-                     s_cs, z2.data_ptr(), z_rs, z_cs, ws.data_ptr(),
+                     s_cs, z_ptr, z_rs, z_cs, ws.data_ptr(),
                      None if rnorm is None else rnorm.data_ptr(), out.data_ptr(),
                      m, n, n_out, kp, g, kc, splits, k_logical, eps, stream)
     else:
         planes = 1 if activation_bits == 8 else 2
         xq = torch.empty((planes, m, ks), dtype=torch.int8, device=dev)
         sx = torch.empty((m,), dtype=torch.float32, device=dev)
-        lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES_A)
+        args = (x2.data_ptr(), x_bf16, k_logical, int(pre_norm is not None), eps,
+                qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z_ptr, z_rs, z_cs,
+                xq.data_ptr(), sx.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                m, n, n_out, kp, g, kc, splits)
+        if fmt is None:
+            lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES_A)
+        else:
+            lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES_A_LUT)
+            args += (fmt.exp_bits, fmt.mant_bits)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(x2.data_ptr(), x_bf16, k_logical, int(pre_norm is not None), eps,
-                     qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z2.data_ptr(), z_rs,
-                     z_cs, xq.data_ptr(), sx.data_ptr(), ws.data_ptr(),
-                     out.data_ptr(), m, n, n_out, kp, g, kc, splits, stream)
+            err = fn(*args, stream)
     _raise_if(err, lib, name)
     LAUNCHES[name] += 1
     return out
@@ -519,24 +744,33 @@ def _unsupported(qt: QuantizedTensor,
         f"no CUDA kernel yet for this artifact{what} (mode={qt.mode}, "
         f"{packed_bits(qt)}-bit storage, K={qt.k_stored}, side rows "
         f"{qt.scales.shape[-2]}, k_shards={qt.k_shards}, side dtype "
-        f"{qt.scales.dtype}); ported so far: affine nib4 (int4), byte (int8) "
-        "and s21 (3-bit, groups that do not straddle the K/8 slabs) layouts "
-        "with f32 side info and k_shards=1, with bf16/f32 activations or "
-        "activation_bits 8/16 (group size a multiple of 4). See ROADMAP "
-        "queue B for the kernels still to port")
+        f"{qt.scales.dtype}); ported so far: affine nib4 (int4, bfp4), byte "
+        "(int8, bfp8) and s21 (3-bit) layouts with bf16/f32 activations or "
+        "activation_bits 8/16 (group size a multiple of 4), and exact-minifloat "
+        "LUT nib4 (fp4) and byte (fp8) layouts with bf16/f32 activations or A16 "
+        "(fp4 E2M1/E1M2). See ROADMAP queue B for the kernels still to port "
+        "(fp6 in the nq42 layout)")
 
 
-def _check_activation_bits(qt: QuantizedTensor, activation_bits: Optional[int]) -> None:
-    if activation_bits is None:
-        return
-    if activation_bits not in ACTIVATION_BITS:
-        raise NotImplementedError(
-            f"activation_bits={activation_bits}: must be None, 8 or 16")
-    if not a16_supported(qt):
-        raise NotImplementedError(
-            f"activation_bits={activation_bits} with a {qt.mode} artifact: the "
-            "LUT formats' codecs and kernels are not ported yet (ROADMAP queue "
-            "A, 'Format zoo', and queue B rows 12-16)")
+def route_matmul(x: torch.Tensor, qt: QuantizedTensor,
+                 pre_norm: Optional[float] = None,
+                 layer: Optional[int] = None) -> torch.Tensor:
+    """What the JAX package computes on its XLA path for an artifact of
+    :func:`xla_route`, on any device: ``pre_norm`` normalizes x first (cast
+    back to x's type), then ``x @ dequantize_weight(qt)`` in f32, returned
+    in f32 (the caller adds a bias and casts); activation bits do not
+    apply.  ``layer`` selects one layer of a stacked artifact.  Counted in
+    ``ROUTE_CALLS``."""
+    ROUTE_CALLS[ROUTE] += 1
+    qt = qt if layer is None else index_stacked(qt, layer)
+    if pre_norm is not None:
+        x = _rms_nogamma(x, pre_norm)
+    return torch.matmul(x.to(torch.float32), dequantize_weight(qt))
+
+
+def _lut_format(qt: QuantizedTensor):
+    """The minifloat format a LUT kernel decodes (None: affine)."""
+    return qt.spec.float_format if qt.mode == "lut" else None
 
 
 def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
@@ -545,13 +779,16 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
     """``y = x @ dequant(qt)`` for ``x`` ``[..., K]``, output in ``x.dtype``.
 
     ``pre_norm`` (the RMS eps) applies the weightless RMSNorm in the
-    kernel's epilogue (nib4, byte) or to x before the kernel (s21, as the
-    JAX package does); the norm's gamma must already be folded into the
-    weights (``models.llama.fold_llama_norms``).  ``activation_bits`` 8 or
-    16 quantizes x per row first and runs the int-activation kernel; a
-    ``pre_norm`` then normalizes x before it is quantized.
+    kernel's epilogue (affine nib4, byte) or to x before the kernel (s21,
+    LUT, as the JAX package does); the norm's gamma must already be folded
+    into the weights (``models.llama.fold_llama_norms``).
+    ``activation_bits`` 8 or 16 quantizes x per row first and runs the
+    int-activation kernel; a ``pre_norm`` then normalizes x before it is
+    quantized.  An artifact of :func:`xla_route` takes :func:`route_matmul`.
     """
-    _check_activation_bits(qt, activation_bits)
+    if xla_route(qt):
+        return route_matmul(x, qt, pre_norm).to(x.dtype)
+    activation_bits = _effective_activation_bits(qt, activation_bits, warn=True)
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, qt, pre_norm, activation_bits=activation_bits)
     if not x.is_cuda:
@@ -562,7 +799,7 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
         x, pre_norm = _rms_nogamma(x, pre_norm), None
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
                   qt.qweight, qt.scales, qt.zeros, qt.scales.shape[0], qt.shape[0],
-                  qt.shape[1], activation_bits)
+                  qt.shape[1], activation_bits, _lut_format(qt))
     return out.reshape(x.shape[:-1] + (qt.shape[1],))
 
 
@@ -576,8 +813,10 @@ def fused_quantized_matmul_stacked(x: torch.Tensor, qt: QuantizedTensor,
     wrapper passes ``qweight[layer]`` and ``scales[layer]`` views, so no
     layer copy is made and ``side_pad`` rows are simply never read.
     """
-    _check_activation_bits(qt, activation_bits)
     layer = int(layer_idx)
+    if xla_route(qt):
+        return route_matmul(x, qt, pre_norm, layer=layer).to(x.dtype)
+    activation_bits = _effective_activation_bits(qt, activation_bits, warn=True)
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, qt, pre_norm, layer=layer,
                                     activation_bits=activation_bits)
@@ -591,6 +830,7 @@ def fused_quantized_matmul_stacked(x: torch.Tensor, qt: QuantizedTensor,
         x, pre_norm = _rms_nogamma(x, pre_norm), None
     rows = qt.scales.shape[1] - qt.side_pad
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
-                  qt.qweight[layer], qt.scales[layer], qt.zeros[layer], rows,
-                  qt.shape[0], qt.shape[1], activation_bits)
+                  qt.qweight[layer], qt.scales[layer],
+                  None if qt.zeros is None else qt.zeros[layer], rows,
+                  qt.shape[0], qt.shape[1], activation_bits, _lut_format(qt))
     return out.reshape(x.shape[:-1] + (qt.shape[1],))

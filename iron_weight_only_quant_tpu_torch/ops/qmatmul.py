@@ -2,11 +2,17 @@
 (port of ``ops/qmatmul.py``).
 
 ``dequantize_weight`` followed by a matmul is the correctness oracle.
-``quantized_matmul`` goes to ``ops/kernels/dequant_matmul.py``: on a CPU
-tensor that takes the plain PyTorch version, on a CUDA tensor it launches a
-hand-written kernel (affine int4 nib4, int8 byte and 3-bit s21 layouts with
-f32 side info so far, with bf16/f32 activations or int8/A16 ones) or raises
-for a layout that has no kernel yet.  ``activation_quant`` sets the activation
+``quantized_matmul`` goes to ``ops/kernels/dequant_matmul.py``.  An
+artifact the JAX package computes on its XLA path by its format alone
+(``xla_route``: other formats, approximate minifloats, ``k_shards > 1``,
+16-bit side info, 2-bit codes, 3-bit groups straddling the K/8 slabs) takes
+the same computation here, on any device: ``pre_norm`` first, the
+dequantized weight in f32, a plain matmul, activation bits ignored.  Any
+other artifact on a CPU tensor takes the plain PyTorch version of its
+kernel; on a CUDA tensor it launches a hand-written kernel (affine int4 or
+bfp4 nib4, int8 or bfp8 byte and 3-bit s21 layouts, minifloat LUT nib4 and
+byte layouts, with bf16/f32 activations or int8/A16 ones) or raises for a
+layout that has no kernel yet (fp6 in the nq42 layout).  ``activation_quant`` sets the activation
 bits that calls without an explicit ``activation_bits`` use, as in the
 reference; the engine wraps its prefill and decode phases in it.
 """
@@ -117,15 +123,19 @@ def quantized_matmul(
     folded into the weights.
     ``activation_bits`` (None: the ambient ``activation_quant`` setting)
     quantizes x per row to int8 (8) or two int8 planes (16) first; LUT
-    artifacts refuse it.  The bias is added before the final cast, as in
-    the reference.
+    artifacts take A16 where their format allows it (else full precision,
+    with a warning) and refuse A8.  The bias is added before the final
+    cast, as in the reference; on the route to an f32 product.
     """
-    from .kernels.dequant_matmul import fused_quantized_matmul
+    from .kernels import dequant_matmul as dm
 
-    if activation_bits is None:
-        activation_bits = _DEFAULT_ACTIVATION_BITS
-    out = fused_quantized_matmul(x, qt, pre_norm=pre_norm,
-                                 activation_bits=activation_bits)
+    if dm.xla_route(qt):
+        out = dm.route_matmul(x, qt, pre_norm)
+    else:
+        if activation_bits is None:
+            activation_bits = _DEFAULT_ACTIVATION_BITS
+        out = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm,
+                                        activation_bits=activation_bits)
     if bias is not None:
         out = out + bias
     return out.to(x.dtype)
@@ -146,13 +156,17 @@ def quantized_matmul_stacked(
     pre_norm: Optional[float] = None,
 ) -> torch.Tensor:
     """``y = x @ dequant(qt[layer_idx]) (+ bias)`` for layer-stacked artifacts;
-    the kernel reads the selected layer in place."""
-    from .kernels.dequant_matmul import fused_quantized_matmul_stacked
+    the kernel reads the selected layer in place (the route dequantizes
+    that layer)."""
+    from .kernels import dequant_matmul as dm
 
-    if activation_bits is None:
-        activation_bits = _DEFAULT_ACTIVATION_BITS
-    out = fused_quantized_matmul_stacked(x, qt, layer_idx, pre_norm=pre_norm,
-                                         activation_bits=activation_bits)
+    if dm.xla_route(qt):
+        out = dm.route_matmul(x, qt, pre_norm, layer=int(layer_idx))
+    else:
+        if activation_bits is None:
+            activation_bits = _DEFAULT_ACTIVATION_BITS
+        out = dm.fused_quantized_matmul_stacked(x, qt, layer_idx, pre_norm=pre_norm,
+                                                activation_bits=activation_bits)
     if bias is not None:
         out = out + bias
     return out.to(x.dtype)

@@ -1,10 +1,12 @@
 """Round-to-nearest quantization into packed artifacts (port of
-``quantize/rtn.py``, integer path).
+``quantize/rtn.py``).
 
 For the same float32 weights the port writes the same bytes as the JAX
-package: codes, scales and zero-points are bit-identical.  The minifloat
-(``fmt="fp"``) and block-floating-point (``fmt="bfp"``) packers are still to
-be ported (ROADMAP queue A, "Format zoo").
+package: codes, scales, zero-points and codebooks are bit-identical, on the
+CPU and on the card.  Integer (``fmt="int"``) and block-floating-point
+(``fmt="bfp"``) artifacts are affine; minifloat (``fmt="fp"``) artifacts
+are LUT artifacts: ``w = codebook[code] * scale (+ zero)``, with no zero
+array when symmetric.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import PER_CHANNEL, PER_TENSOR, QuantSpec
-from ..formats import encode_int, make_groups
+from ..formats import make_groups, minifloat_codebook, quantize_groups
+from ..formats.api import _align_kind
+from ..formats.bfp import bfp_scales
 from ..ops.packing import pack_codes_sharded, packing_for_bits, signed_to_unsigned_offset
 from .qtensor import QuantizedTensor
 
@@ -49,10 +53,13 @@ def quantize_tensor(
     """
     if spec.quant_axis != 0:
         raise NotImplementedError("packed artifacts require quant_axis=0")
-    if spec.fmt != "int":
+    if spec.fmt == "fp4_e1m2":
+        raise NotImplementedError("fp4_e1m2 is a fake-quant-only scheme")
+    if spec.fmt == "fp" and spec.approximate and spec.double_approximate \
+            and spec.float_format.exp_bits != 1:
         raise NotImplementedError(
-            f"fmt={spec.fmt!r} packing is not ported yet (ROADMAP queue A, "
-            "'Format zoo'); only fmt='int' packs in this package")
+            "double-approximate decode is group-contextual; packed path unsupported"
+        )
 
     def cast_side(a):
         return a if a is None or side_dtype is None else a.to(side_dtype)
@@ -71,22 +78,57 @@ def quantize_tensor(
         w = F.pad(w, (0, 0, 0, k_pad))
     k_stored = k + k_pad
     groups = make_groups(w.to(torch.float32), spec.group_size, 0)
-    codes, scales_g, zeros_g = encode_int(groups, spec.bits, spec.symmetric)
-
+    enc = quantize_groups(groups, spec)
     # grouped codes -> [K, N] kernel orientation
-    codes = codes.reshape(n_stored, k_stored).t().contiguous()
-    if spec.symmetric:
-        off = signed_to_unsigned_offset(spec.bits)
-        codes = codes + off
-        zeros = torch.full((1, 1), float(off), dtype=torch.float32, device=w.device)
-    else:
-        zeros = _kernel_layout(zeros_g, k_stored, n_stored, spec.group_size)
-    scales = _kernel_layout(scales_g, k_stored, n_stored, spec.group_size)
-    if packing_for_bits(spec.bits)[0] == "byte":
-        # byte layouts store two's-complement code-128 (see packing.py);
-        # shifting the zero-point keeps (code - zero) invariant
-        codes = codes - 128
-        zeros = zeros - 128.0
-    qweight = pack_codes_sharded(codes, spec.bits, k_shards)
-    return QuantizedTensor(qweight, cast_side(scales), cast_side(zeros),
-                           None, spec, (k, n), "affine", k_shards, n_pad, k_pad)
+    codes = enc.codes.reshape(n_stored, k_stored).t().contiguous()
+
+    def side(per_group):
+        return _kernel_layout(per_group, k_stored, n_stored, spec.group_size)
+
+    def scalar(v):
+        return torch.full((1, 1), float(v), dtype=torch.float32, device=w.device)
+
+    if spec.fmt == "int":
+        if spec.symmetric:
+            off = signed_to_unsigned_offset(spec.bits)
+            codes = codes + off
+            zeros = scalar(off)
+        else:
+            zeros = side(enc.zeros)
+        scales = side(enc.scales)
+        if packing_for_bits(spec.bits)[0] == "byte":
+            # byte layouts store two's-complement code-128 (see packing.py);
+            # shifting the zero-point keeps (code - zero) invariant
+            codes = codes - 128
+            zeros = zeros - 128.0
+        qweight = pack_codes_sharded(codes, spec.bits, k_shards)
+        return QuantizedTensor(qweight, cast_side(scales), cast_side(zeros),
+                               None, spec, (k, n), "affine", k_shards, n_pad, k_pad)
+
+    if spec.fmt == "bfp":
+        if packing_for_bits(spec.bits)[0] == "byte":
+            zeros = scalar(0)  # signed mantissas fit the int8 pattern as they are
+        else:
+            # sub-byte: shift to unsigned (magnitude <= 2^(b-1)-1)
+            off = signed_to_unsigned_offset(spec.bits)
+            codes = codes + off
+            zeros = scalar(off)
+        scales = side(bfp_scales(enc.exp_block, spec.bits))
+        qweight = pack_codes_sharded(codes, spec.bits, k_shards)
+        return QuantizedTensor(qweight, cast_side(scales), cast_side(zeros),
+                               None, spec, (k, n), "affine", k_shards, n_pad, k_pad)
+
+    # minifloat: LUT mode
+    fmt = spec.float_format
+    align = spec.effective_align(_align_kind(fmt)) if spec.approximate else None
+    book = torch.from_numpy(minifloat_codebook(fmt, align)).to(w.device)
+    scales = side(enc.scales)
+    zeros = side(enc.zeros) if enc.zeros is not None else None
+    store_bits = fmt.total_bits if fmt.total_bits in (2, 4, 6) else 8
+    if store_bits == 6 and (k_stored % 4 or (k_stored // k_shards) % 4):
+        store_bits = 8  # nq42 needs K divisible by 4 per shard
+    if store_bits == 8:
+        codes = codes - 128  # byte layout; dequant re-adds 128 before the LUT
+    qweight = pack_codes_sharded(codes, store_bits, k_shards)
+    return QuantizedTensor(qweight, cast_side(scales), cast_side(zeros), book,
+                           spec, (k, n), "lut", k_shards, n_pad, k_pad)

@@ -232,14 +232,16 @@ def test_pre_norm_normalizes_before_quantizing(wbits, bits):
 
 
 def test_lut_and_odd_bits_are_refused():
-    from iron_weight_only_quant_tpu_torch.quantize.qtensor import QuantizedTensor
+    """A8 on a LUT artifact raises, as in the JAX package; A16 exists for
+    fp4 (E2M1, E1M2) but not for fp8 (its values span no 16-bit grid)."""
+    from iron_weight_only_quant_tpu.config import fp_spec
 
     _, tq = _artifact(SPECS["w4_g128_asym"], seed=13)
-    lut = QuantizedTensor(tq.qweight, tq.scales, None, torch.zeros(16), tq.spec,
-                          tq.shape, "lut")
+    _, lut = _artifact(vars(fp_spec("fp4", 2, 1, group_size=128)), seed=13)
+    _, lut8 = _artifact(vars(fp_spec("fp8", 4, 3, group_size=128)), seed=13)
     x = torch.zeros((2, 512))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="LUT"):
         t_qmatmul.quantized_matmul(x, lut, activation_bits=8)
     with pytest.raises(NotImplementedError, match="8 or 16"):
         t_qmatmul.quantized_matmul(x, tq, activation_bits=4)
-    assert dm.a16_supported(tq) and not dm.a16_supported(lut)
+    assert dm.a16_supported(tq) and dm.a16_supported(lut) and not dm.a16_supported(lut8)

@@ -12,17 +12,24 @@ The W4 (nib4), W8 (byte) and W3 (s21) kernels run the same grid, with
 bf16/f32 activations and with int8 (A8) or split-plane (A16) ones; the W3
 shapes keep K/8 a multiple of the group (K=512 with g64 or per-channel side
 info, which the TPU kernel refuses, included); the int-activation row pass
-must give the plain version's codes bit for bit.  The serve loop's KV write,
-a wave and a chunk (also under activation bits, and on a W3 model) and tiny
-``serve`` runs are checked for host syncs, launch counts and repeatability.
+must give the plain version's codes bit for bit.  The LUT (minifloat)
+kernels run the nib4 (fp4) and byte (fp8, byte-per-code fp6) layouts with
+and without zero points, fp4 also under A16; BFP artifacts run on the W4 and
+W8 kernels; card-built fp/bfp artifacts must equal CPU-built ones byte for
+byte.  Artifacts the JAX package computes on its XLA path take the route
+(``ROUTE_CALLS``) on the card too.  The serve loop's KV write, a wave and a
+chunk (also under activation bits, and on a W3 model) and tiny ``serve``
+runs (also fp4 and fp8) are checked for host syncs, launch counts and
+repeatability.
 """
 
+import contextlib
 import dataclasses
 
 import pytest
 import torch
 
-from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL, PER_TENSOR, QuantSpec
+from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL, PER_TENSOR, QuantSpec, fp_spec
 from iron_weight_only_quant_tpu_torch.ops import qmatmul
 from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
@@ -55,6 +62,19 @@ SHAPES3 = {
     "896x256_kpad": (896, 256, dict(pad_k_to=1024)),
 }
 W3_SPEC = dataclasses.replace(SPECS["g128_asym"], bits=3)
+# minifloat (LUT) artifacts: (spec, the flat kernel they dispatch to)
+LUT_SPECS = {
+    "fp4_e2m1_g128_asym": (fp_spec("fp4", 2, 1, group_size=128, symmetric=False), dm.LUT4),
+    "fp4_e2m1_g128_sym": (fp_spec("fp4", 2, 1, group_size=128), dm.LUT4),
+    "fp4_e1m2_g64_sym": (fp_spec("fp4", 1, 2, group_size=64), dm.LUT4),
+    "fp4_e2m1_perchannel_asym": (fp_spec("fp4", 2, 1, group_size=PER_CHANNEL,
+                                         symmetric=False), dm.LUT4),
+    "fp8_e4m3_g128_sym": (fp_spec("fp8", 4, 3, group_size=128), dm.LUT8),
+    "fp8_e4m3_perchannel_asym": (fp_spec("fp8", 4, 3, group_size=PER_CHANNEL,
+                                         symmetric=False), dm.LUT8),
+    "fp8_e3m4_g128_sym": (fp_spec("fp8", 3, 4, group_size=128), dm.LUT8),
+    "fp8_e2m5_g128_asym": (fp_spec("fp8", 2, 5, group_size=128, symmetric=False), dm.LUT8),
+}
 
 
 @pytest.fixture(scope="module")
@@ -80,9 +100,10 @@ def _artifact(dev, k, n, spec, seed=0, bits=None, **kw):
 def _stacked(qts):
     """Layer-stacked artifact of ``qts``, side info padded by 5 rows."""
     pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 5))  # noqa: E731
+    zeros = None if qts[0].zeros is None else torch.stack([pad(q.zeros) for q in qts])
     return qts[0].replace(qweight=torch.stack([q.qweight for q in qts]),
                           scales=torch.stack([pad(q.scales) for q in qts]),
-                          zeros=torch.stack([pad(q.zeros) for q in qts]), side_pad=5)
+                          zeros=zeros, side_pad=5)
 
 
 def _x(dev, shape, dtype, seed=1):
@@ -205,33 +226,62 @@ def test_launches_are_counted_and_the_plain_path_is_not_taken(dev, bits):
     assert not any(dm.PLAIN_CALLS.values())
 
 
-@pytest.mark.parametrize("case", ["int3", "side_f16", "k_shards_2"])
+def _routed(dev, qt, x, **kw):
+    """One ``quantized_matmul`` of an artifact the JAX package computes on
+    its XLA path: it takes the route (one ``ROUTE_CALLS``, no launch, no
+    plain call) and computes what the same route computes on the CPU."""
+    dm.reset_counts()
+    y = qmatmul.quantized_matmul(x, qt, **kw)
+    torch.cuda.synchronize()
+    assert dm.ROUTE_CALLS == {dm.ROUTE: 1}
+    assert not any(dm.LAUNCHES.values()) and not any(dm.PLAIN_CALLS.values())
+    y_cpu = qmatmul.quantized_matmul(x.cpu(), qt.map_arrays(lambda a: a.cpu()), **kw)
+    _close_a(y.cpu(), y_cpu, x.dtype)
+
+
+@pytest.mark.parametrize("case", ["int3", "side_f16", "k_shards_2", "int2", "fp4_approx"])
 def test_layouts_without_a_kernel_raise_on_the_card(dev, case):
-    """``int3``: K=1088 with g64, a group straddles the K/8 = 136 slabs."""
-    spec = QuantSpec(fmt="int", bits=3 if case == "int3" else 4,
+    """The artifacts the JAX package never sends to a kernel take the route
+    on the card.  ``int3``: K=1088 with g64, a group straddles the K/8 =
+    136 slabs."""
+    spec = QuantSpec(fmt="int", bits={"int3": 3, "int2": 2}.get(case, 4),
                      group_size=64 if case == "int3" else 128, symmetric=False)
+    if case == "fp4_approx":
+        spec = fp_spec("fp4", 2, 1, group_size=128, approximate=True)
     kw = {"side_f16": dict(side_dtype=torch.float16),
           "k_shards_2": dict(k_shards=2)}.get(case, {})
     k = 1088 if case == "int3" else 512
     qt = _artifact(dev, k, 256, spec, **kw)
+    assert dm.xla_route(qt) and not dm.kernel_supported(qt)
+    _routed(dev, qt, _x(dev, (8, k), torch.bfloat16))
+
+
+def test_fp6_nq42_still_raises_on_the_card(dev):
+    """fp6 in the nq42 layout: the JAX package has kernels for it (rows
+    15-16), the port none yet."""
+    qt = _artifact(dev, 512, 256, fp_spec("fp6", 3, 2, group_size=128))
+    assert not dm.xla_route(qt) and not dm.kernel_supported(qt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul.quantized_matmul(_x(dev, (8, k), torch.bfloat16), qt)
+        qmatmul.quantized_matmul(_x(dev, (8, 512), torch.bfloat16), qt)
 
 
 @pytest.mark.parametrize("abits", [None, 8, 16])
 def test_w3_with_16_bit_side_info_raises_on_the_card(dev, abits):
+    """16-bit side info takes the route, activation bits ignored, as on the
+    JAX package's XLA path."""
     qt = _artifact(dev, 1024, 256, W3_SPEC, side_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul.quantized_matmul(_x(dev, (8, 1024), torch.bfloat16), qt,
-                                 activation_bits=abits)
+    _routed(dev, qt, _x(dev, (8, 1024), torch.bfloat16), activation_bits=abits,
+            pre_norm=EPS)
 
 
 def test_activation_bits_raise_on_the_card(dev):
-    """Activation bits on a layout no int-activation kernel takes (int2)
-    raise."""
+    """A8 on a LUT artifact raises, as in the JAX package; activation bits
+    on an artifact of the route (int2) are ignored, as on its XLA path."""
+    lut = _artifact(dev, 512, 256, LUT_SPECS["fp4_e2m1_g128_sym"][0])
+    with pytest.raises(NotImplementedError, match="LUT"):
+        qmatmul.quantized_matmul(_x(dev, (8, 512), torch.bfloat16), lut, activation_bits=8)
     qt = _artifact(dev, 512, 256, dataclasses.replace(SPECS["g128_asym"], bits=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul.quantized_matmul(_x(dev, (8, 512), torch.bfloat16), qt, activation_bits=8)
+    _routed(dev, qt, _x(dev, (8, 512), torch.bfloat16), activation_bits=8)
 
 
 # -------------------------------------------------- int-activation kernels
@@ -340,6 +390,118 @@ def test_row_pass_codes_are_bit_equal_to_plain(dev, bits, dtype):
     assert torch.equal(sx, want_sx)
 
 
+# ------------------------------------------------------------- LUT kernels
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 3, 17])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+@pytest.mark.parametrize("spec", list(LUT_SPECS), ids=list(LUT_SPECS))
+def test_lut_kernel_matches_plain_shapes(dev, spec, shape, m, dtype, pre_norm):
+    """``lut4``/``lut8`` (no prenorm kernel: a ``pre_norm`` normalizes x in
+    torch first)."""
+    spec, name = LUT_SPECS[spec]
+    k, n, kw = SHAPES[shape]
+    qt = _artifact(dev, k, n, spec, **kw)
+    assert dm.kernel_supported(qt) and dm.kernel_name(qt, pre_norm) == name
+    x = _x(dev, (m, k), dtype) * 3
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
+    assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm), dtype)
+
+
+def test_lut8_takes_byte_per_code_fp6(dev):
+    """fp6 with K % 4 != 0 is stored a byte per code: ``lut8`` takes it."""
+    qt = _artifact(dev, 510, 256, fp_spec("fp6", 3, 2, group_size=PER_CHANNEL,
+                                          symmetric=False))
+    assert dm.packed_bits(qt) == 8 and dm.kernel_name(qt) == dm.LUT8
+    x = _x(dev, (5, 510), torch.float32)
+    _close_a(dm.fused_quantized_matmul(x, qt), dm.dequant_matmul_plain(x, qt), torch.float32)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 3, 17])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+@pytest.mark.parametrize("spec", [s for s in LUT_SPECS if s.startswith("fp4")])
+def test_lut4a16_kernel_matches_plain_shapes(dev, spec, shape, m, dtype, pre_norm):
+    k, n, kw = SHAPES[shape]
+    qt = _artifact(dev, k, n, LUT_SPECS[spec][0], **kw)
+    assert dm.kernel_supported(qt, 16) and dm.kernel_name(qt, pre_norm, 16) == dm.LUT4A16
+    x = _x(dev, (m, k), dtype) * 3
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm, activation_bits=16)
+    assert dm.LAUNCHES[dm.LUT4A16] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm, activation_bits=16), dtype)
+
+
+def test_lut8_under_a16_warns_and_runs_at_full_precision(dev):
+    qt = _artifact(dev, 512, 256, LUT_SPECS["fp8_e4m3_g128_sym"][0])
+    x = _x(dev, (8, 512), torch.bfloat16)
+    dm.reset_counts()
+    with pytest.warns(UserWarning, match="full-precision"):
+        y = qmatmul.quantized_matmul(x, qt, activation_bits=16)
+    assert dm.LAUNCHES[dm.LUT8] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qt), torch.bfloat16)
+
+
+@pytest.mark.parametrize("abits", [None, 16], ids=["flat", "a16"])
+@pytest.mark.parametrize("spec", ["fp4_e2m1_g128_asym", "fp4_e1m2_g64_sym",
+                                  "fp8_e4m3_g128_sym", "fp8_e2m5_g128_asym"])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_lut_stacked_kernel_reads_the_layer_in_place(dev, layer, spec, abits):
+    qts = [_artifact(dev, 1408, 256, LUT_SPECS[spec][0], seed=10 + i) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st, abits)
+    x = _x(dev, (8, 1408), torch.float32)
+    warns = abits and spec.startswith("fp8")  # fp8 has no A16 path: full precision
+    with pytest.warns(UserWarning) if warns else contextlib.nullcontext():
+        y = dm.fused_quantized_matmul_stacked(x, st, layer, activation_bits=abits)
+    want = dm.dequant_matmul_plain(x, qts[layer], activation_bits=abits
+                                   if dm.a16_supported(st) else None)
+    _close_a(y, want, torch.float32)
+
+
+@pytest.mark.parametrize("kern", [pytest.param((4, None, dm.W4), id="bfp4_w4"),
+                                  pytest.param((8, None, dm.W8), id="bfp8_w8"),
+                                  pytest.param((4, EPS, dm.W4_PRENORM), id="bfp4_w4_prenorm"),
+                                  pytest.param((4, 16, dm.W4A16), id="bfp4_w4a16"),
+                                  pytest.param((8, 8, dm.W8A8), id="bfp8_w8a8")])
+def test_bfp_artifacts_run_on_the_int_kernels(dev, kern):
+    bits, arg, name = kern
+    pre_norm, abits = (arg, None) if arg is None or arg < 1 else (None, arg)
+    qt = _artifact(dev, 1408, 300, QuantSpec(fmt="bfp", bits=bits, group_size=128),
+                   pad_n_to=512)
+    assert qt.mode == "affine" and dm.kernel_name(qt, pre_norm, abits) == name
+    x = _x(dev, (8, 1408), torch.bfloat16)
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm, activation_bits=abits)
+    assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm, activation_bits=abits),
+             torch.bfloat16)
+
+
+@pytest.mark.parametrize("spec", [LUT_SPECS["fp4_e2m1_g128_asym"][0],
+                                  LUT_SPECS["fp8_e4m3_g128_sym"][0],
+                                  fp_spec("fp6", 3, 2, group_size=64, symmetric=False),
+                                  QuantSpec(fmt="bfp", bits=4, group_size=128),
+                                  QuantSpec(fmt="bfp", bits=8, group_size=128)],
+                         ids=["fp4", "fp8", "fp6", "bfp4", "bfp8"])
+def test_card_built_artifacts_equal_cpu_built(dev, spec):
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    w = torch.randn((1408, 300), generator=g, device=dev) * 0.05
+    w[:, 7] *= 1e-4  # subnormal fp16 for BFP, tiny groups for the minifloats
+    on_card = quantize_tensor(w, spec, pad_n_to=512, pad_k_to=512)
+    on_cpu = quantize_tensor(w.cpu(), spec, pad_n_to=512, pad_k_to=512)
+    for name in ("qweight", "scales", "zeros", "codebook"):
+        a, b = getattr(on_card, name), getattr(on_cpu, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), name
+
+
 # ------------------------------------------------------------------- serve
 
 def test_valid_kv_write_does_not_sync(dev):
@@ -359,9 +521,10 @@ def test_valid_kv_write_does_not_sync(dev):
     assert out.k[1, 4:].eq(0).all() and out.k[2, 11].eq(1).all() and out.k[3].eq(0).all()
 
 
-def _tiny_engine(dev, bits, **ecfg):
-    """Tiny 2-layer LLaMA, every linear ``bits``-bit g128; W3 at hidden 1024
-    and FFN 2048, the least widths whose K/8 the group divides."""
+def _tiny_engine(dev, bits, spec=None, **ecfg):
+    """Tiny 2-layer LLaMA, every linear ``bits``-bit g128 (or ``spec``); W3
+    at hidden 1024 and FFN 2048, the least widths whose K/8 the group
+    divides."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models import llama
@@ -372,7 +535,7 @@ def _tiny_engine(dev, bits, **ecfg):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     params = llama.fold_llama_norms(llama.llama_init(cfg, g, device=dev))
-    spec = QuantSpec(fmt="int", bits=bits, group_size=128, symmetric=False)
+    spec = spec or QuantSpec(fmt="int", bits=bits, group_size=128, symmetric=False)
     for lin in [params["lm_head"]] + [v for p in params["layers"] for v in p.values()
                                       if isinstance(v, dict)]:
         lin["w"] = quantize_tensor(lin["w"], spec, pad_n_to=512)
@@ -472,3 +635,24 @@ def test_tiny_a_serve_on_the_card_is_repeatable(dev, bits, abits):
     assert dm.LAUNCHES[step] == (stats["n_steps"] - stats["n_combos"]) * per_forward
     assert sum(dm.LAUNCHES.values()) == stats["n_steps"] * per_forward
     assert not any(dm.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("case", ["fp4", "fp4_a16", "fp8"])
+def test_tiny_lut_serve_on_the_card_is_repeatable(dev, case):
+    """Every linear of a forward on ``lut4`` (fp4 E2M1 g128 asym), ``lut4a16``
+    (A16 waves and decode) or ``lut8`` (fp8 E4M3 g128 sym): no prenorm
+    kernel, so ``forwards * (4L + 1)`` launches."""
+    spec = LUT_SPECS["fp8_e4m3_g128_sym" if case == "fp8" else "fp4_e2m1_g128_asym"][0]
+    ecfg = dict(activation_bits=16) if case == "fp4_a16" else {}
+    eng = _tiny_engine(dev, 4, spec=spec, **ecfg)
+    name = {"fp4": dm.LUT4, "fp4_a16": dm.LUT4A16, "fp8": dm.LUT8}[case]
+    reqs = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
+    outs, stats = [], {}
+    for _ in range(2):
+        dm.reset_counts()
+        outs.append(eng.serve(reqs, max_new_tokens=8, chunk=4, stats=stats))
+    assert outs[0] == outs[1] and [len(o) for o in outs[0]] == [8] * 6
+    per_forward = 4 * eng.cfg.num_layers + 1
+    assert dm.LAUNCHES == {**{k: 0 for k in dm.LAUNCHES},
+                           name: stats["n_steps"] * per_forward}
+    assert not any(dm.PLAIN_CALLS.values()) and not any(dm.ROUTE_CALLS.values())

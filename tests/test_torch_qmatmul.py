@@ -181,10 +181,12 @@ def test_cpu_tensor_takes_the_plain_version():
     dm.fused_quantized_matmul(torch.zeros((2, 512)), tq8, pre_norm=EPS)
     none = {name: 0 for name in (dm.W4, dm.W4_PRENORM, dm.W8, dm.W8_PRENORM,
                                  dm.W4A8, dm.W4A16, dm.W8A8, dm.W8A16,
-                                 dm.W3, dm.W3A8, dm.W3A16)}
+                                 dm.W3, dm.W3A8, dm.W3A16,
+                                 dm.LUT4, dm.LUT4A16, dm.LUT8)}
     assert dm.PLAIN_CALLS == {**none, dm.W4: 1, dm.W4_PRENORM: 1, dm.W8: 2,
                               dm.W8_PRENORM: 1}
     assert dm.LAUNCHES == none
+    assert dm.ROUTE_CALLS == {dm.ROUTE: 0}
     dm.reset_counts()
     assert dm.PLAIN_CALLS == none
 
@@ -206,6 +208,8 @@ def test_layouts_without_a_kernel_are_refused(case):
     w = torch.from_numpy(_x((k, 256)) * 0.05)
     tq = quantize_tensor(w, TSpec(**spec), **kw)
     assert not dm.kernel_supported(tq)
+    # the JAX package computes these on its XLA path: so does the port's route
+    assert dm.xla_route(tq) and dm.kernel_name(tq) is None
 
 
 def test_w4_main_path_layout_has_a_kernel():
