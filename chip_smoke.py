@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through twenty-one
-phases; any failing phase ends the run with a non-zero exit code.
+Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through twenty-four
+phases; any failing phase ends the run with a non-zero exit code.  The W4,
+fp4 and fp6 models run all 32 layers of LLaMA-2-7B; the W8, W3 and fp8
+models, whose kernels those paths do not carry but which add time, run
+``CUT_LAYERS`` (8) layers at full width.
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
    per source, all at once) and print the card's name and power limit.
@@ -28,7 +31,7 @@ phases; any failing phase ends the run with a non-zero exit code.
 5. W8 kernels vs plain: phase 2 for the int8 g128 kernels, plus a
    per-channel symmetric artifact.
 6. W8 two-layer model: phase 3 with int8 g128 weights.
-7. W8 serve: 32-layer 7B-width W8 model, ``InferenceEngine.serve`` with
+7. W8 serve: 8-layer 7B-width W8 model, ``InferenceEngine.serve`` with
    the traffic of the JAX package's ``bench.py`` ``serve_throughput`` (8
    slots, 16 requests of 16-64 tokens, 32 new tokens, 16 steps per sync,
    greedy): one warm-up run, then 3 timed runs, reported by their median
@@ -50,7 +53,7 @@ phases; any failing phase ends the run with a non-zero exit code.
     traffic with ``prefill_activation_bits=8`` and ``activation_bits=16``
     (waves on W4A8, decode steps on W4A16); warm-up, median of 3, one
     profiled run; launch counts exact per run.
-11. W8 A-serve: the W8 model of phase 7 with ``prefill_activation_bits=16``
+11. W8 A-serve: the 8-layer W8 model of phase 7 with ``prefill_activation_bits=16``
     and ``activation_bits=8`` (waves on W8A16, decode steps on W8A8).
 12. W3 kernels vs plain: the three s21 3-bit kernels (``w3_matmul``,
     ``w3a8_matmul``, ``w3a16_matmul``) against their plain versions at the
@@ -64,7 +67,7 @@ phases; any failing phase ends the run with a non-zero exit code.
     padded by 2 rows).
 13. W3 two-layer logits: phase 3 with the W3 model, with bf16/f32
     activations, A8 and A16.
-14. W3 full model: 32-layer 7B-width W3 model (every linear int3 g128
+14. W3 model: 8-layer 7B-width W3 model (every linear int3 g128
     asym, ``pad_n_to=512``, ``pad_k_to=1024``) built on the card;
     ``generate`` as in phase 4; ``serve`` of phase 7's traffic (warm-up,
     median of 3, profiled run); and the A-serve of phase 10 (A8 waves on
@@ -73,9 +76,10 @@ phases; any failing phase ends the run with a non-zero exit code.
     launch counts are ``forwards * (4L + 1)``.
 15. The XLA route on the card: at the o shape (4096x4096), the artifacts
     the JAX package computes on its XLA path by their format (16-bit side
-    info, ``k_shards=2``, int2, approximate fp4, and int3 K=1088 g64) each
-    take the route once (``ROUTE_CALLS``, no launch) and match the same
-    route on the CPU; an fp6 nq42 artifact (no kernel yet) still raises.
+    info, ``k_shards=2``, int2, approximate fp4, int3 K=1088 g64, and fp6
+    K=512 g256, whose groups straddle the K/4 quarters) each take the route
+    once (``ROUTE_CALLS``, no launch) and match the same route on the CPU;
+    an fp6 nq42 E3M2 g128 artifact launches ``lut6_matmul`` once.
 16. Format zoo on the card: for a K=4096 and a K=11008 weight, the
     card-built fp4 E2M1 g128 asymmetric, fp8 E4M3 g128 symmetric, bfp4 g128
     and bfp8 g128 artifacts (``pad_n_to=512``) are byte-equal to CPU-built
@@ -98,9 +102,25 @@ phases; any failing phase ends the run with a non-zero exit code.
     profiled run) and a serve with A16 waves and A16 decode (LUT has no
     A8).  Every linear takes ``lut4_matmul`` (``lut4a16_matmul`` under
     A16): ``forwards * (4L + 1)`` launches, no plain call, no route call.
-20. FP8 full model: 32-layer 7B-width fp8 E4M3 g128 symmetric model,
+20. FP8 model: 8-layer 7B-width fp8 E4M3 g128 symmetric model,
     ``serve`` as in phase 7, every linear on ``lut8_matmul``.
-21. Report: the generate and serve JSON lines, the card line, the
+21. FP6 kernels vs plain: ``lut6_matmul`` and ``lut6a16_matmul`` on fp6
+    E2M3 g128 symmetric artifacts in the nq42 layout (``pad_k_to=1024``:
+    down's K=11008 stored as 11264) at the five main-path shapes, timed at
+    M=8 and M=256, untimed at the other main-path row counts, qkv and
+    gate_up also with ``pre_norm``; at the down shape E3M2 g128
+    asymmetric, E2M3 g64 symmetric and per-channel asymmetric artifacts, an
+    f32 x and a stacked call per kernel; E3M2 under A16 warns and launches
+    ``lut6_matmul``.
+22. FP6 two-layer 7B-width logits (bf16/f32 activations and A16), kernels
+    vs the plain path on the CPU, as phase 3.
+23. FP6 full model: 32-layer 7B-width fp6 E2M3 g128 symmetric model built
+    on the card (``pad_n_to=512``, ``pad_k_to=1024``, the lm_head
+    included); ``generate`` as in phase 4, ``serve`` of phase 7's traffic
+    (warm-up, median of 3, profiled run) and a serve with A16 waves and A16
+    decode.  Every linear takes ``lut6_matmul`` (``lut6a16_matmul`` under
+    A16): ``forwards * (4L + 1)`` launches, no plain call, no route call.
+24. Report: the generate and serve JSON lines, the card line, the
     per-kernel JSON line, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -175,8 +195,15 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
                        "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:771"),
     "lut8_matmul": ("iron_weight_only_quant_tpu_torch/csrc/lut8_matmul.cu",
                     "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:811"),
+    "lut6_matmul": ("iron_weight_only_quant_tpu_torch/csrc/lut6_matmul.cu",
+                    "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:835"),
+    "lut6a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/lut6a16_matmul.cu",
+                       "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:892"),
 }
 W3_PAD_K = 1024  # down's K=11008 stored as 11264: K/8 = 1408 = 11 groups of 128
+FP6_PAD_K = 1024  # the same for nq42: K/4 = 2816 = 22 groups of 128
+CUT_LAYERS = 8  # depth of the earlier full-model paths whose kernels the
+#                 32-layer W4, fp4 and fp6 paths already drive at full depth
 
 
 def fail(msg: str) -> None:
@@ -516,7 +543,7 @@ def build_model(torch, device, spec, cfg, label, seed, pad_k_to=1):
 
 def phase_generate(torch, device, spec, cfg, card, names=None, label="W4", pad_k_to=1,
                    serve_runs=1):
-    """``generate`` on the 32-layer model whose linears take ``names``
+    """``generate`` on the ``cfg.num_layers``-layer model whose linears take ``names``
     (flat, prenorm kernel; W4's by default), then ``serve_runs`` timed
     serve runs.  Returns (generate result, serve result, fused params)."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
@@ -733,8 +760,8 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None):
 
 
 def phase_w8_serve(torch, device, spec, cfg, card, names=None, label="W8"):
-    """Build the 32-layer model of ``spec`` and ``serve`` it on the kernels
-    ``names`` (flat, prenorm; W8's by default)."""
+    """Build the ``cfg.num_layers``-layer model of ``spec`` and ``serve`` it
+    on the kernels ``names`` (flat, prenorm; W8's by default)."""
     from iron_weight_only_quant_tpu_torch.models.llama import fuse_llama_projections
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
@@ -929,7 +956,9 @@ def phase_w3_kernels(torch, device, spec):
 def phase_route(torch, device):
     """The artifacts the JAX package computes on its XLA path by their
     format, at the o shape: each takes the route once on the card and
-    matches the same route on the CPU; fp6 nq42 (no kernel yet) raises."""
+    matches the same route on the CPU (an fp6 artifact whose groups straddle
+    the K/4 quarters among them); an fp6 nq42 artifact whose groups do not
+    launches ``lut6_matmul`` instead."""
     from iron_weight_only_quant_tpu_torch.config import QuantSpec, fp_spec
     from iron_weight_only_quant_tpu_torch.ops import qmatmul
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
@@ -945,6 +974,7 @@ def phase_route(torch, device):
         "fp4_approx": (fp_spec("fp4", 2, 1, group_size=128, approximate=True), {}, 4096),
         "int3_k1088_g64": (QuantSpec(fmt="int", bits=3, group_size=64, symmetric=False),
                            {}, 1088),
+        "fp6_k512_g256": (fp_spec("fp6", 2, 3, group_size=256), {}, 512),
     }
     out = {}
     for label, (spec, kw, k) in cases.items():
@@ -971,15 +1001,18 @@ def phase_route(torch, device):
             fail(f"route {label}: counts {counts}, rel err {rel:.3e}")
     qt = quantize_tensor(torch.randn((4096, 4096), generator=gen, device=device) * 0.02,
                          fp_spec("fp6", 3, 2, group_size=128))
-    try:
-        qmatmul.quantized_matmul(torch.zeros((DECODE_M, 4096), dtype=torch.bfloat16,
-                                              device=device), qt)
-    except NotImplementedError as e:
-        if "ROADMAP" not in str(e):
-            fail(f"fp6 nq42 raised without naming the ROADMAP: {e}")
-        print("  fp6 nq42: raises NotImplementedError (rows 15-16 not ported yet)", flush=True)
-    else:
-        fail("fp6 nq42 did not raise on the card")
+    x = torch.randn((DECODE_M, 4096), generator=gen, device=device).to(torch.bfloat16)
+    dm.reset_counts()
+    y = qmatmul.quantized_matmul(x, qt, pre_norm=1e-5)
+    torch.cuda.synchronize()
+    counts = (dict(dm.LAUNCHES), sum(dm.PLAIN_CALLS.values()), dm.ROUTE_CALLS[dm.ROUTE])
+    y_ref = dm.dequant_matmul_plain(x, qt, pre_norm=1e-5)
+    rel = ((y.float() - y_ref.float()).abs().max() / y_ref.float().abs().max()).item()
+    print(f"  fp6 nq42 E3M2 g128: launches {counts[0][dm.LUT6]} lut6_matmul, plain calls "
+          f"{counts[1]}, route calls {counts[2]}, rel err vs plain {rel:.3e}", flush=True)
+    if counts != ({**{k: 0 for k in dm.LAUNCHES}, dm.LUT6: 1}, 0, 0) or rel > REL_TOL_BF16:
+        fail(f"fp6 nq42: counts {counts}, rel err {rel:.3e}")
+    out["fp6_nq42_lut6"] = {"rel_err": rel, "launches": 1}
     return out
 
 
@@ -1014,23 +1047,29 @@ def phase_zoo_bytes(torch, device):
     return checked
 
 
-# ------------------------------------------------------------- phase 17
+# ------------------------------------------------------------- phases 17, 21
 
-def phase_lut_kernels(torch, device, fp4, fp8):
-    """The three LUT kernels against their plain versions (``fp4``: the
-    lut4/lut4a16 spec, ``fp8``: the lut8 spec), and BFP artifacts on the
-    int kernels."""
-    from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL, QuantSpec, fp_spec
+def phase_lut_kernels(torch, device, seed, cases, pad_k_to=1):
+    """LUT kernels against their plain versions.  ``cases`` are (spec,
+    activation-bits settings, {label: other spec}): each spec at the five
+    main-path shapes (K padded to ``pad_k_to``), timed at M=8 and M=256,
+    untimed at the other main-path row counts, qkv and gate_up also once
+    with ``pre_norm`` (x normalized in torch first, in the row pass under
+    A16); then at the down shape an f32 x, the other specs (under A16 only
+    those with the A16 path) and a stacked call (layer 2 of 3,
+    side_pad=2) per kernel.  Returns (records by kernel, the generator and
+    the function that makes a down-shape artifact, for the phase's own
+    checks)."""
     from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     gen = torch.Generator(device=device)
-    gen.manual_seed(8)
+    gen.manual_seed(seed)
     per_kernel = {}
     eps = 1e-5
-    for spec, abits_all in ((fp4, (None, 16)), (fp8, (None,))):
+    for spec, abits_all, _ in cases:
         for name, k, widths, prenorm, per_step in MAIN_SHAPES:
-            qt, spans = make_artifact(torch, gen, spec, k, widths, device)
+            qt, spans = make_artifact(torch, gen, spec, k, widths, device, pad_k_to=pad_k_to)
             w_lib = dequantize_weight(qt, torch.bfloat16)
             for abits in abits_all:
                 kname = dm.kernel_name(qt, eps if prenorm else None, abits)
@@ -1050,34 +1089,35 @@ def phase_lut_kernels(torch, device, fp4, fp8):
             del qt, w_lib
             torch.cuda.empty_cache()
 
-    # once at the down shape: other formats and side layouts, an f32 x and
-    # a stacked call (layer 2 of 3, side_pad=2) per kernel
     def down(spec):
-        return make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device)[0]
+        return make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device,
+                             pad_k_to=pad_k_to)[0]
 
     x = torch.randn((DECODE_M, EXTRA_K), generator=gen, device=device)
     xb = x.to(torch.bfloat16)
-    others = {
-        fp4: {"fp4_e2m1_g128_sym": fp_spec("fp4", 2, 1, group_size=128),
-              "fp4_e1m2_g64_sym": fp_spec("fp4", 1, 2, group_size=64)},
-        fp8: {"fp8_e4m3_perchannel_asym": fp_spec("fp8", 4, 3, group_size=PER_CHANNEL,
-                                                  symmetric=False),
-              "fp8_e3m4_g128_sym": fp_spec("fp8", 3, 4, group_size=128)},
-    }
-    for spec, abits_all in ((fp4, (None, 16)), (fp8, (None,))):
+    for spec, abits_all, others in cases:
         layers = [down(spec) for _ in range(3)]
         st = stacked_of(torch, layers)
-        extra = {label: down(o) for label, o in others[spec].items()}
+        extra = {label: down(o) for label, o in others.items()}
         for abits in abits_all:
             kname = dm.kernel_name(layers[0], None, abits)
             check_call(torch, f"{kname}:f32", layers[0], x, *a_runner(None, abits))
             for label, qt in extra.items():
-                check_call(torch, f"{kname}:{label}", qt, xb, *a_runner(None, abits))
+                if abits is None or dm.a16_supported(qt):
+                    check_call(torch, f"{kname}:{label}", qt, xb, *a_runner(None, abits))
             check_call(torch, f"{kname}:stacked:layer=2", st, xb, *a_runner(None, abits, 2))
         del layers, st, extra
         torch.cuda.empty_cache()
+    return per_kernel, gen, down
 
-    # BFP artifacts are affine: the int kernels of their storage take them
+
+def check_bfp_on_int_kernels(torch, down, gen, device):
+    """BFP artifacts are affine: the int kernels of their storage take
+    them (``w4``, ``w4a16``, ``w8``, ``w8a16``), against the plain path."""
+    from iron_weight_only_quant_tpu_torch.config import QuantSpec
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    xb = torch.randn((DECODE_M, EXTRA_K), generator=gen, device=device).to(torch.bfloat16)
     for bits in (4, 8):
         qt = down(QuantSpec(fmt="bfp", bits=bits, group_size=128))
         for abits in (None, 16):
@@ -1085,7 +1125,30 @@ def phase_lut_kernels(torch, device, fp4, fp8):
             check_call(torch, f"{kname}:bfp{bits}", qt, xb, *a_runner(None, abits))
         del qt
     torch.cuda.empty_cache()
-    return per_kernel
+
+
+def check_a16_without_grid(torch, down, spec, gen, device):
+    """A16 on an nq42 format without the int8 grid (fp6 E3M2) warns and
+    launches ``lut6_matmul`` once, at full precision."""
+    import warnings
+
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    qt = down(spec)
+    xb = torch.randn((DECODE_M, EXTRA_K), generator=gen, device=device).to(torch.bfloat16)
+    dm.reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        y = dm.fused_quantized_matmul(xb, qt, activation_bits=16)
+    torch.cuda.synchronize()
+    launches = dict(dm.LAUNCHES)
+    if not any("full-precision" in str(w.message) for w in caught) or \
+            launches != {**{k: 0 for k in dm.LAUNCHES}, dm.LUT6: 1}:
+        fail(f"fp6 E3M2 under A16: warnings {[str(w.message) for w in caught]}, "
+             f"launches {launches}")
+    check_call(torch, "lut6_matmul:fp6_e3m2_g128_asym:a16_full_precision", qt, xb,
+               lambda x_, qt_: y, lambda x_, qt_: dm.dequant_matmul_plain(x_, qt_))
+    print("  fp6 E3M2 under A16: warned, one lut6_matmul launch", flush=True)
 
 
 # --------------------------------------------------------------- report
@@ -1112,6 +1175,8 @@ def kernel_rows(per_kernel, launches):
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1156,6 +1221,7 @@ def main() -> int:
     w4 = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
     w8 = QuantSpec(fmt="int", bits=8, group_size=128, symmetric=False)
     cfg = LlamaConfig.llama2_7b()
+    cfg_cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
     tol = f"tolerance max|y-y_ref|/max|y_ref| <= {REL_TOL_BF16}, bf16 x"
 
     header(f"== phase 2: W4 kernels vs plain versions ({tol})")
@@ -1177,8 +1243,8 @@ def main() -> int:
     header("== phase 6: W8 two-layer 7B-width logits, kernels vs plain path")
     phase_two_layers(torch, device, w8, cfg)
 
-    header("== phase 7: 32-layer 7B-width W8 serve")
-    serve_w8, params_w8 = phase_w8_serve(torch, device, w8, cfg, card)
+    header(f"== phase 7: {CUT_LAYERS}-layer 7B-width W8 serve")
+    serve_w8, params_w8 = phase_w8_serve(torch, device, w8, cfg_cut, card)
 
     tol_a = f"{tol}; {REL_TOL_F32} for f32 x"
     header(f"== phase 8: int-activation kernels vs plain versions ({tol_a})")
@@ -1196,8 +1262,8 @@ def main() -> int:
     del params_w4
     torch.cuda.empty_cache()
 
-    header("== phase 11: 32-layer 7B-width W8 serve, A16 waves, A8 decode")
-    serve_w8_a = phase_serve(torch, params_w8, cfg, (dm.W8A16, dm.W8A8), SERVE_RUNS,
+    header(f"== phase 11: {CUT_LAYERS}-layer 7B-width W8 serve, A16 waves, A8 decode")
+    serve_w8_a = phase_serve(torch, params_w8, cfg_cut, (dm.W8A16, dm.W8A8), SERVE_RUNS,
                              card, abits=(16, 8))
     del params_w8
     torch.cuda.empty_cache()
@@ -1211,13 +1277,13 @@ def main() -> int:
     phase_two_layers(torch, device, w3, cfg, abits_list=(None,) + dm.ACTIVATION_BITS,
                      pad_k_to=W3_PAD_K)
 
-    header("== phase 14: 32-layer 7B-width W3 generate, serve, and serve with A8 waves, "
-           "A16 decode")
+    header(f"== phase 14: {CUT_LAYERS}-layer 7B-width W3 generate, serve, and serve with A8 "
+           "waves, A16 decode")
     res_w3, serve_w3, params_w3 = phase_generate(
-        torch, device, w3, cfg, card, names=(dm.W3, dm.W3), label="W3",
+        torch, device, w3, cfg_cut, card, names=(dm.W3, dm.W3), label="W3",
         pad_k_to=W3_PAD_K, serve_runs=SERVE_RUNS)
     print("  -- W3 serve, A8 waves, A16 decode", flush=True)
-    serve_w3_a = phase_serve(torch, params_w3, cfg, (dm.W3A8, dm.W3A16), SERVE_RUNS,
+    serve_w3_a = phase_serve(torch, params_w3, cfg_cut, (dm.W3A8, dm.W3A16), SERVE_RUNS,
                              card, abits=(8, 16))
     del params_w3
     torch.cuda.empty_cache()
@@ -1232,7 +1298,14 @@ def main() -> int:
     fp4 = fp_spec("fp4", 2, 1, group_size=128, symmetric=False)
     fp8 = fp_spec("fp8", 4, 3, group_size=128)
     header(f"== phase 17: LUT kernels vs plain versions, BFP on the int kernels ({tol_a})")
-    per_kernel.update(phase_lut_kernels(torch, device, fp4, fp8))
+    per_kernel_lut, gen, down = phase_lut_kernels(torch, device, 8, [
+        (fp4, (None, 16), {"fp4_e2m1_g128_sym": fp_spec("fp4", 2, 1, group_size=128),
+                           "fp4_e1m2_g64_sym": fp_spec("fp4", 1, 2, group_size=64)}),
+        (fp8, (None,), {"fp8_e4m3_perchannel_asym": fp_spec("fp8", 4, 3, group_size=PER_CHANNEL,
+                                                            symmetric=False),
+                        "fp8_e3m4_g128_sym": fp_spec("fp8", 3, 4, group_size=128)})])
+    per_kernel.update(per_kernel_lut)
+    check_bfp_on_int_kernels(torch, down, gen, device)
 
     header("== phase 18: fp4 (also A16) and fp8 two-layer 7B-width logits, kernels vs "
            "plain path")
@@ -1250,13 +1323,40 @@ def main() -> int:
     del params_fp4
     torch.cuda.empty_cache()
 
-    header("== phase 20: 32-layer 7B-width fp8 serve")
-    serve_fp8, params_fp8 = phase_w8_serve(torch, device, fp8, cfg, card,
+    header(f"== phase 20: {CUT_LAYERS}-layer 7B-width fp8 serve")
+    serve_fp8, params_fp8 = phase_w8_serve(torch, device, fp8, cfg_cut, card,
                                            names=(dm.LUT8, dm.LUT8), label="FP8")
     del params_fp8
     torch.cuda.empty_cache()
 
-    header("== phase 21: report")
+    fp6 = fp_spec("fp6", 2, 3, group_size=128)
+    header(f"== phase 21: fp6 (nq42) kernels vs plain versions ({tol_a})")
+    e3m2 = fp_spec("fp6", 3, 2, group_size=128, symmetric=False)
+    per_kernel_lut, gen, down = phase_lut_kernels(torch, device, 9, [
+        (fp6, (None, 16), {"fp6_e3m2_g128_asym": e3m2,
+                           "fp6_e2m3_g64_sym": fp_spec("fp6", 2, 3, group_size=64),
+                           "fp6_e2m3_perchannel_asym": fp_spec("fp6", 2, 3,
+                                                               group_size=PER_CHANNEL,
+                                                               symmetric=False)})],
+        pad_k_to=FP6_PAD_K)
+    per_kernel.update(per_kernel_lut)
+    check_a16_without_grid(torch, down, e3m2, gen, device)
+
+    header("== phase 22: fp6 two-layer 7B-width logits (also A16), kernels vs plain path")
+    phase_two_layers(torch, device, fp6, cfg, abits_list=(None, 16), pad_k_to=FP6_PAD_K)
+
+    header("== phase 23: 32-layer 7B-width fp6 generate, serve, and serve with A16 "
+           "waves and decode")
+    res_fp6, serve_fp6, params_fp6 = phase_generate(
+        torch, device, fp6, cfg, card, names=(dm.LUT6, dm.LUT6), label="FP6",
+        pad_k_to=FP6_PAD_K, serve_runs=SERVE_RUNS)
+    print("  -- FP6 serve, A16 waves, A16 decode", flush=True)
+    serve_fp6_a = phase_serve(torch, params_fp6, cfg, (dm.LUT6A16, dm.LUT6A16), SERVE_RUNS,
+                              card, abits=(16, 16))
+    del params_fp6
+    torch.cuda.empty_cache()
+
+    header("== phase 24: report")
     names_of = lambda run, names: {k: v for k, v in run["launches"].items()  # noqa: E731
                                    if k in names}
     launches = {**names_of(res, (dm.W4, dm.W4_PRENORM)),
@@ -1267,7 +1367,9 @@ def main() -> int:
                 **names_of(serve_w3_a, (dm.W3A8, dm.W3A16)),
                 **names_of(serve_fp4, (dm.LUT4,)),
                 **names_of(serve_fp4_a, (dm.LUT4A16,)),
-                **names_of(serve_fp8, (dm.LUT8,))}
+                **names_of(serve_fp8, (dm.LUT8,)),
+                **names_of(serve_fp6, (dm.LUT6,)),
+                **names_of(serve_fp6_a, (dm.LUT6A16,))}
     rows = kernel_rows(per_kernel, launches)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"generate": {k: v for k, v in res.items() if k != "launches"}}))
@@ -1283,6 +1385,9 @@ def main() -> int:
     print(json.dumps({"serve_fp4": serve_fp4}))
     print(json.dumps({"serve_fp4_a16": serve_fp4_a}))
     print(json.dumps({"serve_fp8": serve_fp8}))
+    print(json.dumps({"generate_fp6": {k: v for k, v in res_fp6.items() if k != "launches"}}))
+    print(json.dumps({"serve_fp6": serve_fp6}))
+    print(json.dumps({"serve_fp6_a16": serve_fp6_a}))
     print(json.dumps({"route": route, "zoo_bytes_equal_artifacts": zoo_checks}))
     print(card)
     print(json.dumps({"kernels": rows}))

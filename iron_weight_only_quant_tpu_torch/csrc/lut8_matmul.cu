@@ -17,7 +17,7 @@ extern "C" int iwoq_lut8_matmul(const void* x, int x_bf16, int ldx, const void* 
                                 void* ws, void* out, int M, int N, int n_out, int Kp,
                                 int G, int kc, int splits, int exp_bits, int mant_bits,
                                 void* stream) {
-  return iwoq::launch_lut<false>(x, x_bf16, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws,
+  return iwoq::launch_lut<1>(x, x_bf16, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws,
                                  out, M, N, n_out, Kp, G, kc, splits, exp_bits,
                                  mant_bits, stream);
 }

@@ -8,14 +8,22 @@
 //   nib4 layout;
 //   _lut8_kernel (:811, called at :1628) and its stacked form
 //   _lut8_kernel_pfx (:1737, through :1927): byte minifloat codes (fp8, and
-//   the byte-per-code fp6).
+//   the byte-per-code fp6);
+//   _lut6_kernel (:835) and its stacked form _lut6_kernel_pfx (:887), both
+//   through _call_lut6 (:939, called at :1575 and :1798): 6-bit minifloat
+//   codes (fp6) in the nq42 layout.
 // The stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.
 //
 // Artifact layout (ops/packing.py): nib4 is uint8 [Kp, N], Kp = K_stored/2,
 // byte (kp, n) holding code (kp, n) in its low nibble and code (kp + Kp, n)
 // in its high nibble, stored MSB-flipped (hi ^ 8), as W4; byte is uint8
-// [K, N] holding code - 128, as W8.  Codes are plain unsigned minifloat
+// [K, N] holding code - 128, as W8; nq42 is uint8 [3 Kq, N], Kq = K_stored/4,
+// one nibble array laid out as nib4 over the four K quarters (rows [0, Kq):
+// quarter 0 low, quarter 2 high; rows [Kq, 2 Kq): quarters 1 and 3) and one
+// quad array (row 2 Kq + r, bits 2j..2j+1: the top two bits of quarter j's
+// code at K = j Kq + r), so quad row r serves K columns r, r + Kq, r + 2 Kq
+// and r + 3 Kq from three bytes.  Codes are plain unsigned minifloat
 // codewords: sign bit, exp_bits exponent field, mant_bits mantissa field.
 // Scales are f32, addressed as s[g * rs + n * cs] with stride 0 on broadcast
 // axes; zeros likewise, or a null pointer: symmetric minifloat artifacts
@@ -26,7 +34,8 @@
 // artifact's codebook, so an approximate codebook cannot reach a kernel):
 // normals assemble their f32 bits, subnormals are mant * 2^(1-bias-M), the
 // sign negates (a sign-only code decodes to -0, as code_to_float).  16
-// entries for nib4 (one bank each, so a warp's lookups never conflict), 256
+// entries for nib4 (one bank each, so a warp's lookups never conflict), 64
+// for nq42 (two codes a bank: a warp's lookups may conflict two ways), 256
 // for byte, indexed by the stored byte.
 //
 // Accumulation (_lut_accum :724): per element w = val * s, one fmaf per
@@ -38,11 +47,15 @@
 // streams its packed weight once, bound by bytes (codes + f32 scales [+
 // zeros] + x + output) over 3.35 TB/s; at prefill M by 2*M*N*K operations.
 // The design is W4's and W8's (w4_common.cuh, w8_common.cuh): one 32-bit
-// load per thread per packed row, decoded in registers and used for all
-// kTileM activation rows staged in shared memory, eight warps splitting the
+// load per thread per packed row (nq42: three, the two nibble rows and the
+// quad row of its four columns, 16 codes), decoded in registers and used
+// for all kTileM activation rows staged in shared memory (H = 1, 2 or 4 K
+// streams a packed row: byte, nib4, nq42), eight warps splitting the
 // block's K range, a grid K-split, and the same deterministic second pass
-// over the f32 partials.  CUDA-core FMAs: the simple and correct first
-// version, no tensor cores, no TMA pipeline.
+// over the f32 partials.  A group never straddles the streams (the wrapper
+// checks G | Kp), so stream h of row r uses group row r / G + h * Kp / G.
+// CUDA-core FMAs: the simple and correct first version, no tensor cores,
+// no TMA pipeline.
 #pragma once
 
 #include "w8_common.cuh"
@@ -72,10 +85,26 @@ __device__ __forceinline__ int minifloat_int(int code, int exp_bits, int mant_bi
   return sign ? -ival : ival;
 }
 
-// Partial products of one (N-tile, M-tile, K-split) block into ws.
-// NIB4: qw is [Kp, N/4] words, packed row r meets K columns r (low nibbles)
-// and Kp + r (high nibbles); else qw is [K, N/4] words of code - 128.
-template <bool NIB4, typename XT>
+// The table index of stream h's code in byte j of a packed row's words:
+// byte (H = 1, w0 = code - 128); nib4 (H = 2, w0: low nibble, high nibble
+// flipped); nq42 (H = 4, w0 and w1 the nibble rows of quarters 0/2 and 1/3,
+// w2 the quad row).
+template <int H>
+__device__ __forceinline__ uint32_t lut_index(uint32_t w0, uint32_t w1, uint32_t w2,
+                                              int j, int h) {
+  const uint32_t byte = ((H == 4 && (h & 1) ? w1 : w0) >> (8 * j)) & 0xFFu;
+  if (H == 1) return byte;
+  const uint32_t nib = h < H / 2 ? (byte & 0xFu) : ((byte >> 4) ^ 8u);
+  if (H == 2) return nib;
+  return nib | (((w2 >> (8 * j + 2 * h)) & 3u) << 4);
+}
+
+// Partial products of one (N-tile, M-tile, K-split) block into ws.  H K
+// streams a packed row: packed row r meets K columns h * Kp + r.  H = 1:
+// qw is [K, N/4] words of code - 128; H = 2 (nib4): [Kp, N/4] words, low
+// nibbles stream 0, high nibbles stream 1; H = 4 (nq42): [3 Kp, N/4] words,
+// Kp = K/4 quad rows (lut_index).
+template <int H, typename XT>
 __global__ void __launch_bounds__(kThreads)
 lut_partial_kernel(const XT* __restrict__ x, int ldx,
                    const uint32_t* __restrict__ qw,
@@ -83,9 +112,9 @@ lut_partial_kernel(const XT* __restrict__ x, int ldx,
                    const float* __restrict__ z, long long z_rs, long long z_cs,
                    float* __restrict__ ws, int M, int N, int Kp, int G, int kc,
                    int exp_bits, int mant_bits) {
-  constexpr int H = NIB4 ? 2 : 1;            // K streams per packed row
-  constexpr int kTab = NIB4 ? 16 : 256;      // table entries
-  constexpr int kStageL = NIB4 ? kStage : kStage8;
+  static_assert(H == 1 || H == 2 || H == 4, "byte, nib4 or nq42");
+  constexpr int kTab = H == 1 ? 256 : H == 2 ? 16 : 64;  // table entries
+  constexpr int kStageL = H == 1 ? kStage8 : kStage;
   static_assert(H * kStageL * kTileM <= kKWarps * kTileM * kBlockN,
                 "the x stage must fit in the reduction buffer");
   __shared__ __align__(16) float smem[kKWarps * kTileM * kBlockN];
@@ -104,7 +133,7 @@ lut_partial_kernel(const XT* __restrict__ x, int ldx,
 
   // the byte layout stores code - 128: entry b holds the value of code b ^ 0x80
   for (int i = tid; i < kTab; i += kThreads)
-    tab[i] = minifloat_value(NIB4 ? i : (i ^ 0x80), exp_bits, mant_bits);
+    tab[i] = minifloat_value(H == 1 ? (i ^ 0x80) : i, exp_bits, mant_bits);
   // (the stage loop's first __syncthreads orders the table before its use)
 
   float acc[kTileM][kColsPerThread];
@@ -150,7 +179,10 @@ lut_partial_kernel(const XT* __restrict__ x, int ldx,
         }
 #pragma unroll 4
         for (; r < seg_end; ++r) {
-          const uint32_t w = __ldg(qw + (size_t)r * words_per_row + (n0 / kColsPerThread));
+          const uint32_t* wr = qw + (size_t)r * words_per_row + (n0 / kColsPerThread);
+          const uint32_t w0 = __ldg(wr);
+          const uint32_t w1 = H == 4 ? __ldg(wr + (size_t)Kp * words_per_row) : 0u;
+          const uint32_t w2 = H == 4 ? __ldg(wr + (size_t)2 * Kp * words_per_row) : 0u;
 #pragma unroll
           for (int h = 0; h < H; ++h) {
             const float4* x4 = reinterpret_cast<const float4*>(
@@ -161,9 +193,7 @@ lut_partial_kernel(const XT* __restrict__ x, int ldx,
             for (int m = 0; m < kTileM; ++m) xsum[h][m] += xv[m];
 #pragma unroll
             for (int j = 0; j < kColsPerThread; ++j) {
-              const uint32_t byte = (w >> (8 * j)) & 0xFFu;
-              const uint32_t idx = !NIB4 ? byte : h == 0 ? (byte & 0xFu) : ((byte >> 4) ^ 8u);
-              const float wv = tab[idx] * sg[h][j];
+              const float wv = tab[lut_index<H>(w0, w1, w2, j, h)] * sg[h][j];
 #pragma unroll
               for (int m = 0; m < kTileM; ++m) acc[m][j] = fmaf(xv[m], wv, acc[m][j]);
             }
@@ -185,7 +215,7 @@ lut_partial_kernel(const XT* __restrict__ x, int ldx,
   store_partials(acc, smem, ws, m0, M, N);
 }
 
-template <bool NIB4, typename XT>
+template <int H, typename XT>
 cudaError_t launch_lut_typed(const void* x, int ldx, const void* qw,
                              const void* s, long long s_rs, long long s_cs,
                              const void* z, long long z_rs, long long z_cs,
@@ -194,7 +224,7 @@ cudaError_t launch_lut_typed(const void* x, int ldx, const void* qw,
                              cudaStream_t stream) {
   const dim3 block(kLanes, kKWarps);
   const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kTileM - 1) / kTileM, splits);
-  lut_partial_kernel<NIB4, XT><<<grid, block, 0, stream>>>(
+  lut_partial_kernel<H, XT><<<grid, block, 0, stream>>>(
       static_cast<const XT*>(x), ldx, static_cast<const uint32_t*>(qw),
       static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z),
       z_rs, z_cs, static_cast<float*>(ws), M, N, Kp, G, kc, exp_bits, mant_bits);
@@ -204,24 +234,26 @@ cudaError_t launch_lut_typed(const void* x, int ldx, const void* qw,
 }
 
 // The whole call: partial products, then the W4 reduce (fixed-order K-split
-// sum, cast).  Kp is the number of packed rows: K/2 (nib4) or K (byte).
-// z may be null (no zero points).
-template <bool NIB4>
+// sum, cast).  Kp is the number of packed rows a stream has: K (byte, H =
+// 1), K/2 (nib4, H = 2) or the K/4 quad rows (nq42, H = 4).  z may be null
+// (no zero points).
+template <int H>
 int launch_lut(const void* x, int x_bf16, int ldx, const void* qw, const void* s,
                long long s_rs, long long s_cs, const void* z, long long z_rs,
                long long z_cs, void* ws, void* out, int M, int N, int n_out, int Kp,
                int G, int kc, int splits, int exp_bits, int mant_bits, void* stream) {
   if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 ||
       G <= 0 || Kp % G || kc <= 0 || splits <= 0 ||
-      (long long)kc * splits < Kp || ldx < (NIB4 ? 2 : 1) * Kp ||
-      exp_bits < 1 || mant_bits < 0 || 1 + exp_bits + mant_bits > (NIB4 ? 4 : 8))
+      (long long)kc * splits < Kp || ldx < H * Kp ||
+      exp_bits < 1 || mant_bits < 0 ||
+      1 + exp_bits + mant_bits > (H == 1 ? 8 : H == 2 ? 4 : 6))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = x_bf16
-      ? launch_lut_typed<NIB4, __nv_bfloat16>(x, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs,
+      ? launch_lut_typed<H, __nv_bfloat16>(x, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs,
                                               ws, out, M, N, n_out, Kp, G, kc, splits,
                                               exp_bits, mant_bits, st)
-      : launch_lut_typed<NIB4, float>(x, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws,
+      : launch_lut_typed<H, float>(x, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws,
                                       out, M, N, n_out, Kp, G, kc, splits, exp_bits,
                                       mant_bits, st);
   return (int)err;

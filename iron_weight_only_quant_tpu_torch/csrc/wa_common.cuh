@@ -1,8 +1,8 @@
 // Int-activation dequant-matmul for Hopper (sm_90a):
 //   y[M,N] = sx[M] * (quantize(x)[M,K] @ dequant(qw)[K,N]),
 // int8 activation planes against the packed int4 (nib4), int8 (byte) or
-// 3-bit (s21) weight codes, or 4-bit minifloat codes (LUT nib4) decoded to
-// their exact int8 grid, one __dp4a per four K values.
+// 3-bit (s21) weight codes, or 4- and 6-bit minifloat codes (LUT nib4, LUT
+// nq42) decoded to their exact int8 grid, one __dp4a per four K values.
 //
 // Replaces the int-activation paths of the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -17,7 +17,9 @@
 //       (:533) (A16), stacked forms _int3_kernel_pfx (:1360) and
 //       _int3_kernel_a16_pfx (:588), all through _call_int3 (:1365);
 //   LUT nib4 with A16: _lut4_kernel_a16 (:771, called at :1607) and its
-//       stacked form _lut4_kernel_a16_pfx (:806, through :1927).
+//       stacked form _lut4_kernel_a16_pfx (:806, through :1927);
+//   LUT nq42 with A16: _lut6_kernel_a16 (:892) and its stacked form
+//       _lut6_kernel_a16_pfx (:934), both through _call_lut6 (:939).
 // The stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.  The JAX package quantized the
 // activations in XLA (_prep_x :1270-1316); here a row pass of the same
@@ -54,14 +56,25 @@
 //     sum is at most 127 * 128 * G < 2^31 for groups G up to 131072, the
 //     A16 activation sum 256*sum(hi) + sum(lo) at most 32640 * G < 2^31
 //     for G up to 65793 (a per-channel group spans K, or each nib4 half).
-//     wa_s21_partial_kernel (s21, the third layout case): the same grid with
-//     W3's warp-per-slab split (w3_common.cuh): warp i walks the block's B
-//     rows four at a time, transposes four A words (rows (i % 2) * Kb + r..)
-//     and four B words (rows 2 Kb + r..) into per-column words, assembles
-//     slab i's four K-consecutive codes (field i / 2, un-flipped, plus 4 *
-//     bit i) and runs the same __dp4a sums and per-group epilogue against
-//     slab i's activations (K = i * Kb + r..).
-//     The LUT case (kLut4, A16 only, as in the JAX package): the nib4 grid
+//     wa_slab_partial_kernel (s21, the third layout case): the same grid
+//     with W3's warp-per-slab split (w3_common.cuh): warp i walks the
+//     block's B rows four at a time, transposes four A words (rows (i % 2)
+//     * Kb + r..) and four B words (rows 2 Kb + r..) into per-column words,
+//     assembles slab i's four K-consecutive codes (field i / 2, un-flipped,
+//     plus 4 * bit i) and runs the same __dp4a sums and per-group epilogue
+//     against slab i's activations (K = i * Kb + r..).
+//     The nq42 case (kLut6, A16 only) is the same kernel over the four K
+//     quarters of the 6-bit layout: one quad row gives a column one code
+//     per quarter, and __dp4a wants four K-consecutive codes of one
+//     quarter, so a warp walks four consecutive quad rows a step.  Warps i
+//     and i + 4 take quarter i, each one half of the stage's quad rows;
+//     each transposes four nibble words (rows (i % 2) * Kq + r.., quarter i
+//     in the low nibbles for i < 2, in the flipped high nibbles for i >= 2)
+//     and four quad words (rows 2 Kq + r.., bits 2i..2i+1), assembles the
+//     four 6-bit codes of each column and maps them through a 64-entry table
+//     to their int8 grid bytes, then runs the LUT epilogue below against
+//     quarter i's activations (K = i * Kq + r..).
+//     The LUT nib4 case (kLut4, A16 only, as in the JAX package): the nib4 grid
 //     and byte transpose of the affine case; each nibble code becomes the
 //     int8 byte of its exact grid value ival (_minifloat_decode_int :683,
 //     value = ival * 2^-t, t = M + bias - 1, built into a 16-entry table per
@@ -87,10 +100,10 @@
 
 namespace iwoq {
 
-enum Layout { kNib4 = 0, kByte = 1, kS21 = 2, kLut4 = 3 };  // packed weight layouts
+enum Layout { kNib4 = 0, kByte = 1, kS21 = 2, kLut4 = 3, kLut6 = 4 };  // packed weight layouts
 constexpr int kRowThreads = 256;  // threads of the row pass, one block per row
 constexpr int kStageA = 512;      // packed K rows of int8 x staged at a time
-constexpr int kStageA3 = 256;     // s21: B rows of int8 x staged at a time (all slabs)
+constexpr int kStageA3 = 256;     // s21, nq42: slab rows of int8 x staged at a time (all slabs)
 
 __device__ __forceinline__ float round_to(float v, float) { return v; }
 __device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
@@ -173,10 +186,19 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&
   c[3] = __byte_perm(a_hi, b_hi, 0x7632);
 }
 
-// Four nibble codes (one a byte) -> the four int8 bytes tab[code].
+// Four codes (one a byte) -> the four int8 bytes tab[code].
 __device__ __forceinline__ uint32_t lut_bytes(const uint32_t* tab, uint32_t c) {
-  return tab[c & 0xFu] | (tab[(c >> 8) & 0xFu] << 8) | (tab[(c >> 16) & 0xFu] << 16) |
+  return tab[c & 0xFFu] | (tab[(c >> 8) & 0xFFu] << 8) | (tab[(c >> 16) & 0xFFu] << 16) |
          (tab[c >> 24] << 24);
+}
+
+// The four 6-bit codes of quarter j (byte i = K-consecutive row i of one
+// column) from a transposed nibble word a (quarter j in the low nibbles for
+// j < 2, in the flipped high nibbles for j >= 2) and quad word b (bits
+// 2j..2j+1 of each byte).
+__device__ __forceinline__ uint32_t nq42_codes(uint32_t a, uint32_t b, int j) {
+  const uint32_t nib = j < 2 ? (a & 0x0F0F0F0Fu) : (((a >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
+  return nib | (((b >> (2 * j)) & 0x03030303u) << 4);
 }
 
 // Partial products of one (N-tile, M-tile, K-split) block into ws.
@@ -329,23 +351,34 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
 }
 
 // Partial products of one (N-tile, M-tile, K-split) block into ws for the
-// s21 layout.  xq: int8 planes [PLANES, M, ldq], ldq = 8 * Kb; slab i's
-// activations for B row r sit at K = i * Kb + r.
-template <int PLANES>
+// slab layouts: s21 (8 slabs of Kb = K/8 B rows, one warp each) and, LUT,
+// nq42 (4 quarters of Kb = K/4 quad rows, two warps each, splitting the
+// stage's rows).  xq: int8 planes [PLANES, M, ldq], ldq = S * Kb; slab i's
+// activations for row r sit at K = i * Kb + r.  qw is [3 Kb, N/4] words:
+// the A (s21) or nibble (nq42) rows of slab i start at (i % 2) * Kb, the B
+// or quad rows at 2 Kb.  LUT: the codes are minifloats of E exp_bits, M
+// mant_bits, and z may be null (no zero points).
+template <int LAYOUT, int PLANES>
 __global__ void __launch_bounds__(kThreads)
-wa_s21_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
-                      const uint32_t* __restrict__ qw,  // [3 Kb, N/4] words
-                      const float* __restrict__ s, long long s_rs, long long s_cs,
-                      const float* __restrict__ z, long long z_rs, long long z_cs,
-                      float* __restrict__ ws, int N, int Kb, int G, int kc) {
+wa_slab_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
+                       const uint32_t* __restrict__ qw,
+                       const float* __restrict__ s, long long s_rs, long long s_cs,
+                       const float* __restrict__ z, long long z_rs, long long z_cs,
+                       float* __restrict__ ws, int N, int Kb, int G, int kc,
+                       int exp_bits, int mant_bits) {
+  static_assert(LAYOUT == kS21 || LAYOUT == kLut6, "a slab layout");
+  constexpr bool LUT = LAYOUT == kLut6;
+  constexpr int S = LUT ? 4 : kSlabs;         // slabs a packed row serves
+  constexpr int kWarpsPerSlab = kKWarps / S;  // splitting the stage's rows
   constexpr int kStage4 = kStageA3 / 4;
-  static_assert(kSlabs * PLANES * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
+  static_assert(S * PLANES * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
                 "the x stage must fit in the reduction buffer");
   __shared__ __align__(16) float smem[kKWarps * kTileM * kBlockN];
-  int* xs = reinterpret_cast<int*>(smem);  // [kSlabs][PLANES][kStage4][kTileM] words
+  int* xs = reinterpret_cast<int*>(smem);  // [S][PLANES][kStage4][kTileM] words
   const int lane = threadIdx.x;
-  const int slab = threadIdx.y;
-  const int tid = slab * kLanes + lane;
+  const int slab = threadIdx.y % S;
+  const int half = threadIdx.y / S;  // which share of the stage's rows
+  const int tid = threadIdx.y * kLanes + lane;
   const int n0 = blockIdx.x * kBlockN + lane * kColsPerThread;
   const bool active = n0 < N;
   const int m0 = blockIdx.y * kTileM;
@@ -356,6 +389,14 @@ wa_s21_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   const uint32_t* qa = qw + (size_t)(slab & 1) * Kb * words_per_row;  // A rows of this slab
   const uint32_t* qb = qw + (size_t)2 * Kb * words_per_row;           // B rows
   const int grow0 = slab * (Kb / G);  // first group row of this slab
+  const bool has_z = !LUT || z != nullptr;
+  __shared__ uint32_t itab[64];  // LUT: the int8 grid byte of each 6-bit code
+  float mult = 1.f;              // LUT: 2^-t
+  if (LUT) {
+    if (tid < 64) itab[tid] = (uint32_t)minifloat_int(tid, exp_bits, mant_bits) & 0xFFu;
+    mult = ldexpf(1.f, 1 - mant_bits - ((1 << (exp_bits - 1)) - 1));
+    // (the stage loop's first __syncthreads orders the table before its use)
+  }
 
   float acc[kTileM][kColsPerThread];
 #pragma unroll
@@ -366,7 +407,7 @@ wa_s21_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   for (int c0 = k0; c0 < k1; c0 += kStageA3) {
     const int rows4 = min(kStageA3, k1 - c0) / 4;  // k0, k1 and c0 are multiples of 4
     __syncthreads();
-    for (int i = tid; i < kSlabs * PLANES * kTileM * rows4; i += kThreads) {
+    for (int i = tid; i < S * PLANES * kTileM * rows4; i += kThreads) {
       const int w = i % rows4;  // fastest: coalesced reads of an x row
       const int m = (i / rows4) % kTileM;
       const int sp = i / (rows4 * kTileM);  // slab * PLANES + p
@@ -380,8 +421,9 @@ wa_s21_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
     __syncthreads();
 
     if (active) {
-      int r = c0;
-      const int r_end = c0 + 4 * rows4;
+      const int per4 = (rows4 + kWarpsPerSlab - 1) / kWarpsPerSlab;
+      int r = c0 + 4 * half * per4;
+      const int r_end = min(c0 + 4 * rows4, r + 4 * per4);
       while (r < r_end) {
         const int g = r / G;
         const int seg_end = min(r_end, (g + 1) * G);
@@ -391,7 +433,7 @@ wa_s21_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
         for (int j = 0; j < kColsPerThread; ++j) {
           const long long c = (long long)(n0 + j);
           sg[j] = __ldg(s + gr * s_rs + c * s_cs);
-          zg[j] = __ldg(z + gr * z_rs + c * z_cs);
+          zg[j] = has_z ? __ldg(z + gr * z_rs + c * z_cs) : 0.f;
         }
         int ia[PLANES][kTileM][kColsPerThread];
         int isum[kTileM];
@@ -414,7 +456,9 @@ wa_s21_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
           transpose4x4(wb, cb);
           int code[kColsPerThread];
 #pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) code[j] = (int)s21_codes(ca[j], cb[j], slab);
+          for (int j = 0; j < kColsPerThread; ++j)
+            code[j] = LUT ? (int)lut_bytes(itab, nq42_codes(ca[j], cb[j], slab))
+                          : (int)s21_codes(ca[j], cb[j], slab);
           const int w4 = (r - c0) / 4;
 #pragma unroll
           for (int p = 0; p < PLANES; ++p) {
@@ -440,7 +484,12 @@ wa_s21_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
             const float part = PLANES == 2
                 ? (float)ia[0][m][j] * 256.f + (float)ia[PLANES - 1][m][j]
                 : (float)ia[0][m][j];
-            acc[m][j] = acc[m][j] + part * sg[j] - xsum * (sg[j] * zg[j]);
+            if (LUT) {
+              acc[m][j] = acc[m][j] + part * (sg[j] * mult);
+              if (has_z) acc[m][j] = acc[m][j] + xsum * zg[j];
+            } else {
+              acc[m][j] = acc[m][j] + part * sg[j] - xsum * (sg[j] * zg[j]);
+            }
           }
         }
       }
@@ -479,9 +528,9 @@ cudaError_t quantize_rows(const void* x, int x_bf16, int k_logical, int k_stored
 // The whole call: row pass, partial products, reduce.  x is [M, k_logical]
 // contiguous; xq [PLANES, M, K_stored] int8 and sx [M] f32 are scratch from
 // the wrapper, as is ws [splits, M, N].  Kp is the number of packed rows the
-// kernel walks: K/2 (nib4, LUT nib4), K (byte), or the B rows Kb = K/8
-// (s21).  exp_bits and mant_bits are the LUT case's minifloat format; its z
-// may be null.
+// kernel walks: K/2 (nib4, LUT nib4), K (byte), the B rows Kb = K/8 (s21)
+// or the quad rows K/4 (LUT nq42).  exp_bits and mant_bits are the LUT
+// cases' minifloat format; their z may be null.
 template <int LAYOUT, int PLANES>
 int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
               const void* qw, const void* s, long long s_rs, long long s_cs,
@@ -489,12 +538,13 @@ int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
               void* ws, void* out, int M, int N, int n_out, int Kp, int G, int kc,
               int splits, void* stream, int exp_bits = 0, int mant_bits = 0) {
   const int k_stored = LAYOUT == kNib4 || LAYOUT == kLut4 ? 2 * Kp
-                     : LAYOUT == kS21 ? 8 * Kp : Kp;
+                     : LAYOUT == kS21 ? 8 * Kp : LAYOUT == kLut6 ? 4 * Kp : Kp;
   if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 || Kp % 4 ||
       G <= 0 || G % 4 || Kp % G || kc <= 0 || kc % 4 || splits <= 0 ||
       (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored ||
-      (LAYOUT == kLut4 && (PLANES != 2 || exp_bits < 1 || mant_bits < 0 ||
-                           1 + exp_bits + mant_bits > 4)))
+      ((LAYOUT == kLut4 || LAYOUT == kLut6) &&
+       (PLANES != 2 || exp_bits < 1 || mant_bits < 0 ||
+        1 + exp_bits + mant_bits > (LAYOUT == kLut4 ? 4 : 6))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = quantize_rows<PLANES>(x, x_bf16, k_logical, k_stored, norm, eps,
@@ -502,11 +552,11 @@ int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
   if (err != cudaSuccess) return (int)err;
   const dim3 block(kLanes, kKWarps);
   const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kTileM - 1) / kTileM, splits);
-  if constexpr (LAYOUT == kS21)
-    wa_s21_partial_kernel<PLANES><<<grid, block, 0, st>>>(
+  if constexpr (LAYOUT == kS21 || LAYOUT == kLut6)
+    wa_slab_partial_kernel<LAYOUT, PLANES><<<grid, block, 0, st>>>(
         static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
-        z_cs, static_cast<float*>(ws), N, Kp, G, kc);
+        z_cs, static_cast<float*>(ws), N, Kp, G, kc, exp_bits, mant_bits);
   else
     wa_partial_kernel<LAYOUT != kByte, PLANES, LAYOUT == kLut4><<<grid, block, 0, st>>>(
         static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),

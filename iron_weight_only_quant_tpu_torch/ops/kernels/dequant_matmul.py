@@ -1,6 +1,6 @@
 """Dequant-matmul: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``ops/pallas/dequant_matmul.py`` in the JAX package.  Fourteen
+Counterpart of ``ops/pallas/dequant_matmul.py`` in the JAX package.  Sixteen
 hand-written CUDA kernels compute ``y = x @ dequant(qt)`` for artifacts with
 f32 side info, per storage layout:
 
@@ -15,6 +15,8 @@ f32 side info, per storage layout:
                 ``csrc/w3a16_matmul.cu``;
   LUT nib4 (4-bit minifloat): ``csrc/lut4_matmul.cu`` (design notes in
                 ``csrc/lut_common.cuh``), ``csrc/lut4a16_matmul.cu``;
+  LUT nq42 (fp6 when K % 4 == 0): ``csrc/lut6_matmul.cu``,
+                ``csrc/lut6a16_matmul.cu``;
   LUT byte (fp8, byte-per-code fp6): ``csrc/lut8_matmul.cu``.
 
 The ``w4``/``w8``/``w3``/``lut`` kernels take bf16/f32 activations; the
@@ -33,7 +35,7 @@ scaled by the row's ``sx``.  Under activation bits a ``pre_norm`` is applied
 to x before quantizing (in the row pass), as the JAX package does, so no
 prenorm kernel runs.  LUT artifacts take A16 where the format's exact values
 form an int8 grid (fp4 E2M1 and E1M2: ``lut4a16``; fp6 E2M3 in the nq42
-layout has no kernel yet); A16 on a wide-exponent format (fp8, fp6 E3M2)
+layout: ``lut6a16``); A16 on a wide-exponent format (fp8, fp6 E3M2)
 warns and runs with full-precision activations, and A8 raises, as in the JAX
 package.  The layer-stacked entry point reuses the kernels with the layer
 as a pointer offset.
@@ -41,8 +43,9 @@ as a pointer offset.
 Some artifacts the JAX package never sends to a Pallas kernel, by their
 format alone (:func:`xla_route`): affine artifacts of another format than
 int or bfp, approximate or non-minifloat LUT artifacts, ``k_shards > 1``,
-16-bit side info, storage bits outside {3, 4, 6, 8}, and 3-bit groups that
-straddle the K/8 slabs.  There it computes ``dequantize_weight`` in f32 and
+16-bit side info, storage bits outside {3, 4, 6, 8}, 3-bit groups that
+straddle the K/8 slabs, and 6-bit (nq42) groups that straddle the K/4
+quarters.  There it computes ``dequantize_weight`` in f32 and
 a plain matmul (its XLA path), with ``pre_norm`` applied to x first and the
 activation bits ignored.  :func:`route_matmul` does the same here, on the
 CPU and on the card alike, counted in ``ROUTE_CALLS``; the product is
@@ -52,9 +55,10 @@ that fails.
 
 Otherwise dispatch is by the activation's device: a CPU tensor takes the
 plain PyTorch version (:func:`dequant_matmul_plain`), a CUDA tensor launches
-the kernel or raises ``NotImplementedError`` for an artifact the JAX kernels
-take but no CUDA kernel takes yet (fp6 in the nq42 layout).  Nothing falls
-back quietly.  The plain version computes what the kernel computes,
+the kernel or raises ``NotImplementedError`` for an artifact no CUDA kernel
+takes (an affine artifact without zeros, N not a multiple of 4, a group
+that is not a multiple of 4 under activation bits).  Nothing falls back
+quietly.  The plain version computes what the kernel computes,
 activation quantization included; this deliberately differs from the JAX
 package's XLA path, which ignores activation bits: here the CPU path stands
 in for the kernel.
@@ -93,12 +97,15 @@ W3A16 = "w3a16_matmul"
 LUT4 = "lut4_matmul"
 LUT4A16 = "lut4a16_matmul"
 LUT8 = "lut8_matmul"
+LUT6 = "lut6_matmul"
+LUT6A16 = "lut6a16_matmul"
 ACTIVATION_BITS = (8, 16)
 # packed storage bits -> (kernel, prenorm kernel or None, A8 kernel or None,
 # A16 kernel or None), for affine and for LUT artifacts
 _KERNELS = {4: (W4, W4_PRENORM, W4A8, W4A16), 8: (W8, W8_PRENORM, W8A8, W8A16),
             3: (W3, None, W3A8, W3A16)}
-_LUT_KERNELS = {4: (LUT4, None, None, LUT4A16), 8: (LUT8, None, None, None)}
+_LUT_KERNELS = {4: (LUT4, None, None, LUT4A16), 8: (LUT8, None, None, None),
+                6: (LUT6, None, None, LUT6A16)}
 LAUNCHES: Dict[str, int] = {name: 0 for table in (_KERNELS, _LUT_KERNELS)
                             for names in table.values() for name in names
                             if name is not None}
@@ -158,7 +165,9 @@ def xla_route(qt: QuantizedTensor) -> bool:
     TPU tile conditions are not ported): an affine artifact of another
     format than int or bfp, a LUT artifact that is not an exact minifloat,
     ``k_shards > 1``, 16-bit scales or zeros, storage bits outside {3, 4, 6,
-    8}, or a 3-bit group that straddles the K/8 slabs of the s21 layout."""
+    8}, a 3-bit group that straddles the K/8 slabs of the s21 layout, or a
+    6-bit group that straddles the K/4 quarters of the nq42 layout
+    (``_layout6_supported``)."""
     if qt.mode == "affine":
         if qt.spec.fmt not in ("int", "bfp"):
             return True
@@ -175,10 +184,11 @@ def xla_route(qt: QuantizedTensor) -> bool:
     bits = packed_bits(qt)
     if bits not in (3, 4, 6, 8):
         return True
-    if bits == 3:
-        ks = qt.k_stored
+    if bits in (3, 6):
+        ks, slabs = qt.k_stored, 8 if bits == 3 else 4
         rows = qt.scales.shape[-2] - qt.side_pad
-        return bool(ks % 8 or (rows > 1 and (ks // 8) % (ks // rows)))
+        g = ks // rows
+        return bool(ks % slabs or (rows > 1 and (g > ks // slabs or (ks // slabs) % g)))
     return False
 
 
@@ -265,12 +275,13 @@ def prenorm_supported(qt: QuantizedTensor) -> bool:
 
 def _group_size(qt: QuantizedTensor, rows: int) -> int:
     """K columns per side row as the kernel walks them (nib4: a group never
-    straddles the two K halves; ``_nib4_groups`` splits those that do; s21:
-    one side row spans the K/8 rows of a slab or divides them)."""
+    straddles the two K halves; ``_nib4_groups`` splits those that do; s21,
+    nq42: one side row spans the K/8 rows of a slab, or the K/4 rows of a
+    quarter, or divides them)."""
     ks, bits = qt.k_stored, packed_bits(qt)
-    if bits not in (3, 4):
+    if bits not in (3, 4, 6):
         return ks // rows
-    kp = ks // 2 if bits == 4 else ks // 8
+    kp = ks // {4: 2, 3: 8, 6: 4}[bits]
     return kp if rows == 1 else math.gcd(ks // rows, kp)
 
 
@@ -574,13 +585,16 @@ def _byte_groups(ks: int, kp: int, rows: int) -> int:
     return ks // rows
 
 
-def _s21_groups(ks: int, kb: int, rows: int) -> int:
-    """Group size for the s21 layout, in B rows: B row r of slab i holds K
-    column i*Kb + r, so the kernel needs G | Kb (per-channel: G = Kb)."""
-    _check(ks == 8 * kb, f"x has {ks} columns, the s21 artifact stores {8 * kb}")
+def _slab_groups(ks: int, kb: int, rows: int, slabs: int) -> int:
+    """Group size for the s21 (8 slabs) and nq42 (4 quarters) layouts, in
+    slab rows: row r of slab i holds K column i*Kb + r (s21: a B row; nq42:
+    a quad row), so the kernel needs G | Kb (per-channel: G = Kb)."""
+    layout = "s21" if slabs == 8 else "nq42"
+    _check(ks == slabs * kb, f"x has {ks} columns, the {layout} artifact stores {slabs * kb}")
     _check(ks % rows == 0, f"{rows} side rows do not divide K={ks}")
     g = kb if rows == 1 else ks // rows
-    _check(kb % g == 0, f"group {g} straddles the K/8 = {kb} slabs of the s21 layout")
+    _check(kb % g == 0, f"group {g} straddles the K/{slabs} = {kb} slabs of the "
+           f"{layout} layout")
     return g
 
 
@@ -611,6 +625,8 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
 
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
+    The s21 and nq42 kernels walk the rows of one slab (``qw`` rows / 3):
+    the K/8 B rows, or the K/4 quad rows.
     """
     names = (_KERNELS if fmt is None else _LUT_KERNELS)[bits]
     _check(pre_norm is None or activation_bits is not None or names[1] is not None,
@@ -622,11 +638,13 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     dev = x2.device
     m = x2.shape[0]
     kp, n = qw.shape
-    if bits == 3:  # the kernel walks the B rows (stored rows 2Kb..3Kb)
-        _check(kp % 3 == 0, f"an s21 artifact stores 3*K/8 rows, not {kp}")
+    slabs = {3: 8, 6: 4}.get(bits)
+    if slabs:  # s21: stored rows 2Kb..3Kb are the B rows; nq42: 2Kq..3Kq the quad rows
+        _check(kp % 3 == 0, f"a {bits}-bit artifact stores 3*K/{slabs} rows, not {kp}")
         kp //= 3
-    # stored K: 2 columns a packed row (nib4), 8 a B row (s21), 1 (byte)
-    ks = x2.shape[1] if activation_bits is None else {4: 2, 3: 8}.get(bits, 1) * kp
+    # stored K: 2 columns a packed row (nib4), 8 a B row (s21), 4 a quad row
+    # (nq42), 1 (byte)
+    ks = x2.shape[1] if activation_bits is None else {4: 2, 3: 8, 6: 4}.get(bits, 1) * kp
     _check(x2.dtype in (torch.bfloat16, torch.float32),
            f"x dtype {x2.dtype} is not bfloat16 or float32")
     sides = (("scales", scales),) + ((("zeros", zeros),) if zeros is not None else ())
@@ -644,8 +662,8 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
                f"x has {x2.shape[1]} columns, the artifact K={k_logical}")
     if bits == 4:
         g, rows, scales, zeros = _nib4_groups(ks, kp, rows, scales, zeros)
-    elif bits == 3:
-        g = _s21_groups(ks, kp, rows)
+    elif slabs:
+        g = _slab_groups(ks, kp, rows, slabs)
     else:
         g = _byte_groups(ks, kp, rows)
     s2, s_rs, s_cs = _side_view(scales, rows)
@@ -741,15 +759,14 @@ def _unsupported(qt: QuantizedTensor,
                  activation_bits: Optional[int] = None) -> NotImplementedError:
     what = "" if activation_bits is None else f" with activation_bits={activation_bits}"
     return NotImplementedError(
-        f"no CUDA kernel yet for this artifact{what} (mode={qt.mode}, "
+        f"no CUDA kernel for this artifact{what} (mode={qt.mode}, "
         f"{packed_bits(qt)}-bit storage, K={qt.k_stored}, side rows "
         f"{qt.scales.shape[-2]}, k_shards={qt.k_shards}, side dtype "
-        f"{qt.scales.dtype}); ported so far: affine nib4 (int4, bfp4), byte "
-        "(int8, bfp8) and s21 (3-bit) layouts with bf16/f32 activations or "
-        "activation_bits 8/16 (group size a multiple of 4), and exact-minifloat "
-        "LUT nib4 (fp4) and byte (fp8) layouts with bf16/f32 activations or A16 "
-        "(fp4 E2M1/E1M2). See ROADMAP queue B for the kernels still to port "
-        "(fp6 in the nq42 layout)")
+        f"{qt.scales.dtype}); the kernels take affine nib4 (int4, bfp4), byte "
+        "(int8, bfp8) and s21 (3-bit) artifacts with zeros, bf16/f32 activations "
+        "or activation_bits 8/16 (group size a multiple of 4), and exact-minifloat "
+        "LUT nib4 (fp4), nq42 (fp6) and byte (fp8) artifacts with bf16/f32 "
+        "activations or A16 (fp4 E2M1/E1M2, fp6 E2M3), N a multiple of 4")
 
 
 def route_matmul(x: torch.Tensor, qt: QuantizedTensor,

@@ -53,6 +53,18 @@ SETTINGS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The port's plain CPU path runs small matmuls and many small ops that
+    gain nothing from many torch threads; in the parallel test run those
+    threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _requests(n, lo, hi, seed):
     rng = np.random.default_rng(seed)
     return [rng.integers(1, J_CFG.vocab_size, size=int(rng.integers(lo, hi + 1))).tolist()

@@ -13,13 +13,14 @@ bf16/f32 activations and with int8 (A8) or split-plane (A16) ones; the W3
 shapes keep K/8 a multiple of the group (K=512 with g64 or per-channel side
 info, which the TPU kernel refuses, included); the int-activation row pass
 must give the plain version's codes bit for bit.  The LUT (minifloat)
-kernels run the nib4 (fp4) and byte (fp8, byte-per-code fp6) layouts with
-and without zero points, fp4 also under A16; BFP artifacts run on the W4 and
-W8 kernels; card-built fp/bfp artifacts must equal CPU-built ones byte for
-byte.  Artifacts the JAX package computes on its XLA path take the route
+kernels run the nib4 (fp4), nq42 (fp6; K/4 a multiple of the group) and
+byte (fp8, byte-per-code fp6) layouts with and without zero points, fp4
+and fp6 E2M3 also under A16; BFP artifacts run on the W4 and W8 kernels;
+card-built fp/bfp artifacts must equal CPU-built ones byte for byte.
+Artifacts the JAX package computes on its XLA path take the route
 (``ROUTE_CALLS``) on the card too.  The serve loop's KV write, a wave and a
 chunk (also under activation bits, and on a W3 model) and tiny ``serve``
-runs (also fp4 and fp8) are checked for host syncs, launch counts and
+runs (also fp4, fp6 and fp8) are checked for host syncs, launch counts and
 repeatability.
 """
 
@@ -74,6 +75,21 @@ LUT_SPECS = {
                                          symmetric=False), dm.LUT8),
     "fp8_e3m4_g128_sym": (fp_spec("fp8", 3, 4, group_size=128), dm.LUT8),
     "fp8_e2m5_g128_asym": (fp_spec("fp8", 2, 5, group_size=128, symmetric=False), dm.LUT8),
+}
+# fp6 in the nq42 layout (lut6; E2M3 also lut6a16 under A16)
+LUT6_SPECS = {
+    "fp6_e2m3_g128_sym": fp_spec("fp6", 2, 3, group_size=128),
+    "fp6_e3m2_g128_asym": fp_spec("fp6", 3, 2, group_size=128, symmetric=False),
+    "fp6_e2m3_g64_asym": fp_spec("fp6", 2, 3, group_size=64, symmetric=False),
+    "fp6_e2m3_g32_sym": fp_spec("fp6", 2, 3, group_size=32),
+    "fp6_e3m2_perchannel_sym": fp_spec("fp6", 3, 2, group_size=PER_CHANNEL),
+}
+# the nq42 layout needs the group to divide K/4 (a quarter)
+SHAPES6 = {
+    "512x256": (512, 256, {}),
+    "1024x300_npad": (1024, 300, dict(pad_n_to=512)),
+    "1536x128": (1536, 128, {}),
+    "384x256_kpad": (384, 256, dict(pad_k_to=512)),
 }
 
 
@@ -239,15 +255,19 @@ def _routed(dev, qt, x, **kw):
     _close_a(y.cpu(), y_cpu, x.dtype)
 
 
-@pytest.mark.parametrize("case", ["int3", "side_f16", "k_shards_2", "int2", "fp4_approx"])
+@pytest.mark.parametrize("case", ["int3", "side_f16", "k_shards_2", "int2", "fp4_approx",
+                                  "fp6_straddle"])
 def test_layouts_without_a_kernel_raise_on_the_card(dev, case):
     """The artifacts the JAX package never sends to a kernel take the route
     on the card.  ``int3``: K=1088 with g64, a group straddles the K/8 =
-    136 slabs."""
+    136 slabs; ``fp6_straddle``: K=512 with g256, a group straddles the
+    K/4 = 128 quarters."""
     spec = QuantSpec(fmt="int", bits={"int3": 3, "int2": 2}.get(case, 4),
                      group_size=64 if case == "int3" else 128, symmetric=False)
     if case == "fp4_approx":
         spec = fp_spec("fp4", 2, 1, group_size=128, approximate=True)
+    if case == "fp6_straddle":
+        spec = fp_spec("fp6", 2, 3, group_size=256)
     kw = {"side_f16": dict(side_dtype=torch.float16),
           "k_shards_2": dict(k_shards=2)}.get(case, {})
     k = 1088 if case == "int3" else 512
@@ -256,13 +276,22 @@ def test_layouts_without_a_kernel_raise_on_the_card(dev, case):
     _routed(dev, qt, _x(dev, (8, k), torch.bfloat16))
 
 
-def test_fp6_nq42_still_raises_on_the_card(dev):
-    """fp6 in the nq42 layout: the JAX package has kernels for it (rows
-    15-16), the port none yet."""
+def test_fp6_nq42_takes_lut6_on_the_card(dev):
+    """fp6 in the nq42 layout: ``quantized_matmul`` launches ``lut6_matmul``
+    once (and under A16, E3M2 having no int8 grid, the same kernel), no
+    plain call, no route call."""
     qt = _artifact(dev, 512, 256, fp_spec("fp6", 3, 2, group_size=128))
-    assert not dm.xla_route(qt) and not dm.kernel_supported(qt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul.quantized_matmul(_x(dev, (8, 512), torch.bfloat16), qt)
+    assert dm.packed_bits(qt) == 6 and not dm.xla_route(qt) and dm.kernel_supported(qt)
+    x = _x(dev, (8, 512), torch.bfloat16)
+    dm.reset_counts()
+    y = qmatmul.quantized_matmul(x, qt)
+    with pytest.warns(UserWarning, match="full-precision"):
+        y16 = qmatmul.quantized_matmul(x, qt, activation_bits=16)
+    torch.cuda.synchronize()
+    assert dm.LAUNCHES == {**{k: 0 for k in dm.LAUNCHES}, dm.LUT6: 2}
+    assert not any(dm.PLAIN_CALLS.values()) and not any(dm.ROUTE_CALLS.values())
+    _close_a(y, dm.dequant_matmul_plain(x, qt), torch.bfloat16)
+    _close_a(y16, y, torch.bfloat16)
 
 
 @pytest.mark.parametrize("abits", [None, 8, 16])
@@ -463,6 +492,44 @@ def test_lut_stacked_kernel_reads_the_layer_in_place(dev, layer, spec, abits):
     _close_a(y, want, torch.float32)
 
 
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 3, 17])
+@pytest.mark.parametrize("shape", list(SHAPES6), ids=list(SHAPES6))
+@pytest.mark.parametrize("spec,abits", [(s, None) for s in LUT6_SPECS] + [
+    (s, 16) for s in LUT6_SPECS if "e2m3" in s], ids=[f"lut6-{s}" for s in LUT6_SPECS] + [
+    f"lut6a16-{s}" for s in LUT6_SPECS if "e2m3" in s])
+def test_lut6_kernel_matches_plain_shapes(dev, spec, abits, shape, m, dtype, pre_norm):
+    """``lut6`` (no prenorm kernel: a ``pre_norm`` normalizes x in torch
+    first) and, for E2M3 (the int8 grid; E3M2 under A16 runs ``lut6``,
+    ``test_fp6_nq42_takes_lut6_on_the_card``), ``lut6a16`` (the norm in
+    the row pass)."""
+    spec = LUT6_SPECS[spec]
+    k, n, kw = SHAPES6[shape]
+    qt = _artifact(dev, k, n, spec, **kw)
+    name = dm.LUT6A16 if abits else dm.LUT6
+    assert dm.kernel_supported(qt, abits) and dm.kernel_name(qt, pre_norm, abits) == name
+    x = _x(dev, (m, k), dtype) * 3
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm, activation_bits=abits)
+    assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm, activation_bits=abits), dtype)
+
+
+@pytest.mark.parametrize("abits", [None, 16], ids=["lut6", "lut6a16"])
+@pytest.mark.parametrize("spec", ["fp6_e2m3_g64_asym", "fp6_e2m3_g128_sym"])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_lut6_stacked_kernel_reads_the_layer_in_place(dev, layer, spec, abits):
+    qts = [_artifact(dev, 1536, 256, LUT6_SPECS[spec], seed=10 + i) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st, abits)
+    x = _x(dev, (8, 1536), torch.float32)
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul_stacked(x, st, layer, activation_bits=abits)
+    assert dm.LAUNCHES[dm.LUT6A16 if abits else dm.LUT6] == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qts[layer], activation_bits=abits), torch.float32)
+
+
 @pytest.mark.parametrize("kern", [pytest.param((4, None, dm.W4), id="bfp4_w4"),
                                   pytest.param((8, None, dm.W8), id="bfp8_w8"),
                                   pytest.param((4, EPS, dm.W4_PRENORM), id="bfp4_w4_prenorm"),
@@ -637,15 +704,20 @@ def test_tiny_a_serve_on_the_card_is_repeatable(dev, bits, abits):
     assert not any(dm.PLAIN_CALLS.values())
 
 
-@pytest.mark.parametrize("case", ["fp4", "fp4_a16", "fp8"])
+@pytest.mark.parametrize("case", ["fp4", "fp4_a16", "fp8", "fp6", "fp6_a16"])
 def test_tiny_lut_serve_on_the_card_is_repeatable(dev, case):
     """Every linear of a forward on ``lut4`` (fp4 E2M1 g128 asym), ``lut4a16``
-    (A16 waves and decode) or ``lut8`` (fp8 E4M3 g128 sym): no prenorm
-    kernel, so ``forwards * (4L + 1)`` launches."""
-    spec = LUT_SPECS["fp8_e4m3_g128_sym" if case == "fp8" else "fp4_e2m1_g128_asym"][0]
-    ecfg = dict(activation_bits=16) if case == "fp4_a16" else {}
+    (A16 waves and decode), ``lut8`` (fp8 E4M3 g128 sym), ``lut6`` (fp6
+    E2M3 g64 sym: the group divides the K/4 = 64 quad rows of hidden 256)
+    or ``lut6a16``: no prenorm kernel, so ``forwards * (4L + 1)``
+    launches."""
+    spec = {"fp8": LUT_SPECS["fp8_e4m3_g128_sym"][0],
+            "fp6": fp_spec("fp6", 2, 3, group_size=64)}.get(
+        case.split("_")[0], LUT_SPECS["fp4_e2m1_g128_asym"][0])
+    ecfg = dict(activation_bits=16) if case.endswith("a16") else {}
     eng = _tiny_engine(dev, 4, spec=spec, **ecfg)
-    name = {"fp4": dm.LUT4, "fp4_a16": dm.LUT4A16, "fp8": dm.LUT8}[case]
+    name = {"fp4": dm.LUT4, "fp4_a16": dm.LUT4A16, "fp8": dm.LUT8, "fp6": dm.LUT6,
+            "fp6_a16": dm.LUT6A16}[case]
     reqs = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
     outs, stats = [], {}
     for _ in range(2):

@@ -33,6 +33,18 @@ PROMPTS = [[5, 6, 7, 8, 9, 10, 11], [1, 2], [3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13
 NEW = 12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The port's plain CPU path runs small matmuls and many small ops that
+    gain nothing from many torch threads; in the parallel test run those
+    threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def models():
     p = j_llama.fold_llama_norms(j_llama.llama_init(J_CFG, jax.random.PRNGKey(3)))

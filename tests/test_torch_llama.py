@@ -35,6 +35,18 @@ T_CFG = t_llama.LlamaConfig(**{f: getattr(J_CFG, f) for f in J_CFG.__dataclass_f
 SPEC = JSpec(fmt="int", bits=4, group_size=128, symmetric=False)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The port's plain CPU path runs small matmuls and many small ops that
+    gain nothing from many torch threads; in the parallel test run those
+    threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _jax_params(variant: str):
     p = j_llama.llama_init(J_CFG, jax.random.PRNGKey(0))
     # non-trivial norm gammas, so folding is really exercised

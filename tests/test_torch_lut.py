@@ -12,7 +12,9 @@ Here, on the same numpy inputs (artifacts quantized once, by JAX):
   at ``rel < 2e-4`` (the tolerance of ``tests/test_pallas_kernel.py``'s A16
   test), flat and stacked;
 * the dispatch rules are the JAX package's: A8 on a LUT artifact raises,
-  A16 on fp8 warns and runs at full precision, ``a16_supported`` agrees;
+  A16 on fp8 warns and runs at full precision, ``a16_supported`` agrees,
+  fp6 in the nq42 layout takes ``lut6_matmul`` (``lut6a16_matmul`` for
+  E2M3 under A16);
 * JAX LUT and BFP artifacts (codebook, ``zeros=None``, nq42 or byte
   storage) carry across through ``interop.params_from_numpy`` and compute
   the same;
@@ -209,12 +211,13 @@ def test_dispatch_rules_match_jax():
                 y = t_qmatmul.quantized_matmul(x, tq, activation_bits=16)
             assert dm.kernel_name(tq, None, 16) == name and dm.PLAIN_CALLS[name] == 1
             torch.testing.assert_close(y, t_qmatmul.quantized_matmul(x, tq), rtol=0, atol=0)
-    # fp6: E2M3 has the A16 grid, E3M2 not; neither has a CUDA kernel yet
+    # fp6 (nq42): E2M3 has the A16 grid and takes lut6a16, E3M2 runs lut6
     for em, a16 in (((2, 3), True), ((3, 2), False)):
         jq, tq = _artifact(fp_spec("fp6", *em, group_size=128), seed=2)
         assert dm.packed_bits(tq) == 6 and dm.a16_supported(tq) == a16 == j_dm.a16_supported(jq)
         assert j_dm.kernel_supported(jq) and not dm.xla_route(tq)
-        assert dm.kernel_name(tq) is None and not dm.kernel_supported(tq)
+        assert dm.kernel_name(tq) == dm.LUT6 and dm.kernel_supported(tq)
+        assert dm.kernel_name(tq, EPS, 16) == (dm.LUT6A16 if a16 else dm.LUT6)
     # BFP artifacts are affine and take the int kernels, as in JAX
     jq, tq = _artifact(JSpec(fmt="bfp", bits=4, group_size=128), seed=3)
     assert j_dm.kernel_supported(jq) and dm.kernel_name(tq, EPS, 16) == dm.W4A16

@@ -182,7 +182,7 @@ def test_cpu_tensor_takes_the_plain_version():
     none = {name: 0 for name in (dm.W4, dm.W4_PRENORM, dm.W8, dm.W8_PRENORM,
                                  dm.W4A8, dm.W4A16, dm.W8A8, dm.W8A16,
                                  dm.W3, dm.W3A8, dm.W3A16,
-                                 dm.LUT4, dm.LUT4A16, dm.LUT8)}
+                                 dm.LUT4, dm.LUT4A16, dm.LUT8, dm.LUT6, dm.LUT6A16)}
     assert dm.PLAIN_CALLS == {**none, dm.W4: 1, dm.W4_PRENORM: 1, dm.W8: 2,
                               dm.W8_PRENORM: 1}
     assert dm.LAUNCHES == none

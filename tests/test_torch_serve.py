@@ -53,6 +53,17 @@ REQS = _requests(6, 2, 13, seed=11)
 LONG = _requests(3, 20, 30, seed=12)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The port's plain CPU path runs small matmuls and many small ops that
+    gain nothing from many torch threads; in the parallel test run those
+    threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=list(SPECS))
 def models(request):
     p = j_llama.fold_llama_norms(j_llama.llama_init(J_CFG, jax.random.PRNGKey(5)))
