@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through twenty-four
+Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through twenty-five
 phases; any failing phase ends the run with a non-zero exit code.  The W4,
 fp4 and fp6 models run all 32 layers of LLaMA-2-7B; the W8, W3 and fp8
 models, whose kernels those paths do not carry but which add time, run
@@ -120,7 +120,16 @@ models, whose kernels those paths do not carry but which add time, run
     (warm-up, median of 3, profiled run) and a serve with A16 waves and A16
     decode.  Every linear takes ``lut6_matmul`` (``lut6a16_matmul`` under
     A16): ``forwards * (4L + 1)`` launches, no plain call, no route call.
-24. Report: the generate and serve JSON lines, the card line, the
+24. W4 inner-loop probes: both modes of ``w4_inner_matmul`` (``f32``,
+    ``magic``) against their plain versions at the five main-path shapes of
+    a W4 g128 model, timed at M=8 and M=256, plus an f32 x and a ``k_pad``
+    artifact (down, 11008 stored as 11264), and untimed at M=8 at each of
+    the probe's three shapes (4096x11264 among them) with the probe's spec;
+    then the probe entry point
+    (``probes/probe_w4_inner.py``) at its three shapes, its lines and JSON
+    passed through, with exact launch counts (``base``, ``f32``, ``magic``,
+    ``w4a8``, ``a16``), no plain call, no route call.
+25. Report: the generate and serve JSON lines, the card line, the
     per-kernel JSON line, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -132,13 +141,9 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
 REL_TOL_BF16 = 1e-2  # kernel vs plain, max|y - y_ref| / max|y_ref|, bf16 x
 REL_TOL_F32 = 1e-4  # the same for f32 x (int-activation kernels)
 LOGITS_TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # same measure on logits
@@ -199,6 +204,10 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
                     "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:835"),
     "lut6a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/lut6a16_matmul.cu",
                        "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:892"),
+    "w4_inner_f32": ("iron_weight_only_quant_tpu_torch/csrc/w4_inner_matmul.cu",
+                     "scripts/probe_w4_inner.py:67"),
+    "w4_inner_magic": ("iron_weight_only_quant_tpu_torch/csrc/w4_inner_matmul.cu",
+                       "scripts/probe_w4_inner.py:67"),
 }
 W3_PAD_K = 1024  # down's K=11008 stored as 11264: K/8 = 1408 = 11 groups of 128
 FP6_PAD_K = 1024  # the same for nq42: K/4 = 2816 = 22 groups of 128
@@ -209,13 +218,6 @@ CUT_LAYERS = 8  # depth of the earlier full-model paths whose kernels the
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------------ model
@@ -257,34 +259,6 @@ def build_quantized_llama(cfg, generator, spec, dtype, device, pad_k_to=1):
     }
 
 
-# --------------------------------------------------------------- timing
-
-def device_ms(fn, iters: int) -> float:
-    """Device time of one ``fn(i)`` call, from CUDA events around ``iters``
-    calls.  A sleep kernel queued first keeps the card busy while the host
-    enqueues the calls, so host overhead between launches is not counted."""
-    import torch
-
-    for i in range(2):
-        fn(i)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e8))
-    e0.record()
-    for i in range(iters):
-        fn(i)
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
-def copies_for(nbytes: int) -> int:
-    """Distinct copies to rotate through so that repeated calls find the
-    50 MB L2 cold, as the layers of a decode step do."""
-    return max(2, math.ceil(160e6 / max(nbytes, 1)))
-
-
 # ------------------------------------------------------------- phase 2
 
 MAIN_SHAPES = (  # name, K, member widths, prenorm, launches per decode step
@@ -315,7 +289,13 @@ def call_cost(qt, m: int, x_bytes: int, abits=None):
     """(bytes, operations, operations peak) the call needs: each input read
     once, the output written once; operations 2*M*K*N.  With activation
     bits x is read as its int8 planes (one for A8, two for A16) and the
-    product is int8, twice over for A16."""
+    product is int8, twice over for A16.  The peak, in operations a second,
+    is the card's from ``utils.profiling``."""
+    from iron_weight_only_quant_tpu_torch.utils.profiling import (
+        H100_BF16_TFLOPS,
+        H100_INT8_TOPS,
+    )
+
     k, n = qt.shape
     side = qt.scales.numel() * qt.scales.element_size()
     if qt.zeros is not None:
@@ -323,11 +303,16 @@ def call_cost(qt, m: int, x_bytes: int, abits=None):
     planes = 1 if abits is None else abits // 8
     x_in = m * k * (x_bytes if abits is None else planes)
     nbytes = qt.qweight.numel() + side + x_in + m * n * x_bytes
-    return nbytes, 2 * m * k * n * planes, (BF16_FLOPS if abits is None else INT8_OPS)
+    peak = (H100_BF16_TFLOPS if abits is None else H100_INT8_TOPS) * 1e12
+    return nbytes, 2 * m * k * n * planes, peak
 
 
-def bound(nbytes: int, ops: int, peak: float = BF16_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+def bound(nbytes: int, ops: int, peak: float):
+    """Least time (ms) for ``nbytes`` over the card's memory rate and ``ops``
+    over ``peak`` (operations a second), and which of the two bounds it."""
+    from iron_weight_only_quant_tpu_torch.utils.profiling import H100_HBM_GBPS
+
+    t_bytes, t_ops = nbytes / (H100_HBM_GBPS * 1e9), ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -347,6 +332,8 @@ def check_call(torch, name, qt, x, run, run_plain, w_lib=None, abits=None):
            "dtype": str(x.dtype).split(".")[-1], "max_abs_err": diff, "rel_err": rel,
            "tol": tol, "ok": ok}
     if w_lib is not None:  # timed: a main-path shape
+        from iron_weight_only_quant_tpu_torch.utils.timing import copies_for, device_ms
+
         nbytes, ops, peak = call_cost(qt, x.shape[0], x.element_size(), abits)
         reps = copies_for(qt.qweight.numel())
         qts = [qt] + [qt.map_arrays(torch.clone) for _ in range(reps - 1)]
@@ -647,10 +634,11 @@ def profile_serve(torch, eng, reqs):
     event for each of the run's host and device records, hundreds of
     thousands, which is slow."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from iron_weight_only_quant_tpu_torch.utils.profiling import trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace() as prof:
         t0 = time.perf_counter()
         eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK)
         torch.cuda.synchronize()
@@ -1151,6 +1139,97 @@ def check_a16_without_grid(torch, down, spec, gen, device):
     print("  fp6 E3M2 under A16: warned, one lut6_matmul launch", flush=True)
 
 
+# ------------------------------------------------------------- phase 24
+
+def probe_launches(probe):
+    """Launch counts of one W4 inner-loop probe run, from the probe's own
+    table: per shape, every variant's timed series makes ``WARMUP`` and
+    ``probe.ITERS`` calls in each of ``probe.ROUNDS`` rounds; the reference
+    variant runs once more for the reference, and every variant checked
+    against it once for its error."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.utils.timing import WARMUP
+
+    series = probe.ROUNDS * (WARMUP + probe.ITERS)
+    want = {name: 0 for name in dm.LAUNCHES}
+    for tag, (kernel, _, checked) in probe.VARIANTS.items():
+        want[kernel] += len(probe.SHAPES) * (series + int(checked)
+                                             + int(tag == probe.REFERENCE))
+    return want
+
+
+def phase_w4_inner(torch, device, spec):
+    """Both modes of ``w4_inner_matmul`` against their plain versions at the
+    main-path shapes and at the probe's own shapes; then the probe entry
+    point's run (as its ``main`` calls it) on its main path, the launch
+    counters zeroed before it and read after it.  The kernel
+    records of the qkv and gate_up shapes count no launch a decode step: as
+    row 1, the probe kernel stands for o, down and the lm_head."""
+    from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import (
+        MODES,
+        w4_inner_matmul,
+        w4_inner_plain,
+    )
+    from iron_weight_only_quant_tpu_torch.probes import probe_w4_inner as probe
+    from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(10)
+    names = {"f32": dm.W4_INNER_F32, "magic": dm.W4_INNER_MAGIC}
+    runners = {mode: (lambda x, qt, md=mode: w4_inner_matmul(x, qt, md),
+                      lambda x, qt, md=mode: w4_inner_plain(x, qt, md)) for mode in MODES}
+    per_kernel = {}
+    for name, k, widths, prenorm, per_step in MAIN_SHAPES:
+        qt, spans = make_artifact(torch, gen, spec, k, widths, device)
+        w_lib = dequantize_weight(qt, torch.bfloat16)
+        for mode in MODES:
+            for m in (DECODE_M, PREFILL_M):
+                x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+                rec = check_call(torch, f"{names[mode]}:{name}:M={m}", qt, x,
+                                 *runners[mode], w_lib)
+                rec.update(kernel=names[mode], shape=name, per_step=0 if prenorm else per_step,
+                           stored_n=qt.qweight.shape[-1], spans=spans)
+                per_kernel.setdefault(names[mode], []).append(rec)
+        del qt, w_lib
+        torch.cuda.empty_cache()
+
+    qt = make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device)[0]
+    qt_kp = make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device, pad_k_to=1024)[0]
+    if qt_kp.k_pad == 0:
+        fail("the k_pad artifact has no padding")
+    x = torch.randn((DECODE_M, EXTRA_K), generator=gen, device=device)
+    for mode in MODES:
+        check_call(torch, f"{names[mode]}:f32", qt, x, *runners[mode])
+        check_call(torch, f"{names[mode]}:k_pad", qt_kp, x.to(torch.bfloat16), *runners[mode])
+    del qt, qt_kp
+    torch.cuda.empty_cache()
+
+    for k, n in probe.SHAPES:  # the probe's own shapes, as it quantizes them
+        qt = quantize_tensor(torch.randn((k, n), generator=gen, device=device) * 0.02,
+                             probe.SPEC)
+        x = torch.randn((probe.M, k), generator=gen, device=device).to(torch.bfloat16)
+        for mode in MODES:
+            check_call(torch, f"{names[mode]}:probe:{k}x{n}", qt, x, *runners[mode])
+        del qt
+    torch.cuda.empty_cache()
+
+    print(f"  -- the probe entry point at {len(probe.SHAPES)} shapes, M={probe.M}, "
+          f"{probe.ROUNDS} rounds of {probe.ITERS} timed calls", flush=True)
+    torch.cuda.synchronize()
+    dm.reset_counts()
+    res = probe.run(device, out=lambda line: print("  " + line, flush=True))
+    torch.cuda.synchronize()
+    launches = check_counts("probe", probe_launches(probe))
+    print(json.dumps({"probe_w4_inner": res}), flush=True)
+    for shape in res["shapes"]:
+        for tag, rec in shape["variants"].items():
+            if not (0 < rec["us"] < math.inf) or rec["maxrel"] > REL_TOL_BF16:
+                fail(f"probe {shape['k']}x{shape['n']} {tag}: {rec}")
+    return per_kernel, res, launches
+
+
 # --------------------------------------------------------------- report
 
 def kernel_rows(per_kernel, launches):
@@ -1202,6 +1281,7 @@ def main() -> int:
     from iron_weight_only_quant_tpu_torch.config import QuantSpec, fp_spec
     from iron_weight_only_quant_tpu_torch.models.llama import LlamaConfig
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
+    from iron_weight_only_quant_tpu_torch.utils.profiling import card_line
 
     t0 = time.perf_counter()
     paths = kbuild.build()
@@ -1356,7 +1436,11 @@ def main() -> int:
     del params_fp6
     torch.cuda.empty_cache()
 
-    header("== phase 24: report")
+    header(f"== phase 24: W4 inner-loop probes ({tol_a})")
+    per_kernel_inner, _, probe_counts = phase_w4_inner(torch, device, w4)
+    per_kernel.update(per_kernel_inner)
+
+    header("== phase 25: report")
     names_of = lambda run, names: {k: v for k, v in run["launches"].items()  # noqa: E731
                                    if k in names}
     launches = {**names_of(res, (dm.W4, dm.W4_PRENORM)),
@@ -1369,7 +1453,9 @@ def main() -> int:
                 **names_of(serve_fp4_a, (dm.LUT4A16,)),
                 **names_of(serve_fp8, (dm.LUT8,)),
                 **names_of(serve_fp6, (dm.LUT6,)),
-                **names_of(serve_fp6_a, (dm.LUT6A16,))}
+                **names_of(serve_fp6_a, (dm.LUT6A16,)),
+                dm.W4_INNER_F32: probe_counts[dm.W4_INNER_F32],
+                dm.W4_INNER_MAGIC: probe_counts[dm.W4_INNER_MAGIC]}
     rows = kernel_rows(per_kernel, launches)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"generate": {k: v for k, v in res.items() if k != "launches"}}))

@@ -25,7 +25,7 @@ KERNEL_SOURCES = ("w4_matmul", "w4_matmul_prenorm", "w8_matmul", "w8_matmul_pren
                   "w4a8_matmul", "w4a16_matmul", "w8a8_matmul", "w8a16_matmul",
                   "w3_matmul", "w3a8_matmul", "w3a16_matmul",
                   "lut4_matmul", "lut4a16_matmul", "lut8_matmul",
-                  "lut6_matmul", "lut6a16_matmul")
+                  "lut6_matmul", "lut6a16_matmul", "w4_inner_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,6 +105,16 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
 def build_log(name: str) -> str:
     log = Path(str(lib_path(name)) + ".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass(name: str) -> str:
+    """The SASS of the library of ``csrc/<name>.cu`` (built first if
+    missing), as ``cuobjdump -sass`` prints it; ``cuobjdump`` is taken from
+    beside ``nvcc``."""
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(build([name])[name])],
+                          capture_output=True, text=True, check=True,
+                          timeout=_BUILD_TIMEOUT_S).stdout
 
 
 def load(name: str) -> ctypes.CDLL:

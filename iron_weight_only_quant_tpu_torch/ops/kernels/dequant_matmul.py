@@ -66,7 +66,8 @@ in for the kernel.
 ``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the plain
 version per name of the kernel it stands in for (an artifact no kernel
 takes is not counted), ``ROUTE_CALLS`` the route's calls;
-:func:`reset_counts` zeroes all three.
+:func:`reset_counts` zeroes all three.  The two modes of the W4 inner-loop
+probe kernel (``ops/kernels/w4_inner.py``, no serving path) count here too.
 """
 
 from __future__ import annotations
@@ -99,6 +100,9 @@ LUT4A16 = "lut4a16_matmul"
 LUT8 = "lut8_matmul"
 LUT6 = "lut6_matmul"
 LUT6A16 = "lut6a16_matmul"
+# the two modes of the W4 inner-loop probe kernel (ops/kernels/w4_inner.py)
+W4_INNER_F32 = "w4_inner_f32"
+W4_INNER_MAGIC = "w4_inner_magic"
 ACTIVATION_BITS = (8, 16)
 # packed storage bits -> (kernel, prenorm kernel or None, A8 kernel or None,
 # A16 kernel or None), for affine and for LUT artifacts
@@ -109,6 +113,7 @@ _LUT_KERNELS = {4: (LUT4, None, None, LUT4A16), 8: (LUT8, None, None, None),
 LAUNCHES: Dict[str, int] = {name: 0 for table in (_KERNELS, _LUT_KERNELS)
                             for names in table.values() for name in names
                             if name is not None}
+LAUNCHES.update({W4_INNER_F32: 0, W4_INNER_MAGIC: 0})
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 ROUTE = "xla_route"
 ROUTE_CALLS: Dict[str, int] = {ROUTE: 0}
@@ -614,6 +619,26 @@ def _raise_if(err: int, lib, name: str) -> None:
                            f"({lib.iwoq_cuda_error_string(err).decode()})")
 
 
+def _check_operands(x2: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
+                    zeros: Optional[torch.Tensor], rows: int) -> None:
+    """What every kernel needs of its 2-D operands: one device, contiguous
+    bf16/f32 x, contiguous 4-byte-aligned uint8 codes ``[*, N]``, f32 side
+    info of ``rows`` or more (or 1) rows and N (or 1) columns."""
+    dev, n = x2.device, qw.shape[1]
+    _check(x2.dtype in (torch.bfloat16, torch.float32),
+           f"x dtype {x2.dtype} is not bfloat16 or float32")
+    sides = (("scales", scales),) + ((("zeros", zeros),) if zeros is not None else ())
+    for name_, t in (("qweight", qw),) + sides:
+        _check(t.device == dev, f"{name_} is on {t.device}, x on {dev}")
+    for name_, t in sides:
+        _check(t.dim() == 2 and t.dtype == torch.float32
+               and t.shape[1] in (1, n) and (t.shape[0] == 1 or t.shape[0] >= rows),
+               f"{name_} {tuple(t.shape)} {t.dtype} is not f32 [1|{rows}+, 1|{n}]")
+    _check(qw.dtype == torch.uint8 and qw.is_contiguous()
+           and qw.data_ptr() % 4 == 0, "qweight must be contiguous uint8")
+    _check(x2.is_contiguous(), "x must be contiguous")
+
+
 def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
             qw: torch.Tensor, scales: torch.Tensor, zeros: Optional[torch.Tensor],
             rows: int, k_logical: int, n_out: int,
@@ -645,18 +670,7 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     # stored K: 2 columns a packed row (nib4), 8 a B row (s21), 4 a quad row
     # (nq42), 1 (byte)
     ks = x2.shape[1] if activation_bits is None else {4: 2, 3: 8, 6: 4}.get(bits, 1) * kp
-    _check(x2.dtype in (torch.bfloat16, torch.float32),
-           f"x dtype {x2.dtype} is not bfloat16 or float32")
-    sides = (("scales", scales),) + ((("zeros", zeros),) if zeros is not None else ())
-    for name_, t in (("qweight", qw),) + sides:
-        _check(t.device == dev, f"{name_} is on {t.device}, x on {dev}")
-    for name_, t in sides:
-        _check(t.dim() == 2 and t.dtype == torch.float32
-               and t.shape[1] in (1, n) and (t.shape[0] == 1 or t.shape[0] >= rows),
-               f"{name_} {tuple(t.shape)} {t.dtype} is not f32 [1|{rows}+, 1|{n}]")
-    _check(qw.dtype == torch.uint8 and qw.is_contiguous()
-           and qw.data_ptr() % 4 == 0, "qweight must be contiguous uint8")
-    _check(x2.is_contiguous(), "x must be contiguous")
+    _check_operands(x2, qw, scales, zeros, rows)
     if activation_bits is not None:
         _check(x2.shape[1] == k_logical <= ks,
                f"x has {x2.shape[1]} columns, the artifact K={k_logical}")

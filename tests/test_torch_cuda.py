@@ -16,7 +16,8 @@ must give the plain version's codes bit for bit.  The LUT (minifloat)
 kernels run the nib4 (fp4), nq42 (fp6; K/4 a multiple of the group) and
 byte (fp8, byte-per-code fp6) layouts with and without zero points, fp4
 and fp6 E2M3 also under A16; BFP artifacts run on the W4 and W8 kernels;
-card-built fp/bfp artifacts must equal CPU-built ones byte for byte.
+card-built fp/bfp artifacts must equal CPU-built ones byte for byte.  The
+W4 inner-loop probe kernel runs both its decodes on the W4 shapes.
 Artifacts the JAX package computes on its XLA path take the route
 (``ROUTE_CALLS``) on the card too.  The serve loop's KV write, a wave and a
 chunk (also under activation bits, and on a W3 model) and tiny ``serve``
@@ -567,6 +568,47 @@ def test_card_built_artifacts_equal_cpu_built(dev, spec):
         assert (a is None) == (b is None)
         if a is not None:
             assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), name
+
+
+# ------------------------------------------------------- W4 inner-loop probe
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["f32", "magic"])
+@pytest.mark.parametrize("m", [1, 8, 256])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+def test_w4_inner_kernel_matches_plain_shapes(dev, shape, m, mode, dtype):
+    """Both modes of the probe kernel, ``n_pad`` and ``k_pad`` artifacts and
+    groups straddling the K halves included; one launch, no plain call."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import (
+        w4_inner_matmul,
+        w4_inner_plain,
+    )
+
+    k, n, kw = SHAPES[shape]
+    qt = _artifact(dev, k, n, SPECS["g128_asym"], **kw)
+    x = _x(dev, (m, k), dtype) * 3
+    dm.reset_counts()
+    y = w4_inner_matmul(x, qt, mode)
+    name = dm.W4_INNER_MAGIC if mode == "magic" else dm.W4_INNER_F32
+    assert dm.LAUNCHES == {**{k_: 0 for k_ in dm.LAUNCHES}, name: 1}
+    assert not any(dm.PLAIN_CALLS.values())
+    _close(y, w4_inner_plain(x, qt, mode), dtype)
+
+
+@pytest.mark.parametrize("mode", ["f32", "magic"])
+@pytest.mark.parametrize("spec", list(SPECS), ids=list(SPECS))
+def test_w4_inner_kernel_matches_plain_side_layouts(dev, spec, mode):
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import (
+        w4_inner_matmul,
+        w4_inner_plain,
+    )
+
+    qt = _artifact(dev, 512, 256, SPECS[spec], seed=2)
+    x = _x(dev, (2, 4, 512), torch.float32)
+    y = w4_inner_matmul(x, qt, mode)
+    assert y.shape == (2, 4, 256)
+    _close(y, w4_inner_plain(x, qt, mode), torch.float32)
+    _close(y, dm.dequant_matmul_plain(x, qt), torch.float32)
 
 
 # ------------------------------------------------------------------- serve
