@@ -64,7 +64,12 @@ models, whose kernels those paths do not carry but which add time, run
     before ``w3_matmul``, in the row pass of the A-kernels); per kernel also
     an f32 x, g128 symmetric, per-channel asymmetric and per-tensor
     symmetric artifacts, and a layer-stacked call (layer 2 of 3, side info
-    padded by 2 rows).
+    padded by 2 rows).  Then ``w3a16_matmul`` (the tensor-core slab kernel
+    of ``csrc/wa_slab_mma.cuh``) on a per-channel K=1088 artifact (K/8 = 136
+    slab rows, no multiple of its 32-row window) and groups of 16, at M=8
+    and 64, bf16 and f32 x; the static SASS counts of its kernels (IMMA, no
+    IDP in the product kernels, else the phase fails) and their
+    ``-Xptxas -v`` registers, spills and shared memory.
 13. W3 two-layer logits: phase 3 with the W3 model, with bf16/f32
     activations, A8 and A16.
 14. W3 model: 8-layer 7B-width W3 model (every linear int3 g128
@@ -111,7 +116,9 @@ models, whose kernels those paths do not carry but which add time, run
     gate_up also with ``pre_norm``; at the down shape E3M2 g128
     asymmetric, E2M3 g64 symmetric and per-channel asymmetric artifacts, an
     f32 x and a stacked call per kernel; E3M2 under A16 warns and launches
-    ``lut6_matmul``.
+    ``lut6_matmul``.  Then ``lut6a16_matmul`` on E2M3 per-channel K=1088
+    (K/4 = 272 slab rows), E2M3 groups of 16 and E1M4 g128 artifacts, and
+    its SASS counts and registers, as in phase 12.
 22. FP6 two-layer 7B-width logits (bf16/f32 activations and A16), kernels
     vs the plain path on the CPU, as phase 3.
 23. FP6 full model: 32-layer 7B-width fp6 E2M3 g128 symmetric model built
@@ -130,7 +137,10 @@ models, whose kernels those paths do not carry but which add time, run
     passed through, with exact launch counts (``base``, ``f32``, ``magic``,
     ``w4a8``, ``a16``), no plain call, no route call.
 25. Report: the generate and serve JSON lines, the card line, the
-    per-kernel JSON line, and as the last line ``{"ok": true, "device": ...}``.
+    per-kernel JSON line (per kernel also ``prefill_ms``,
+    ``prefill_bound_ms`` and ``prefill_library_ms``: the M=256 records
+    summed as the decode step's), and as the last line ``{"ok": true,
+    "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the port's package is not beside it.
@@ -939,6 +949,61 @@ def phase_w3_kernels(torch, device, spec):
     return per_kernel
 
 
+def slab_kernel_report(name):
+    """The static SASS counts (``build.sass``, counted by the probe's
+    ``sass_counts``) and the ``-Xptxas -v`` registers and shared memory of
+    the kernels of an A16 slab library (``csrc/wa_slab_mma.cuh``); fails
+    unless the product kernels run their products on the tensor cores
+    (IMMA) with no ``__dp4a`` (IDP)."""
+    import re
+
+    from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
+    from iron_weight_only_quant_tpu_torch.probes.probe_w4_inner import sass_counts
+
+    def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16> and the row pass
+        m = re.search(r"wa_slab_mma_kernelILi\d+ELi(\d+)ELb(\d)E", fn)
+        if m:
+            return f"product NT={m.group(1)}{'' if m.group(2) == '1' else ' 4-byte copies'}"
+        return "row pass" if "quantize_rows_slab" in fn else None
+
+    counts = sass_counts(kbuild.sass(name), ops=("IMMA", "IGMMA", "IDP", "LDS", "LDGSTS",
+                                                  "PRMT", "LOP3"), key=key)
+    for k, c in sorted(counts.items()):
+        print(f"  sass {name} {k}: " + " ".join(f"{op}={v}" for op, v in c.items() if v),
+              flush=True)
+        if k.startswith("product") and (c["IMMA"] + c["IGMMA"] == 0 or c["IDP"] > 0):
+            fail(f"{name} {k}: the products are not on the tensor cores: {c}")
+    log = kbuild.build_log(name).splitlines()
+    for i, line in enumerate(log):
+        fn = re.search(r"entry function '(\S+)'", line)
+        if fn and key(fn.group(1)):
+            used = next((x.split(":", 1)[1].strip() for x in log[i + 1:i + 4] if "Used" in x), "")
+            spill = next((x.strip() for x in log[i + 1:i + 4] if "spill" in x), "")
+            print(f"  ptxas {name} {key(fn.group(1))}: {used}; {spill}", flush=True)
+    return counts
+
+
+def check_slab_ragged(torch, device, specs, seed):
+    """The A16 slab kernel on artifacts whose groups or slabs are not a
+    multiple of its 32-row window (``specs``: label -> (spec, K)), N = 4096,
+    at M = 8 and 64, bf16 and f32 x, against the plain version."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for label, (spec, k) in specs.items():
+        qt = make_artifact(torch, gen, spec, k, (4096,), device)[0]
+        kname = dm.kernel_name(qt, None, 16)
+        if kname not in dm.SLAB_MMA:
+            fail(f"{label}: the artifact does not take an A16 slab kernel ({kname})")
+        for m in (DECODE_M, 64):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+                check_call(torch, f"{kname}:{label}:M={m}", qt, x, *a_runner(None, 16))
+        del qt
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- phase 15
 
 def phase_route(torch, device):
@@ -1234,14 +1299,17 @@ def phase_w4_inner(torch, device, spec):
 
 def kernel_rows(per_kernel, launches):
     """One row per kernel: times summed over the launches one decode step
-    (M=8) makes at each main-path shape; ``launches`` from the run of the
-    kernel's main path."""
+    (M=8) makes at each main-path shape, and the same sums of the M=256
+    records (``prefill_*``: one such launch per shape and step's launch);
+    ``launches`` from the run of the kernel's main path."""
     rows = []
     for name, recs in per_kernel.items():
-        dec = [r for r in recs if r["M"] == DECODE_M]
-        step = lambda key: sum(r[key] * r["per_step"] for r in dec)  # noqa: E731
-        nbytes, ops = step("bytes"), step("ops")
-        bound_ms, bound_by = bound(nbytes, ops, dec[0]["peak"])
+        def at(m):  # (sum of key over the step's launches at M=m, bound, bound_by)
+            sel = [r for r in recs if r["M"] == m and "ms" in r]
+            step = lambda key: sum(r[key] * r["per_step"] for r in sel)  # noqa: E731
+            return step, bound(step("bytes"), step("ops"), sel[0]["peak"])
+        step, (bound_ms, bound_by) = at(DECODE_M)
+        pstep, (pbound_ms, _) = at(PREFILL_M)
         rows.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
             "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
@@ -1249,6 +1317,8 @@ def kernel_rows(per_kernel, launches):
             "ms": step("ms"), "plain_ms": step("plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": step("library_ms"),
+            "prefill_ms": pstep("ms"), "prefill_bound_ms": pbound_ms,
+            "prefill_library_ms": pstep("library_ms"),
         })
     return rows
 
@@ -1351,6 +1421,12 @@ def main() -> int:
     w3 = QuantSpec(fmt="int", bits=3, group_size=128, symmetric=False)
     header(f"== phase 12: W3 kernels vs plain versions ({tol_a})")
     per_kernel.update(phase_w3_kernels(torch, device, w3))
+    print("  -- w3a16: groups and slabs off the 32-row window; SASS and registers", flush=True)
+    check_slab_ragged(torch, device, {
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=3, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=3, group_size=16, symmetric=False), 4096)}, 11)
+    slab_kernel_report(dm.W3A16)
 
     header("== phase 13: W3 two-layer 7B-width logits, kernels vs plain path "
            "(bf16/f32 activations, A8, A16)")
@@ -1421,6 +1497,15 @@ def main() -> int:
         pad_k_to=FP6_PAD_K)
     per_kernel.update(per_kernel_lut)
     check_a16_without_grid(torch, down, e3m2, gen, device)
+    print("  -- lut6a16: groups and slabs off the 32-row window, E1M4; SASS and registers",
+          flush=True)
+    check_slab_ragged(torch, device, {
+        "fp6_e2m3_perchannel_asym_k1088": (fp_spec("fp6", 2, 3, group_size=PER_CHANNEL,
+                                                   symmetric=False), 1088),
+        "fp6_e2m3_g16_sym": (fp_spec("fp6", 2, 3, group_size=16), 4096),
+        "fp6_e1m4_g128_asym": (fp_spec("fp6", 1, 4, group_size=128, symmetric=False), 4096)},
+        12)
+    slab_kernel_report(dm.LUT6A16)
 
     header("== phase 22: fp6 two-layer 7B-width logits (also A16), kernels vs plain path")
     phase_two_layers(torch, device, fp6, cfg, abits_list=(None, 16), pad_k_to=FP6_PAD_K)

@@ -7,10 +7,12 @@
 // Bound by bytes at decode: per launch, 3/8 byte per weight + f32 scales
 // and zeros + two int8 planes of x + output, over 3.35 TB/s; at prefill M by
 // 2 * 2*M*K*N int8 operations over 1,979 TOP/s.
-// The design (row pass, one warp per K slab, __dp4a per plane with each
-// plane's int32 sum turned f32 before the 256 recombination, deterministic
-// K-split) is described in wa_common.cuh and w3_common.cuh.  Kp = Kb, the B rows.
-#include "wa_common.cuh"
+// The design (row pass with per-group activation sums, products on the int8
+// tensor cores by mma.sync m16n8k32 with each plane's int32 sum turned f32
+// before the 256 recombination, a cp.async ring of weight windows,
+// deterministic K-split) is described in wa_slab_mma.cuh.  Kp = Kb, the B
+// rows; xq is the scratch of slab_planes_bytes plus the group sums.
+#include "wa_slab_mma.cuh"
 
 extern "C" int iwoq_w3a16_matmul(const void* x, int x_bf16, int k_logical, int norm,
                                  float eps, const void* qw, const void* s, long long s_rs,
@@ -18,7 +20,7 @@ extern "C" int iwoq_w3a16_matmul(const void* x, int x_bf16, int k_logical, int n
                                  long long z_cs, void* xq, void* sx, void* ws, void* out,
                                  int M, int N, int n_out, int Kp, int G, int kc, int splits,
                                  void* stream) {
-  return iwoq::launch_wa<iwoq::kS21, 2>(x, x_bf16, k_logical, norm, eps, qw, s, s_rs, s_cs,
-                                        z, z_rs, z_cs, xq, sx, ws, out, M, N, n_out, Kp,
-                                        G, kc, splits, stream);
+  return iwoq::launch_wa_slab<iwoq::kS21>(x, x_bf16, k_logical, norm, eps, qw, s, s_rs, s_cs,
+                                          z, z_rs, z_cs, xq, sx, ws, out, M, N, n_out, Kp, G,
+                                          kc, splits, stream);
 }

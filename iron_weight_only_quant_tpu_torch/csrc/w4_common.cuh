@@ -205,11 +205,15 @@ w4_partial_kernel(const XT* __restrict__ x, int ldx,
 }
 
 // out[m, n] = cast(r[m] * sum_s ws[s, m, n]) for n < n_out (drops n_pad).
+// Launched as a programmatic dependent of the partial-products kernel (the
+// A16 slab kernels, wa_slab_mma.cuh) it first waits for that kernel's end;
+// launched plainly, the wait returns at once.
 template <bool PRENORM, typename OT>
 __global__ void w4_reduce_kernel(const float* __restrict__ ws,
                                  const float* __restrict__ rnorm,
                                  OT* __restrict__ out, int M, int N, int n_out,
                                  int splits) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const long long total = (long long)M * n_out;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {

@@ -1,8 +1,9 @@
 // Int-activation dequant-matmul for Hopper (sm_90a):
 //   y[M,N] = sx[M] * (quantize(x)[M,K] @ dequant(qw)[K,N]),
 // int8 activation planes against the packed int4 (nib4), int8 (byte) or
-// 3-bit (s21) weight codes, or 4- and 6-bit minifloat codes (LUT nib4, LUT
-// nq42) decoded to their exact int8 grid, one __dp4a per four K values.
+// 3-bit (s21, A8 only) weight codes, or 4-bit minifloat codes (LUT nib4)
+// decoded to their exact int8 grid, one __dp4a per four K values.  The A16
+// kernels of the slab layouts (s21, LUT nq42) are wa_slab_mma.cuh's.
 //
 // Replaces the int-activation paths of the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -13,13 +14,10 @@
 //   A16 (two planes): _int4_kernel_a16 (:418), _int8_kernel_a16 (:449)
 //       (_group_accum_a16 :253-286); stacked forms _int4_kernel_a16_pfx
 //       (:1722), _int8_kernel_a16_pfx (:1727);
-//   s21 3-bit: _int3_kernel (:467) with int8 x (A8) and _int3_kernel_a16
-//       (:533) (A16), stacked forms _int3_kernel_pfx (:1360) and
-//       _int3_kernel_a16_pfx (:588), all through _call_int3 (:1365);
+//   s21 3-bit: _int3_kernel (:467) with int8 x (A8), stacked form
+//       _int3_kernel_pfx (:1360), through _call_int3 (:1365);
 //   LUT nib4 with A16: _lut4_kernel_a16 (:771, called at :1607) and its
-//       stacked form _lut4_kernel_a16_pfx (:806, through :1927);
-//   LUT nq42 with A16: _lut6_kernel_a16 (:892) and its stacked form
-//       _lut6_kernel_a16_pfx (:934), both through _call_lut6 (:939).
+//       stacked form _lut4_kernel_a16_pfx (:806, through :1927).
 // The stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.  The JAX package quantized the
 // activations in XLA (_prep_x :1270-1316); here a row pass of the same
@@ -56,24 +54,13 @@
 //     sum is at most 127 * 128 * G < 2^31 for groups G up to 131072, the
 //     A16 activation sum 256*sum(hi) + sum(lo) at most 32640 * G < 2^31
 //     for G up to 65793 (a per-channel group spans K, or each nib4 half).
-//     wa_slab_partial_kernel (s21, the third layout case): the same grid
-//     with W3's warp-per-slab split (w3_common.cuh): warp i walks the
+//     wa_slab_partial_kernel (s21 with A8, the third layout case): the same
+//     grid with W3's warp-per-slab split (w3_common.cuh): warp i walks the
 //     block's B rows four at a time, transposes four A words (rows (i % 2)
 //     * Kb + r..) and four B words (rows 2 Kb + r..) into per-column words,
 //     assembles slab i's four K-consecutive codes (field i / 2, un-flipped,
 //     plus 4 * bit i) and runs the same __dp4a sums and per-group epilogue
 //     against slab i's activations (K = i * Kb + r..).
-//     The nq42 case (kLut6, A16 only) is the same kernel over the four K
-//     quarters of the 6-bit layout: one quad row gives a column one code
-//     per quarter, and __dp4a wants four K-consecutive codes of one
-//     quarter, so a warp walks four consecutive quad rows a step.  Warps i
-//     and i + 4 take quarter i, each one half of the stage's quad rows;
-//     each transposes four nibble words (rows (i % 2) * Kq + r.., quarter i
-//     in the low nibbles for i < 2, in the flipped high nibbles for i >= 2)
-//     and four quad words (rows 2 Kq + r.., bits 2i..2i+1), assembles the
-//     four 6-bit codes of each column and maps them through a 64-entry table
-//     to their int8 grid bytes, then runs the LUT epilogue below against
-//     quarter i's activations (K = i * Kq + r..).
 //     The LUT nib4 case (kLut4, A16 only, as in the JAX package): the nib4 grid
 //     and byte transpose of the affine case; each nibble code becomes the
 //     int8 byte of its exact grid value ival (_minifloat_decode_int :683,
@@ -103,7 +90,7 @@ namespace iwoq {
 enum Layout { kNib4 = 0, kByte = 1, kS21 = 2, kLut4 = 3, kLut6 = 4 };  // packed weight layouts
 constexpr int kRowThreads = 256;  // threads of the row pass, one block per row
 constexpr int kStageA = 512;      // packed K rows of int8 x staged at a time
-constexpr int kStageA3 = 256;     // s21, nq42: slab rows of int8 x staged at a time (all slabs)
+constexpr int kStageA3 = 256;     // s21: slab rows of int8 x staged at a time (all slabs)
 
 __device__ __forceinline__ float round_to(float v, float) { return v; }
 __device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
@@ -190,15 +177,6 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&
 __device__ __forceinline__ uint32_t lut_bytes(const uint32_t* tab, uint32_t c) {
   return tab[c & 0xFFu] | (tab[(c >> 8) & 0xFFu] << 8) | (tab[(c >> 16) & 0xFFu] << 16) |
          (tab[c >> 24] << 24);
-}
-
-// The four 6-bit codes of quarter j (byte i = K-consecutive row i of one
-// column) from a transposed nibble word a (quarter j in the low nibbles for
-// j < 2, in the flipped high nibbles for j >= 2) and quad word b (bits
-// 2j..2j+1 of each byte).
-__device__ __forceinline__ uint32_t nq42_codes(uint32_t a, uint32_t b, int j) {
-  const uint32_t nib = j < 2 ? (a & 0x0F0F0F0Fu) : (((a >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
-  return nib | (((b >> (2 * j)) & 0x03030303u) << 4);
 }
 
 // Partial products of one (N-tile, M-tile, K-split) block into ws.
@@ -351,33 +329,24 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
 }
 
 // Partial products of one (N-tile, M-tile, K-split) block into ws for the
-// slab layouts: s21 (8 slabs of Kb = K/8 B rows, one warp each) and, LUT,
-// nq42 (4 quarters of Kb = K/4 quad rows, two warps each, splitting the
-// stage's rows).  xq: int8 planes [PLANES, M, ldq], ldq = S * Kb; slab i's
+// s21 layout with int8 activations (A8): 8 slabs of Kb = K/8 B rows, one
+// warp each.  xq: the int8 plane [M, ldq], ldq = 8 * Kb; slab i's
 // activations for row r sit at K = i * Kb + r.  qw is [3 Kb, N/4] words:
-// the A (s21) or nibble (nq42) rows of slab i start at (i % 2) * Kb, the B
-// or quad rows at 2 Kb.  LUT: the codes are minifloats of E exp_bits, M
-// mant_bits, and z may be null (no zero points).
-template <int LAYOUT, int PLANES>
+// the A rows of slab i start at (i % 2) * Kb, the B rows at 2 Kb.
 __global__ void __launch_bounds__(kThreads)
 wa_slab_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
                        const uint32_t* __restrict__ qw,
                        const float* __restrict__ s, long long s_rs, long long s_cs,
                        const float* __restrict__ z, long long z_rs, long long z_cs,
-                       float* __restrict__ ws, int N, int Kb, int G, int kc,
-                       int exp_bits, int mant_bits) {
-  static_assert(LAYOUT == kS21 || LAYOUT == kLut6, "a slab layout");
-  constexpr bool LUT = LAYOUT == kLut6;
-  constexpr int S = LUT ? 4 : kSlabs;         // slabs a packed row serves
-  constexpr int kWarpsPerSlab = kKWarps / S;  // splitting the stage's rows
+                       float* __restrict__ ws, int N, int Kb, int G, int kc) {
+  constexpr int S = kSlabs;
   constexpr int kStage4 = kStageA3 / 4;
-  static_assert(S * PLANES * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
+  static_assert(S * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
                 "the x stage must fit in the reduction buffer");
   __shared__ __align__(16) float smem[kKWarps * kTileM * kBlockN];
-  int* xs = reinterpret_cast<int*>(smem);  // [S][PLANES][kStage4][kTileM] words
+  int* xs = reinterpret_cast<int*>(smem);  // [S][kStage4][kTileM] words
   const int lane = threadIdx.x;
-  const int slab = threadIdx.y % S;
-  const int half = threadIdx.y / S;  // which share of the stage's rows
+  const int slab = threadIdx.y;
   const int tid = threadIdx.y * kLanes + lane;
   const int n0 = blockIdx.x * kBlockN + lane * kColsPerThread;
   const bool active = n0 < N;
@@ -389,14 +358,6 @@ wa_slab_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   const uint32_t* qa = qw + (size_t)(slab & 1) * Kb * words_per_row;  // A rows of this slab
   const uint32_t* qb = qw + (size_t)2 * Kb * words_per_row;           // B rows
   const int grow0 = slab * (Kb / G);  // first group row of this slab
-  const bool has_z = !LUT || z != nullptr;
-  __shared__ uint32_t itab[64];  // LUT: the int8 grid byte of each 6-bit code
-  float mult = 1.f;              // LUT: 2^-t
-  if (LUT) {
-    if (tid < 64) itab[tid] = (uint32_t)minifloat_int(tid, exp_bits, mant_bits) & 0xFFu;
-    mult = ldexpf(1.f, 1 - mant_bits - ((1 << (exp_bits - 1)) - 1));
-    // (the stage loop's first __syncthreads orders the table before its use)
-  }
 
   float acc[kTileM][kColsPerThread];
 #pragma unroll
@@ -407,23 +368,21 @@ wa_slab_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   for (int c0 = k0; c0 < k1; c0 += kStageA3) {
     const int rows4 = min(kStageA3, k1 - c0) / 4;  // k0, k1 and c0 are multiples of 4
     __syncthreads();
-    for (int i = tid; i < S * PLANES * kTileM * rows4; i += kThreads) {
+    for (int i = tid; i < S * kTileM * rows4; i += kThreads) {
       const int w = i % rows4;  // fastest: coalesced reads of an x row
       const int m = (i / rows4) % kTileM;
-      const int sp = i / (rows4 * kTileM);  // slab * PLANES + p
-      const int sl = sp / PLANES, p = sp % PLANES;
+      const int sl = i / (rows4 * kTileM);
       int v = 0;
       if (m0 + m < M)
-        v = *reinterpret_cast<const int*>(
-            xq + ((size_t)p * M + m0 + m) * ldq + (size_t)sl * Kb + c0 + 4 * w);
-      xs[(sp * kStage4 + w) * kTileM + m] = v;
+        v = *reinterpret_cast<const int*>(xq + (size_t)(m0 + m) * ldq + (size_t)sl * Kb + c0 +
+                                          4 * w);
+      xs[(sl * kStage4 + w) * kTileM + m] = v;
     }
     __syncthreads();
 
     if (active) {
-      const int per4 = (rows4 + kWarpsPerSlab - 1) / kWarpsPerSlab;
-      int r = c0 + 4 * half * per4;
-      const int r_end = min(c0 + 4 * rows4, r + 4 * per4);
+      int r = c0;
+      const int r_end = c0 + 4 * rows4;
       while (r < r_end) {
         const int g = r / G;
         const int seg_end = min(r_end, (g + 1) * G);
@@ -433,17 +392,15 @@ wa_slab_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
         for (int j = 0; j < kColsPerThread; ++j) {
           const long long c = (long long)(n0 + j);
           sg[j] = __ldg(s + gr * s_rs + c * s_cs);
-          zg[j] = has_z ? __ldg(z + gr * z_rs + c * z_cs) : 0.f;
+          zg[j] = __ldg(z + gr * z_rs + c * z_cs);
         }
-        int ia[PLANES][kTileM][kColsPerThread];
+        int ia[kTileM][kColsPerThread];
         int isum[kTileM];
 #pragma unroll
         for (int m = 0; m < kTileM; ++m) {
           isum[m] = 0;
 #pragma unroll
-          for (int p = 0; p < PLANES; ++p)
-#pragma unroll
-            for (int j = 0; j < kColsPerThread; ++j) ia[p][m][j] = 0;
+          for (int j = 0; j < kColsPerThread; ++j) ia[m][j] = 0;
         }
         for (; r < seg_end; r += 4) {
           uint32_t wa[4], wb[4], ca[4], cb[4];
@@ -456,41 +413,24 @@ wa_slab_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
           transpose4x4(wb, cb);
           int code[kColsPerThread];
 #pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j)
-            code[j] = LUT ? (int)lut_bytes(itab, nq42_codes(ca[j], cb[j], slab))
-                          : (int)s21_codes(ca[j], cb[j], slab);
-          const int w4 = (r - c0) / 4;
+          for (int j = 0; j < kColsPerThread; ++j) code[j] = (int)s21_codes(ca[j], cb[j], slab);
+          const int4* x4 = reinterpret_cast<const int4*>(xs + (slab * kStage4 + (r - c0) / 4) *
+                                                                  kTileM);
+          const int4 a0 = x4[0], a1 = x4[1];
+          const int xv[kTileM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-          for (int p = 0; p < PLANES; ++p) {
-            const int4* x4 = reinterpret_cast<const int4*>(
-                xs + ((slab * PLANES + p) * kStage4 + w4) * kTileM);
-            const int4 a0 = x4[0], a1 = x4[1];
-            const int xv[kTileM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          for (int m = 0; m < kTileM; ++m) {
+            isum[m] = __dp4a(xv[m], 0x01010101, isum[m]);
 #pragma unroll
-            for (int m = 0; m < kTileM; ++m) {
-              const int xsum4 = __dp4a(xv[m], 0x01010101, 0);
-              isum[m] += (PLANES == 2 && p == 0) ? 256 * xsum4 : xsum4;
-#pragma unroll
-              for (int j = 0; j < kColsPerThread; ++j)
-                ia[p][m][j] = __dp4a(xv[m], code[j], ia[p][m][j]);
-            }
+            for (int j = 0; j < kColsPerThread; ++j) ia[m][j] = __dp4a(xv[m], code[j], ia[m][j]);
           }
         }
 #pragma unroll
         for (int m = 0; m < kTileM; ++m) {
           const float xsum = (float)isum[m];
 #pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) {
-            const float part = PLANES == 2
-                ? (float)ia[0][m][j] * 256.f + (float)ia[PLANES - 1][m][j]
-                : (float)ia[0][m][j];
-            if (LUT) {
-              acc[m][j] = acc[m][j] + part * (sg[j] * mult);
-              if (has_z) acc[m][j] = acc[m][j] + xsum * zg[j];
-            } else {
-              acc[m][j] = acc[m][j] + part * sg[j] - xsum * (sg[j] * zg[j]);
-            }
-          }
+          for (int j = 0; j < kColsPerThread; ++j)
+            acc[m][j] = acc[m][j] + (float)ia[m][j] * sg[j] - xsum * (sg[j] * zg[j]);
         }
       }
     }
@@ -528,23 +468,23 @@ cudaError_t quantize_rows(const void* x, int x_bf16, int k_logical, int k_stored
 // The whole call: row pass, partial products, reduce.  x is [M, k_logical]
 // contiguous; xq [PLANES, M, K_stored] int8 and sx [M] f32 are scratch from
 // the wrapper, as is ws [splits, M, N].  Kp is the number of packed rows the
-// kernel walks: K/2 (nib4, LUT nib4), K (byte), the B rows Kb = K/8 (s21)
-// or the quad rows K/4 (LUT nq42).  exp_bits and mant_bits are the LUT
-// cases' minifloat format; their z may be null.
+// kernel walks: K/2 (nib4, LUT nib4), K (byte) or the B rows Kb = K/8 (s21,
+// A8).  exp_bits and mant_bits are the LUT case's minifloat format; its z
+// may be null.
 template <int LAYOUT, int PLANES>
 int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
               const void* qw, const void* s, long long s_rs, long long s_cs,
               const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
               void* ws, void* out, int M, int N, int n_out, int Kp, int G, int kc,
               int splits, void* stream, int exp_bits = 0, int mant_bits = 0) {
-  const int k_stored = LAYOUT == kNib4 || LAYOUT == kLut4 ? 2 * Kp
-                     : LAYOUT == kS21 ? 8 * Kp : LAYOUT == kLut6 ? 4 * Kp : Kp;
+  static_assert(LAYOUT != kLut6 && (LAYOUT != kS21 || PLANES == 1),
+                "the A16 slab kernels are wa_slab_mma.cuh's");
+  const int k_stored = LAYOUT == kNib4 || LAYOUT == kLut4 ? 2 * Kp : LAYOUT == kS21 ? 8 * Kp : Kp;
   if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 || Kp % 4 ||
       G <= 0 || G % 4 || Kp % G || kc <= 0 || kc % 4 || splits <= 0 ||
       (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored ||
-      ((LAYOUT == kLut4 || LAYOUT == kLut6) &&
-       (PLANES != 2 || exp_bits < 1 || mant_bits < 0 ||
-        1 + exp_bits + mant_bits > (LAYOUT == kLut4 ? 4 : 6))))
+      (LAYOUT == kLut4 && (PLANES != 2 || exp_bits < 1 || mant_bits < 0 ||
+                           1 + exp_bits + mant_bits > 4)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = quantize_rows<PLANES>(x, x_bf16, k_logical, k_stored, norm, eps,
@@ -552,11 +492,11 @@ int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
   if (err != cudaSuccess) return (int)err;
   const dim3 block(kLanes, kKWarps);
   const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kTileM - 1) / kTileM, splits);
-  if constexpr (LAYOUT == kS21 || LAYOUT == kLut6)
-    wa_slab_partial_kernel<LAYOUT, PLANES><<<grid, block, 0, st>>>(
+  if constexpr (LAYOUT == kS21)
+    wa_slab_partial_kernel<<<grid, block, 0, st>>>(
         static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
-        z_cs, static_cast<float*>(ws), N, Kp, G, kc, exp_bits, mant_bits);
+        z_cs, static_cast<float*>(ws), N, Kp, G, kc);
   else
     wa_partial_kernel<LAYOUT != kByte, PLANES, LAYOUT == kLut4><<<grid, block, 0, st>>>(
         static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),

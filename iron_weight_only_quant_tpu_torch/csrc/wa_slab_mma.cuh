@@ -1,0 +1,817 @@
+// A16 dequant-matmul of the slab layouts on Hopper's int8 tensor cores (sm_90a):
+//   y[M,N] = sx[M] * ((256*hi + lo)[M,K] @ dequant(qw)[K,N]),
+// split-plane 16-bit activations against 3-bit (s21) affine codes or 6-bit
+// minifloat codes in the nq42 layout decoded to their exact int8 grid.
+//
+// Replaces the Pallas TPU kernels in
+// iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
+//   _int3_kernel_a16 (:533) and its stacked form _int3_kernel_a16_pfx (:588),
+//       both through _call_int3 (:1365);
+//   _lut6_kernel_a16 (:892) and its stacked form _lut6_kernel_a16_pfx (:934),
+//       both through _call_lut6 (:939).
+// Both reduce to _group_accum_a16 (:253-286) and _lut_accum_a16 (:698): per
+// group and plane an int32 product turned f32, part = 256*pa + pb, then
+//   s21:  acc += part*s - xsum*(s*z),
+//   nq42: acc += part*(s*2^-t) [+ xsum*z where the artifact has zeros],
+// with xsum = 256*sum(hi) + sum(lo) over the group's activations.  The
+// stacked forms are the same kernels: the wrapper offsets the weight and
+// side-info base pointers by the layer.
+//
+// Layouts (ops/packing.py; see w3_common.cuh and lut_common.cuh): qw is
+// uint8 [3 Kb, N].  Slab row r of slab i holds K column i*Kb + r: s21 has
+// S = 8 slabs of Kb = K/8 rows (A rows (i % 2)*Kb + r, field i / 2, plus bit
+// i of B row 2 Kb + r); nq42 has S = 4 quarters of Kb = K/4 rows (nibble row
+// (i % 2)*Kb + r, low nibble for i < 2, flipped high nibble for i >= 2, plus
+// bits 2i..2i+1 of quad row 2 Kb + r).  The wrapper guarantees G | Kb and
+// G % 4 == 0, Kb % 4 == 0; neither needs to be a multiple of 32.
+//
+// Two or three kernels per call, on one stream:
+//  1. quantize_rows_slab_kernel, one 1024-thread block per activation row:
+//     the codes of wa_common.cuh's row pass (bit-equal to the plain
+//     quantize_activations; optionally after the weightless RMSNorm, whose
+//     sum of squares and the row's absmax come from one pass), written per
+//     slab with each slab padded to Kb32 = Kb rounded up to 32 rows
+//     ([2][M][S][Kb32], zero beyond Kb and beyond the logical K); one warp
+//     quantizes a group and sums its codes by shuffles into xsum[M][S*Kb/G]
+//     (256*hi + lo, groups in K order: the JAX xsum as integers).  A LUT
+//     artifact without zero points skips the sums, and the product kernel
+//     never reads them.
+//  2. wa_slab_mma_kernel: the products on the tensor cores,
+//     mma.sync.m16n8k32.s32.s8.s8.s32 with the operands swapped: the weight
+//     is the 16-row A operand (16 output channels by 32 K), the tokens the
+//     8-column B operand.  A block of eight warps takes BN channels, MT =
+//     8 * NT tokens and a K-split range of slab rows, walked in windows of
+//     32 rows.  Decode (NT = 1): BN = 64 (s21) or 128 (nq42), two blocks an
+//     SM, so that one block's barrier stalls only its own warps; more rows:
+//     NT = 2 (s21) or 4 (nq42), BN = 64, one block an SM, so a weight window
+//     is decoded ceil(M / MT) times, not M / 8.  A ring of 4 stages in
+//     shared memory takes each window by cp.async: the three packed arrays'
+//     32 rows of the block's columns (16-byte copies; 4-byte ones when N or
+//     the base is not 16-byte aligned; zero-filled beyond the slab end and
+//     N) and the x planes of every slab for the block's tokens.  At decode,
+//     3 windows ahead hold 18 KB (s21) or 36 KB (nq42) of weight rows in
+//     flight a block, 36 or 72 KB an SM.
+//     Warp w takes slab w % S and channel part w / S (s21: one warp a slab;
+//     nq42: two warps a quarter) and CT MMA tiles of 16 channels.  Lane
+//     (g, t) = (lane / 4, lane % 4) reads its W = CT / 2 words (4 W channels)
+//     of slab rows 8t..8t+7 of the window; the stage stores row 8t + i at
+//     position 4i + t and pads each row to BN / 4 + 8 words, so every such
+//     load is conflict-free.  Per row word it decodes the four codes
+//     (slab_codes: one shift, one funnel rotate, two LOP3; nq42 then
+//     nq42_grid, arithmetic on the exponent and mantissa fields, no table),
+//     and a 4x4 byte transpose of rows 8t..8t+3 and 8t+4..8t+7 gives per
+//     channel the two words of four K-consecutive codes that the A fragment
+//     wants: channel 2c (2c + 1) of the lane is MMA row g (g + 8) of tile
+//     c, MMA K slots 4t..4t+3 and 16+4t..16+4t+3 are slab rows 8t..8t+7.
+//     The B fragment (token g, the same K order) is one conflict-free
+//     64-bit shared load of the staged x, whose rows stay in order.  So
+//     channels are permuted inside a tile (undone in the epilogue by the
+//     same map) and the K order is the same on both operands.
+//     Every MMA's 32 K lie in one group of one slab: a window splits into
+//     segments at group ends (main path: one segment, G = 128 is four
+//     windows), and a segment of fewer than 32 rows zeroes the B registers
+//     outside it (rows come in fours).  Each plane has its own s32
+//     accumulator per group; at the group's end (or the block's) both turn
+//     f32 and the epilogue above runs, the xsum term only in the block that
+//     holds the group's first row (a K-split may cut a group).  Scales,
+//     zeros (16-byte loads where the side rows are contiguous) and sums are
+//     fetched when the window starts in which the segment ends.  Overflow:
+//     as wa_common.cuh (127 * 128 * G per plane).  The warps' f32 partials
+//     meet in shared memory and are summed over the slabs in a fixed order;
+//     with one split (prefill, and the wide decode shapes) the block writes
+//     out = cast(sx * sum) itself, else its partial to ws [splits, M, N].
+//  3. with a K-split, the W4 reduce (w4_reduce_kernel with the row factor):
+//     the fixed-order K-split sum, times sx, cast to x's type.
+// Kernels 2 and 3 are launched programmatically (Hopper's dependent launch):
+// the product kernel starts while the row pass runs, copies its first
+// windows' weights, and waits for the row pass's output only before it
+// copies x; the reduce starts as the product kernel's blocks finish.
+//
+// What bounds it: at decode (M = 8) the bytes: codes (3/8 or 3/4 byte a
+// weight) + f32 sides + two int8 planes of x + output over 3.35 TB/s; at
+// prefill the 2 * 2*M*K*N int8 operations over 1,979 TOP/s.  The design
+// moves the products from __dp4a (five a code at M = 8, the activation sum
+// among them) to one m16n8k32 per 512 codes and plane, takes the
+// activation sums out of the loop (once per row and group, in the row
+// pass), and keeps the weight bytes in flight by asynchronous copies.  What
+// limits it now is instruction issue in the decode (nq42 most: about 20
+// integer operations a word of four codes) and, on small shapes, the fixed
+// cost of two or three kernels a call.
+#pragma once
+
+#include "wa_common.cuh"
+
+namespace iwoq {
+
+constexpr int kSlabWin = 32;  // slab rows a window: one MMA's K
+
+// The tile of one (LAYOUT, NT) instantiation.  A warp takes CT 16-channel
+// MMA tiles of one slab (W = CT / 2 packed words a row a lane); WS warps
+// split a slab's channels, so a block covers BN = 16 * CT * WS channels.
+// Eight warps a block.  Decode (NT = 1): 4 tiles a warp, BN = 64 (s21) or
+// 128 (nq42, two warps a quarter), two blocks an SM (each barrier stalls
+// only its own block); wider token tiles: one block an SM (their
+// accumulators need more registers a thread; nq42 then takes 2 tiles a
+// warp, BN = 64).
+template <int LAYOUT, int NT>
+struct SlabTile {
+  static constexpr int S = LAYOUT == kS21 ? 8 : 4;      // slabs
+  static constexpr int WARPS = 8;
+  static constexpr int BLOCKS_PER_SM = NT == 1 ? 2 : 1;
+  static constexpr int THREADS = WARPS * kLanes;
+  static constexpr int WS = WARPS / S;                   // warps a slab
+  static constexpr int CT = LAYOUT == kS21 || NT == 1 ? 4 : 2;  // MMA channel tiles a warp
+  static constexpr int W = CT / 2;                       // packed words a lane reads a row
+  static constexpr int BN = 16 * CT * WS;                // channels a block
+  static constexpr int MT = 8 * NT;                      // tokens a block
+  static constexpr int STAGES = 4;                       // windows in the ring
+  // Words a staged row, padded so that rows 4i + t (t = 0..3) start 0,
+  // 24, 16 and 8 banks apart (BN / 4 is 16 or 32).
+  static constexpr int PITCH = BN / 4 + 8;
+  static constexpr int W_BYTES = 3 * kSlabWin * PITCH * 4;  // the three arrays' rows
+  static constexpr int X_BYTES = S * 2 * MT * kSlabWin;     // [slab][plane][token][32]
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr int RED = S * MT * (BN + 1) * 4;         // f32 [slab][token][BN + 1]
+  static constexpr int SMEM = STAGES * STAGE > RED ? STAGES * STAGE : RED;
+  static_assert(W == 1 || W == 2, "one 32- or 64-bit load a row");
+  static_assert((PITCH * 4) % 16 == 0 && ((BN / 4) % 16 == 0), "16-byte rows, bank steps");
+  static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 228 * 1024, "the blocks of an SM");
+};
+
+// Tokens a block of the slab kernel (must match slab_tile_m, and the tile's
+// BN slab_block_n, in ops/kernels/dequant_matmul.py).
+__host__ __device__ constexpr int slab_tile_nt(int M, int layout) {
+  return M <= 8 ? 1 : layout == kS21 ? 2 : 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 (or 4) bytes, zero-filling what lies beyond `bytes`.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Programmatic dependent launch: a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of the kernel before it has called griddep_launch_dependents (or
+// ended); griddep_wait then waits for that kernel's end and its writes.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// d += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 sums.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 0xFF in each byte whose bit 7 is set, 0x00 elsewhere (prmt's sign mode).
+__device__ __forceinline__ uint32_t byte_sign_mask(uint32_t v) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, 0, 0xBA98;\n" : "=r"(r) : "r"(v));
+  return r;
+}
+
+// The four codes of slab (or quarter) i in a packed row (bytes = columns)
+// from its A (nibble) word a and B (quad) word b: ((a >> ash) & am) ^ flip
+// | (rotr(b, brot) & bm), the shifts and masks of slab_fields.  s21: field
+// i / 2 of a (field 3 un-flipped) plus 4 * bit i of b; nq42: the low nibble
+// (i < 2) or the flipped high nibble of a plus 16 * bits 2i..2i+1 of b.
+struct SlabFields {
+  int ash, brot;
+  uint32_t flip;
+};
+template <bool LUT>
+__device__ __forceinline__ SlabFields slab_fields(int i) {
+  if (LUT) return {i < 2 ? 0 : 4, (2 * i + 28) & 31, i < 2 ? 0u : 0x08080808u};
+  return {2 * (i >> 1), (i + 30) & 31, (i >> 1) == 3 ? 0x02020202u : 0u};
+}
+template <bool LUT>
+__device__ __forceinline__ uint32_t slab_codes(uint32_t a, uint32_t b, SlabFields f) {
+  constexpr uint32_t am = LUT ? 0x0F0F0F0Fu : 0x03030303u, bm = LUT ? 0x30303030u : 0x04040404u;
+  return (((a >> f.ash) & am) ^ f.flip) | (__funnelshift_r(b, b, f.brot) & bm);
+}
+
+// Four 6-bit minifloat codes (one a byte: sign bit 5, E exponent bits, M
+// mantissa bits, E + M = 5) -> their int8 grid bytes, +-(mant_full <<
+// (max(e, 1) - 1)) as _minifloat_int.  E = 1 (wide = 0): the magnitude is
+// the low five bits.  E = 2 (wide = ~0): with m5 the low five bits, e = 2
+// adds m5 & 15 (= m5 - 16) and e = 3 also 2 * (m5 & 7) (= 2 m5 - 48), so
+// the magnitude is m5, 2 m5 - 16 or 4 m5 - 64.  No byte exceeds 60, so the
+// word sums never carry; the negation 0x80 - v (no borrow) ^ 0x80 maps 0 to 0.
+__device__ __forceinline__ uint32_t nq42_grid(uint32_t c, uint32_t wide) {
+  const uint32_t e_hi = byte_sign_mask(c << 3) & wide;    // exponent bit 1 (E = 2)
+  const uint32_t e_3 = byte_sign_mask(c << 4) & e_hi;     // exponent 3
+  const uint32_t v = (c & 0x1F1F1F1Fu) + (c & e_hi & 0x0F0F0F0Fu) +
+                     ((c << 1) & e_3 & 0x0E0E0E0Eu);
+  const uint32_t neg = (0x80808080u - v) ^ 0x80808080u;
+  const uint32_t sgn = byte_sign_mask(c << 2);
+  return (v & ~sgn) | (neg & sgn);
+}
+
+template <int W>
+__device__ __forceinline__ void lds_words(const uint32_t* p, uint32_t (&w)[W]) {
+  if constexpr (W == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = *p;
+  }
+}
+
+constexpr int kSlabRowThreads = 1024;  // threads of the slab row pass, one block a row
+
+// Sum (MAX=false) or maximum (MAX=true) of one value per thread of a
+// kSlabRowThreads block: shuffles within each warp, then the warps' results
+// through shared memory (two barriers).
+template <bool MAX>
+__device__ __forceinline__ float block_reduce_warps(float v, float* red) {
+  constexpr int kWarps = kSlabRowThreads / kLanes;
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = MAX ? fmaxf(v, o) : v + o;
+  }
+  if (threadIdx.x % kLanes == 0) red[threadIdx.x / kLanes] = v;
+  __syncthreads();
+  float out = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) out = MAX ? fmaxf(out, red[w]) : out + red[w];
+  __syncthreads();
+  return out;
+}
+
+// Row pass of the slab kernel: int8 planes [2][M][S][Kb32] (slab i's rows
+// r < Kb hold K column i*Kb + r, the rest zero) and sx [M] from x [M, ldx],
+// and, if xsum is not null, xsum [M][S*Kb/G] = 256*sum(hi) + sum(lo) per
+// group of G K columns: a warp quantizes a group and sums its codes by
+// shuffles.  The codes are quantize_rows_kernel's.
+template <typename XT, bool NORM>
+__global__ void __launch_bounds__(kSlabRowThreads)
+quantize_rows_slab_kernel(const XT* __restrict__ x, int ldx, int k_logical, int S, int Kb,
+                          int Kb32, int G, float eps, int8_t* __restrict__ xq,
+                          float* __restrict__ sx, int* __restrict__ xsum, int M) {
+  __shared__ float red[kSlabRowThreads / kLanes];
+  griddep_launch_dependents();  // the product kernel may start its weight copies
+  const int m = blockIdx.x;
+  const int t = threadIdx.x;
+  const XT* xr = x + (size_t)m * ldx;
+  // one pass: the sum of squares (NORM) and max|x|.  The quantizer sees
+  // val(k) = x*r rounded to x's type, and rounding is monotone and odd, so
+  // max|val(k)| is max|x| * r rounded the same way.
+  float ss = 0.f, amax = 0.f;
+  for (int k = t; k < k_logical; k += kSlabRowThreads) {
+    const float v = to_f32(xr[k]);
+    if (NORM) ss = fmaf(v, v, ss);
+    amax = fmaxf(amax, fabsf(v));
+  }
+  float r = 1.f;
+  if (NORM) {
+    ss = block_reduce_warps<false>(ss, red);
+    r = 1.0f / sqrtf(ss / (float)k_logical + eps);
+  }
+  amax = block_reduce_warps<true>(amax, red);
+  if (NORM) amax = round_to(amax * r, XT());
+  auto val = [&](int k) {
+    const float v = to_f32(xr[k]);
+    return NORM ? round_to(v * r, XT()) : v;
+  };
+  const float s = fmaxf(amax, 1e-8f) / 32512.0f;
+  if (t == 0) sx[m] = s;
+  const int row_len = S * Kb32;
+  int8_t* q0 = xq + (size_t)m * row_len;
+  int8_t* q1 = q0 + (size_t)M * row_len;  // the lo plane
+  // one warp a group (G K columns of one slab): the codes and their sum
+  const int lane = t % kLanes, warp = t / kLanes;
+  const int ng = S * (Kb / G);
+  for (int gi = warp; gi < ng; gi += kSlabRowThreads / kLanes) {
+    const int k0 = gi * G;
+    const int sl = k0 / Kb;
+    int8_t* p0 = q0 + sl * Kb32 + (k0 - sl * Kb);
+    int8_t* p1 = q1 + sl * Kb32 + (k0 - sl * Kb);
+    int acc = 0;
+    for (int j = lane; j < G; j += kLanes) {
+      int hi = 0, lo = 0;
+      if (k0 + j < k_logical) {
+        const int xi = (int)rintf(val(k0 + j) / s);
+        hi = (xi + 128) >> 8;
+        lo = xi - (hi << 8);
+      }
+      p0[j] = (int8_t)hi;
+      p1[j] = (int8_t)lo;
+      acc += 256 * hi + lo;
+    }
+    if (xsum != nullptr) {
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) xsum[(size_t)m * ng + gi] = acc;
+    }
+  }
+  const int pad = Kb32 - Kb;  // each slab's rows beyond Kb: zero
+  for (int i = t; i < S * pad; i += kSlabRowThreads) {
+    const int at = (i / pad) * Kb32 + Kb + i % pad;
+    q0[at] = 0;
+    q1[at] = 0;
+  }
+}
+
+// Partial products of one (BN-channel, MT-token, K-split) block into ws;
+// with one split (gridDim.z == 1) the block finishes the output itself:
+// out [M, n_out] = cast(sx * sum), the reduce kernel's arithmetic.
+// xq: planes [2][M][S][Kb32]; xsum [M][S*Kb/G] (null: nq42 without zeros).
+// qw [3 Kb, N] bytes; kc a multiple of 32.  LUT (nq42): exp_bits 1 or 2,
+// mant_bits 5 - exp_bits, z may be null.
+template <int LAYOUT, int NT, bool VEC16>
+__global__ void __launch_bounds__(SlabTile<LAYOUT, NT>::THREADS,
+                                  SlabTile<LAYOUT, NT>::BLOCKS_PER_SM)
+wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, int M,
+                   const uint8_t* __restrict__ qw,
+                   const float* __restrict__ s, long long s_rs, long long s_cs,
+                   const float* __restrict__ z, long long z_rs, long long z_cs,
+                   float* __restrict__ ws, void* __restrict__ out,
+                   const float* __restrict__ sx, int out_bf16, int N, int n_out, int Kb,
+                   int Kb32, int G, int kc, int exp_bits, int mant_bits) {
+  using T = SlabTile<LAYOUT, NT>;
+  constexpr bool LUT = LAYOUT == kLut6;
+  constexpr int S = T::S, CT = T::CT, W = T::W, MT = T::MT, BN = T::BN;
+  constexpr int NTH = T::THREADS, STAGES = T::STAGES, PITCH = T::PITCH;
+  extern __shared__ __align__(16) uint8_t slab_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid % kLanes, warp = tid / kLanes;
+  const int g = lane / 4, t = lane % 4;
+  const int slab = warp % S;
+  const int cb = (warp / S) * 16 * CT;  // the warp's first channel in the block
+  const int n_blk = blockIdx.x * BN;
+  const int m0 = blockIdx.y * MT;
+  const int k0 = blockIdx.z * kc;
+  const int k1 = min(Kb, k0 + kc);
+  const int ngroups = S * (Kb / G);
+  const bool has_z = !LUT || z != nullptr;
+  const uint32_t wide = exp_bits == 2 ? 0xFFFFFFFFu : 0u;  // LUT: E2M3 (else E1M4)
+  const float mult = LUT ? ldexpf(1.f, 1 - mant_bits - ((1 << (exp_bits - 1)) - 1)) : 1.f;
+  const SlabFields fields = slab_fields<LUT>(slab);
+
+  // Copies of the block's windows, in order, into the ring: each thread its
+  // share of weight chunks of CB bytes (16, or 4 where N or qw is not
+  // 16-byte aligned), zero-filled at and beyond Kb and beyond N, and of x
+  // chunks of 16 bytes, zero-filled for tokens beyond M.  Chunk i of a
+  // window is column chunk i % (BN / CB) of row (i / (BN / CB)) % 32 of
+  // array i / CPA.  Where NTH is a multiple of CPA a thread's chunks share
+  // one row and column (array tid / CPA, then every NTH / CPA arrays on), so
+  // it carries one source pointer and one slab row, stepped by a window
+  // (32 rows) per copy; otherwise (4-byte chunks) one of each per chunk.
+  constexpr int CB = VEC16 ? 16 : 4;
+  constexpr int CPA = kSlabWin * (BN / CB);                // chunks an array a window
+  constexpr int WCH = (3 * CPA + NTH - 1) / NTH;           // weight chunks a thread
+  constexpr bool SHARED_ROW = NTH % CPA == 0;
+  constexpr int NP = SHARED_ROW ? 1 : WCH;                 // carried pointers
+  constexpr int XTOTAL = S * 2 * MT * 2;                   // x chunks a window
+  constexpr int XCH = (XTOTAL + NTH - 1) / NTH;
+  static_assert(SHARED_ROW || CPA % NTH == 0, "whole rounds");
+  const uint32_t smem0 = smem_u32(slab_smem);
+  const size_t a_step = (size_t)(SHARED_ROW ? NTH / CPA : 0) * Kb * N;  // between a thread's arrays
+  const uint8_t* w_src[NP];
+  int w_row[NP], w_bytes[NP];
+  uint32_t w_dst[WCH];
+#pragma unroll
+  for (int j = 0; j < WCH; ++j) {
+    const int i = tid + j * NTH;
+    const int a = i / CPA, c = i % (BN / CB), row = (i / (BN / CB)) % kSlabWin;
+    const int col = n_blk + CB * c;
+    if (j < NP) {
+      w_row[j] = k0 + row;
+      w_bytes[j] = max(0, min(CB, N - col));
+      w_src[j] = qw + ((size_t)a * Kb + k0 + row) * N + col;
+    }
+    // row 8t + i of the window sits at position 4i + t
+    w_dst[j] = ((a * kSlabWin + 4 * (row % 8) + row / 8) * PITCH) * 4 + CB * c;
+  }
+  const int8_t* x_src[XCH];
+  uint32_t x_dst[XCH];
+#pragma unroll
+  for (int j = 0; j < XCH; ++j) {
+    const int i = tid + j * NTH;
+    const int h = i % 2, tok = (i / 2) % MT, sp = i / (2 * MT);  // sp = slab * 2 + plane
+    const int m = m0 + tok;
+    x_src[j] = i < XTOTAL && m < M
+        ? xq + (((size_t)(sp % 2) * M + m) * S + sp / 2) * Kb32 + k0 + 16 * h : nullptr;
+    x_dst[j] = T::W_BYTES + (sp * MT + tok) * kSlabWin + 16 * h;
+  }
+  auto load_weights = [&](int st) {  // the next window's weight rows
+    const uint32_t base = smem0 + st * T::STAGE;
+#pragma unroll
+    for (int j = 0; j < WCH; ++j) {
+      if ((3 * CPA) % NTH == 0 || tid + j * NTH < 3 * CPA) {
+        const int p = SHARED_ROW ? 0 : j;
+        const int bytes = w_row[p] < Kb ? w_bytes[p] : 0;
+        const uint8_t* src = bytes ? w_src[p] + (SHARED_ROW ? j * a_step : 0) : qw;
+        if (VEC16)
+          cp_async16(base + w_dst[j], src, bytes);
+        else
+          cp_async4(base + w_dst[j], src, bytes);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      w_src[p] += (size_t)kSlabWin * N;
+      w_row[p] += kSlabWin;
+    }
+  };
+  auto load_x = [&](int st) {  // the next window's x rows
+    const uint32_t base = smem0 + st * T::STAGE;
+#pragma unroll
+    for (int j = 0; j < XCH; ++j) {
+      if (XTOTAL % NTH == 0 || tid + j * NTH < XTOTAL) {
+        const bool in = x_src[j] != nullptr;
+        cp_async16(base + x_dst[j], in ? x_src[j] : xq, in ? 16 : 0);
+        if (in) x_src[j] += kSlabWin;
+      }
+    }
+  };
+
+  float acc[CT][NT][4];
+  int ia[CT][NT][2][4];  // per plane (hi, lo), per group
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[c][nt][i] = 0.f;
+        ia[c][nt][0][i] = 0;
+        ia[c][nt][1][i] = 0;
+      }
+  float sc[CT][2], zc[CT][2], xs_f[NT][2];  // the ending segment's sides and sums
+
+  // Scales and zeros of group gi of this slab for the lane's channels, and
+  // the group's activation sums of its tokens where this block holds the
+  // group's first row.
+  auto load_sides = [&](int gi) {
+    const long long grow = (long long)slab * (Kb / G) + gi;
+    const int chb = n_blk + cb + 4 * W * g;  // the lane's first channel; its 4 W follow
+    const float* sp = s + grow * s_rs + (long long)chb * s_cs;
+    const float* zp = has_z ? z + grow * z_rs + (long long)chb * z_cs : nullptr;
+    const int scs = (int)s_cs, zcs = (int)z_cs;
+    if (scs == 1 && (!has_z || zcs == 1) && chb + 2 * CT <= N &&
+        (reinterpret_cast<uintptr_t>(sp) | reinterpret_cast<uintptr_t>(zp)) % 16 == 0) {
+      // contiguous side rows: the lane's 2 CT channels in 16-byte loads
+#pragma unroll
+      for (int q = 0; q < CT / 2; ++q) {
+        const float4 sv = __ldg(reinterpret_cast<const float4*>(sp) + q);
+        sc[2 * q][0] = sv.x; sc[2 * q][1] = sv.y; sc[2 * q + 1][0] = sv.z; sc[2 * q + 1][1] = sv.w;
+        if (has_z) {
+          const float4 zv = __ldg(reinterpret_cast<const float4*>(zp) + q);
+          zc[2 * q][0] = zv.x; zc[2 * q][1] = zv.y;
+          zc[2 * q + 1][0] = zv.z; zc[2 * q + 1][1] = zv.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * c + h;
+          const bool ok = chb + j < N;
+          sc[c][h] = ok ? __ldg(sp + j * scs) : 0.f;
+          zc[c][h] = ok && has_z ? __ldg(zp + j * zcs) : 0.f;
+        }
+    }
+    if (has_z && gi * G >= k0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int m = m0 + 8 * nt + 2 * t + u;
+          xs_f[nt][u] = m < M ? (float)__ldg(xsum + (size_t)m * ngroups + grow) : 0.f;
+        }
+    }
+  };
+
+  const int nwin = (k1 - k0 + kSlabWin - 1) / kSlabWin;
+  // the first windows' weights do not depend on the row pass: copy them
+  // while it runs, then wait for its planes and sums
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nwin) load_weights(st);
+    cp_async_commit();
+  }
+  griddep_wait();
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st)
+    if (st < nwin) load_x(st);
+  cp_async_commit();
+  int gi_w = k0 / G, gend_w = (gi_w + 1) * G;  // the group of the window's first row
+
+  for (int w = 0; w < nwin; ++w) {
+    if (w == 0)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<STAGES - 2>();
+    __syncthreads();  // window w landed; every warp is done with window w - 1
+    if (w + STAGES - 1 < nwin) {
+      load_weights((w + STAGES - 1) % STAGES);
+      load_x((w + STAGES - 1) % STAGES);
+    }
+    cp_async_commit();
+
+    const int rw = k0 + w * kSlabWin;
+    const int rend = min(rw + kSlabWin, k1);
+    while (gend_w <= rw) {
+      ++gi_w;
+      gend_w += G;
+    }
+    // the first segment ends in this window: fetch its sides now
+    if (gend_w <= rend || rend == k1) load_sides(gi_w);
+    const uint8_t* base = slab_smem + (w % STAGES) * T::STAGE;
+    const uint32_t* wst = reinterpret_cast<const uint32_t*>(base);
+
+    // A fragments: decode rows 8t..8t+7 of the lane's 4 W channels
+    uint32_t afr[CT][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      uint32_t code[4][W];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int pos = 4 * (4 * q + i) + t;
+        uint32_t aw[W], bw[W];
+        lds_words<W>(wst + ((slab % 2) * kSlabWin + pos) * PITCH + cb / 4 + g * W, aw);
+        lds_words<W>(wst + (2 * kSlabWin + pos) * PITCH + cb / 4 + g * W, bw);
+#pragma unroll
+        for (int v = 0; v < W; ++v) {
+          const uint32_t c = slab_codes<LUT>(aw[v], bw[v], fields);
+          code[i][v] = LUT ? nq42_grid(c, wide) : c;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < W; ++v) {
+        const uint32_t rows4[4] = {code[0][v], code[1][v], code[2][v], code[3][v]};
+        uint32_t col[4];
+        transpose4x4(rows4, col);
+        afr[2 * v][2 * q] = col[0];
+        afr[2 * v][2 * q + 1] = col[1];
+        afr[2 * v + 1][2 * q] = col[2];
+        afr[2 * v + 1][2 * q + 1] = col[3];
+      }
+    }
+    // B fragments: token 8 nt + g, slab rows 8t..8t+7 of each plane
+    uint32_t xb[2][NT][2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            base + T::W_BYTES + ((slab * 2 + p) * MT + 8 * nt + g) * kSlabWin + 8 * t);
+        xb[p][nt][0] = v.x;
+        xb[p][nt][1] = v.y;
+      }
+
+    int r = rw, gi = gi_w, gend = gend_w;
+    while (r < rend) {
+      const int se = min(rend, gend);
+      uint32_t keep0 = 0xFFFFFFFFu, keep1 = 0xFFFFFFFFu;
+      if (r != rw || se != rw + kSlabWin) {  // a segment of the window: rows [r, se) only
+        const int row0 = rw + 8 * t;
+        keep0 = row0 >= r && row0 < se ? 0xFFFFFFFFu : 0u;
+        keep1 = row0 + 4 >= r && row0 + 4 < se ? 0xFFFFFFFFu : 0u;
+      }
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            mma_s8(ia[c][nt][p], afr[c], xb[p][nt][0] & keep0, xb[p][nt][1] & keep1);
+      if (se == gend || se == k1) {  // the group (or the block's share of it) ends
+        if (r != rw) load_sides(gi);
+        const bool first = gi * G >= k0;  // this block holds the group's first row
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int h = i / 2, u = i % 2;  // D row half (channel), column (token)
+              const float part = (float)ia[c][nt][0][i] * 256.f + (float)ia[c][nt][1][i];
+              if (LUT) {
+                acc[c][nt][i] = acc[c][nt][i] + part * (sc[c][h] * mult);
+                if (has_z && first) acc[c][nt][i] = acc[c][nt][i] + xs_f[nt][u] * zc[c][h];
+              } else if (first) {
+                acc[c][nt][i] =
+                    acc[c][nt][i] + part * sc[c][h] - xs_f[nt][u] * (sc[c][h] * zc[c][h]);
+              } else {
+                acc[c][nt][i] = acc[c][nt][i] + part * sc[c][h];
+              }
+              ia[c][nt][0][i] = 0;
+              ia[c][nt][1][i] = 0;
+            }
+      }
+      r = se;
+      if (se == gend) {
+        ++gi;
+        gend += G;
+      }
+    }
+  }
+
+  // the slabs' partials meet in shared memory: [slab][token][64 + 1]
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(slab_smem);
+  constexpr int RP = BN + 1;
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ch = cb + 4 * (g * W + c / 2) + 2 * (c % 2) + i / 2;
+        const int tok = 8 * nt + 2 * t + i % 2;
+        red[(slab * MT + tok) * RP + ch] = acc[c][nt][i];
+      }
+  __syncthreads();
+  for (int i = tid; i < MT * BN; i += NTH) {
+    const int tok = i / BN, ch = i % BN;
+    float v = 0.f;
+#pragma unroll
+    for (int sl = 0; sl < S; ++sl) v += red[(sl * MT + tok) * RP + ch];
+    const int m = m0 + tok, n = n_blk + ch;
+    if (gridDim.z > 1) {
+      if (m < M && n < N) ws[((size_t)blockIdx.z * M + m) * N + n] = v;
+    } else if (m < M && n < n_out) {  // one split: the reduce's epilogue here
+      v *= sx[m];
+      if (out_bf16)
+        store_out(static_cast<__nv_bfloat16*>(out) + (size_t)m * n_out + n, v);
+      else
+        store_out(static_cast<float*>(out) + (size_t)m * n_out + n, v);
+    }
+  }
+  griddep_launch_dependents();  // the K-split reduce may start
+}
+
+// Launch `kernel` on `st` so that it may start before the kernel before it
+// ends (programmatic dependent launch; the kernel calls griddep_wait before
+// it reads that kernel's output).
+template <typename... KArgs, typename... Args>
+cudaError_t launch_after(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
+                         cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+// Bytes of the xq scratch the wrapper allocates (must match
+// slab_scratch_bytes in ops/kernels/dequant_matmul.py): the planes
+// [2][M][S][Kb32], then, where the kernel reads sums, xsum [M][S*Kb/G]
+// int32 (the planes' size is a multiple of 64 bytes).
+inline long long slab_planes_bytes(int M, int S, int Kb) {
+  return 2LL * M * S * ((Kb + kSlabWin - 1) / kSlabWin * kSlabWin);
+}
+
+template <bool NORM>
+cudaError_t launch_rows_slab(const void* x, int x_bf16, int k_logical, int S, int Kb, int G,
+                             float eps, void* xq, void* sx, int* xsum, int M,
+                             cudaStream_t st) {
+  const int Kb32 = (Kb + kSlabWin - 1) / kSlabWin * kSlabWin;
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* sp = static_cast<float*>(sx);
+  if (x_bf16)
+    quantize_rows_slab_kernel<__nv_bfloat16, NORM><<<M, kSlabRowThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), k_logical, k_logical, S, Kb, Kb32, G, eps, q,
+        sp, xsum, M);
+  else
+    quantize_rows_slab_kernel<float, NORM><<<M, kSlabRowThreads, 0, st>>>(
+        static_cast<const float*>(x), k_logical, k_logical, S, Kb, Kb32, G, eps, q, sp, xsum,
+        M);
+  return cudaGetLastError();
+}
+
+inline cudaError_t rows_slab(const void* x, int x_bf16, int k_logical, int S, int Kb, int G,
+                             int norm, float eps, void* xq, void* sx, int* xsum, int M,
+                             cudaStream_t st) {
+  return norm ? launch_rows_slab<true>(x, x_bf16, k_logical, S, Kb, G, eps, xq, sx, xsum, M, st)
+              : launch_rows_slab<false>(x, x_bf16, k_logical, S, Kb, G, eps, xq, sx, xsum, M,
+                                        st);
+}
+
+template <int LAYOUT, int NT>
+cudaError_t launch_slab_mma_nt(const int8_t* xq, const int* xsum, int M, const void* qw,
+                               const void* s, long long s_rs, long long s_cs, const void* z,
+                               long long z_rs, long long z_cs, void* ws, void* out,
+                               const void* sx, int x_bf16, int N, int n_out, int Kb, int G,
+                               int kc, int splits, int exp_bits, int mant_bits,
+                               cudaStream_t st) {
+  using T = SlabTile<LAYOUT, NT>;
+  constexpr int SM = T::SMEM;
+  static bool attr_set = false;  // one attribute call per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int Kb32 = (Kb + kSlabWin - 1) / kSlabWin * kSlabWin;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::MT - 1) / T::MT, splits);
+  // 16-byte weight copies where every row of the block's columns is 16-byte aligned
+  const bool vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
+  return launch_after(
+      vec16 ? wa_slab_mma_kernel<LAYOUT, NT, true> : wa_slab_mma_kernel<LAYOUT, NT, false>,
+      grid, dim3(T::THREADS), SM, st, xq, xsum, M, static_cast<const uint8_t*>(qw),
+      static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs, z_cs,
+      static_cast<float*>(ws), out, static_cast<const float*>(sx), x_bf16, N, n_out, Kb, Kb32,
+      G, kc, exp_bits, mant_bits);
+}
+
+// The whole call: row pass, tensor-core partial products, reduce.  x is
+// [M, k_logical] contiguous; xq (slab_planes_bytes, then the sums), sx [M]
+// f32 and ws [splits, M, N] are scratch from the wrapper.  Kb is the slab
+// rows: the B rows K/8 (s21) or the quad rows K/4 (nq42); qw is [3 Kb, N].
+// kc is a multiple of 32.  exp_bits, mant_bits: the nq42 format (E1M4 or
+// E2M3); its z may be null.
+template <int LAYOUT>
+int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps,
+                   const void* qw, const void* s, long long s_rs, long long s_cs,
+                   const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
+                   void* ws, void* out, int M, int N, int n_out, int Kb, int G, int kc,
+                   int splits, void* stream, int exp_bits = 0, int mant_bits = 0) {
+  static_assert(LAYOUT == kS21 || LAYOUT == kLut6, "a slab layout");
+  constexpr bool LUT = LAYOUT == kLut6;
+  constexpr int S = LUT ? 4 : 8;
+  if (M <= 0 || N <= 0 || N % 4 || n_out > N || Kb <= 0 || Kb % 4 || G <= 0 || G % 4 ||
+      Kb % G || kc <= 0 || kc % kSlabWin || splits <= 0 || (long long)kc * splits < Kb ||
+      (long long)kc * (splits - 1) >= Kb || k_logical <= 0 || k_logical > S * Kb ||
+      (!LUT && z == nullptr) || s_cs < 0 || s_cs > (1 << 24) || z_cs < 0 ||
+      z_cs > (1 << 24) ||
+      (LUT && (exp_bits < 1 || exp_bits > 2 || exp_bits + mant_bits != 5)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* planes = static_cast<int8_t*>(xq);
+  int* xsum = LUT && z == nullptr
+      ? nullptr : reinterpret_cast<int*>(planes + slab_planes_bytes(M, S, Kb));
+  cudaError_t err = rows_slab(x, x_bf16, k_logical, S, Kb, G, norm, eps, xq, sx, xsum, M, st);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
+  err = slab_tile_nt(M, LAYOUT) == 1
+      ? launch_slab_mma_nt<LAYOUT, 1>(planes, xsum, M, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws,
+                                      out, sx, x_bf16, N, n_out, Kb, G, kc, splits, exp_bits,
+                                      mant_bits, st)
+      : launch_slab_mma_nt<LAYOUT, NT_WIDE>(planes, xsum, M, qw, s, s_rs, s_cs, z, z_rs, z_cs,
+                                            ws, out, sx, x_bf16, N, n_out, Kb, G, kc, splits,
+                                            exp_bits, mant_bits, st);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long total = (long long)M * n_out;
+  const dim3 rgrid((unsigned)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096));
+  err = x_bf16 ? launch_after(w4_reduce_kernel<true, __nv_bfloat16>, rgrid, dim3(256), 0, st,
+                              static_cast<const float*>(ws), static_cast<const float*>(sx),
+                              static_cast<__nv_bfloat16*>(out), M, N, n_out, splits)
+               : launch_after(w4_reduce_kernel<true, float>, rgrid, dim3(256), 0, st,
+                              static_cast<const float*>(ws), static_cast<const float*>(sx),
+                              static_cast<float*>(out), M, N, n_out, splits);
+  return (int)err;
+}
+
+}  // namespace iwoq
+
+// The slab kernels' row pass alone, for checking its codes and sums against
+// the plain versions: planes [2][M][slabs][Kb32] and sx [M] into xq and sx,
+// and the group sums [M][slabs*Kb/G] into xsum (null: none).
+extern "C" int iwoq_quantize_rows_slab(const void* x, int x_bf16, int k_logical, int slabs,
+                                       int Kb, int G, int norm, float eps, void* xq, void* sx,
+                                       void* xsum, int M, void* stream) {
+  if (M <= 0 || k_logical <= 0 || (slabs != 4 && slabs != 8) || Kb <= 0 ||
+      k_logical > slabs * Kb || G <= 0 || Kb % G)
+    return (int)cudaErrorInvalidValue;
+  return (int)iwoq::rows_slab(x, x_bf16, k_logical, slabs, Kb, G, norm, eps, xq, sx,
+                              static_cast<int*>(xsum), M, static_cast<cudaStream_t>(stream));
+}

@@ -12,11 +12,12 @@ f32 side info, per storage layout:
                 ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu``;
   s21 (3-bit):  ``csrc/w3_matmul.cu`` (design notes in
                 ``csrc/w3_common.cuh``), ``csrc/w3a8_matmul.cu``,
-                ``csrc/w3a16_matmul.cu``;
+                ``csrc/w3a16_matmul.cu`` (design notes in
+                ``csrc/wa_slab_mma.cuh``);
   LUT nib4 (4-bit minifloat): ``csrc/lut4_matmul.cu`` (design notes in
                 ``csrc/lut_common.cuh``), ``csrc/lut4a16_matmul.cu``;
   LUT nq42 (fp6 when K % 4 == 0): ``csrc/lut6_matmul.cu``,
-                ``csrc/lut6a16_matmul.cu``;
+                ``csrc/lut6a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
   LUT byte (fp8, byte-per-code fp6): ``csrc/lut8_matmul.cu``.
 
 The ``w4``/``w8``/``w3``/``lut`` kernels take bf16/f32 activations; the
@@ -31,10 +32,13 @@ the artifact's codebook) and computes ``w = val*s (+ z)``.  The
 ``activation_bits`` 8 or 16: a row pass quantizes x to one int8 plane (A8,
 ``sx = absmax/127``) or two (A16, ``x ~= sx*(256*hi + lo)``, ``sx =
 absmax/32512``), the product runs on integer codes, and the f32 result is
-scaled by the row's ``sx``.  Under activation bits a ``pre_norm`` is applied
-to x before quantizing (in the row pass), as the JAX package does, so no
-prenorm kernel runs.  LUT artifacts take A16 where the format's exact values
-form an int8 grid (fp4 E2M1 and E1M2: ``lut4a16``; fp6 E2M3 in the nq42
+scaled by the row's ``sx``.  The A16 kernels of the slab layouts (``w3a16``,
+``lut6a16``, :data:`SLAB_MMA`) run their products on the int8 tensor cores
+and take their own K-split plan (:func:`plan_slab_splits`); their row pass
+also writes each group's activation sum (:func:`activation_group_sums`).
+Under activation bits a ``pre_norm`` is applied to x before quantizing (in
+the row pass), as the JAX package does, so no prenorm kernel runs.  LUT
+artifacts take A16 where the format's exact values form an int8 grid (fp4 E2M1 and E1M2: ``lut4a16``; fp6 E2M3 in the nq42
 layout: ``lut6a16``); A16 on a wide-exponent format (fp8, fp6 E3M2)
 warns and runs with full-precision activations, and A8 raises, as in the JAX
 package.  The layer-stacked entry point reuses the kernels with the layer
@@ -152,9 +156,20 @@ _ARGTYPES_ROWS = [  # iwoq_quantize_rows, the row pass alone
     ctypes.c_int, ctypes.c_int, ctypes.c_float,                     # bits, norm, eps
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # xq, sx, M, stream
 ]
+_ARGTYPES_ROWS_SLAB = [  # iwoq_quantize_rows_slab, the slab kernels' row pass alone
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, x_bf16, k_logical, slabs
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,       # Kb, G, norm, eps
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,              # xq, sx, xsum
+    ctypes.c_int, ctypes.c_void_p,                                  # M, stream
+]
 _BLOCK_N, _TILE_M = 128, 8  # must match kBlockN / kTileM in w4_common.cuh
 _MIN_ROWS_PER_SPLIT = 64
 _BLOCKS_PER_SM = 3
+# the A16 slab kernels on the tensor cores (csrc/wa_slab_mma.cuh); the
+# window and the tile helpers below must match kSlabWin, SlabTile::BN and
+# slab_tile_nt there
+SLAB_MMA = (W3A16, LUT6A16)
+SLAB_WINDOW = 32
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -358,6 +373,16 @@ def quantize_activations(x2: torch.Tensor, bits: int) -> Tuple[torch.Tensor, tor
     return planes, sx[:, 0]
 
 
+def activation_group_sums(planes: torch.Tensor, g: int) -> torch.Tensor:
+    """The A16 activation sum ``256*Σhi + Σlo`` of every row and group of
+    ``g`` K columns, int64 ``[M, K/g]``, of planes ``[2, M, K]`` (the
+    ``xsum`` of ``_group_accum_a16`` and ``_lut_accum_a16`` in the JAX
+    package, exact integers)."""
+    p = planes.to(torch.int64)
+    m, k = p.shape[1], p.shape[2]
+    return (p[0] * 256 + p[1]).reshape(m, k // g, g).sum(dim=-1)
+
+
 def _side_rows(qt: QuantizedTensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """f32 (scales, zeros or None) ``[R, N_stored]`` of a flat artifact,
     side_pad rows dropped, per-channel/per-tensor rows broadcast."""
@@ -550,6 +575,45 @@ def plan_splits(m: int, n: int, kp: int, sm_count: int) -> Tuple[int, int]:
     return kc, math.ceil(kp / kc)
 
 
+def slab_tile_m(m: int, slabs: int) -> int:
+    """Tokens a block of the slab A16 kernel: 8 at decode (M <= 8), else 16
+    (s21, 8 slabs) or 32 (nq42, 4 quarters)."""
+    return 8 if m <= 8 else 16 if slabs == 8 else 32
+
+
+def slab_block_n(m: int, slabs: int) -> int:
+    """Output channels a block of the slab A16 kernel: at decode 64 (s21) or
+    128 (nq42), else 64."""
+    return 64 if m > 8 or slabs == 8 else 128
+
+
+def plan_slab_splits(m: int, n: int, kb: int, slabs: int, sm_count: int) -> Tuple[int, int]:
+    """(slab rows per K-split, number of K-splits) of the slab A16 kernel
+    for an [m, n] output over ``kb`` slab rows.
+
+    Every split starts on a window (32-row) boundary and the splits cover
+    the ``kb`` rows exactly once, ``[i * kc, min(kb, (i + 1) * kc))``.  K is
+    split about as far as needed to fill the card once (two blocks an SM at
+    decode, one beyond; a block count within half a block per SM of that is
+    not split further), from the shapes alone.
+    """
+    base = math.ceil(n / slab_block_n(m, slabs)) * math.ceil(m / slab_tile_m(m, slabs))
+    want = math.floor((2 if m <= 8 else 1) * sm_count / base + 0.5)
+    windows = math.ceil(kb / SLAB_WINDOW)
+    splits = max(1, min(want, windows))
+    kc = SLAB_WINDOW * math.ceil(windows / splits)
+    return kc, math.ceil(kb / kc)
+
+
+def slab_scratch_bytes(m: int, kb: int, slabs: int, g: int, sums: bool) -> int:
+    """Bytes of the int8 scratch of a slab A16 launch: the activation
+    planes ``[2, M, slabs, Kb32]`` (each slab padded to a multiple of 32
+    rows), then, where the kernel reads them, the int32 group sums ``[M,
+    slabs * kb / g]`` (``launch_wa_slab`` in ``csrc/wa_slab_mma.cuh``)."""
+    kb32 = math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
+    return 2 * m * slabs * kb32 + (4 * m * slabs * (kb // g) if sums else 0)
+
+
 def _side_view(side: torch.Tensor, rows: int) -> Tuple[torch.Tensor, int, int]:
     """(2-D view, row stride, column stride) with stride 0 on broadcast axes."""
     side = side[:rows] if side.shape[0] > 1 else side
@@ -686,7 +750,10 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     out = torch.empty((m, n_out), dtype=x2.dtype, device=dev)
     if m == 0:
         return out
-    kc, splits = plan_splits(m, n, kp, _sm_count(dev))
+    if name in SLAB_MMA:
+        kc, splits = plan_slab_splits(m, n, kp, slabs, _sm_count(dev))
+    else:
+        kc, splits = plan_splits(m, n, kp, _sm_count(dev))
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
     x_bf16 = int(x2.dtype == torch.bfloat16)
     eps = 0.0 if pre_norm is None else float(pre_norm)
@@ -708,8 +775,12 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
                      None if rnorm is None else rnorm.data_ptr(), out.data_ptr(),
                      m, n, n_out, kp, g, kc, splits, k_logical, eps, stream)
     else:
-        planes = 1 if activation_bits == 8 else 2
-        xq = torch.empty((planes, m, ks), dtype=torch.int8, device=dev)
+        if name in SLAB_MMA:  # the planes padded per slab, then the group sums
+            nbytes = slab_scratch_bytes(m, kp, slabs, g, zeros is not None)
+            xq = torch.empty((nbytes,), dtype=torch.int8, device=dev)
+        else:
+            planes = 1 if activation_bits == 8 else 2
+            xq = torch.empty((planes, m, ks), dtype=torch.int8, device=dev)
         sx = torch.empty((m,), dtype=torch.float32, device=dev)
         args = (x2.data_ptr(), x_bf16, k_logical, int(pre_norm is not None), eps,
                 qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z_ptr, z_rs, z_cs,
@@ -754,6 +825,40 @@ def quantize_activations_kernel(x2: torch.Tensor, bits: int, k_stored: int,
                  xq.data_ptr(), sx.data_ptr(), m, stream)
     _raise_if(err, lib, "iwoq_quantize_rows")
     return xq, sx
+
+
+def quantize_activations_slab_kernel(x2: torch.Tensor, slabs: int, kb: int, g: int,
+                                     pre_norm: Optional[float] = None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slab A16 kernels' row pass alone, on the card: ``(planes [2, M,
+    slabs*kb] int8, sx [M] f32, sums [M, slabs*kb/g] int32)`` for ``x2``
+    ``[M, K]``, K <= slabs*kb (``pre_norm`` normalizes each row first).  The
+    pass writes each slab padded to a multiple of 32 rows; the planes come
+    back in K order.  It is part of every ``w3a16``/``lut6a16`` launch; this
+    entry point exists to hold its codes and sums against
+    :func:`quantize_activations` and :func:`activation_group_sums` and is
+    not counted."""
+    _check(x2.is_cuda and x2.dim() == 2 and x2.is_contiguous()
+           and x2.dtype in (torch.bfloat16, torch.float32),
+           "x must be a contiguous 2-D bf16/f32 CUDA tensor")
+    m, k = x2.shape
+    _check(slabs in (4, 8) and 0 < k <= slabs * kb and m > 0 and g > 0 and kb % g == 0,
+           f"slabs={slabs}, Kb={kb}, G={g}, K={k}, M={m}")
+    dev = x2.device
+    kb32 = math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
+    xq = torch.empty((2, m, slabs, kb32), dtype=torch.int8, device=dev)
+    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    sums = torch.empty((m, slabs * (kb // g)), dtype=torch.int32, device=dev)
+    lib, fn = _load_fn(W3A16, "iwoq_quantize_rows_slab", _ARGTYPES_ROWS_SLAB)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), k, slabs, kb, g,
+                 int(pre_norm is not None), 0.0 if pre_norm is None else float(pre_norm),
+                 xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), m, stream)
+    _raise_if(err, lib, "iwoq_quantize_rows_slab")
+    if xq[..., kb:].any():
+        raise RuntimeError("the slab row pass wrote codes beyond a slab's end")
+    return xq[..., :kb].reshape(2, m, slabs * kb), sx, sums
 
 
 def _prep_x(x: torch.Tensor, qt: QuantizedTensor,

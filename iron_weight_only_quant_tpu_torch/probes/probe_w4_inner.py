@@ -75,21 +75,29 @@ SASS_OPS = ("I2F", "I2FP", "F2F", "FFMA", "FMUL", "FADD", "LOP3", "SHF", "PRMT",
             "IMAD", "IDP", "LDS", "LDG")
 
 
-def sass_counts(text: str) -> Dict[str, Dict[str, int]]:
-    """Static instruction counts of each partial-product kernel in
-    ``cuobjdump -sass`` output, by demangled-enough name: the opcodes of
-    ``SASS_OPS`` (any suffix) and the total."""
+def _probe_key(name: str) -> Optional[str]:
+    """The probe's key of a partial-product kernel's mangled name (None:
+    not counted): mode and x type."""
+    if "partial_kernel" not in name:
+        return None
+    mode = ("magic" if "ILb1E" in name else "f32") if "inner" in name else "base"
+    return f"{mode}/{'bf16' if 'bfloat16' in name else 'f32x'}"
+
+
+def sass_counts(text: str, ops: Sequence[str] = SASS_OPS,
+                key: Callable[[str], Optional[str]] = _probe_key) -> Dict[str, Dict[str, int]]:
+    """Static instruction counts in ``cuobjdump -sass`` output of each kernel
+    that ``key`` names (by its mangled name; the probe's partial-product
+    kernels by default): the opcodes of ``ops`` (any suffix) and the
+    total, summed over the functions of one key."""
     out: Dict[str, Dict[str, int]] = {}
     counts = None
     for line in text.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            name = head.group(1)
-            counts = None
-            if "partial_kernel" in name:
-                mode = ("magic" if "ILb1E" in name else "f32") if "inner" in name else "base"
-                xt = "bf16" if "bfloat16" in name else "f32x"
-                counts = out.setdefault(f"{mode}/{xt}", {op: 0 for op in SASS_OPS + ("total",)})
+            k = key(head.group(1))
+            counts = None if k is None else out.setdefault(
+                k, {op: 0 for op in tuple(ops) + ("total",)})
             continue
         op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if counts is not None and op:

@@ -570,6 +570,109 @@ def test_card_built_artifacts_equal_cpu_built(dev, spec):
             assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)), name
 
 
+# ------------------------------------- A16 slab kernels on the tensor cores
+
+# (kernel, spec, K, N, quantize_tensor kwargs) of the slab A16 kernels
+# (csrc/wa_slab_mma.cuh): the main-path group, and the artifacts whose
+# groups or slabs are not a multiple of the kernel's 32-row window
+SLAB_A16 = {
+    "w3a16": (dm.W3A16, W3_SPEC, 1024, 256, {}),
+    "lut6a16": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g128_sym"], 1024, 256, {}),
+}
+SLAB_RAGGED = {  # Kb = 136 (w3) and Kq = 272 (fp6) at K = 1088; groups of 16 rows
+    "w3_perchannel_asym_k1088": (dm.W3A16, dataclasses.replace(
+        SPECS["perchannel_sym"], bits=3, symmetric=False), 1088, 256, {}),
+    "fp6_e2m3_perchannel_asym_k1088": (dm.LUT6A16, fp_spec(
+        "fp6", 2, 3, group_size=PER_CHANNEL, symmetric=False), 1088, 256, {}),
+    "w3_g16_asym": (dm.W3A16, dataclasses.replace(W3_SPEC, group_size=16), 1024, 256, {}),
+    "fp6_e2m3_g16_sym": (dm.LUT6A16, fp_spec("fp6", 2, 3, group_size=16), 1024, 256, {}),
+    "fp6_e1m4_g128_asym": (dm.LUT6A16, fp_spec("fp6", 1, 4, group_size=128,
+                                               symmetric=False), 1024, 256, {}),
+    "w3_npad_300": (dm.W3A16, W3_SPEC, 1024, 300, {}),
+    "fp6_npad_300": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g128_sym"], 1024, 300, {}),
+    "fp6_kpad": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g128_sym"], 384, 256, dict(pad_k_to=512)),
+    "w3_kpad": (dm.W3A16, W3_SPEC, 896, 256, dict(pad_k_to=1024)),
+}
+SLAB_SIDES = {  # the side layouts of the earlier kernel tests
+    "fp6_e2m3_g32_sym": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g32_sym"], 1024, 256, {}),
+    "fp6_e2m3_g64_asym": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g64_asym"], 1024, 256, {}),
+    "w3_g128_sym": (dm.W3A16, dataclasses.replace(SPECS["g128_sym"], bits=3), 1024, 256, {}),
+    "w3_perchannel_asym": (dm.W3A16, dataclasses.replace(
+        SPECS["perchannel_sym"], bits=3, symmetric=False), 1024, 256, {}),
+    "w3_pertensor_sym": (dm.W3A16, dataclasses.replace(
+        SPECS["pertensor_asym"], bits=3, symmetric=True), 1024, 256, {}),
+}
+
+
+def _slab_call(dev, case, m, dtype, pre_norm=None, seed=3):
+    name, spec, k, n, kw = case
+    qt = _artifact(dev, k, n, spec, seed=seed, **kw)
+    assert dm.kernel_supported(qt, 16) and dm.kernel_name(qt, pre_norm, 16) == name
+    x = _x(dev, (m, k), dtype) * 3
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm, activation_bits=16)
+    assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm, activation_bits=16), dtype)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 512])
+@pytest.mark.parametrize("kern", list(SLAB_A16))
+def test_slab_a16_kernel_matches_plain_token_tiles(dev, kern, m, dtype, pre_norm):
+    """The decode tile (M <= 8), the wide tiles (9 .. 512 rows, several
+    token tiles), one and several K-splits, against the plain versions."""
+    _slab_call(dev, SLAB_A16[kern], m, dtype, pre_norm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [3, 8, 40])
+@pytest.mark.parametrize("case", list(SLAB_RAGGED) + list(SLAB_SIDES))
+def test_slab_a16_kernel_takes_ragged_groups_and_side_layouts(dev, case, m, dtype):
+    """Groups and slabs that are not a multiple of the 32-row window (the
+    MMA's K then masks the activations outside the segment), N not a
+    multiple of 16 (4-byte copies), K padding, E1M4, and the side layouts."""
+    _slab_call(dev, {**SLAB_RAGGED, **SLAB_SIDES}[case], m, dtype)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("kern", list(SLAB_A16))
+def test_slab_a16_stacked_kernel_reads_layer_2_of_3(dev, kern, m):
+    name, spec, k, n, _ = SLAB_A16[kern]
+    qts = [_artifact(dev, k, n, spec, seed=20 + i) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st, 16)
+    x = _x(dev, (m, k), torch.float32)
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul_stacked(x, st, 2, activation_bits=16)
+    assert dm.LAUNCHES[name] == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qts[2], activation_bits=16), torch.float32)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slabs,kb,g", [(8, 128, 128), (8, 136, 136), (4, 272, 16),
+                                        (4, 1024, 128), (8, 1408, 128)])
+def test_slab_row_pass_codes_and_sums_are_bit_equal_to_plain(dev, slabs, kb, g, dtype,
+                                                             pre_norm):
+    """The slab kernels' row pass: codes and row scales bit-equal to
+    quantize_activations (of the normalized x under pre_norm), K padding
+    zero, and its per-group sums equal to activation_group_sums."""
+    k = slabs * kb - 8  # a K-padded artifact's logical K
+    x = _x(dev, (9, k), dtype) * 3
+    x[4] = 0
+    planes, sx, sums = dm.quantize_activations_slab_kernel(x, slabs, kb, g, pre_norm)
+    xn = x if pre_norm is None else qmatmul._rms_nogamma(x, pre_norm)
+    want, want_sx = dm.quantize_activations(xn, 16)
+    if pre_norm is None:  # the plain norm reduces in another order
+        assert torch.equal(planes[..., :k], want) and torch.equal(sx, want_sx)
+    assert not planes[..., k:].any()
+    assert torch.equal(sums.long(), dm.activation_group_sums(planes, g))
+    padded = torch.nn.functional.pad(want, (0, 8))
+    if pre_norm is None:
+        assert torch.equal(sums.long(), dm.activation_group_sums(padded, g))
+
+
 # ------------------------------------------------------- W4 inner-loop probe
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
