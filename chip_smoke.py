@@ -46,7 +46,12 @@ models, whose kernels those paths do not carry but which add time, run
    phase 2, untimed at the other main-path row counts; per kernel also a
    layer-stacked call, a ``k_pad`` artifact, a per-channel symmetric one
    and an f32 x; and the row pass's int8 planes and row scales bit-equal
-   to the plain ``quantize_activations`` on the card.
+   to the plain ``quantize_activations`` on the card.  Then
+   ``w8a16_matmul`` (the byte case of the tensor-core slab kernel,
+   ``csrc/wa_slab_mma.cuh``) on a per-channel asymmetric K=1088 artifact
+   (the last of its range's four parts ends early) and groups of 16, at
+   M=8 and 64, bf16 and f32 x, and its SASS counts and registers as in
+   phase 12.
 9. Two-layer logits with activation bits: phase 3 under A8 and A16, W4
    and W8.
 10. W4 A-serve: the 32-layer W4 model of phase 4, ``serve`` of phase 7's
@@ -98,7 +103,10 @@ models, whose kernels those paths do not carry but which add time, run
     E1M2 g64 (lut4, lut4a16), fp8 E4M3 per-channel asymmetric and E3M4
     g128 (lut8), an f32 x and a layer-stacked call per kernel; and bfp4 and
     bfp8 artifacts on ``w4_matmul``, ``w4a16_matmul``, ``w8_matmul`` and
-    ``w8a16_matmul``.
+    ``w8a16_matmul``.  Then ``lut4a16_matmul`` (the nib4 LUT case of the
+    slab kernel) on a per-channel asymmetric K=1088 artifact, fp4 groups of
+    16 and a K=1408 g128 artifact (groups straddle the K halves: split in
+    two per call), and its SASS counts and registers, as in phase 12.
 18. Two-layer 7B-width fp4 (also under A16) and fp8 logits, kernels vs
     the plain path on the CPU, as phase 3.
 19. FP4 full model: 32-layer 7B-width fp4 E2M1 g128 asymmetric model built
@@ -960,10 +968,13 @@ def slab_kernel_report(name):
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
     from iron_weight_only_quant_tpu_torch.probes.probe_w4_inner import sass_counts
 
+    layouts = {"1": "byte", "2": "s21", "3": "nib4", "4": "nq42"}  # wa_common.cuh Layout
+
     def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16> and the row pass
-        m = re.search(r"wa_slab_mma_kernelILi\d+ELi(\d+)ELb(\d)E", fn)
+        m = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb(\d)E", fn)
         if m:
-            return f"product NT={m.group(1)}{'' if m.group(2) == '1' else ' 4-byte copies'}"
+            return (f"product {layouts.get(m.group(1), m.group(1))} NT={m.group(2)}"
+                    f"{'' if m.group(3) == '1' else ' 4-byte copies'}")
         return "row pass" if "quantize_rows_slab" in fn else None
 
     counts = sass_counts(kbuild.sass(name), ops=("IMMA", "IGMMA", "IDP", "LDS", "LDGSTS",
@@ -973,6 +984,8 @@ def slab_kernel_report(name):
               flush=True)
         if k.startswith("product") and (c["IMMA"] + c["IGMMA"] == 0 or c["IDP"] > 0):
             fail(f"{name} {k}: the products are not on the tensor cores: {c}")
+    if not any(k.startswith("product") for k in counts):
+        fail(f"{name}: no wa_slab_mma_kernel in its SASS")
     log = kbuild.build_log(name).splitlines()
     for i, line in enumerate(log):
         fn = re.search(r"entry function '(\S+)'", line)
@@ -1400,6 +1413,13 @@ def main() -> int:
     header(f"== phase 8: int-activation kernels vs plain versions ({tol_a})")
     per_kernel_a, row_pass_checks = phase_a_kernels(torch, device, {4: w4, 8: w8})
     per_kernel.update(per_kernel_a)
+    print("  -- w8a16: ranges whose last part ends early, groups off the 32-row window; "
+          "SASS and registers", flush=True)
+    check_slab_ragged(torch, device, {
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=8, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=8, group_size=16, symmetric=False), 4096)}, 13)
+    slab_kernel_report(dm.W8A16)
 
     header("== phase 9: two-layer 7B-width logits under A8 and A16, kernels vs "
            "plain path")
@@ -1462,6 +1482,14 @@ def main() -> int:
                         "fp8_e3m4_g128_sym": fp_spec("fp8", 3, 4, group_size=128)})])
     per_kernel.update(per_kernel_lut)
     check_bfp_on_int_kernels(torch, down, gen, device)
+    print("  -- lut4a16: ranges whose last part ends early, groups off the 32-row window, "
+          "groups straddling the K halves; SASS and registers", flush=True)
+    check_slab_ragged(torch, device, {
+        "fp4_e2m1_perchannel_asym_k1088": (fp_spec("fp4", 2, 1, group_size=PER_CHANNEL,
+                                                   symmetric=False), 1088),
+        "fp4_e2m1_g16_sym": (fp_spec("fp4", 2, 1, group_size=16), 4096),
+        "fp4_e2m1_g128_asym_k1408_straddle": (fp4, 1408)}, 14)
+    slab_kernel_report(dm.LUT4A16)
 
     header("== phase 18: fp4 (also A16) and fp8 two-layer 7B-width logits, kernels vs "
            "plain path")

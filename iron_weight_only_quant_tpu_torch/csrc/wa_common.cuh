@@ -1,9 +1,9 @@
 // Int-activation dequant-matmul for Hopper (sm_90a):
 //   y[M,N] = sx[M] * (quantize(x)[M,K] @ dequant(qw)[K,N]),
-// int8 activation planes against the packed int4 (nib4), int8 (byte) or
-// 3-bit (s21, A8 only) weight codes, or 4-bit minifloat codes (LUT nib4)
-// decoded to their exact int8 grid, one __dp4a per four K values.  The A16
-// kernels of the slab layouts (s21, LUT nq42) are wa_slab_mma.cuh's.
+// int8 activation planes against the packed int4 (nib4, A8 and A16), int8
+// (byte, A8) or 3-bit (s21, A8) weight codes, one __dp4a per four K values.
+// The other A16 kernels (byte, s21, and the LUT nib4 and nq42 layouts) run
+// on the tensor cores in wa_slab_mma.cuh, which builds on this file.
 //
 // Replaces the int-activation paths of the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -11,13 +11,10 @@
 //       _int8_body :1040) with int8 x, i.e. the int path of _group_accum
 //       (:226-249); stacked forms _int4_kernel_pfx (:1712), _int8_kernel_pfx
 //       (:1717);
-//   A16 (two planes): _int4_kernel_a16 (:418), _int8_kernel_a16 (:449)
-//       (_group_accum_a16 :253-286); stacked forms _int4_kernel_a16_pfx
-//       (:1722), _int8_kernel_a16_pfx (:1727);
+//   A16 (two planes): _int4_kernel_a16 (:418) (_group_accum_a16 :253-286);
+//       stacked form _int4_kernel_a16_pfx (:1722);
 //   s21 3-bit: _int3_kernel (:467) with int8 x (A8), stacked form
-//       _int3_kernel_pfx (:1360), through _call_int3 (:1365);
-//   LUT nib4 with A16: _lut4_kernel_a16 (:771, called at :1607) and its
-//       stacked form _lut4_kernel_a16_pfx (:806, through :1927).
+//       _int3_kernel_pfx (:1360), through _call_int3 (:1365).
 // The stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.  The JAX package quantized the
 // activations in XLA (_prep_x :1270-1316); here a row pass of the same
@@ -36,9 +33,9 @@
 //     the codes are bit-equal to the plain version's.  Writes the int8
 //     planes [PLANES, M, K_stored] (zero K-pad columns appended after
 //     quantizing, so the row max sees only the real columns) and sx [M].
-//  2. wa_partial_kernel (nib4, byte): the W4 kernel's grid (w4_common.cuh: 128 columns x
-//     8 rows per block, eight warps splitting the block's K range, a grid
-//     K-split).  Each thread loads four packed rows of its four columns with
+//  2. wa_partial_kernel (nib4; byte with A8): the W4 kernel's grid
+//     (w4_common.cuh: 128 columns x 8 rows per block, eight warps splitting
+//     the block's K range, a grid K-split).  Each thread loads four packed rows of its four columns with
 //     32-bit loads, transposes the 4x4 bytes with __byte_perm into four
 //     words of four K-consecutive codes (one per column), decodes the nibble
 //     layout to logical codes 0..15 (the high nibble is stored MSB-flipped)
@@ -61,15 +58,6 @@
 //     assembles slab i's four K-consecutive codes (field i / 2, un-flipped,
 //     plus 4 * bit i) and runs the same __dp4a sums and per-group epilogue
 //     against slab i's activations (K = i * Kb + r..).
-//     The LUT nib4 case (kLut4, A16 only, as in the JAX package): the nib4 grid
-//     and byte transpose of the affine case; each nibble code becomes the
-//     int8 byte of its exact grid value ival (_minifloat_decode_int :683,
-//     value = ival * 2^-t, t = M + bias - 1, built into a 16-entry table per
-//     block from exp_bits and mant_bits), so __dp4a runs signed int8 against
-//     signed int8 (the affine codes are non-negative bytes of the same
-//     signed form).  Per group and plane the int32 sums become f32 and
-//       part = 256*pa + pb,  acc += part * (s * 2^-t),  then acc += xsum * z
-//     where the artifact has zeros (_lut_accum_a16 :698).
 //  3. the W4 reduce (w4_reduce_kernel with the row factor): the fixed-order
 //     K-split sum, times sx in f32, cast to x's type -- _finish's order.
 //
@@ -79,7 +67,8 @@
 // prefill M the bound is 2*M*K*N int8 operations (x2 for A16) over 1,979
 // dense int8 TOP/s, which only tensor cores reach: this kernel runs the
 // products on CUDA cores (__dp4a), the simple and correct first version.
-// An mma.sync s8.s8.s32 or wgmma path for M >= 64 is later work.
+// wa_slab_mma.cuh's mma.sync path takes the other A16 layouts; nib4 A16
+// and the A8 kernels are later work.
 #pragma once
 
 #include "lut_common.cuh"
@@ -173,26 +162,18 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&
   c[3] = __byte_perm(a_hi, b_hi, 0x7632);
 }
 
-// Four codes (one a byte) -> the four int8 bytes tab[code].
-__device__ __forceinline__ uint32_t lut_bytes(const uint32_t* tab, uint32_t c) {
-  return tab[c & 0xFFu] | (tab[(c >> 8) & 0xFFu] << 8) | (tab[(c >> 16) & 0xFFu] << 16) |
-         (tab[c >> 24] << 24);
-}
-
 // Partial products of one (N-tile, M-tile, K-split) block into ws.
 // xq: int8 planes [PLANES, M, ldq]; for NIB4 packed row r meets K columns r
-// (low nibbles) and Kp + r (high nibbles), and ldq = 2 * Kp.  LUT (with
-// NIB4): the nibbles are minifloat codes of E exp_bits, M mant_bits, and z
-// may be null (no zero points).
-template <bool NIB4, int PLANES, bool LUT = false>
+// (low nibbles) and Kp + r (high nibbles), and ldq = 2 * Kp.  The byte
+// layout takes one plane (A8) only.
+template <bool NIB4, int PLANES>
 __global__ void __launch_bounds__(kThreads)
 wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
                   const uint32_t* __restrict__ qw,  // [Kp, N/4] words
                   const float* __restrict__ s, long long s_rs, long long s_cs,
                   const float* __restrict__ z, long long z_rs, long long z_cs,
-                  float* __restrict__ ws, int N, int Kp, int G, int kc,
-                  int exp_bits, int mant_bits) {
-  static_assert(!LUT || NIB4, "the LUT case reads the nib4 layout");
+                  float* __restrict__ ws, int N, int Kp, int G, int kc) {
+  static_assert(NIB4 || PLANES == 1, "byte A16 is wa_slab_mma.cuh's");
   constexpr int H = NIB4 ? 2 : 1;  // K streams per packed row
   constexpr int kStage4 = kStageA / 4;
   static_assert(H * PLANES * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
@@ -209,14 +190,6 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   const int k1 = min(Kp, k0 + kc);
   const int words_per_row = N / kColsPerThread;
   const int hi_row0 = Kp / G;
-  const bool has_z = !LUT || z != nullptr;
-  __shared__ uint32_t itab[16];  // LUT: the int8 grid byte of each code
-  float mult = 1.f;              // LUT: 2^-t
-  if (LUT) {
-    if (tid < 16) itab[tid] = (uint32_t)minifloat_int(tid, exp_bits, mant_bits) & 0xFFu;
-    mult = ldexpf(1.f, 1 - mant_bits - ((1 << (exp_bits - 1)) - 1));
-    // (the stage loop's first __syncthreads orders the table before its use)
-  }
 
   float acc[kTileM][kColsPerThread];
 #pragma unroll
@@ -255,7 +228,7 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
             const long long c = (long long)(n0 + j);
             const long long gr = g + h * hi_row0;
             sg[h][j] = __ldg(s + gr * s_rs + c * s_cs);
-            zg[h][j] = has_z ? __ldg(z + gr * z_rs + c * z_cs) : 0.f;
+            zg[h][j] = __ldg(z + gr * z_rs + c * z_cs);
           }
         int ia[H][PLANES][kTileM][kColsPerThread];
         int isum[H][kTileM];
@@ -284,7 +257,6 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
               code[j] = !NIB4 ? (int)col[j]
                       : h == 0 ? (int)(col[j] & 0x0F0F0F0Fu)
                                : (int)(((col[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
-              if (LUT) code[j] = (int)lut_bytes(itab, (uint32_t)code[j]);
             }
 #pragma unroll
             for (int p = 0; p < PLANES; ++p) {
@@ -313,12 +285,7 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
               const float part = PLANES == 2
                   ? (float)ia[h][0][m][j] * 256.f + (float)ia[h][PLANES - 1][m][j]
                   : (float)ia[h][0][m][j];
-              if (LUT) {
-                acc[m][j] = acc[m][j] + part * (sg[h][j] * mult);
-                if (has_z) acc[m][j] = acc[m][j] + xsum * zg[h][j];
-              } else {
-                acc[m][j] = acc[m][j] + part * sg[h][j] - xsum * (sg[h][j] * zg[h][j]);
-              }
+              acc[m][j] = acc[m][j] + part * sg[h][j] - xsum * (sg[h][j] * zg[h][j]);
             }
           }
       }
@@ -468,23 +435,19 @@ cudaError_t quantize_rows(const void* x, int x_bf16, int k_logical, int k_stored
 // The whole call: row pass, partial products, reduce.  x is [M, k_logical]
 // contiguous; xq [PLANES, M, K_stored] int8 and sx [M] f32 are scratch from
 // the wrapper, as is ws [splits, M, N].  Kp is the number of packed rows the
-// kernel walks: K/2 (nib4, LUT nib4), K (byte) or the B rows Kb = K/8 (s21,
-// A8).  exp_bits and mant_bits are the LUT case's minifloat format; its z
-// may be null.
+// kernel walks: K/2 (nib4), K (byte, A8) or the B rows Kb = K/8 (s21, A8).
 template <int LAYOUT, int PLANES>
 int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
               const void* qw, const void* s, long long s_rs, long long s_cs,
               const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
               void* ws, void* out, int M, int N, int n_out, int Kp, int G, int kc,
-              int splits, void* stream, int exp_bits = 0, int mant_bits = 0) {
-  static_assert(LAYOUT != kLut6 && (LAYOUT != kS21 || PLANES == 1),
-                "the A16 slab kernels are wa_slab_mma.cuh's");
-  const int k_stored = LAYOUT == kNib4 || LAYOUT == kLut4 ? 2 * Kp : LAYOUT == kS21 ? 8 * Kp : Kp;
+              int splits, void* stream) {
+  static_assert(LAYOUT == kNib4 || ((LAYOUT == kByte || LAYOUT == kS21) && PLANES == 1),
+                "the other A16 kernels are wa_slab_mma.cuh's");
+  const int k_stored = LAYOUT == kNib4 ? 2 * Kp : LAYOUT == kS21 ? 8 * Kp : Kp;
   if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 || Kp % 4 ||
       G <= 0 || G % 4 || Kp % G || kc <= 0 || kc % 4 || splits <= 0 ||
-      (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored ||
-      (LAYOUT == kLut4 && (PLANES != 2 || exp_bits < 1 || mant_bits < 0 ||
-                           1 + exp_bits + mant_bits > 4)))
+      (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = quantize_rows<PLANES>(x, x_bf16, k_logical, k_stored, norm, eps,
@@ -498,10 +461,10 @@ int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
         z_cs, static_cast<float*>(ws), N, Kp, G, kc);
   else
-    wa_partial_kernel<LAYOUT != kByte, PLANES, LAYOUT == kLut4><<<grid, block, 0, st>>>(
+    wa_partial_kernel<LAYOUT == kNib4, PLANES><<<grid, block, 0, st>>>(
         static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
-        z_cs, static_cast<float*>(ws), N, Kp, G, kc, exp_bits, mant_bits);
+        z_cs, static_cast<float*>(ws), N, Kp, G, kc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = x_bf16 ? launch_reduce<true, __nv_bfloat16>(ws, sx, out, M, N, n_out, splits, st)

@@ -1,29 +1,38 @@
-// A16 dequant-matmul of the slab layouts on Hopper's int8 tensor cores (sm_90a):
+// A16 dequant-matmul on Hopper's int8 tensor cores (sm_90a):
 //   y[M,N] = sx[M] * ((256*hi + lo)[M,K] @ dequant(qw)[K,N]),
-// split-plane 16-bit activations against 3-bit (s21) affine codes or 6-bit
-// minifloat codes in the nq42 layout decoded to their exact int8 grid.
+// split-plane 16-bit activations against 8-bit (byte) or 3-bit (s21) affine
+// codes, or 4-bit (nib4) or 6-bit (nq42) minifloat codes decoded to their
+// exact int8 grid.
 //
 // Replaces the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
+//   _int8_kernel_a16 (:449, called at :1691) and its stacked form
+//       _int8_kernel_a16_pfx (:1727, through :1927);
 //   _int3_kernel_a16 (:533) and its stacked form _int3_kernel_a16_pfx (:588),
 //       both through _call_int3 (:1365);
+//   _lut4_kernel_a16 (:771, called at :1607) and its stacked form
+//       _lut4_kernel_a16_pfx (:806, through :1927);
 //   _lut6_kernel_a16 (:892) and its stacked form _lut6_kernel_a16_pfx (:934),
 //       both through _call_lut6 (:939).
-// Both reduce to _group_accum_a16 (:253-286) and _lut_accum_a16 (:698): per
+// All reduce to _group_accum_a16 (:253-286) and _lut_accum_a16 (:698): per
 // group and plane an int32 product turned f32, part = 256*pa + pb, then
-//   s21:  acc += part*s - xsum*(s*z),
-//   nq42: acc += part*(s*2^-t) [+ xsum*z where the artifact has zeros],
+//   affine (byte, s21):  acc += part*s - xsum*(s*z),
+//   LUT (nib4, nq42):    acc += part*(s*2^-t) [+ xsum*z where the artifact has zeros],
 // with xsum = 256*sum(hi) + sum(lo) over the group's activations.  The
 // stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.
 //
-// Layouts (ops/packing.py; see w3_common.cuh and lut_common.cuh): qw is
-// uint8 [3 Kb, N].  Slab row r of slab i holds K column i*Kb + r: s21 has
-// S = 8 slabs of Kb = K/8 rows (A rows (i % 2)*Kb + r, field i / 2, plus bit
-// i of B row 2 Kb + r); nq42 has S = 4 quarters of Kb = K/4 rows (nibble row
-// (i % 2)*Kb + r, low nibble for i < 2, flipped high nibble for i >= 2, plus
-// bits 2i..2i+1 of quad row 2 Kb + r).  The wrapper guarantees G | Kb and
-// G % 4 == 0, Kb % 4 == 0; neither needs to be a multiple of 32.
+// Layouts (ops/packing.py; see w8_common.cuh, w3_common.cuh and
+// lut_common.cuh): every layout is read as S slabs of Kb packed rows, row r
+// of slab i holding K column i*Kb + r.  byte: qw [Kb = K, N], S = 1, the
+// stored byte read as int8 is the code (the JAX bitcast to int8; zeros are
+// stored shifted alike); nib4: qw [Kb = K/2, N], S = 2, the low nibble, then
+// the MSB-flipped high nibble; s21: qw [3 Kb, N], S = 8 slabs of Kb = K/8
+// rows (A rows (i % 2)*Kb + r, field i / 2, plus bit i of B row 2 Kb + r);
+// nq42: qw [3 Kb, N], S = 4 quarters of Kb = K/4 rows (nibble row (i % 2)*Kb
+// + r, low nibble for i < 2, flipped high nibble for i >= 2, plus bits
+// 2i..2i+1 of quad row 2 Kb + r).  The wrapper guarantees G | Kb and G % 4
+// == 0, Kb % 4 == 0; neither needs to be a multiple of 32.
 //
 // Two or three kernels per call, on one stream:
 //  1. quantize_rows_slab_kernel, one 1024-thread block per activation row:
@@ -40,46 +49,60 @@
 //     mma.sync.m16n8k32.s32.s8.s8.s32 with the operands swapped: the weight
 //     is the 16-row A operand (16 output channels by 32 K), the tokens the
 //     8-column B operand.  A block of eight warps takes BN channels, MT =
-//     8 * NT tokens and a K-split range of slab rows, walked in windows of
-//     32 rows.  Decode (NT = 1): BN = 64 (s21) or 128 (nq42), two blocks an
-//     SM, so that one block's barrier stalls only its own warps; more rows:
-//     NT = 2 (s21) or 4 (nq42), BN = 64, one block an SM, so a weight window
-//     is decoded ceil(M / MT) times, not M / 8.  A ring of 4 stages in
-//     shared memory takes each window by cp.async: the three packed arrays'
-//     32 rows of the block's columns (16-byte copies; 4-byte ones when N or
-//     the base is not 16-byte aligned; zero-filled beyond the slab end and
-//     N) and the x planes of every slab for the block's tokens.  At decode,
-//     3 windows ahead hold 18 KB (s21) or 36 KB (nq42) of weight rows in
-//     flight a block, 36 or 72 KB an SM.
-//     Warp w takes slab w % S and channel part w / S (s21: one warp a slab;
-//     nq42: two warps a quarter) and CT MMA tiles of 16 channels.  Lane
-//     (g, t) = (lane / 4, lane % 4) reads its W = CT / 2 words (4 W channels)
-//     of slab rows 8t..8t+7 of the window; the stage stores row 8t + i at
-//     position 4i + t and pads each row to BN / 4 + 8 words, so every such
-//     load is conflict-free.  Per row word it decodes the four codes
-//     (slab_codes: one shift, one funnel rotate, two LOP3; nq42 then
-//     nq42_grid, arithmetic on the exponent and mantissa fields, no table),
-//     and a 4x4 byte transpose of rows 8t..8t+3 and 8t+4..8t+7 gives per
-//     channel the two words of four K-consecutive codes that the A fragment
-//     wants: channel 2c (2c + 1) of the lane is MMA row g (g + 8) of tile
-//     c, MMA K slots 4t..4t+3 and 16+4t..16+4t+3 are slab rows 8t..8t+7.
-//     The B fragment (token g, the same K order) is one conflict-free
-//     64-bit shared load of the staged x, whose rows stay in order.  So
-//     channels are permuted inside a tile (undone in the epilogue by the
-//     same map) and the K order is the same on both operands.
+//     8 * NT tokens and a K-split range of kc slab rows, which it splits into
+//     P parts of kq = kc / P rows, each a multiple of the 32-row window.  A
+//     warp takes SW slabs of one part (a group) and a channel part: warp w
+//     takes group v = w % V, V = S / SW * P, i.e. slabs SW * (v % (S / SW))
+//     on and part v / (S / SW), and channel part w / V.  s21: one warp a
+//     slab (P = 1); nq42: two warps a quarter (P = 1); byte: P = 4, two
+//     warps a part; nib4: P = 2, at decode four warps take both slabs of a
+//     part (SW = 2: one load and one transpose of a packed byte serve its
+//     two codes), in the wider tiles two warps a slab.  All warps walk the
+//     windows of their part in step.  Decode (NT = 1): BN = 64 (s21) or
+//     128, two blocks an SM, so that one block's barrier stalls only its
+//     own warps; more rows: NT = 2 (s21) or 4, BN = 64, one block an SM, so
+//     a weight window is decoded ceil(M / MT) times, not M / 8.  A ring of 4
+//     stages in shared memory takes each window by cp.async: 32 rows of the
+//     block's columns of each packed array (s21, nq42: three) or each part
+//     (byte, nib4: one array), in 16-byte copies (4-byte ones when N or the
+//     base is not 16-byte aligned; zero-filled at and beyond the range's end
+//     and N), and the x planes of every (slab, part) for the block's tokens.
+//     At decode the 3 windows ahead hold 18 KB (s21), 36 KB (nq42), 24 KB
+//     (nib4) or 48 KB (byte) of weight rows in flight a block, twice that
+//     an SM.
+//     Lane (g, t) = (lane / 4, lane % 4) takes CT MMA tiles of 16 channels
+//     and reads its W = CT / 2 words (4 W channels) of rows 8t..8t+7 of its
+//     part's window; the stage stores row 8t + i at position 4i + t and pads
+//     each row to BN / 4 + 8 words, so every such load is conflict-free.
+//     Per row word it decodes the four codes (byte: none; nib4 wide tiles: a
+//     shift, a mask and the flip, then lut4_grid, two prmt lookups in an
+//     eight-byte table and a sign select; s21: slab_codes, one shift, one
+//     funnel rotate, two LOP3; nq42: then nq42_grid, arithmetic on the
+//     exponent and mantissa fields), and a 4x4 byte transpose of rows
+//     8t..8t+3 and 8t+4..8t+7 gives per channel the two words of four
+//     K-consecutive codes that the A fragment wants (the nib4 decode tile
+//     transposes the packed bytes first and decodes both slabs' codes of
+//     each such word at once, lut4_grid2: 14 operations for 8 codes):
+//     channel 2c (2c + 1) of the lane is MMA row g (g + 8) of
+//     tile c, MMA K slots 4t..4t+3 and 16+4t..16+4t+3 are rows 8t..8t+7.
+//     The B fragment (token g, the same K order) is one conflict-free 64-bit
+//     shared load of the staged x, whose rows stay in order.  So channels
+//     are permuted inside a tile (undone in the epilogue by the same map)
+//     and the K order is the same on both operands.
 //     Every MMA's 32 K lie in one group of one slab: a window splits into
 //     segments at group ends (main path: one segment, G = 128 is four
 //     windows), and a segment of fewer than 32 rows zeroes the B registers
 //     outside it (rows come in fours).  Each plane has its own s32
-//     accumulator per group; at the group's end (or the block's) both turn
-//     f32 and the epilogue above runs, the xsum term only in the block that
-//     holds the group's first row (a K-split may cut a group).  Scales,
-//     zeros (16-byte loads where the side rows are contiguous) and sums are
-//     fetched when the window starts in which the segment ends.  Overflow:
-//     as wa_common.cuh (127 * 128 * G per plane).  The warps' f32 partials
-//     meet in shared memory and are summed over the slabs in a fixed order;
-//     with one split (prefill, and the wide decode shapes) the block writes
-//     out = cast(sx * sum) itself, else its partial to ws [splits, M, N].
+//     accumulator per group; at the group's end (or the part's) both turn
+//     f32 and the epilogue above runs, the xsum term only in the warp whose
+//     part holds the group's first row (a K-split or a part may cut a
+//     group).  Scales, zeros (16-byte loads where the side rows are
+//     contiguous) and sums are fetched when the window starts in which the
+//     segment ends.  Overflow: 127 * 128 * G per plane (< 2^31).  The warps'
+//     f32 partials meet in shared memory and are summed over the groups in
+//     a fixed order; with one split (prefill, and the wide
+//     decode shapes) the block writes out = cast(sx * sum) itself, else its
+//     partial to ws [splits, M, N].
 //  3. with a K-split, the W4 reduce (w4_reduce_kernel with the row factor):
 //     the fixed-order K-split sum, times sx, cast to x's type.
 // Kernels 2 and 3 are launched programmatically (Hopper's dependent launch):
@@ -87,16 +110,16 @@
 // windows' weights, and waits for the row pass's output only before it
 // copies x; the reduce starts as the product kernel's blocks finish.
 //
-// What bounds it: at decode (M = 8) the bytes: codes (3/8 or 3/4 byte a
-// weight) + f32 sides + two int8 planes of x + output over 3.35 TB/s; at
-// prefill the 2 * 2*M*K*N int8 operations over 1,979 TOP/s.  The design
-// moves the products from __dp4a (five a code at M = 8, the activation sum
-// among them) to one m16n8k32 per 512 codes and plane, takes the
-// activation sums out of the loop (once per row and group, in the row
+// What bounds it: at decode (M = 8) the bytes: codes (1, 3/8, 1/2 or 3/4
+// byte a weight) + f32 sides + two int8 planes of x + output over 3.35
+// TB/s; at prefill the 2 * 2*M*K*N int8 operations over 1,979 TOP/s.  The
+// design moves the products from __dp4a (five a code at M = 8, the
+// activation sum among them) to one m16n8k32 per 512 codes and plane, takes
+// the activation sums out of the loop (once per row and group, in the row
 // pass), and keeps the weight bytes in flight by asynchronous copies.  What
-// limits it now is instruction issue in the decode (nq42 most: about 20
-// integer operations a word of four codes) and, on small shapes, the fixed
-// cost of two or three kernels a call.
+// limits it is instruction issue in the decode (nq42 most: about 20 integer
+// operations a word of four codes) and, on small shapes, the fixed cost of
+// two or three kernels a call.
 #pragma once
 
 #include "wa_common.cuh"
@@ -105,22 +128,30 @@ namespace iwoq {
 
 constexpr int kSlabWin = 32;  // slab rows a window: one MMA's K
 
-// The tile of one (LAYOUT, NT) instantiation.  A warp takes CT 16-channel
-// MMA tiles of one slab (W = CT / 2 packed words a row a lane); WS warps
-// split a slab's channels, so a block covers BN = 16 * CT * WS channels.
-// Eight warps a block.  Decode (NT = 1): 4 tiles a warp, BN = 64 (s21) or
-// 128 (nq42, two warps a quarter), two blocks an SM (each barrier stalls
-// only its own block); wider token tiles: one block an SM (their
-// accumulators need more registers a thread; nq42 then takes 2 tiles a
-// warp, BN = 64).
+// The tile of one (LAYOUT, NT) instantiation.  A layout is S slabs of Kb
+// rows; a window copies A packed arrays (s21, nq42: three) or P parts of the
+// block's range (byte, nib4: one array).  A warp takes CT 16-channel MMA
+// tiles of SW slabs of one part (W = CT / 2 packed words a row a lane); WS
+// warps split a group's channels, so a block covers BN = 16 * CT * WS
+// channels.  Eight warps a block.  Decode (NT = 1): 4 tiles a warp (the
+// nib4 tile, two slabs a warp: 2), BN = 64 (s21) or 128, two blocks an SM
+// (each barrier stalls only its own block); wider token tiles: one block an
+// SM (their accumulators need more registers a thread; all but s21 then
+// take 2 tiles a warp, BN = 64).
 template <int LAYOUT, int NT>
 struct SlabTile {
-  static constexpr int S = LAYOUT == kS21 ? 8 : 4;      // slabs
+  static constexpr int S = LAYOUT == kS21 ? 8 : LAYOUT == kLut6 ? 4 : LAYOUT == kLut4 ? 2 : 1;
+  static constexpr int A = LAYOUT == kS21 || LAYOUT == kLut6 ? 3 : 1;  // packed arrays
   static constexpr int WARPS = 8;
   static constexpr int BLOCKS_PER_SM = NT == 1 ? 2 : 1;
   static constexpr int THREADS = WARPS * kLanes;
-  static constexpr int WS = WARPS / S;                   // warps a slab
-  static constexpr int CT = LAYOUT == kS21 || NT == 1 ? 4 : 2;  // MMA channel tiles a warp
+  // slabs a warp decodes from one staged word: the nib4 LUT decode tile
+  // takes both nibbles of a byte at once (one load, one transpose)
+  static constexpr int SW = LAYOUT == kLut4 && NT == 1 ? 2 : 1;
+  static constexpr int WS = LAYOUT == kS21 ? 1 : SW == 2 ? 4 : 2;  // warps a group
+  static constexpr int P = WARPS / (S / SW * WS);        // parts of the block's K range
+  static constexpr int V = S / SW * P;                   // groups: SW slabs of a part
+  static constexpr int CT = LAYOUT == kS21 || (NT == 1 && SW == 1) ? 4 : 2;  // MMA channel tiles a warp
   static constexpr int W = CT / 2;                       // packed words a lane reads a row
   static constexpr int BN = 16 * CT * WS;                // channels a block
   static constexpr int MT = 8 * NT;                      // tokens a block
@@ -128,18 +159,19 @@ struct SlabTile {
   // Words a staged row, padded so that rows 4i + t (t = 0..3) start 0,
   // 24, 16 and 8 banks apart (BN / 4 is 16 or 32).
   static constexpr int PITCH = BN / 4 + 8;
-  static constexpr int W_BYTES = 3 * kSlabWin * PITCH * 4;  // the three arrays' rows
-  static constexpr int X_BYTES = S * 2 * MT * kSlabWin;     // [slab][plane][token][32]
+  static constexpr int W_BYTES = A * P * kSlabWin * PITCH * 4;  // [array or part][32 rows]
+  static constexpr int X_BYTES = S * P * 2 * MT * kSlabWin;    // [part][slab][plane][token][32]
   static constexpr int STAGE = W_BYTES + X_BYTES;
-  static constexpr int RED = S * MT * (BN + 1) * 4;         // f32 [slab][token][BN + 1]
+  static constexpr int RED = V * MT * (BN + 1) * 4;            // f32 [group][token][BN + 1]
   static constexpr int SMEM = STAGES * STAGE > RED ? STAGES * STAGE : RED;
+  static_assert(V * WS == WARPS && (A == 1 || P == 1), "warps over slabs, parts, channels");
   static_assert(W == 1 || W == 2, "one 32- or 64-bit load a row");
   static_assert((PITCH * 4) % 16 == 0 && ((BN / 4) % 16 == 0), "16-byte rows, bank steps");
   static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 228 * 1024, "the blocks of an SM");
 };
 
 // Tokens a block of the slab kernel (must match slab_tile_m, and the tile's
-// BN slab_block_n, in ops/kernels/dequant_matmul.py).
+// BN and P slab_block_n and SLAB_PARTS, in ops/kernels/dequant_matmul.py).
 __host__ __device__ constexpr int slab_tile_nt(int M, int layout) {
   return M <= 8 ? 1 : layout == kS21 ? 2 : 4;
 }
@@ -227,6 +259,55 @@ __device__ __forceinline__ uint32_t nq42_grid(uint32_t c, uint32_t wide) {
   const uint32_t neg = (0x80808080u - v) ^ 0x80808080u;
   const uint32_t sgn = byte_sign_mask(c << 2);
   return (v & ~sgn) | (neg & sgn);
+}
+
+// Stream i's four codes of a nib4 word (bytes = columns): the low nibble
+// (i = 0) or the MSB-flipped high nibble (i = 1), as the logical code.
+__device__ __forceinline__ uint32_t nib4_codes(uint32_t a, int i) {
+  return ((a >> (4 * i)) & 0x0F0F0F0Fu) ^ (i ? 0x08080808u : 0u);
+}
+
+// Four 4-bit minifloat codes (one a byte: sign bit 3, magnitude bits 0..2)
+// -> their int8 grid bytes.  tab holds the grid bytes of codes 0..7 (words
+// 0, 1) and their negations (words 2, 3); the four magnitudes, packed into
+// the nibbles of a prmt selector, look up both, and the sign picks one.
+__device__ __forceinline__ uint32_t lut4_grid(uint32_t c, const uint32_t (&tab)[4]) {
+  const uint32_t m = c & 0x07070707u;
+  const uint32_t sel = __byte_perm(m | (m >> 4), 0, 0x0020);  // nibbles m0, m1, m2, m3
+  const uint32_t sgn = byte_sign_mask(c << 4);
+  return (__byte_perm(tab[0], tab[1], sel) & ~sgn) | (__byte_perm(tab[2], tab[3], sel) & sgn);
+}
+
+// prmt in its generic mode: byte n of the result is byte (nibble n of sel)
+// & 7 of b:a, or, where the nibble's bit 3 is set, that byte's sign bit
+// replicated.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+// The eight 4-bit minifloat codes of a nib4 word w (bytes: four packed rows
+// of one channel, each the low nibble's code of slab 0 and the MSB-flipped
+// high nibble's of slab 1) -> their int8 grid bytes, slab 0's in lo and
+// slab 1's in hi, in row order.  The magnitudes (bits 0..2 of each nibble)
+// are prmt selectors as they lie, four nibbles (two rows) a lookup in tab
+// (grid bytes of codes 0..7, then their negations); the signs (bit 3 of
+// each nibble, unflipped) pick one, spread to bytes by prmt's sign mode.
+__device__ __forceinline__ void lut4_grid2(uint32_t w, const uint32_t (&tab)[4], uint32_t& lo,
+                                           uint32_t& hi) {
+  const uint32_t m = w & 0x77777777u;
+  const uint32_t t = w ^ 0x80808080u;  // slab 1's sign bits unflipped
+  const uint32_t t4 = t << 4;          // slab 0's sign bits at bit 7 of each byte
+  uint32_t v[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // rows 2h, 2h + 1: nibbles lo, hi, lo, hi
+    const uint32_t sel = h ? m >> 16 : m;
+    const uint32_t sgn = prmt(t4, t, h ? 0xFBEAu : 0xD9C8u);
+    v[h] = (__byte_perm(tab[0], tab[1], sel) & ~sgn) | (__byte_perm(tab[2], tab[3], sel) & sgn);
+  }
+  lo = __byte_perm(v[0], v[1], 0x6420);
+  hi = __byte_perm(v[0], v[1], 0x7531);
 }
 
 template <int W>
@@ -339,9 +420,9 @@ quantize_rows_slab_kernel(const XT* __restrict__ x, int ldx, int k_logical, int 
 // Partial products of one (BN-channel, MT-token, K-split) block into ws;
 // with one split (gridDim.z == 1) the block finishes the output itself:
 // out [M, n_out] = cast(sx * sum), the reduce kernel's arithmetic.
-// xq: planes [2][M][S][Kb32]; xsum [M][S*Kb/G] (null: nq42 without zeros).
-// qw [3 Kb, N] bytes; kc a multiple of 32.  LUT (nq42): exp_bits 1 or 2,
-// mant_bits 5 - exp_bits, z may be null.
+// xq: planes [2][M][S][Kb32]; xsum [M][S*Kb/G] (null: LUT without zeros).
+// qw [A Kb, N] bytes; kc a multiple of 32 P.  LUT: nib4 exp_bits +
+// mant_bits = 3; nq42 exp_bits 1 or 2, mant_bits 5 - exp_bits; z may be null.
 template <int LAYOUT, int NT, bool VEC16>
 __global__ void __launch_bounds__(SlabTile<LAYOUT, NT>::THREADS,
                                   SlabTile<LAYOUT, NT>::BLOCKS_PER_SM)
@@ -353,44 +434,63 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
                    const float* __restrict__ sx, int out_bf16, int N, int n_out, int Kb,
                    int Kb32, int G, int kc, int exp_bits, int mant_bits) {
   using T = SlabTile<LAYOUT, NT>;
-  constexpr bool LUT = LAYOUT == kLut6;
-  constexpr int S = T::S, CT = T::CT, W = T::W, MT = T::MT, BN = T::BN;
-  constexpr int NTH = T::THREADS, STAGES = T::STAGES, PITCH = T::PITCH;
+  constexpr bool LUT = LAYOUT == kLut4 || LAYOUT == kLut6;
+  constexpr int S = T::S, A = T::A, P = T::P, V = T::V, SW = T::SW, CT = T::CT, W = T::W;
+  constexpr int MT = T::MT;
+  constexpr int BN = T::BN, NTH = T::THREADS, STAGES = T::STAGES, PITCH = T::PITCH;
   extern __shared__ __align__(16) uint8_t slab_smem[];
   const int tid = threadIdx.x;
   const int lane = tid % kLanes, warp = tid / kLanes;
   const int g = lane / 4, t = lane % 4;
-  const int slab = warp % S;
-  const int cb = (warp / S) * 16 * CT;  // the warp's first channel in the block
+  const int grp = warp % V;
+  const int slab = grp % (S / SW) * SW;  // the warp's (first) slab
+  const int part = P == 1 ? 0 : grp / (S / SW);
+  const int cb = (warp / V) * 16 * CT;  // the warp's first channel in the block
   const int n_blk = blockIdx.x * BN;
   const int m0 = blockIdx.y * MT;
   const int k0 = blockIdx.z * kc;
   const int k1 = min(Kb, k0 + kc);
+  const int kq = kc / P;                // rows a part
+  const int pk0 = k0 + part * kq;       // the warp's part: rows [pk0, pk1)
+  const int pk1 = min(k1, pk0 + kq);
   const int ngroups = S * (Kb / G);
   const bool has_z = !LUT || z != nullptr;
-  const uint32_t wide = exp_bits == 2 ? 0xFFFFFFFFu : 0u;  // LUT: E2M3 (else E1M4)
+  const uint32_t wide = exp_bits == 2 ? 0xFFFFFFFFu : 0u;  // nq42: E2M3 (else E1M4)
   const float mult = LUT ? ldexpf(1.f, 1 - mant_bits - ((1 << (exp_bits - 1)) - 1)) : 1.f;
-  const SlabFields fields = slab_fields<LUT>(slab);
+  const SlabFields fields = slab_fields<LAYOUT == kLut6>(slab);
+  uint32_t tab[4] = {0u, 0u, 0u, 0u};  // nib4 LUT: grid bytes of codes 0..7, then negated
+  if constexpr (LAYOUT == kLut4) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const uint32_t v = (uint32_t)minifloat_int(c, exp_bits, mant_bits) & 0xFFu;
+      tab[c / 4] |= v << (8 * (c % 4));
+      tab[2 + c / 4] |= ((0u - v) & 0xFFu) << (8 * (c % 4));
+    }
+  }
 
   // Copies of the block's windows, in order, into the ring: each thread its
   // share of weight chunks of CB bytes (16, or 4 where N or qw is not
-  // 16-byte aligned), zero-filled at and beyond Kb and beyond N, and of x
-  // chunks of 16 bytes, zero-filled for tokens beyond M.  Chunk i of a
-  // window is column chunk i % (BN / CB) of row (i / (BN / CB)) % 32 of
-  // array i / CPA.  Where NTH is a multiple of CPA a thread's chunks share
-  // one row and column (array tid / CPA, then every NTH / CPA arrays on), so
-  // it carries one source pointer and one slab row, stepped by a window
-  // (32 rows) per copy; otherwise (4-byte chunks) one of each per chunk.
+  // 16-byte aligned), zero-filled at and beyond the range's end k1 and
+  // beyond N, and of x chunks of 16 bytes, zero-filled for tokens beyond M
+  // (and, with parts, rows beyond k1).  Chunk i of a window is column chunk
+  // i % (BN / CB) of row (i / (BN / CB)) % 32 of array (or part) i / CPA.
+  // Where NTH is a multiple of CPA a thread's chunks share one row and
+  // column (array or part tid / CPA, then every NTH / CPA on), so it carries
+  // one source pointer and one row, stepped by a window (32 rows) per copy;
+  // otherwise (4-byte chunks) one of each per chunk.
   constexpr int CB = VEC16 ? 16 : 4;
   constexpr int CPA = kSlabWin * (BN / CB);                // chunks an array a window
-  constexpr int WCH = (3 * CPA + NTH - 1) / NTH;           // weight chunks a thread
+  constexpr int WTOTAL = A * P * CPA;                      // weight chunks a window
+  constexpr int WCH = (WTOTAL + NTH - 1) / NTH;            // weight chunks a thread
   constexpr bool SHARED_ROW = NTH % CPA == 0;
   constexpr int NP = SHARED_ROW ? 1 : WCH;                 // carried pointers
-  constexpr int XTOTAL = S * 2 * MT * 2;                   // x chunks a window
+  constexpr int XTOTAL = S * P * 2 * MT * 2;               // x chunks a window
   constexpr int XCH = (XTOTAL + NTH - 1) / NTH;
   static_assert(SHARED_ROW || CPA % NTH == 0, "whole rounds");
   const uint32_t smem0 = smem_u32(slab_smem);
-  const size_t a_step = (size_t)(SHARED_ROW ? NTH / CPA : 0) * Kb * N;  // between a thread's arrays
+  const int ap_rows = A == 1 ? kq : Kb;  // source rows between arrays (or parts)
+  const size_t a_step = (size_t)(SHARED_ROW ? NTH / CPA : 0) * ap_rows * N;
+  const int r_step = A == 1 && SHARED_ROW ? (NTH / CPA) * kq : 0;  // and range rows
   const uint8_t* w_src[NP];
   int w_row[NP], w_bytes[NP];
   uint32_t w_dst[WCH];
@@ -400,31 +500,34 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
     const int a = i / CPA, c = i % (BN / CB), row = (i / (BN / CB)) % kSlabWin;
     const int col = n_blk + CB * c;
     if (j < NP) {
-      w_row[j] = k0 + row;
+      w_row[j] = k0 + (A == 1 ? a * kq : 0) + row;
       w_bytes[j] = max(0, min(CB, N - col));
-      w_src[j] = qw + ((size_t)a * Kb + k0 + row) * N + col;
+      w_src[j] = qw + ((size_t)a * ap_rows + k0 + row) * N + col;
     }
     // row 8t + i of the window sits at position 4i + t
     w_dst[j] = ((a * kSlabWin + 4 * (row % 8) + row / 8) * PITCH) * 4 + CB * c;
   }
   const int8_t* x_src[XCH];
+  int x_row[XCH];
   uint32_t x_dst[XCH];
 #pragma unroll
   for (int j = 0; j < XCH; ++j) {
     const int i = tid + j * NTH;
-    const int h = i % 2, tok = (i / 2) % MT, sp = i / (2 * MT);  // sp = slab * 2 + plane
+    const int h = i % 2, tok = (i / 2) % MT, sp = i / (2 * MT);  // (part * S + slab) * 2 + plane
     const int m = m0 + tok;
+    const int v = sp / 2, rows0 = k0 + (P == 1 ? 0 : v / S) * kq + 16 * h;
+    x_row[j] = rows0;
     x_src[j] = i < XTOTAL && m < M
-        ? xq + (((size_t)(sp % 2) * M + m) * S + sp / 2) * Kb32 + k0 + 16 * h : nullptr;
+        ? xq + (((size_t)(sp % 2) * M + m) * S + v % S) * Kb32 + rows0 : nullptr;
     x_dst[j] = T::W_BYTES + (sp * MT + tok) * kSlabWin + 16 * h;
   }
   auto load_weights = [&](int st) {  // the next window's weight rows
     const uint32_t base = smem0 + st * T::STAGE;
 #pragma unroll
     for (int j = 0; j < WCH; ++j) {
-      if ((3 * CPA) % NTH == 0 || tid + j * NTH < 3 * CPA) {
+      if (WTOTAL % NTH == 0 || tid + j * NTH < WTOTAL) {
         const int p = SHARED_ROW ? 0 : j;
-        const int bytes = w_row[p] < Kb ? w_bytes[p] : 0;
+        const int bytes = w_row[p] + (SHARED_ROW ? j * r_step : 0) < k1 ? w_bytes[p] : 0;
         const uint8_t* src = bytes ? w_src[p] + (SHARED_ROW ? j * a_step : 0) : qw;
         if (VEC16)
           cp_async16(base + w_dst[j], src, bytes);
@@ -443,15 +546,17 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
 #pragma unroll
     for (int j = 0; j < XCH; ++j) {
       if (XTOTAL % NTH == 0 || tid + j * NTH < XTOTAL) {
-        const bool in = x_src[j] != nullptr;
+        // with parts, a range's last part may end before its windows do
+        const bool in = x_src[j] != nullptr && (P == 1 || x_row[j] < k1);
         cp_async16(base + x_dst[j], in ? x_src[j] : xq, in ? 16 : 0);
         if (in) x_src[j] += kSlabWin;
+        x_row[j] += kSlabWin;
       }
     }
   };
 
   float acc[CT][NT][4];
-  int ia[CT][NT][2][4];  // per plane (hi, lo), per group
+  int ia[SW][CT][NT][2][4];  // per slab of the warp, per plane (hi, lo), per group
 #pragma unroll
   for (int c = 0; c < CT; ++c)
 #pragma unroll
@@ -459,56 +564,65 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         acc[c][nt][i] = 0.f;
-        ia[c][nt][0][i] = 0;
-        ia[c][nt][1][i] = 0;
+#pragma unroll
+        for (int sw = 0; sw < SW; ++sw) {
+          ia[sw][c][nt][0][i] = 0;
+          ia[sw][c][nt][1][i] = 0;
+        }
       }
-  float sc[CT][2], zc[CT][2], xs_f[NT][2];  // the ending segment's sides and sums
+  // the ending segment's sides and sums, per slab of the warp
+  float sc[SW][CT][2], zc[SW][CT][2], xs_f[SW][NT][2];
 
-  // Scales and zeros of group gi of this slab for the lane's channels, and
-  // the group's activation sums of its tokens where this block holds the
-  // group's first row.
+  // Scales and zeros of group gi of the warp's slabs for the lane's
+  // channels, and the group's activation sums of its tokens where this
+  // warp's part holds the group's first row.
   auto load_sides = [&](int gi) {
-    const long long grow = (long long)slab * (Kb / G) + gi;
-    const int chb = n_blk + cb + 4 * W * g;  // the lane's first channel; its 4 W follow
-    const float* sp = s + grow * s_rs + (long long)chb * s_cs;
-    const float* zp = has_z ? z + grow * z_rs + (long long)chb * z_cs : nullptr;
-    const int scs = (int)s_cs, zcs = (int)z_cs;
-    if (scs == 1 && (!has_z || zcs == 1) && chb + 2 * CT <= N &&
-        (reinterpret_cast<uintptr_t>(sp) | reinterpret_cast<uintptr_t>(zp)) % 16 == 0) {
-      // contiguous side rows: the lane's 2 CT channels in 16-byte loads
 #pragma unroll
-      for (int q = 0; q < CT / 2; ++q) {
-        const float4 sv = __ldg(reinterpret_cast<const float4*>(sp) + q);
-        sc[2 * q][0] = sv.x; sc[2 * q][1] = sv.y; sc[2 * q + 1][0] = sv.z; sc[2 * q + 1][1] = sv.w;
-        if (has_z) {
-          const float4 zv = __ldg(reinterpret_cast<const float4*>(zp) + q);
-          zc[2 * q][0] = zv.x; zc[2 * q][1] = zv.y;
-          zc[2 * q + 1][0] = zv.z; zc[2 * q + 1][1] = zv.w;
+    for (int sw = 0; sw < SW; ++sw) {
+      const long long grow = (long long)(slab + sw) * (Kb / G) + gi;
+      const int chb = n_blk + cb + 4 * W * g;  // the lane's first channel; its 4 W follow
+      const float* sp = s + grow * s_rs + (long long)chb * s_cs;
+      const float* zp = has_z ? z + grow * z_rs + (long long)chb * z_cs : nullptr;
+      const int scs = (int)s_cs, zcs = (int)z_cs;
+      if (scs == 1 && (!has_z || zcs == 1) && chb + 2 * CT <= N &&
+          (reinterpret_cast<uintptr_t>(sp) | reinterpret_cast<uintptr_t>(zp)) % 16 == 0) {
+        // contiguous side rows: the lane's 2 CT channels in 16-byte loads
+#pragma unroll
+        for (int q = 0; q < CT / 2; ++q) {
+          const float4 sv = __ldg(reinterpret_cast<const float4*>(sp) + q);
+          sc[sw][2 * q][0] = sv.x; sc[sw][2 * q][1] = sv.y;
+          sc[sw][2 * q + 1][0] = sv.z; sc[sw][2 * q + 1][1] = sv.w;
+          if (has_z) {
+            const float4 zv = __ldg(reinterpret_cast<const float4*>(zp) + q);
+            zc[sw][2 * q][0] = zv.x; zc[sw][2 * q][1] = zv.y;
+            zc[sw][2 * q + 1][0] = zv.z; zc[sw][2 * q + 1][1] = zv.w;
+          }
         }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 2 * c + h;
+            const bool ok = chb + j < N;
+            sc[sw][c][h] = ok ? __ldg(sp + j * scs) : 0.f;
+            zc[sw][c][h] = ok && has_z ? __ldg(zp + j * zcs) : 0.f;
+          }
       }
-    } else {
+      if (has_z && gi * G >= pk0) {
 #pragma unroll
-      for (int c = 0; c < CT; ++c)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int j = 2 * c + h;
-          const bool ok = chb + j < N;
-          sc[c][h] = ok ? __ldg(sp + j * scs) : 0.f;
-          zc[c][h] = ok && has_z ? __ldg(zp + j * zcs) : 0.f;
-        }
-    }
-    if (has_z && gi * G >= k0) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int m = m0 + 8 * nt + 2 * t + u;
-          xs_f[nt][u] = m < M ? (float)__ldg(xsum + (size_t)m * ngroups + grow) : 0.f;
-        }
+          for (int u = 0; u < 2; ++u) {
+            const int m = m0 + 8 * nt + 2 * t + u;
+            xs_f[sw][nt][u] = m < M ? (float)__ldg(xsum + (size_t)m * ngroups + grow) : 0.f;
+          }
+      }
     }
   };
 
-  const int nwin = (k1 - k0 + kSlabWin - 1) / kSlabWin;
+  // windows of a part: every warp walks as many as the first part has
+  const int nwin = (min(k1, k0 + kq) - k0 + kSlabWin - 1) / kSlabWin;
   // the first windows' weights do not depend on the row pass: copy them
   // while it runs, then wait for its planes and sums
 #pragma unroll
@@ -521,7 +635,7 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
   for (int st = 0; st < STAGES - 1; ++st)
     if (st < nwin) load_x(st);
   cp_async_commit();
-  int gi_w = k0 / G, gend_w = (gi_w + 1) * G;  // the group of the window's first row
+  int gi_w = pk0 / G, gend_w = (gi_w + 1) * G;  // the group of the window's first row
 
   for (int w = 0; w < nwin; ++w) {
     if (w == 0)
@@ -535,19 +649,22 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
     }
     cp_async_commit();
 
-    const int rw = k0 + w * kSlabWin;
-    const int rend = min(rw + kSlabWin, k1);
+    const int rw = pk0 + w * kSlabWin;
+    if (P > 1 && rw >= pk1) continue;  // the range's last part ended early
+    const int rend = min(rw + kSlabWin, pk1);
     while (gend_w <= rw) {
       ++gi_w;
       gend_w += G;
     }
     // the first segment ends in this window: fetch its sides now
-    if (gend_w <= rend || rend == k1) load_sides(gi_w);
+    if (gend_w <= rend || rend == pk1) load_sides(gi_w);
     const uint8_t* base = slab_smem + (w % STAGES) * T::STAGE;
     const uint32_t* wst = reinterpret_cast<const uint32_t*>(base);
+    // the staged rows of the warp's codes: its A (nibble) array, or its part
+    const int arow = A == 1 ? part : slab % 2;
 
-    // A fragments: decode rows 8t..8t+7 of the lane's 4 W channels
-    uint32_t afr[CT][4];
+    // A fragments: rows 8t..8t+7 of the lane's 4 W channels, per slab
+    uint32_t afr[SW][CT][4];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       uint32_t code[4][W];
@@ -555,36 +672,51 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
       for (int i = 0; i < 4; ++i) {
         const int pos = 4 * (4 * q + i) + t;
         uint32_t aw[W], bw[W];
-        lds_words<W>(wst + ((slab % 2) * kSlabWin + pos) * PITCH + cb / 4 + g * W, aw);
-        lds_words<W>(wst + (2 * kSlabWin + pos) * PITCH + cb / 4 + g * W, bw);
+        lds_words<W>(wst + (arow * kSlabWin + pos) * PITCH + cb / 4 + g * W, aw);
+        if constexpr (A == 3) lds_words<W>(wst + (2 * kSlabWin + pos) * PITCH + cb / 4 + g * W, bw);
 #pragma unroll
         for (int v = 0; v < W; ++v) {
-          const uint32_t c = slab_codes<LUT>(aw[v], bw[v], fields);
-          code[i][v] = LUT ? nq42_grid(c, wide) : c;
+          if constexpr (LAYOUT == kByte || SW == 2)
+            code[i][v] = aw[v];  // byte: the codes; nib4 decode tile: decoded after the transpose
+          else if constexpr (LAYOUT == kLut4)
+            code[i][v] = lut4_grid(nib4_codes(aw[v], slab), tab);
+          else if constexpr (LAYOUT == kLut6)
+            code[i][v] = nq42_grid(slab_codes<true>(aw[v], bw[v], fields), wide);
+          else
+            code[i][v] = slab_codes<false>(aw[v], bw[v], fields);
         }
       }
 #pragma unroll
       for (int v = 0; v < W; ++v) {
         const uint32_t rows4[4] = {code[0][v], code[1][v], code[2][v], code[3][v]};
-        uint32_t col[4];
-        transpose4x4(rows4, col);
-        afr[2 * v][2 * q] = col[0];
-        afr[2 * v][2 * q + 1] = col[1];
-        afr[2 * v + 1][2 * q] = col[2];
-        afr[2 * v + 1][2 * q + 1] = col[3];
+        uint32_t col[SW][4];
+        transpose4x4(rows4, col[0]);
+        if constexpr (SW == 2)  // both slabs' codes of the packed bytes, now per channel
+#pragma unroll
+          for (int j = 0; j < 4; ++j) lut4_grid2(col[0][j], tab, col[0][j], col[1][j]);
+#pragma unroll
+        for (int sw = 0; sw < SW; ++sw) {
+          afr[sw][2 * v][2 * q] = col[sw][0];
+          afr[sw][2 * v][2 * q + 1] = col[sw][1];
+          afr[sw][2 * v + 1][2 * q] = col[sw][2];
+          afr[sw][2 * v + 1][2 * q + 1] = col[sw][3];
+        }
       }
     }
-    // B fragments: token 8 nt + g, slab rows 8t..8t+7 of each plane
-    uint32_t xb[2][NT][2];
+    // B fragments: token 8 nt + g, rows 8t..8t+7 of each plane of each slab
+    uint32_t xb[SW][2][NT][2];
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
+    for (int sw = 0; sw < SW; ++sw)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint2 v = *reinterpret_cast<const uint2*>(
-            base + T::W_BYTES + ((slab * 2 + p) * MT + 8 * nt + g) * kSlabWin + 8 * t);
-        xb[p][nt][0] = v.x;
-        xb[p][nt][1] = v.y;
-      }
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int xs = part * S + slab + sw;
+          const uint2 v = *reinterpret_cast<const uint2*>(
+              base + T::W_BYTES + ((xs * 2 + p) * MT + 8 * nt + g) * kSlabWin + 8 * t);
+          xb[sw][p][nt][0] = v.x;
+          xb[sw][p][nt][1] = v.y;
+        }
 
     int r = rw, gi = gi_w, gend = gend_w;
     while (r < rend) {
@@ -596,35 +728,41 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
         keep1 = row0 + 4 >= r && row0 + 4 < se ? 0xFFFFFFFFu : 0u;
       }
 #pragma unroll
-      for (int c = 0; c < CT; ++c)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int p = 0; p < 2; ++p)
-            mma_s8(ia[c][nt][p], afr[c], xb[p][nt][0] & keep0, xb[p][nt][1] & keep1);
-      if (se == gend || se == k1) {  // the group (or the block's share of it) ends
-        if (r != rw) load_sides(gi);
-        const bool first = gi * G >= k0;  // this block holds the group's first row
+      for (int sw = 0; sw < SW; ++sw)
 #pragma unroll
         for (int c = 0; c < CT; ++c)
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int h = i / 2, u = i % 2;  // D row half (channel), column (token)
-              const float part = (float)ia[c][nt][0][i] * 256.f + (float)ia[c][nt][1][i];
-              if (LUT) {
-                acc[c][nt][i] = acc[c][nt][i] + part * (sc[c][h] * mult);
-                if (has_z && first) acc[c][nt][i] = acc[c][nt][i] + xs_f[nt][u] * zc[c][h];
-              } else if (first) {
-                acc[c][nt][i] =
-                    acc[c][nt][i] + part * sc[c][h] - xs_f[nt][u] * (sc[c][h] * zc[c][h]);
-              } else {
-                acc[c][nt][i] = acc[c][nt][i] + part * sc[c][h];
+            for (int p = 0; p < 2; ++p)
+              mma_s8(ia[sw][c][nt][p], afr[sw][c], xb[sw][p][nt][0] & keep0,
+                     xb[sw][p][nt][1] & keep1);
+      if (se == gend || se == pk1) {  // the group (or the part's share of it) ends
+        if (r != rw) load_sides(gi);
+        const bool first = gi * G >= pk0;  // this part holds the group's first row
+#pragma unroll
+        for (int sw = 0; sw < SW; ++sw)
+#pragma unroll
+          for (int c = 0; c < CT; ++c)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int h = i / 2, u = i % 2;  // D row half (channel), column (token)
+                const float part_f =
+                    (float)ia[sw][c][nt][0][i] * 256.f + (float)ia[sw][c][nt][1][i];
+                const float sv = sc[sw][c][h], zv = zc[sw][c][h];
+                if (LUT) {
+                  acc[c][nt][i] = acc[c][nt][i] + part_f * (sv * mult);
+                  if (has_z && first) acc[c][nt][i] = acc[c][nt][i] + xs_f[sw][nt][u] * zv;
+                } else if (first) {
+                  acc[c][nt][i] = acc[c][nt][i] + part_f * sv - xs_f[sw][nt][u] * (sv * zv);
+                } else {
+                  acc[c][nt][i] = acc[c][nt][i] + part_f * sv;
+                }
+                ia[sw][c][nt][0][i] = 0;
+                ia[sw][c][nt][1][i] = 0;
               }
-              ia[c][nt][0][i] = 0;
-              ia[c][nt][1][i] = 0;
-            }
       }
       r = se;
       if (se == gend) {
@@ -634,7 +772,7 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
     }
   }
 
-  // the slabs' partials meet in shared memory: [slab][token][64 + 1]
+  // the groups' partials meet in shared memory: [group][token][BN + 1]
   cp_async_wait<0>();
   __syncthreads();
   float* red = reinterpret_cast<float*>(slab_smem);
@@ -647,14 +785,14 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
       for (int i = 0; i < 4; ++i) {
         const int ch = cb + 4 * (g * W + c / 2) + 2 * (c % 2) + i / 2;
         const int tok = 8 * nt + 2 * t + i % 2;
-        red[(slab * MT + tok) * RP + ch] = acc[c][nt][i];
+        red[(grp * MT + tok) * RP + ch] = acc[c][nt][i];
       }
   __syncthreads();
   for (int i = tid; i < MT * BN; i += NTH) {
     const int tok = i / BN, ch = i % BN;
     float v = 0.f;
 #pragma unroll
-    for (int sl = 0; sl < S; ++sl) v += red[(sl * MT + tok) * RP + ch];
+    for (int pr = 0; pr < V; ++pr) v += red[(pr * MT + tok) * RP + ch];
     const int m = m0 + tok, n = n_blk + ch;
     if (gridDim.z > 1) {
       if (m < M && n < N) ws[((size_t)blockIdx.z * M + m) * N + n] = v;
@@ -756,24 +894,29 @@ cudaError_t launch_slab_mma_nt(const int8_t* xq, const int* xsum, int M, const v
 // The whole call: row pass, tensor-core partial products, reduce.  x is
 // [M, k_logical] contiguous; xq (slab_planes_bytes, then the sums), sx [M]
 // f32 and ws [splits, M, N] are scratch from the wrapper.  Kb is the slab
-// rows: the B rows K/8 (s21) or the quad rows K/4 (nq42); qw is [3 Kb, N].
-// kc is a multiple of 32.  exp_bits, mant_bits: the nq42 format (E1M4 or
-// E2M3); its z may be null.
+// rows: K (byte), K/2 (nib4), the B rows K/8 (s21) or the quad rows K/4
+// (nq42); qw is [Kb, N] (byte, nib4) or [3 Kb, N].  kc is a multiple of
+// 32 P (SlabTile::P).  exp_bits, mant_bits: the LUT format (nib4: fp4,
+// E + M = 3; nq42: E1M4 or E2M3); its z may be null.
 template <int LAYOUT>
 int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps,
                    const void* qw, const void* s, long long s_rs, long long s_cs,
                    const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
                    void* ws, void* out, int M, int N, int n_out, int Kb, int G, int kc,
                    int splits, void* stream, int exp_bits = 0, int mant_bits = 0) {
-  static_assert(LAYOUT == kS21 || LAYOUT == kLut6, "a slab layout");
-  constexpr bool LUT = LAYOUT == kLut6;
-  constexpr int S = LUT ? 4 : 8;
+  static_assert(LAYOUT == kByte || LAYOUT == kS21 || LAYOUT == kLut4 || LAYOUT == kLut6,
+                "a slab layout");
+  constexpr bool LUT = LAYOUT == kLut4 || LAYOUT == kLut6;
+  constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
+  constexpr int S = SlabTile<LAYOUT, 1>::S, P = SlabTile<LAYOUT, 1>::P;
+  static_assert(SlabTile<LAYOUT, NT_WIDE>::P == P, "one part count a layout");
   if (M <= 0 || N <= 0 || N % 4 || n_out > N || Kb <= 0 || Kb % 4 || G <= 0 || G % 4 ||
-      Kb % G || kc <= 0 || kc % kSlabWin || splits <= 0 || (long long)kc * splits < Kb ||
-      (long long)kc * (splits - 1) >= Kb || k_logical <= 0 || k_logical > S * Kb ||
-      (!LUT && z == nullptr) || s_cs < 0 || s_cs > (1 << 24) || z_cs < 0 ||
-      z_cs > (1 << 24) ||
-      (LUT && (exp_bits < 1 || exp_bits > 2 || exp_bits + mant_bits != 5)))
+      Kb % G || kc <= 0 || kc % (kSlabWin * P) || splits <= 0 ||
+      (long long)kc * splits < Kb || (long long)kc * (splits - 1) >= Kb || k_logical <= 0 ||
+      k_logical > S * Kb || (!LUT && z == nullptr) || s_cs < 0 || s_cs > (1 << 24) ||
+      z_cs < 0 || z_cs > (1 << 24) ||
+      (LAYOUT == kLut4 && (exp_bits < 1 || mant_bits < 0 || exp_bits + mant_bits != 3)) ||
+      (LAYOUT == kLut6 && (exp_bits < 1 || exp_bits > 2 || exp_bits + mant_bits != 5)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* planes = static_cast<int8_t*>(xq);
@@ -781,7 +924,6 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
       ? nullptr : reinterpret_cast<int*>(planes + slab_planes_bytes(M, S, Kb));
   cudaError_t err = rows_slab(x, x_bf16, k_logical, S, Kb, G, norm, eps, xq, sx, xsum, M, st);
   if (err != cudaSuccess) return (int)err;
-  constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
   err = slab_tile_nt(M, LAYOUT) == 1
       ? launch_slab_mma_nt<LAYOUT, 1>(planes, xsum, M, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws,
                                       out, sx, x_bf16, N, n_out, Kb, G, kc, splits, exp_bits,
@@ -809,7 +951,8 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
 extern "C" int iwoq_quantize_rows_slab(const void* x, int x_bf16, int k_logical, int slabs,
                                        int Kb, int G, int norm, float eps, void* xq, void* sx,
                                        void* xsum, int M, void* stream) {
-  if (M <= 0 || k_logical <= 0 || (slabs != 4 && slabs != 8) || Kb <= 0 ||
+  if (M <= 0 || k_logical <= 0 || (slabs != 1 && slabs != 2 && slabs != 4 && slabs != 8) ||
+      Kb <= 0 ||
       k_logical > slabs * Kb || G <= 0 || Kb % G)
     return (int)cudaErrorInvalidValue;
   return (int)iwoq::rows_slab(x, x_bf16, k_logical, slabs, Kb, G, norm, eps, xq, sx,

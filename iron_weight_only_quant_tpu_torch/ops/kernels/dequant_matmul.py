@@ -9,13 +9,14 @@ f32 side info, per storage layout:
                 ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``;
   byte (int8, bfp8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
                 (design notes in ``csrc/w8_common.cuh``),
-                ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu``;
+                ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu`` (design
+                notes in ``csrc/wa_slab_mma.cuh``);
   s21 (3-bit):  ``csrc/w3_matmul.cu`` (design notes in
                 ``csrc/w3_common.cuh``), ``csrc/w3a8_matmul.cu``,
-                ``csrc/w3a16_matmul.cu`` (design notes in
-                ``csrc/wa_slab_mma.cuh``);
+                ``csrc/w3a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
   LUT nib4 (4-bit minifloat): ``csrc/lut4_matmul.cu`` (design notes in
-                ``csrc/lut_common.cuh``), ``csrc/lut4a16_matmul.cu``;
+                ``csrc/lut_common.cuh``), ``csrc/lut4a16_matmul.cu``
+                (``csrc/wa_slab_mma.cuh``);
   LUT nq42 (fp6 when K % 4 == 0): ``csrc/lut6_matmul.cu``,
                 ``csrc/lut6a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
   LUT byte (fp8, byte-per-code fp6): ``csrc/lut8_matmul.cu``.
@@ -32,10 +33,11 @@ the artifact's codebook) and computes ``w = val*s (+ z)``.  The
 ``activation_bits`` 8 or 16: a row pass quantizes x to one int8 plane (A8,
 ``sx = absmax/127``) or two (A16, ``x ~= sx*(256*hi + lo)``, ``sx =
 absmax/32512``), the product runs on integer codes, and the f32 result is
-scaled by the row's ``sx``.  The A16 kernels of the slab layouts (``w3a16``,
-``lut6a16``, :data:`SLAB_MMA`) run their products on the int8 tensor cores
-and take their own K-split plan (:func:`plan_slab_splits`); their row pass
-also writes each group's activation sum (:func:`activation_group_sums`).
+scaled by the row's ``sx``.  The A16 kernels but ``w4a16`` (``w8a16``,
+``w3a16``, ``lut4a16``, ``lut6a16``: :data:`SLAB_MMA`) run their products
+on the int8 tensor cores and take their own K-split plan
+(:func:`plan_slab_splits`); their row pass also writes each group's
+activation sum (:func:`activation_group_sums`).
 Under activation bits a ``pre_norm`` is applied to x before quantizing (in
 the row pass), as the JAX package does, so no prenorm kernel runs.  LUT
 artifacts take A16 where the format's exact values form an int8 grid (fp4 E2M1 and E1M2: ``lut4a16``; fp6 E2M3 in the nq42
@@ -165,10 +167,13 @@ _ARGTYPES_ROWS_SLAB = [  # iwoq_quantize_rows_slab, the slab kernels' row pass a
 _BLOCK_N, _TILE_M = 128, 8  # must match kBlockN / kTileM in w4_common.cuh
 _MIN_ROWS_PER_SPLIT = 64
 _BLOCKS_PER_SM = 3
-# the A16 slab kernels on the tensor cores (csrc/wa_slab_mma.cuh); the
-# window and the tile helpers below must match kSlabWin, SlabTile::BN and
-# slab_tile_nt there
-SLAB_MMA = (W3A16, LUT6A16)
+# the A16 kernels on the tensor cores (csrc/wa_slab_mma.cuh), each with
+# the slabs of its layout: K streams a packed row, row r of slab i holding K
+# column i*Kb + r.  The window, the parts and the tile helpers below must
+# match kSlabWin, SlabTile::P, SlabTile::BN and slab_tile_nt there; the slab
+# count names the layout.
+SLAB_MMA = {W8A16: 1, LUT4A16: 2, LUT6A16: 4, W3A16: 8}  # byte, nib4, nq42, s21
+SLAB_PARTS = {1: 4, 2: 2, 4: 1, 8: 1}  # slabs -> parts a block's warps split its range into
 SLAB_WINDOW = 32
 _SM_COUNT: Dict[int, int] = {}
 
@@ -576,32 +581,39 @@ def plan_splits(m: int, n: int, kp: int, sm_count: int) -> Tuple[int, int]:
 
 
 def slab_tile_m(m: int, slabs: int) -> int:
-    """Tokens a block of the slab A16 kernel: 8 at decode (M <= 8), else 16
-    (s21, 8 slabs) or 32 (nq42, 4 quarters)."""
+    """Tokens a block of the slab A16 kernel of the layout with ``slabs``
+    slabs: 8 at decode (M <= 8), else 16 (s21, 8 slabs) or 32."""
     return 8 if m <= 8 else 16 if slabs == 8 else 32
 
 
 def slab_block_n(m: int, slabs: int) -> int:
     """Output channels a block of the slab A16 kernel: at decode 64 (s21) or
-    128 (nq42), else 64."""
+    128 (byte, nib4, nq42), else 64."""
     return 64 if m > 8 or slabs == 8 else 128
 
 
 def plan_slab_splits(m: int, n: int, kb: int, slabs: int, sm_count: int) -> Tuple[int, int]:
     """(slab rows per K-split, number of K-splits) of the slab A16 kernel
-    for an [m, n] output over ``kb`` slab rows.
+    of the layout with ``slabs`` slabs (:data:`SLAB_MMA`) for an [m, n]
+    output over ``kb`` slab rows.
 
-    Every split starts on a window (32-row) boundary and the splits cover
-    the ``kb`` rows exactly once, ``[i * kc, min(kb, (i + 1) * kc))``.  K is
-    split about as far as needed to fill the card once (two blocks an SM at
-    decode, one beyond; a block count within half a block per SM of that is
-    not split further), from the shapes alone.
+    A block splits its range into ``P = SLAB_PARTS[slabs]`` parts over its
+    warps, each a whole number of windows (32 rows), so ``kc`` is a multiple
+    of ``32 * P``, and the splits cover the ``kb`` rows exactly once,
+    ``[i * kc, min(kb, (i + 1) * kc))``.  K is split about as far as
+    needed to fill the card's block slots once (two blocks an SM at decode,
+    one beyond), from the shapes alone: the layouts that decode their codes
+    take the nearest count of rounds (a second block on more SMs hides
+    their decode); the byte layout, which only streams its bytes, never
+    starts a partial second round, which would cost it a whole one.
     """
+    step = SLAB_WINDOW * SLAB_PARTS[slabs]
     base = math.ceil(n / slab_block_n(m, slabs)) * math.ceil(m / slab_tile_m(m, slabs))
-    want = math.floor((2 if m <= 8 else 1) * sm_count / base + 0.5)
-    windows = math.ceil(kb / SLAB_WINDOW)
-    splits = max(1, min(want, windows))
-    kc = SLAB_WINDOW * math.ceil(windows / splits)
+    slots = (2 if m <= 8 else 1) * sm_count
+    want = slots // base if slabs == 1 else math.floor(slots / base + 0.5)
+    steps = math.ceil(kb / step)
+    splits = max(1, min(want, steps))
+    kc = step * math.ceil(steps / splits)
     return kc, math.ceil(kb / kc)
 
 
@@ -751,7 +763,7 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     if m == 0:
         return out
     if name in SLAB_MMA:
-        kc, splits = plan_slab_splits(m, n, kp, slabs, _sm_count(dev))
+        kc, splits = plan_slab_splits(m, n, kp, SLAB_MMA[name], _sm_count(dev))
     else:
         kc, splits = plan_splits(m, n, kp, _sm_count(dev))
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
@@ -776,7 +788,7 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
                      m, n, n_out, kp, g, kc, splits, k_logical, eps, stream)
     else:
         if name in SLAB_MMA:  # the planes padded per slab, then the group sums
-            nbytes = slab_scratch_bytes(m, kp, slabs, g, zeros is not None)
+            nbytes = slab_scratch_bytes(m, kp, SLAB_MMA[name], g, zeros is not None)
             xq = torch.empty((nbytes,), dtype=torch.int8, device=dev)
         else:
             planes = 1 if activation_bits == 8 else 2
@@ -834,15 +846,15 @@ def quantize_activations_slab_kernel(x2: torch.Tensor, slabs: int, kb: int, g: i
     slabs*kb] int8, sx [M] f32, sums [M, slabs*kb/g] int32)`` for ``x2``
     ``[M, K]``, K <= slabs*kb (``pre_norm`` normalizes each row first).  The
     pass writes each slab padded to a multiple of 32 rows; the planes come
-    back in K order.  It is part of every ``w3a16``/``lut6a16`` launch; this
-    entry point exists to hold its codes and sums against
-    :func:`quantize_activations` and :func:`activation_group_sums` and is
-    not counted."""
+    back in K order.  It is part of every launch of a :data:`SLAB_MMA`
+    kernel (``slabs`` 1, 2, 4 or 8); this entry point exists to hold its
+    codes and sums against :func:`quantize_activations` and
+    :func:`activation_group_sums` and is not counted."""
     _check(x2.is_cuda and x2.dim() == 2 and x2.is_contiguous()
            and x2.dtype in (torch.bfloat16, torch.float32),
            "x must be a contiguous 2-D bf16/f32 CUDA tensor")
     m, k = x2.shape
-    _check(slabs in (4, 8) and 0 < k <= slabs * kb and m > 0 and g > 0 and kb % g == 0,
+    _check(slabs in SLAB_PARTS and 0 < k <= slabs * kb and m > 0 and g > 0 and kb % g == 0,
            f"slabs={slabs}, Kb={kb}, G={g}, K={k}, M={m}")
     dev = x2.device
     kb32 = math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW

@@ -575,9 +575,12 @@ def test_card_built_artifacts_equal_cpu_built(dev, spec):
 # (kernel, spec, K, N, quantize_tensor kwargs) of the slab A16 kernels
 # (csrc/wa_slab_mma.cuh): the main-path group, and the artifacts whose
 # groups or slabs are not a multiple of the kernel's 32-row window
+W8_SPEC = dataclasses.replace(SPECS["g128_asym"], bits=8)
 SLAB_A16 = {
     "w3a16": (dm.W3A16, W3_SPEC, 1024, 256, {}),
     "lut6a16": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g128_sym"], 1024, 256, {}),
+    "w8a16": (dm.W8A16, W8_SPEC, 1024, 256, {}),
+    "lut4a16": (dm.LUT4A16, LUT_SPECS["fp4_e2m1_g128_asym"][0], 1024, 256, {}),
 }
 SLAB_RAGGED = {  # Kb = 136 (w3) and Kq = 272 (fp6) at K = 1088; groups of 16 rows
     "w3_perchannel_asym_k1088": (dm.W3A16, dataclasses.replace(
@@ -592,6 +595,24 @@ SLAB_RAGGED = {  # Kb = 136 (w3) and Kq = 272 (fp6) at K = 1088; groups of 16 ro
     "fp6_npad_300": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g128_sym"], 1024, 300, {}),
     "fp6_kpad": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g128_sym"], 384, 256, dict(pad_k_to=512)),
     "w3_kpad": (dm.W3A16, W3_SPEC, 896, 256, dict(pad_k_to=1024)),
+    # the byte (K rows split in four parts a block) and nib4 (two slabs of
+    # K/2 rows, two parts) layouts: K = 1088 is 8.5 windows of 128 (byte)
+    # and 8.5 of 64 (nib4) rows
+    "w8_perchannel_asym_k1088": (dm.W8A16, dataclasses.replace(
+        SPECS["perchannel_sym"], bits=8, symmetric=False), 1088, 256, {}),
+    "w8_g16_asym": (dm.W8A16, dataclasses.replace(W8_SPEC, group_size=16), 1024, 256, {}),
+    "w8_npad_300": (dm.W8A16, W8_SPEC, 1024, 300, {}),
+    "w8_kpad": (dm.W8A16, W8_SPEC, 896, 256, dict(pad_k_to=1024)),
+    "bfp8_npad_300": (dm.W8A16, QuantSpec(fmt="bfp", bits=8, group_size=128), 1408, 300,
+                      dict(pad_n_to=512)),
+    "fp4_e2m1_perchannel_asym_k1088": (dm.LUT4A16, fp_spec(
+        "fp4", 2, 1, group_size=PER_CHANNEL, symmetric=False), 1088, 256, {}),
+    "fp4_e2m1_g16_sym": (dm.LUT4A16, fp_spec("fp4", 2, 1, group_size=16), 1024, 256, {}),
+    "fp4_e1m2_g64_sym": (dm.LUT4A16, LUT_SPECS["fp4_e1m2_g64_sym"][0], 1024, 256, {}),
+    "fp4_straddle_k1408": (dm.LUT4A16, LUT_SPECS["fp4_e2m1_g128_asym"][0], 1408, 128, {}),
+    "fp4_npad_300": (dm.LUT4A16, LUT_SPECS["fp4_e2m1_g128_asym"][0], 1024, 300, {}),
+    "fp4_kpad": (dm.LUT4A16, LUT_SPECS["fp4_e2m1_g128_asym"][0], 384, 256,
+                 dict(pad_k_to=512)),
 }
 SLAB_SIDES = {  # the side layouts of the earlier kernel tests
     "fp6_e2m3_g32_sym": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g32_sym"], 1024, 256, {}),
@@ -601,6 +622,10 @@ SLAB_SIDES = {  # the side layouts of the earlier kernel tests
         SPECS["perchannel_sym"], bits=3, symmetric=False), 1024, 256, {}),
     "w3_pertensor_sym": (dm.W3A16, dataclasses.replace(
         SPECS["pertensor_asym"], bits=3, symmetric=True), 1024, 256, {}),
+    "w8_g128_sym": (dm.W8A16, dataclasses.replace(SPECS["g128_sym"], bits=8), 1024, 256, {}),
+    "w8_pertensor_asym": (dm.W8A16, dataclasses.replace(SPECS["pertensor_asym"], bits=8),
+                          1024, 256, {}),
+    "fp4_e2m1_g128_sym": (dm.LUT4A16, LUT_SPECS["fp4_e2m1_g128_sym"][0], 1024, 256, {}),
 }
 
 
@@ -630,8 +655,10 @@ def test_slab_a16_kernel_matches_plain_token_tiles(dev, kern, m, dtype, pre_norm
 @pytest.mark.parametrize("case", list(SLAB_RAGGED) + list(SLAB_SIDES))
 def test_slab_a16_kernel_takes_ragged_groups_and_side_layouts(dev, case, m, dtype):
     """Groups and slabs that are not a multiple of the 32-row window (the
-    MMA's K then masks the activations outside the segment), N not a
-    multiple of 16 (4-byte copies), K padding, E1M4, and the side layouts."""
+    MMA's K then masks the activations outside the segment), ranges whose
+    last part ends early (byte, nib4), nib4 groups that straddle the K
+    halves, N not a multiple of 16 (4-byte copies), K padding, E1M4, fp4
+    E1M2, BFP8, and the side layouts."""
     _slab_call(dev, {**SLAB_RAGGED, **SLAB_SIDES}[case], m, dtype)
 
 
@@ -652,7 +679,8 @@ def test_slab_a16_stacked_kernel_reads_layer_2_of_3(dev, kern, m):
 @pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("slabs,kb,g", [(8, 128, 128), (8, 136, 136), (4, 272, 16),
-                                        (4, 1024, 128), (8, 1408, 128)])
+                                        (4, 1024, 128), (8, 1408, 128), (1, 1088, 1088),
+                                        (1, 1024, 128), (2, 704, 64), (2, 2048, 128)])
 def test_slab_row_pass_codes_and_sums_are_bit_equal_to_plain(dev, slabs, kb, g, dtype,
                                                              pre_norm):
     """The slab kernels' row pass: codes and row scales bit-equal to

@@ -1,9 +1,9 @@
 """The A16 slab kernels' host-side pieces against the JAX package.
 
-``w3a16_matmul`` and ``lut6a16_matmul`` (``csrc/wa_slab_mma.cuh``) run
-their products on the int8 tensor cores; what they compute is held to the
-plain versions on the card (``tests/test_torch_cuda.py``).  Here, on the
-CPU:
+``w8a16_matmul``, ``w3a16_matmul``, ``lut4a16_matmul`` and
+``lut6a16_matmul`` (``csrc/wa_slab_mma.cuh``) run their products on the
+int8 tensor cores; what they compute is held to the plain versions on the
+card (``tests/test_torch_cuda.py``).  Here, on the CPU:
 
 * the activation sums the row pass writes once per (token, group) -- the
   plain ``activation_group_sums`` of the port's planes -- equal ``256*Σxa +
@@ -15,7 +15,13 @@ CPU:
 * the kernel's arithmetic decode of 6-bit minifloat codes to their int8
   grid (``nq42_grid``), written out here word for word in numpy, equals
   ``_minifloat_int`` for every code of the formats ``a16_supported`` lets
-  through in the nq42 layout (E2M3, E1M4).
+  through in the nq42 layout (E2M3, E1M4);
+* the same for the byte (one slab of K rows, a block's range split in four
+  parts over its warps) and nib4 (two slabs of K/2 rows, two parts)
+  layouts: the group sums, the split plans with their parts at the 7B
+  shapes, and the 4-bit grid decodes (``lut4_grid``, ``lut4_grid2``:
+  byte-permute lookups and a sign select) for every fp4 format with an int8
+  grid.
 """
 
 import jax.numpy as jnp
@@ -148,3 +154,188 @@ def test_nq42_grid_decode_equals_minifloat_int(exp_bits, mant_bits):
         for i in range(4):
             byte = ((got >> np.uint32(8 * i)) & np.uint32(0xFF)).astype(np.uint8).view(np.int8)
             np.testing.assert_array_equal(byte, want[perm[:, i]])
+
+
+# ------------------------------------------------ the byte and nib4 layouts
+
+# id: (port spec, K, quantize_tensor kwargs) of the layouts the slab kernel
+# takes since w8a16 (byte: one slab of K rows) and lut4a16 (nib4: two slabs
+# of K/2 rows, the low nibbles, then the high ones) run on it
+SUM_CASES_BYTE_NIB4 = {
+    "byte_g128": (TQuantSpec(fmt="int", bits=8, group_size=128, symmetric=False), 1024, {}),
+    "byte_perchannel": (TQuantSpec(fmt="int", bits=8, group_size=PER_CHANNEL,
+                                   symmetric=False), 1088, {}),
+    "byte_g128_kpad": (TQuantSpec(fmt="int", bits=8, group_size=128, symmetric=False), 896,
+                       dict(pad_k_to=1024)),
+    "nib4_g128": (t_fp_spec("fp4", 2, 1, group_size=128, symmetric=False), 1024, {}),
+    "nib4_perchannel": (t_fp_spec("fp4", 2, 1, group_size=PER_CHANNEL, symmetric=False),
+                        1088, {}),
+    "nib4_g128_halves_straddle": (t_fp_spec("fp4", 2, 1, group_size=128, symmetric=False),
+                                  1408, {}),
+    "nib4_g64_kpad": (t_fp_spec("fp4", 1, 2, group_size=64), 384, dict(pad_k_to=512)),
+}
+
+
+@pytest.mark.parametrize("case", list(SUM_CASES_BYTE_NIB4))
+def test_byte_and_nib4_group_sums_equal_the_jax_xsum(case):
+    """As :func:`test_group_sums_equal_the_jax_xsum` for the byte and nib4
+    layouts, over the groups ``_launch`` derives (nib4: a group never
+    straddles the K halves; ``_nib4_groups`` splits those that do)."""
+    spec, k, kw = SUM_CASES_BYTE_NIB4[case]
+    qt = quantize_tensor(torch.from_numpy(_x((k, 64), seed=4, scale=0.05)), spec, **kw)
+    ks, rows = qt.k_stored, qt.scales.shape[0] - qt.side_pad
+    if dm.packed_bits(qt) == 8:
+        kb, g = ks, dm._byte_groups(ks, ks, rows)
+    else:
+        kb = ks // 2
+        g = dm._nib4_groups(ks, kb, rows, qt.scales, qt.zeros)[0]
+        assert kb % g == 0
+    x = _x((5, k), seed=5)
+    planes, _ = dm.quantize_activations(torch.from_numpy(x), 16)
+    planes = torch.nn.functional.pad(planes, (0, ks - k))
+    ours = dm.activation_group_sums(planes, g).numpy()
+
+    (xa, xb), m, *_ = j_dm._prep_x(jnp.asarray(x), k, 16)
+    xa = np.pad(np.asarray(xa)[:m].astype(np.int64), ((0, 0), (0, ks - k)))
+    xb = np.pad(np.asarray(xb)[:m].astype(np.int64), ((0, 0), (0, ks - k)))
+    want = (256 * xa.reshape(m, ks // g, g).sum(-1) + xb.reshape(m, ks // g, g).sum(-1))
+    np.testing.assert_array_equal(ours, want)
+    if g == kb:  # per-channel: one sum a slab
+        assert ours.shape == (5, ks // kb)
+
+
+SHAPES_7B = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
+             "down": (11008, 4096), "lm_head": (4096, 32256)}
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 512])
+@pytest.mark.parametrize("shape", list(SHAPES_7B))
+@pytest.mark.parametrize("kernel", [dm.W8A16, dm.LUT4A16])
+def test_byte_and_nib4_split_plans_cover_every_row_once(kernel, shape, m):
+    """The byte (Kb = K, down: 11008) and nib4 (Kb = K/2, down: 5504)
+    plans: every split, and every part of a split, starts on a window, the
+    splits cover the Kb rows once in order, and so do the parts of each
+    split; the plan depends on the shapes alone and passes the kernel's
+    checks."""
+    slabs = dm.SLAB_MMA[kernel]
+    k, n = SHAPES_7B[shape]
+    kb = k // (2 if slabs == 2 else 1)
+    kc, splits = dm.plan_slab_splits(m, n, kb, slabs, 132)
+    parts = dm.SLAB_PARTS[slabs]
+    assert kc % (dm.SLAB_WINDOW * parts) == 0 and splits >= 1
+    assert kc * splits >= kb > kc * (splits - 1)
+    kq = kc // parts
+    rows = []
+    for i in range(splits):
+        k0, k1 = i * kc, min(kb, (i + 1) * kc)
+        for p in range(parts):
+            p0, p1 = k0 + p * kq, min(k1, k0 + (p + 1) * kq)
+            assert p0 % dm.SLAB_WINDOW == 0
+            rows += range(p0, p1)
+    assert rows == list(range(kb))  # each row once, in order
+    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, slabs, 132)
+
+
+def _lut4_grid(c, tab):
+    """``lut4_grid`` of csrc/wa_slab_mma.cuh on uint32 words of four 4-bit
+    codes (one a byte), with ``tab`` its four table words."""
+    u32 = np.uint32
+    m = c & u32(0x07070707)
+    x = m | (m >> u32(4))
+    sel = _byte_perm(x, np.zeros_like(x), 0x0020)
+    sgn = _byte_sign_mask((c << u32(4)) & u32(0xFFFFFFFF))
+    pos = _byte_perm(np.full_like(c, tab[0]), np.full_like(c, tab[1]), sel)
+    neg = _byte_perm(np.full_like(c, tab[2]), np.full_like(c, tab[3]), sel)
+    return (pos & ~sgn) | (neg & sgn)
+
+
+def _prmt(x, y, s, sign_mode=True):
+    """``prmt`` in its generic mode: byte n of the result is byte ``s``
+    nibble n (its low three bits) of the eight bytes of ``y:x``, or, where
+    the nibble's bit 3 is set (and ``sign_mode``), that byte's sign bit
+    replicated; ``s`` per element or scalar.  ``__byte_perm`` is the form
+    without the sign mode."""
+    v = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    s = np.broadcast_to(np.asarray(s, dtype=np.uint64), v.shape)
+    out = np.zeros(v.shape, dtype=np.uint64)
+    for n in range(4):
+        nib = (s >> np.uint64(4 * n)) & np.uint64(15)
+        byte = (v >> (np.uint64(8) * (nib & np.uint64(7)))) & np.uint64(0xFF)
+        if sign_mode:
+            rep = np.where(byte & np.uint64(0x80), np.uint64(0xFF), np.uint64(0))
+            byte = np.where(nib & np.uint64(8), rep, byte)
+        out |= byte << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _byte_perm(x, y, s):
+    return _prmt(x, y, s, sign_mode=False)
+
+
+def _lut4_grid2(w, tab):
+    """``lut4_grid2`` of csrc/wa_slab_mma.cuh: the packed nib4 words ``w``
+    (bytes = four rows of one channel) -> (slab 0's, slab 1's) int8 grid
+    words, in row order."""
+    u32 = np.uint32
+    m = w & u32(0x77777777)
+    t = w ^ u32(0x80808080)
+    t4 = (t << u32(4)) & u32(0xFFFFFFFF)
+    v = []
+    for h, sel_sign in ((0, 0xD9C8), (1, 0xFBEA)):
+        sel = m >> u32(16) if h else m
+        sgn = _prmt(t4, t, sel_sign)
+        pos = _byte_perm(np.full_like(w, tab[0]), np.full_like(w, tab[1]), sel)
+        neg = _byte_perm(np.full_like(w, tab[2]), np.full_like(w, tab[3]), sel)
+        v.append((pos & ~sgn) | (neg & sgn))
+    return _byte_perm(v[0], v[1], 0x6420), _byte_perm(v[0], v[1], 0x7531)
+
+
+def _minifloat_int_c(code, e, m):
+    """``minifloat_int`` of csrc/lut_common.cuh, for one code."""
+    sign = (code >> (e + m)) & 1
+    expf = (code >> m) & ((1 << e) - 1)
+    mant_full = (int(expf != 0) << m) | (code & ((1 << m) - 1))
+    ival = mant_full << (max(expf, 1) - 1)
+    return -ival if sign else ival
+
+
+@pytest.mark.parametrize("exp_bits,mant_bits", [
+    (e, 3 - e) for e in (1, 2, 3) if dm._lut_a16_mult(FloatFormat(e, 3 - e)) is not None])
+def test_lut4_grid_decode_equals_minifloat_int(exp_bits, mant_bits):
+    """The nib4 kernel's decodes, written out word for word: the table of
+    codes 0..7 and their negations as the kernel builds it per thread; the
+    wide tiles take one slab's codes from a packed word (the low nibble, or
+    the MSB-flipped high nibble: ``nib4_codes``), then ``lut4_grid``; the
+    decode tile both slabs' at once from the word of one channel's four
+    packed rows (``lut4_grid2``).  Every code of every 4-bit format
+    ``_lut_a16_mult`` admits, in every byte of a word and both nibbles,
+    decodes to the byte of ``_minifloat_int`` and of the JAX
+    ``_minifloat_decode_int``."""
+    fmt = FloatFormat(exp_bits, mant_bits)
+    tab = [0, 0, 0, 0]
+    for c in range(8):
+        v = _minifloat_int_c(c, exp_bits, mant_bits) & 0xFF
+        tab[c // 4] |= v << (8 * (c % 4))
+        tab[2 + c // 4] |= ((-v) & 0xFF) << (8 * (c % 4))
+    codes = np.arange(16, dtype=np.int64)
+    want = dm._minifloat_int(torch.from_numpy(codes.astype(np.int32)), fmt).numpy()
+    np.testing.assert_array_equal(
+        want, np.asarray(j_dm._minifloat_decode_int(jnp.asarray(codes.astype(np.int32)),
+                                                    exp_bits, mant_bits)))
+    rng = np.random.default_rng(6)
+    lo = np.concatenate([np.roll(codes.reshape(4, 4), r, axis=1) for r in range(4)])
+    hi = rng.permutation(lo.reshape(-1)).reshape(lo.shape)  # other codes in the high nibbles
+    packed = (lo | ((hi ^ 8) << 4)).astype(np.uint32)  # the high nibble stored flipped
+    words = packed[:, 0] | (packed[:, 1] << 8) | (packed[:, 2] << 16) | (packed[:, 3] << 24)
+    for stream, logical in ((0, lo), (1, hi)):
+        c = ((words >> np.uint32(4 * stream)) & np.uint32(0x0F0F0F0F)) ^ np.uint32(
+            0x08080808 if stream else 0)
+        got = _lut4_grid(c.astype(np.uint32), tab)
+        for i in range(4):
+            byte = ((got >> np.uint32(8 * i)) & np.uint32(0xFF)).astype(np.uint8).view(np.int8)
+            np.testing.assert_array_equal(byte, want[logical[:, i]])
+    for stream, got in enumerate(_lut4_grid2(words.astype(np.uint32), tab)):
+        logical = (lo, hi)[stream]
+        for i in range(4):
+            byte = ((got >> np.uint32(8 * i)) & np.uint32(0xFF)).astype(np.uint8).view(np.int8)
+            np.testing.assert_array_equal(byte, want[logical[:, i]])
