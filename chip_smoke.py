@@ -106,7 +106,13 @@ models, whose kernels those paths do not carry but which add time, run
     ``w8a16_matmul``.  Then ``lut4a16_matmul`` (the nib4 LUT case of the
     slab kernel) on a per-channel asymmetric K=1088 artifact, fp4 groups of
     16 and a K=1408 g128 artifact (groups straddle the K halves: split in
-    two per call), and its SASS counts and registers, as in phase 12.
+    two per call), and its SASS counts and registers, as in phase 12.  The
+    bf16-x calls of ``lut4_matmul`` run on the bf16 tensor cores (the bf16
+    family of ``csrc/wa_slab_mma.cuh``; a ``pre_norm`` in its row pass),
+    the f32-x call on its CUDA-core kernel; the bf16 route is also checked
+    at M=8 and 64, with and without ``pre_norm``, on the same ragged
+    artifacts, fp4 E1M2 g64 and an x it must copy, and its SASS must hold
+    HMMA (or HGMMA).
 18. Two-layer 7B-width fp4 (also under A16) and fp8 logits, kernels vs
     the plain path on the CPU, as phase 3.
 19. FP4 full model: 32-layer 7B-width fp4 E2M1 g128 asymmetric model built
@@ -126,7 +132,8 @@ models, whose kernels those paths do not carry but which add time, run
     f32 x and a stacked call per kernel; E3M2 under A16 warns and launches
     ``lut6_matmul``.  Then ``lut6a16_matmul`` on E2M3 per-channel K=1088
     (K/4 = 272 slab rows), E2M3 groups of 16 and E1M4 g128 artifacts, and
-    its SASS counts and registers, as in phase 12.
+    its SASS counts and registers, as in phase 12; and the bf16 route of
+    ``lut6_matmul`` as in phase 17, on those artifacts and E3M2 g128.
 22. FP6 two-layer 7B-width logits (bf16/f32 activations and A16), kernels
     vs the plain path on the CPU, as phase 3.
 23. FP6 full model: 32-layer 7B-width fp6 E2M3 g128 symmetric model built
@@ -960,29 +967,40 @@ def phase_w3_kernels(torch, device, spec):
 def slab_kernel_report(name):
     """The static SASS counts (``build.sass``, counted by the probe's
     ``sass_counts``) and the ``-Xptxas -v`` registers and shared memory of
-    the kernels of an A16 slab library (``csrc/wa_slab_mma.cuh``); fails
-    unless the product kernels run their products on the tensor cores
-    (IMMA) with no ``__dp4a`` (IDP)."""
+    the slab kernels (``csrc/wa_slab_mma.cuh``) of a library: the A16 slab
+    kernels, or the bf16 route of ``lut4_matmul`` and ``lut6_matmul``; fails
+    unless the product kernels run their products on the tensor cores: the
+    int8 ones (IMMA) with no ``__dp4a`` (IDP), the bf16 ones (HMMA or
+    HGMMA)."""
     import re
 
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
     from iron_weight_only_quant_tpu_torch.probes.probe_w4_inner import sass_counts
 
-    layouts = {"1": "byte", "2": "s21", "3": "nib4", "4": "nq42"}  # wa_common.cuh Layout
+    # wa_common.cuh Layout
+    layouts = {"1": "byte", "2": "s21", "3": "nib4", "4": "nq42", "5": "nib4 bf16",
+               "6": "nq42 bf16"}
 
-    def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16> and the row pass
-        m = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb(\d)E", fn)
+    def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16, BZ> and the row passes
+        m = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", fn)
         if m:
             return (f"product {layouts.get(m.group(1), m.group(1))} NT={m.group(2)}"
-                    f"{'' if m.group(3) == '1' else ' 4-byte copies'}")
-        return "row pass" if "quantize_rows_slab" in fn else None
+                    f"{'' if m.group(3) == '1' else ' 4-byte copies'}"
+                    f"{' zeros' if m.group(4) == '1' else ''}")
+        if "rows_bf16_slab" in fn:
+            return "bf16 row pass"
+        return "row pass" if "quantize_rows_slab" in fn and name in dm.SLAB_MMA else None
 
-    counts = sass_counts(kbuild.sass(name), ops=("IMMA", "IGMMA", "IDP", "LDS", "LDGSTS",
-                                                  "PRMT", "LOP3"), key=key)
+    counts = sass_counts(kbuild.sass(name), ops=("IMMA", "IGMMA", "IDP", "HMMA", "HGMMA", "LDS",
+                                                  "LDGSTS", "PRMT", "LOP3", "HFMA2"), key=key)
     for k, c in sorted(counts.items()):
         print(f"  sass {name} {k}: " + " ".join(f"{op}={v}" for op, v in c.items() if v),
               flush=True)
-        if k.startswith("product") and (c["IMMA"] + c["IGMMA"] == 0 or c["IDP"] > 0):
+        if k.startswith("product") and "bf16" in k and c["HMMA"] + c["HGMMA"] == 0:
+            fail(f"{name} {k}: the bf16 products are not on the tensor cores: {c}")
+        if k.startswith("product") and "bf16" not in k and (
+                c["IMMA"] + c["IGMMA"] == 0 or c["IDP"] > 0):
             fail(f"{name} {k}: the products are not on the tensor cores: {c}")
     if not any(k.startswith("product") for k in counts):
         fail(f"{name}: no wa_slab_mma_kernel in its SASS")
@@ -1013,6 +1031,37 @@ def check_slab_ragged(torch, device, specs, seed):
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn((m, k), generator=gen, device=device).to(dtype)
                 check_call(torch, f"{kname}:{label}:M={m}", qt, x, *a_runner(None, 16))
+        del qt
+    torch.cuda.empty_cache()
+
+
+def check_lut_mma_ragged(torch, device, specs, seed):
+    """The bf16 route of ``lut4_matmul`` / ``lut6_matmul`` (the bf16 family of
+    ``csrc/wa_slab_mma.cuh``) on artifacts whose groups or slabs are not a
+    multiple of its 32-row window (``specs``: label -> (spec, K)), N = 4096,
+    at M = 8 and 64, with and without ``pre_norm`` (in its row pass), and on
+    an x 2 bytes off a 16-byte boundary (which the row pass copies), against
+    the plain version."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for label, (spec, k) in specs.items():
+        qt = make_artifact(torch, gen, spec, k, (4096,), device)[0]
+        kname = dm.kernel_name(qt)
+        if kname not in dm.LUT_MMA or not dm.lut_mma_route(qt, torch.bfloat16):
+            fail(f"{label}: the artifact does not take the bf16 route ({kname})")
+        for m in (DECODE_M, 64):
+            for pre in (None, 1e-5):
+                x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+                check_call(torch, f"{kname}:{label}:M={m}{':pre_norm' if pre else ''}", qt, x,
+                           *a_runner(pre, None))
+        x = torch.empty((DECODE_M * k + 1,), dtype=torch.bfloat16, device=device)[1:]
+        x = x.view(DECODE_M, k)
+        x.copy_(torch.randn((DECODE_M, k), generator=gen, device=device))
+        if not dm.x_needs_copy(x, k // dm.LUT_MMA[kname]):
+            fail(f"{label}: the unaligned x is read in place")
+        check_call(torch, f"{kname}:{label}:unaligned_x", qt, x, *a_runner(None, None))
         del qt
     torch.cuda.empty_cache()
 
@@ -1490,6 +1539,16 @@ def main() -> int:
         "fp4_e2m1_g16_sym": (fp_spec("fp4", 2, 1, group_size=16), 4096),
         "fp4_e2m1_g128_asym_k1408_straddle": (fp4, 1408)}, 14)
     slab_kernel_report(dm.LUT4A16)
+    print("  -- lut4 bf16 route: ranges whose last part ends early, groups off the 32-row "
+          "window, groups straddling the K halves, E1M2, x copied; SASS and registers",
+          flush=True)
+    check_lut_mma_ragged(torch, device, {
+        "fp4_e2m1_perchannel_asym_k1088": (fp_spec("fp4", 2, 1, group_size=PER_CHANNEL,
+                                                   symmetric=False), 1088),
+        "fp4_e2m1_g16_sym": (fp_spec("fp4", 2, 1, group_size=16), 4096),
+        "fp4_e1m2_g64_sym": (fp_spec("fp4", 1, 2, group_size=64), 4096),
+        "fp4_e2m1_g128_asym_k1408_straddle": (fp4, 1408)}, 15)
+    slab_kernel_report(dm.LUT4)
 
     header("== phase 18: fp4 (also A16) and fp8 two-layer 7B-width logits, kernels vs "
            "plain path")
@@ -1534,6 +1593,15 @@ def main() -> int:
         "fp6_e1m4_g128_asym": (fp_spec("fp6", 1, 4, group_size=128, symmetric=False), 4096)},
         12)
     slab_kernel_report(dm.LUT6A16)
+    print("  -- lut6 bf16 route: groups and slabs off the 32-row window, E1M4, E3M2, x copied; "
+          "SASS and registers", flush=True)
+    check_lut_mma_ragged(torch, device, {
+        "fp6_e2m3_perchannel_asym_k1088": (fp_spec("fp6", 2, 3, group_size=PER_CHANNEL,
+                                                   symmetric=False), 1088),
+        "fp6_e2m3_g16_sym": (fp_spec("fp6", 2, 3, group_size=16), 4096),
+        "fp6_e1m4_g128_asym": (fp_spec("fp6", 1, 4, group_size=128, symmetric=False), 4096),
+        "fp6_e3m2_g128_asym": (e3m2, 4096)}, 16)
+    slab_kernel_report(dm.LUT6)
 
     header("== phase 22: fp6 two-layer 7B-width logits (also A16), kernels vs plain path")
     phase_two_layers(torch, device, fp6, cfg, abits_list=(None, 16), pad_k_to=FP6_PAD_K)

@@ -56,6 +56,12 @@
 // checks G | Kp), so stream h of row r uses group row r / G + h * Kp / G.
 // CUDA-core FMAs: the simple and correct first version, no tensor cores,
 // no TMA pipeline.
+//
+// Which calls run here: every call of lut8_matmul, and the f32-x calls of
+// lut4_matmul and lut6_matmul.  Their bf16-x calls take the bf16 family of
+// wa_slab_mma.cuh (bf16 products on the tensor cores), except the rare
+// shapes outside its rule (slab rows or group no multiple of 4), which
+// stay here (dequant_matmul.lut_mma_route).
 #pragma once
 
 #include "w8_common.cuh"

@@ -76,7 +76,9 @@
 
 namespace iwoq {
 
-enum Layout { kNib4 = 0, kByte = 1, kS21 = 2, kLut4 = 3, kLut6 = 4 };  // packed weight layouts
+// packed weight layouts; kLut4B and kLut6B are the nib4 and nq42 LUT layouts
+// with bf16 activations and bf16 products (wa_slab_mma.cuh's bf16 family)
+enum Layout { kNib4 = 0, kByte = 1, kS21 = 2, kLut4 = 3, kLut6 = 4, kLut4B = 5, kLut6B = 6 };
 constexpr int kRowThreads = 256;  // threads of the row pass, one block per row
 constexpr int kStageA = 512;      // packed K rows of int8 x staged at a time
 constexpr int kStageA3 = 256;     // s21: slab rows of int8 x staged at a time (all slabs)

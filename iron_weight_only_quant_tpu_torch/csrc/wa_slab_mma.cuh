@@ -2,7 +2,9 @@
 //   y[M,N] = sx[M] * ((256*hi + lo)[M,K] @ dequant(qw)[K,N]),
 // split-plane 16-bit activations against 8-bit (byte) or 3-bit (s21) affine
 // codes, or 4-bit (nib4) or 6-bit (nq42) minifloat codes decoded to their
-// exact int8 grid.
+// exact int8 grid; and its bf16 family (below) on the bf16 tensor cores,
+//   y[M,N] = x[M,K] @ dequant(qw)[K,N],  bf16 x, the nib4 and nq42 LUT
+// layouts, codes decoded to their exact bf16 values.
 //
 // Replaces the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -120,6 +122,51 @@
 // limits it is instruction issue in the decode (nq42 most: about 20 integer
 // operations a word of four codes) and, on small shapes, the fixed cost of
 // two or three kernels a call.
+//
+// The bf16 family (LAYOUT kLut4B, kLut6B: the bf16-x calls of lut4_matmul
+// and lut6_matmul).  Replaces _lut4_kernel (:739, pfx :1732) and
+// _lut6_kernel (:835, pfx :887, through _call_lut6 :939): per group acc +=
+// (x_g @ val_g) * s (+ xsum_g * z), _lut_accum (:724), with val the exact
+// minifloat value in x's dtype, contracted on the MXU with f32 sums.  Every
+// fp4 and fp6 value is exact in bf16, so a bf16 mma.sync m16n8k16 with f32
+// accumulation computes those products; the kernel is the pipeline above
+// (the same ring, windows split at group ends, parts, split plan, epilogue
+// per group, dependent launches) with these differences:
+//  - x stays bf16: the stage holds [part][slab][token][32 rows] of it, read
+//    by cp.async straight from x [M, S*Kb] (slab i's row r at column i*Kb +
+//    r, zero-filled beyond Kb), or from the copy a row pass made;
+//  - a row pass (rows_bf16_slab_kernel) runs only where the call needs one:
+//    with a pre-norm, to apply the weightless RMSNorm (f32 mean of squares,
+//    x*r rounded to bf16: the function of normalize-then-kernel) into a
+//    copy of x, and where x is not 16-byte aligned.  A call without a
+//    pre-norm is one kernel, or two with a K-split;
+//  - with zeros (template flag BZ), each warp sums the staged x of each
+//    segment it multiplies (f32, its B registers, two shuffles over the
+//    K lanes, two to bring the D columns' tokens), so every part adds the
+//    xsum * z term of its own rows, and no pass sums x beforehand (a
+//    development A/B: faster than the row pass's sums, and the same code
+//    freed the symmetric wide tile of its spills);
+//  - the decode: a lane still reads rows 8t..8t+7 of its channels and
+//    transposes them to per-channel words of four K-consecutive codes; each
+//    such word becomes two bf16 pairs, the A fragment of m16n8k16 q (rows
+//    8t+4q..8t+4q+3 in K slots 2t, 2t+1, 2t+8, 2t+9; B, one 16-byte load
+//    of the staged x, in the same order).  Values come from the format's
+//    widths, never from the codebook: codes_bf16 assembles value *
+//    2^(bias-127) bytewise (the exponent field on bf16's, subnormals on its
+//    subnormals) and multiplies by 2^(127-bias) (exact); the nib4 decode
+//    tile takes both slabs of a packed byte at once (lut4_bf16x2: prmt
+//    lookups of a table of the eight magnitudes' bf16 bytes, built from the
+//    widths, and prmt's sign mode);
+//  - each group's f32 MMA sum is the part; acc += part * s (+ xsum * z);
+//  - tiles: the decode tile (M <= 8) is its packed layout's (nib4: two slabs
+//    a warp, P = 2; nq42: one, P = 1; BN = 128, two blocks an SM); beyond,
+//    NT = 8 (64 tokens a block, one block an SM), two channel tiles a warp
+//    and the warps of a slab each their own channels (BN = 128 nib4, 64
+//    nq42), P = 1: each weight is decoded once a block, straight into the
+//    A fragments of the block's eight token tiles, so no shared decoded
+//    tile (nor ldmatrix) is needed.  Bound: at decode the bytes (codes + f32
+//    sides + bf16 x + output) over 3.35 TB/s; at prefill 2*M*K*N over 989
+//    TFLOP/s.
 #pragma once
 
 #include "wa_common.cuh"
@@ -137,21 +184,26 @@ constexpr int kSlabWin = 32;  // slab rows a window: one MMA's K
 // nib4 tile, two slabs a warp: 2), BN = 64 (s21) or 128, two blocks an SM
 // (each barrier stalls only its own block); wider token tiles: one block an
 // SM (their accumulators need more registers a thread; all but s21 then
-// take 2 tiles a warp, BN = 64).
+// take 2 tiles a warp, BN = 64).  The bf16 family (kLut4B, kLut6B) has the
+// decode tile of its packed layout and one wide tile, NT = 8 (64 tokens):
+// 2 tiles a warp, P = 1, the warps of a slab each their own channels (BN =
+// 128 nib4, 64 nq42), so a block decodes each weight once.
 template <int LAYOUT, int NT>
 struct SlabTile {
-  static constexpr int S = LAYOUT == kS21 ? 8 : LAYOUT == kLut6 ? 4 : LAYOUT == kLut4 ? 2 : 1;
-  static constexpr int A = LAYOUT == kS21 || LAYOUT == kLut6 ? 3 : 1;  // packed arrays
+  static constexpr bool BF = LAYOUT == kLut4B || LAYOUT == kLut6B;  // bf16 x and products
+  static constexpr int L = LAYOUT == kLut4B ? kLut4 : LAYOUT == kLut6B ? kLut6 : LAYOUT;  // packing
+  static constexpr int S = L == kS21 ? 8 : L == kLut6 ? 4 : L == kLut4 ? 2 : 1;
+  static constexpr int A = L == kS21 || L == kLut6 ? 3 : 1;  // packed arrays
   static constexpr int WARPS = 8;
   static constexpr int BLOCKS_PER_SM = NT == 1 ? 2 : 1;
   static constexpr int THREADS = WARPS * kLanes;
   // slabs a warp decodes from one staged word: the nib4 LUT decode tile
   // takes both nibbles of a byte at once (one load, one transpose)
-  static constexpr int SW = LAYOUT == kLut4 && NT == 1 ? 2 : 1;
-  static constexpr int WS = LAYOUT == kS21 ? 1 : SW == 2 ? 4 : 2;  // warps a group
+  static constexpr int SW = L == kLut4 && NT == 1 ? 2 : 1;
+  static constexpr int WS = BF && NT > 1 ? WARPS / S : L == kS21 ? 1 : SW == 2 ? 4 : 2;  // warps a group
   static constexpr int P = WARPS / (S / SW * WS);        // parts of the block's K range
   static constexpr int V = S / SW * P;                   // groups: SW slabs of a part
-  static constexpr int CT = LAYOUT == kS21 || (NT == 1 && SW == 1) ? 4 : 2;  // MMA channel tiles a warp
+  static constexpr int CT = L == kS21 || (NT == 1 && SW == 1) ? 4 : 2;  // MMA channel tiles a warp
   static constexpr int W = CT / 2;                       // packed words a lane reads a row
   static constexpr int BN = 16 * CT * WS;                // channels a block
   static constexpr int MT = 8 * NT;                      // tokens a block
@@ -160,7 +212,8 @@ struct SlabTile {
   // 24, 16 and 8 banks apart (BN / 4 is 16 or 32).
   static constexpr int PITCH = BN / 4 + 8;
   static constexpr int W_BYTES = A * P * kSlabWin * PITCH * 4;  // [array or part][32 rows]
-  static constexpr int X_BYTES = S * P * 2 * MT * kSlabWin;    // [part][slab][plane][token][32]
+  // int8 [part][slab][plane][token][32]; bf16 [part][slab][token][32] of 2 bytes
+  static constexpr int X_BYTES = S * P * 2 * MT * kSlabWin;
   static constexpr int STAGE = W_BYTES + X_BYTES;
   static constexpr int RED = V * MT * (BN + 1) * 4;            // f32 [group][token][BN + 1]
   static constexpr int SMEM = STAGES * STAGE > RED ? STAGES * STAGE : RED;
@@ -173,7 +226,7 @@ struct SlabTile {
 // Tokens a block of the slab kernel (must match slab_tile_m, and the tile's
 // BN and P slab_block_n and SLAB_PARTS, in ops/kernels/dequant_matmul.py).
 __host__ __device__ constexpr int slab_tile_nt(int M, int layout) {
-  return M <= 8 ? 1 : layout == kS21 ? 2 : 4;
+  return M <= 8 ? 1 : layout == kS21 ? 2 : layout == kLut4B || layout == kLut6B ? 8 : 4;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -320,6 +373,88 @@ __device__ __forceinline__ void lds_words(const uint32_t* p, uint32_t (&w)[W]) {
   }
 }
 
+// ---- the bf16 family: minifloat codes to their exact bf16 values
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a * b of two bf16 pairs (an fma with -0, which keeps every product, -0
+// and subnormal inputs included, exact where it is representable).
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(0x80008000u));
+  return r;
+}
+
+// The widths-based decode of minifloat codes (one a byte: sign bit SB = E +
+// M, then E exponent and M mantissa bits) to bf16: the magnitude bits
+// shifted by sh = 7 - M are the bf16 of value * 2^(bias - 127), the
+// exponent field landing on bf16's (subnormals on its subnormals), and one
+// exact product by 2^(127 - bias) gives the value.  The bf16 is built
+// bytewise: lo = the bits that stay in the low byte, hi = those above it
+// (mhi: E - 1 bits) and the sign.
+struct Bf16Dec {
+  int sh, ssh;          // magnitude shift; the sign's shift to bit 7
+  uint32_t mlo, mhi;    // per-byte masks of the low and high bf16 bytes
+  uint32_t mult;        // 2^(127 - bias), twice
+};
+__device__ __forceinline__ Bf16Dec bf16_dec(int exp_bits, int mant_bits) {
+  const int sh = 7 - mant_bits, sb = exp_bits + mant_bits;
+  const uint32_t rep = 0x01010101u;
+  const uint32_t m = (uint32_t)(254 - ((1 << (exp_bits - 1)) - 1)) << 7;
+  return {sh, 7 - sb, ((0xFFu << sh) & 0xFFu) * rep, ((1u << (exp_bits - 1)) - 1u) * rep,
+          m | (m << 16)};
+}
+
+// Four codes (bytes of c, in K order) -> their bf16 values, pairs (0, 1)
+// and (2, 3).
+__device__ __forceinline__ void codes_bf16(uint32_t c, const Bf16Dec& d, uint32_t& p01,
+                                           uint32_t& p23) {
+  const uint32_t lo = (c << d.sh) & d.mlo;
+  const uint32_t hi = ((c >> (8 - d.sh)) & d.mhi) | ((c << d.ssh) & 0x80808080u);
+  p01 = bf16x2_mul(__byte_perm(lo, hi, 0x5140), d.mult);
+  p23 = bf16x2_mul(__byte_perm(lo, hi, 0x7362), d.mult);
+}
+
+// The bf16 bytes of the eight magnitudes of a 4-bit format, by the
+// widths-based bit assembly: words 0, 1 the low bytes, 2, 3 the high ones.
+__device__ __forceinline__ void lut4_bf16_table(int exp_bits, int mant_bits, uint32_t (&tab)[4]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const uint32_t b = __bfloat16_as_ushort(__float2bfloat16(minifloat_value(c, exp_bits,
+                                                                             mant_bits)));
+    tab[c / 4] |= (b & 0xFFu) << (8 * (c % 4));
+    tab[2 + c / 4] |= (b >> 8) << (8 * (c % 4));
+  }
+}
+
+// The eight 4-bit codes of a nib4 word w (bytes: four packed rows of one
+// channel, as lut4_grid2 takes them) -> their bf16 values, slab 0's rows
+// (0, 1) and (2, 3) in s0, slab 1's in s1: the magnitudes select the low
+// and the high bytes from tab (lut4_bf16_table), the signs (spread to bytes
+// by prmt's sign mode) set bit 7 of the high ones.
+__device__ __forceinline__ void lut4_bf16x2(uint32_t w, const uint32_t (&tab)[4], uint32_t (&s0)[2],
+                                            uint32_t (&s1)[2]) {
+  const uint32_t m = w & 0x77777777u;
+  const uint32_t t = w ^ 0x80808080u;  // slab 1's sign bits unflipped
+  const uint32_t t4 = t << 4;          // slab 0's sign bits at bit 7 of each byte
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // rows 2h, 2h + 1: bytes (row, slab) 00 01 10 11
+    const uint32_t sel = h ? m >> 16 : m;
+    const uint32_t sgn = prmt(t4, t, h ? 0xFBEAu : 0xD9C8u);
+    const uint32_t lo = __byte_perm(tab[0], tab[1], sel);
+    const uint32_t hi = __byte_perm(tab[2], tab[3], sel) | (sgn & 0x80808080u);
+    s0[h] = __byte_perm(lo, hi, 0x6240);
+    s1[h] = __byte_perm(lo, hi, 0x7351);
+  }
+}
+
 constexpr int kSlabRowThreads = 1024;  // threads of the slab row pass, one block a row
 
 // Sum (MAX=false) or maximum (MAX=true) of one value per thread of a
@@ -417,28 +552,71 @@ quantize_rows_slab_kernel(const XT* __restrict__ x, int ldx, int k_logical, int 
   }
 }
 
+// Row pass of the bf16 family, where a call needs one (a pre-norm, or x
+// that the product kernel cannot read in place): from x [M, ldx] bf16 (ldx
+// = S*Kb, zero beyond k_logical), optionally after the weightless RMSNorm
+// (f32 mean of squares over k_logical, r = 1/sqrt(ms + eps), x*r rounded to
+// bf16), the copy xs [M][S][Kb32] (slab i's rows r < Kb hold K column i*Kb
+// + r, the rest zero).
+template <bool NORM>
+__global__ void __launch_bounds__(kSlabRowThreads)
+rows_bf16_slab_kernel(const __nv_bfloat16* __restrict__ x, int ldx, int k_logical, int S, int Kb,
+                      int Kb32, float eps, __nv_bfloat16* __restrict__ xs) {
+  __shared__ float red[kSlabRowThreads / kLanes];
+  griddep_launch_dependents();  // the product kernel may start its weight copies
+  const int m = blockIdx.x;
+  const int t = threadIdx.x;
+  const __nv_bfloat16* xr = x + (size_t)m * ldx;
+  float r = 1.f;
+  if (NORM) {
+    float ss = 0.f;
+    for (int k = t; k < k_logical; k += kSlabRowThreads) {
+      const float v = __bfloat162float(xr[k]);
+      ss = fmaf(v, v, ss);
+    }
+    ss = block_reduce_warps<false>(ss, red);
+    r = 1.0f / sqrtf(ss / (float)k_logical + eps);
+  }
+  __nv_bfloat16* xo = xs + (size_t)m * S * Kb32;
+  for (int k = t; k < S * Kb32; k += kSlabRowThreads) {
+    const int sl = k / Kb32, row = k - sl * Kb32;
+    __nv_bfloat16 b = __float2bfloat16(0.f);
+    if (row < Kb)
+      b = NORM ? __float2bfloat16(__bfloat162float(xr[sl * Kb + row]) * r) : xr[sl * Kb + row];
+    xo[k] = b;
+  }
+}
+
 // Partial products of one (BN-channel, MT-token, K-split) block into ws;
 // with one split (gridDim.z == 1) the block finishes the output itself:
 // out [M, n_out] = cast(sx * sum), the reduce kernel's arithmetic.
-// xq: planes [2][M][S][Kb32]; xsum [M][S*Kb/G] (null: LUT without zeros).
+// xsrc: int8 planes [2][M][S][Kb32]; xsum [M][S*Kb/G] int32 (null: LUT
+// without zeros).  The bf16 family: xsrc bf16, token m's row r of slab i at
+// m * x_ld + i * x_ls + r (valid for r < Kb; x_ld, x_ls multiples of 8,
+// 16-byte aligned), no xsum (the kernel sums x itself where BZ: the
+// artifact has zeros, z not null), no sx, bf16 out.
 // qw [A Kb, N] bytes; kc a multiple of 32 P.  LUT: nib4 exp_bits +
-// mant_bits = 3; nq42 exp_bits 1 or 2, mant_bits 5 - exp_bits; z may be null.
-template <int LAYOUT, int NT, bool VEC16>
+// mant_bits = 3; nq42 exp_bits 1 or 2 (bf16: any E + M = 5), mant_bits 5 -
+// exp_bits; z may be null.
+template <int LAYOUT, int NT, bool VEC16, bool BZ = false>
 __global__ void __launch_bounds__(SlabTile<LAYOUT, NT>::THREADS,
                                   SlabTile<LAYOUT, NT>::BLOCKS_PER_SM)
-wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, int M,
+wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum, int M,
                    const uint8_t* __restrict__ qw,
                    const float* __restrict__ s, long long s_rs, long long s_cs,
                    const float* __restrict__ z, long long z_rs, long long z_cs,
                    float* __restrict__ ws, void* __restrict__ out,
                    const float* __restrict__ sx, int out_bf16, int N, int n_out, int Kb,
-                   int Kb32, int G, int kc, int exp_bits, int mant_bits) {
+                   int Kb32, int G, int kc, int exp_bits, int mant_bits, int x_ld, int x_ls) {
   using T = SlabTile<LAYOUT, NT>;
-  constexpr bool LUT = LAYOUT == kLut4 || LAYOUT == kLut6;
+  constexpr bool BF = T::BF;
+  constexpr int L = T::L;
+  constexpr bool LUT = L == kLut4 || L == kLut6;
   constexpr int S = T::S, A = T::A, P = T::P, V = T::V, SW = T::SW, CT = T::CT, W = T::W;
   constexpr int MT = T::MT;
   constexpr int BN = T::BN, NTH = T::THREADS, STAGES = T::STAGES, PITCH = T::PITCH;
   extern __shared__ __align__(16) uint8_t slab_smem[];
+  const int8_t* xq = static_cast<const int8_t*>(xsrc);
   const int tid = threadIdx.x;
   const int lane = tid % kLanes, warp = tid / kLanes;
   const int g = lane / 4, t = lane % 4;
@@ -454,30 +632,37 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
   const int pk0 = k0 + part * kq;       // the warp's part: rows [pk0, pk1)
   const int pk1 = min(k1, pk0 + kq);
   const int ngroups = S * (Kb / G);
-  const bool has_z = !LUT || z != nullptr;
+  const bool has_z = BF ? BZ : !LUT || z != nullptr;
   const uint32_t wide = exp_bits == 2 ? 0xFFFFFFFFu : 0u;  // nq42: E2M3 (else E1M4)
-  const float mult = LUT ? ldexpf(1.f, 1 - mant_bits - ((1 << (exp_bits - 1)) - 1)) : 1.f;
-  const SlabFields fields = slab_fields<LAYOUT == kLut6>(slab);
-  uint32_t tab[4] = {0u, 0u, 0u, 0u};  // nib4 LUT: grid bytes of codes 0..7, then negated
-  if constexpr (LAYOUT == kLut4) {
+  const float mult = LUT && !BF ? ldexpf(1.f, 1 - mant_bits - ((1 << (exp_bits - 1)) - 1)) : 1.f;
+  const SlabFields fields = slab_fields<L == kLut6>(slab);
+  // nib4 LUT: grid bytes of codes 0..7, then negated (int8); the bf16
+  // bytes of their values (bf16 decode tile)
+  uint32_t tab[4] = {0u, 0u, 0u, 0u};
+  if constexpr (L == kLut4 && !BF) {
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const uint32_t v = (uint32_t)minifloat_int(c, exp_bits, mant_bits) & 0xFFu;
       tab[c / 4] |= v << (8 * (c % 4));
       tab[2 + c / 4] |= ((0u - v) & 0xFFu) << (8 * (c % 4));
     }
+  } else if constexpr (BF && SW == 2) {
+    lut4_bf16_table(exp_bits, mant_bits, tab);
   }
+  Bf16Dec dec = {};
+  if constexpr (BF) dec = bf16_dec(exp_bits, mant_bits);
 
   // Copies of the block's windows, in order, into the ring: each thread its
   // share of weight chunks of CB bytes (16, or 4 where N or qw is not
   // 16-byte aligned), zero-filled at and beyond the range's end k1 and
   // beyond N, and of x chunks of 16 bytes, zero-filled for tokens beyond M
-  // (and, with parts, rows beyond k1).  Chunk i of a window is column chunk
-  // i % (BN / CB) of row (i / (BN / CB)) % 32 of array (or part) i / CPA.
-  // Where NTH is a multiple of CPA a thread's chunks share one row and
-  // column (array or part tid / CPA, then every NTH / CPA on), so it carries
-  // one source pointer and one row, stepped by a window (32 rows) per copy;
-  // otherwise (4-byte chunks) one of each per chunk.
+  // (and, with parts, rows beyond k1; bf16: rows beyond Kb).  Chunk i of a
+  // window is column chunk i % (BN / CB) of row (i / (BN / CB)) % 32 of
+  // array (or part) i / CPA.  Where NTH is a multiple of CPA a thread's
+  // chunks share one row and column (array or part tid / CPA, then every
+  // NTH / CPA on), so it carries one source pointer and one row, stepped by
+  // a window (32 rows) per copy; otherwise (4-byte chunks) one of each per
+  // chunk.
   constexpr int CB = VEC16 ? 16 : 4;
   constexpr int CPA = kSlabWin * (BN / CB);                // chunks an array a window
   constexpr int WTOTAL = A * P * CPA;                      // weight chunks a window
@@ -513,13 +698,25 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
 #pragma unroll
   for (int j = 0; j < XCH; ++j) {
     const int i = tid + j * NTH;
-    const int h = i % 2, tok = (i / 2) % MT, sp = i / (2 * MT);  // (part * S + slab) * 2 + plane
-    const int m = m0 + tok;
-    const int v = sp / 2, rows0 = k0 + (P == 1 ? 0 : v / S) * kq + 16 * h;
-    x_row[j] = rows0;
-    x_src[j] = i < XTOTAL && m < M
-        ? xq + (((size_t)(sp % 2) * M + m) * S + v % S) * Kb32 + rows0 : nullptr;
-    x_dst[j] = T::W_BYTES + (sp * MT + tok) * kSlabWin + 16 * h;
+    if constexpr (BF) {  // 16-byte quarter h of token tok's 32 rows of (part, slab) v
+      const int h = i % 4, tok = (i / 4) % MT, v = i / (4 * MT);
+      const int m = m0 + tok;
+      const int rows0 = k0 + (P == 1 ? 0 : v / S) * kq + 8 * h;
+      x_row[j] = rows0;
+      x_src[j] = i < XTOTAL && m < M
+          ? reinterpret_cast<const int8_t*>(static_cast<const __nv_bfloat16*>(xsrc) +
+                                            (size_t)m * x_ld + (size_t)(v % S) * x_ls + rows0)
+          : nullptr;
+      x_dst[j] = T::W_BYTES + (v * MT + tok) * 2 * kSlabWin + 16 * h;
+    } else {
+      const int h = i % 2, tok = (i / 2) % MT, sp = i / (2 * MT);  // (part * S + slab) * 2 + plane
+      const int m = m0 + tok;
+      const int v = sp / 2, rows0 = k0 + (P == 1 ? 0 : v / S) * kq + 16 * h;
+      x_row[j] = rows0;
+      x_src[j] = i < XTOTAL && m < M
+          ? xq + (((size_t)(sp % 2) * M + m) * S + v % S) * Kb32 + rows0 : nullptr;
+      x_dst[j] = T::W_BYTES + (sp * MT + tok) * kSlabWin + 16 * h;
+    }
   }
   auto load_weights = [&](int st) {  // the next window's weight rows
     const uint32_t base = smem0 + st * T::STAGE;
@@ -546,17 +743,25 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
 #pragma unroll
     for (int j = 0; j < XCH; ++j) {
       if (XTOTAL % NTH == 0 || tid + j * NTH < XTOTAL) {
-        // with parts, a range's last part may end before its windows do
-        const bool in = x_src[j] != nullptr && (P == 1 || x_row[j] < k1);
-        cp_async16(base + x_dst[j], in ? x_src[j] : xq, in ? 16 : 0);
-        if (in) x_src[j] += kSlabWin;
+        if constexpr (BF) {  // 8 rows a chunk, rows of the slab only (Kb % 4 == 0)
+          const int bytes = x_src[j] != nullptr ? 2 * min(8, max(0, Kb - x_row[j])) : 0;
+          cp_async16(base + x_dst[j], bytes ? x_src[j] : static_cast<const int8_t*>(xsrc), bytes);
+          if (x_src[j] != nullptr) x_src[j] += 2 * kSlabWin;
+        } else {
+          // with parts, a range's last part may end before its windows do
+          const bool in = x_src[j] != nullptr && (P == 1 || x_row[j] < k1);
+          cp_async16(base + x_dst[j], in ? x_src[j] : xq, in ? 16 : 0);
+          if (in) x_src[j] += kSlabWin;
+        }
         x_row[j] += kSlabWin;
       }
     }
   };
 
   float acc[CT][NT][4];
-  int ia[SW][CT][NT][2][4];  // per slab of the warp, per plane (hi, lo), per group
+  // per slab of the warp, per group: int8: per plane (hi, lo) int32; bf16: f32
+  int ia[SW][CT][NT][BF ? 1 : 2][4];
+  float pf[SW][CT][NT][BF ? 4 : 1];
 #pragma unroll
   for (int c = 0; c < CT; ++c)
 #pragma unroll
@@ -566,12 +771,17 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
         acc[c][nt][i] = 0.f;
 #pragma unroll
         for (int sw = 0; sw < SW; ++sw) {
-          ia[sw][c][nt][0][i] = 0;
-          ia[sw][c][nt][1][i] = 0;
+          if constexpr (BF) {
+            pf[sw][c][nt][i] = 0.f;
+          } else {
+            ia[sw][c][nt][0][i] = 0;
+            ia[sw][c][nt][1][i] = 0;
+          }
         }
       }
   // the ending segment's sides and sums, per slab of the warp
   float sc[SW][CT][2], zc[SW][CT][2], xs_f[SW][NT][2];
+  float xk[SW][NT][2] = {};  // bf16 with zeros: the segment's sums of x, per token
 
   // Scales and zeros of group gi of the warp's slabs for the lane's
   // channels, and the group's activation sums of its tokens where this
@@ -609,13 +819,15 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
             zc[sw][c][h] = ok && has_z ? __ldg(zp + j * zcs) : 0.f;
           }
       }
-      if (has_z && gi * G >= pk0) {
+      if (!BF && has_z && gi * G >= pk0) {
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int m = m0 + 8 * nt + 2 * t + u;
-            xs_f[sw][nt][u] = m < M ? (float)__ldg(xsum + (size_t)m * ngroups + grow) : 0.f;
+            xs_f[sw][nt][u] =
+                m < M ? (float)__ldg(static_cast<const int*>(xsum) + (size_t)m * ngroups + grow)
+                      : 0.f;
           }
       }
     }
@@ -663,8 +875,11 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
     // the staged rows of the warp's codes: its A (nibble) array, or its part
     const int arow = A == 1 ? part : slab % 2;
 
-    // A fragments: rows 8t..8t+7 of the lane's 4 W channels, per slab
-    uint32_t afr[SW][CT][4];
+    // A fragments: rows 8t..8t+7 of the lane's 4 W channels, per slab;
+    // int8: one m16n8k32 (MMA K slots 4t..4t+3, 16+4t..16+4t+3: rows
+    // 8t..8t+7); bf16: MMA q (m16n8k16) takes rows 8t+4q..8t+4q+3 (K slots
+    // 2t, 2t+1: rows +0, +1; 2t+8, 2t+9: rows +2, +3)
+    uint32_t afr[SW][CT][BF ? 2 : 1][4];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       uint32_t code[4][W];
@@ -676,11 +891,15 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
         if constexpr (A == 3) lds_words<W>(wst + (2 * kSlabWin + pos) * PITCH + cb / 4 + g * W, bw);
 #pragma unroll
         for (int v = 0; v < W; ++v) {
-          if constexpr (LAYOUT == kByte || SW == 2)
+          if constexpr (L == kByte || SW == 2)
             code[i][v] = aw[v];  // byte: the codes; nib4 decode tile: decoded after the transpose
-          else if constexpr (LAYOUT == kLut4)
+          else if constexpr (BF && L == kLut4)
+            code[i][v] = nib4_codes(aw[v], slab);
+          else if constexpr (BF)
+            code[i][v] = slab_codes<true>(aw[v], bw[v], fields);
+          else if constexpr (L == kLut4)
             code[i][v] = lut4_grid(nib4_codes(aw[v], slab), tab);
-          else if constexpr (LAYOUT == kLut6)
+          else if constexpr (L == kLut6)
             code[i][v] = nq42_grid(slab_codes<true>(aw[v], bw[v], fields), wide);
           else
             code[i][v] = slab_codes<false>(aw[v], bw[v], fields);
@@ -691,32 +910,51 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
         const uint32_t rows4[4] = {code[0][v], code[1][v], code[2][v], code[3][v]};
         uint32_t col[SW][4];
         transpose4x4(rows4, col[0]);
-        if constexpr (SW == 2)  // both slabs' codes of the packed bytes, now per channel
+        if constexpr (BF) {  // channel 4v + j: MMA row g + 8 (j % 2) of tile 2v + j / 2
 #pragma unroll
-          for (int j = 0; j < 4; ++j) lut4_grid2(col[0][j], tab, col[0][j], col[1][j]);
+          for (int j = 0; j < 4; ++j) {
+            uint32_t d[SW][2];
+            if constexpr (SW == 2)
+              lut4_bf16x2(col[0][j], tab, d[0], d[1]);
+            else
+              codes_bf16(col[0][j], dec, d[0][0], d[0][1]);
 #pragma unroll
-        for (int sw = 0; sw < SW; ++sw) {
-          afr[sw][2 * v][2 * q] = col[sw][0];
-          afr[sw][2 * v][2 * q + 1] = col[sw][1];
-          afr[sw][2 * v + 1][2 * q] = col[sw][2];
-          afr[sw][2 * v + 1][2 * q + 1] = col[sw][3];
+            for (int sw = 0; sw < SW; ++sw) {
+              afr[sw][2 * v + j / 2][q][j % 2] = d[sw][0];
+              afr[sw][2 * v + j / 2][q][2 + j % 2] = d[sw][1];
+            }
+          }
+        } else {
+          if constexpr (SW == 2)  // both slabs' codes of the packed bytes, now per channel
+#pragma unroll
+            for (int j = 0; j < 4; ++j) lut4_grid2(col[0][j], tab, col[0][j], col[1][j]);
+#pragma unroll
+          for (int sw = 0; sw < SW; ++sw) {
+            afr[sw][2 * v][0][2 * q] = col[sw][0];
+            afr[sw][2 * v][0][2 * q + 1] = col[sw][1];
+            afr[sw][2 * v + 1][0][2 * q] = col[sw][2];
+            afr[sw][2 * v + 1][0][2 * q + 1] = col[sw][3];
+          }
         }
       }
     }
-    // B fragments: token 8 nt + g, rows 8t..8t+7 of each plane of each slab
-    uint32_t xb[SW][2][NT][2];
+    // B fragments (int8): token 8 nt + g, rows 8t..8t+7 of each plane of
+    // each slab; bf16: loaded per token tile below
+    uint32_t xb[SW][2][BF ? 1 : NT][2];
+    if constexpr (!BF) {
 #pragma unroll
-    for (int sw = 0; sw < SW; ++sw)
+      for (int sw = 0; sw < SW; ++sw)
 #pragma unroll
-      for (int p = 0; p < 2; ++p)
+        for (int p = 0; p < 2; ++p)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int xs = part * S + slab + sw;
-          const uint2 v = *reinterpret_cast<const uint2*>(
-              base + T::W_BYTES + ((xs * 2 + p) * MT + 8 * nt + g) * kSlabWin + 8 * t);
-          xb[sw][p][nt][0] = v.x;
-          xb[sw][p][nt][1] = v.y;
-        }
+          for (int nt = 0; nt < NT; ++nt) {
+            const int xs = part * S + slab + sw;
+            const uint2 v = *reinterpret_cast<const uint2*>(
+                base + T::W_BYTES + ((xs * 2 + p) * MT + 8 * nt + g) * kSlabWin + 8 * t);
+            xb[sw][p][nt][0] = v.x;
+            xb[sw][p][nt][1] = v.y;
+          }
+    }
 
     int r = rw, gi = gi_w, gend = gend_w;
     while (r < rend) {
@@ -727,16 +965,43 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
         keep0 = row0 >= r && row0 < se ? 0xFFFFFFFFu : 0u;
         keep1 = row0 + 4 >= r && row0 + 4 < se ? 0xFFFFFFFFu : 0u;
       }
+      if constexpr (BF) {
 #pragma unroll
-      for (int sw = 0; sw < SW; ++sw)
+        for (int sw = 0; sw < SW; ++sw)
 #pragma unroll
-        for (int c = 0; c < CT; ++c)
+          for (int nt = 0; nt < NT; ++nt) {  // token 8 nt + g, rows 8t..8t+7
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                base + T::W_BYTES + ((part * S + slab + sw) * MT + 8 * nt + g) * 2 * kSlabWin +
+                16 * t);
+            if constexpr (BZ) {  // the segment's sum of x: token g here, tokens 2t, 2t + 1 kept
+              const uint32_t xv[4] = {v.x & keep0, v.y & keep0, v.z & keep1, v.w & keep1};
+              float sm = 0.f;
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
+              for (int e = 0; e < 4; ++e)
+                sm += __uint_as_float(xv[e] << 16) + __uint_as_float(xv[e] & 0xFFFF0000u);
+              sm += __shfl_xor_sync(0xffffffffu, sm, 1);
+              sm += __shfl_xor_sync(0xffffffffu, sm, 2);
+              xk[sw][nt][0] += __shfl_sync(0xffffffffu, sm, 8 * t);
+              xk[sw][nt][1] += __shfl_sync(0xffffffffu, sm, 8 * t + 4);
+            }
 #pragma unroll
-            for (int p = 0; p < 2; ++p)
-              mma_s8(ia[sw][c][nt][p], afr[sw][c], xb[sw][p][nt][0] & keep0,
-                     xb[sw][p][nt][1] & keep1);
+            for (int c = 0; c < CT; ++c) {
+              mma_bf16(pf[sw][c][nt], afr[sw][c][0], v.x & keep0, v.y & keep0);
+              mma_bf16(pf[sw][c][nt], afr[sw][c][1], v.z & keep1, v.w & keep1);
+            }
+          }
+      } else {
+#pragma unroll
+        for (int sw = 0; sw < SW; ++sw)
+#pragma unroll
+          for (int c = 0; c < CT; ++c)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int p = 0; p < 2; ++p)
+                mma_s8(ia[sw][c][nt][p], afr[sw][c][0], xb[sw][p][nt][0] & keep0,
+                       xb[sw][p][nt][1] & keep1);
+      }
       if (se == gend || se == pk1) {  // the group (or the part's share of it) ends
         if (r != rw) load_sides(gi);
         const bool first = gi * G >= pk0;  // this part holds the group's first row
@@ -749,20 +1014,31 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
 #pragma unroll
               for (int i = 0; i < 4; ++i) {
                 const int h = i / 2, u = i % 2;  // D row half (channel), column (token)
-                const float part_f =
-                    (float)ia[sw][c][nt][0][i] * 256.f + (float)ia[sw][c][nt][1][i];
                 const float sv = sc[sw][c][h], zv = zc[sw][c][h];
-                if (LUT) {
-                  acc[c][nt][i] = acc[c][nt][i] + part_f * (sv * mult);
-                  if (has_z && first) acc[c][nt][i] = acc[c][nt][i] + xs_f[sw][nt][u] * zv;
-                } else if (first) {
-                  acc[c][nt][i] = acc[c][nt][i] + part_f * sv - xs_f[sw][nt][u] * (sv * zv);
+                if constexpr (BF) {
+                  acc[c][nt][i] = acc[c][nt][i] + pf[sw][c][nt][i] * sv;
+                  if (BZ) acc[c][nt][i] = acc[c][nt][i] + xk[sw][nt][u] * zv;
+                  pf[sw][c][nt][i] = 0.f;
                 } else {
-                  acc[c][nt][i] = acc[c][nt][i] + part_f * sv;
+                  const float part_f =
+                      (float)ia[sw][c][nt][0][i] * 256.f + (float)ia[sw][c][nt][1][i];
+                  if (LUT) {
+                    acc[c][nt][i] = acc[c][nt][i] + part_f * (sv * mult);
+                    if (has_z && first) acc[c][nt][i] = acc[c][nt][i] + xs_f[sw][nt][u] * zv;
+                  } else if (first) {
+                    acc[c][nt][i] = acc[c][nt][i] + part_f * sv - xs_f[sw][nt][u] * (sv * zv);
+                  } else {
+                    acc[c][nt][i] = acc[c][nt][i] + part_f * sv;
+                  }
+                  ia[sw][c][nt][0][i] = 0;
+                  ia[sw][c][nt][1][i] = 0;
                 }
-                ia[sw][c][nt][0][i] = 0;
-                ia[sw][c][nt][1][i] = 0;
               }
+        if constexpr (BZ)
+#pragma unroll
+          for (int sw = 0; sw < SW; ++sw)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) xk[sw][nt][0] = xk[sw][nt][1] = 0.f;
       }
       r = se;
       if (se == gend) {
@@ -797,7 +1073,7 @@ wa_slab_mma_kernel(const int8_t* __restrict__ xq, const int* __restrict__ xsum, 
     if (gridDim.z > 1) {
       if (m < M && n < N) ws[((size_t)blockIdx.z * M + m) * N + n] = v;
     } else if (m < M && n < n_out) {  // one split: the reduce's epilogue here
-      v *= sx[m];
+      if (!BF) v *= sx[m];
       if (out_bf16)
         store_out(static_cast<__nv_bfloat16*>(out) + (size_t)m * n_out + n, v);
       else
@@ -860,21 +1136,21 @@ inline cudaError_t rows_slab(const void* x, int x_bf16, int k_logical, int S, in
                                         st);
 }
 
-template <int LAYOUT, int NT>
-cudaError_t launch_slab_mma_nt(const int8_t* xq, const int* xsum, int M, const void* qw,
+template <int LAYOUT, int NT, bool BZ = false>
+cudaError_t launch_slab_mma_nt(const void* xq, const void* xsum, int M, const void* qw,
                                const void* s, long long s_rs, long long s_cs, const void* z,
                                long long z_rs, long long z_cs, void* ws, void* out,
                                const void* sx, int x_bf16, int N, int n_out, int Kb, int G,
                                int kc, int splits, int exp_bits, int mant_bits,
-                               cudaStream_t st) {
+                               cudaStream_t st, int x_ld = 0, int x_ls = 0) {
   using T = SlabTile<LAYOUT, NT>;
   constexpr int SM = T::SMEM;
   static bool attr_set = false;  // one attribute call per instantiation
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, true>,
+    cudaError_t err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, true, BZ>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, false>,
+      err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, false, BZ>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
     if (err != cudaSuccess) return err;
     attr_set = true;
@@ -884,11 +1160,11 @@ cudaError_t launch_slab_mma_nt(const int8_t* xq, const int* xsum, int M, const v
   // 16-byte weight copies where every row of the block's columns is 16-byte aligned
   const bool vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
   return launch_after(
-      vec16 ? wa_slab_mma_kernel<LAYOUT, NT, true> : wa_slab_mma_kernel<LAYOUT, NT, false>,
+      vec16 ? wa_slab_mma_kernel<LAYOUT, NT, true, BZ> : wa_slab_mma_kernel<LAYOUT, NT, false, BZ>,
       grid, dim3(T::THREADS), SM, st, xq, xsum, M, static_cast<const uint8_t*>(qw),
       static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs, z_cs,
       static_cast<float*>(ws), out, static_cast<const float*>(sx), x_bf16, N, n_out, Kb, Kb32,
-      G, kc, exp_bits, mant_bits);
+      G, kc, exp_bits, mant_bits, x_ld, x_ls);
 }
 
 // The whole call: row pass, tensor-core partial products, reduce.  x is
@@ -941,6 +1217,72 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
                               static_cast<const float*>(ws), static_cast<const float*>(sx),
                               static_cast<float*>(out), M, N, n_out, splits);
   return (int)err;
+}
+
+
+// The bf16 family's whole call (LAYOUT kLut4B or kLut6B): y = x @
+// dequant(qw), bf16 x [M, ldx] (ldx = S*Kb, zero beyond k_logical), bf16
+// out [M, n_out].  The row pass runs only where the call needs it: with
+// norm, or x_copy (x is not 16-byte aligned, or ldx or Kb is no multiple of
+// 8), it writes the copy xs [M][S][Kb32] bf16 (scratch from the wrapper:
+// lut_mma_scratch_bytes in ops/kernels/dequant_matmul.py) that the product
+// kernel then reads (normalized under norm); otherwise the product kernel
+// reads x itself.  ws [splits, M, N] is scratch too; kc is a multiple of 32
+// P (SlabTile<LAYOUT, NT>::P at the call's token tile).  exp_bits,
+// mant_bits: the format (nib4: E + M = 3; nq42: E + M = 5), decoded from
+// its widths; z may be null (symmetric).
+template <int LAYOUT>
+int launch_lut_mma(const void* x, int ldx, int x_copy, int k_logical, int norm, float eps,
+                   const void* qw, const void* s, long long s_rs, long long s_cs,
+                   const void* z, long long z_rs, long long z_cs, void* xs, void* ws, void* out,
+                   int M, int N, int n_out, int Kb, int G, int kc, int splits, int exp_bits,
+                   int mant_bits, void* stream) {
+  static_assert(LAYOUT == kLut4B || LAYOUT == kLut6B, "a bf16 LUT layout");
+  constexpr int S = SlabTile<LAYOUT, 1>::S;
+  constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
+  const bool wide = slab_tile_nt(M, LAYOUT) != 1;
+  const int P = wide ? SlabTile<LAYOUT, NT_WIDE>::P : SlabTile<LAYOUT, 1>::P;
+  const bool copy = x_copy || norm;
+  if (M <= 0 || N <= 0 || N % 4 || n_out > N || Kb <= 0 || Kb % 4 || G <= 0 || G % 4 ||
+      Kb % G || kc <= 0 || kc % (kSlabWin * P) || splits <= 0 ||
+      (long long)kc * splits < Kb || (long long)kc * (splits - 1) >= Kb || k_logical <= 0 ||
+      k_logical > S * Kb || ldx != S * Kb || s_cs < 0 || s_cs > (1 << 24) || z_cs < 0 ||
+      z_cs > (1 << 24) || exp_bits < 1 || mant_bits < 0 ||
+      exp_bits + mant_bits != (LAYOUT == kLut4B ? 3 : 5) ||
+      (!copy && (ldx % 8 || Kb % 8 || reinterpret_cast<uintptr_t>(x) % 16)) ||
+      (copy && xs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Kb32 = (Kb + kSlabWin - 1) / kSlabWin * kSlabWin;
+  __nv_bfloat16* xc = static_cast<__nv_bfloat16*>(xs);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  cudaError_t err = cudaSuccess;
+  if (copy) {
+    if (norm)
+      rows_bf16_slab_kernel<true><<<M, kSlabRowThreads, 0, st>>>(xb, ldx, k_logical, S, Kb, Kb32,
+                                                                 eps, xc);
+    else
+      rows_bf16_slab_kernel<false><<<M, kSlabRowThreads, 0, st>>>(xb, ldx, k_logical, S, Kb,
+                                                                  Kb32, eps, xc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const void* xsrc = copy ? static_cast<const void*>(xc) : x;
+  const int x_ld = copy ? S * Kb32 : ldx, x_ls = copy ? Kb32 : Kb;
+#define IWOQ_LUT_MMA(NT, BZ)                                                                  \
+  launch_slab_mma_nt<LAYOUT, NT, BZ>(xsrc, nullptr, M, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws, \
+                                     out, nullptr, 1, N, n_out, Kb, G, kc, splits, exp_bits,  \
+                                     mant_bits, st, x_ld, x_ls)
+  const bool bz = z != nullptr;
+  err = wide ? (bz ? IWOQ_LUT_MMA(NT_WIDE, true) : IWOQ_LUT_MMA(NT_WIDE, false))
+             : (bz ? IWOQ_LUT_MMA(1, true) : IWOQ_LUT_MMA(1, false));
+#undef IWOQ_LUT_MMA
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long total = (long long)M * n_out;
+  const dim3 rgrid((unsigned)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096));
+  return (int)launch_after(w4_reduce_kernel<false, __nv_bfloat16>, rgrid, dim3(256), 0, st,
+                           static_cast<const float*>(ws), static_cast<const float*>(nullptr),
+                           static_cast<__nv_bfloat16*>(out), M, N, n_out, splits);
 }
 
 }  // namespace iwoq

@@ -14,11 +14,12 @@ f32 side info, per storage layout:
   s21 (3-bit):  ``csrc/w3_matmul.cu`` (design notes in
                 ``csrc/w3_common.cuh``), ``csrc/w3a8_matmul.cu``,
                 ``csrc/w3a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
-  LUT nib4 (4-bit minifloat): ``csrc/lut4_matmul.cu`` (design notes in
+  LUT nib4 (4-bit minifloat): ``csrc/lut4_matmul.cu`` (bf16 x: the bf16
+                family of ``csrc/wa_slab_mma.cuh``; f32 x: design notes in
                 ``csrc/lut_common.cuh``), ``csrc/lut4a16_matmul.cu``
                 (``csrc/wa_slab_mma.cuh``);
-  LUT nq42 (fp6 when K % 4 == 0): ``csrc/lut6_matmul.cu``,
-                ``csrc/lut6a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
+  LUT nq42 (fp6 when K % 4 == 0): ``csrc/lut6_matmul.cu`` (bf16 x, f32 x
+                as nib4), ``csrc/lut6a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
   LUT byte (fp8, byte-per-code fp6): ``csrc/lut8_matmul.cu``.
 
 The ``w4``/``w8``/``w3``/``lut`` kernels take bf16/f32 activations; the
@@ -28,7 +29,15 @@ and LUT layouts have none, as in the JAX package (``prenorm_supported``): a
 ``pre_norm`` normalizes x first (:func:`_rms_nogamma`, cast back to x's
 type), then the kernel runs.  A LUT kernel decodes each code to its exact
 minifloat value from the format's exponent and mantissa widths (never from
-the artifact's codebook) and computes ``w = val*s (+ z)``.  The
+the artifact's codebook) and computes ``w = val*s (+ z)``.  The nib4 and
+nq42 LUT kernels (``lut4``, ``lut6``: :data:`LUT_MMA`) take bf16 x on the
+bf16 tensor cores (:func:`lut_mma_route`): the codes decode to their exact
+bf16 values, ``mma.sync`` m16n8k16 sums each group's products in f32,
+``acc += part*s (+ xsum*z)``, the kernel summing each group's x itself
+for the zeros; a row pass runs only where a ``pre_norm`` is given, which it
+then applies to a copy of x (the same function: normalize, cast to bf16,
+then the product), or where x cannot be read in place.  f32 x stays on
+their CUDA-core kernel, under the same name and launch count.  The
 ``a8``/``a16`` kernels (design notes in ``csrc/wa_common.cuh``) take
 ``activation_bits`` 8 or 16: a row pass quantizes x to one int8 plane (A8,
 ``sx = absmax/127``) or two (A16, ``x ~= sx*(256*hi + lo)``, ``sx =
@@ -151,6 +160,16 @@ _ARGTYPES_LUT = [  # the LUT kernels (csrc/lut_common.cuh launch_lut)
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,                    # exp_bits, mant_bits, stream
 ]
+_ARGTYPES_LUT_MMA = [  # the bf16 LUT route (csrc/wa_slab_mma.cuh launch_lut_mma)
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, ldx, x_copy, k_logical
+    ctypes.c_int, ctypes.c_float, ctypes.c_void_p,                  # norm, eps, qw
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # s, s_rs, s_cs
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # z or NULL, z_rs, z_cs
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,              # xs or NULL, ws, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,         # M, N, n_out, stored rows
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,                    # exp_bits, mant_bits, stream
+]
 _ARGTYPES_A_LUT = _ARGTYPES_A[:-1] + [  # the LUT A16 kernel: launch_wa's, then
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # exp_bits, mant_bits, stream
 _ARGTYPES_ROWS = [  # iwoq_quantize_rows, the row pass alone
@@ -175,6 +194,11 @@ _BLOCKS_PER_SM = 3
 SLAB_MMA = {W8A16: 1, LUT4A16: 2, LUT6A16: 4, W3A16: 8}  # byte, nib4, nq42, s21
 SLAB_PARTS = {1: 4, 2: 2, 4: 1, 8: 1}  # slabs -> parts a block's warps split its range into
 SLAB_WINDOW = 32
+# The bf16-x calls of the nib4 and nq42 LUT kernels (the bf16 family of
+# csrc/wa_slab_mma.cuh: bf16 products on the tensor cores), by the slab count
+# of their layout; f32 x stays on their CUDA-core kernel (csrc/lut_common.cuh).
+# Name and launch count are the kernel's either way.
+LUT_MMA = {LUT4: 2, LUT6: 4}
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -279,7 +303,8 @@ def kernel_name(qt: QuantizedTensor, pre_norm: Optional[float] = None,
     applied to x before quantizing; A16 on a LUT format without the A16
     path names the flat kernel.  A layout without a prenorm kernel (s21,
     LUT) names its flat kernel for a ``pre_norm`` too: x is normalized
-    before it runs.
+    before its product (in torch, or in the row pass of the bf16 LUT
+    route).
     """
     names = None if xla_route(qt) else _names(qt)
     if names is None:
@@ -296,6 +321,31 @@ def prenorm_supported(qt: QuantizedTensor) -> bool:
     the JAX package); elsewhere x is normalized first."""
     names = _names(qt)
     return names is not None and names[1] is not None
+
+
+def _lut_mma_fits(kb: int, g: int) -> bool:
+    """The bf16 LUT kernel's shape rule: slab rows and group (in slab rows)
+    in fours (its windows split at group ends with 4-row granularity)."""
+    return kb % 4 == 0 and g % 4 == 0
+
+
+def lut_mma_route(qt: QuantizedTensor, dtype: torch.dtype) -> bool:
+    """Whether a call of this (flat or layer-stacked) LUT artifact with x of
+    ``dtype`` takes the bf16 tensor-core route of its kernel
+    (:data:`LUT_MMA`): bf16 x on the nib4 (fp4) or nq42 (fp6) layout whose
+    slab rows and group are multiples of 4.  There a ``pre_norm`` runs in
+    the kernel's row pass; f32 x, and the rare shapes outside the rule, take
+    the CUDA-core kernel of the same name, after x is normalized in torch."""
+    if dtype != torch.bfloat16 or qt.mode != "lut" or xla_route(qt):
+        return False
+    names = _names(qt)
+    if names is None or names[0] not in LUT_MMA:
+        return False
+    rows = (qt.scales.shape[1] - qt.side_pad if qt.qweight.dim() == 3
+            else qt.scales.shape[0])
+    if rows < 1 or qt.k_stored % rows:
+        return False
+    return _lut_mma_fits(qt.k_stored // LUT_MMA[names[0]], _group_size(qt, rows))
 
 
 def _group_size(qt: QuantizedTensor, rows: int) -> int:
@@ -580,24 +630,35 @@ def plan_splits(m: int, n: int, kp: int, sm_count: int) -> Tuple[int, int]:
     return kc, math.ceil(kp / kc)
 
 
-def slab_tile_m(m: int, slabs: int) -> int:
-    """Tokens a block of the slab A16 kernel of the layout with ``slabs``
-    slabs: 8 at decode (M <= 8), else 16 (s21, 8 slabs) or 32."""
-    return 8 if m <= 8 else 16 if slabs == 8 else 32
+def slab_tile_m(m: int, slabs: int, bf16: bool = False) -> int:
+    """Tokens a block of the slab kernel of the layout with ``slabs`` slabs:
+    8 at decode (M <= 8), else 16 (s21, 8 slabs) or 32; the bf16 family
+    (``bf16``: :data:`LUT_MMA`) 64 beyond decode."""
+    return 8 if m <= 8 else 64 if bf16 else 16 if slabs == 8 else 32
 
 
-def slab_block_n(m: int, slabs: int) -> int:
-    """Output channels a block of the slab A16 kernel: at decode 64 (s21) or
-    128 (byte, nib4, nq42), else 64."""
+def slab_block_n(m: int, slabs: int, bf16: bool = False) -> int:
+    """Output channels a block of the slab kernel: at decode 64 (s21) or 128
+    (byte, nib4, nq42), else 64; the bf16 family beyond decode 16 * 2 * 8 /
+    slabs (one warp a slab and 32 channels: nib4 128, nq42 64)."""
+    if m > 8 and bf16:
+        return 256 // slabs
     return 64 if m > 8 or slabs == 8 else 128
 
 
-def plan_slab_splits(m: int, n: int, kb: int, slabs: int, sm_count: int) -> Tuple[int, int]:
-    """(slab rows per K-split, number of K-splits) of the slab A16 kernel
-    of the layout with ``slabs`` slabs (:data:`SLAB_MMA`) for an [m, n]
-    output over ``kb`` slab rows.
+def slab_parts(m: int, slabs: int, bf16: bool = False) -> int:
+    """Parts a block's warps split its K range into: ``SLAB_PARTS[slabs]``,
+    but 1 in the bf16 family's wide tile (M > 8)."""
+    return 1 if bf16 and m > 8 else SLAB_PARTS[slabs]
 
-    A block splits its range into ``P = SLAB_PARTS[slabs]`` parts over its
+
+def plan_slab_splits(m: int, n: int, kb: int, slabs: int, sm_count: int,
+                     bf16: bool = False) -> Tuple[int, int]:
+    """(slab rows per K-split, number of K-splits) of the slab kernel of the
+    layout with ``slabs`` slabs (:data:`SLAB_MMA`; with ``bf16`` the bf16
+    family, :data:`LUT_MMA`) for an [m, n] output over ``kb`` slab rows.
+
+    A block splits its range into ``P`` parts (:func:`slab_parts`) over its
     warps, each a whole number of windows (32 rows), so ``kc`` is a multiple
     of ``32 * P``, and the splits cover the ``kb`` rows exactly once,
     ``[i * kc, min(kb, (i + 1) * kc))``.  K is split about as far as
@@ -607,8 +668,9 @@ def plan_slab_splits(m: int, n: int, kb: int, slabs: int, sm_count: int) -> Tupl
     their decode); the byte layout, which only streams its bytes, never
     starts a partial second round, which would cost it a whole one.
     """
-    step = SLAB_WINDOW * SLAB_PARTS[slabs]
-    base = math.ceil(n / slab_block_n(m, slabs)) * math.ceil(m / slab_tile_m(m, slabs))
+    step = SLAB_WINDOW * slab_parts(m, slabs, bf16)
+    base = (math.ceil(n / slab_block_n(m, slabs, bf16))
+            * math.ceil(m / slab_tile_m(m, slabs, bf16)))
     slots = (2 if m <= 8 else 1) * sm_count
     want = slots // base if slabs == 1 else math.floor(slots / base + 0.5)
     steps = math.ceil(kb / step)
@@ -624,6 +686,22 @@ def slab_scratch_bytes(m: int, kb: int, slabs: int, g: int, sums: bool) -> int:
     slabs * kb / g]`` (``launch_wa_slab`` in ``csrc/wa_slab_mma.cuh``)."""
     kb32 = math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
     return 2 * m * slabs * kb32 + (4 * m * slabs * (kb // g) if sums else 0)
+
+
+def lut_mma_scratch_bytes(m: int, kb: int, slabs: int) -> int:
+    """Bytes of the scratch of a bf16 LUT launch (:data:`LUT_MMA`) whose row
+    pass copies x (a pre-norm, or x not 16-byte aligned): the bf16 copy
+    ``[M, slabs, Kb32]``, each slab padded to a multiple of 32 rows
+    (``launch_lut_mma`` in ``csrc/wa_slab_mma.cuh``)."""
+    return 2 * m * slabs * math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
+
+
+def x_needs_copy(x2: torch.Tensor, kb: int) -> bool:
+    """Whether the bf16 LUT kernel cannot read ``x2`` ``[M, K_stored]`` in
+    place, in 16-byte copies of each slab's rows: x not 16-byte aligned, or
+    K_stored or the slab rows ``kb`` no multiple of 8.  The row pass then
+    copies it."""
+    return bool(x2.data_ptr() % 16 or x2.shape[1] % 8 or kb % 8)
 
 
 def _side_view(side: torch.Tensor, rows: int) -> Tuple[torch.Tensor, int, int]:
@@ -722,7 +800,9 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
     if ``pre_norm`` (affine nib4, byte), its int-activation form if
     ``activation_bits``; a LUT kernel of minifloat format ``fmt`` where one
-    is given (``zeros`` may then be None).
+    is given (``zeros`` may then be None), on its bf16 tensor-core route
+    for bf16 x (:data:`LUT_MMA`, :func:`lut_mma_route`; a ``pre_norm`` then
+    runs in its row pass).
 
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
@@ -730,10 +810,10 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     the K/8 B rows, or the K/4 quad rows.
     """
     names = (_KERNELS if fmt is None else _LUT_KERNELS)[bits]
-    _check(pre_norm is None or activation_bits is not None or names[1] is not None,
-           f"the {bits}-bit layout has no prenorm kernel: normalize x first")
-    name = (names[pre_norm is not None] if activation_bits is None
-            else names[2 + ACTIVATION_BITS.index(activation_bits)])
+    if activation_bits is not None:
+        name = names[2 + ACTIVATION_BITS.index(activation_bits)]
+    else:
+        name = names[1] if pre_norm is not None and names[1] is not None else names[0]
     _check(name is not None, f"no {bits}-bit kernel for activation_bits={activation_bits}")
     _check(zeros is not None or fmt is not None, "an affine artifact needs zeros")
     dev = x2.device
@@ -756,20 +836,36 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
         g = _slab_groups(ks, kp, rows, slabs)
     else:
         g = _byte_groups(ks, kp, rows)
+    mma = (activation_bits is None and name in LUT_MMA and x2.dtype == torch.bfloat16
+           and _lut_mma_fits(kp, g))
+    _check(pre_norm is None or activation_bits is not None or names[1] is not None or mma,
+           f"the {bits}-bit layout has no prenorm kernel: normalize x first")
     s2, s_rs, s_cs = _side_view(scales, rows)
     z2, z_rs, z_cs = _side_view(zeros, rows) if zeros is not None else (None, 0, 0)
     z_ptr = None if z2 is None else z2.data_ptr()
     out = torch.empty((m, n_out), dtype=x2.dtype, device=dev)
     if m == 0:
         return out
-    if name in SLAB_MMA:
-        kc, splits = plan_slab_splits(m, n, kp, SLAB_MMA[name], _sm_count(dev))
+    if name in SLAB_MMA or mma:
+        kc, splits = plan_slab_splits(m, n, kp, (LUT_MMA if mma else SLAB_MMA)[name],
+                                      _sm_count(dev), bf16=mma)
     else:
         kc, splits = plan_splits(m, n, kp, _sm_count(dev))
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
     x_bf16 = int(x2.dtype == torch.bfloat16)
     eps = 0.0 if pre_norm is None else float(pre_norm)
-    if activation_bits is None and fmt is not None:
+    if mma:
+        x_copy = x_needs_copy(x2, kp)
+        xs = (torch.empty((lut_mma_scratch_bytes(m, kp, LUT_MMA[name]),), dtype=torch.uint8,
+                          device=dev) if x_copy or pre_norm is not None else None)
+        lib, fn = _load_fn(name, f"iwoq_{name}_mma", _ARGTYPES_LUT_MMA)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(x2.data_ptr(), ks, int(x_copy), k_logical, int(pre_norm is not None), eps,
+                     qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z_ptr, z_rs, z_cs,
+                     None if xs is None else xs.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                     m, n, n_out, kp, g, kc, splits, fmt.exp_bits, fmt.mant_bits, stream)
+    elif activation_bits is None and fmt is not None:
         lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES_LUT)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -927,9 +1023,10 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
     """``y = x @ dequant(qt)`` for ``x`` ``[..., K]``, output in ``x.dtype``.
 
     ``pre_norm`` (the RMS eps) applies the weightless RMSNorm in the
-    kernel's epilogue (affine nib4, byte) or to x before the kernel (s21,
-    LUT, as the JAX package does); the norm's gamma must already be folded
-    into the weights (``models.llama.fold_llama_norms``).
+    kernel's epilogue (affine nib4, byte) or to x before the product (s21,
+    LUT, as the JAX package does: in torch, but in the kernel's row pass on
+    the bf16 LUT route, :func:`lut_mma_route`); the norm's gamma must
+    already be folded into the weights (``models.llama.fold_llama_norms``).
     ``activation_bits`` 8 or 16 quantizes x per row first and runs the
     int-activation kernel; a ``pre_norm`` then normalizes x before it is
     quantized.  An artifact of :func:`xla_route` takes :func:`route_matmul`.
@@ -943,7 +1040,8 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
         raise NotImplementedError(f"no dequant-matmul for device {x.device}")
     if not kernel_supported(qt, activation_bits):
         raise _unsupported(qt, activation_bits)
-    if pre_norm is not None and activation_bits is None and not prenorm_supported(qt):
+    if pre_norm is not None and activation_bits is None and not prenorm_supported(qt) \
+            and not lut_mma_route(qt, x.dtype):
         x, pre_norm = _rms_nogamma(x, pre_norm), None
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
                   qt.qweight, qt.scales, qt.zeros, qt.scales.shape[0], qt.shape[0],
@@ -974,7 +1072,8 @@ def fused_quantized_matmul_stacked(x: torch.Tensor, qt: QuantizedTensor,
         raise _unsupported(qt, activation_bits)
     if not 0 <= layer < qt.qweight.shape[0]:
         raise IndexError(f"layer {layer} of a {qt.qweight.shape[0]}-layer artifact")
-    if pre_norm is not None and activation_bits is None and not prenorm_supported(qt):
+    if pre_norm is not None and activation_bits is None and not prenorm_supported(qt) \
+            and not lut_mma_route(qt, x.dtype):
         x, pre_norm = _rms_nogamma(x, pre_norm), None
     rows = qt.scales.shape[1] - qt.side_pad
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),

@@ -701,6 +701,107 @@ def test_slab_row_pass_codes_and_sums_are_bit_equal_to_plain(dev, slabs, kb, g, 
         assert torch.equal(sums.long(), dm.activation_group_sums(padded, g))
 
 
+# ------------------------------- bf16-x LUT calls on the bf16 tensor cores
+
+# (spec, K, N, quantize_tensor kwargs) of the bf16 route of lut4_matmul and
+# lut6_matmul (the bf16 family of csrc/wa_slab_mma.cuh): every fp4 entry of
+# LUT_SPECS and every LUT6_SPECS entry, then the ragged cases: per-channel
+# K = 1088 (Kb = 544 and 272: the last range ends inside a window, a part or
+# a K-split cuts a group), groups of 16 rows (two a window), nib4 groups
+# straddling the K halves, N = 300 stored as 512 (n_pad) and as 300 (4-byte
+# weight copies), and K padding
+LUT_MMA_CASES = {
+    **{s: (LUT_SPECS[s][0], 1024, 256, {}) for s in LUT_SPECS if s.startswith("fp4")},
+    **{s: (LUT6_SPECS[s], 1024, 256, {}) for s in LUT6_SPECS},
+    "fp4_e2m1_g16_sym": (fp_spec("fp4", 2, 1, group_size=16), 1024, 256, {}),
+    "fp4_e2m1_perchannel_asym_k1088": (LUT_SPECS["fp4_e2m1_perchannel_asym"][0], 1088, 256, {}),
+    "fp4_straddle_k1408": (LUT_SPECS["fp4_e2m1_g128_asym"][0], 1408, 128, {}),
+    "fp4_npad_300": (LUT_SPECS["fp4_e2m1_g128_asym"][0], 1024, 300, dict(pad_n_to=512)),
+    "fp4_n300": (LUT_SPECS["fp4_e2m1_g128_asym"][0], 1024, 300, {}),
+    "fp4_kpad": (LUT_SPECS["fp4_e1m2_g64_sym"][0], 384, 256, dict(pad_k_to=512)),
+    "fp6_e2m3_g16_sym": (fp_spec("fp6", 2, 3, group_size=16), 1024, 256, {}),
+    "fp6_e2m3_perchannel_asym_k1088": (fp_spec("fp6", 2, 3, group_size=PER_CHANNEL,
+                                               symmetric=False), 1088, 256, {}),
+    "fp6_e1m4_g128_asym": (fp_spec("fp6", 1, 4, group_size=128, symmetric=False), 1024, 256, {}),
+    "fp6_npad_300": (LUT6_SPECS["fp6_e3m2_g128_asym"], 1024, 300, dict(pad_n_to=512)),
+    "fp6_n300": (LUT6_SPECS["fp6_e2m3_g128_sym"], 1024, 300, {}),
+    "fp6_kpad": (LUT6_SPECS["fp6_e2m3_g64_asym"], 384, 256, dict(pad_k_to=512)),
+}
+
+
+def _lut_mma_call(dev, qt, x, pre_norm=None, layer=None):
+    """One bf16-x call: exactly one launch of the artifact's LUT kernel, no
+    plain call, no route call; the result."""
+    name = dm.kernel_name(qt, pre_norm)
+    assert name in dm.LUT_MMA and dm.lut_mma_route(qt, torch.bfloat16)
+    dm.reset_counts()
+    if layer is None:
+        y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
+    else:
+        y = dm.fused_quantized_matmul_stacked(x, qt, layer, pre_norm=pre_norm)
+    assert dm.LAUNCHES == {**{k_: 0 for k_ in dm.LAUNCHES}, name: 1}
+    assert not any(dm.PLAIN_CALLS.values()) and not any(dm.ROUTE_CALLS.values())
+    return y
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m", [1, 8, 64, 256])
+@pytest.mark.parametrize("case", list(LUT_MMA_CASES))
+def test_lut_mma_route_matches_plain(dev, case, m, pre_norm):
+    """The decode tile (M <= 8) and the 64-token tile, one and several
+    K-splits, with the pre-norm in the row pass, against the plain version
+    (which normalizes x in torch first)."""
+    spec, k, n, kw = LUT_MMA_CASES[case]
+    qt = _artifact(dev, k, n, spec, **kw)
+    x = _x(dev, (m, k), torch.bfloat16) * 3
+    y = _lut_mma_call(dev, qt, x, pre_norm)
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["fp4_e2m1_g128_asym", "fp4_e1m2_g64_sym",
+                                  "fp6_e2m3_g128_sym", "fp6_e2m3_g64_asym"])
+def test_lut_mma_stacked_reads_layer_2_of_3(dev, case, m):
+    spec, k, n, kw = LUT_MMA_CASES[case]
+    qts = [_artifact(dev, k, n, spec, seed=30 + i, **kw) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st)
+    x = _x(dev, (m, k), torch.bfloat16) * 3
+    y = _lut_mma_call(dev, st, x, EPS, layer=2)
+    _close_a(y, dm.dequant_matmul_plain(x, qts[2], EPS), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["fp4_e2m1_g128_asym", "fp6_e3m2_g128_asym"])
+def test_lut_mma_copies_x_it_cannot_read_in_place(dev, case, m):
+    """x 2 bytes off a 16-byte boundary: the row pass copies it."""
+    spec, k, n, kw = LUT_MMA_CASES[case]
+    qt = _artifact(dev, k, n, spec, **kw)
+    x = torch.empty((m * k + 1,), dtype=torch.bfloat16, device=dev)[1:].view(m, k)
+    x.copy_(_x(dev, (m, k), torch.bfloat16) * 3)
+    assert x.is_contiguous() and dm.x_needs_copy(x, k // dm.LUT_MMA[dm.kernel_name(qt)])
+    y = _lut_mma_call(dev, qt, x)
+    _close_a(y, dm.dequant_matmul_plain(x, qt), torch.bfloat16)
+
+
+def test_lut_mma_decodes_every_code_exactly(dev):
+    """Every code of every format of the route (subnormals among them):
+    random packed bytes, so that each code occurs, against one-hot rows of
+    x, whose products are the values themselves (per-channel sides: one
+    group), bit-equal to the plain version."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    for spec in [fp_spec("fp4", e, 3 - e, group_size=PER_CHANNEL, symmetric=False)
+                 for e in (1, 2, 3)] + [fp_spec("fp6", e, 5 - e, group_size=PER_CHANNEL)
+                                        for e in (1, 2, 3)]:
+        qt = _artifact(dev, 1024, 256, spec)
+        qt = qt.replace(qweight=torch.randint(0, 256, qt.qweight.shape, generator=g,
+                                              device=dev, dtype=torch.uint8))
+        x = torch.eye(1024, device=dev, dtype=torch.bfloat16)
+        y = _lut_mma_call(dev, qt, x)
+        assert torch.equal(y, dm.dequant_matmul_plain(x, qt)), spec
+
+
 # ------------------------------------------------------- W4 inner-loop probe
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
