@@ -51,7 +51,9 @@ models, whose kernels those paths do not carry but which add time, run
    ``csrc/wa_slab_mma.cuh``) on a per-channel asymmetric K=1088 artifact
    (the last of its range's four parts ends early) and groups of 16, at
    M=8 and 64, bf16 and f32 x, and its SASS counts and registers as in
-   phase 12.
+   phase 12; and ``w4a16_matmul`` (the affine nib4 case of the same
+   kernel) likewise, with a K=1408 g128 artifact (groups straddle the K
+   halves: split in two per call).
 9. Two-layer logits with activation bits: phase 3 under A8 and A16, W4
    and W8.
 10. W4 A-serve: the 32-layer W4 model of phase 4, ``serve`` of phase 7's
@@ -65,8 +67,8 @@ models, whose kernels those paths do not carry but which add time, run
     five main-path shapes of a LLaMA-2-7B W3 g128 model (down's K=11008
     stored as 11264, ``pad_k_to=1024``; lm_head N padded to 32256), timed at
     M=8 and M=256 as in phase 2, untimed at the other main-path row counts;
-    qkv and gate_up also once with ``pre_norm`` (x normalized in torch
-    before ``w3_matmul``, in the row pass of the A-kernels); per kernel also
+    qkv and gate_up also once with ``pre_norm`` (x normalized in the row
+    pass of the bf16 route of ``w3_matmul`` and of the A-kernels); per kernel also
     an f32 x, g128 symmetric, per-channel asymmetric and per-tensor
     symmetric artifacts, and a layer-stacked call (layer 2 of 3, side info
     padded by 2 rows).  Then ``w3a16_matmul`` (the tensor-core slab kernel
@@ -74,7 +76,12 @@ models, whose kernels those paths do not carry but which add time, run
     slab rows, no multiple of its 32-row window) and groups of 16, at M=8
     and 64, bf16 and f32 x; the static SASS counts of its kernels (IMMA, no
     IDP in the product kernels, else the phase fails) and their
-    ``-Xptxas -v`` registers, spills and shared memory.
+    ``-Xptxas -v`` registers, spills and shared memory.  The bf16-x calls
+    of ``w3_matmul`` run on the bf16 tensor cores (the s21 case of the bf16
+    family of ``csrc/wa_slab_mma.cuh``; a ``pre_norm`` in its row pass), the
+    f32-x call on its CUDA-core kernel; the bf16 route is also checked as
+    ``lut4_matmul``'s in phase 17, on per-channel K=1088, groups of 16 and
+    g128 symmetric artifacts, and its SASS must hold HMMA (or HGMMA).
 13. W3 two-layer logits: phase 3 with the W3 model, with bf16/f32
     activations, A8 and A16.
 14. W3 model: 8-layer 7B-width W3 model (every linear int3 g128
@@ -905,8 +912,8 @@ def phase_w3_kernels(torch, device, spec):
     (bf16/f32 x), ``w3a8_matmul`` and ``w3a16_matmul`` (activation bits 8
     and 16), at the five main-path shapes with down's K padded to 11264.
     The kernels are timed alone; qkv and gate_up are then checked once with
-    ``pre_norm`` as the main path calls them (x normalized in torch before
-    ``w3_matmul``, in the row pass of the A-kernels)."""
+    ``pre_norm`` as the main path calls them (x normalized in the row pass
+    of ``w3_matmul``'s bf16 route and of the A-kernels)."""
     from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL, PER_TENSOR, QuantSpec
     from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
@@ -966,21 +973,19 @@ def phase_w3_kernels(torch, device, spec):
 
 def slab_kernel_report(name):
     """The static SASS counts (``build.sass``, counted by the probe's
-    ``sass_counts``) and the ``-Xptxas -v`` registers and shared memory of
-    the slab kernels (``csrc/wa_slab_mma.cuh``) of a library: the A16 slab
-    kernels, or the bf16 route of ``lut4_matmul`` and ``lut6_matmul``; fails
-    unless the product kernels run their products on the tensor cores: the
-    int8 ones (IMMA) with no ``__dp4a`` (IDP), the bf16 ones (HMMA or
-    HGMMA)."""
+    ``sass_counts``) and the ``-Xptxas -v`` registers, spills and shared
+    memory of the slab kernels (``csrc/wa_slab_mma.cuh``) of a library: the
+    A16 slab kernels, or the bf16 route of ``lut4_matmul``, ``lut6_matmul``
+    and ``w3_matmul``; fails unless the product kernels run their products
+    on the tensor cores: the int8 ones (IMMA) with no ``__dp4a`` (IDP), the
+    bf16 ones (HMMA or HGMMA)."""
     import re
 
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
     from iron_weight_only_quant_tpu_torch.probes.probe_w4_inner import sass_counts
 
-    # wa_common.cuh Layout
-    layouts = {"1": "byte", "2": "s21", "3": "nib4", "4": "nq42", "5": "nib4 bf16",
-               "6": "nq42 bf16"}
+    layouts = {str(v): k for k, v in dm.SLAB_LAYOUT_IDS.items()}  # slab_tile.cuh Layout
 
     def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16, BZ> and the row passes
         m = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", fn)
@@ -1035,13 +1040,13 @@ def check_slab_ragged(torch, device, specs, seed):
     torch.cuda.empty_cache()
 
 
-def check_lut_mma_ragged(torch, device, specs, seed):
-    """The bf16 route of ``lut4_matmul`` / ``lut6_matmul`` (the bf16 family of
-    ``csrc/wa_slab_mma.cuh``) on artifacts whose groups or slabs are not a
-    multiple of its 32-row window (``specs``: label -> (spec, K)), N = 4096,
-    at M = 8 and 64, with and without ``pre_norm`` (in its row pass), and on
-    an x 2 bytes off a 16-byte boundary (which the row pass copies), against
-    the plain version."""
+def check_bf16_mma_ragged(torch, device, specs, seed):
+    """The bf16 route of ``lut4_matmul``, ``lut6_matmul`` or ``w3_matmul``
+    (the bf16 family of ``csrc/wa_slab_mma.cuh``) on artifacts whose groups
+    or slabs are not a multiple of its 32-row window (``specs``: label ->
+    (spec, K)), N = 4096, at M = 8 and 64, with and without ``pre_norm`` (in
+    its row pass), and on an x 2 bytes off a 16-byte boundary (which the row
+    pass copies), against the plain version."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     gen = torch.Generator(device=device)
@@ -1049,7 +1054,7 @@ def check_lut_mma_ragged(torch, device, specs, seed):
     for label, (spec, k) in specs.items():
         qt = make_artifact(torch, gen, spec, k, (4096,), device)[0]
         kname = dm.kernel_name(qt)
-        if kname not in dm.LUT_MMA or not dm.lut_mma_route(qt, torch.bfloat16):
+        if kname not in dm.BF16_MMA or not dm.bf16_mma_route(qt, torch.bfloat16):
             fail(f"{label}: the artifact does not take the bf16 route ({kname})")
         for m in (DECODE_M, 64):
             for pre in (None, 1e-5):
@@ -1059,7 +1064,7 @@ def check_lut_mma_ragged(torch, device, specs, seed):
         x = torch.empty((DECODE_M * k + 1,), dtype=torch.bfloat16, device=device)[1:]
         x = x.view(DECODE_M, k)
         x.copy_(torch.randn((DECODE_M, k), generator=gen, device=device))
-        if not dm.x_needs_copy(x, k // dm.LUT_MMA[kname]):
+        if not dm.x_needs_copy(x, k // dm.SLAB_TILES[dm.BF16_MMA[kname]][0]):
             fail(f"{label}: the unaligned x is read in place")
         check_call(torch, f"{kname}:{label}:unaligned_x", qt, x, *a_runner(None, None))
         del qt
@@ -1469,6 +1474,14 @@ def main() -> int:
                                             symmetric=False), 1088),
         "g16_asym": (QuantSpec(fmt="int", bits=8, group_size=16, symmetric=False), 4096)}, 13)
     slab_kernel_report(dm.W8A16)
+    print("  -- w4a16: ranges whose last part ends early, groups off the 32-row window, "
+          "groups straddling the K halves; SASS and registers", flush=True)
+    check_slab_ragged(torch, device, {
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=4, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=4, group_size=16, symmetric=False), 4096),
+        "g128_asym_k1408_straddle": (w4, 1408)}, 17)
+    slab_kernel_report(dm.W4A16)
 
     header("== phase 9: two-layer 7B-width logits under A8 and A16, kernels vs "
            "plain path")
@@ -1496,6 +1509,14 @@ def main() -> int:
                                             symmetric=False), 1088),
         "g16_asym": (QuantSpec(fmt="int", bits=3, group_size=16, symmetric=False), 4096)}, 11)
     slab_kernel_report(dm.W3A16)
+    print("  -- w3 bf16 route: groups and slabs off the 32-row window, x copied; SASS and "
+          "registers", flush=True)
+    check_bf16_mma_ragged(torch, device, {
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=3, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=3, group_size=16, symmetric=False), 4096),
+        "g128_sym": (QuantSpec(fmt="int", bits=3, group_size=128, symmetric=True), 4096)}, 18)
+    slab_kernel_report(dm.W3)
 
     header("== phase 13: W3 two-layer 7B-width logits, kernels vs plain path "
            "(bf16/f32 activations, A8, A16)")
@@ -1542,7 +1563,7 @@ def main() -> int:
     print("  -- lut4 bf16 route: ranges whose last part ends early, groups off the 32-row "
           "window, groups straddling the K halves, E1M2, x copied; SASS and registers",
           flush=True)
-    check_lut_mma_ragged(torch, device, {
+    check_bf16_mma_ragged(torch, device, {
         "fp4_e2m1_perchannel_asym_k1088": (fp_spec("fp4", 2, 1, group_size=PER_CHANNEL,
                                                    symmetric=False), 1088),
         "fp4_e2m1_g16_sym": (fp_spec("fp4", 2, 1, group_size=16), 4096),
@@ -1595,7 +1616,7 @@ def main() -> int:
     slab_kernel_report(dm.LUT6A16)
     print("  -- lut6 bf16 route: groups and slabs off the 32-row window, E1M4, E3M2, x copied; "
           "SASS and registers", flush=True)
-    check_lut_mma_ragged(torch, device, {
+    check_bf16_mma_ragged(torch, device, {
         "fp6_e2m3_perchannel_asym_k1088": (fp_spec("fp6", 2, 3, group_size=PER_CHANNEL,
                                                    symmetric=False), 1088),
         "fp6_e2m3_g16_sym": (fp_spec("fp6", 2, 3, group_size=16), 4096),

@@ -37,7 +37,7 @@ extern "C" int iwoq_lut6_matmul_mma(const void* x, int ldx, int x_copy, int k_lo
                                     long long z_cs, void* xs, void* ws, void* out, int M, int N,
                                     int n_out, int Kp, int G, int kc, int splits, int exp_bits,
                                     int mant_bits, void* stream) {
-  return iwoq::launch_lut_mma<iwoq::kLut6B>(x, ldx, x_copy, k_logical, norm, eps, qw, s, s_rs,
-                                            s_cs, z, z_rs, z_cs, xs, ws, out, M, N, n_out, Kp,
-                                            G, kc, splits, exp_bits, mant_bits, stream);
+  return iwoq::launch_bf16_mma<iwoq::kLut6B>(x, ldx, x_copy, k_logical, norm, eps, qw, s, s_rs,
+                                             s_cs, z, z_rs, z_cs, xs, ws, out, M, N, n_out, Kp,
+                                             G, kc, splits, exp_bits, mant_bits, stream);
 }

@@ -61,7 +61,7 @@
 // lut4_matmul and lut6_matmul.  Their bf16-x calls take the bf16 family of
 // wa_slab_mma.cuh (bf16 products on the tensor cores), except the rare
 // shapes outside its rule (slab rows or group no multiple of 4), which
-// stay here (dequant_matmul.lut_mma_route).
+// stay here (dequant_matmul.bf16_mma_route).
 #pragma once
 
 #include "w8_common.cuh"

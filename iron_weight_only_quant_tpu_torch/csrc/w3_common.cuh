@@ -10,6 +10,11 @@
 // form, as in the JAX package (prenorm_supported, :1481): a pre_norm is
 // applied to x in torch before the launch.
 //
+// Which calls run here: the f32-x calls of w3_matmul, and its bf16-x calls
+// outside the rule of the bf16 family of wa_slab_mma.cuh (slab rows or
+// group no multiple of 4; dequant_matmul.bf16_mma_route), which takes the
+// others on the bf16 tensor cores.
+//
 // Artifact layout (ops/packing.py, s21): qw is uint8 [3 * Kb, N] with
 // Kb = K_stored / 8.  Rows [0, 2 Kb) are array A: byte (a, n) holds four
 // 2-bit fields, field j = the low two bits of code (j * 2 Kb + a, n), field

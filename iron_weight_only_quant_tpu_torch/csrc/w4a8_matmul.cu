@@ -17,7 +17,7 @@ extern "C" int iwoq_w4a8_matmul(const void* x, int x_bf16, int k_logical, int no
                        long long z_cs, void* xq, void* sx, void* ws, void* out,
                        int M, int N, int n_out, int Kp, int G, int kc, int splits,
                        void* stream) {
-  return iwoq::launch_wa<iwoq::kNib4, 1>(x, x_bf16, k_logical, norm, eps, qw, s, s_rs, s_cs,
+  return iwoq::launch_wa<iwoq::kNib4>(x, x_bf16, k_logical, norm, eps, qw, s, s_rs, s_cs,
                                          z, z_rs, z_cs, xq, sx, ws, out, M, N, n_out, Kp,
                                          G, kc, splits, stream);
 }

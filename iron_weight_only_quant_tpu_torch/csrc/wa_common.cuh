@@ -1,21 +1,18 @@
-// Int-activation dequant-matmul for Hopper (sm_90a):
+// Int-activation dequant-matmul for Hopper (sm_90a), A8:
 //   y[M,N] = sx[M] * (quantize(x)[M,K] @ dequant(qw)[K,N]),
-// int8 activation planes against the packed int4 (nib4, A8 and A16), int8
-// (byte, A8) or 3-bit (s21, A8) weight codes, one __dp4a per four K values.
-// The other A16 kernels (byte, s21, and the LUT nib4 and nq42 layouts) run
-// on the tensor cores in wa_slab_mma.cuh, which builds on this file.
+// one int8 activation plane against the packed int4 (nib4), int8 (byte) or
+// 3-bit (s21) weight codes, one __dp4a per four K values; and the row pass
+// that quantizes the activations for A8 and A16.  Every A16 kernel (two
+// int8 planes) runs on the tensor cores in wa_slab_mma.cuh, which builds on
+// this file.
 //
-// Replaces the int-activation paths of the Pallas TPU kernels in
-// iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
-//   A8  (one plane):  _int4_kernel (:319) and _int8_kernel (:1057, body
-//       _int8_body :1040) with int8 x, i.e. the int path of _group_accum
-//       (:226-249); stacked forms _int4_kernel_pfx (:1712), _int8_kernel_pfx
-//       (:1717);
-//   A16 (two planes): _int4_kernel_a16 (:418) (_group_accum_a16 :253-286);
-//       stacked form _int4_kernel_a16_pfx (:1722);
-//   s21 3-bit: _int3_kernel (:467) with int8 x (A8), stacked form
-//       _int3_kernel_pfx (:1360), through _call_int3 (:1365).
-// The stacked forms are the same kernels: the wrapper offsets the weight and
+// Replaces the A8 paths of the Pallas TPU kernels in
+// iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py: _int4_kernel
+// (:319) and _int8_kernel (:1057, body _int8_body :1040) with int8 x, i.e.
+// the int path of _group_accum (:226-249), stacked forms _int4_kernel_pfx
+// (:1712), _int8_kernel_pfx (:1717); and _int3_kernel (:467) with int8 x,
+// stacked form _int3_kernel_pfx (:1360), through _call_int3 (:1365).  The
+// stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.  The JAX package quantized the
 // activations in XLA (_prep_x :1270-1316); here a row pass of the same
 // library does it, launched by the same C entry point.
@@ -33,52 +30,49 @@
 //     the codes are bit-equal to the plain version's.  Writes the int8
 //     planes [PLANES, M, K_stored] (zero K-pad columns appended after
 //     quantizing, so the row max sees only the real columns) and sx [M].
-//  2. wa_partial_kernel (nib4; byte with A8): the W4 kernel's grid
-//     (w4_common.cuh: 128 columns x 8 rows per block, eight warps splitting
-//     the block's K range, a grid K-split).  Each thread loads four packed rows of its four columns with
-//     32-bit loads, transposes the 4x4 bytes with __byte_perm into four
-//     words of four K-consecutive codes (one per column), decodes the nibble
-//     layout to logical codes 0..15 (the high nibble is stored MSB-flipped)
-//     or keeps the byte layout's signed code - 128 (zeros are stored shifted
-//     by -128 alike), and runs one __dp4a per column and activation row and
-//     plane against the int8 activations staged in shared memory.  The
-//     activation sum of the same rows is one more __dp4a against 0x01010101.
-//     Per group and plane the int32 sums stay separate; at each group end
-//       part = (float)pa [* 256 + (float)pb],  acc += part*s - xsum*(s*z),
-//     as _group_accum / _group_accum_a16 (each plane converted to f32 before
-//     the 256 recombination: a fused 16-bit activation times a code would
-//     overflow int32 for a per-channel artifact).  Overflow: one plane's
-//     sum is at most 127 * 128 * G < 2^31 for groups G up to 131072, the
-//     A16 activation sum 256*sum(hi) + sum(lo) at most 32640 * G < 2^31
-//     for G up to 65793 (a per-channel group spans K, or each nib4 half).
-//     wa_slab_partial_kernel (s21 with A8, the third layout case): the same
-//     grid with W3's warp-per-slab split (w3_common.cuh): warp i walks the
-//     block's B rows four at a time, transposes four A words (rows (i % 2)
-//     * Kb + r..) and four B words (rows 2 Kb + r..) into per-column words,
-//     assembles slab i's four K-consecutive codes (field i / 2, un-flipped,
-//     plus 4 * bit i) and runs the same __dp4a sums and per-group epilogue
-//     against slab i's activations (K = i * Kb + r..).
+//     The A16 planes are only checked from here (iwoq_quantize_rows); the
+//     A16 kernels take the slab row pass of wa_slab_mma.cuh, which writes
+//     the same codes.
+//  2. wa_partial_kernel (nib4, byte): the W4 kernel's grid (w4_common.cuh:
+//     128 columns x 8 rows per block, eight warps splitting the block's K
+//     range, a grid K-split).  Each thread loads four packed rows of its four
+//     columns with 32-bit loads, transposes the 4x4 bytes with __byte_perm
+//     into four words of four K-consecutive codes (one per column), decodes
+//     the nibble layout to logical codes 0..15 (the high nibble is stored
+//     MSB-flipped) or keeps the byte layout's signed code - 128 (zeros are
+//     stored shifted by -128 alike), and runs one __dp4a per column and
+//     activation row against the int8 activations staged in shared memory.
+//     The activation sum of the same rows is one more __dp4a against
+//     0x01010101.  At each group end
+//       part = (float)pa,  acc += part*s - xsum*(s*z),
+//     as _group_accum.  Overflow: a group's sum is at most 127 * 128 * G <
+//     2^31 for groups G up to 131072 (a per-channel group spans K, or each
+//     nib4 half).
+//     wa_slab_partial_kernel (s21): the same grid with W3's warp-per-slab
+//     split (w3_common.cuh): warp i walks the block's B rows four at a
+//     time, transposes four A words (rows (i % 2) * Kb + r..) and four B
+//     words (rows 2 Kb + r..) into per-column words, assembles slab i's four
+//     K-consecutive codes (field i / 2, un-flipped, plus 4 * bit i) and runs
+//     the same __dp4a sums and per-group epilogue against slab i's
+//     activations (K = i * Kb + r..).
 //  3. the W4 reduce (w4_reduce_kernel with the row factor): the fixed-order
 //     K-split sum, times sx in f32, cast to x's type -- _finish's order.
 //
 // What bounds it: at decode (M = 8) each launch streams its packed weight
 // once, so A8 is bound by bytes (int8 x, codes, f32 sides, output) over
-// 3.35 TB/s; A16 moves the same bytes and does twice the integer work.  At
-// prefill M the bound is 2*M*K*N int8 operations (x2 for A16) over 1,979
+// 3.35 TB/s.  At prefill M the bound is 2*M*K*N int8 operations over 1,979
 // dense int8 TOP/s, which only tensor cores reach: this kernel runs the
-// products on CUDA cores (__dp4a), the simple and correct first version.
-// wa_slab_mma.cuh's mma.sync path takes the other A16 layouts; nib4 A16
-// and the A8 kernels are later work.
+// products on CUDA cores (__dp4a), the simple and correct first version;
+// wa_slab_mma.cuh's mma.sync path takes every A16 layout, and the A8 kernels
+// are later work.
 #pragma once
 
 #include "lut_common.cuh"
+#include "slab_tile.cuh"
 #include "w3_common.cuh"
 
 namespace iwoq {
 
-// packed weight layouts; kLut4B and kLut6B are the nib4 and nq42 LUT layouts
-// with bf16 activations and bf16 products (wa_slab_mma.cuh's bf16 family)
-enum Layout { kNib4 = 0, kByte = 1, kS21 = 2, kLut4 = 3, kLut6 = 4, kLut4B = 5, kLut6B = 6 };
 constexpr int kRowThreads = 256;  // threads of the row pass, one block per row
 constexpr int kStageA = 512;      // packed K rows of int8 x staged at a time
 constexpr int kStageA3 = 256;     // s21: slab rows of int8 x staged at a time (all slabs)
@@ -165,23 +159,21 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&
 }
 
 // Partial products of one (N-tile, M-tile, K-split) block into ws.
-// xq: int8 planes [PLANES, M, ldq]; for NIB4 packed row r meets K columns r
-// (low nibbles) and Kp + r (high nibbles), and ldq = 2 * Kp.  The byte
-// layout takes one plane (A8) only.
-template <bool NIB4, int PLANES>
+// xq: the int8 plane [M, ldq]; for NIB4 packed row r meets K columns r (low
+// nibbles) and Kp + r (high nibbles), and ldq = 2 * Kp.
+template <bool NIB4>
 __global__ void __launch_bounds__(kThreads)
 wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
                   const uint32_t* __restrict__ qw,  // [Kp, N/4] words
                   const float* __restrict__ s, long long s_rs, long long s_cs,
                   const float* __restrict__ z, long long z_rs, long long z_cs,
                   float* __restrict__ ws, int N, int Kp, int G, int kc) {
-  static_assert(NIB4 || PLANES == 1, "byte A16 is wa_slab_mma.cuh's");
   constexpr int H = NIB4 ? 2 : 1;  // K streams per packed row
   constexpr int kStage4 = kStageA / 4;
-  static_assert(H * PLANES * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
+  static_assert(H * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
                 "the x stage must fit in the reduction buffer");
   __shared__ __align__(16) float smem[kKWarps * kTileM * kBlockN];
-  int* xs = reinterpret_cast<int*>(smem);  // [H][PLANES][kStage4][kTileM] words
+  int* xs = reinterpret_cast<int*>(smem);  // [H][kStage4][kTileM] words
   const int lane = threadIdx.x;
   const int wy = threadIdx.y;
   const int tid = wy * kLanes + lane;
@@ -202,16 +194,14 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   for (int c0 = k0; c0 < k1; c0 += kStageA) {
     const int rows4 = min(kStageA, k1 - c0) / 4;  // k0, k1 and c0 are multiples of 4
     __syncthreads();
-    for (int i = tid; i < H * PLANES * kTileM * rows4; i += kThreads) {
+    for (int i = tid; i < H * kTileM * rows4; i += kThreads) {
       const int w = i % rows4;  // fastest: coalesced reads of an x row
       const int m = (i / rows4) % kTileM;
-      const int hp = i / (rows4 * kTileM);  // h * PLANES + p
-      const int h = hp / PLANES, p = hp % PLANES;
+      const int h = i / (rows4 * kTileM);
       int v = 0;
       if (m0 + m < M)
-        v = *reinterpret_cast<const int*>(
-            xq + ((size_t)p * M + m0 + m) * ldq + h * Kp + c0 + 4 * w);
-      xs[(hp * kStage4 + w) * kTileM + m] = v;
+        v = *reinterpret_cast<const int*>(xq + (size_t)(m0 + m) * ldq + h * Kp + c0 + 4 * w);
+      xs[(h * kStage4 + w) * kTileM + m] = v;
     }
     __syncthreads();
 
@@ -232,7 +222,7 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
             sg[h][j] = __ldg(s + gr * s_rs + c * s_cs);
             zg[h][j] = __ldg(z + gr * z_rs + c * z_cs);
           }
-        int ia[H][PLANES][kTileM][kColsPerThread];
+        int ia[H][kTileM][kColsPerThread];
         int isum[H][kTileM];
 #pragma unroll
         for (int h = 0; h < H; ++h)
@@ -240,9 +230,7 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
           for (int m = 0; m < kTileM; ++m) {
             isum[h][m] = 0;
 #pragma unroll
-            for (int p = 0; p < PLANES; ++p)
-#pragma unroll
-              for (int j = 0; j < kColsPerThread; ++j) ia[h][p][m][j] = 0;
+            for (int j = 0; j < kColsPerThread; ++j) ia[h][m][j] = 0;
           }
         for (; r < seg_end; r += 4) {
           uint32_t w[4], col[4];
@@ -260,20 +248,15 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
                       : h == 0 ? (int)(col[j] & 0x0F0F0F0Fu)
                                : (int)(((col[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
             }
+            const int4* x4 = reinterpret_cast<const int4*>(xs + (h * kStage4 + w4) * kTileM);
+            const int4 a0 = x4[0], a1 = x4[1];
+            const int xv[kTileM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-            for (int p = 0; p < PLANES; ++p) {
-              const int4* x4 = reinterpret_cast<const int4*>(
-                  xs + ((h * PLANES + p) * kStage4 + w4) * kTileM);
-              const int4 a0 = x4[0], a1 = x4[1];
-              const int xv[kTileM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            for (int m = 0; m < kTileM; ++m) {
+              isum[h][m] += __dp4a(xv[m], 0x01010101, 0);
 #pragma unroll
-              for (int m = 0; m < kTileM; ++m) {
-                const int xsum4 = __dp4a(xv[m], 0x01010101, 0);
-                isum[h][m] += (PLANES == 2 && p == 0) ? 256 * xsum4 : xsum4;
-#pragma unroll
-                for (int j = 0; j < kColsPerThread; ++j)
-                  ia[h][p][m][j] = __dp4a(xv[m], code[j], ia[h][p][m][j]);
-              }
+              for (int j = 0; j < kColsPerThread; ++j)
+                ia[h][m][j] = __dp4a(xv[m], code[j], ia[h][m][j]);
             }
           }
         }
@@ -283,12 +266,9 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
           for (int m = 0; m < kTileM; ++m) {
             const float xsum = (float)isum[h][m];
 #pragma unroll
-            for (int j = 0; j < kColsPerThread; ++j) {
-              const float part = PLANES == 2
-                  ? (float)ia[h][0][m][j] * 256.f + (float)ia[h][PLANES - 1][m][j]
-                  : (float)ia[h][0][m][j];
-              acc[m][j] = acc[m][j] + part * sg[h][j] - xsum * (sg[h][j] * zg[h][j]);
-            }
+            for (int j = 0; j < kColsPerThread; ++j)
+              acc[m][j] = acc[m][j] + (float)ia[h][m][j] * sg[h][j] -
+                          xsum * (sg[h][j] * zg[h][j]);
           }
       }
     }
@@ -434,26 +414,24 @@ cudaError_t quantize_rows(const void* x, int x_bf16, int k_logical, int k_stored
                       x, k_logical, k_stored, norm, eps, xq, sx, M, stream);
 }
 
-// The whole call: row pass, partial products, reduce.  x is [M, k_logical]
-// contiguous; xq [PLANES, M, K_stored] int8 and sx [M] f32 are scratch from
-// the wrapper, as is ws [splits, M, N].  Kp is the number of packed rows the
-// kernel walks: K/2 (nib4), K (byte, A8) or the B rows Kb = K/8 (s21, A8).
-template <int LAYOUT, int PLANES>
+// The whole A8 call: row pass, partial products, reduce.  x is [M,
+// k_logical] contiguous; xq [M, K_stored] int8 and sx [M] f32 are scratch
+// from the wrapper, as is ws [splits, M, N].  Kp is the number of packed
+// rows the kernel walks: K/2 (nib4), K (byte) or the B rows Kb = K/8 (s21).
+template <int LAYOUT>
 int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
               const void* qw, const void* s, long long s_rs, long long s_cs,
               const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
               void* ws, void* out, int M, int N, int n_out, int Kp, int G, int kc,
               int splits, void* stream) {
-  static_assert(LAYOUT == kNib4 || ((LAYOUT == kByte || LAYOUT == kS21) && PLANES == 1),
-                "the other A16 kernels are wa_slab_mma.cuh's");
+  static_assert(LAYOUT == kNib4 || LAYOUT == kByte || LAYOUT == kS21, "an affine layout");
   const int k_stored = LAYOUT == kNib4 ? 2 * Kp : LAYOUT == kS21 ? 8 * Kp : Kp;
   if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 || Kp % 4 ||
       G <= 0 || G % 4 || Kp % G || kc <= 0 || kc % 4 || splits <= 0 ||
       (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = quantize_rows<PLANES>(x, x_bf16, k_logical, k_stored, norm, eps,
-                                          xq, sx, M, st);
+  cudaError_t err = quantize_rows<1>(x, x_bf16, k_logical, k_stored, norm, eps, xq, sx, M, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(kLanes, kKWarps);
   const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kTileM - 1) / kTileM, splits);
@@ -463,7 +441,7 @@ int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
         z_cs, static_cast<float*>(ws), N, Kp, G, kc);
   else
-    wa_partial_kernel<LAYOUT == kNib4, PLANES><<<grid, block, 0, st>>>(
+    wa_partial_kernel<LAYOUT == kNib4><<<grid, block, 0, st>>>(
         static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
         z_cs, static_cast<float*>(ws), N, Kp, G, kc);

@@ -1,13 +1,16 @@
 // A16 dequant-matmul on Hopper's int8 tensor cores (sm_90a):
 //   y[M,N] = sx[M] * ((256*hi + lo)[M,K] @ dequant(qw)[K,N]),
-// split-plane 16-bit activations against 8-bit (byte) or 3-bit (s21) affine
-// codes, or 4-bit (nib4) or 6-bit (nq42) minifloat codes decoded to their
-// exact int8 grid; and its bf16 family (below) on the bf16 tensor cores,
+// split-plane 16-bit activations against 4-bit (nib4), 8-bit (byte) or
+// 3-bit (s21) affine codes, or 4-bit (nib4) or 6-bit (nq42) minifloat codes
+// decoded to their exact int8 grid; and its bf16 family (below) on the bf16
+// tensor cores,
 //   y[M,N] = x[M,K] @ dequant(qw)[K,N],  bf16 x, the nib4 and nq42 LUT
-// layouts, codes decoded to their exact bf16 values.
+// layouts and the s21 affine one, codes decoded to their exact bf16 values.
 //
 // Replaces the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
+//   _int4_kernel_a16 (:418, called at :1670) and its stacked form
+//       _int4_kernel_a16_pfx (:1722, through :1927);
 //   _int8_kernel_a16 (:449, called at :1691) and its stacked form
 //       _int8_kernel_a16_pfx (:1727, through :1927);
 //   _int3_kernel_a16 (:533) and its stacked form _int3_kernel_a16_pfx (:588),
@@ -18,9 +21,11 @@
 //       both through _call_lut6 (:939).
 // All reduce to _group_accum_a16 (:253-286) and _lut_accum_a16 (:698): per
 // group and plane an int32 product turned f32, part = 256*pa + pb, then
-//   affine (byte, s21):  acc += part*s - xsum*(s*z),
-//   LUT (nib4, nq42):    acc += part*(s*2^-t) [+ xsum*z where the artifact has zeros],
-// with xsum = 256*sum(hi) + sum(lo) over the group's activations.  The
+//   affine (nib4, byte, s21): acc += part*(s*mult) - xsum*(s*(z - zshift)),
+//   LUT (nib4, nq42):         acc += part*(s*2^-t) [+ xsum*z where the artifact has zeros],
+// with xsum = 256*sum(hi) + sum(lo) over the group's activations; mult = 1,
+// zshift = 0, but for the affine nib4 high slab, whose codes are the JAX
+// kernel's w & 0xF0 read as int8, 16 q - 128: mult = 1/16, zshift = 8.  The
 // stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.
 //
@@ -28,8 +33,8 @@
 // lut_common.cuh): every layout is read as S slabs of Kb packed rows, row r
 // of slab i holding K column i*Kb + r.  byte: qw [Kb = K, N], S = 1, the
 // stored byte read as int8 is the code (the JAX bitcast to int8; zeros are
-// stored shifted alike); nib4: qw [Kb = K/2, N], S = 2, the low nibble, then
-// the MSB-flipped high nibble; s21: qw [3 Kb, N], S = 8 slabs of Kb = K/8
+// stored shifted alike); nib4 (affine and LUT): qw [Kb = K/2, N], S = 2,
+// the low nibble, then the MSB-flipped high nibble; s21: qw [3 Kb, N], S = 8 slabs of Kb = K/8
 // rows (A rows (i % 2)*Kb + r, field i / 2, plus bit i of B row 2 Kb + r);
 // nq42: qw [3 Kb, N], S = 4 quarters of Kb = K/4 rows (nibble row (i % 2)*Kb
 // + r, low nibble for i < 2, flipped high nibble for i >= 2, plus bits
@@ -76,15 +81,18 @@
 //     and reads its W = CT / 2 words (4 W channels) of rows 8t..8t+7 of its
 //     part's window; the stage stores row 8t + i at position 4i + t and pads
 //     each row to BN / 4 + 8 words, so every such load is conflict-free.
-//     Per row word it decodes the four codes (byte: none; nib4 wide tiles: a
+//     Per row word it decodes the four codes (byte: none; affine nib4 wide
+//     tiles: one mask, 0x0F0F0F0F for the low slab, 0xF0F0F0F0 for the
+//     high one, whose int8 codes are then 16 q - 128; LUT nib4 wide tiles: a
 //     shift, a mask and the flip, then lut4_grid, two prmt lookups in an
 //     eight-byte table and a sign select; s21: slab_codes, one shift, one
 //     funnel rotate, two LOP3; nq42: then nq42_grid, arithmetic on the
 //     exponent and mantissa fields), and a 4x4 byte transpose of rows
 //     8t..8t+3 and 8t+4..8t+7 gives per channel the two words of four
-//     K-consecutive codes that the A fragment wants (the nib4 decode tile
-//     transposes the packed bytes first and decodes both slabs' codes of
-//     each such word at once, lut4_grid2: 14 operations for 8 codes):
+//     K-consecutive codes that the A fragment wants (the nib4 decode tiles
+//     transpose the packed bytes first and decode both slabs' codes of each
+//     such word at once: two masks for 8 affine codes, lut4_grid2's 14
+//     operations for 8 LUT ones):
 //     channel 2c (2c + 1) of the lane is MMA row g (g + 8) of
 //     tile c, MMA K slots 4t..4t+3 and 16+4t..16+4t+3 are rows 8t..8t+7.
 //     The B fragment (token g, the same K order) is one conflict-free 64-bit
@@ -100,7 +108,8 @@
 //     part holds the group's first row (a K-split or a part may cut a
 //     group).  Scales, zeros (16-byte loads where the side rows are
 //     contiguous) and sums are fetched when the window starts in which the
-//     segment ends.  Overflow: 127 * 128 * G per plane (< 2^31).  The warps'
+//     segment ends (the affine nib4 high slab's mult and zshift folded into
+//     them).  Overflow: 128 * 128 * G per plane (< 2^31).  The warps'
 //     f32 partials meet in shared memory and are summed over the groups in
 //     a fixed order; with one split (prefill, and the wide
 //     decode shapes) the block writes out = cast(sx * sum) itself, else its
@@ -123,15 +132,19 @@
 // operations a word of four codes) and, on small shapes, the fixed cost of
 // two or three kernels a call.
 //
-// The bf16 family (LAYOUT kLut4B, kLut6B: the bf16-x calls of lut4_matmul
-// and lut6_matmul).  Replaces _lut4_kernel (:739, pfx :1732) and
-// _lut6_kernel (:835, pfx :887, through _call_lut6 :939): per group acc +=
-// (x_g @ val_g) * s (+ xsum_g * z), _lut_accum (:724), with val the exact
-// minifloat value in x's dtype, contracted on the MXU with f32 sums.  Every
-// fp4 and fp6 value is exact in bf16, so a bf16 mma.sync m16n8k16 with f32
-// accumulation computes those products; the kernel is the pipeline above
-// (the same ring, windows split at group ends, parts, split plan, epilogue
-// per group, dependent launches) with these differences:
+// The bf16 family (LAYOUT kLut4B, kLut6B, kS21B: the bf16-x calls of
+// lut4_matmul, lut6_matmul and w3_matmul).  Replaces _lut4_kernel (:739,
+// pfx :1732), _lut6_kernel (:835, pfx :887, through _call_lut6 :939) and
+// _int3_kernel with bf16 x (:467, pfx :1360, through _call_int3 :1365): per
+// group acc += (x_g @ val_g) * s (+ xsum_g * z), _lut_accum (:724), with val
+// the exact minifloat value in x's dtype, or acc += (x_g @ q_g) * s -
+// xsum_g * (s * z), _group_accum (:226) over the twelve masked s21 fields
+// (their powers of two folded into the epilogue), contracted on the MXU
+// with f32 sums.  Every fp4 and fp6 value and every 3-bit code is exact in
+// bf16, so a bf16 mma.sync m16n8k16 with f32 accumulation computes those
+// products; the kernel is the pipeline above (the same ring, windows split
+// at group ends, parts, split plan, epilogue per group, dependent
+// launches) with these differences:
 //  - x stays bf16: the stage holds [part][slab][token][32 rows] of it, read
 //    by cp.async straight from x [M, S*Kb] (slab i's row r at column i*Kb +
 //    r, zero-filled beyond Kb), or from the copy a row pass made;
@@ -140,94 +153,44 @@
 //    x*r rounded to bf16: the function of normalize-then-kernel) into a
 //    copy of x, and where x is not 16-byte aligned.  A call without a
 //    pre-norm is one kernel, or two with a K-split;
-//  - with zeros (template flag BZ), each warp sums the staged x of each
-//    segment it multiplies (f32, its B registers, two shuffles over the
-//    K lanes, two to bring the D columns' tokens), so every part adds the
-//    xsum * z term of its own rows, and no pass sums x beforehand (a
-//    development A/B: faster than the row pass's sums, and the same code
-//    freed the symmetric wide tile of its spills);
+//  - with zeros (template flag BZ; always for s21), each warp sums the
+//    staged x of each segment it multiplies (f32, its B registers, two
+//    shuffles over the K lanes, two to bring the D columns' tokens), so
+//    every part adds the xsum * z term of its own rows, and no pass sums x
+//    beforehand (a development A/B: faster than the row pass's sums, and
+//    the same code freed the symmetric wide tile of its spills);
 //  - the decode: a lane still reads rows 8t..8t+7 of its channels and
 //    transposes them to per-channel words of four K-consecutive codes; each
 //    such word becomes two bf16 pairs, the A fragment of m16n8k16 q (rows
 //    8t+4q..8t+4q+3 in K slots 2t, 2t+1, 2t+8, 2t+9; B, one 16-byte load
-//    of the staged x, in the same order).  Values come from the format's
-//    widths, never from the codebook: codes_bf16 assembles value *
+//    of the staged x, in the same order).  LUT values come from the
+//    format's widths, never from the codebook: codes_bf16 assembles value *
 //    2^(bias-127) bytewise (the exponent field on bf16's, subnormals on its
 //    subnormals) and multiplies by 2^(127-bias) (exact); the nib4 decode
 //    tile takes both slabs of a packed byte at once (lut4_bf16x2: prmt
 //    lookups of a table of the eight magnitudes' bf16 bytes, built from the
-//    widths, and prmt's sign mode);
-//  - each group's f32 MMA sum is the part; acc += part * s (+ xsum * z);
+//    widths, and prmt's sign mode).  s21 codes (slab_codes, as the int8
+//    family) become bf16 by s21_bf16: two prmt under the exponent byte of
+//    128 and two bf16x2 fma subtracting 128;
+//  - each group's f32 MMA sum is the part; acc += part * s (+ xsum * z;
+//    s21: - xsum * (s * z));
 //  - tiles: the decode tile (M <= 8) is its packed layout's (nib4: two slabs
-//    a warp, P = 2; nq42: one, P = 1; BN = 128, two blocks an SM); beyond,
-//    NT = 8 (64 tokens a block, one block an SM), two channel tiles a warp
-//    and the warps of a slab each their own channels (BN = 128 nib4, 64
-//    nq42), P = 1: each weight is decoded once a block, straight into the
-//    A fragments of the block's eight token tiles, so no shared decoded
-//    tile (nor ldmatrix) is needed.  Bound: at decode the bytes (codes + f32
-//    sides + bf16 x + output) over 3.35 TB/s; at prefill 2*M*K*N over 989
-//    TFLOP/s.
+//    a warp, P = 2; nq42: one, P = 1, BN = 128; s21: one, P = 1, BN = 64;
+//    two blocks an SM); beyond, one block an SM, the warps of a slab each
+//    their own channels, P = 1: NT = 8 (64 tokens a block), two channel
+//    tiles a warp (BN = 128 nib4, 64 nq42); s21, one warp a slab: NT = 4
+//    (32 tokens), four channel tiles a warp (BN = 64), within the
+//    registers a thread has.  Each weight is decoded once a block, straight
+//    into the A fragments of the block's token tiles, so no shared decoded
+//    tile (nor ldmatrix) is needed.  Bound: at decode the bytes (codes +
+//    f32 sides + bf16 x + output) over 3.35 TB/s; at prefill 2*M*K*N over
+//    989 TFLOP/s.
 #pragma once
 
+#include "slab_tile.cuh"
 #include "wa_common.cuh"
 
 namespace iwoq {
-
-constexpr int kSlabWin = 32;  // slab rows a window: one MMA's K
-
-// The tile of one (LAYOUT, NT) instantiation.  A layout is S slabs of Kb
-// rows; a window copies A packed arrays (s21, nq42: three) or P parts of the
-// block's range (byte, nib4: one array).  A warp takes CT 16-channel MMA
-// tiles of SW slabs of one part (W = CT / 2 packed words a row a lane); WS
-// warps split a group's channels, so a block covers BN = 16 * CT * WS
-// channels.  Eight warps a block.  Decode (NT = 1): 4 tiles a warp (the
-// nib4 tile, two slabs a warp: 2), BN = 64 (s21) or 128, two blocks an SM
-// (each barrier stalls only its own block); wider token tiles: one block an
-// SM (their accumulators need more registers a thread; all but s21 then
-// take 2 tiles a warp, BN = 64).  The bf16 family (kLut4B, kLut6B) has the
-// decode tile of its packed layout and one wide tile, NT = 8 (64 tokens):
-// 2 tiles a warp, P = 1, the warps of a slab each their own channels (BN =
-// 128 nib4, 64 nq42), so a block decodes each weight once.
-template <int LAYOUT, int NT>
-struct SlabTile {
-  static constexpr bool BF = LAYOUT == kLut4B || LAYOUT == kLut6B;  // bf16 x and products
-  static constexpr int L = LAYOUT == kLut4B ? kLut4 : LAYOUT == kLut6B ? kLut6 : LAYOUT;  // packing
-  static constexpr int S = L == kS21 ? 8 : L == kLut6 ? 4 : L == kLut4 ? 2 : 1;
-  static constexpr int A = L == kS21 || L == kLut6 ? 3 : 1;  // packed arrays
-  static constexpr int WARPS = 8;
-  static constexpr int BLOCKS_PER_SM = NT == 1 ? 2 : 1;
-  static constexpr int THREADS = WARPS * kLanes;
-  // slabs a warp decodes from one staged word: the nib4 LUT decode tile
-  // takes both nibbles of a byte at once (one load, one transpose)
-  static constexpr int SW = L == kLut4 && NT == 1 ? 2 : 1;
-  static constexpr int WS = BF && NT > 1 ? WARPS / S : L == kS21 ? 1 : SW == 2 ? 4 : 2;  // warps a group
-  static constexpr int P = WARPS / (S / SW * WS);        // parts of the block's K range
-  static constexpr int V = S / SW * P;                   // groups: SW slabs of a part
-  static constexpr int CT = L == kS21 || (NT == 1 && SW == 1) ? 4 : 2;  // MMA channel tiles a warp
-  static constexpr int W = CT / 2;                       // packed words a lane reads a row
-  static constexpr int BN = 16 * CT * WS;                // channels a block
-  static constexpr int MT = 8 * NT;                      // tokens a block
-  static constexpr int STAGES = 4;                       // windows in the ring
-  // Words a staged row, padded so that rows 4i + t (t = 0..3) start 0,
-  // 24, 16 and 8 banks apart (BN / 4 is 16 or 32).
-  static constexpr int PITCH = BN / 4 + 8;
-  static constexpr int W_BYTES = A * P * kSlabWin * PITCH * 4;  // [array or part][32 rows]
-  // int8 [part][slab][plane][token][32]; bf16 [part][slab][token][32] of 2 bytes
-  static constexpr int X_BYTES = S * P * 2 * MT * kSlabWin;
-  static constexpr int STAGE = W_BYTES + X_BYTES;
-  static constexpr int RED = V * MT * (BN + 1) * 4;            // f32 [group][token][BN + 1]
-  static constexpr int SMEM = STAGES * STAGE > RED ? STAGES * STAGE : RED;
-  static_assert(V * WS == WARPS && (A == 1 || P == 1), "warps over slabs, parts, channels");
-  static_assert(W == 1 || W == 2, "one 32- or 64-bit load a row");
-  static_assert((PITCH * 4) % 16 == 0 && ((BN / 4) % 16 == 0), "16-byte rows, bank steps");
-  static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 228 * 1024, "the blocks of an SM");
-};
-
-// Tokens a block of the slab kernel (must match slab_tile_m, and the tile's
-// BN and P slab_block_n and SLAB_PARTS, in ops/kernels/dequant_matmul.py).
-__host__ __device__ constexpr int slab_tile_nt(int M, int layout) {
-  return M <= 8 ? 1 : layout == kS21 ? 2 : layout == kLut4B || layout == kLut6B ? 8 : 4;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -384,12 +347,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// a * b + c of two bf16 pairs, rounded once.
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
 // a * b of two bf16 pairs (an fma with -0, which keeps every product, -0
 // and subnormal inputs included, exact where it is representable).
 __device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(0x80008000u));
-  return r;
+  return bf16x2_fma(a, b, 0x80008000u);
+}
+
+// Four s21 codes q = f + 4h (bytes of c, 0..7, in K order) -> their bf16
+// values, pairs (0, 1) and (2, 3): a byte q under the high byte 0x43 is the
+// bf16 of 128 + q (the exponent of 128 and q in the mantissa), and q * 1 -
+// 128 in one bf16x2 fma is q exactly.
+__device__ __forceinline__ void s21_bf16(uint32_t c, uint32_t& p01, uint32_t& p23) {
+  constexpr uint32_t kHi = 0x43434343u, kOne = 0x3F803F80u, kMinus128 = 0xC300C300u;
+  p01 = bf16x2_fma(__byte_perm(c, kHi, 0x5140), kOne, kMinus128);
+  p23 = bf16x2_fma(__byte_perm(c, kHi, 0x7362), kOne, kMinus128);
 }
 
 // The widths-based decode of minifloat codes (one a byte: sign bit SB = E +
@@ -594,10 +572,11 @@ rows_bf16_slab_kernel(const __nv_bfloat16* __restrict__ x, int ldx, int k_logica
 // without zeros).  The bf16 family: xsrc bf16, token m's row r of slab i at
 // m * x_ld + i * x_ls + r (valid for r < Kb; x_ld, x_ls multiples of 8,
 // 16-byte aligned), no xsum (the kernel sums x itself where BZ: the
-// artifact has zeros, z not null), no sx, bf16 out.
+// artifact has zeros, z not null; always for s21), no sx, bf16 out.
 // qw [A Kb, N] bytes; kc a multiple of 32 P.  LUT: nib4 exp_bits +
 // mant_bits = 3; nq42 exp_bits 1 or 2 (bf16: any E + M = 5), mant_bits 5 -
-// exp_bits; z may be null.
+// exp_bits; z may be null.  Affine (nib4, byte, s21): z not null, the
+// format arguments unused.
 template <int LAYOUT, int NT, bool VEC16, bool BZ = false>
 __global__ void __launch_bounds__(SlabTile<LAYOUT, NT>::THREADS,
                                   SlabTile<LAYOUT, NT>::BLOCKS_PER_SM)
@@ -650,7 +629,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
     lut4_bf16_table(exp_bits, mant_bits, tab);
   }
   Bf16Dec dec = {};
-  if constexpr (BF) dec = bf16_dec(exp_bits, mant_bits);
+  if constexpr (BF && LUT) dec = bf16_dec(exp_bits, mant_bits);
 
   // Copies of the block's windows, in order, into the ring: each thread its
   // share of weight chunks of CB bytes (16, or 4 where N or qw is not
@@ -819,6 +798,25 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
             zc[sw][c][h] = ok && has_z ? __ldg(zp + j * zcs) : 0.f;
           }
       }
+      // affine nib4, the high slab: its codes are 16 q - 128, and the
+      // group's epilogue takes s / 16 and z - 8 (the JAX kernel's mult and
+      // zshift), i.e. sc = s / 16 and zc = 16 z - 128, so that sc * zc =
+      // s * (z - 8), both exact powers of two away; bf16 s21: the epilogue
+      // adds xsum * zc, so zc = -(s * z)
+      if (L == kNib4 && slab + sw == 1) {
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            sc[sw][c][h] *= 0.0625f;
+            zc[sw][c][h] = fmaf(zc[sw][c][h], 16.f, -128.f);
+          }
+      } else if (BF && !LUT) {
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) zc[sw][c][h] = -(sc[sw][c][h] * zc[sw][c][h]);
+      }
       if (!BF && has_z && gi * G >= pk0) {
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
@@ -892,11 +890,13 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
 #pragma unroll
         for (int v = 0; v < W; ++v) {
           if constexpr (L == kByte || SW == 2)
-            code[i][v] = aw[v];  // byte: the codes; nib4 decode tile: decoded after the transpose
+            code[i][v] = aw[v];  // byte: the codes; nib4 decode tiles: decoded after the transpose
+          else if constexpr (L == kNib4)  // the low codes q, or the high ones as 16 q - 128
+            code[i][v] = aw[v] & (slab ? 0xF0F0F0F0u : 0x0F0F0F0Fu);
           else if constexpr (BF && L == kLut4)
             code[i][v] = nib4_codes(aw[v], slab);
           else if constexpr (BF)
-            code[i][v] = slab_codes<true>(aw[v], bw[v], fields);
+            code[i][v] = slab_codes<L == kLut6>(aw[v], bw[v], fields);
           else if constexpr (L == kLut4)
             code[i][v] = lut4_grid(nib4_codes(aw[v], slab), tab);
           else if constexpr (L == kLut6)
@@ -916,6 +916,8 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
             uint32_t d[SW][2];
             if constexpr (SW == 2)
               lut4_bf16x2(col[0][j], tab, d[0], d[1]);
+            else if constexpr (L == kS21)
+              s21_bf16(col[0][j], d[0][0], d[0][1]);
             else
               codes_bf16(col[0][j], dec, d[0][0], d[0][1]);
 #pragma unroll
@@ -925,9 +927,17 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
             }
           }
         } else {
-          if constexpr (SW == 2)  // both slabs' codes of the packed bytes, now per channel
+          if constexpr (SW == 2) {  // both slabs' codes of the packed bytes, now per channel
 #pragma unroll
-            for (int j = 0; j < 4; ++j) lut4_grid2(col[0][j], tab, col[0][j], col[1][j]);
+            for (int j = 0; j < 4; ++j) {
+              if constexpr (L == kNib4) {  // the low codes q; the high ones as 16 q - 128
+                col[1][j] = col[0][j] & 0xF0F0F0F0u;
+                col[0][j] &= 0x0F0F0F0Fu;
+              } else {
+                lut4_grid2(col[0][j], tab, col[0][j], col[1][j]);
+              }
+            }
+          }
 #pragma unroll
           for (int sw = 0; sw < SW; ++sw) {
             afr[sw][2 * v][0][2 * q] = col[sw][0];
@@ -1170,18 +1180,19 @@ cudaError_t launch_slab_mma_nt(const void* xq, const void* xsum, int M, const vo
 // The whole call: row pass, tensor-core partial products, reduce.  x is
 // [M, k_logical] contiguous; xq (slab_planes_bytes, then the sums), sx [M]
 // f32 and ws [splits, M, N] are scratch from the wrapper.  Kb is the slab
-// rows: K (byte), K/2 (nib4), the B rows K/8 (s21) or the quad rows K/4
-// (nq42); qw is [Kb, N] (byte, nib4) or [3 Kb, N].  kc is a multiple of
-// 32 P (SlabTile::P).  exp_bits, mant_bits: the LUT format (nib4: fp4,
-// E + M = 3; nq42: E1M4 or E2M3); its z may be null.
+// rows: K (byte), K/2 (nib4, affine and LUT), the B rows K/8 (s21) or the
+// quad rows K/4 (nq42); qw is [Kb, N] (byte, nib4) or [3 Kb, N].  kc is a
+// multiple of 32 P (SlabTile::P).  exp_bits, mant_bits: the LUT format
+// (nib4: fp4, E + M = 3; nq42: E1M4 or E2M3); its z may be null.
 template <int LAYOUT>
 int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps,
                    const void* qw, const void* s, long long s_rs, long long s_cs,
                    const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
                    void* ws, void* out, int M, int N, int n_out, int Kb, int G, int kc,
                    int splits, void* stream, int exp_bits = 0, int mant_bits = 0) {
-  static_assert(LAYOUT == kByte || LAYOUT == kS21 || LAYOUT == kLut4 || LAYOUT == kLut6,
-                "a slab layout");
+  static_assert(LAYOUT == kNib4 || LAYOUT == kByte || LAYOUT == kS21 || LAYOUT == kLut4 ||
+                    LAYOUT == kLut6,
+                "an int8 slab layout");
   constexpr bool LUT = LAYOUT == kLut4 || LAYOUT == kLut6;
   constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
   constexpr int S = SlabTile<LAYOUT, 1>::S, P = SlabTile<LAYOUT, 1>::P;
@@ -1220,24 +1231,25 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
 }
 
 
-// The bf16 family's whole call (LAYOUT kLut4B or kLut6B): y = x @
+// The bf16 family's whole call (LAYOUT kLut4B, kLut6B or kS21B): y = x @
 // dequant(qw), bf16 x [M, ldx] (ldx = S*Kb, zero beyond k_logical), bf16
 // out [M, n_out].  The row pass runs only where the call needs it: with
 // norm, or x_copy (x is not 16-byte aligned, or ldx or Kb is no multiple of
 // 8), it writes the copy xs [M][S][Kb32] bf16 (scratch from the wrapper:
-// lut_mma_scratch_bytes in ops/kernels/dequant_matmul.py) that the product
+// bf16_mma_scratch_bytes in ops/kernels/dequant_matmul.py) that the product
 // kernel then reads (normalized under norm); otherwise the product kernel
 // reads x itself.  ws [splits, M, N] is scratch too; kc is a multiple of 32
 // P (SlabTile<LAYOUT, NT>::P at the call's token tile).  exp_bits,
-// mant_bits: the format (nib4: E + M = 3; nq42: E + M = 5), decoded from
-// its widths; z may be null (symmetric).
+// mant_bits: the LUT format (nib4: E + M = 3; nq42: E + M = 5), decoded
+// from its widths, z may be null (symmetric); s21: both 0, z not null.
 template <int LAYOUT>
-int launch_lut_mma(const void* x, int ldx, int x_copy, int k_logical, int norm, float eps,
+int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm, float eps,
                    const void* qw, const void* s, long long s_rs, long long s_cs,
                    const void* z, long long z_rs, long long z_cs, void* xs, void* ws, void* out,
                    int M, int N, int n_out, int Kb, int G, int kc, int splits, int exp_bits,
                    int mant_bits, void* stream) {
-  static_assert(LAYOUT == kLut4B || LAYOUT == kLut6B, "a bf16 LUT layout");
+  static_assert(LAYOUT == kLut4B || LAYOUT == kLut6B || LAYOUT == kS21B, "a bf16 layout");
+  constexpr bool LUT = LAYOUT != kS21B;
   constexpr int S = SlabTile<LAYOUT, 1>::S;
   constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
   const bool wide = slab_tile_nt(M, LAYOUT) != 1;
@@ -1247,8 +1259,10 @@ int launch_lut_mma(const void* x, int ldx, int x_copy, int k_logical, int norm, 
       Kb % G || kc <= 0 || kc % (kSlabWin * P) || splits <= 0 ||
       (long long)kc * splits < Kb || (long long)kc * (splits - 1) >= Kb || k_logical <= 0 ||
       k_logical > S * Kb || ldx != S * Kb || s_cs < 0 || s_cs > (1 << 24) || z_cs < 0 ||
-      z_cs > (1 << 24) || exp_bits < 1 || mant_bits < 0 ||
-      exp_bits + mant_bits != (LAYOUT == kLut4B ? 3 : 5) ||
+      z_cs > (1 << 24) ||
+      (LUT && (exp_bits < 1 || mant_bits < 0 ||
+               exp_bits + mant_bits != (LAYOUT == kLut4B ? 3 : 5))) ||
+      (!LUT && (exp_bits != 0 || mant_bits != 0 || z == nullptr)) ||
       (!copy && (ldx % 8 || Kb % 8 || reinterpret_cast<uintptr_t>(x) % 16)) ||
       (copy && xs == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1269,14 +1283,18 @@ int launch_lut_mma(const void* x, int ldx, int x_copy, int k_logical, int norm, 
   }
   const void* xsrc = copy ? static_cast<const void*>(xc) : x;
   const int x_ld = copy ? S * Kb32 : ldx, x_ls = copy ? Kb32 : Kb;
-#define IWOQ_LUT_MMA(NT, BZ)                                                                  \
+#define IWOQ_BF16_MMA(NT, BZ)                                                                 \
   launch_slab_mma_nt<LAYOUT, NT, BZ>(xsrc, nullptr, M, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws, \
                                      out, nullptr, 1, N, n_out, Kb, G, kc, splits, exp_bits,  \
                                      mant_bits, st, x_ld, x_ls)
-  const bool bz = z != nullptr;
-  err = wide ? (bz ? IWOQ_LUT_MMA(NT_WIDE, true) : IWOQ_LUT_MMA(NT_WIDE, false))
-             : (bz ? IWOQ_LUT_MMA(1, true) : IWOQ_LUT_MMA(1, false));
-#undef IWOQ_LUT_MMA
+  if constexpr (LUT) {
+    const bool bz = z != nullptr;
+    err = wide ? (bz ? IWOQ_BF16_MMA(NT_WIDE, true) : IWOQ_BF16_MMA(NT_WIDE, false))
+               : (bz ? IWOQ_BF16_MMA(1, true) : IWOQ_BF16_MMA(1, false));
+  } else {  // an affine artifact always has zeros
+    err = wide ? IWOQ_BF16_MMA(NT_WIDE, true) : IWOQ_BF16_MMA(1, true);
+  }
+#undef IWOQ_BF16_MMA
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)M * n_out;
   const dim3 rgrid((unsigned)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096));

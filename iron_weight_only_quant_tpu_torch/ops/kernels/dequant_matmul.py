@@ -6,12 +6,14 @@ f32 side info, per storage layout:
 
   nib4 (int4, bfp4):  ``csrc/w4_matmul.cu``, ``csrc/w4_matmul_prenorm.cu``
                 (design notes in ``csrc/w4_common.cuh``),
-                ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``;
+                ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``
+                (``csrc/wa_slab_mma.cuh``);
   byte (int8, bfp8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
                 (design notes in ``csrc/w8_common.cuh``),
                 ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu`` (design
                 notes in ``csrc/wa_slab_mma.cuh``);
-  s21 (3-bit):  ``csrc/w3_matmul.cu`` (design notes in
+  s21 (3-bit):  ``csrc/w3_matmul.cu`` (bf16 x: the bf16 family of
+                ``csrc/wa_slab_mma.cuh``; f32 x: design notes in
                 ``csrc/w3_common.cuh``), ``csrc/w3a8_matmul.cu``,
                 ``csrc/w3a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
   LUT nib4 (4-bit minifloat): ``csrc/lut4_matmul.cu`` (bf16 x: the bf16
@@ -30,23 +32,24 @@ and LUT layouts have none, as in the JAX package (``prenorm_supported``): a
 type), then the kernel runs.  A LUT kernel decodes each code to its exact
 minifloat value from the format's exponent and mantissa widths (never from
 the artifact's codebook) and computes ``w = val*s (+ z)``.  The nib4 and
-nq42 LUT kernels (``lut4``, ``lut6``: :data:`LUT_MMA`) take bf16 x on the
-bf16 tensor cores (:func:`lut_mma_route`): the codes decode to their exact
-bf16 values, ``mma.sync`` m16n8k16 sums each group's products in f32,
-``acc += part*s (+ xsum*z)``, the kernel summing each group's x itself
-for the zeros; a row pass runs only where a ``pre_norm`` is given, which it
-then applies to a copy of x (the same function: normalize, cast to bf16,
-then the product), or where x cannot be read in place.  f32 x stays on
-their CUDA-core kernel, under the same name and launch count.  The
-``a8``/``a16`` kernels (design notes in ``csrc/wa_common.cuh``) take
-``activation_bits`` 8 or 16: a row pass quantizes x to one int8 plane (A8,
-``sx = absmax/127``) or two (A16, ``x ~= sx*(256*hi + lo)``, ``sx =
-absmax/32512``), the product runs on integer codes, and the f32 result is
-scaled by the row's ``sx``.  The A16 kernels but ``w4a16`` (``w8a16``,
-``w3a16``, ``lut4a16``, ``lut6a16``: :data:`SLAB_MMA`) run their products
-on the int8 tensor cores and take their own K-split plan
-(:func:`plan_slab_splits`); their row pass also writes each group's
-activation sum (:func:`activation_group_sums`).
+nq42 LUT kernels (``lut4``, ``lut6``) and the s21 kernel (``w3``)
+(:data:`BF16_MMA`) take bf16 x on the bf16 tensor cores
+(:func:`bf16_mma_route`): the codes decode to their exact bf16 values,
+``mma.sync`` m16n8k16 sums each group's products in f32, ``acc += part*s
+(+ xsum*z)`` (s21: ``- xsum*(s*z)``), the kernel summing each group's x
+itself for the zeros; a row pass runs only where a ``pre_norm`` is given,
+which it then applies to a copy of x (the same function: normalize, cast
+to bf16, then the product), or where x cannot be read in place.  f32 x
+stays on their CUDA-core kernel, under the same name and launch count.
+The ``a8``/``a16`` kernels take ``activation_bits`` 8 or 16: a row pass
+quantizes x to one int8 plane (A8, ``sx = absmax/127``) or two (A16, ``x
+~= sx*(256*hi + lo)``, ``sx = absmax/32512``), the product runs on integer
+codes, and the f32 result is scaled by the row's ``sx``.  The A8 kernels
+(design notes in ``csrc/wa_common.cuh``) run on ``__dp4a``; every A16
+kernel (``w4a16``, ``w8a16``, ``w3a16``, ``lut4a16``, ``lut6a16``:
+:data:`SLAB_MMA`) runs its products on the int8 tensor cores and takes the
+slab kernel's K-split plan (:func:`plan_slab_splits`); its row pass also
+writes each group's activation sum (:func:`activation_group_sums`).
 Under activation bits a ``pre_norm`` is applied to x before quantizing (in
 the row pass), as the JAX package does, so no prenorm kernel runs.  LUT
 artifacts take A16 where the format's exact values form an int8 grid (fp4 E2M1 and E1M2: ``lut4a16``; fp6 E2M3 in the nq42
@@ -160,7 +163,7 @@ _ARGTYPES_LUT = [  # the LUT kernels (csrc/lut_common.cuh launch_lut)
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,                    # exp_bits, mant_bits, stream
 ]
-_ARGTYPES_LUT_MMA = [  # the bf16 LUT route (csrc/wa_slab_mma.cuh launch_lut_mma)
+_ARGTYPES_BF16_MMA = [  # the bf16 route (csrc/wa_slab_mma.cuh launch_bf16_mma)
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, ldx, x_copy, k_logical
     ctypes.c_int, ctypes.c_float, ctypes.c_void_p,                  # norm, eps, qw
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # s, s_rs, s_cs
@@ -186,19 +189,40 @@ _ARGTYPES_ROWS_SLAB = [  # iwoq_quantize_rows_slab, the slab kernels' row pass a
 _BLOCK_N, _TILE_M = 128, 8  # must match kBlockN / kTileM in w4_common.cuh
 _MIN_ROWS_PER_SPLIT = 64
 _BLOCKS_PER_SM = 3
-# the A16 kernels on the tensor cores (csrc/wa_slab_mma.cuh), each with
-# the slabs of its layout: K streams a packed row, row r of slab i holding K
-# column i*Kb + r.  The window, the parts and the tile helpers below must
-# match kSlabWin, SlabTile::P, SlabTile::BN and slab_tile_nt there; the slab
-# count names the layout.
-SLAB_MMA = {W8A16: 1, LUT4A16: 2, LUT6A16: 4, W3A16: 8}  # byte, nib4, nq42, s21
-SLAB_PARTS = {1: 4, 2: 2, 4: 1, 8: 1}  # slabs -> parts a block's warps split its range into
-SLAB_WINDOW = 32
-# The bf16-x calls of the nib4 and nq42 LUT kernels (the bf16 family of
-# csrc/wa_slab_mma.cuh: bf16 products on the tensor cores), by the slab count
-# of their layout; f32 x stays on their CUDA-core kernel (csrc/lut_common.cuh).
-# Name and launch count are the kernel's either way.
-LUT_MMA = {LUT4: 2, LUT6: 4}
+# The layouts of the slab kernel (csrc/wa_slab_mma.cuh; the Layout enum of
+# csrc/slab_tile.cuh, whose values these are): the int8 family (A16) takes
+# the affine nib4, byte and s21 layouts and the nib4 and nq42 LUT ones; the
+# bf16 family (bf16 x, bf16 products) the nib4 and nq42 LUT layouts and s21.
+SLAB_LAYOUT_IDS = {"nib4": 0, "byte": 1, "s21": 2, "lut4": 3, "lut6": 4,
+                   "lut4_bf16": 5, "lut6_bf16": 6, "s21_bf16": 7}
+# layout -> (slabs: K streams a packed row, row r of slab i holding K column
+# i*Kb + r; then (tokens, channels, parts) a block takes at decode, M <= 8,
+# and beyond): SlabTile's S, and its MT, BN and P at NT = 1 and at
+# slab_tile_nt(9, layout) (tests/test_torch_w4a16_w3_mma.py compiles
+# csrc/slab_tile.cuh with the host compiler and holds this table to it)
+SLAB_TILES = {
+    "nib4": (2, (8, 128, 2), (32, 64, 2)),
+    "byte": (1, (8, 128, 4), (32, 64, 4)),
+    "s21": (8, (8, 64, 1), (16, 64, 1)),
+    "lut4": (2, (8, 128, 2), (32, 64, 2)),
+    "lut6": (4, (8, 128, 1), (32, 64, 1)),
+    "lut4_bf16": (2, (8, 128, 2), (64, 128, 1)),
+    "lut6_bf16": (4, (8, 128, 1), (64, 64, 1)),
+    "s21_bf16": (8, (8, 64, 1), (32, 64, 1)),
+}
+SLAB_WINDOW = 32  # kSlabWin: slab rows a window
+# The A16 kernels on the int8 tensor cores, by layout.
+SLAB_MMA = {W4A16: "nib4", W8A16: "byte", W3A16: "s21", LUT4A16: "lut4", LUT6A16: "lut6"}
+# The bf16-x calls of the nib4 and nq42 LUT kernels and of the s21 kernel on
+# the bf16 tensor cores, by layout; f32 x stays on their CUDA-core kernels
+# (csrc/lut_common.cuh, csrc/w3_common.cuh).  Name and launch count are the
+# kernel's either way.
+BF16_MMA = {LUT4: "lut4_bf16", LUT6: "lut6_bf16", W3: "s21_bf16"}
+# Layouts whose K-split plan never starts a partial round of blocks (see
+# plan_slab_splits): byte, which decodes nothing, and affine nib4, whose
+# decode is two masks a word (on the H100 the floored plan beat the rounded
+# one at the 7B qkv decode shape and tied at the others).
+SLAB_WHOLE_ROUNDS = ("byte", "nib4")
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -303,8 +327,8 @@ def kernel_name(qt: QuantizedTensor, pre_norm: Optional[float] = None,
     applied to x before quantizing; A16 on a LUT format without the A16
     path names the flat kernel.  A layout without a prenorm kernel (s21,
     LUT) names its flat kernel for a ``pre_norm`` too: x is normalized
-    before its product (in torch, or in the row pass of the bf16 LUT
-    route).
+    before its product (in torch, or in the row pass of the bf16 route,
+    :func:`bf16_mma_route`).
     """
     names = None if xla_route(qt) else _names(qt)
     if names is None:
@@ -323,29 +347,31 @@ def prenorm_supported(qt: QuantizedTensor) -> bool:
     return names is not None and names[1] is not None
 
 
-def _lut_mma_fits(kb: int, g: int) -> bool:
-    """The bf16 LUT kernel's shape rule: slab rows and group (in slab rows)
-    in fours (its windows split at group ends with 4-row granularity)."""
+def _bf16_mma_fits(kb: int, g: int) -> bool:
+    """The bf16 family's shape rule: slab rows and group (in slab rows) in
+    fours (its windows split at group ends with 4-row granularity)."""
     return kb % 4 == 0 and g % 4 == 0
 
 
-def lut_mma_route(qt: QuantizedTensor, dtype: torch.dtype) -> bool:
-    """Whether a call of this (flat or layer-stacked) LUT artifact with x of
+def bf16_mma_route(qt: QuantizedTensor, dtype: torch.dtype) -> bool:
+    """Whether a call of this (flat or layer-stacked) artifact with x of
     ``dtype`` takes the bf16 tensor-core route of its kernel
-    (:data:`LUT_MMA`): bf16 x on the nib4 (fp4) or nq42 (fp6) layout whose
-    slab rows and group are multiples of 4.  There a ``pre_norm`` runs in
-    the kernel's row pass; f32 x, and the rare shapes outside the rule, take
-    the CUDA-core kernel of the same name, after x is normalized in torch."""
-    if dtype != torch.bfloat16 or qt.mode != "lut" or xla_route(qt):
+    (:data:`BF16_MMA`): bf16 x on the nib4 (fp4) or nq42 (fp6) LUT layout or
+    the s21 (3-bit) affine one, whose slab rows and group are multiples of 4.
+    There a ``pre_norm`` runs in the kernel's row pass; f32 x, and the rare
+    shapes outside the rule, take the CUDA-core kernel of the same name,
+    after x is normalized in torch."""
+    if dtype != torch.bfloat16 or xla_route(qt):
         return False
     names = _names(qt)
-    if names is None or names[0] not in LUT_MMA:
+    if names is None or names[0] not in BF16_MMA:
         return False
     rows = (qt.scales.shape[1] - qt.side_pad if qt.qweight.dim() == 3
             else qt.scales.shape[0])
     if rows < 1 or qt.k_stored % rows:
         return False
-    return _lut_mma_fits(qt.k_stored // LUT_MMA[names[0]], _group_size(qt, rows))
+    slabs = SLAB_TILES[BF16_MMA[names[0]]][0]
+    return _bf16_mma_fits(qt.k_stored // slabs, _group_size(qt, rows))
 
 
 def _group_size(qt: QuantizedTensor, rows: int) -> int:
@@ -630,74 +656,64 @@ def plan_splits(m: int, n: int, kp: int, sm_count: int) -> Tuple[int, int]:
     return kc, math.ceil(kp / kc)
 
 
-def slab_tile_m(m: int, slabs: int, bf16: bool = False) -> int:
-    """Tokens a block of the slab kernel of the layout with ``slabs`` slabs:
-    8 at decode (M <= 8), else 16 (s21, 8 slabs) or 32; the bf16 family
-    (``bf16``: :data:`LUT_MMA`) 64 beyond decode."""
-    return 8 if m <= 8 else 64 if bf16 else 16 if slabs == 8 else 32
+def slab_tile(m: int, layout: str) -> Tuple[int, int, int]:
+    """(tokens, channels, parts) a block of the slab kernel takes for ``m``
+    activation rows in ``layout`` (:data:`SLAB_TILES`): the decode tile at
+    M <= 8, else the layout's wide tile.  A block splits its K range into
+    ``parts`` over its warps."""
+    return SLAB_TILES[layout][1 if m <= 8 else 2]
 
 
-def slab_block_n(m: int, slabs: int, bf16: bool = False) -> int:
-    """Output channels a block of the slab kernel: at decode 64 (s21) or 128
-    (byte, nib4, nq42), else 64; the bf16 family beyond decode 16 * 2 * 8 /
-    slabs (one warp a slab and 32 channels: nib4 128, nq42 64)."""
-    if m > 8 and bf16:
-        return 256 // slabs
-    return 64 if m > 8 or slabs == 8 else 128
+def plan_slab_splits(m: int, n: int, kb: int, layout: str,
+                     sm_count: int) -> Tuple[int, int]:
+    """(slab rows per K-split, number of K-splits) of the slab kernel of
+    ``layout`` (:data:`SLAB_MMA`, :data:`BF16_MMA`) for an [m, n] output
+    over ``kb`` slab rows.
 
-
-def slab_parts(m: int, slabs: int, bf16: bool = False) -> int:
-    """Parts a block's warps split its K range into: ``SLAB_PARTS[slabs]``,
-    but 1 in the bf16 family's wide tile (M > 8)."""
-    return 1 if bf16 and m > 8 else SLAB_PARTS[slabs]
-
-
-def plan_slab_splits(m: int, n: int, kb: int, slabs: int, sm_count: int,
-                     bf16: bool = False) -> Tuple[int, int]:
-    """(slab rows per K-split, number of K-splits) of the slab kernel of the
-    layout with ``slabs`` slabs (:data:`SLAB_MMA`; with ``bf16`` the bf16
-    family, :data:`LUT_MMA`) for an [m, n] output over ``kb`` slab rows.
-
-    A block splits its range into ``P`` parts (:func:`slab_parts`) over its
+    A block splits its range into ``P`` parts (:func:`slab_tile`) over its
     warps, each a whole number of windows (32 rows), so ``kc`` is a multiple
     of ``32 * P``, and the splits cover the ``kb`` rows exactly once,
     ``[i * kc, min(kb, (i + 1) * kc))``.  K is split about as far as
     needed to fill the card's block slots once (two blocks an SM at decode,
     one beyond), from the shapes alone: the layouts that decode their codes
     take the nearest count of rounds (a second block on more SMs hides
-    their decode); the byte layout, which only streams its bytes, never
-    starts a partial second round, which would cost it a whole one.
+    their decode); those of :data:`SLAB_WHOLE_ROUNDS`, which decode little
+    or nothing and stream their bytes, never start a partial second round,
+    which would cost them a whole one.
     """
-    step = SLAB_WINDOW * slab_parts(m, slabs, bf16)
-    base = (math.ceil(n / slab_block_n(m, slabs, bf16))
-            * math.ceil(m / slab_tile_m(m, slabs, bf16)))
+    tokens, channels, parts = slab_tile(m, layout)
+    step = SLAB_WINDOW * parts
+    base = math.ceil(n / channels) * math.ceil(m / tokens)
     slots = (2 if m <= 8 else 1) * sm_count
-    want = slots // base if slabs == 1 else math.floor(slots / base + 0.5)
+    want = slots // base if layout in SLAB_WHOLE_ROUNDS else math.floor(slots / base + 0.5)
     steps = math.ceil(kb / step)
     splits = max(1, min(want, steps))
     kc = step * math.ceil(steps / splits)
     return kc, math.ceil(kb / kc)
 
 
-def slab_scratch_bytes(m: int, kb: int, slabs: int, g: int, sums: bool) -> int:
-    """Bytes of the int8 scratch of a slab A16 launch: the activation
-    planes ``[2, M, slabs, Kb32]`` (each slab padded to a multiple of 32
-    rows), then, where the kernel reads them, the int32 group sums ``[M,
-    slabs * kb / g]`` (``launch_wa_slab`` in ``csrc/wa_slab_mma.cuh``)."""
+def slab_scratch_bytes(m: int, kb: int, layout: str, g: int, sums: bool) -> int:
+    """Bytes of the int8 scratch of a slab A16 launch in ``layout``: the
+    activation planes ``[2, M, slabs, Kb32]`` (each slab padded to a
+    multiple of 32 rows), then, where the kernel reads them (every affine
+    artifact, a LUT one with zeros), the int32 group sums ``[M, slabs * kb /
+    g]`` (``launch_wa_slab`` in ``csrc/wa_slab_mma.cuh``)."""
+    slabs = SLAB_TILES[layout][0]
     kb32 = math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
     return 2 * m * slabs * kb32 + (4 * m * slabs * (kb // g) if sums else 0)
 
 
-def lut_mma_scratch_bytes(m: int, kb: int, slabs: int) -> int:
-    """Bytes of the scratch of a bf16 LUT launch (:data:`LUT_MMA`) whose row
-    pass copies x (a pre-norm, or x not 16-byte aligned): the bf16 copy
+def bf16_mma_scratch_bytes(m: int, kb: int, layout: str) -> int:
+    """Bytes of the scratch of a bf16-family launch (:data:`BF16_MMA`) whose
+    row pass copies x (a pre-norm, or x not 16-byte aligned): the bf16 copy
     ``[M, slabs, Kb32]``, each slab padded to a multiple of 32 rows
-    (``launch_lut_mma`` in ``csrc/wa_slab_mma.cuh``)."""
+    (``launch_bf16_mma`` in ``csrc/wa_slab_mma.cuh``)."""
+    slabs = SLAB_TILES[layout][0]
     return 2 * m * slabs * math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
 
 
 def x_needs_copy(x2: torch.Tensor, kb: int) -> bool:
-    """Whether the bf16 LUT kernel cannot read ``x2`` ``[M, K_stored]`` in
+    """Whether the bf16 family cannot read ``x2`` ``[M, K_stored]`` in
     place, in 16-byte copies of each slab's rows: x not 16-byte aligned, or
     K_stored or the slab rows ``kb`` no multiple of 8.  The row pass then
     copies it."""
@@ -800,9 +816,10 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
     if ``pre_norm`` (affine nib4, byte), its int-activation form if
     ``activation_bits``; a LUT kernel of minifloat format ``fmt`` where one
-    is given (``zeros`` may then be None), on its bf16 tensor-core route
-    for bf16 x (:data:`LUT_MMA`, :func:`lut_mma_route`; a ``pre_norm`` then
-    runs in its row pass).
+    is given (``zeros`` may then be None).  The nib4 and nq42 LUT kernels
+    and the s21 one take bf16 x on their bf16 tensor-core route
+    (:data:`BF16_MMA`, :func:`bf16_mma_route`; a ``pre_norm`` then runs in
+    its row pass).
 
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
@@ -836,8 +853,8 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
         g = _slab_groups(ks, kp, rows, slabs)
     else:
         g = _byte_groups(ks, kp, rows)
-    mma = (activation_bits is None and name in LUT_MMA and x2.dtype == torch.bfloat16
-           and _lut_mma_fits(kp, g))
+    mma = (activation_bits is None and name in BF16_MMA and x2.dtype == torch.bfloat16
+           and _bf16_mma_fits(kp, g))
     _check(pre_norm is None or activation_bits is not None or names[1] is not None or mma,
            f"the {bits}-bit layout has no prenorm kernel: normalize x first")
     s2, s_rs, s_cs = _side_view(scales, rows)
@@ -847,8 +864,8 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     if m == 0:
         return out
     if name in SLAB_MMA or mma:
-        kc, splits = plan_slab_splits(m, n, kp, (LUT_MMA if mma else SLAB_MMA)[name],
-                                      _sm_count(dev), bf16=mma)
+        kc, splits = plan_slab_splits(m, n, kp, (BF16_MMA if mma else SLAB_MMA)[name],
+                                      _sm_count(dev))
     else:
         kc, splits = plan_splits(m, n, kp, _sm_count(dev))
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
@@ -856,15 +873,16 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     eps = 0.0 if pre_norm is None else float(pre_norm)
     if mma:
         x_copy = x_needs_copy(x2, kp)
-        xs = (torch.empty((lut_mma_scratch_bytes(m, kp, LUT_MMA[name]),), dtype=torch.uint8,
+        xs = (torch.empty((bf16_mma_scratch_bytes(m, kp, BF16_MMA[name]),), dtype=torch.uint8,
                           device=dev) if x_copy or pre_norm is not None else None)
-        lib, fn = _load_fn(name, f"iwoq_{name}_mma", _ARGTYPES_LUT_MMA)
+        exp_bits, mant_bits = (0, 0) if fmt is None else (fmt.exp_bits, fmt.mant_bits)
+        lib, fn = _load_fn(name, f"iwoq_{name}_mma", _ARGTYPES_BF16_MMA)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(x2.data_ptr(), ks, int(x_copy), k_logical, int(pre_norm is not None), eps,
                      qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z_ptr, z_rs, z_cs,
                      None if xs is None else xs.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                     m, n, n_out, kp, g, kc, splits, fmt.exp_bits, fmt.mant_bits, stream)
+                     m, n, n_out, kp, g, kc, splits, exp_bits, mant_bits, stream)
     elif activation_bits is None and fmt is not None:
         lib, fn = _load_fn(name, f"iwoq_{name}", _ARGTYPES_LUT)
         with torch.cuda.device(dev):
@@ -950,7 +968,7 @@ def quantize_activations_slab_kernel(x2: torch.Tensor, slabs: int, kb: int, g: i
            and x2.dtype in (torch.bfloat16, torch.float32),
            "x must be a contiguous 2-D bf16/f32 CUDA tensor")
     m, k = x2.shape
-    _check(slabs in SLAB_PARTS and 0 < k <= slabs * kb and m > 0 and g > 0 and kb % g == 0,
+    _check(slabs in (1, 2, 4, 8) and 0 < k <= slabs * kb and m > 0 and g > 0 and kb % g == 0,
            f"slabs={slabs}, Kb={kb}, G={g}, K={k}, M={m}")
     dev = x2.device
     kb32 = math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
@@ -1025,7 +1043,7 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
     ``pre_norm`` (the RMS eps) applies the weightless RMSNorm in the
     kernel's epilogue (affine nib4, byte) or to x before the product (s21,
     LUT, as the JAX package does: in torch, but in the kernel's row pass on
-    the bf16 LUT route, :func:`lut_mma_route`); the norm's gamma must
+    the bf16 route, :func:`bf16_mma_route`); the norm's gamma must
     already be folded into the weights (``models.llama.fold_llama_norms``).
     ``activation_bits`` 8 or 16 quantizes x per row first and runs the
     int-activation kernel; a ``pre_norm`` then normalizes x before it is
@@ -1041,7 +1059,7 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
     if not kernel_supported(qt, activation_bits):
         raise _unsupported(qt, activation_bits)
     if pre_norm is not None and activation_bits is None and not prenorm_supported(qt) \
-            and not lut_mma_route(qt, x.dtype):
+            and not bf16_mma_route(qt, x.dtype):
         x, pre_norm = _rms_nogamma(x, pre_norm), None
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
                   qt.qweight, qt.scales, qt.zeros, qt.scales.shape[0], qt.shape[0],
@@ -1073,7 +1091,7 @@ def fused_quantized_matmul_stacked(x: torch.Tensor, qt: QuantizedTensor,
     if not 0 <= layer < qt.qweight.shape[0]:
         raise IndexError(f"layer {layer} of a {qt.qweight.shape[0]}-layer artifact")
     if pre_norm is not None and activation_bits is None and not prenorm_supported(qt) \
-            and not lut_mma_route(qt, x.dtype):
+            and not bf16_mma_route(qt, x.dtype):
         x, pre_norm = _rms_nogamma(x, pre_norm), None
     rows = qt.scales.shape[1] - qt.side_pad
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),

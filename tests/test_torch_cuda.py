@@ -15,7 +15,10 @@ info, which the TPU kernel refuses, included); the int-activation row pass
 must give the plain version's codes bit for bit.  The LUT (minifloat)
 kernels run the nib4 (fp4), nq42 (fp6; K/4 a multiple of the group) and
 byte (fp8, byte-per-code fp6) layouts with and without zero points, fp4
-and fp6 E2M3 also under A16; BFP artifacts run on the W4 and W8 kernels;
+and fp6 E2M3 also under A16; every A16 kernel runs on the tensor-core slab
+kernel (``-k slab``: token tiles, ragged groups, side layouts, stacked
+calls, unaligned x), and the bf16-x calls of ``lut4``, ``lut6`` and ``w3``
+on its bf16 family (``-k mma``); BFP artifacts run on the W4 and W8 kernels;
 card-built fp/bfp artifacts must equal CPU-built ones byte for byte.  The
 W4 inner-loop probe kernel runs both its decodes on the W4 shapes.
 Artifacts the JAX package computes on its XLA path take the route
@@ -577,6 +580,7 @@ def test_card_built_artifacts_equal_cpu_built(dev, spec):
 # groups or slabs are not a multiple of the kernel's 32-row window
 W8_SPEC = dataclasses.replace(SPECS["g128_asym"], bits=8)
 SLAB_A16 = {
+    "w4a16": (dm.W4A16, SPECS["g128_asym"], 1024, 256, {}),
     "w3a16": (dm.W3A16, W3_SPEC, 1024, 256, {}),
     "lut6a16": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g128_sym"], 1024, 256, {}),
     "w8a16": (dm.W8A16, W8_SPEC, 1024, 256, {}),
@@ -613,6 +617,16 @@ SLAB_RAGGED = {  # Kb = 136 (w3) and Kq = 272 (fp6) at K = 1088; groups of 16 ro
     "fp4_npad_300": (dm.LUT4A16, LUT_SPECS["fp4_e2m1_g128_asym"][0], 1024, 300, {}),
     "fp4_kpad": (dm.LUT4A16, LUT_SPECS["fp4_e2m1_g128_asym"][0], 384, 256,
                  dict(pad_k_to=512)),
+    # the affine nib4 layout (w4a16): the same packing as lut4a16's
+    "w4_perchannel_asym_k1088": (dm.W4A16, dataclasses.replace(
+        SPECS["perchannel_sym"], symmetric=False), 1088, 256, {}),
+    "w4_g16_asym": (dm.W4A16, dataclasses.replace(SPECS["g128_asym"], group_size=16), 1024,
+                    256, {}),
+    "w4_straddle_k1408": (dm.W4A16, SPECS["g128_asym"], 1408, 128, {}),
+    "w4_npad_300": (dm.W4A16, SPECS["g128_asym"], 1024, 300, {}),
+    "w4_kpad": (dm.W4A16, SPECS["g128_asym"], 384, 256, dict(pad_k_to=512)),
+    "bfp4_npad_300": (dm.W4A16, QuantSpec(fmt="bfp", bits=4, group_size=128), 1408, 300,
+                      dict(pad_n_to=512)),
 }
 SLAB_SIDES = {  # the side layouts of the earlier kernel tests
     "fp6_e2m3_g32_sym": (dm.LUT6A16, LUT6_SPECS["fp6_e2m3_g32_sym"], 1024, 256, {}),
@@ -626,6 +640,11 @@ SLAB_SIDES = {  # the side layouts of the earlier kernel tests
     "w8_pertensor_asym": (dm.W8A16, dataclasses.replace(SPECS["pertensor_asym"], bits=8),
                           1024, 256, {}),
     "fp4_e2m1_g128_sym": (dm.LUT4A16, LUT_SPECS["fp4_e2m1_g128_sym"][0], 1024, 256, {}),
+    "w4_g128_sym": (dm.W4A16, SPECS["g128_sym"], 1024, 256, {}),
+    "w4_perchannel_asym": (dm.W4A16, dataclasses.replace(SPECS["perchannel_sym"],
+                                                         symmetric=False), 1024, 256, {}),
+    "w4_pertensor_sym": (dm.W4A16, dataclasses.replace(SPECS["pertensor_asym"],
+                                                       symmetric=True), 1024, 256, {}),
 }
 
 
@@ -658,8 +677,25 @@ def test_slab_a16_kernel_takes_ragged_groups_and_side_layouts(dev, case, m, dtyp
     MMA's K then masks the activations outside the segment), ranges whose
     last part ends early (byte, nib4), nib4 groups that straddle the K
     halves, N not a multiple of 16 (4-byte copies), K padding, E1M4, fp4
-    E1M2, BFP8, and the side layouts."""
+    E1M2, BFP8, BFP4, and the side layouts."""
     _slab_call(dev, {**SLAB_RAGGED, **SLAB_SIDES}[case], m, dtype)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("kern", list(SLAB_A16))
+def test_slab_a16_kernel_reads_x_off_a_16_byte_boundary(dev, kern, m):
+    """x 2 bytes (bf16) or 4 bytes (f32) off a 16-byte boundary: the row
+    pass reads it element by element."""
+    name, spec, k, n, kw = SLAB_A16[kern]
+    qt = _artifact(dev, k, n, spec, **kw)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.empty((m * k + 1,), dtype=dtype, device=dev)[1:].view(m, k)
+        x.copy_(_x(dev, (m, k), dtype) * 3)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        dm.reset_counts()
+        y = dm.fused_quantized_matmul(x, qt, pre_norm=EPS, activation_bits=16)
+        assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
+        _close_a(y, dm.dequant_matmul_plain(x, qt, EPS, activation_bits=16), dtype)
 
 
 @pytest.mark.parametrize("m", [8, 64])
@@ -730,10 +766,11 @@ LUT_MMA_CASES = {
 
 
 def _lut_mma_call(dev, qt, x, pre_norm=None, layer=None):
-    """One bf16-x call: exactly one launch of the artifact's LUT kernel, no
-    plain call, no route call; the result."""
+    """One bf16-x call on the bf16 route: exactly one launch of the
+    artifact's kernel (LUT or W3), no plain call, no route call; the
+    result."""
     name = dm.kernel_name(qt, pre_norm)
-    assert name in dm.LUT_MMA and dm.lut_mma_route(qt, torch.bfloat16)
+    assert name in dm.BF16_MMA and dm.bf16_mma_route(qt, torch.bfloat16)
     dm.reset_counts()
     if layer is None:
         y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
@@ -779,7 +816,8 @@ def test_lut_mma_copies_x_it_cannot_read_in_place(dev, case, m):
     qt = _artifact(dev, k, n, spec, **kw)
     x = torch.empty((m * k + 1,), dtype=torch.bfloat16, device=dev)[1:].view(m, k)
     x.copy_(_x(dev, (m, k), torch.bfloat16) * 3)
-    assert x.is_contiguous() and dm.x_needs_copy(x, k // dm.LUT_MMA[dm.kernel_name(qt)])
+    slabs = dm.SLAB_TILES[dm.BF16_MMA[dm.kernel_name(qt)]][0]
+    assert x.is_contiguous() and dm.x_needs_copy(x, k // slabs)
     y = _lut_mma_call(dev, qt, x)
     _close_a(y, dm.dequant_matmul_plain(x, qt), torch.bfloat16)
 
@@ -800,6 +838,75 @@ def test_lut_mma_decodes_every_code_exactly(dev):
         x = torch.eye(1024, device=dev, dtype=torch.bfloat16)
         y = _lut_mma_call(dev, qt, x)
         assert torch.equal(y, dm.dequant_matmul_plain(x, qt)), spec
+
+
+# ------------------------------------ bf16-x W3 calls on the bf16 tensor cores
+
+# (spec, K, N, quantize_tensor kwargs) of the bf16 route of w3_matmul (the
+# s21 case of the bf16 family): the main-path group, the side layouts, and
+# the ragged cases: per-channel K = 1088 (Kb = 136: the range ends inside a
+# window), groups of 16 rows, N = 300 stored as 512 (n_pad) and as 300
+# (4-byte weight copies), and K padding
+W3_MMA_CASES = {
+    "w3_g128_asym": (W3_SPEC, 1024, 256, {}),
+    "w3_g128_sym": (dataclasses.replace(W3_SPEC, symmetric=True), 1024, 256, {}),
+    "w3_perchannel_asym": (dataclasses.replace(W3_SPEC, group_size=PER_CHANNEL), 1024, 256,
+                           {}),
+    "w3_pertensor_sym": (dataclasses.replace(W3_SPEC, group_size=PER_TENSOR, symmetric=True),
+                         1024, 256, {}),
+    "w3_perchannel_asym_k1088": (dataclasses.replace(W3_SPEC, group_size=PER_CHANNEL), 1088,
+                                 256, {}),
+    "w3_g16_asym": (dataclasses.replace(W3_SPEC, group_size=16), 1024, 256, {}),
+    "w3_npad_300": (W3_SPEC, 1024, 300, dict(pad_n_to=512)),
+    "w3_n300": (W3_SPEC, 1024, 300, {}),
+    "w3_kpad": (W3_SPEC, 896, 256, dict(pad_k_to=1024)),
+}
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m", [1, 8, 9, 40, 64, 256])
+@pytest.mark.parametrize("case", list(W3_MMA_CASES))
+def test_w3_mma_route_matches_plain(dev, case, m, pre_norm):
+    """The decode tile (M <= 8) and the 32-token tile (one, a partial one,
+    several), one and several K-splits, with the pre-norm in the row pass,
+    against the plain version (which normalizes x in torch first); f32 x
+    stays on the CUDA-core kernel at the f32 tolerance."""
+    spec, k, n, kw = W3_MMA_CASES[case]
+    qt = _artifact(dev, k, n, spec, **kw)
+    x = _x(dev, (m, k), torch.bfloat16) * 3
+    y = _lut_mma_call(dev, qt, x, pre_norm)
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm), torch.bfloat16)
+    if m == 8 and pre_norm is None:
+        xf = x.float()
+        dm.reset_counts()
+        y = dm.fused_quantized_matmul(xf, qt)
+        assert dm.LAUNCHES[dm.W3] == 1 == sum(dm.LAUNCHES.values())
+        _close(y, dm.dequant_matmul_plain(xf, qt), torch.float32)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["w3_g128_asym", "w3_perchannel_asym"])
+def test_w3_mma_stacked_reads_layer_2_of_3(dev, case, m):
+    spec, k, n, kw = W3_MMA_CASES[case]
+    qts = [_artifact(dev, k, n, spec, seed=40 + i, **kw) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st)
+    x = _x(dev, (m, k), torch.bfloat16) * 3
+    y = _lut_mma_call(dev, st, x, EPS, layer=2)
+    _close_a(y, dm.dequant_matmul_plain(x, qts[2], EPS), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["w3_g128_asym", "w3_kpad"])
+def test_w3_mma_copies_x_it_cannot_read_in_place(dev, case, m):
+    """x 2 bytes off a 16-byte boundary: the row pass copies it."""
+    spec, k, n, kw = W3_MMA_CASES[case]
+    qt = _artifact(dev, k, n, spec, **kw)
+    x = torch.empty((m * k + 1,), dtype=torch.bfloat16, device=dev)[1:].view(m, k)
+    x.copy_(_x(dev, (m, k), torch.bfloat16) * 3)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    y = _lut_mma_call(dev, qt, x)
+    _close_a(y, dm.dequant_matmul_plain(x, qt), torch.bfloat16)
 
 
 # ------------------------------------------------------- W4 inner-loop probe

@@ -7,7 +7,7 @@ kernels compute is held to the plain versions on the card
 (``tests/test_torch_cuda.py``).  Here, on the CPU:
 
 * the dispatch rule: bf16 x on the nib4 and nq42 layouts takes the route
-  (:func:`lut_mma_route`), f32 x, fp8 and shapes outside the route's rule do
+  (:func:`bf16_mma_route`), f32 x, fp8 and shapes outside the route's rule do
   not, and the kernel names and launch counters stay the kernels' own;
 * the route's split plan covers every slab row once, at the decode tile (the
   A16 slab kernel's) and at the 64-token tile (one part), and the scratch
@@ -81,24 +81,25 @@ def test_bf16_x_takes_the_mma_route_and_f32_x_the_cuda_core_kernel(case):
     spec, k, kw, name = ROUTE_CASES[case]
     qt = _port(spec, k, **kw)
     assert dm.kernel_supported(qt) and dm.kernel_name(qt) == dm.kernel_name(qt, EPS) == name
-    assert name in dm.LUT_MMA and not dm.prenorm_supported(qt)
-    assert dm.lut_mma_route(qt, torch.bfloat16)
-    assert not dm.lut_mma_route(qt, torch.float32)
+    assert name in dm.BF16_MMA and not dm.prenorm_supported(qt)
+    assert dm.bf16_mma_route(qt, torch.bfloat16)
+    assert not dm.bf16_mma_route(qt, torch.float32)
     st = qt.map_arrays(lambda a: torch.stack([a, a]))
-    assert dm.kernel_supported_stacked(st) and dm.lut_mma_route(st, torch.bfloat16)
+    assert dm.kernel_supported_stacked(st) and dm.bf16_mma_route(st, torch.bfloat16)
 
 
 def test_the_route_keeps_the_kernels_names_and_leaves_other_layouts():
     """No new launch counter; fp8 (byte layout), the A16 kernels and a nib4
-    artifact whose K/2 slab rows are no multiple of 4 stay off the route."""
-    assert set(dm.LUT_MMA) == {dm.LUT4, dm.LUT6} and set(dm.LUT_MMA) <= set(dm.LAUNCHES)
+    artifact whose K/2 slab rows are no multiple of 4 stay off the route
+    (which also takes the s21 kernel, tests/test_torch_w4a16_w3_mma.py)."""
+    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.W3} <= set(dm.LAUNCHES)
     assert set(dm.LAUNCHES) == set(dm.PLAIN_CALLS)
     assert len(dm.LAUNCHES) == 18  # sixteen serving kernels, the probe's two modes
     fp8 = _port(fp_spec("fp8", 4, 3, group_size=128), 512)
-    assert dm.kernel_name(fp8) == dm.LUT8 and not dm.lut_mma_route(fp8, torch.bfloat16)
+    assert dm.kernel_name(fp8) == dm.LUT8 and not dm.bf16_mma_route(fp8, torch.bfloat16)
     ragged = _port(fp_spec("fp4", 2, 1, group_size=PER_CHANNEL), 1090)
     assert dm.kernel_supported(ragged) and dm.kernel_name(ragged) == dm.LUT4
-    assert not dm.lut_mma_route(ragged, torch.bfloat16)  # K/2 = 545 rows
+    assert not dm.bf16_mma_route(ragged, torch.bfloat16)  # K/2 = 545 rows
     a16 = _port(fp_spec("fp4", 2, 1, group_size=128), 512)
     assert dm.kernel_name(a16, None, 16) == dm.LUT4A16
 
@@ -111,19 +112,20 @@ SHAPES_7B = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
 
 @pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 512])
 @pytest.mark.parametrize("shape", list(SHAPES_7B))
-@pytest.mark.parametrize("kernel", [dm.LUT4, dm.LUT6])
+@pytest.mark.parametrize("kernel", [dm.LUT4, dm.LUT6, dm.W3])
 def test_bf16_split_plans_cover_every_row_once(kernel, shape, m):
-    """nib4 (Kb = K/2) and nq42 (Kb = K/4; down stored as 11264): every
-    split and every part starts on a window, the splits and the parts of
-    each split cover the Kb rows once in order, the plan depends on the
-    shapes alone; the decode tile splits as the A16 slab kernel of the same
-    layout does, the 64-token tile has one part."""
-    slabs = dm.LUT_MMA[kernel]
+    """nib4 (Kb = K/2), nq42 and s21 (Kb = K/4 and K/8; down stored as
+    11264): every split and every part starts on a window, the splits and
+    the parts of each split cover the Kb rows once in order, the plan
+    depends on the shapes alone; the decode tile splits as the A16 slab
+    kernel of the same packing does, the wide tile has one part."""
+    layout = dm.BF16_MMA[kernel]
+    int8_layout = layout.removesuffix("_bf16")
     k, n = SHAPES_7B[shape]
-    kb = k // slabs
-    kc, splits = dm.plan_slab_splits(m, n, kb, slabs, 132, bf16=True)
-    parts = dm.slab_parts(m, slabs, bf16=True)
-    assert parts == (dm.SLAB_PARTS[slabs] if m <= 8 else 1)
+    kb = k // dm.SLAB_TILES[layout][0]
+    kc, splits = dm.plan_slab_splits(m, n, kb, layout, 132)
+    parts = dm.slab_tile(m, layout)[2]
+    assert parts == (dm.slab_tile(m, int8_layout)[2] if m <= 8 else 1)
     assert kc % (dm.SLAB_WINDOW * parts) == 0 and splits >= 1
     assert kc * splits >= kb > kc * (splits - 1)
     kq = kc // parts
@@ -135,24 +137,23 @@ def test_bf16_split_plans_cover_every_row_once(kernel, shape, m):
             assert p0 % dm.SLAB_WINDOW == 0
             rows += range(p0, p1)
     assert rows == list(range(kb))
-    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, slabs, 132, bf16=True)
+    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, layout, 132)
     if m <= 8:
-        assert (kc, splits) == dm.plan_slab_splits(m, n, kb, slabs, 132)
+        assert (kc, splits) == dm.plan_slab_splits(m, n, kb, int8_layout, 132)
 
 
 def test_bf16_tiles_and_scratch():
     """Decode: 8 tokens and 128 channels a block, as the A16 slab kernel;
-    beyond: 64 tokens, one warp a slab and 32 channels (nib4 128, nq42
+    beyond: 64 tokens, the warps of a slab each 32 channels (nib4 128, nq42
     64).  The scratch is the bf16 copy of x the row pass writes, each slab
     padded to 32 rows."""
-    for slabs, bn in ((2, 128), (4, 64)):
-        assert dm.slab_tile_m(8, slabs, bf16=True) == 8 == dm.slab_tile_m(8, slabs)
-        assert dm.slab_block_n(8, slabs, bf16=True) == 128 == dm.slab_block_n(8, slabs)
-        assert dm.slab_tile_m(9, slabs, bf16=True) == dm.slab_tile_m(256, slabs, bf16=True) == 64
-        assert dm.slab_block_n(256, slabs, bf16=True) == bn
-    assert dm.plan_slab_splits(256, 4096, 2048, 2, 132, bf16=True) == (2048, 1)
-    assert dm.lut_mma_scratch_bytes(8, 2048, 2) == 2 * 8 * 2 * 2048
-    assert dm.lut_mma_scratch_bytes(3, 272, 4) == 2 * 3 * 4 * 288
+    for layout, bn in (("lut4", 128), ("lut6", 64)):
+        bf16 = layout + "_bf16"
+        assert dm.slab_tile(8, bf16)[:2] == (8, 128) == dm.slab_tile(8, layout)[:2]
+        assert dm.slab_tile(9, bf16) == dm.slab_tile(256, bf16) == (64, bn, 1)
+    assert dm.plan_slab_splits(256, 4096, 2048, "lut4_bf16", 132) == (2048, 1)
+    assert dm.bf16_mma_scratch_bytes(8, 2048, "lut4_bf16") == 2 * 8 * 2 * 2048
+    assert dm.bf16_mma_scratch_bytes(3, 272, "lut6_bf16") == 2 * 3 * 4 * 288
 
 
 def test_x_is_copied_only_where_the_kernel_cannot_read_it_in_place():
@@ -300,7 +301,7 @@ def test_pre_norm_call_equals_jax_normalize_then_kernel(case):
     spec, k = PRENORM_CASES[case]
     jq = j_quantize(jnp.asarray(_x((k, 256), seed=2, scale=0.05)), spec)
     tq = params_from_numpy(jax.tree.map(np.asarray, jq), "cpu")
-    assert dm.lut_mma_route(tq, torch.bfloat16) and not dm.prenorm_supported(tq)
+    assert dm.bf16_mma_route(tq, torch.bfloat16) and not dm.prenorm_supported(tq)
     x = _x((6, k), seed=3, scale=2.0)
     for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
         xt = torch.from_numpy(x).to(dtype)

@@ -99,21 +99,23 @@ def test_group_sums_equal_the_jax_xsum(case):
                                         (32256, 512, 8), (22528, 1024, 4), (256, 136, 8),
                                         (300, 17 * 4, 4)])
 def test_slab_split_plan_covers_every_row_once(m, n, kb, slabs):
-    kc, splits = dm.plan_slab_splits(m, n, kb, slabs, 132)
+    layout = {8: "s21", 4: "lut6"}[slabs]
+    assert dm.SLAB_TILES[layout][0] == slabs
+    kc, splits = dm.plan_slab_splits(m, n, kb, layout, 132)
     assert kc % dm.SLAB_WINDOW == 0 and splits >= 1
     starts = [i * kc for i in range(splits)]
     rows = [r for s0 in starts for r in range(s0, min(kb, s0 + kc))]
     assert rows == list(range(kb))  # each row once, in order
     assert all(s0 % dm.SLAB_WINDOW == 0 and s0 < kb for s0 in starts)
-    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, slabs, 132)
+    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, layout, 132)
 
 
 def test_slab_split_plan_fills_the_card_at_decode():
     """At M = 8 a 7B o projection (s21: K/8 = 512 rows, 64 tiles of 64
     channels) is split into 4 (256 blocks, two an SM of 132); the lm_head
     (504 tiles) is not split."""
-    assert dm.plan_slab_splits(8, 4096, 512, 8, 132) == (128, 4)
-    assert dm.plan_slab_splits(8, 32256, 512, 8, 132)[1] == 1
+    assert dm.plan_slab_splits(8, 4096, 512, "s21", 132) == (128, 4)
+    assert dm.plan_slab_splits(8, 32256, 512, "s21", 132)[1] == 1
 
 
 def _byte_sign_mask(v):
@@ -210,18 +212,18 @@ SHAPES_7B = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
 
 @pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 512])
 @pytest.mark.parametrize("shape", list(SHAPES_7B))
-@pytest.mark.parametrize("kernel", [dm.W8A16, dm.LUT4A16])
+@pytest.mark.parametrize("kernel", [dm.W8A16, dm.LUT4A16, dm.W4A16])
 def test_byte_and_nib4_split_plans_cover_every_row_once(kernel, shape, m):
-    """The byte (Kb = K, down: 11008) and nib4 (Kb = K/2, down: 5504)
-    plans: every split, and every part of a split, starts on a window, the
-    splits cover the Kb rows once in order, and so do the parts of each
-    split; the plan depends on the shapes alone and passes the kernel's
-    checks."""
-    slabs = dm.SLAB_MMA[kernel]
+    """The byte (Kb = K, down: 11008) and nib4 (Kb = K/2, down: 5504; the
+    LUT layout of ``lut4a16`` and the affine one of ``w4a16``) plans: every
+    split, and every part of a split, starts on a window, the splits cover
+    the Kb rows once in order, and so do the parts of each split; the plan
+    depends on the shapes alone and passes the kernel's checks."""
+    layout = dm.SLAB_MMA[kernel]
     k, n = SHAPES_7B[shape]
-    kb = k // (2 if slabs == 2 else 1)
-    kc, splits = dm.plan_slab_splits(m, n, kb, slabs, 132)
-    parts = dm.SLAB_PARTS[slabs]
+    kb = k // dm.SLAB_TILES[layout][0]
+    kc, splits = dm.plan_slab_splits(m, n, kb, layout, 132)
+    parts = dm.slab_tile(m, layout)[2]
     assert kc % (dm.SLAB_WINDOW * parts) == 0 and splits >= 1
     assert kc * splits >= kb > kc * (splits - 1)
     kq = kc // parts
@@ -233,7 +235,7 @@ def test_byte_and_nib4_split_plans_cover_every_row_once(kernel, shape, m):
             assert p0 % dm.SLAB_WINDOW == 0
             rows += range(p0, p1)
     assert rows == list(range(kb))  # each row once, in order
-    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, slabs, 132)
+    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, layout, 132)
 
 
 def _lut4_grid(c, tab):
