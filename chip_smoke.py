@@ -13,12 +13,23 @@ models, whose kernels those paths do not carry but which add time, run
    per source, all at once) and print the card's name and power limit.
 2. W4 kernels vs plain: each W4 kernel against its plain PyTorch version at
    the five main-path shapes of a LLaMA-2-7B W4 g128 model, at decode M=8
-   and a prefill M, plus a ``k_pad`` artifact and a layer-stacked call with
-   layer > 0; untimed, at every other row count the main paths give the
-   kernels (serve's prefill waves, generate's prefill).  Prints error,
-   kernel time, plain time, ``torch.matmul`` on a pre-dequantized bf16
-   weight (a yardstick, never used by the port) and the byte/operation
-   bound of each call.
+   and a prefill M, plus a ``k_pad`` artifact, an f32 x and a layer-stacked
+   call with layer > 0; untimed, at every other row count the main paths
+   give the kernels (serve's prefill waves, generate's prefill).  Prints
+   error, kernel time, plain time, ``torch.matmul`` on a pre-dequantized
+   bf16 weight (a yardstick, never used by the port) and the byte/operation
+   bound of each call.  The bf16-x calls of ``w4_matmul`` and
+   ``w4_matmul_prenorm`` run on the bf16 tensor cores (the affine nib4 case
+   of the bf16 family of ``csrc/wa_slab_mma.cuh``, the prenorm kernel's row
+   factor in its epilogue), the f32-x calls on their CUDA-core kernels.
+   Then that route on ragged artifacts (per-channel K=1088, whose range
+   ends inside a window; groups of 16; K=1408, whose groups straddle the K
+   halves) at M=8 and 64, with and without ``pre_norm``, and on an x it
+   must copy; the prenorm kernel with one split and with a K-split, and a
+   flat call with one split, each counted by ``torch.profiler`` (one
+   kernel with one split, two with a K-split: no copy of x); and the SASS
+   counts and registers of their kernels, as in phase 12 (HMMA, else the
+   phase fails).
 3. W4 two-layer model: ``llama_forward`` logits at full 7B width with the
    kernels on the card against the same params through the plain path on
    the CPU, in float32 and in bfloat16.
@@ -157,7 +168,9 @@ models, whose kernels those paths do not carry but which add time, run
     then the probe entry point
     (``probes/probe_w4_inner.py``) at its three shapes, its lines and JSON
     passed through, with exact launch counts (``base``, ``f32``, ``magic``,
-    ``w4a8``, ``a16``), no plain call, no route call.
+    ``w4a8``, ``a16``), no plain call, no route call.  Its ``base`` is
+    ``w4_matmul`` with bf16 x: the bf16 route of phase 2, so the probe
+    kernel is read against the redesigned W4 kernel.
 25. Report: the generate and serve JSON lines, the card line, the
     per-kernel JSON line (per kernel also ``prefill_ms``,
     ``prefill_bound_ms`` and ``prefill_library_ms``: the M=256 records
@@ -386,7 +399,8 @@ def check_call(torch, name, qt, x, run, run_plain, w_lib=None, abits=None):
 def phase_kernels(torch, device, spec, names, extra_specs=()):
     """Both kernels of a layout (``names``: flat, prenorm) against their
     plain versions; ``extra_specs`` are further (label, spec) artifacts
-    checked once at the down shape, untimed."""
+    checked once at the down shape, untimed, as are an f32 x on the
+    ``k_pad`` artifact and a stacked call."""
     from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
@@ -439,6 +453,7 @@ def phase_kernels(torch, device, spec, names, extra_specs=()):
         x = torch.randn((DECODE_M, EXTRA_K), generator=gen,
                         device=device).to(torch.bfloat16)
         check_call(torch, f"{kname}:k_pad", qt, x, run, run_plain)
+        check_call(torch, f"{kname}:f32", qt, x.float(), run, run_plain)
         layers = [make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device)[0]
                   for _ in range(3)]
         pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 2))  # noqa: E731
@@ -975,10 +990,12 @@ def slab_kernel_report(name):
     """The static SASS counts (``build.sass``, counted by the probe's
     ``sass_counts``) and the ``-Xptxas -v`` registers, spills and shared
     memory of the slab kernels (``csrc/wa_slab_mma.cuh``) of a library: the
-    A16 slab kernels, or the bf16 route of ``lut4_matmul``, ``lut6_matmul``
-    and ``w3_matmul``; fails unless the product kernels run their products
-    on the tensor cores: the int8 ones (IMMA) with no ``__dp4a`` (IDP), the
-    bf16 ones (HMMA or HGMMA)."""
+    A16 slab kernels, or the bf16 route of ``lut4_matmul``, ``lut6_matmul``,
+    ``w3_matmul``, ``w4_matmul`` and ``w4_matmul_prenorm`` (its epilogue
+    norm: "norm"); fails unless the product kernels run their products on
+    the tensor cores: the int8 ones (IMMA) with no ``__dp4a`` (IDP), the
+    bf16 ones (HMMA or HGMMA).  FFMA is counted beside them (a W4 product
+    kernel keeps it for its group epilogue only: no FFMA main loop)."""
     import re
 
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
@@ -987,18 +1004,20 @@ def slab_kernel_report(name):
 
     layouts = {str(v): k for k, v in dm.SLAB_LAYOUT_IDS.items()}  # slab_tile.cuh Layout
 
-    def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16, BZ> and the row passes
-        m = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", fn)
+    def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16, BZ, NORM> and the row passes
+        m = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E(?:Lb(\d)E)?", fn)
         if m:
             return (f"product {layouts.get(m.group(1), m.group(1))} NT={m.group(2)}"
                     f"{'' if m.group(3) == '1' else ' 4-byte copies'}"
-                    f"{' zeros' if m.group(4) == '1' else ''}")
+                    f"{' zeros' if m.group(4) == '1' else ''}"
+                    f"{' norm' if m.group(5) == '1' else ''}")
         if "rows_bf16_slab" in fn:
             return "bf16 row pass"
         return "row pass" if "quantize_rows_slab" in fn and name in dm.SLAB_MMA else None
 
     counts = sass_counts(kbuild.sass(name), ops=("IMMA", "IGMMA", "IDP", "HMMA", "HGMMA", "LDS",
-                                                  "LDGSTS", "PRMT", "LOP3", "HFMA2"), key=key)
+                                                  "LDGSTS", "PRMT", "LOP3", "HFMA2", "FFMA"),
+                         key=key)
     for k, c in sorted(counts.items()):
         print(f"  sass {name} {k}: " + " ".join(f"{op}={v}" for op, v in c.items() if v),
               flush=True)
@@ -1041,11 +1060,12 @@ def check_slab_ragged(torch, device, specs, seed):
 
 
 def check_bf16_mma_ragged(torch, device, specs, seed):
-    """The bf16 route of ``lut4_matmul``, ``lut6_matmul`` or ``w3_matmul``
-    (the bf16 family of ``csrc/wa_slab_mma.cuh``) on artifacts whose groups
-    or slabs are not a multiple of its 32-row window (``specs``: label ->
-    (spec, K)), N = 4096, at M = 8 and 64, with and without ``pre_norm`` (in
-    its row pass), and on an x 2 bytes off a 16-byte boundary (which the row
+    """The bf16 route of ``lut4_matmul``, ``lut6_matmul``, ``w3_matmul`` or
+    ``w4_matmul`` (the bf16 family of ``csrc/wa_slab_mma.cuh``) on artifacts
+    whose groups or slabs are not a multiple of its 32-row window
+    (``specs``: label -> (spec, K)), N = 4096, at M = 8 and 64, with and
+    without ``pre_norm`` (in its row pass; W4: ``w4_matmul_prenorm``, in
+    its epilogue), and on an x 2 bytes off a 16-byte boundary (which the row
     pass copies), against the plain version."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
@@ -1067,6 +1087,54 @@ def check_bf16_mma_ragged(torch, device, specs, seed):
         if not dm.x_needs_copy(x, k // dm.SLAB_TILES[dm.BF16_MMA[kname]][0]):
             fail(f"{label}: the unaligned x is read in place")
         check_call(torch, f"{kname}:{label}:unaligned_x", qt, x, *a_runner(None, None))
+        del qt
+    torch.cuda.empty_cache()
+
+
+def device_kernels(torch, fn):
+    """The names of the device kernels one call of ``fn`` runs, read by
+    ``torch.profiler`` (None where it records no device event)."""
+    from torch.autograd import DeviceType
+
+    from iron_weight_only_quant_tpu_torch.utils.profiling import trace
+
+    torch.cuda.synchronize()
+    with trace() as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    return names or None
+
+
+def check_w4_route_kernels(torch, device, spec, seed):
+    """The bf16 route of ``w4_matmul`` and ``w4_matmul_prenorm`` where the
+    output is formed: the prenorm kernel with one split (its row factor in
+    the product kernel's epilogue) and with a K-split (in the reduce), and
+    ``w4_matmul`` with one split, against their plain versions; each call
+    runs one kernel with one split and two with a K-split (no row pass: x
+    is read in place and never copied)."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sm = torch.cuda.get_device_properties(device).multi_processor_count
+    for label, m, k, n, pre in (("prenorm_one_split", PREFILL_M, 4096, 4096, 1e-5),
+                                ("prenorm_k_split", DECODE_M, 4096, 4096, 1e-5),
+                                ("flat_one_split", DECODE_M, 4096, 32000, None)):
+        qt = make_artifact(torch, gen, spec, k, (n,), device)[0]
+        kname = dm.kernel_name(qt, pre)
+        splits = dm.plan_slab_splits(m, qt.qweight.shape[1], k // 2, dm.BF16_MMA[kname], sm)[1]
+        routed = dm.bf16_mma_route(qt, torch.bfloat16)
+        if (splits == 1) != label.endswith("one_split") or not routed:
+            fail(f"{kname}:{label}: {splits} splits, bf16 route {routed}")
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        check_call(torch, f"{kname}:{label}:M={m}", qt, x, *a_runner(pre, None))
+        names = device_kernels(torch, lambda: dm.fused_quantized_matmul(x, qt, pre_norm=pre))
+        want = 1 if splits == 1 else 2
+        print(f"  {kname}:{label}: {splits} split(s), device kernels {names}", flush=True)
+        if names is not None and (len(names) != want or "rows_bf16" in " ".join(names)):
+            fail(f"{kname}:{label}: {len(names)} device kernels, want {want}: {names}")
         del qt
     torch.cuda.empty_cache()
 
@@ -1348,7 +1416,9 @@ def phase_w4_inner(torch, device, spec):
     torch.cuda.empty_cache()
 
     print(f"  -- the probe entry point at {len(probe.SHAPES)} shapes, M={probe.M}, "
-          f"{probe.ROUNDS} rounds of {probe.ITERS} timed calls", flush=True)
+          f"{probe.ROUNDS} rounds of {probe.ITERS} timed calls; errors and times read "
+          "against its base, w4_matmul on its bf16 tensor-core route (the redesigned W4 "
+          "kernel)", flush=True)
     torch.cuda.synchronize()
     dm.reset_counts()
     res = probe.run(device, out=lambda line: print("  " + line, flush=True))
@@ -1441,8 +1511,20 @@ def main() -> int:
     cfg_cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
     tol = f"tolerance max|y-y_ref|/max|y_ref| <= {REL_TOL_BF16}, bf16 x"
 
-    header(f"== phase 2: W4 kernels vs plain versions ({tol})")
+    tol_a = f"{tol}; {REL_TOL_F32} for f32 x"
+    header(f"== phase 2: W4 kernels vs plain versions ({tol_a})")
     per_kernel = phase_kernels(torch, device, w4, (dm.W4, dm.W4_PRENORM))
+    print("  -- w4 bf16 route: ranges whose last part ends early, groups off the 32-row "
+          "window, groups straddling the K halves, x copied; the row factor with one split "
+          "and with a K-split; SASS and registers", flush=True)
+    check_bf16_mma_ragged(torch, device, {
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=4, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=4, group_size=16, symmetric=False), 4096),
+        "g128_asym_k1408_straddle": (w4, 1408)}, 19)
+    check_w4_route_kernels(torch, device, w4, 20)
+    slab_kernel_report(dm.W4)
+    slab_kernel_report(dm.W4_PRENORM)
 
     header("== phase 3: W4 two-layer 7B-width logits, kernels vs plain path")
     phase_two_layers(torch, device, w4, cfg)
@@ -1463,7 +1545,6 @@ def main() -> int:
     header(f"== phase 7: {CUT_LAYERS}-layer 7B-width W8 serve")
     serve_w8, params_w8 = phase_w8_serve(torch, device, w8, cfg_cut, card)
 
-    tol_a = f"{tol}; {REL_TOL_F32} for f32 x"
     header(f"== phase 8: int-activation kernels vs plain versions ({tol_a})")
     per_kernel_a, row_pass_checks = phase_a_kernels(torch, device, {4: w4, 8: w8})
     per_kernel.update(per_kernel_a)

@@ -1,4 +1,10 @@
-// W4 dequant-matmul for Hopper (sm_90a): y[M,N] = x[M,K] @ dequant(qw)[K,N].
+// W4 dequant-matmul for Hopper (sm_90a) on the CUDA cores: y[M,N] =
+// x[M,K] @ dequant(qw)[K,N], the f32-x calls of w4_matmul and
+// w4_matmul_prenorm, and the bf16-x calls whose shape the bf16 family of
+// wa_slab_mma.cuh does not take (slab rows or group not a multiple of 4).
+// The bf16-x calls of its rule run there, as its affine nib4 layout
+// (kNib4B).  This header also holds the deterministic K-split reduce
+// (w4_reduce_kernel) that the W3, LUT, A8 and slab kernels share.
 //
 // Replaces the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -30,8 +36,8 @@
 // sums in a fixed order (deterministic, no atomics), scales by the RMSNorm
 // factor (prenorm form) and casts to the output type.  The activation tile
 // is staged in shared memory as f32 and read back as float4 broadcasts.
-// This is the simple, correct first version: CUDA-core FMAs, no tensor
-// cores, no TMA pipeline.
+// CUDA-core FMAs, no tensor cores: the simple, correct first version, kept
+// for f32 x (tolerance 1e-4 against the plain version).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -205,14 +211,17 @@ w4_partial_kernel(const XT* __restrict__ x, int ldx,
 }
 
 // out[m, n] = cast(r[m] * sum_s ws[s, m, n]) for n < n_out (drops n_pad).
+// PRENORM: r is rnorm[m]; with SQ, rnorm holds each split's partial sums of
+// x^2 [splits, M] (the bf16 slab kernel's epilogue norm) and r =
+// rsqrt(sum / k_logical + eps) is finished here, the sums in split order.
 // Launched as a programmatic dependent of the partial-products kernel (the
-// A16 slab kernels, wa_slab_mma.cuh) it first waits for that kernel's end;
+// slab kernels, wa_slab_mma.cuh) it first waits for that kernel's end;
 // launched plainly, the wait returns at once.
-template <bool PRENORM, typename OT>
+template <bool PRENORM, typename OT, bool SQ = false>
 __global__ void w4_reduce_kernel(const float* __restrict__ ws,
                                  const float* __restrict__ rnorm,
                                  OT* __restrict__ out, int M, int N, int n_out,
-                                 int splits) {
+                                 int splits, int k_logical, float eps) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const long long total = (long long)M * n_out;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -221,7 +230,13 @@ __global__ void w4_reduce_kernel(const float* __restrict__ ws,
     const int n = (int)(i - (long long)m * n_out);
     float v = 0.f;
     for (int sp = 0; sp < splits; ++sp) v += ws[((size_t)sp * M + m) * N + n];
-    if (PRENORM) v *= rnorm[m];
+    if (PRENORM && SQ) {
+      float ss = 0.f;
+      for (int sp = 0; sp < splits; ++sp) ss += rnorm[(size_t)sp * M + m];
+      v *= 1.0f / sqrtf(ss / (float)k_logical + eps);
+    } else if (PRENORM) {
+      v *= rnorm[m];
+    }
     store_out(out + i, v);
   }
 }
@@ -236,7 +251,7 @@ cudaError_t launch_reduce(void* ws, void* rnorm, void* out, int M, int N,
   const int blocks = (int)(want < 4096 ? want : 4096);
   w4_reduce_kernel<PRENORM, OT><<<blocks, threads, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<const float*>(rnorm),
-      static_cast<OT*>(out), M, N, n_out, splits);
+      static_cast<OT*>(out), M, N, n_out, splits, 0, 0.f);
   return cudaGetLastError();
 }
 

@@ -4,8 +4,9 @@
 // 3-bit (s21) affine codes, or 4-bit (nib4) or 6-bit (nq42) minifloat codes
 // decoded to their exact int8 grid; and its bf16 family (below) on the bf16
 // tensor cores,
-//   y[M,N] = x[M,K] @ dequant(qw)[K,N],  bf16 x, the nib4 and nq42 LUT
-// layouts and the s21 affine one, codes decoded to their exact bf16 values.
+//   y[M,N] = x[M,K] @ dequant(qw)[K,N]  (times r[M] for the W4 prenorm
+// form), bf16 x, the nib4 and nq42 LUT layouts and the s21 and nib4 affine
+// ones, codes decoded to their exact bf16 values.
 //
 // Replaces the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -132,33 +133,51 @@
 // operations a word of four codes) and, on small shapes, the fixed cost of
 // two or three kernels a call.
 //
-// The bf16 family (LAYOUT kLut4B, kLut6B, kS21B: the bf16-x calls of
-// lut4_matmul, lut6_matmul and w3_matmul).  Replaces _lut4_kernel (:739,
-// pfx :1732), _lut6_kernel (:835, pfx :887, through _call_lut6 :939) and
-// _int3_kernel with bf16 x (:467, pfx :1360, through _call_int3 :1365): per
+// The bf16 family (LAYOUT kLut4B, kLut6B, kS21B, kNib4B: the bf16-x calls
+// of lut4_matmul, lut6_matmul, w3_matmul, and w4_matmul and
+// w4_matmul_prenorm).  Replaces _lut4_kernel (:739, pfx :1732), _lut6_kernel
+// (:835, pfx :887, through _call_lut6 :939), _int3_kernel with bf16 x (:467,
+// pfx :1360, through _call_int3 :1365), and _int4_kernel (:319, body :293,
+// pfx :1712) and _int4_kernel_prenorm (:328, pfx :408) with bf16 x: per
 // group acc += (x_g @ val_g) * s (+ xsum_g * z), _lut_accum (:724), with val
 // the exact minifloat value in x's dtype, or acc += (x_g @ q_g) * s -
 // xsum_g * (s * z), _group_accum (:226) over the twelve masked s21 fields
-// (their powers of two folded into the epilogue), contracted on the MXU
-// with f32 sums.  Every fp4 and fp6 value and every 3-bit code is exact in
-// bf16, so a bf16 mma.sync m16n8k16 with f32 accumulation computes those
-// products; the kernel is the pipeline above (the same ring, windows split
-// at group ends, parts, split plan, epilogue per group, dependent
-// launches) with these differences:
+// (their powers of two folded into the epilogue) or the two nib4 slabs,
+// contracted on the MXU with f32 sums; the prenorm form then scales the f32
+// sum by r = rsqrt(sum(x^2) / K_logical + eps) of the raw x (:374).  Every
+// fp4 and fp6 value and every 3-bit and 4-bit code is exact in bf16, so a
+// bf16 mma.sync m16n8k16 with f32 accumulation computes those products; the
+// kernel is the pipeline above (the same ring, windows split at group ends,
+// parts, split plan, epilogue per group, dependent launches) with these
+// differences:
 //  - x stays bf16: the stage holds [part][slab][token][32 rows] of it, read
 //    by cp.async straight from x [M, S*Kb] (slab i's row r at column i*Kb +
 //    r, zero-filled beyond Kb), or from the copy a row pass made;
 //  - a row pass (rows_bf16_slab_kernel) runs only where the call needs one:
-//    with a pre-norm, to apply the weightless RMSNorm (f32 mean of squares,
-//    x*r rounded to bf16: the function of normalize-then-kernel) into a
-//    copy of x, and where x is not 16-byte aligned.  A call without a
-//    pre-norm is one kernel, or two with a K-split;
-//  - with zeros (template flag BZ; always for s21), each warp sums the
-//    staged x of each segment it multiplies (f32, its B registers, two
-//    shuffles over the K lanes, two to bring the D columns' tokens), so
-//    every part adds the xsum * z term of its own rows, and no pass sums x
-//    beforehand (a development A/B: faster than the row pass's sums, and
-//    the same code freed the symmetric wide tile of its spills);
+//    with a pre-norm on the LUT and s21 layouts, to apply the weightless
+//    RMSNorm (f32 mean of squares, x*r rounded to bf16: the function of
+//    normalize-then-kernel, as the JAX package computes it for layouts
+//    without a prenorm kernel) into a copy of x, and where x is not
+//    16-byte aligned (a raw copy).  A call without a pre-norm is one
+//    kernel, or two with a K-split;
+//  - the W4 prenorm form (template flag NORM) keeps _int4_kernel_prenorm's
+//    function: no copy, no normalized x.  The product kernel reads the raw
+//    x, and beside each segment's sums of x (below) each lane of the warps
+//    of channel part 0 (a warp-uniform branch: the other warps stage the
+//    same rows) sums the squares of the same staged values for its token;
+//    at the end those warps give their groups' sums to shared memory.
+//    With one split the block scales each output by r = 1/sqrt(sum /
+//    K_logical + eps) before the cast, in its own epilogue; with a K-split
+//    the blocks of channel tile 0 write their split's sums to [splits, M]
+//    after the partials, and the reduce (w4_reduce_kernel with SQ) sums
+//    them in split order and finishes r.  So the prenorm call adds no
+//    kernel: one with one split, two with a K-split;
+//  - with zeros (template flag BZ; always for s21 and affine nib4), each
+//    warp sums the staged x of each segment it multiplies (f32, its B
+//    registers, two shuffles over the K lanes, two to bring the D columns'
+//    tokens), so every part adds the xsum * z term of its own rows, and no
+//    pass sums x beforehand (a development A/B: faster than the row pass's
+//    sums, and the same code freed the symmetric wide tile of its spills);
 //  - the decode: a lane still reads rows 8t..8t+7 of its channels and
 //    transposes them to per-channel words of four K-consecutive codes; each
 //    such word becomes two bf16 pairs, the A fragment of m16n8k16 q (rows
@@ -169,22 +188,31 @@
 //    subnormals) and multiplies by 2^(127-bias) (exact); the nib4 decode
 //    tile takes both slabs of a packed byte at once (lut4_bf16x2: prmt
 //    lookups of a table of the eight magnitudes' bf16 bytes, built from the
-//    widths, and prmt's sign mode).  s21 codes (slab_codes, as the int8
-//    family) become bf16 by s21_bf16: two prmt under the exponent byte of
-//    128 and two bf16x2 fma subtracting 128;
+//    widths, and prmt's sign mode).  Integer codes below 128 (s21's
+//    slab_codes, as the int8 family; affine nib4's) become bf16 by
+//    int_codes_bf16: two prmt under the exponent byte of 128 and two bf16x2
+//    fma subtracting 128.  Affine nib4 (kNib4B) undoes the high nibble's
+//    MSB flip in the decode (nib4_bf16x2 at the decode tile, both slabs of
+//    a word: one mask gives the low codes, one shift and one LOP3 of mask
+//    and flip the logical high codes q; the wide tile: nib4_codes before
+//    the transpose), so both slabs share one epilogue with mult 1 and
+//    zshift 0.  The JAX algebra's high codes 16 q - 128 (the int8 family's
+//    kNib4) would need a byte of up to 240 under the exponent, whose top
+//    bit lands in bf16's exponent: not a mantissa trick, and the flip costs
+//    nothing once the mask is a LOP3;
 //  - each group's f32 MMA sum is the part; acc += part * s (+ xsum * z;
-//    s21: - xsum * (s * z));
-//  - tiles: the decode tile (M <= 8) is its packed layout's (nib4: two slabs
-//    a warp, P = 2; nq42: one, P = 1, BN = 128; s21: one, P = 1, BN = 64;
-//    two blocks an SM); beyond, one block an SM, the warps of a slab each
-//    their own channels, P = 1: NT = 8 (64 tokens a block), two channel
-//    tiles a warp (BN = 128 nib4, 64 nq42); s21, one warp a slab: NT = 4
-//    (32 tokens), four channel tiles a warp (BN = 64), within the
-//    registers a thread has.  Each weight is decoded once a block, straight
-//    into the A fragments of the block's token tiles, so no shared decoded
-//    tile (nor ldmatrix) is needed.  Bound: at decode the bytes (codes +
-//    f32 sides + bf16 x + output) over 3.35 TB/s; at prefill 2*M*K*N over
-//    989 TFLOP/s.
+//    s21 and affine nib4: - xsum * (s * z));
+//  - tiles: the decode tile (M <= 8) is its packed layout's (nib4, LUT and
+//    affine: two slabs a warp, P = 2; nq42: one, P = 1, BN = 128; s21: one,
+//    P = 1, BN = 64; two blocks an SM); beyond, one block an SM, the warps
+//    of a slab each their own channels, P = 1: NT = 8 (64 tokens a block),
+//    two channel tiles a warp (BN = 128 nib4, 64 nq42); s21, one warp a
+//    slab: NT = 4 (32 tokens), four channel tiles a warp (BN = 64), within
+//    the registers a thread has.  Each weight is decoded once a block,
+//    straight into the A fragments of the block's token tiles, so no shared
+//    decoded tile (nor ldmatrix) is needed.  Bound: at decode the bytes
+//    (codes + f32 sides + bf16 x + output) over 3.35 TB/s; at prefill
+//    2*M*K*N over 989 TFLOP/s.
 #pragma once
 
 #include "slab_tile.cuh"
@@ -360,11 +388,11 @@ __device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
   return bf16x2_fma(a, b, 0x80008000u);
 }
 
-// Four s21 codes q = f + 4h (bytes of c, 0..7, in K order) -> their bf16
-// values, pairs (0, 1) and (2, 3): a byte q under the high byte 0x43 is the
-// bf16 of 128 + q (the exponent of 128 and q in the mantissa), and q * 1 -
-// 128 in one bf16x2 fma is q exactly.
-__device__ __forceinline__ void s21_bf16(uint32_t c, uint32_t& p01, uint32_t& p23) {
+// Four integer codes q < 128 (bytes of c, in K order: s21's f + 4h, nib4's
+// 0..15) -> their bf16 values, pairs (0, 1) and (2, 3): a byte q under the
+// high byte 0x43 is the bf16 of 128 + q (the exponent of 128 and q in the
+// mantissa), and q * 1 - 128 in one bf16x2 fma is q exactly.
+__device__ __forceinline__ void int_codes_bf16(uint32_t c, uint32_t& p01, uint32_t& p23) {
   constexpr uint32_t kHi = 0x43434343u, kOne = 0x3F803F80u, kMinus128 = 0xC300C300u;
   p01 = bf16x2_fma(__byte_perm(c, kHi, 0x5140), kOne, kMinus128);
   p23 = bf16x2_fma(__byte_perm(c, kHi, 0x7362), kOne, kMinus128);
@@ -431,6 +459,16 @@ __device__ __forceinline__ void lut4_bf16x2(uint32_t w, const uint32_t (&tab)[4]
     s0[h] = __byte_perm(lo, hi, 0x6240);
     s1[h] = __byte_perm(lo, hi, 0x7351);
   }
+}
+
+// The eight affine nib4 codes of a word w (bytes: four packed rows of one
+// channel, each the low nibble's code of slab 0 and the MSB-flipped high
+// nibble's of slab 1) -> their bf16 values, slab 0's rows (0, 1) and (2, 3)
+// in s0, slab 1's in s1: one mask gives the low codes, one shift and one
+// LOP3 (mask, flip) the logical high codes q, int_codes_bf16 their values.
+__device__ __forceinline__ void nib4_bf16x2(uint32_t w, uint32_t (&s0)[2], uint32_t (&s1)[2]) {
+  int_codes_bf16(w & 0x0F0F0F0Fu, s0[0], s0[1]);
+  int_codes_bf16(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, s1[0], s1[1]);
 }
 
 constexpr int kSlabRowThreads = 1024;  // threads of the slab row pass, one block a row
@@ -572,12 +610,16 @@ rows_bf16_slab_kernel(const __nv_bfloat16* __restrict__ x, int ldx, int k_logica
 // without zeros).  The bf16 family: xsrc bf16, token m's row r of slab i at
 // m * x_ld + i * x_ls + r (valid for r < Kb; x_ld, x_ls multiples of 8,
 // 16-byte aligned), no xsum (the kernel sums x itself where BZ: the
-// artifact has zeros, z not null; always for s21), no sx, bf16 out.
+// artifact has zeros, z not null; always for s21 and affine nib4), no sx,
+// bf16 out.  NORM (bf16 affine nib4, with BZ): the kernel also sums x^2 of
+// the rows it stages, per token; with one split it scales the output by
+// rsqrt(sum / k_logical + eps), else the blocks of channel tile 0 write
+// their split's sums to xsq [splits, M] for the reduce.
 // qw [A Kb, N] bytes; kc a multiple of 32 P.  LUT: nib4 exp_bits +
 // mant_bits = 3; nq42 exp_bits 1 or 2 (bf16: any E + M = 5), mant_bits 5 -
 // exp_bits; z may be null.  Affine (nib4, byte, s21): z not null, the
 // format arguments unused.
-template <int LAYOUT, int NT, bool VEC16, bool BZ = false>
+template <int LAYOUT, int NT, bool VEC16, bool BZ = false, bool NORM = false>
 __global__ void __launch_bounds__(SlabTile<LAYOUT, NT>::THREADS,
                                   SlabTile<LAYOUT, NT>::BLOCKS_PER_SM)
 wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum, int M,
@@ -586,7 +628,8 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
                    const float* __restrict__ z, long long z_rs, long long z_cs,
                    float* __restrict__ ws, void* __restrict__ out,
                    const float* __restrict__ sx, int out_bf16, int N, int n_out, int Kb,
-                   int Kb32, int G, int kc, int exp_bits, int mant_bits, int x_ld, int x_ls) {
+                   int Kb32, int G, int kc, int exp_bits, int mant_bits, int x_ld, int x_ls,
+                   float* __restrict__ xsq, int k_logical, float eps) {
   using T = SlabTile<LAYOUT, NT>;
   constexpr bool BF = T::BF;
   constexpr int L = T::L;
@@ -594,6 +637,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
   constexpr int S = T::S, A = T::A, P = T::P, V = T::V, SW = T::SW, CT = T::CT, W = T::W;
   constexpr int MT = T::MT;
   constexpr int BN = T::BN, NTH = T::THREADS, STAGES = T::STAGES, PITCH = T::PITCH;
+  static_assert(!NORM || (BF && BZ && L == kNib4), "the epilogue norm: bf16 affine nib4");
   extern __shared__ __align__(16) uint8_t slab_smem[];
   const int8_t* xq = static_cast<const int8_t*>(xsrc);
   const int tid = threadIdx.x;
@@ -625,7 +669,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
       tab[c / 4] |= v << (8 * (c % 4));
       tab[2 + c / 4] |= ((0u - v) & 0xFFu) << (8 * (c % 4));
     }
-  } else if constexpr (BF && SW == 2) {
+  } else if constexpr (BF && SW == 2 && L == kLut4) {
     lut4_bf16_table(exp_bits, mant_bits, tab);
   }
   Bf16Dec dec = {};
@@ -761,6 +805,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
   // the ending segment's sides and sums, per slab of the warp
   float sc[SW][CT][2], zc[SW][CT][2], xs_f[SW][NT][2];
   float xk[SW][NT][2] = {};  // bf16 with zeros: the segment's sums of x, per token
+  float xq2[NT] = {};        // NORM: the lane's sum of x^2 (token 8 nt + g), all segments
 
   // Scales and zeros of group gi of the warp's slabs for the lane's
   // channels, and the group's activation sums of its tokens where this
@@ -801,9 +846,10 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
       // affine nib4, the high slab: its codes are 16 q - 128, and the
       // group's epilogue takes s / 16 and z - 8 (the JAX kernel's mult and
       // zshift), i.e. sc = s / 16 and zc = 16 z - 128, so that sc * zc =
-      // s * (z - 8), both exact powers of two away; bf16 s21: the epilogue
-      // adds xsum * zc, so zc = -(s * z)
-      if (L == kNib4 && slab + sw == 1) {
+      // s * (z - 8), both exact powers of two away; bf16 s21 and affine
+      // nib4 (its high codes decoded to q): the epilogue adds xsum * zc, so
+      // zc = -(s * z)
+      if (L == kNib4 && !BF && slab + sw == 1) {
 #pragma unroll
         for (int c = 0; c < CT; ++c)
 #pragma unroll
@@ -891,9 +937,9 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
         for (int v = 0; v < W; ++v) {
           if constexpr (L == kByte || SW == 2)
             code[i][v] = aw[v];  // byte: the codes; nib4 decode tiles: decoded after the transpose
-          else if constexpr (L == kNib4)  // the low codes q, or the high ones as 16 q - 128
+          else if constexpr (L == kNib4 && !BF)  // the low codes q, or the high ones as 16 q - 128
             code[i][v] = aw[v] & (slab ? 0xF0F0F0F0u : 0x0F0F0F0Fu);
-          else if constexpr (BF && L == kLut4)
+          else if constexpr (BF && (L == kLut4 || L == kNib4))  // the logical codes
             code[i][v] = nib4_codes(aw[v], slab);
           else if constexpr (BF)
             code[i][v] = slab_codes<L == kLut6>(aw[v], bw[v], fields);
@@ -914,10 +960,12 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             uint32_t d[SW][2];
-            if constexpr (SW == 2)
+            if constexpr (SW == 2 && L == kNib4)
+              nib4_bf16x2(col[0][j], d[0], d[1]);
+            else if constexpr (SW == 2)
               lut4_bf16x2(col[0][j], tab, d[0], d[1]);
-            else if constexpr (L == kS21)
-              s21_bf16(col[0][j], d[0][0], d[0][1]);
+            else if constexpr (L == kS21 || L == kNib4)
+              int_codes_bf16(col[0][j], d[0][0], d[0][1]);
             else
               codes_bf16(col[0][j], dec, d[0][0], d[0][1]);
 #pragma unroll
@@ -987,8 +1035,14 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
               const uint32_t xv[4] = {v.x & keep0, v.y & keep0, v.z & keep1, v.w & keep1};
               float sm = 0.f;
 #pragma unroll
-              for (int e = 0; e < 4; ++e)
-                sm += __uint_as_float(xv[e] << 16) + __uint_as_float(xv[e] & 0xFFFF0000u);
+              for (int e = 0; e < 4; ++e) {
+                const float lo = __uint_as_float(xv[e] << 16);
+                const float hi = __uint_as_float(xv[e] & 0xFFFF0000u);
+                sm += lo + hi;
+                if constexpr (NORM) {  // x^2: only the warps of channel part 0 give it
+                  if (cb == 0) xq2[nt] = fmaf(hi, hi, fmaf(lo, lo, xq2[nt]));
+                }
+              }
               sm += __shfl_xor_sync(0xffffffffu, sm, 1);
               sm += __shfl_xor_sync(0xffffffffu, sm, 2);
               xk[sw][nt][0] += __shfl_sync(0xffffffffu, sm, 8 * t);
@@ -1073,7 +1127,32 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
         const int tok = 8 * nt + 2 * t + i % 2;
         red[(grp * MT + tok) * RP + ch] = acc[c][nt][i];
       }
+  // NORM: each group's sums of x^2 per token (its rows, from the warp of
+  // channel part 0), then per token their sum: the split's share, or with
+  // one split the row factor
+  __shared__ float sq_red[NORM ? V * MT : 1], r_tok[NORM ? MT : 1];
+  if constexpr (NORM) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float v = xq2[nt];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (cb == 0 && t == 0) sq_red[grp * MT + 8 * nt + g] = v;
+    }
+  }
   __syncthreads();
+  if constexpr (NORM) {
+    if (tid < MT) {
+      float ss = 0.f;
+#pragma unroll
+      for (int pr = 0; pr < V; ++pr) ss += sq_red[pr * MT + tid];
+      if (gridDim.z == 1)
+        r_tok[tid] = 1.0f / sqrtf(ss / (float)k_logical + eps);
+      else if (blockIdx.x == 0 && m0 + tid < M)
+        xsq[(size_t)blockIdx.z * M + m0 + tid] = ss;
+    }
+    __syncthreads();
+  }
   for (int i = tid; i < MT * BN; i += NTH) {
     const int tok = i / BN, ch = i % BN;
     float v = 0.f;
@@ -1084,6 +1163,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
       if (m < M && n < N) ws[((size_t)blockIdx.z * M + m) * N + n] = v;
     } else if (m < M && n < n_out) {  // one split: the reduce's epilogue here
       if (!BF) v *= sx[m];
+      if constexpr (NORM) v *= r_tok[tok];
       if (out_bf16)
         store_out(static_cast<__nv_bfloat16*>(out) + (size_t)m * n_out + n, v);
       else
@@ -1146,21 +1226,22 @@ inline cudaError_t rows_slab(const void* x, int x_bf16, int k_logical, int S, in
                                         st);
 }
 
-template <int LAYOUT, int NT, bool BZ = false>
+template <int LAYOUT, int NT, bool BZ = false, bool NORM = false>
 cudaError_t launch_slab_mma_nt(const void* xq, const void* xsum, int M, const void* qw,
                                const void* s, long long s_rs, long long s_cs, const void* z,
                                long long z_rs, long long z_cs, void* ws, void* out,
                                const void* sx, int x_bf16, int N, int n_out, int Kb, int G,
                                int kc, int splits, int exp_bits, int mant_bits,
-                               cudaStream_t st, int x_ld = 0, int x_ls = 0) {
+                               cudaStream_t st, int x_ld = 0, int x_ls = 0,
+                               float* xsq = nullptr, int k_logical = 0, float eps = 0.f) {
   using T = SlabTile<LAYOUT, NT>;
   constexpr int SM = T::SMEM;
   static bool attr_set = false;  // one attribute call per instantiation
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, true, BZ>,
+    cudaError_t err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, true, BZ, NORM>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, false, BZ>,
+      err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, false, BZ, NORM>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
     if (err != cudaSuccess) return err;
     attr_set = true;
@@ -1170,11 +1251,12 @@ cudaError_t launch_slab_mma_nt(const void* xq, const void* xsum, int M, const vo
   // 16-byte weight copies where every row of the block's columns is 16-byte aligned
   const bool vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
   return launch_after(
-      vec16 ? wa_slab_mma_kernel<LAYOUT, NT, true, BZ> : wa_slab_mma_kernel<LAYOUT, NT, false, BZ>,
+      vec16 ? wa_slab_mma_kernel<LAYOUT, NT, true, BZ, NORM>
+            : wa_slab_mma_kernel<LAYOUT, NT, false, BZ, NORM>,
       grid, dim3(T::THREADS), SM, st, xq, xsum, M, static_cast<const uint8_t*>(qw),
       static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs, z_cs,
       static_cast<float*>(ws), out, static_cast<const float*>(sx), x_bf16, N, n_out, Kb, Kb32,
-      G, kc, exp_bits, mant_bits, x_ld, x_ls);
+      G, kc, exp_bits, mant_bits, x_ld, x_ls, xsq, k_logical, eps);
 }
 
 // The whole call: row pass, tensor-core partial products, reduce.  x is
@@ -1223,38 +1305,46 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
   const dim3 rgrid((unsigned)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096));
   err = x_bf16 ? launch_after(w4_reduce_kernel<true, __nv_bfloat16>, rgrid, dim3(256), 0, st,
                               static_cast<const float*>(ws), static_cast<const float*>(sx),
-                              static_cast<__nv_bfloat16*>(out), M, N, n_out, splits)
+                              static_cast<__nv_bfloat16*>(out), M, N, n_out, splits, 0, 0.f)
                : launch_after(w4_reduce_kernel<true, float>, rgrid, dim3(256), 0, st,
                               static_cast<const float*>(ws), static_cast<const float*>(sx),
-                              static_cast<float*>(out), M, N, n_out, splits);
+                              static_cast<float*>(out), M, N, n_out, splits, 0, 0.f);
   return (int)err;
 }
 
 
-// The bf16 family's whole call (LAYOUT kLut4B, kLut6B or kS21B): y = x @
-// dequant(qw), bf16 x [M, ldx] (ldx = S*Kb, zero beyond k_logical), bf16
-// out [M, n_out].  The row pass runs only where the call needs it: with
-// norm, or x_copy (x is not 16-byte aligned, or ldx or Kb is no multiple of
-// 8), it writes the copy xs [M][S][Kb32] bf16 (scratch from the wrapper:
-// bf16_mma_scratch_bytes in ops/kernels/dequant_matmul.py) that the product
-// kernel then reads (normalized under norm); otherwise the product kernel
-// reads x itself.  ws [splits, M, N] is scratch too; kc is a multiple of 32
-// P (SlabTile<LAYOUT, NT>::P at the call's token tile).  exp_bits,
-// mant_bits: the LUT format (nib4: E + M = 3; nq42: E + M = 5), decoded
-// from its widths, z may be null (symmetric); s21: both 0, z not null.
-template <int LAYOUT>
+// The bf16 family's whole call (LAYOUT kLut4B, kLut6B, kS21B or kNib4B): y
+// = x @ dequant(qw), bf16 x [M, ldx] (ldx = S*Kb, zero beyond k_logical),
+// bf16 out [M, n_out].  The row pass runs only where the call needs it:
+// with norm on a layout without the epilogue norm, or x_copy (x is not
+// 16-byte aligned, or ldx or Kb is no multiple of 8), it writes the copy xs
+// [M][S][Kb32] bf16 (scratch from the wrapper: bf16_mma_scratch_bytes in
+// ops/kernels/dequant_matmul.py) that the product kernel then reads
+// (normalized under norm); otherwise the product kernel reads x itself.
+// EPI_NORM (kNib4B, the prenorm form; norm must be 1): x is never
+// normalized, the product kernel applies r = rsqrt(sum(x^2) / k_logical +
+// eps) to the f32 sum (with a K-split the reduce does, from the splits'
+// sums of x^2 that the kernel writes after ws).  ws [splits, M, N] (EPI_NORM:
+// then [splits, M] more) is scratch too; kc is a multiple of 32 P
+// (SlabTile<LAYOUT, NT>::P at the call's token tile).  exp_bits, mant_bits:
+// the LUT format (nib4: E + M = 3; nq42: E + M = 5), decoded from its
+// widths, z may be null (symmetric); s21 and affine nib4: both 0, z not null.
+template <int LAYOUT, bool EPI_NORM = false>
 int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm, float eps,
                    const void* qw, const void* s, long long s_rs, long long s_cs,
                    const void* z, long long z_rs, long long z_cs, void* xs, void* ws, void* out,
                    int M, int N, int n_out, int Kb, int G, int kc, int splits, int exp_bits,
                    int mant_bits, void* stream) {
-  static_assert(LAYOUT == kLut4B || LAYOUT == kLut6B || LAYOUT == kS21B, "a bf16 layout");
-  constexpr bool LUT = LAYOUT != kS21B;
+  static_assert(LAYOUT == kLut4B || LAYOUT == kLut6B || LAYOUT == kS21B || LAYOUT == kNib4B,
+                "a bf16 layout");
+  static_assert(!EPI_NORM || LAYOUT == kNib4B, "the epilogue norm: affine nib4");
+  constexpr bool LUT = LAYOUT == kLut4B || LAYOUT == kLut6B;
   constexpr int S = SlabTile<LAYOUT, 1>::S;
   constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
   const bool wide = slab_tile_nt(M, LAYOUT) != 1;
   const int P = wide ? SlabTile<LAYOUT, NT_WIDE>::P : SlabTile<LAYOUT, 1>::P;
-  const bool copy = x_copy || norm;
+  const bool row_norm = norm && !EPI_NORM;  // the row pass normalizes x
+  const bool copy = x_copy || row_norm;
   if (M <= 0 || N <= 0 || N % 4 || n_out > N || Kb <= 0 || Kb % 4 || G <= 0 || G % 4 ||
       Kb % G || kc <= 0 || kc % (kSlabWin * P) || splits <= 0 ||
       (long long)kc * splits < Kb || (long long)kc * (splits - 1) >= Kb || k_logical <= 0 ||
@@ -1263,6 +1353,7 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
       (LUT && (exp_bits < 1 || mant_bits < 0 ||
                exp_bits + mant_bits != (LAYOUT == kLut4B ? 3 : 5))) ||
       (!LUT && (exp_bits != 0 || mant_bits != 0 || z == nullptr)) ||
+      (LAYOUT == kNib4B && (norm != 0) != EPI_NORM) ||
       (!copy && (ldx % 8 || Kb % 8 || reinterpret_cast<uintptr_t>(x) % 16)) ||
       (copy && xs == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1272,7 +1363,7 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   cudaError_t err = cudaSuccess;
   if (copy) {
-    if (norm)
+    if (row_norm)
       rows_bf16_slab_kernel<true><<<M, kSlabRowThreads, 0, st>>>(xb, ldx, k_logical, S, Kb, Kb32,
                                                                  eps, xc);
     else
@@ -1283,10 +1374,12 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
   }
   const void* xsrc = copy ? static_cast<const void*>(xc) : x;
   const int x_ld = copy ? S * Kb32 : ldx, x_ls = copy ? Kb32 : Kb;
+  float* xsq = EPI_NORM ? static_cast<float*>(ws) + (size_t)splits * M * N : nullptr;
 #define IWOQ_BF16_MMA(NT, BZ)                                                                 \
-  launch_slab_mma_nt<LAYOUT, NT, BZ>(xsrc, nullptr, M, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws, \
-                                     out, nullptr, 1, N, n_out, Kb, G, kc, splits, exp_bits,  \
-                                     mant_bits, st, x_ld, x_ls)
+  launch_slab_mma_nt<LAYOUT, NT, BZ, EPI_NORM>(xsrc, nullptr, M, qw, s, s_rs, s_cs, z, z_rs,  \
+                                               z_cs, ws, out, nullptr, 1, N, n_out, Kb, G, kc, \
+                                               splits, exp_bits, mant_bits, st, x_ld, x_ls,   \
+                                               xsq, k_logical, eps)
   if constexpr (LUT) {
     const bool bz = z != nullptr;
     err = wide ? (bz ? IWOQ_BF16_MMA(NT_WIDE, true) : IWOQ_BF16_MMA(NT_WIDE, false))
@@ -1298,9 +1391,10 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)M * n_out;
   const dim3 rgrid((unsigned)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096));
-  return (int)launch_after(w4_reduce_kernel<false, __nv_bfloat16>, rgrid, dim3(256), 0, st,
-                           static_cast<const float*>(ws), static_cast<const float*>(nullptr),
-                           static_cast<__nv_bfloat16*>(out), M, N, n_out, splits);
+  return (int)launch_after(w4_reduce_kernel<EPI_NORM, __nv_bfloat16, EPI_NORM>, rgrid, dim3(256),
+                           0, st, static_cast<const float*>(ws),
+                           static_cast<const float*>(xsq), static_cast<__nv_bfloat16*>(out), M,
+                           N, n_out, splits, k_logical, eps);
 }
 
 }  // namespace iwoq

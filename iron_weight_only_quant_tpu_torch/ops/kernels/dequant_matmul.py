@@ -5,7 +5,8 @@ hand-written CUDA kernels compute ``y = x @ dequant(qt)`` for artifacts with
 f32 side info, per storage layout:
 
   nib4 (int4, bfp4):  ``csrc/w4_matmul.cu``, ``csrc/w4_matmul_prenorm.cu``
-                (design notes in ``csrc/w4_common.cuh``),
+                (bf16 x: the bf16 family of ``csrc/wa_slab_mma.cuh``; f32
+                x: design notes in ``csrc/w4_common.cuh``),
                 ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``
                 (``csrc/wa_slab_mma.cuh``);
   byte (int8, bfp8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
@@ -32,15 +33,19 @@ and LUT layouts have none, as in the JAX package (``prenorm_supported``): a
 type), then the kernel runs.  A LUT kernel decodes each code to its exact
 minifloat value from the format's exponent and mantissa widths (never from
 the artifact's codebook) and computes ``w = val*s (+ z)``.  The nib4 and
-nq42 LUT kernels (``lut4``, ``lut6``) and the s21 kernel (``w3``)
+nq42 LUT kernels (``lut4``, ``lut6``), the s21 kernel (``w3``) and the
+affine nib4 kernels (``w4_matmul``, ``w4_matmul_prenorm``)
 (:data:`BF16_MMA`) take bf16 x on the bf16 tensor cores
 (:func:`bf16_mma_route`): the codes decode to their exact bf16 values,
 ``mma.sync`` m16n8k16 sums each group's products in f32, ``acc += part*s
-(+ xsum*z)`` (s21: ``- xsum*(s*z)``), the kernel summing each group's x
-itself for the zeros; a row pass runs only where a ``pre_norm`` is given,
-which it then applies to a copy of x (the same function: normalize, cast
-to bf16, then the product), or where x cannot be read in place.  f32 x
-stays on their CUDA-core kernel, under the same name and launch count.
+(+ xsum*z)`` (affine: ``- xsum*(s*z)``), the kernel summing each group's
+x itself for the zeros.  ``w4_matmul_prenorm`` keeps its epilogue norm
+there: the kernel reads the raw x, sums its squares too and scales the f32
+sum by the row factor.  Elsewhere a row pass runs only where a
+``pre_norm`` is given, which it then applies to a copy of x (the same
+function: normalize, cast to bf16, then the product), or where x cannot be
+read in place.  f32 x stays on their CUDA-core kernel, under the same name
+and launch count.
 The ``a8``/``a16`` kernels take ``activation_bits`` 8 or 16: a row pass
 quantizes x to one int8 plane (A8, ``sx = absmax/127``) or two (A16, ``x
 ~= sx*(256*hi + lo)``, ``sx = absmax/32512``), the product runs on integer
@@ -192,9 +197,10 @@ _BLOCKS_PER_SM = 3
 # The layouts of the slab kernel (csrc/wa_slab_mma.cuh; the Layout enum of
 # csrc/slab_tile.cuh, whose values these are): the int8 family (A16) takes
 # the affine nib4, byte and s21 layouts and the nib4 and nq42 LUT ones; the
-# bf16 family (bf16 x, bf16 products) the nib4 and nq42 LUT layouts and s21.
+# bf16 family (bf16 x, bf16 products) the nib4 and nq42 LUT layouts, s21
+# and affine nib4.
 SLAB_LAYOUT_IDS = {"nib4": 0, "byte": 1, "s21": 2, "lut4": 3, "lut6": 4,
-                   "lut4_bf16": 5, "lut6_bf16": 6, "s21_bf16": 7}
+                   "lut4_bf16": 5, "lut6_bf16": 6, "s21_bf16": 7, "nib4_bf16": 8}
 # layout -> (slabs: K streams a packed row, row r of slab i holding K column
 # i*Kb + r; then (tokens, channels, parts) a block takes at decode, M <= 8,
 # and beyond): SlabTile's S, and its MT, BN and P at NT = 1 and at
@@ -209,20 +215,26 @@ SLAB_TILES = {
     "lut4_bf16": (2, (8, 128, 2), (64, 128, 1)),
     "lut6_bf16": (4, (8, 128, 1), (64, 64, 1)),
     "s21_bf16": (8, (8, 64, 1), (32, 64, 1)),
+    "nib4_bf16": (2, (8, 128, 2), (64, 128, 1)),
 }
 SLAB_WINDOW = 32  # kSlabWin: slab rows a window
 # The A16 kernels on the int8 tensor cores, by layout.
 SLAB_MMA = {W4A16: "nib4", W8A16: "byte", W3A16: "s21", LUT4A16: "lut4", LUT6A16: "lut6"}
-# The bf16-x calls of the nib4 and nq42 LUT kernels and of the s21 kernel on
-# the bf16 tensor cores, by layout; f32 x stays on their CUDA-core kernels
-# (csrc/lut_common.cuh, csrc/w3_common.cuh).  Name and launch count are the
-# kernel's either way.
-BF16_MMA = {LUT4: "lut4_bf16", LUT6: "lut6_bf16", W3: "s21_bf16"}
+# The bf16-x calls of the nib4 and nq42 LUT kernels, of the s21 kernel and
+# of the two affine nib4 kernels (w4_matmul, w4_matmul_prenorm: one layout,
+# the prenorm form with its row factor in the epilogue) on the bf16 tensor
+# cores, by layout; f32 x stays on their CUDA-core kernels
+# (csrc/lut_common.cuh, csrc/w3_common.cuh, csrc/w4_common.cuh).  Name and
+# launch count are the kernel's either way.
+BF16_MMA = {LUT4: "lut4_bf16", LUT6: "lut6_bf16", W3: "s21_bf16", W4: "nib4_bf16",
+            W4_PRENORM: "nib4_bf16"}
 # Layouts whose K-split plan never starts a partial round of blocks (see
-# plan_slab_splits): byte, which decodes nothing, and affine nib4, whose
-# decode is two masks a word (on the H100 the floored plan beat the rounded
-# one at the 7B qkv decode shape and tied at the others).
-SLAB_WHOLE_ROUNDS = ("byte", "nib4")
+# plan_slab_splits): byte, which decodes nothing, and affine nib4 in both
+# families, whose decode is a few masks a word (on the H100 the floored plan
+# beat the rounded one at the 7B qkv decode shape and tied at the others;
+# for the bf16 layout it lost at gate_up, won by more at qkv, and won over
+# a decode step).
+SLAB_WHOLE_ROUNDS = ("byte", "nib4", "nib4_bf16")
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -357,10 +369,11 @@ def bf16_mma_route(qt: QuantizedTensor, dtype: torch.dtype) -> bool:
     """Whether a call of this (flat or layer-stacked) artifact with x of
     ``dtype`` takes the bf16 tensor-core route of its kernel
     (:data:`BF16_MMA`): bf16 x on the nib4 (fp4) or nq42 (fp6) LUT layout or
-    the s21 (3-bit) affine one, whose slab rows and group are multiples of 4.
-    There a ``pre_norm`` runs in the kernel's row pass; f32 x, and the rare
-    shapes outside the rule, take the CUDA-core kernel of the same name,
-    after x is normalized in torch."""
+    the s21 (3-bit) or nib4 (int4, bfp4) affine one, whose slab rows and
+    group are multiples of 4.  There a ``pre_norm`` runs in the kernel's row
+    pass, or, for the affine nib4 prenorm kernel, in its epilogue; f32 x,
+    and the rare shapes outside the rule, take the CUDA-core kernel of the
+    same name (s21 and LUT after x is normalized in torch)."""
     if dtype != torch.bfloat16 or xla_route(qt):
         return False
     names = _names(qt)
@@ -705,7 +718,8 @@ def slab_scratch_bytes(m: int, kb: int, layout: str, g: int, sums: bool) -> int:
 
 def bf16_mma_scratch_bytes(m: int, kb: int, layout: str) -> int:
     """Bytes of the scratch of a bf16-family launch (:data:`BF16_MMA`) whose
-    row pass copies x (a pre-norm, or x not 16-byte aligned): the bf16 copy
+    row pass copies x (a pre-norm that the kernel's epilogue does not apply,
+    or x not 16-byte aligned): the bf16 copy
     ``[M, slabs, Kb32]``, each slab padded to a multiple of 32 rows
     (``launch_bf16_mma`` in ``csrc/wa_slab_mma.cuh``)."""
     slabs = SLAB_TILES[layout][0]
@@ -816,10 +830,11 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
     if ``pre_norm`` (affine nib4, byte), its int-activation form if
     ``activation_bits``; a LUT kernel of minifloat format ``fmt`` where one
-    is given (``zeros`` may then be None).  The nib4 and nq42 LUT kernels
-    and the s21 one take bf16 x on their bf16 tensor-core route
-    (:data:`BF16_MMA`, :func:`bf16_mma_route`; a ``pre_norm`` then runs in
-    its row pass).
+    is given (``zeros`` may then be None).  The nib4 and nq42 LUT kernels,
+    the s21 one and the affine nib4 ones take bf16 x on their bf16
+    tensor-core route (:data:`BF16_MMA`, :func:`bf16_mma_route`; a
+    ``pre_norm`` then runs in its row pass, or, for ``w4_matmul_prenorm``,
+    in its epilogue).
 
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
@@ -868,13 +883,18 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
                                       _sm_count(dev))
     else:
         kc, splits = plan_splits(m, n, kp, _sm_count(dev))
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+    # the prenorm kernel's route keeps its norm in the epilogue: with a
+    # K-split the splits' sums of x^2 [splits, M] follow the partials
+    epi_norm = mma and pre_norm is not None and name == names[1]
+    ws = torch.empty((splits * m * n + (splits * m if epi_norm else 0),), dtype=torch.float32,
+                     device=dev)
     x_bf16 = int(x2.dtype == torch.bfloat16)
     eps = 0.0 if pre_norm is None else float(pre_norm)
     if mma:
         x_copy = x_needs_copy(x2, kp)
+        row_norm = pre_norm is not None and not epi_norm
         xs = (torch.empty((bf16_mma_scratch_bytes(m, kp, BF16_MMA[name]),), dtype=torch.uint8,
-                          device=dev) if x_copy or pre_norm is not None else None)
+                          device=dev) if x_copy or row_norm else None)
         exp_bits, mant_bits = (0, 0) if fmt is None else (fmt.exp_bits, fmt.mant_bits)
         lib, fn = _load_fn(name, f"iwoq_{name}_mma", _ARGTYPES_BF16_MMA)
         with torch.cuda.device(dev):

@@ -10,7 +10,10 @@ the card (``--device cpu`` runs the plain versions, with host-clock times):
 
 Variants, on one ``QuantSpec(int, 4, 128, asym)`` artifact per shape:
 
-  base   ``w4_matmul``: codes converted and dequantized per element
+  base   ``w4_matmul``: with bf16 x its bf16 tensor-core route (the
+         affine nib4 case of the bf16 family of ``csrc/wa_slab_mma.cuh``:
+         codes made exact bf16, ``mma.sync`` m16n8k16, the group
+         epilogue), f32 x its CUDA-core kernel
   f32    ``w4_inner_matmul(mode="f32")``: int -> float converts, the
          factored group form (scales, zeros and activation sums once per
          group)
@@ -30,7 +33,9 @@ each keeps its minimum.  On the card each timed call rotates
 them between calls, as the layers of a decode step find it; the times are
 CUDA-event device times (``utils.timing.device_ms``), printed with the
 card's name and power limit and with static SASS instruction counts of the
-partial-product kernels of ``w4_inner_matmul`` and ``w4_matmul``.
+partial-product kernels of ``w4_inner_matmul`` and ``w4_matmul`` (its
+CUDA-core kernel, and the product kernel of its bf16 route per token tile,
+``base-mma/NT=n``).
 """
 
 from __future__ import annotations
@@ -77,7 +82,11 @@ SASS_OPS = ("I2F", "I2FP", "F2F", "FFMA", "FMUL", "FADD", "LOP3", "SHF", "PRMT",
 
 def _probe_key(name: str) -> Optional[str]:
     """The probe's key of a partial-product kernel's mangled name (None:
-    not counted): mode and x type."""
+    not counted): mode and x type, or the token tile of ``w4_matmul``'s
+    bf16 route (its 16-byte-copy product kernel)."""
+    route = re.search(r"wa_slab_mma_kernelILi\d+ELi(\d+)ELb1E", name)
+    if route:
+        return f"base-mma/NT={route.group(1)}"
     if "partial_kernel" not in name:
         return None
     mode = ("magic" if "ILb1E" in name else "f32") if "inner" in name else "base"

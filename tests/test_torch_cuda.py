@@ -17,8 +17,10 @@ kernels run the nib4 (fp4), nq42 (fp6; K/4 a multiple of the group) and
 byte (fp8, byte-per-code fp6) layouts with and without zero points, fp4
 and fp6 E2M3 also under A16; every A16 kernel runs on the tensor-core slab
 kernel (``-k slab``: token tiles, ragged groups, side layouts, stacked
-calls, unaligned x), and the bf16-x calls of ``lut4``, ``lut6`` and ``w3``
-on its bf16 family (``-k mma``); BFP artifacts run on the W4 and W8 kernels;
+calls, unaligned x), and the bf16-x calls of ``lut4``, ``lut6``, ``w3``,
+``w4`` and ``w4_prenorm`` on its bf16 family (``-k mma``: the W4 route also
+at the five LLaMA-2-7B shapes, its row factor with one split and with a
+K-split); BFP artifacts run on the W4 and W8 kernels;
 card-built fp/bfp artifacts must equal CPU-built ones byte for byte.  The
 W4 inner-loop probe kernel runs both its decodes on the W4 shapes.
 Artifacts the JAX package computes on its XLA path take the route
@@ -767,7 +769,7 @@ LUT_MMA_CASES = {
 
 def _lut_mma_call(dev, qt, x, pre_norm=None, layer=None):
     """One bf16-x call on the bf16 route: exactly one launch of the
-    artifact's kernel (LUT or W3), no plain call, no route call; the
+    artifact's kernel (LUT, W3 or W4), no plain call, no route call; the
     result."""
     name = dm.kernel_name(qt, pre_norm)
     assert name in dm.BF16_MMA and dm.bf16_mma_route(qt, torch.bfloat16)
@@ -907,6 +909,120 @@ def test_w3_mma_copies_x_it_cannot_read_in_place(dev, case, m):
     assert x.is_contiguous() and x.data_ptr() % 16
     y = _lut_mma_call(dev, qt, x)
     _close_a(y, dm.dequant_matmul_plain(x, qt), torch.bfloat16)
+
+
+# ----------------------- bf16-x W4 calls (flat and prenorm) on the bf16 tensor cores
+
+# (spec, K, N, quantize_tensor kwargs) of the bf16 route of w4_matmul and
+# w4_matmul_prenorm (the affine nib4 case of the bf16 family): the five
+# LLaMA-2-7B shapes (qkv, o, gate_up, down, lm_head; N padded to 512), the
+# side layouts, and the ragged cases: per-channel K = 1088 (Kb = 544: the
+# range ends inside a window, a part or a K-split cuts a group), groups of
+# 16 rows (two a window), groups straddling the K halves (K = 1408: split in
+# two per call), N = 300 stored as 512 (n_pad) and as 300 (4-byte weight
+# copies), K padding, and BFP4
+W4_SPEC = SPECS["g128_asym"]
+W4_MMA_7B = {
+    "7b_qkv": (W4_SPEC, 4096, 12288, {}),
+    "7b_o": (W4_SPEC, 4096, 4096, {}),
+    "7b_gate_up": (W4_SPEC, 4096, 22016, {}),
+    "7b_down": (W4_SPEC, 11008, 4096, dict(pad_n_to=512)),
+    "7b_lm_head": (W4_SPEC, 4096, 32000, dict(pad_n_to=512)),
+}
+W4_MMA_CASES = {
+    "w4_g128_asym": (W4_SPEC, 1024, 256, {}),
+    "w4_g128_sym": (SPECS["g128_sym"], 1024, 256, {}),
+    "w4_g64_asym": (SPECS["g64_asym"], 1024, 256, {}),
+    "w4_perchannel_sym": (SPECS["perchannel_sym"], 1024, 256, {}),
+    "w4_pertensor_asym": (SPECS["pertensor_asym"], 1024, 256, {}),
+    "w4_perchannel_asym_k1088": (dataclasses.replace(SPECS["perchannel_sym"], symmetric=False),
+                                 1088, 256, {}),
+    "w4_g16_asym": (dataclasses.replace(W4_SPEC, group_size=16), 1024, 256, {}),
+    "w4_straddle_k1408": (W4_SPEC, 1408, 128, {}),
+    "w4_npad_300": (W4_SPEC, 1024, 300, dict(pad_n_to=512)),
+    "w4_n300": (W4_SPEC, 1024, 300, {}),
+    "w4_kpad": (W4_SPEC, 384, 256, dict(pad_k_to=512)),
+    "bfp4_npad_300": (QuantSpec(fmt="bfp", bits=4, group_size=128), 1408, 300,
+                      dict(pad_n_to=512)),
+}
+
+
+def _w4_mma_check(dev, case, m, pre_norm, x=None, layer=None):
+    """One bf16-x W4 call on the route (``_lut_mma_call``: one launch of
+    ``w4_matmul`` or, with ``pre_norm``, ``w4_matmul_prenorm``) against the
+    plain version, which applies the row factor to the f32 sum."""
+    spec, k, n, kw = case
+    qt = _artifact(dev, k, n, spec, **kw)
+    if x is None:
+        x = _x(dev, (m, k), torch.bfloat16) * 3
+    assert dm.kernel_name(qt, pre_norm) == (dm.W4 if pre_norm is None else dm.W4_PRENORM)
+    y = _lut_mma_call(dev, qt, x, pre_norm)
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm), torch.bfloat16)
+    return qt, x
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 256])
+@pytest.mark.parametrize("case", list(W4_MMA_7B))
+def test_w4_mma_route_matches_plain_7b_shapes(dev, case, m):
+    """The main path's five shapes, qkv and gate_up with the pre-norm (the
+    prenorm kernel), the others flat, at decode and prefill row counts."""
+    pre_norm = EPS if case in ("7b_qkv", "7b_gate_up") else None
+    _w4_mma_check(dev, W4_MMA_7B[case], m, pre_norm)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 256])
+@pytest.mark.parametrize("case", list(W4_MMA_CASES))
+def test_w4_mma_route_matches_plain(dev, case, m, pre_norm):
+    """The decode tile (M <= 8) and the 64-token tile (one, a partial one,
+    several), one and several K-splits, the prenorm kernel's row factor in
+    its epilogue, against the plain version; f32 x stays on the CUDA-core
+    kernel at the f32 tolerance."""
+    qt, x = _w4_mma_check(dev, W4_MMA_CASES[case], m, pre_norm)
+    if m == 8:
+        xf = x.float()
+        dm.reset_counts()
+        y = dm.fused_quantized_matmul(xf, qt, pre_norm=pre_norm)
+        assert dm.LAUNCHES[dm.kernel_name(qt, pre_norm)] == 1 == sum(dm.LAUNCHES.values())
+        _close(y, dm.dequant_matmul_plain(xf, qt, pre_norm), torch.float32)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m,k,n,one_split", [(256, 1024, 4096, True), (8, 1024, 256, False),
+                                             (8, 4096, 32256, True), (64, 4096, 4096, False)])
+def test_w4_mma_prenorm_with_one_split_and_with_a_k_split(dev, m, k, n, one_split, pre_norm):
+    """The row factor where the output is formed: in the product kernel's
+    epilogue with one split, in the reduce (from the splits' sums of x^2)
+    with a K-split."""
+    splits = dm.plan_slab_splits(m, n, k // 2, "nib4_bf16", dm._sm_count(dev))[1]
+    assert (splits == 1) == one_split
+    _w4_mma_check(dev, (W4_SPEC, k, n, {}), m, pre_norm)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["w4_g128_asym", "w4_perchannel_sym"])
+def test_w4_mma_stacked_reads_layer_2_of_3(dev, case, m, pre_norm):
+    spec, k, n, kw = W4_MMA_CASES[case]
+    qts = [_artifact(dev, k, n, spec, seed=50 + i, **kw) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st) and dm.bf16_mma_route(st, torch.bfloat16)
+    x = _x(dev, (m, k), torch.bfloat16) * 3
+    y = _lut_mma_call(dev, st, x, pre_norm, layer=2)
+    _close_a(y, dm.dequant_matmul_plain(x, qts[2], pre_norm), torch.bfloat16)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["w4_g128_asym", "w4_kpad"])
+def test_w4_mma_copies_x_it_cannot_read_in_place(dev, case, m, pre_norm):
+    """x 2 bytes off a 16-byte boundary: the row pass copies it (raw: the
+    prenorm kernel's epilogue still applies the row factor)."""
+    spec, k, n, kw = W4_MMA_CASES[case]
+    x = torch.empty((m * k + 1,), dtype=torch.bfloat16, device=dev)[1:].view(m, k)
+    x.copy_(_x(dev, (m, k), torch.bfloat16) * 3)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _w4_mma_check(dev, W4_MMA_CASES[case], m, pre_norm, x=x)
 
 
 # ------------------------------------------------------- W4 inner-loop probe

@@ -91,8 +91,10 @@ def test_bf16_x_takes_the_mma_route_and_f32_x_the_cuda_core_kernel(case):
 def test_the_route_keeps_the_kernels_names_and_leaves_other_layouts():
     """No new launch counter; fp8 (byte layout), the A16 kernels and a nib4
     artifact whose K/2 slab rows are no multiple of 4 stay off the route
-    (which also takes the s21 kernel, tests/test_torch_w4a16_w3_mma.py)."""
-    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.W3} <= set(dm.LAUNCHES)
+    (which also takes the s21 kernel, tests/test_torch_w4a16_w3_mma.py, and
+    the two affine nib4 kernels, tests/test_torch_w4_mma.py)."""
+    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.W3, dm.W4, dm.W4_PRENORM} <= set(
+        dm.LAUNCHES)
     assert set(dm.LAUNCHES) == set(dm.PLAIN_CALLS)
     assert len(dm.LAUNCHES) == 18  # sixteen serving kernels, the probe's two modes
     fp8 = _port(fp_spec("fp8", 4, 3, group_size=128), 512)
@@ -112,13 +114,13 @@ SHAPES_7B = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
 
 @pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 512])
 @pytest.mark.parametrize("shape", list(SHAPES_7B))
-@pytest.mark.parametrize("kernel", [dm.LUT4, dm.LUT6, dm.W3])
+@pytest.mark.parametrize("kernel", [dm.LUT4, dm.LUT6, dm.W3, dm.W4])
 def test_bf16_split_plans_cover_every_row_once(kernel, shape, m):
-    """nib4 (Kb = K/2), nq42 and s21 (Kb = K/4 and K/8; down stored as
-    11264): every split and every part starts on a window, the splits and
-    the parts of each split cover the Kb rows once in order, the plan
-    depends on the shapes alone; the decode tile splits as the A16 slab
-    kernel of the same packing does, the wide tile has one part."""
+    """nib4 (Kb = K/2; LUT and affine), nq42 and s21 (Kb = K/4 and K/8;
+    down stored as 11264): every split and every part starts on a window,
+    the splits and the parts of each split cover the Kb rows once in order,
+    the plan depends on the shapes alone; the decode tile splits as the A16
+    slab kernel of the same packing does, the wide tile has one part."""
     layout = dm.BF16_MMA[kernel]
     int8_layout = layout.removesuffix("_bf16")
     k, n = SHAPES_7B[shape]
@@ -144,10 +146,10 @@ def test_bf16_split_plans_cover_every_row_once(kernel, shape, m):
 
 def test_bf16_tiles_and_scratch():
     """Decode: 8 tokens and 128 channels a block, as the A16 slab kernel;
-    beyond: 64 tokens, the warps of a slab each 32 channels (nib4 128, nq42
-    64).  The scratch is the bf16 copy of x the row pass writes, each slab
+    beyond: 64 tokens, the warps of a slab each 32 channels (nib4, LUT and
+    affine, 128; nq42 64).  The scratch is the bf16 copy of x the row pass writes, each slab
     padded to 32 rows."""
-    for layout, bn in (("lut4", 128), ("lut6", 64)):
+    for layout, bn in (("lut4", 128), ("lut6", 64), ("nib4", 128)):
         bf16 = layout + "_bf16"
         assert dm.slab_tile(8, bf16)[:2] == (8, 128) == dm.slab_tile(8, layout)[:2]
         assert dm.slab_tile(9, bf16) == dm.slab_tile(256, bf16) == (64, bn, 1)

@@ -16,8 +16,8 @@ mma``).  Here:
   sides folded to ``s/16`` and ``16z - 128``), over all 256 byte values,
   gives the codes of the JAX ``_int4_kernel_a16`` and, end to end, its
   result (interpret mode), by the ``_group_accum_a16`` algebra;
-* ``slab_codes`` and ``s21_bf16`` written out in numpy give every code of a
-  packed s21 artifact and its exact bf16 value;
+* ``slab_codes`` and ``int_codes_bf16`` written out in numpy give every
+  code of a packed s21 artifact and its exact bf16 value;
 * dispatch: bf16 W3 takes the route (``iwoq_w3_matmul_mma``) and f32 W3
   the CUDA-core kernel (``iwoq_w3_matmul``), both counted as
   ``w3_matmul``; ``w4a16`` launches the slab kernel with its scratch and
@@ -101,7 +101,7 @@ template <int L> void layout() {
 }
 int main() {
   layout<kNib4>(); layout<kByte>(); layout<kS21>(); layout<kLut4>(); layout<kLut6>();
-  layout<kLut4B>(); layout<kLut6B>(); layout<kS21B>();
+  layout<kLut4B>(); layout<kLut6B>(); layout<kS21B>(); layout<kNib4B>();
 }
 """
 
@@ -134,7 +134,7 @@ def test_python_tiles_equal_the_cuda_tiles(cuda_tiles, layout):
     """SLAB_TILES holds SlabTile's S and its (MT, BN, P) at NT = 1 and at
     the wide NT, and :func:`slab_tile` picks the tile slab_tile_nt picks at
     every row count, for every layout of the Layout enum."""
-    assert sorted(dm.SLAB_LAYOUT_IDS.values()) == sorted(cuda_tiles) == list(range(8))
+    assert sorted(dm.SLAB_LAYOUT_IDS.values()) == sorted(cuda_tiles) == list(range(9))
     slabs, decode, wide, nts = cuda_tiles[dm.SLAB_LAYOUT_IDS[layout]]
     assert dm.SLAB_TILES[layout] == (slabs, decode[:3], wide[:3])
     assert decode[3] == 1 and decode[0] == 8
@@ -144,13 +144,18 @@ def test_python_tiles_equal_the_cuda_tiles(cuda_tiles, layout):
 
 
 def test_every_slab_kernel_has_its_layout():
-    """The A16 kernels and the bf16 route name a layout each; only the nib4
-    packing is shared (affine ``w4a16``, LUT ``lut4a16``), by two layouts."""
+    """The A16 kernels and the bf16 route name a layout each, but the two
+    affine nib4 kernels of the bf16 route (``w4_matmul`` and its prenorm
+    form), which share one; the nib4 packing is shared by the affine and LUT
+    layouts of each family, with the same tiles."""
     assert set(dm.SLAB_MMA) == {dm.W4A16, dm.W8A16, dm.W3A16, dm.LUT4A16, dm.LUT6A16}
-    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.W3}
+    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.W3, dm.W4, dm.W4_PRENORM}
+    assert dm.BF16_MMA[dm.W4] == dm.BF16_MMA[dm.W4_PRENORM] == "nib4_bf16"
     layouts = list(dm.SLAB_MMA.values()) + list(dm.BF16_MMA.values())
-    assert sorted(layouts) == sorted(dm.SLAB_TILES) and len(set(layouts)) == len(layouts)
+    assert sorted(set(layouts)) == sorted(dm.SLAB_TILES)
+    assert len(set(layouts)) == len(layouts) - 1
     assert dm.SLAB_TILES["nib4"] == dm.SLAB_TILES["lut4"]  # the same packing and tiles
+    assert dm.SLAB_TILES["nib4_bf16"] == dm.SLAB_TILES["lut4_bf16"]
 
 
 # ------------------------------------------- affine nib4: decode and epilogue
@@ -267,7 +272,7 @@ def _bf16_fma_minus128(p):
     return out
 
 
-def _s21_bf16(c):
+def _int_codes_bf16(c):
     hi = np.full_like(c, 0x43434343)
     return (_bf16_fma_minus128(_byte_perm(c, hi, 0x5140)),
             _bf16_fma_minus128(_byte_perm(c, hi, 0x7362)))
@@ -276,7 +281,7 @@ def _s21_bf16(c):
 def test_s21_codes_decode_to_their_exact_bf16_values():
     """Random 3-bit codes packed by the port's s21 packing: for every slab
     and B row, slab_codes of the A and B words gives the slab's codes, and
-    s21_bf16 gives their bf16 values, each byte position and code 0..7."""
+    int_codes_bf16 gives their bf16 values, each byte position and code 0..7."""
     k, n = 256, 64
     codes = np.random.default_rng(8).integers(0, 8, size=(k, n)).astype(np.int32)
     codes[:8, :8] = np.arange(64).reshape(8, 8) % 8  # every code in every byte position
@@ -290,7 +295,7 @@ def test_s21_codes_decode_to_their_exact_bf16_values():
         c = _slab_codes(a, b, i)
         got = c.copy().view(np.uint8).reshape(kb, n)
         np.testing.assert_array_equal(got, codes[i * kb:(i + 1) * kb])
-        p01, p23 = _s21_bf16(c)
+        p01, p23 = _int_codes_bf16(c)
         for j, (p, sh) in enumerate(((p01, 0), (p01, 16), (p23, 0), (p23, 16))):
             np.testing.assert_array_equal((p >> U32(sh)) & U32(0xFFFF),
                                           bf16_of[(c >> U32(8 * j)) & U32(0xFF)])
