@@ -29,7 +29,11 @@ models, whose kernels those paths do not carry but which add time, run
    flat call with one split, each counted by ``torch.profiler`` (one
    kernel with one split, two with a K-split: no copy of x); and the SASS
    counts and registers of their kernels, as in phase 12 (HMMA, else the
-   phase fails).
+   phase fails).  The bf16 routes of ``w8_matmul`` and ``lut8_matmul``
+   (phases 5 and 17) are counted here the same way, before any profiled
+   serve: a flat W8 call with one split and one with a K-split, and an
+   fp8 call with one split, and with the pre-norm (its row pass) with one
+   split and with a K-split.
 3. W4 two-layer model: ``llama_forward`` logits at full 7B width with the
    kernels on the card against the same params through the plain path on
    the CPU, in float32 and in bfloat16.
@@ -40,7 +44,16 @@ models, whose kernels those paths do not carry but which add time, run
    before each run and read just after: both kernels must have run exactly
    as often as the model's shape says, and the plain versions never.
 5. W8 kernels vs plain: phase 2 for the int8 g128 kernels, plus a
-   per-channel symmetric artifact.
+   per-channel symmetric artifact.  The bf16-x calls of ``w8_matmul`` run
+   on the bf16 tensor cores (the affine byte case of the bf16 family of
+   ``csrc/wa_slab_mma.cuh``), its f32-x calls and every call of
+   ``w8_matmul_prenorm`` on their CUDA-core kernels.  Then that route on
+   g128 asymmetric, per-channel symmetric, groups of 16 and per-channel
+   asymmetric K=1088 (whose range ends inside a window) artifacts at M=8
+   and 64, the pre-norm calls on ``w8_matmul_prenorm``, and on an x it must
+   copy (its calls counted by ``torch.profiler`` in phase 2); and the SASS
+   counts and registers of its kernels, as in phase 12 (HMMA, else the
+   phase fails).
 6. W8 two-layer model: phase 3 with int8 g128 weights.
 7. W8 serve: 8-layer 7B-width W8 model, ``InferenceEngine.serve`` with
    the traffic of the JAX package's ``bench.py`` ``serve_throughput`` (8
@@ -116,8 +129,8 @@ models, whose kernels those paths do not carry but which add time, run
     ``lut4a16_matmul`` (the same under A16) and ``lut8_matmul`` (fp8 E4M3
     g128 symmetric) at the five main-path shapes, timed at M=8 and M=256
     as in phase 2, untimed at the other main-path row counts; qkv and
-    gate_up also once with ``pre_norm`` (x normalized in torch first, in
-    the row pass under A16); at the down shape fp4 E2M1 symmetric and
+    gate_up also once with ``pre_norm`` (x normalized in the row pass of
+    the bf16 route or under A16); at the down shape fp4 E2M1 symmetric and
     E1M2 g64 (lut4, lut4a16), fp8 E4M3 per-channel asymmetric and E3M4
     g128 (lut8), an f32 x and a layer-stacked call per kernel; and bfp4 and
     bfp8 artifacts on ``w4_matmul``, ``w4a16_matmul``, ``w8_matmul`` and
@@ -130,7 +143,14 @@ models, whose kernels those paths do not carry but which add time, run
     the f32-x call on its CUDA-core kernel; the bf16 route is also checked
     at M=8 and 64, with and without ``pre_norm``, on the same ragged
     artifacts, fp4 E1M2 g64 and an x it must copy, and its SASS must hold
-    HMMA (or HGMMA).
+    HMMA (or HGMMA).  The bf16-x calls of ``lut8_matmul`` run on the bf16
+    family too (its byte LUT case; f32 x and the byte-per-code fp6 with K
+    % 4 != 0, checked in ``tests/test_torch_cuda.py``, on the CUDA cores):
+    that route is checked likewise on fp8 E4M3 g128 symmetric, E4M3
+    per-channel asymmetric K=1088, E3M4 g128 symmetric and E2M5 g128
+    asymmetric artifacts (its calls counted by ``torch.profiler`` in phase
+    2: one kernel with one split and no pre-norm, the row pass only with
+    one), and its SASS as ``lut4_matmul``'s.
 18. Two-layer 7B-width fp4 (also under A16) and fp8 logits, kernels vs
     the plain path on the CPU, as phase 3.
 19. FP4 full model: 32-layer 7B-width fp4 E2M1 g128 asymmetric model built
@@ -140,7 +160,8 @@ models, whose kernels those paths do not carry but which add time, run
     A8).  Every linear takes ``lut4_matmul`` (``lut4a16_matmul`` under
     A16): ``forwards * (4L + 1)`` launches, no plain call, no route call.
 20. FP8 model: 8-layer 7B-width fp8 E4M3 g128 symmetric model,
-    ``serve`` as in phase 7, every linear on ``lut8_matmul``.
+    ``serve`` as in phase 7, every linear on ``lut8_matmul`` (bf16 x: its
+    bf16 route, the qkv and gate_up pre-norms in its row pass).
 21. FP6 kernels vs plain: ``lut6_matmul`` and ``lut6a16_matmul`` on fp6
     E2M3 g128 symmetric artifacts in the nq42 layout (``pad_k_to=1024``:
     down's K=11008 stored as 11264) at the five main-path shapes, timed at
@@ -991,8 +1012,9 @@ def slab_kernel_report(name):
     ``sass_counts``) and the ``-Xptxas -v`` registers, spills and shared
     memory of the slab kernels (``csrc/wa_slab_mma.cuh``) of a library: the
     A16 slab kernels, or the bf16 route of ``lut4_matmul``, ``lut6_matmul``,
-    ``w3_matmul``, ``w4_matmul`` and ``w4_matmul_prenorm`` (its epilogue
-    norm: "norm"); fails unless the product kernels run their products on
+    ``lut8_matmul``, ``w3_matmul``, ``w4_matmul``, ``w4_matmul_prenorm``
+    (its epilogue norm: "norm") and ``w8_matmul``; fails unless the product
+    kernels run their products on
     the tensor cores: the int8 ones (IMMA) with no ``__dp4a`` (IDP), the
     bf16 ones (HMMA or HGMMA).  FFMA is counted beside them (a W4 product
     kernel keeps it for its group epilogue only: no FFMA main loop)."""
@@ -1060,13 +1082,14 @@ def check_slab_ragged(torch, device, specs, seed):
 
 
 def check_bf16_mma_ragged(torch, device, specs, seed):
-    """The bf16 route of ``lut4_matmul``, ``lut6_matmul``, ``w3_matmul`` or
-    ``w4_matmul`` (the bf16 family of ``csrc/wa_slab_mma.cuh``) on artifacts
-    whose groups or slabs are not a multiple of its 32-row window
-    (``specs``: label -> (spec, K)), N = 4096, at M = 8 and 64, with and
-    without ``pre_norm`` (in its row pass; W4: ``w4_matmul_prenorm``, in
-    its epilogue), and on an x 2 bytes off a 16-byte boundary (which the row
-    pass copies), against the plain version."""
+    """The bf16 route of ``lut4_matmul``, ``lut6_matmul``, ``lut8_matmul``,
+    ``w3_matmul``, ``w4_matmul`` or ``w8_matmul`` (the bf16 family of
+    ``csrc/wa_slab_mma.cuh``) on artifacts whose groups or slabs are not a
+    multiple of its 32-row window (``specs``: label -> (spec, K)), N = 4096,
+    at M = 8 and 64, with and without ``pre_norm`` (in its row pass; W4:
+    ``w4_matmul_prenorm``, in its epilogue; W8: ``w8_matmul_prenorm``, on
+    the CUDA cores), and on an x 2 bytes off a 16-byte boundary (which the
+    row pass copies), against the plain version."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     gen = torch.Generator(device=device)
@@ -1079,8 +1102,8 @@ def check_bf16_mma_ragged(torch, device, specs, seed):
         for m in (DECODE_M, 64):
             for pre in (None, 1e-5):
                 x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-                check_call(torch, f"{kname}:{label}:M={m}{':pre_norm' if pre else ''}", qt, x,
-                           *a_runner(pre, None))
+                check_call(torch, f"{dm.kernel_name(qt, pre)}:{label}:M={m}"
+                           f"{':pre_norm' if pre else ''}", qt, x, *a_runner(pre, None))
         x = torch.empty((DECODE_M * k + 1,), dtype=torch.bfloat16, device=device)[1:]
         x = x.view(DECODE_M, k)
         x.copy_(torch.randn((DECODE_M, k), generator=gen, device=device))
@@ -1107,34 +1130,55 @@ def device_kernels(torch, fn):
     return names or None
 
 
-def check_w4_route_kernels(torch, device, spec, seed):
-    """The bf16 route of ``w4_matmul`` and ``w4_matmul_prenorm`` where the
-    output is formed: the prenorm kernel with one split (its row factor in
-    the product kernel's epilogue) and with a K-split (in the reduce), and
-    ``w4_matmul`` with one split, against their plain versions; each call
-    runs one kernel with one split and two with a K-split (no row pass: x
-    is read in place and never copied)."""
+# (label, M, K, N, pre_norm) of the calls check_route_kernels counts: W4's
+# prenorm kernel with one split (its row factor in the product kernel's
+# epilogue) and with a K-split (in the reduce), and w4_matmul with one
+# split; w8_matmul with one split and with a K-split; lut8_matmul with one
+# split, and with the pre-norm (its row pass) with one split and a K-split
+W4_ROUTE_CALLS = (("prenorm_one_split", PREFILL_M, 4096, 4096, 1e-5),
+                  ("prenorm_k_split", DECODE_M, 4096, 4096, 1e-5),
+                  ("flat_one_split", DECODE_M, 4096, 32000, None))
+W8_ROUTE_CALLS = (("flat_one_split", PREFILL_M, 4096, 12288, None),
+                  ("flat_k_split", DECODE_M, 4096, 4096, None))
+LUT8_ROUTE_CALLS = (("flat_one_split", DECODE_M, 4096, 32000, None),
+                    ("prenorm_one_split", PREFILL_M, 4096, 12288, 1e-5),
+                    ("prenorm_k_split", DECODE_M, 4096, 12288, 1e-5))
+
+
+def check_route_kernels(torch, device, spec, seed, calls):
+    """The bf16 route of a kernel where the output is formed (``calls``:
+    label, M, K, N, pre_norm; a label ends in ``one_split`` where the plan
+    has one split), against the plain version; each call runs one product
+    kernel with one split and a reduce besides it with a K-split, and a row
+    pass before it only where it normalizes a copy of x (a pre-norm on a
+    layout without the epilogue norm: x aligned, never copied otherwise).
+    W4's prenorm form runs none: its row factor is in its epilogue."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     sm = torch.cuda.get_device_properties(device).multi_processor_count
-    for label, m, k, n, pre in (("prenorm_one_split", PREFILL_M, 4096, 4096, 1e-5),
-                                ("prenorm_k_split", DECODE_M, 4096, 4096, 1e-5),
-                                ("flat_one_split", DECODE_M, 4096, 32000, None)):
+    for label, m, k, n, pre in calls:
         qt = make_artifact(torch, gen, spec, k, (n,), device)[0]
         kname = dm.kernel_name(qt, pre)
-        splits = dm.plan_slab_splits(m, qt.qweight.shape[1], k // 2, dm.BF16_MMA[kname], sm)[1]
-        routed = dm.bf16_mma_route(qt, torch.bfloat16)
-        if (splits == 1) != label.endswith("one_split") or not routed:
-            fail(f"{kname}:{label}: {splits} splits, bf16 route {routed}")
+        layout = dm.BF16_MMA.get(kname)
+        routed = dm.bf16_mma_route(qt, torch.bfloat16, pre)
+        if layout is None or not routed:
+            fail(f"{kname}:{label}: not on the bf16 route")
+        kb = qt.k_stored // dm.SLAB_TILES[layout][0]
+        splits = dm.plan_slab_splits(m, qt.qweight.shape[1], kb, layout, sm)[1]
+        if (splits == 1) != label.endswith("one_split"):
+            fail(f"{kname}:{label}: {splits} splits")
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         check_call(torch, f"{kname}:{label}:M={m}", qt, x, *a_runner(pre, None))
         names = device_kernels(torch, lambda: dm.fused_quantized_matmul(x, qt, pre_norm=pre))
-        want = 1 if splits == 1 else 2
+        row_pass = pre is not None and kname != dm.W4_PRENORM
+        want = (1 if splits == 1 else 2) + row_pass
         print(f"  {kname}:{label}: {splits} split(s), device kernels {names}", flush=True)
-        if names is not None and (len(names) != want or "rows_bf16" in " ".join(names)):
-            fail(f"{kname}:{label}: {len(names)} device kernels, want {want}: {names}")
+        if names is not None and (len(names) != want
+                                  or ("rows_bf16" in " ".join(names)) != row_pass):
+            fail(f"{kname}:{label}: {len(names)} device kernels, want {want} "
+                 f"(row pass {row_pass}): {names}")
         del qt
     torch.cuda.empty_cache()
 
@@ -1507,6 +1551,7 @@ def main() -> int:
 
     w4 = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
     w8 = QuantSpec(fmt="int", bits=8, group_size=128, symmetric=False)
+    fp8 = fp_spec("fp8", 4, 3, group_size=128)
     cfg = LlamaConfig.llama2_7b()
     cfg_cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
     tol = f"tolerance max|y-y_ref|/max|y_ref| <= {REL_TOL_BF16}, bf16 x"
@@ -1522,7 +1567,13 @@ def main() -> int:
                                             symmetric=False), 1088),
         "g16_asym": (QuantSpec(fmt="int", bits=4, group_size=16, symmetric=False), 4096),
         "g128_asym_k1408_straddle": (w4, 1408)}, 19)
-    check_w4_route_kernels(torch, device, w4, 20)
+    check_route_kernels(torch, device, w4, 20, W4_ROUTE_CALLS)
+    # the W8 and fp8 routes' calls are counted here too: a profiler session
+    # after a profiled serve (phase 4 on) recorded no device event for one
+    # call on the H100
+    print("  -- device kernels a call of the W8 and fp8 bf16 routes", flush=True)
+    check_route_kernels(torch, device, w8, 22, W8_ROUTE_CALLS)
+    check_route_kernels(torch, device, fp8, 24, LUT8_ROUTE_CALLS)
     slab_kernel_report(dm.W4)
     slab_kernel_report(dm.W4_PRENORM)
 
@@ -1538,6 +1589,16 @@ def main() -> int:
         extra_specs=(("perchannel_sym", QuantSpec(fmt="int", bits=8,
                                                   group_size=PER_CHANNEL,
                                                   symmetric=True)),)))
+    print("  -- w8 bf16 route: ranges whose last part ends early, groups off the 32-row "
+          "window, x copied; SASS and registers", flush=True)
+    check_bf16_mma_ragged(torch, device, {
+        "g128_asym": (w8, 4096),
+        "perchannel_sym": (QuantSpec(fmt="int", bits=8, group_size=PER_CHANNEL,
+                                     symmetric=True), 4096),
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=8, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=8, group_size=16, symmetric=False), 4096)}, 21)
+    slab_kernel_report(dm.W8)
 
     header("== phase 6: W8 two-layer 7B-width logits, kernels vs plain path")
     phase_two_layers(torch, device, w8, cfg)
@@ -1623,7 +1684,6 @@ def main() -> int:
     zoo_checks = phase_zoo_bytes(torch, device)
 
     fp4 = fp_spec("fp4", 2, 1, group_size=128, symmetric=False)
-    fp8 = fp_spec("fp8", 4, 3, group_size=128)
     header(f"== phase 17: LUT kernels vs plain versions, BFP on the int kernels ({tol_a})")
     per_kernel_lut, gen, down = phase_lut_kernels(torch, device, 8, [
         (fp4, (None, 16), {"fp4_e2m1_g128_sym": fp_spec("fp4", 2, 1, group_size=128),
@@ -1651,6 +1711,16 @@ def main() -> int:
         "fp4_e1m2_g64_sym": (fp_spec("fp4", 1, 2, group_size=64), 4096),
         "fp4_e2m1_g128_asym_k1408_straddle": (fp4, 1408)}, 15)
     slab_kernel_report(dm.LUT4)
+    print("  -- lut8 bf16 route: ranges whose last part ends early, E3M4, E2M5, x copied; "
+          "SASS and registers", flush=True)
+    check_bf16_mma_ragged(torch, device, {
+        "fp8_e4m3_g128_sym": (fp8, 4096),
+        "fp8_e4m3_perchannel_asym_k1088": (fp_spec("fp8", 4, 3, group_size=PER_CHANNEL,
+                                                   symmetric=False), 1088),
+        "fp8_e3m4_g128_sym": (fp_spec("fp8", 3, 4, group_size=128), 4096),
+        "fp8_e2m5_g128_asym": (fp_spec("fp8", 2, 5, group_size=128, symmetric=False), 4096)},
+        23)
+    slab_kernel_report(dm.LUT8)
 
     header("== phase 18: fp4 (also A16) and fp8 two-layer 7B-width logits, kernels vs "
            "plain path")

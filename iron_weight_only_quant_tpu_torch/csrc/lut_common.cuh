@@ -57,11 +57,12 @@
 // CUDA-core FMAs: the simple and correct first version, no tensor cores,
 // no TMA pipeline.
 //
-// Which calls run here: every call of lut8_matmul, and the f32-x calls of
-// lut4_matmul and lut6_matmul.  Their bf16-x calls take the bf16 family of
-// wa_slab_mma.cuh (bf16 products on the tensor cores), except the rare
-// shapes outside its rule (slab rows or group no multiple of 4), which
-// stay here (dequant_matmul.bf16_mma_route).
+// Which calls run here: the f32-x calls of lut4_matmul, lut6_matmul and
+// lut8_matmul.  Their bf16-x calls take the bf16 family of wa_slab_mma.cuh
+// (bf16 products on the tensor cores), except the shapes outside its rule
+// (slab rows or group no multiple of 4: the byte-per-code fp6, whose K is
+// no multiple of 4, among them), which stay here
+// (dequant_matmul.bf16_mma_route).
 #pragma once
 
 #include "w8_common.cuh"

@@ -5,8 +5,8 @@
 // decoded to their exact int8 grid; and its bf16 family (below) on the bf16
 // tensor cores,
 //   y[M,N] = x[M,K] @ dequant(qw)[K,N]  (times r[M] for the W4 prenorm
-// form), bf16 x, the nib4 and nq42 LUT layouts and the s21 and nib4 affine
-// ones, codes decoded to their exact bf16 values.
+// form), bf16 x, the nib4, nq42 and byte LUT layouts and the s21, nib4 and
+// byte affine ones, codes decoded to their exact bf16 values.
 //
 // Replaces the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -133,20 +133,25 @@
 // operations a word of four codes) and, on small shapes, the fixed cost of
 // two or three kernels a call.
 //
-// The bf16 family (LAYOUT kLut4B, kLut6B, kS21B, kNib4B: the bf16-x calls
-// of lut4_matmul, lut6_matmul, w3_matmul, and w4_matmul and
-// w4_matmul_prenorm).  Replaces _lut4_kernel (:739, pfx :1732), _lut6_kernel
-// (:835, pfx :887, through _call_lut6 :939), _int3_kernel with bf16 x (:467,
-// pfx :1360, through _call_int3 :1365), and _int4_kernel (:319, body :293,
-// pfx :1712) and _int4_kernel_prenorm (:328, pfx :408) with bf16 x: per
-// group acc += (x_g @ val_g) * s (+ xsum_g * z), _lut_accum (:724), with val
-// the exact minifloat value in x's dtype, or acc += (x_g @ q_g) * s -
-// xsum_g * (s * z), _group_accum (:226) over the twelve masked s21 fields
-// (their powers of two folded into the epilogue) or the two nib4 slabs,
-// contracted on the MXU with f32 sums; the prenorm form then scales the f32
-// sum by r = rsqrt(sum(x^2) / K_logical + eps) of the raw x (:374).  Every
-// fp4 and fp6 value and every 3-bit and 4-bit code is exact in bf16, so a
-// bf16 mma.sync m16n8k16 with f32 accumulation computes those products; the
+// The bf16 family (LAYOUT kLut4B, kLut6B, kS21B, kNib4B, kByteB, kLut8B:
+// the bf16-x calls of lut4_matmul, lut6_matmul, w3_matmul, w4_matmul and
+// w4_matmul_prenorm, w8_matmul and lut8_matmul; w8_matmul_prenorm stays on
+// w8_common.cuh).  Replaces _lut4_kernel (:739, pfx :1732), _lut6_kernel
+// (:835, pfx :887, through _call_lut6 :939), _lut8_kernel (:811, pfx
+// :1737), _int3_kernel with bf16 x (:467, pfx :1360, through _call_int3
+// :1365), _int4_kernel (:319, body :293, pfx :1712) and _int4_kernel_prenorm
+// (:328, pfx :408) with bf16 x, and _int8_kernel (:1057, body :1040, pfx
+// :1717) with bf16 x: per group acc += (x_g @ val_g) * s (+ xsum_g * z),
+// _lut_accum (:724), with val the exact minifloat value in x's dtype, or acc
+// += (x_g @ q_g) * s - xsum_g * (s * z), _group_accum (:226) over the twelve
+// masked s21 fields (their powers of two folded into the epilogue), the two
+// nib4 slabs or the byte codes (the stored byte read as int8, zeros stored
+// shifted alike), contracted on the MXU with f32 sums; the prenorm form then
+// scales the f32 sum by r = rsqrt(sum(x^2) / K_logical + eps) of the raw x
+// (:374).  Every fp4, fp6 and byte minifloat value (1 + E + M <= 8 bits:
+// at most 6 mantissa bits) and every 3-bit, 4-bit and signed 8-bit code is
+// exact in bf16, so a bf16 mma.sync m16n8k16 with f32 accumulation computes
+// those products; the
 // kernel is the pipeline above (the same ring, windows split at group ends,
 // parts, split plan, epilogue per group, dependent launches) with these
 // differences:
@@ -154,7 +159,8 @@
 //    by cp.async straight from x [M, S*Kb] (slab i's row r at column i*Kb +
 //    r, zero-filled beyond Kb), or from the copy a row pass made;
 //  - a row pass (rows_bf16_slab_kernel) runs only where the call needs one:
-//    with a pre-norm on the LUT and s21 layouts, to apply the weightless
+//    with a pre-norm on the LUT and s21 layouts (lut8's qkv and gate_up on
+//    the fp8 main path), to apply the weightless
 //    RMSNorm (f32 mean of squares, x*r rounded to bf16: the function of
 //    normalize-then-kernel, as the JAX package computes it for layouts
 //    without a prenorm kernel) into a copy of x, and where x is not
@@ -172,7 +178,7 @@
 //    after the partials, and the reduce (w4_reduce_kernel with SQ) sums
 //    them in split order and finishes r.  So the prenorm call adds no
 //    kernel: one with one split, two with a K-split;
-//  - with zeros (template flag BZ; always for s21 and affine nib4), each
+//  - with zeros (template flag BZ; always for the affine layouts), each
 //    warp sums the staged x of each segment it multiplies (f32, its B
 //    registers, two shuffles over the K lanes, two to bring the D columns'
 //    tokens), so every part adds the xsum * z term of its own rows, and no
@@ -185,7 +191,9 @@
 //    of the staged x, in the same order).  LUT values come from the
 //    format's widths, never from the codebook: codes_bf16 assembles value *
 //    2^(bias-127) bytewise (the exponent field on bf16's, subnormals on its
-//    subnormals) and multiplies by 2^(127-bias) (exact); the nib4 decode
+//    subnormals) and multiplies by 2^(127-bias) (exact); the byte LUT
+//    layout (kLut8B) first XORs the stored bytes with 0x80 (code - 128 back
+//    to the code: one LOP3 a word); the nib4 decode
 //    tile takes both slabs of a packed byte at once (lut4_bf16x2: prmt
 //    lookups of a table of the eight magnitudes' bf16 bytes, built from the
 //    widths, and prmt's sign mode).  Integer codes below 128 (s21's
@@ -199,16 +207,23 @@
 //    zshift 0.  The JAX algebra's high codes 16 q - 128 (the int8 family's
 //    kNib4) would need a byte of up to 240 under the exponent, whose top
 //    bit lands in bf16's exponent: not a mantissa trick, and the flip costs
-//    nothing once the mask is a LOP3;
+//    nothing once the mask is a LOP3.  The signed byte codes (kByteB) take
+//    byte_codes_bf16: the low seven bits under the exponent byte of 128
+//    (128 + b & 127) plus, in one bf16x2 fma, the sign bit under 0xC3 (-128
+//    or -256), two LOP3, four PRMT and two HFMA2 a word of four codes
+//    (b ^ 0x80, 0..255, under the exponent of 128 would put its top bit in
+//    bf16's exponent, as above);
 //  - each group's f32 MMA sum is the part; acc += part * s (+ xsum * z;
-//    s21 and affine nib4: - xsum * (s * z));
+//    the affine layouts: - xsum * (s * z));
 //  - tiles: the decode tile (M <= 8) is its packed layout's (nib4, LUT and
 //    affine: two slabs a warp, P = 2; nq42: one, P = 1, BN = 128; s21: one,
-//    P = 1, BN = 64; two blocks an SM); beyond, one block an SM, the warps
-//    of a slab each their own channels, P = 1: NT = 8 (64 tokens a block),
-//    two channel tiles a warp (BN = 128 nib4, 64 nq42); s21, one warp a
-//    slab: NT = 4 (32 tokens), four channel tiles a warp (BN = 64), within
-//    the registers a thread has.  Each weight is decoded once a block,
+//    P = 1, BN = 64; byte, affine and LUT: P = 4, two warps a part, BN =
+//    128; two blocks an SM); beyond, one block an SM, the warps of a slab
+//    each their own channels, P = 1: NT = 8 (64 tokens a block), two
+//    channel tiles a warp (BN = 128 nib4, 64 nq42, 256 byte: eight warps on
+//    its one slab); s21, one warp a slab: NT = 4 (32 tokens), four channel
+//    tiles a warp (BN = 64), within the registers a thread has.  Each
+//    weight is decoded once a block,
 //    straight into the A fragments of the block's token tiles, so no shared
 //    decoded tile (nor ldmatrix) is needed.  Bound: at decode the bytes
 //    (codes + f32 sides + bf16 x + output) over 3.35 TB/s; at prefill
@@ -396,6 +411,18 @@ __device__ __forceinline__ void int_codes_bf16(uint32_t c, uint32_t& p01, uint32
   constexpr uint32_t kHi = 0x43434343u, kOne = 0x3F803F80u, kMinus128 = 0xC300C300u;
   p01 = bf16x2_fma(__byte_perm(c, kHi, 0x5140), kOne, kMinus128);
   p23 = bf16x2_fma(__byte_perm(c, kHi, 0x7362), kOne, kMinus128);
+}
+
+// Four signed byte codes (bytes of c, in K order: the stored byte read as
+// int8, -128..127) -> their bf16 values, pairs (0, 1) and (2, 3): the low
+// seven bits under the high byte 0x43 are the bf16 of 128 + (b & 127), the
+// sign bit under 0xC3 that of -128 (bit clear) or -256 (set), and one bf16x2
+// fma adds them: (b & 127) - 128 * (b >> 7), exactly.
+__device__ __forceinline__ void byte_codes_bf16(uint32_t c, uint32_t& p01, uint32_t& p23) {
+  constexpr uint32_t kHi = 0x43434343u, kNeg = 0xC3C3C3C3u, kOne = 0x3F803F80u;
+  const uint32_t m = c & 0x7F7F7F7Fu, sg = c & 0x80808080u;
+  p01 = bf16x2_fma(__byte_perm(m, kHi, 0x5140), kOne, __byte_perm(sg, kNeg, 0x5140));
+  p23 = bf16x2_fma(__byte_perm(m, kHi, 0x7362), kOne, __byte_perm(sg, kNeg, 0x7362));
 }
 
 // The widths-based decode of minifloat codes (one a byte: sign bit SB = E +
@@ -617,8 +644,8 @@ rows_bf16_slab_kernel(const __nv_bfloat16* __restrict__ x, int ldx, int k_logica
 // their split's sums to xsq [splits, M] for the reduce.
 // qw [A Kb, N] bytes; kc a multiple of 32 P.  LUT: nib4 exp_bits +
 // mant_bits = 3; nq42 exp_bits 1 or 2 (bf16: any E + M = 5), mant_bits 5 -
-// exp_bits; z may be null.  Affine (nib4, byte, s21): z not null, the
-// format arguments unused.
+// exp_bits; byte (bf16) any 1 + E + M <= 8; z may be null.  Affine (nib4,
+// byte, s21): z not null, the format arguments unused.
 template <int LAYOUT, int NT, bool VEC16, bool BZ = false, bool NORM = false>
 __global__ void __launch_bounds__(SlabTile<LAYOUT, NT>::THREADS,
                                   SlabTile<LAYOUT, NT>::BLOCKS_PER_SM)
@@ -633,7 +660,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
   using T = SlabTile<LAYOUT, NT>;
   constexpr bool BF = T::BF;
   constexpr int L = T::L;
-  constexpr bool LUT = L == kLut4 || L == kLut6;
+  constexpr bool LUT = L == kLut4 || L == kLut6 || LAYOUT == kLut8B;
   constexpr int S = T::S, A = T::A, P = T::P, V = T::V, SW = T::SW, CT = T::CT, W = T::W;
   constexpr int MT = T::MT;
   constexpr int BN = T::BN, NTH = T::THREADS, STAGES = T::STAGES, PITCH = T::PITCH;
@@ -966,6 +993,10 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
               lut4_bf16x2(col[0][j], tab, d[0], d[1]);
             else if constexpr (L == kS21 || L == kNib4)
               int_codes_bf16(col[0][j], d[0][0], d[0][1]);
+            else if constexpr (LAYOUT == kByteB)
+              byte_codes_bf16(col[0][j], d[0][0], d[0][1]);
+            else if constexpr (LAYOUT == kLut8B)  // stored code - 128: the code
+              codes_bf16(col[0][j] ^ 0x80808080u, dec, d[0][0], d[0][1]);
             else
               codes_bf16(col[0][j], dec, d[0][0], d[0][1]);
 #pragma unroll
@@ -1313,7 +1344,8 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
 }
 
 
-// The bf16 family's whole call (LAYOUT kLut4B, kLut6B, kS21B or kNib4B): y
+// The bf16 family's whole call (LAYOUT kLut4B, kLut6B, kS21B, kNib4B,
+// kByteB or kLut8B): y
 // = x @ dequant(qw), bf16 x [M, ldx] (ldx = S*Kb, zero beyond k_logical),
 // bf16 out [M, n_out].  The row pass runs only where the call needs it:
 // with norm on a layout without the epilogue norm, or x_copy (x is not
@@ -1326,19 +1358,28 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
 // eps) to the f32 sum (with a K-split the reduce does, from the splits'
 // sums of x^2 that the kernel writes after ws).  ws [splits, M, N] (EPI_NORM:
 // then [splits, M] more) is scratch too; kc is a multiple of 32 P
-// (SlabTile<LAYOUT, NT>::P at the call's token tile).  exp_bits, mant_bits:
-// the LUT format (nib4: E + M = 3; nq42: E + M = 5), decoded from its
-// widths, z may be null (symmetric); s21 and affine nib4: both 0, z not null.
+// (SlabTile<LAYOUT, NT>::P at the call's token tile).  Kb: K/2 (nib4), the
+// B rows K/8 (s21), the quad rows K/4 (nq42) or K (byte).  exp_bits,
+// mant_bits: the LUT format (nib4: E + M = 3; nq42: E + M = 5; byte: E >=
+// 1, 1 + E + M <= 8), decoded from its widths, z may be null (symmetric);
+// the affine layouts (s21, nib4, byte): both 0, z not null.
 template <int LAYOUT, bool EPI_NORM = false>
 int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm, float eps,
                    const void* qw, const void* s, long long s_rs, long long s_cs,
                    const void* z, long long z_rs, long long z_cs, void* xs, void* ws, void* out,
                    int M, int N, int n_out, int Kb, int G, int kc, int splits, int exp_bits,
                    int mant_bits, void* stream) {
-  static_assert(LAYOUT == kLut4B || LAYOUT == kLut6B || LAYOUT == kS21B || LAYOUT == kNib4B,
-                "a bf16 layout");
-  static_assert(!EPI_NORM || LAYOUT == kNib4B, "the epilogue norm: affine nib4");
-  constexpr bool LUT = LAYOUT == kLut4B || LAYOUT == kLut6B;
+  static_assert(SlabTile<LAYOUT, 1>::BF,
+                "a bf16 layout: kLut4B, kLut6B, kS21B, kNib4B, kByteB or kLut8B");
+  static_assert(!EPI_NORM || LAYOUT == kNib4B, "the epilogue norm: affine nib4 (w4 prenorm)");
+  constexpr bool LUT = LAYOUT == kLut4B || LAYOUT == kLut6B || LAYOUT == kLut8B;
+  // the LUT formats each layout takes: nib4 E + M = 3, nq42 E + M = 5,
+  // byte 1 + E + M <= 8 (lut8's: fp8, and fp3, fp5, fp7 and the
+  // byte-per-code fp6 stored a byte a code)
+  const bool fmt_ok = exp_bits >= 1 && mant_bits >= 0 &&
+                      (LAYOUT == kLut4B   ? exp_bits + mant_bits == 3
+                       : LAYOUT == kLut6B ? exp_bits + mant_bits == 5
+                                          : exp_bits + mant_bits <= 7);
   constexpr int S = SlabTile<LAYOUT, 1>::S;
   constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
   const bool wide = slab_tile_nt(M, LAYOUT) != 1;
@@ -1350,10 +1391,11 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
       (long long)kc * splits < Kb || (long long)kc * (splits - 1) >= Kb || k_logical <= 0 ||
       k_logical > S * Kb || ldx != S * Kb || s_cs < 0 || s_cs > (1 << 24) || z_cs < 0 ||
       z_cs > (1 << 24) ||
-      (LUT && (exp_bits < 1 || mant_bits < 0 ||
-               exp_bits + mant_bits != (LAYOUT == kLut4B ? 3 : 5))) ||
+      (LUT && !fmt_ok) ||
       (!LUT && (exp_bits != 0 || mant_bits != 0 || z == nullptr)) ||
-      (LAYOUT == kNib4B && (norm != 0) != EPI_NORM) ||
+      // affine nib4 and byte: no normalized copy (the JAX prenorm kernels
+      // scale the f32 sum); w8_matmul_prenorm stays on w8_common.cuh
+      ((LAYOUT == kNib4B || LAYOUT == kByteB) && (norm != 0) != EPI_NORM) ||
       (!copy && (ldx % 8 || Kb % 8 || reinterpret_cast<uintptr_t>(x) % 16)) ||
       (copy && xs == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -9,10 +9,11 @@ f32 side info, per storage layout:
                 x: design notes in ``csrc/w4_common.cuh``),
                 ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``
                 (``csrc/wa_slab_mma.cuh``);
-  byte (int8, bfp8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
-                (design notes in ``csrc/w8_common.cuh``),
-                ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu`` (design
-                notes in ``csrc/wa_slab_mma.cuh``);
+  byte (int8, bfp8):  ``csrc/w8_matmul.cu`` (bf16 x: the bf16 family of
+                ``csrc/wa_slab_mma.cuh``; f32 x: design notes in
+                ``csrc/w8_common.cuh``), ``csrc/w8_matmul_prenorm.cu``
+                (``csrc/w8_common.cuh``), ``csrc/w8a8_matmul.cu``,
+                ``csrc/w8a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
   s21 (3-bit):  ``csrc/w3_matmul.cu`` (bf16 x: the bf16 family of
                 ``csrc/wa_slab_mma.cuh``; f32 x: design notes in
                 ``csrc/w3_common.cuh``), ``csrc/w3a8_matmul.cu``,
@@ -23,7 +24,8 @@ f32 side info, per storage layout:
                 (``csrc/wa_slab_mma.cuh``);
   LUT nq42 (fp6 when K % 4 == 0): ``csrc/lut6_matmul.cu`` (bf16 x, f32 x
                 as nib4), ``csrc/lut6a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
-  LUT byte (fp8, byte-per-code fp6): ``csrc/lut8_matmul.cu``.
+  LUT byte (fp8, byte-per-code fp6): ``csrc/lut8_matmul.cu`` (bf16 x, f32 x
+                as nib4).
 
 The ``w4``/``w8``/``w3``/``lut`` kernels take bf16/f32 activations; the
 affine nib4 and byte layouts also have a prenorm kernel, which applies the
@@ -32,11 +34,12 @@ and LUT layouts have none, as in the JAX package (``prenorm_supported``): a
 ``pre_norm`` normalizes x first (:func:`_rms_nogamma`, cast back to x's
 type), then the kernel runs.  A LUT kernel decodes each code to its exact
 minifloat value from the format's exponent and mantissa widths (never from
-the artifact's codebook) and computes ``w = val*s (+ z)``.  The nib4 and
-nq42 LUT kernels (``lut4``, ``lut6``), the s21 kernel (``w3``) and the
-affine nib4 kernels (``w4_matmul``, ``w4_matmul_prenorm``)
-(:data:`BF16_MMA`) take bf16 x on the bf16 tensor cores
-(:func:`bf16_mma_route`): the codes decode to their exact bf16 values,
+the artifact's codebook) and computes ``w = val*s (+ z)``.  The nib4, nq42
+and byte LUT kernels (``lut4``, ``lut6``, ``lut8``), the s21 kernel
+(``w3``), the affine nib4 kernels (``w4_matmul``, ``w4_matmul_prenorm``)
+and the flat affine byte kernel (``w8_matmul``) (:data:`BF16_MMA`) take
+bf16 x on the bf16 tensor cores (:func:`bf16_mma_route`; ``w8_matmul_prenorm``
+stays on its CUDA-core kernel): the codes decode to their exact bf16 values,
 ``mma.sync`` m16n8k16 sums each group's products in f32, ``acc += part*s
 (+ xsum*z)`` (affine: ``- xsum*(s*z)``), the kernel summing each group's
 x itself for the zeros.  ``w4_matmul_prenorm`` keeps its epilogue norm
@@ -197,10 +200,11 @@ _BLOCKS_PER_SM = 3
 # The layouts of the slab kernel (csrc/wa_slab_mma.cuh; the Layout enum of
 # csrc/slab_tile.cuh, whose values these are): the int8 family (A16) takes
 # the affine nib4, byte and s21 layouts and the nib4 and nq42 LUT ones; the
-# bf16 family (bf16 x, bf16 products) the nib4 and nq42 LUT layouts, s21
-# and affine nib4.
+# bf16 family (bf16 x, bf16 products) the nib4, nq42 and byte LUT layouts,
+# s21, affine nib4 and affine byte.
 SLAB_LAYOUT_IDS = {"nib4": 0, "byte": 1, "s21": 2, "lut4": 3, "lut6": 4,
-                   "lut4_bf16": 5, "lut6_bf16": 6, "s21_bf16": 7, "nib4_bf16": 8}
+                   "lut4_bf16": 5, "lut6_bf16": 6, "s21_bf16": 7, "nib4_bf16": 8,
+                   "byte_bf16": 9, "lut8_bf16": 10}
 # layout -> (slabs: K streams a packed row, row r of slab i holding K column
 # i*Kb + r; then (tokens, channels, parts) a block takes at decode, M <= 8,
 # and beyond): SlabTile's S, and its MT, BN and P at NT = 1 and at
@@ -216,25 +220,32 @@ SLAB_TILES = {
     "lut6_bf16": (4, (8, 128, 1), (64, 64, 1)),
     "s21_bf16": (8, (8, 64, 1), (32, 64, 1)),
     "nib4_bf16": (2, (8, 128, 2), (64, 128, 1)),
+    "byte_bf16": (1, (8, 128, 4), (64, 256, 1)),
+    "lut8_bf16": (1, (8, 128, 4), (64, 256, 1)),
 }
 SLAB_WINDOW = 32  # kSlabWin: slab rows a window
 # The A16 kernels on the int8 tensor cores, by layout.
 SLAB_MMA = {W4A16: "nib4", W8A16: "byte", W3A16: "s21", LUT4A16: "lut4", LUT6A16: "lut6"}
-# The bf16-x calls of the nib4 and nq42 LUT kernels, of the s21 kernel and
-# of the two affine nib4 kernels (w4_matmul, w4_matmul_prenorm: one layout,
-# the prenorm form with its row factor in the epilogue) on the bf16 tensor
-# cores, by layout; f32 x stays on their CUDA-core kernels
-# (csrc/lut_common.cuh, csrc/w3_common.cuh, csrc/w4_common.cuh).  Name and
-# launch count are the kernel's either way.
-BF16_MMA = {LUT4: "lut4_bf16", LUT6: "lut6_bf16", W3: "s21_bf16", W4: "nib4_bf16",
-            W4_PRENORM: "nib4_bf16"}
+# The bf16-x calls of the nib4, nq42 and byte LUT kernels, of the s21
+# kernel, of the two affine nib4 kernels (w4_matmul, w4_matmul_prenorm: one
+# layout, the prenorm form with its row factor in the epilogue) and of the
+# flat affine byte kernel (w8_matmul; w8_matmul_prenorm stays on
+# csrc/w8_common.cuh) on the bf16 tensor cores, by layout; f32 x stays on
+# their CUDA-core kernels (csrc/lut_common.cuh, csrc/w3_common.cuh,
+# csrc/w4_common.cuh, csrc/w8_common.cuh).  Name and launch count are the
+# kernel's either way.
+BF16_MMA = {LUT4: "lut4_bf16", LUT6: "lut6_bf16", LUT8: "lut8_bf16", W3: "s21_bf16",
+            W4: "nib4_bf16", W4_PRENORM: "nib4_bf16", W8: "byte_bf16"}
 # Layouts whose K-split plan never starts a partial round of blocks (see
-# plan_slab_splits): byte, which decodes nothing, and affine nib4 in both
-# families, whose decode is a few masks a word (on the H100 the floored plan
-# beat the rounded one at the 7B qkv decode shape and tied at the others;
-# for the bf16 layout it lost at gate_up, won by more at qkv, and won over
-# a decode step).
-SLAB_WHOLE_ROUNDS = ("byte", "nib4", "nib4_bf16")
+# plan_slab_splits): byte, which decodes nothing, and affine nib4 and byte
+# in both families, whose decode is a few masks and permutes a word (on the
+# H100 the floored plan beat the rounded one at the 7B qkv decode shape and
+# tied at the others; for the bf16 nib4 layout it lost at gate_up, won by
+# more at qkv, and won over a decode step; the bf16 byte layout's flat W8
+# calls, o, down and the lm_head, get the same plan either way).  The LUT
+# byte layout keeps the rounded plan: at the fp8 decode step it won at
+# gate_up by more than it lost at qkv.
+SLAB_WHOLE_ROUNDS = ("byte", "nib4", "nib4_bf16", "byte_bf16")
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -365,25 +376,28 @@ def _bf16_mma_fits(kb: int, g: int) -> bool:
     return kb % 4 == 0 and g % 4 == 0
 
 
-def bf16_mma_route(qt: QuantizedTensor, dtype: torch.dtype) -> bool:
+def bf16_mma_route(qt: QuantizedTensor, dtype: torch.dtype,
+                   pre_norm: Optional[float] = None) -> bool:
     """Whether a call of this (flat or layer-stacked) artifact with x of
-    ``dtype`` takes the bf16 tensor-core route of its kernel
-    (:data:`BF16_MMA`): bf16 x on the nib4 (fp4) or nq42 (fp6) LUT layout or
-    the s21 (3-bit) or nib4 (int4, bfp4) affine one, whose slab rows and
-    group are multiples of 4.  There a ``pre_norm`` runs in the kernel's row
-    pass, or, for the affine nib4 prenorm kernel, in its epilogue; f32 x,
-    and the rare shapes outside the rule, take the CUDA-core kernel of the
-    same name (s21 and LUT after x is normalized in torch)."""
-    if dtype != torch.bfloat16 or xla_route(qt):
+    ``dtype`` and ``pre_norm`` takes the bf16 tensor-core route of its
+    kernel (:data:`BF16_MMA`): bf16 x on the nib4 (fp4), nq42 (fp6) or byte
+    (fp8) LUT layout or the s21 (3-bit), nib4 (int4, bfp4) or byte (int8,
+    bfp8; not its prenorm kernel) affine one, whose slab rows and group are
+    multiples of 4.  There a ``pre_norm`` runs in the kernel's row pass, or,
+    for the affine nib4 prenorm kernel, in its epilogue; f32 x, the byte
+    prenorm kernel, and the rare shapes outside the rule, take the
+    CUDA-core kernel of the same name (s21 and LUT after x is normalized in
+    torch)."""
+    if dtype != torch.bfloat16:
         return False
-    names = _names(qt)
-    if names is None or names[0] not in BF16_MMA:
+    name = kernel_name(qt, pre_norm)
+    if name not in BF16_MMA:
         return False
     rows = (qt.scales.shape[1] - qt.side_pad if qt.qweight.dim() == 3
             else qt.scales.shape[0])
     if rows < 1 or qt.k_stored % rows:
         return False
-    slabs = SLAB_TILES[BF16_MMA[names[0]]][0]
+    slabs = SLAB_TILES[BF16_MMA[name]][0]
     return _bf16_mma_fits(qt.k_stored // slabs, _group_size(qt, rows))
 
 
@@ -830,11 +844,11 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
     if ``pre_norm`` (affine nib4, byte), its int-activation form if
     ``activation_bits``; a LUT kernel of minifloat format ``fmt`` where one
-    is given (``zeros`` may then be None).  The nib4 and nq42 LUT kernels,
-    the s21 one and the affine nib4 ones take bf16 x on their bf16
-    tensor-core route (:data:`BF16_MMA`, :func:`bf16_mma_route`; a
+    is given (``zeros`` may then be None).  The LUT kernels, the s21 one,
+    the affine nib4 ones and the flat affine byte one take bf16 x on their
+    bf16 tensor-core route (:data:`BF16_MMA`, :func:`bf16_mma_route`; a
     ``pre_norm`` then runs in its row pass, or, for ``w4_matmul_prenorm``,
-    in its epilogue).
+    in its epilogue; ``w8_matmul_prenorm`` keeps its CUDA-core kernel).
 
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
@@ -1079,7 +1093,7 @@ def fused_quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
     if not kernel_supported(qt, activation_bits):
         raise _unsupported(qt, activation_bits)
     if pre_norm is not None and activation_bits is None and not prenorm_supported(qt) \
-            and not bf16_mma_route(qt, x.dtype):
+            and not bf16_mma_route(qt, x.dtype, pre_norm):
         x, pre_norm = _rms_nogamma(x, pre_norm), None
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
                   qt.qweight, qt.scales, qt.zeros, qt.scales.shape[0], qt.shape[0],
@@ -1111,7 +1125,7 @@ def fused_quantized_matmul_stacked(x: torch.Tensor, qt: QuantizedTensor,
     if not 0 <= layer < qt.qweight.shape[0]:
         raise IndexError(f"layer {layer} of a {qt.qweight.shape[0]}-layer artifact")
     if pre_norm is not None and activation_bits is None and not prenorm_supported(qt) \
-            and not bf16_mma_route(qt, x.dtype):
+            and not bf16_mma_route(qt, x.dtype, pre_norm):
         x, pre_norm = _rms_nogamma(x, pre_norm), None
     rows = qt.scales.shape[1] - qt.side_pad
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),

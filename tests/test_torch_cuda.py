@@ -17,10 +17,11 @@ kernels run the nib4 (fp4), nq42 (fp6; K/4 a multiple of the group) and
 byte (fp8, byte-per-code fp6) layouts with and without zero points, fp4
 and fp6 E2M3 also under A16; every A16 kernel runs on the tensor-core slab
 kernel (``-k slab``: token tiles, ragged groups, side layouts, stacked
-calls, unaligned x), and the bf16-x calls of ``lut4``, ``lut6``, ``w3``,
-``w4`` and ``w4_prenorm`` on its bf16 family (``-k mma``: the W4 route also
-at the five LLaMA-2-7B shapes, its row factor with one split and with a
-K-split); BFP artifacts run on the W4 and W8 kernels;
+calls, unaligned x), and the bf16-x calls of ``lut4``, ``lut6``, ``lut8``,
+``w3``, ``w4``, ``w4_prenorm`` and ``w8`` on its bf16 family (``-k mma``:
+the W4, W8 and fp8 routes also at the five LLaMA-2-7B shapes, the W4 row
+factor with one split and with a K-split, every byte of the byte layouts
+decoded exactly); BFP artifacts run on the W4 and W8 kernels;
 card-built fp/bfp artifacts must equal CPU-built ones byte for byte.  The
 W4 inner-loop probe kernel runs both its decodes on the W4 shapes.
 Artifacts the JAX package computes on its XLA path take the route
@@ -769,10 +770,10 @@ LUT_MMA_CASES = {
 
 def _lut_mma_call(dev, qt, x, pre_norm=None, layer=None):
     """One bf16-x call on the bf16 route: exactly one launch of the
-    artifact's kernel (LUT, W3 or W4), no plain call, no route call; the
+    artifact's kernel (LUT, W3, W4 or W8), no plain call, no route call; the
     result."""
     name = dm.kernel_name(qt, pre_norm)
-    assert name in dm.BF16_MMA and dm.bf16_mma_route(qt, torch.bfloat16)
+    assert name in dm.BF16_MMA and dm.bf16_mma_route(qt, torch.bfloat16, pre_norm)
     dm.reset_counts()
     if layer is None:
         y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
@@ -1023,6 +1024,158 @@ def test_w4_mma_copies_x_it_cannot_read_in_place(dev, case, m, pre_norm):
     x.copy_(_x(dev, (m, k), torch.bfloat16) * 3)
     assert x.is_contiguous() and x.data_ptr() % 16
     _w4_mma_check(dev, W4_MMA_CASES[case], m, pre_norm, x=x)
+
+
+# ------------- bf16-x W8 and lut8 calls on the bf16 tensor cores (byte layouts)
+
+# (spec, K, N, quantize_tensor kwargs) of the bf16 routes of w8_matmul (the
+# affine byte case kByteB of the bf16 family) and lut8_matmul (the byte LUT
+# case kLut8B): the five LLaMA-2-7B shapes (N padded to 512; lut8's qkv and
+# gate_up with the pre-norm in the row pass, w8's flat: its pre-norm calls
+# are w8_matmul_prenorm, on the CUDA cores), the side layouts, and the
+# ragged cases: per-channel K = 1088 (the range ends inside a window, a part
+# or a K-split cuts a group), groups of 16 rows (two a window), N = 300
+# stored as 512 (n_pad) and as 300 (4-byte weight copies), K padding, BFP8,
+# and the other byte minifloats (fp3, fp5, fp7)
+W8_SPEC = dataclasses.replace(W4_SPEC, bits=8)
+FP8_SPEC = LUT_SPECS["fp8_e4m3_g128_sym"][0]
+BYTE_MMA_7B = {f"{tag}_{shape}": (spec, *W4_MMA_7B[shape][1:])
+               for tag, spec in (("w8", W8_SPEC), ("fp8", FP8_SPEC)) for shape in W4_MMA_7B}
+BYTE_MMA_CASES = {
+    "w8_g128_asym": (W8_SPEC, 1024, 256, {}),
+    "w8_g128_sym": (dataclasses.replace(W8_SPEC, symmetric=True), 1024, 256, {}),
+    "w8_perchannel_sym": (dataclasses.replace(SPECS["perchannel_sym"], bits=8), 1024, 256, {}),
+    "w8_pertensor_asym": (dataclasses.replace(SPECS["pertensor_asym"], bits=8), 1024, 256, {}),
+    "w8_perchannel_asym_k1088": (dataclasses.replace(SPECS["perchannel_sym"], bits=8,
+                                                     symmetric=False), 1088, 256, {}),
+    "w8_g16_asym": (dataclasses.replace(W8_SPEC, group_size=16), 1024, 256, {}),
+    "w8_npad_300": (W8_SPEC, 1024, 300, dict(pad_n_to=512)),
+    "w8_n300": (W8_SPEC, 1024, 300, {}),
+    "w8_kpad": (W8_SPEC, 384, 256, dict(pad_k_to=512)),
+    "bfp8_npad_300": (QuantSpec(fmt="bfp", bits=8, group_size=128), 1408, 300,
+                      dict(pad_n_to=512)),
+    **{s: (LUT_SPECS[s][0], 1024, 256, {}) for s in LUT_SPECS if s.startswith("fp8")},
+    "fp8_e4m3_perchannel_asym_k1088": (LUT_SPECS["fp8_e4m3_perchannel_asym"][0], 1088, 256,
+                                       {}),
+    "fp8_e4m3_g16_sym": (fp_spec("fp8", 4, 3, group_size=16), 1024, 256, {}),
+    "fp8_npad_300": (FP8_SPEC, 1024, 300, dict(pad_n_to=512)),
+    "fp8_n300": (LUT_SPECS["fp8_e2m5_g128_asym"][0], 1024, 300, {}),
+    "fp8_kpad": (FP8_SPEC, 384, 256, dict(pad_k_to=512)),
+    "fp5_e2m2_g64_asym": (fp_spec("fp5", 2, 2, group_size=64, symmetric=False), 1024, 256, {}),
+    "fp7_e3m3_g128_sym": (fp_spec("fp7", 3, 3, group_size=128), 1024, 256, {}),
+    "fp3_e1m1_g128_sym": (fp_spec("fp3", 1, 1, group_size=128), 1024, 256, {}),
+}
+
+
+def _byte_mma_check(dev, case, m, pre_norm, x=None, layer=None):
+    """One bf16-x call of a byte artifact: on the route (``_lut_mma_call``)
+    where its kernel is ``w8_matmul`` or ``lut8_matmul``; a W8 pre-norm call
+    is one launch of ``w8_matmul_prenorm`` (CUDA cores); against the plain
+    version.  Returns the artifact(s) and x."""
+    spec, k, n, kw = case
+    qts = [_artifact(dev, k, n, spec, seed=60 + i, **kw) for i in range(3 if layer else 1)]
+    qt = _stacked(qts) if layer else qts[0]
+    if x is None:
+        x = _x(dev, (m, k), torch.bfloat16) * 3
+    name = dm.kernel_name(qt, pre_norm)
+    assert dm.packed_bits(qt) == 8 and name in (dm.W8, dm.W8_PRENORM, dm.LUT8)
+    if name == dm.W8_PRENORM:
+        assert not dm.bf16_mma_route(qt, torch.bfloat16, pre_norm)
+        dm.reset_counts()
+        y = (dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm) if layer is None else
+             dm.fused_quantized_matmul_stacked(x, qt, layer, pre_norm=pre_norm))
+        assert dm.LAUNCHES == {**{k_: 0 for k_ in dm.LAUNCHES}, name: 1}
+    else:
+        y = _lut_mma_call(dev, qt, x, pre_norm, layer)
+    _close_a(y, dm.dequant_matmul_plain(x, qts[-1], pre_norm), torch.bfloat16)
+    return qt, x
+
+
+@pytest.mark.parametrize("m", [1, 8, 64, 256])
+@pytest.mark.parametrize("case", list(BYTE_MMA_7B))
+def test_byte_mma_route_matches_plain_7b_shapes(dev, case, m):
+    """The main paths' five shapes at decode and prefill row counts: W8
+    flat (its qkv and gate_up calls are the prenorm kernel's), fp8 qkv and
+    gate_up with the pre-norm in the route's row pass."""
+    lut = case.startswith("fp8")
+    pre_norm = EPS if lut and case.endswith(("_qkv", "_gate_up")) else None
+    _byte_mma_check(dev, BYTE_MMA_7B[case], m, pre_norm)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 256])
+@pytest.mark.parametrize("case", list(BYTE_MMA_CASES))
+def test_byte_mma_route_matches_plain(dev, case, m, pre_norm):
+    """The decode tile (M <= 8) and the 64-token tile (one, a partial one,
+    several), one and several K-splits, against the plain version; f32 x
+    stays on the CUDA-core kernel at the f32 tolerance."""
+    qt, x = _byte_mma_check(dev, BYTE_MMA_CASES[case], m, pre_norm)
+    if m == 8:
+        xf = x.float()
+        dm.reset_counts()
+        y = dm.fused_quantized_matmul(xf, qt, pre_norm=pre_norm)
+        assert dm.LAUNCHES[dm.kernel_name(qt, pre_norm)] == 1 == sum(dm.LAUNCHES.values())
+        _close(y, dm.dequant_matmul_plain(xf, qt, pre_norm), torch.float32)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["w8_g128_asym", "w8_perchannel_sym", "fp8_e4m3_g128_sym",
+                                  "fp8_e4m3_perchannel_asym"])
+def test_byte_mma_stacked_reads_layer_2_of_3(dev, case, m, pre_norm):
+    _byte_mma_check(dev, BYTE_MMA_CASES[case], m, pre_norm, layer=2)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["w8_g128_asym", "w8_kpad", "fp8_e4m3_g128_sym", "fp8_kpad"])
+def test_byte_mma_copies_x_it_cannot_read_in_place(dev, case, m, pre_norm):
+    """x 2 bytes off a 16-byte boundary: the row pass copies it (and, for
+    lut8 with a pre-norm, normalizes the copy)."""
+    spec, k, n, kw = BYTE_MMA_CASES[case]
+    x = torch.empty((m * k + 1,), dtype=torch.bfloat16, device=dev)[1:].view(m, k)
+    x.copy_(_x(dev, (m, k), torch.bfloat16) * 3)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _byte_mma_check(dev, BYTE_MMA_CASES[case], m, pre_norm, x=x)
+
+
+@pytest.mark.parametrize("bits", [3, 5, 7, 8])
+def test_lut8_mma_decodes_every_byte_exactly(dev, bits):
+    """Every code of every byte minifloat of ``bits`` (every E >= 1, M =
+    bits - 1 - E; subnormals among them), stored as code - 128 and drawn at
+    random so that each occurs, against one-hot rows of x, whose products
+    are the values times the per-channel scale: the route's bf16 output is
+    bit-equal to the CUDA-core kernel's f32 output (its 256-entry table)
+    rounded to bf16, and to the plain version's where that version's codec
+    (``code_to_float``, whose ``exp2`` is exact for |e| < 13) is exact:
+    every format with E <= 4."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(bits)
+    x = torch.eye(1024, device=dev, dtype=torch.bfloat16)
+    for e in range(1, bits):
+        qt = _artifact(dev, 1024, 256, fp_spec(f"fp{bits}", e, bits - 1 - e,
+                                               group_size=PER_CHANNEL))
+        codes = torch.randint(0, 1 << bits, qt.qweight.shape, generator=g, device=dev)
+        qt = qt.replace(qweight=((codes + 128) % 256).to(torch.uint8))
+        y = _lut_mma_call(dev, qt, x)
+        if e <= 4:
+            assert torch.equal(y, dm.dequant_matmul_plain(x, qt)), (bits, e)
+        assert torch.equal(y, dm.fused_quantized_matmul(x.float(), qt).to(torch.bfloat16))
+
+
+def test_w8_mma_decodes_every_byte_exactly(dev):
+    """Every stored byte of W8, read as int8 (-128..127), against one-hot
+    rows of x with unit scales and zero zeros: the route's output is the
+    code itself, exactly."""
+    qt = _artifact(dev, 1024, 256, dataclasses.replace(SPECS["perchannel_sym"], bits=8))
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    qw = torch.randint(0, 256, qt.qweight.shape, generator=g, device=dev).to(torch.uint8)
+    qt = qt.replace(qweight=qw, scales=torch.ones_like(qt.scales),
+                    zeros=torch.zeros_like(qt.zeros))
+    x = torch.eye(1024, device=dev, dtype=torch.bfloat16)
+    y = _lut_mma_call(dev, qt, x)
+    assert torch.equal(y, qw.view(torch.int8).to(torch.bfloat16)[:, :qt.n])
 
 
 # ------------------------------------------------------- W4 inner-loop probe

@@ -2,13 +2,14 @@
 
 ``lut4_matmul`` and ``lut6_matmul`` take bf16 x on the bf16 family of
 ``csrc/wa_slab_mma.cuh`` (codes decoded to their exact bf16 values, bf16
-products on the tensor cores) and f32 x on their CUDA-core kernel; what the
-kernels compute is held to the plain versions on the card
-(``tests/test_torch_cuda.py``).  Here, on the CPU:
+products on the tensor cores) and f32 x on their CUDA-core kernel, as does
+``lut8_matmul`` (tests/test_torch_byte_mma.py); what the kernels compute is
+held to the plain versions on the card (``tests/test_torch_cuda.py``).
+Here, on the CPU:
 
-* the dispatch rule: bf16 x on the nib4 and nq42 layouts takes the route
-  (:func:`bf16_mma_route`), f32 x, fp8 and shapes outside the route's rule do
-  not, and the kernel names and launch counters stay the kernels' own;
+* the dispatch rule: bf16 x on the nib4, nq42 and byte layouts takes the
+  route (:func:`bf16_mma_route`), f32 x and shapes outside the route's rule
+  do not, and the kernel names and launch counters stay the kernels' own;
 * the route's split plan covers every slab row once, at the decode tile (the
   A16 slab kernel's) and at the 64-token tile (one part), and the scratch
   and copy rules size what the kernel writes;
@@ -89,16 +90,19 @@ def test_bf16_x_takes_the_mma_route_and_f32_x_the_cuda_core_kernel(case):
 
 
 def test_the_route_keeps_the_kernels_names_and_leaves_other_layouts():
-    """No new launch counter; fp8 (byte layout), the A16 kernels and a nib4
-    artifact whose K/2 slab rows are no multiple of 4 stay off the route
-    (which also takes the s21 kernel, tests/test_torch_w4a16_w3_mma.py, and
-    the two affine nib4 kernels, tests/test_torch_w4_mma.py)."""
-    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.W3, dm.W4, dm.W4_PRENORM} <= set(
-        dm.LAUNCHES)
+    """No new launch counter; fp8 (the byte layout) takes the route under
+    its kernel's name, as does ``w8_matmul`` but not ``w8_matmul_prenorm``
+    (tests/test_torch_byte_mma.py); the A16 kernels and a nib4 artifact
+    whose K/2 slab rows are no multiple of 4 stay off it (which also takes
+    the s21 kernel, tests/test_torch_w4a16_w3_mma.py, and the two affine
+    nib4 kernels, tests/test_torch_w4_mma.py)."""
+    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.LUT8, dm.W3, dm.W4, dm.W4_PRENORM,
+                                dm.W8} <= set(dm.LAUNCHES)
     assert set(dm.LAUNCHES) == set(dm.PLAIN_CALLS)
     assert len(dm.LAUNCHES) == 18  # sixteen serving kernels, the probe's two modes
     fp8 = _port(fp_spec("fp8", 4, 3, group_size=128), 512)
-    assert dm.kernel_name(fp8) == dm.LUT8 and not dm.bf16_mma_route(fp8, torch.bfloat16)
+    assert dm.kernel_name(fp8) == dm.LUT8 and dm.bf16_mma_route(fp8, torch.bfloat16)
+    assert dm.BF16_MMA[dm.LUT8] == "lut8_bf16" and dm.W8_PRENORM not in dm.BF16_MMA
     ragged = _port(fp_spec("fp4", 2, 1, group_size=PER_CHANNEL), 1090)
     assert dm.kernel_supported(ragged) and dm.kernel_name(ragged) == dm.LUT4
     assert not dm.bf16_mma_route(ragged, torch.bfloat16)  # K/2 = 545 rows
@@ -112,17 +116,26 @@ SHAPES_7B = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
              "down": (11264, 4096), "lm_head": (4096, 32256)}
 
 
+# each bf16 layout's packing: the int8 layout that reads it (lut8_bf16 has no
+# A16 kernel; its byte packing is the affine one's)
+INT8_PACKING = {"lut4_bf16": "lut4", "lut6_bf16": "lut6", "s21_bf16": "s21",
+                "nib4_bf16": "nib4", "byte_bf16": "byte", "lut8_bf16": "byte"}
+
+
 @pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 512])
 @pytest.mark.parametrize("shape", list(SHAPES_7B))
-@pytest.mark.parametrize("kernel", [dm.LUT4, dm.LUT6, dm.W3, dm.W4])
+@pytest.mark.parametrize("kernel", [dm.LUT4, dm.LUT6, dm.LUT8, dm.W3, dm.W4, dm.W8])
 def test_bf16_split_plans_cover_every_row_once(kernel, shape, m):
     """nib4 (Kb = K/2; LUT and affine), nq42 and s21 (Kb = K/4 and K/8;
-    down stored as 11264): every split and every part starts on a window,
-    the splits and the parts of each split cover the Kb rows once in order,
-    the plan depends on the shapes alone; the decode tile splits as the A16
-    slab kernel of the same packing does, the wide tile has one part."""
+    down stored as 11264) and byte (Kb = K; LUT and affine): every split
+    and every part starts on a window, the splits and the parts of each
+    split cover the Kb rows once in order, the plan depends on the shapes
+    alone; the decode tile splits as the A16 slab kernel of the same
+    packing does (where both take the same rounding of their plan), the
+    wide tile has one part."""
     layout = dm.BF16_MMA[kernel]
-    int8_layout = layout.removesuffix("_bf16")
+    int8_layout = INT8_PACKING[layout]
+    assert set(INT8_PACKING) == set(dm.BF16_MMA.values())
     k, n = SHAPES_7B[shape]
     kb = k // dm.SLAB_TILES[layout][0]
     kc, splits = dm.plan_slab_splits(m, n, kb, layout, 132)
@@ -140,7 +153,8 @@ def test_bf16_split_plans_cover_every_row_once(kernel, shape, m):
             rows += range(p0, p1)
     assert rows == list(range(kb))
     assert (kc, splits) == dm.plan_slab_splits(m, n, kb, layout, 132)
-    if m <= 8:
+    whole = layout in dm.SLAB_WHOLE_ROUNDS
+    if m <= 8 and whole == (int8_layout in dm.SLAB_WHOLE_ROUNDS):
         assert (kc, splits) == dm.plan_slab_splits(m, n, kb, int8_layout, 132)
 
 

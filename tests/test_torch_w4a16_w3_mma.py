@@ -101,7 +101,8 @@ template <int L> void layout() {
 }
 int main() {
   layout<kNib4>(); layout<kByte>(); layout<kS21>(); layout<kLut4>(); layout<kLut6>();
-  layout<kLut4B>(); layout<kLut6B>(); layout<kS21B>(); layout<kNib4B>();
+  layout<kLut4B>(); layout<kLut6B>(); layout<kS21B>(); layout<kNib4B>(); layout<kByteB>();
+  layout<kLut8B>();
 }
 """
 
@@ -134,7 +135,7 @@ def test_python_tiles_equal_the_cuda_tiles(cuda_tiles, layout):
     """SLAB_TILES holds SlabTile's S and its (MT, BN, P) at NT = 1 and at
     the wide NT, and :func:`slab_tile` picks the tile slab_tile_nt picks at
     every row count, for every layout of the Layout enum."""
-    assert sorted(dm.SLAB_LAYOUT_IDS.values()) == sorted(cuda_tiles) == list(range(9))
+    assert sorted(dm.SLAB_LAYOUT_IDS.values()) == sorted(cuda_tiles) == list(range(11))
     slabs, decode, wide, nts = cuda_tiles[dm.SLAB_LAYOUT_IDS[layout]]
     assert dm.SLAB_TILES[layout] == (slabs, decode[:3], wide[:3])
     assert decode[3] == 1 and decode[0] == 8
@@ -147,15 +148,18 @@ def test_every_slab_kernel_has_its_layout():
     """The A16 kernels and the bf16 route name a layout each, but the two
     affine nib4 kernels of the bf16 route (``w4_matmul`` and its prenorm
     form), which share one; the nib4 packing is shared by the affine and LUT
-    layouts of each family, with the same tiles."""
+    layouts of each family, and the byte packing by the bf16 family's
+    affine and LUT layouts, with the same tiles."""
     assert set(dm.SLAB_MMA) == {dm.W4A16, dm.W8A16, dm.W3A16, dm.LUT4A16, dm.LUT6A16}
-    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.W3, dm.W4, dm.W4_PRENORM}
+    assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.LUT8, dm.W3, dm.W4, dm.W4_PRENORM,
+                                dm.W8}
     assert dm.BF16_MMA[dm.W4] == dm.BF16_MMA[dm.W4_PRENORM] == "nib4_bf16"
     layouts = list(dm.SLAB_MMA.values()) + list(dm.BF16_MMA.values())
     assert sorted(set(layouts)) == sorted(dm.SLAB_TILES)
     assert len(set(layouts)) == len(layouts) - 1
     assert dm.SLAB_TILES["nib4"] == dm.SLAB_TILES["lut4"]  # the same packing and tiles
     assert dm.SLAB_TILES["nib4_bf16"] == dm.SLAB_TILES["lut4_bf16"]
+    assert dm.SLAB_TILES["byte_bf16"] == dm.SLAB_TILES["lut8_bf16"]
 
 
 # ------------------------------------------- affine nib4: decode and epilogue
