@@ -31,9 +31,10 @@ models, whose kernels those paths do not carry but which add time, run
    counts and registers of their kernels, as in phase 12 (HMMA, else the
    phase fails).  The bf16 routes of ``w8_matmul`` and ``lut8_matmul``
    (phases 5 and 17) are counted here the same way, before any profiled
-   serve: a flat W8 call with one split and one with a K-split, and an
-   fp8 call with one split, and with the pre-norm (its row pass) with one
-   split and with a K-split.
+   serve: a flat W8 call with one split and one with a K-split, the W8
+   prenorm kernel with one split and with a K-split (no row pass: its row
+   factor in the epilogue or the reduce), and an fp8 call with one split,
+   and with the pre-norm (its row pass) with one split and with a K-split.
 3. W4 two-layer model: ``llama_forward`` logits at full 7B width with the
    kernels on the card against the same params through the plain path on
    the CPU, in float32 and in bfloat16.
@@ -44,15 +45,16 @@ models, whose kernels those paths do not carry but which add time, run
    before each run and read just after: both kernels must have run exactly
    as often as the model's shape says, and the plain versions never.
 5. W8 kernels vs plain: phase 2 for the int8 g128 kernels, plus a
-   per-channel symmetric artifact.  The bf16-x calls of ``w8_matmul`` run
-   on the bf16 tensor cores (the affine byte case of the bf16 family of
-   ``csrc/wa_slab_mma.cuh``), its f32-x calls and every call of
-   ``w8_matmul_prenorm`` on their CUDA-core kernels.  Then that route on
-   g128 asymmetric, per-channel symmetric, groups of 16 and per-channel
-   asymmetric K=1088 (whose range ends inside a window) artifacts at M=8
-   and 64, the pre-norm calls on ``w8_matmul_prenorm``, and on an x it must
-   copy (its calls counted by ``torch.profiler`` in phase 2); and the SASS
-   counts and registers of its kernels, as in phase 12 (HMMA, else the
+   per-channel symmetric artifact.  The bf16-x calls of ``w8_matmul`` and
+   ``w8_matmul_prenorm`` run on the bf16 tensor cores (the affine byte
+   case of the bf16 family of ``csrc/wa_slab_mma.cuh``, the prenorm
+   kernel's row factor in its epilogue), their f32-x calls on their
+   CUDA-core kernels.  Then that route on g128 asymmetric, per-channel
+   symmetric, groups of 16 and per-channel asymmetric K=1088 (whose range
+   ends inside a window) artifacts at M=8 and 64, with and without
+   ``pre_norm``, and on an x it must copy, also with ``pre_norm`` (its
+   calls counted by ``torch.profiler`` in phase 2); and the SASS counts and
+   registers of both kernels' libraries, as in phase 12 (HMMA, else the
    phase fails).
 6. W8 two-layer model: phase 3 with int8 g128 weights.
 7. W8 serve: 8-layer 7B-width W8 model, ``InferenceEngine.serve`` with
@@ -69,21 +71,27 @@ models, whose kernels those paths do not carry but which add time, run
    quantizing, as the main path calls them), timed at M=8 and M=256 as in
    phase 2, untimed at the other main-path row counts; per kernel also a
    layer-stacked call, a ``k_pad`` artifact, a per-channel symmetric one
-   and an f32 x; and the row pass's int8 planes and row scales bit-equal
-   to the plain ``quantize_activations`` on the card.  Then
+   and an f32 x; and the row passes' int8 planes and row scales bit-equal
+   to the plain ``quantize_activations`` on the card (the ``__dp4a``
+   kernels' and the slab kernel's, one plane and two, its group sums
+   too).  ``w4a8_matmul`` runs as the one-plane (A8) mode of the
+   tensor-core slab kernel (affine nib4), ``w8a8_matmul`` on ``__dp4a``.
+   Then
    ``w8a16_matmul`` (the byte case of the tensor-core slab kernel,
    ``csrc/wa_slab_mma.cuh``) on a per-channel asymmetric K=1088 artifact
    (the last of its range's four parts ends early) and groups of 16, at
    M=8 and 64, bf16 and f32 x, and its SASS counts and registers as in
    phase 12; and ``w4a16_matmul`` (the affine nib4 case of the same
    kernel) likewise, with a K=1408 g128 artifact (groups straddle the K
-   halves: split in two per call).
+   halves: split in two per call), and ``w4a8_matmul`` on the same three
+   artifacts (SASS: IMMA, no IDP in its product kernels).
 9. Two-layer logits with activation bits: phase 3 under A8 and A16, W4
    and W8.
 10. W4 A-serve: the 32-layer W4 model of phase 4, ``serve`` of phase 7's
     traffic with ``prefill_activation_bits=8`` and ``activation_bits=16``
-    (waves on W4A8, decode steps on W4A16); warm-up, median of 3, one
-    profiled run; launch counts exact per run.
+    (waves on W4A8, the slab kernel's one-plane mode; decode steps on
+    W4A16); warm-up, median of 3, one profiled run; launch counts exact per
+    run.
 11. W8 A-serve: the 8-layer W8 model of phase 7 with ``prefill_activation_bits=16``
     and ``activation_bits=8`` (waves on W8A16, decode steps on W8A8).
 12. W3 kernels vs plain: the three s21 3-bit kernels (``w3_matmul``,
@@ -857,10 +865,14 @@ def a_runner(pre, abits, layer=None):
 
 
 def check_row_pass(torch, gen, device):
-    """The int-activation kernels' row pass against the plain
+    """The int-activation kernels' row passes against the plain
     ``quantize_activations`` on the card: int8 planes and f32 row scales
     bit-equal, at the main path's K (4096, 11008 padded to 11264) and row
-    counts, bf16 and f32 x, with an all-zero row."""
+    counts, bf16 and f32 x, with an all-zero row; for the ``__dp4a``
+    kernels' pass (``wa_common.cuh``) and for the slab kernel's in its
+    nib4 layout (two slabs of K/2 rows, groups of 128; A8: one plane, as
+    ``w4a8`` runs it; A16: two, as ``w4a16``), whose group sums must also
+    equal ``activation_group_sums``."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     checked = 0
@@ -870,16 +882,23 @@ def check_row_pass(torch, gen, device):
                 for dtype in (torch.bfloat16, torch.float32):
                     x = (torch.randn((m, k), generator=gen, device=device) * 3).to(dtype)
                     x[1] = 0
-                    planes, sx = dm.quantize_activations_kernel(x, bits, k_stored)
                     want, want_sx = dm.quantize_activations(x, bits)
+                    planes, sx = dm.quantize_activations_kernel(x, bits, k_stored)
+                    slab, slab_sx, sums = dm.quantize_activations_slab_kernel(
+                        x, 2, k_stored // 2, 128, bits=bits)
                     torch.cuda.synchronize()
-                    if not (torch.equal(planes[..., :k], want) and torch.equal(sx, want_sx)
-                            and not planes[..., k:].any()):
-                        fail(f"row pass A{bits} K={k} M={m} {dtype}: codes or row "
-                             "scales differ from quantize_activations")
-                    checked += 1
+                    padded = torch.nn.functional.pad(want, (0, k_stored - k))
+                    for what, p, s in (("", planes, sx), (" (slab)", slab, slab_sx)):
+                        if not (torch.equal(p[..., :k], want) and torch.equal(s, want_sx)
+                                and not p[..., k:].any()):
+                            fail(f"row pass{what} A{bits} K={k} M={m} {dtype}: codes or row "
+                                 "scales differ from quantize_activations")
+                    if not torch.equal(sums.long(), dm.activation_group_sums(padded, 128)):
+                        fail(f"row pass (slab) A{bits} K={k} M={m} {dtype}: group sums "
+                             "differ from activation_group_sums")
+                    checked += 2
     print(f"  row pass: int8 planes and row scales bit-equal to the plain version "
-          f"in {checked} calls", flush=True)
+          f"in {checked} calls, the slab pass's group sums equal", flush=True)
     return checked
 
 
@@ -1011,10 +1030,11 @@ def slab_kernel_report(name):
     """The static SASS counts (``build.sass``, counted by the probe's
     ``sass_counts``) and the ``-Xptxas -v`` registers, spills and shared
     memory of the slab kernels (``csrc/wa_slab_mma.cuh``) of a library: the
-    A16 slab kernels, or the bf16 route of ``lut4_matmul``, ``lut6_matmul``,
-    ``lut8_matmul``, ``w3_matmul``, ``w4_matmul``, ``w4_matmul_prenorm``
-    (its epilogue norm: "norm") and ``w8_matmul``; fails unless the product
-    kernels run their products on
+    A16 slab kernels and ``w4a8`` (one plane: "A8"), or the bf16 route of
+    ``lut4_matmul``, ``lut6_matmul``, ``lut8_matmul``, ``w3_matmul``,
+    ``w4_matmul``, ``w4_matmul_prenorm``, ``w8_matmul`` and
+    ``w8_matmul_prenorm`` (the prenorm forms' epilogue norm: "norm"); fails
+    unless the product kernels run their products on
     the tensor cores: the int8 ones (IMMA) with no ``__dp4a`` (IDP), the
     bf16 ones (HMMA or HGMMA).  FFMA is counted beside them (a W4 product
     kernel keeps it for its group epilogue only: no FFMA main loop)."""
@@ -1026,13 +1046,15 @@ def slab_kernel_report(name):
 
     layouts = {str(v): k for k, v in dm.SLAB_LAYOUT_IDS.items()}  # slab_tile.cuh Layout
 
-    def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16, BZ, NORM> and the row passes
-        m = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E(?:Lb(\d)E)?", fn)
+    def key(fn):  # wa_slab_mma_kernel<LAYOUT, NT, VEC16, BZ, NORM, PLANES>, the row passes
+        m = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E"
+                      r"(?:Lb(\d)E)?(?:Li(\d)E)?", fn)
         if m:
             return (f"product {layouts.get(m.group(1), m.group(1))} NT={m.group(2)}"
                     f"{'' if m.group(3) == '1' else ' 4-byte copies'}"
                     f"{' zeros' if m.group(4) == '1' else ''}"
-                    f"{' norm' if m.group(5) == '1' else ''}")
+                    f"{' norm' if m.group(5) == '1' else ''}"
+                    f"{' A8' if m.group(6) == '1' else ''}")
         if "rows_bf16_slab" in fn:
             return "bf16 row pass"
         return "row pass" if "quantize_rows_slab" in fn and name in dm.SLAB_MMA else None
@@ -1060,23 +1082,24 @@ def slab_kernel_report(name):
     return counts
 
 
-def check_slab_ragged(torch, device, specs, seed):
-    """The A16 slab kernel on artifacts whose groups or slabs are not a
-    multiple of its 32-row window (``specs``: label -> (spec, K)), N = 4096,
-    at M = 8 and 64, bf16 and f32 x, against the plain version."""
+def check_slab_ragged(torch, device, specs, seed, abits=16):
+    """The slab kernel (A16, or with ``abits`` 8 its one-plane mode) on
+    artifacts whose groups or slabs are not a multiple of its 32-row window
+    (``specs``: label -> (spec, K)), N = 4096, at M = 8 and 64, bf16 and f32
+    x, against the plain version."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     for label, (spec, k) in specs.items():
         qt = make_artifact(torch, gen, spec, k, (4096,), device)[0]
-        kname = dm.kernel_name(qt, None, 16)
+        kname = dm.kernel_name(qt, None, abits)
         if kname not in dm.SLAB_MMA:
-            fail(f"{label}: the artifact does not take an A16 slab kernel ({kname})")
+            fail(f"{label}: the artifact does not take a slab kernel ({kname})")
         for m in (DECODE_M, 64):
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn((m, k), generator=gen, device=device).to(dtype)
-                check_call(torch, f"{kname}:{label}:M={m}", qt, x, *a_runner(None, 16))
+                check_call(torch, f"{kname}:{label}:M={m}", qt, x, *a_runner(None, abits))
         del qt
     torch.cuda.empty_cache()
 
@@ -1086,10 +1109,11 @@ def check_bf16_mma_ragged(torch, device, specs, seed):
     ``w3_matmul``, ``w4_matmul`` or ``w8_matmul`` (the bf16 family of
     ``csrc/wa_slab_mma.cuh``) on artifacts whose groups or slabs are not a
     multiple of its 32-row window (``specs``: label -> (spec, K)), N = 4096,
-    at M = 8 and 64, with and without ``pre_norm`` (in its row pass; W4:
-    ``w4_matmul_prenorm``, in its epilogue; W8: ``w8_matmul_prenorm``, on
-    the CUDA cores), and on an x 2 bytes off a 16-byte boundary (which the
-    row pass copies), against the plain version."""
+    at M = 8 and 64, with and without ``pre_norm`` (in its row pass; W4 and
+    W8: ``w4_matmul_prenorm`` and ``w8_matmul_prenorm``, in their
+    epilogue), and on an x 2 bytes off a 16-byte boundary (which the row
+    pass copies; W4 and W8 also with the pre-norm, whose row factor the
+    epilogue applies to the raw copy), against the plain version."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     gen = torch.Generator(device=device)
@@ -1110,6 +1134,11 @@ def check_bf16_mma_ragged(torch, device, specs, seed):
         if not dm.x_needs_copy(x, k // dm.SLAB_TILES[dm.BF16_MMA[kname]][0]):
             fail(f"{label}: the unaligned x is read in place")
         check_call(torch, f"{kname}:{label}:unaligned_x", qt, x, *a_runner(None, None))
+        if dm.prenorm_supported(qt):
+            pname = dm.kernel_name(qt, 1e-5)
+            if not dm.bf16_mma_route(qt, torch.bfloat16, 1e-5):
+                fail(f"{label}: {pname} is not on the bf16 route")
+            check_call(torch, f"{pname}:{label}:unaligned_x", qt, x, *a_runner(1e-5, None))
         del qt
     torch.cuda.empty_cache()
 
@@ -1131,15 +1160,18 @@ def device_kernels(torch, fn):
 
 
 # (label, M, K, N, pre_norm) of the calls check_route_kernels counts: W4's
-# prenorm kernel with one split (its row factor in the product kernel's
-# epilogue) and with a K-split (in the reduce), and w4_matmul with one
-# split; w8_matmul with one split and with a K-split; lut8_matmul with one
-# split, and with the pre-norm (its row pass) with one split and a K-split
+# and W8's prenorm kernels with one split (the row factor in the product
+# kernel's epilogue) and with a K-split (in the reduce), and w4_matmul with
+# one split; w8_matmul with one split and with a K-split; lut8_matmul with
+# one split, and with the pre-norm (its row pass) with one split and a
+# K-split
 W4_ROUTE_CALLS = (("prenorm_one_split", PREFILL_M, 4096, 4096, 1e-5),
                   ("prenorm_k_split", DECODE_M, 4096, 4096, 1e-5),
                   ("flat_one_split", DECODE_M, 4096, 32000, None))
 W8_ROUTE_CALLS = (("flat_one_split", PREFILL_M, 4096, 12288, None),
-                  ("flat_k_split", DECODE_M, 4096, 4096, None))
+                  ("flat_k_split", DECODE_M, 4096, 4096, None),
+                  ("prenorm_one_split", PREFILL_M, 4096, 12288, 1e-5),
+                  ("prenorm_k_split", DECODE_M, 4096, 12288, 1e-5))
 LUT8_ROUTE_CALLS = (("flat_one_split", DECODE_M, 4096, 32000, None),
                     ("prenorm_one_split", PREFILL_M, 4096, 12288, 1e-5),
                     ("prenorm_k_split", DECODE_M, 4096, 12288, 1e-5))
@@ -1152,7 +1184,8 @@ def check_route_kernels(torch, device, spec, seed, calls):
     kernel with one split and a reduce besides it with a K-split, and a row
     pass before it only where it normalizes a copy of x (a pre-norm on a
     layout without the epilogue norm: x aligned, never copied otherwise).
-    W4's prenorm form runs none: its row factor is in its epilogue."""
+    The W4 and W8 prenorm forms run none: their row factor is in their
+    epilogue."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     gen = torch.Generator(device=device)
@@ -1171,10 +1204,17 @@ def check_route_kernels(torch, device, spec, seed, calls):
             fail(f"{kname}:{label}: {splits} splits")
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         check_call(torch, f"{kname}:{label}:M={m}", qt, x, *a_runner(pre, None))
-        names = device_kernels(torch, lambda: dm.fused_quantized_matmul(x, qt, pre_norm=pre))
-        row_pass = pre is not None and kname != dm.W4_PRENORM
+        row_pass = pre is not None and kname not in (dm.W4_PRENORM, dm.W8_PRENORM)
         want = (1 if splits == 1 else 2) + row_pass
-        print(f"  {kname}:{label}: {splits} split(s), device kernels {names}", flush=True)
+        # a profiler trace can miss a kernel the call ran (its output
+        # held, PERF.md section 7): trace again, at most twice, only when
+        # it recorded fewer kernels than the call must run
+        for _ in range(3):
+            names = device_kernels(torch,
+                                   lambda: dm.fused_quantized_matmul(x, qt, pre_norm=pre))
+            print(f"  {kname}:{label}: {splits} split(s), device kernels {names}", flush=True)
+            if names is None or len(names) >= want:
+                break
         if names is not None and (len(names) != want
                                   or ("rows_bf16" in " ".join(names)) != row_pass):
             fail(f"{kname}:{label}: {len(names)} device kernels, want {want} "
@@ -1571,7 +1611,8 @@ def main() -> int:
     # the W8 and fp8 routes' calls are counted here too: a profiler session
     # after a profiled serve (phase 4 on) recorded no device event for one
     # call on the H100
-    print("  -- device kernels a call of the W8 and fp8 bf16 routes", flush=True)
+    print("  -- device kernels a call of the W8 (flat and prenorm) and fp8 bf16 routes",
+          flush=True)
     check_route_kernels(torch, device, w8, 22, W8_ROUTE_CALLS)
     check_route_kernels(torch, device, fp8, 24, LUT8_ROUTE_CALLS)
     slab_kernel_report(dm.W4)
@@ -1589,8 +1630,8 @@ def main() -> int:
         extra_specs=(("perchannel_sym", QuantSpec(fmt="int", bits=8,
                                                   group_size=PER_CHANNEL,
                                                   symmetric=True)),)))
-    print("  -- w8 bf16 route: ranges whose last part ends early, groups off the 32-row "
-          "window, x copied; SASS and registers", flush=True)
+    print("  -- w8 bf16 route (flat and prenorm): ranges whose last part ends early, groups "
+          "off the 32-row window, x copied; SASS and registers", flush=True)
     check_bf16_mma_ragged(torch, device, {
         "g128_asym": (w8, 4096),
         "perchannel_sym": (QuantSpec(fmt="int", bits=8, group_size=PER_CHANNEL,
@@ -1599,6 +1640,7 @@ def main() -> int:
                                             symmetric=False), 1088),
         "g16_asym": (QuantSpec(fmt="int", bits=8, group_size=16, symmetric=False), 4096)}, 21)
     slab_kernel_report(dm.W8)
+    slab_kernel_report(dm.W8_PRENORM)
 
     header("== phase 6: W8 two-layer 7B-width logits, kernels vs plain path")
     phase_two_layers(torch, device, w8, cfg)
@@ -1624,6 +1666,14 @@ def main() -> int:
         "g16_asym": (QuantSpec(fmt="int", bits=4, group_size=16, symmetric=False), 4096),
         "g128_asym_k1408_straddle": (w4, 1408)}, 17)
     slab_kernel_report(dm.W4A16)
+    print("  -- w4a8 (one plane): ranges whose last part ends early, groups off the 32-row "
+          "window, groups straddling the K halves; SASS and registers", flush=True)
+    check_slab_ragged(torch, device, {
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=4, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=4, group_size=16, symmetric=False), 4096),
+        "g128_asym_k1408_straddle": (w4, 1408)}, 23, abits=8)
+    slab_kernel_report(dm.W4A8)
 
     header("== phase 9: two-layer 7B-width logits under A8 and A16, kernels vs "
            "plain path")

@@ -80,12 +80,17 @@ struct SlabTile {
 };
 
 // The token tile NT (8 NT tokens a block) of the slab kernel for M
-// activation rows: the decode tile at M <= 8, else the layout's wide tile.
-constexpr int slab_tile_nt(int M, int layout) {
+// activation rows and `planes` int8 activation planes (A16: 2, A8: 1; the
+// bf16 family: any): the decode tile at M <= 8, else the layout's wide
+// tile.  The affine nib4 layout with one plane (w4a8) takes the 64-token
+// tile: one plane halves its s32 accumulators and B fragments, and on the
+// H100 64 tokens beat 32 at every prefill row count from 64 up, spills and
+// all.
+constexpr int slab_tile_nt(int M, int layout, int planes = 2) {
   return M <= 8 ? 1
          : layout == kS21 ? 2
          : layout == kLut4B || layout == kLut6B || layout == kNib4B || layout == kByteB ||
-                   layout == kLut8B ? 8 : 4;
+                   layout == kLut8B || (layout == kNib4 && planes == 1) ? 8 : 4;
 }
 
 }  // namespace iwoq

@@ -7,17 +7,26 @@
 // Bound by bytes at decode: per launch, half a byte per weight + f32 scales
 // and zeros + int8 x + output, over 3.35 TB/s; at prefill M by 2*M*K*N int8
 // operations over 1,979 TOP/s.
-// The design (row pass, __dp4a over the int8 planes, one read of each weight
-// byte per row tile, deterministic K-split) is described in wa_common.cuh.
-#include "wa_common.cuh"
+// The design is w4a16's (the affine nib4 case of wa_slab_mma.cuh: the low
+// nibbles and the MSB-flipped high nibbles as two slabs of K/2 rows, the
+// JAX kernel's decode, the low codes w & 0x0F0F0F0F and the high ones w &
+// 0xF0F0F0F0 read as int8, 16 q - 128, whose group epilogue takes s / 16
+// and z - 8; products on the int8 tensor cores by mma.sync m16n8k32; the
+// group sums of the codes in the row pass; a cp.async ring; deterministic
+// K-split) with one plane: the row pass writes the A8 codes of
+// wa_common.cuh (sx = max|x| / 127, q = clip(rint(x / sx), +-127)) and their
+// plain group sums, and the product kernel stages and multiplies that one
+// plane, part = pa.  Kp = K/2, the packed rows; xq is the scratch of
+// slab_planes_bytes (one plane) plus the group sums.
+#include "wa_slab_mma.cuh"
 
 extern "C" int iwoq_w4a8_matmul(const void* x, int x_bf16, int k_logical, int norm,
-                       float eps, const void* qw, const void* s, long long s_rs,
-                       long long s_cs, const void* z, long long z_rs,
-                       long long z_cs, void* xq, void* sx, void* ws, void* out,
-                       int M, int N, int n_out, int Kp, int G, int kc, int splits,
-                       void* stream) {
-  return iwoq::launch_wa<iwoq::kNib4>(x, x_bf16, k_logical, norm, eps, qw, s, s_rs, s_cs,
-                                         z, z_rs, z_cs, xq, sx, ws, out, M, N, n_out, Kp,
-                                         G, kc, splits, stream);
+                                float eps, const void* qw, const void* s, long long s_rs,
+                                long long s_cs, const void* z, long long z_rs,
+                                long long z_cs, void* xq, void* sx, void* ws, void* out,
+                                int M, int N, int n_out, int Kp, int G, int kc, int splits,
+                                void* stream) {
+  return iwoq::launch_wa_slab<iwoq::kNib4, 1>(x, x_bf16, k_logical, norm, eps, qw, s, s_rs,
+                                              s_cs, z, z_rs, z_cs, xq, sx, ws, out, M, N, n_out,
+                                              Kp, G, kc, splits, stream);
 }

@@ -31,11 +31,12 @@
 // the RMSNorm factor (prenorm form, computed by the same row pass as W4) and
 // casts.  CUDA-core FMAs only: no tensor cores, no TMA pipeline.
 //
-// Which calls run here: every call of w8_matmul_prenorm, and the f32-x calls
-// of w8_matmul.  The bf16-x calls of w8_matmul take the affine byte layout
+// Which calls run here: the f32-x calls of w8_matmul and
+// w8_matmul_prenorm.  Their bf16-x calls take the affine byte layout
 // (kByteB) of the bf16 family of wa_slab_mma.cuh (bf16 products on the
-// tensor cores), except the shapes outside its rule (K or group no
-// multiple of 4), which stay here (dequant_matmul.bf16_mma_route).
+// tensor cores; the prenorm form with its row factor in the epilogue),
+// except the shapes outside its rule (K or group no multiple of 4), which
+// stay here (dequant_matmul.bf16_mma_route).
 #pragma once
 
 #include "w4_common.cuh"

@@ -14,7 +14,7 @@
 // f32 x, and bf16 x whose shape that family does not take, take
 // iwoq_w8_matmul, w8_common.cuh's CUDA-core kernel (one read of each weight
 // byte per row tile, decoded in registers, deterministic K-split).  The
-// prenorm form, w8_matmul_prenorm, stays on w8_common.cuh for every x.
+// prenorm form, w8_matmul_prenorm, takes the same two routes.
 #include "w8_common.cuh"
 #include "wa_slab_mma.cuh"
 

@@ -1,17 +1,17 @@
 // Int-activation dequant-matmul for Hopper (sm_90a), A8:
 //   y[M,N] = sx[M] * (quantize(x)[M,K] @ dequant(qw)[K,N]),
-// one int8 activation plane against the packed int4 (nib4), int8 (byte) or
-// 3-bit (s21) weight codes, one __dp4a per four K values; and the row pass
-// that quantizes the activations for A8 and A16.  Every A16 kernel (two
-// int8 planes) runs on the tensor cores in wa_slab_mma.cuh, which builds on
-// this file.
+// one int8 activation plane against the packed int8 (byte) or 3-bit (s21)
+// weight codes, one __dp4a per four K values; and the row pass that
+// quantizes the activations for A8 and A16.  Every A16 kernel (two int8
+// planes) and the nib4 A8 kernel (w4a8, one plane) run on the tensor cores
+// in wa_slab_mma.cuh, which builds on this file.
 //
 // Replaces the A8 paths of the Pallas TPU kernels in
-// iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py: _int4_kernel
-// (:319) and _int8_kernel (:1057, body _int8_body :1040) with int8 x, i.e.
-// the int path of _group_accum (:226-249), stacked forms _int4_kernel_pfx
-// (:1712), _int8_kernel_pfx (:1717); and _int3_kernel (:467) with int8 x,
-// stacked form _int3_kernel_pfx (:1360), through _call_int3 (:1365).  The
+// iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py: _int8_kernel
+// (:1057, body _int8_body :1040) with int8 x, i.e. the int path of
+// _group_accum (:226-249), stacked form _int8_kernel_pfx (:1717); and
+// _int3_kernel (:467) with int8 x, stacked form _int3_kernel_pfx (:1360),
+// through _call_int3 (:1365).  The
 // stacked forms are the same kernels: the wrapper offsets the weight and
 // side-info base pointers by the layer.  The JAX package quantized the
 // activations in XLA (_prep_x :1270-1316); here a row pass of the same
@@ -33,21 +33,19 @@
 //     The A16 planes are only checked from here (iwoq_quantize_rows); the
 //     A16 kernels take the slab row pass of wa_slab_mma.cuh, which writes
 //     the same codes.
-//  2. wa_partial_kernel (nib4, byte): the W4 kernel's grid (w4_common.cuh:
-//     128 columns x 8 rows per block, eight warps splitting the block's K
-//     range, a grid K-split).  Each thread loads four packed rows of its four
+//  2. wa_partial_kernel (byte): the W4 kernel's grid (w4_common.cuh: 128
+//     columns x 8 rows per block, eight warps splitting the block's K
+//     range, a grid K-split).  Each thread loads four rows of its four
 //     columns with 32-bit loads, transposes the 4x4 bytes with __byte_perm
-//     into four words of four K-consecutive codes (one per column), decodes
-//     the nibble layout to logical codes 0..15 (the high nibble is stored
-//     MSB-flipped) or keeps the byte layout's signed code - 128 (zeros are
-//     stored shifted by -128 alike), and runs one __dp4a per column and
-//     activation row against the int8 activations staged in shared memory.
+//     into four words of four K-consecutive codes (one per column), keeps
+//     the byte layout's signed code - 128 (zeros are stored shifted by -128
+//     alike), and runs one __dp4a per column and activation row against the
+//     int8 activations staged in shared memory.
 //     The activation sum of the same rows is one more __dp4a against
 //     0x01010101.  At each group end
 //       part = (float)pa,  acc += part*s - xsum*(s*z),
 //     as _group_accum.  Overflow: a group's sum is at most 127 * 128 * G <
-//     2^31 for groups G up to 131072 (a per-channel group spans K, or each
-//     nib4 half).
+//     2^31 for groups G up to 131072 (a per-channel group spans K).
 //     wa_slab_partial_kernel (s21): the same grid with W3's warp-per-slab
 //     split (w3_common.cuh): warp i walks the block's B rows four at a
 //     time, transposes four A words (rows (i % 2) * Kb + r..) and four B
@@ -63,8 +61,8 @@
 // 3.35 TB/s.  At prefill M the bound is 2*M*K*N int8 operations over 1,979
 // dense int8 TOP/s, which only tensor cores reach: this kernel runs the
 // products on CUDA cores (__dp4a), the simple and correct first version;
-// wa_slab_mma.cuh's mma.sync path takes every A16 layout, and the A8 kernels
-// are later work.
+// wa_slab_mma.cuh's mma.sync path takes every A16 layout and nib4 A8, and
+// the byte and s21 A8 kernels are later work.
 #pragma once
 
 #include "lut_common.cuh"
@@ -158,22 +156,19 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&
   c[3] = __byte_perm(a_hi, b_hi, 0x7632);
 }
 
-// Partial products of one (N-tile, M-tile, K-split) block into ws.
-// xq: the int8 plane [M, ldq]; for NIB4 packed row r meets K columns r (low
-// nibbles) and Kp + r (high nibbles), and ldq = 2 * Kp.
-template <bool NIB4>
+// Partial products of one (N-tile, M-tile, K-split) block into ws, byte
+// layout.  xq: the int8 plane [M, ldq], ldq = Kp = K.
 __global__ void __launch_bounds__(kThreads)
 wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
                   const uint32_t* __restrict__ qw,  // [Kp, N/4] words
                   const float* __restrict__ s, long long s_rs, long long s_cs,
                   const float* __restrict__ z, long long z_rs, long long z_cs,
                   float* __restrict__ ws, int N, int Kp, int G, int kc) {
-  constexpr int H = NIB4 ? 2 : 1;  // K streams per packed row
   constexpr int kStage4 = kStageA / 4;
-  static_assert(H * kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
+  static_assert(kStage4 * kTileM <= kKWarps * kTileM * kBlockN,
                 "the x stage must fit in the reduction buffer");
   __shared__ __align__(16) float smem[kKWarps * kTileM * kBlockN];
-  int* xs = reinterpret_cast<int*>(smem);  // [H][kStage4][kTileM] words
+  int* xs = reinterpret_cast<int*>(smem);  // [kStage4][kTileM] words
   const int lane = threadIdx.x;
   const int wy = threadIdx.y;
   const int tid = wy * kLanes + lane;
@@ -183,7 +178,6 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   const int k0 = blockIdx.z * kc;
   const int k1 = min(Kp, k0 + kc);
   const int words_per_row = N / kColsPerThread;
-  const int hi_row0 = Kp / G;
 
   float acc[kTileM][kColsPerThread];
 #pragma unroll
@@ -194,14 +188,13 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
   for (int c0 = k0; c0 < k1; c0 += kStageA) {
     const int rows4 = min(kStageA, k1 - c0) / 4;  // k0, k1 and c0 are multiples of 4
     __syncthreads();
-    for (int i = tid; i < H * kTileM * rows4; i += kThreads) {
+    for (int i = tid; i < kTileM * rows4; i += kThreads) {
       const int w = i % rows4;  // fastest: coalesced reads of an x row
-      const int m = (i / rows4) % kTileM;
-      const int h = i / (rows4 * kTileM);
+      const int m = i / rows4;
       int v = 0;
       if (m0 + m < M)
-        v = *reinterpret_cast<const int*>(xq + (size_t)(m0 + m) * ldq + h * Kp + c0 + 4 * w);
-      xs[(h * kStage4 + w) * kTileM + m] = v;
+        v = *reinterpret_cast<const int*>(xq + (size_t)(m0 + m) * ldq + c0 + 4 * w);
+      xs[w * kTileM + m] = v;
     }
     __syncthreads();
 
@@ -212,64 +205,45 @@ wa_partial_kernel(const int8_t* __restrict__ xq, int ldq, int M,
       while (r < r_end) {
         const int g = r / G;
         const int seg_end = min(r_end, (g + 1) * G);
-        float sg[H][kColsPerThread], zg[H][kColsPerThread];
+        float sg[kColsPerThread], zg[kColsPerThread];
 #pragma unroll
-        for (int h = 0; h < H; ++h)
+        for (int j = 0; j < kColsPerThread; ++j) {
+          const long long c = (long long)(n0 + j);
+          sg[j] = __ldg(s + g * s_rs + c * s_cs);
+          zg[j] = __ldg(z + g * z_rs + c * z_cs);
+        }
+        int ia[kTileM][kColsPerThread];
+        int isum[kTileM];
 #pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) {
-            const long long c = (long long)(n0 + j);
-            const long long gr = g + h * hi_row0;
-            sg[h][j] = __ldg(s + gr * s_rs + c * s_cs);
-            zg[h][j] = __ldg(z + gr * z_rs + c * z_cs);
-          }
-        int ia[H][kTileM][kColsPerThread];
-        int isum[H][kTileM];
+        for (int m = 0; m < kTileM; ++m) {
+          isum[m] = 0;
 #pragma unroll
-        for (int h = 0; h < H; ++h)
-#pragma unroll
-          for (int m = 0; m < kTileM; ++m) {
-            isum[h][m] = 0;
-#pragma unroll
-            for (int j = 0; j < kColsPerThread; ++j) ia[h][m][j] = 0;
-          }
+          for (int j = 0; j < kColsPerThread; ++j) ia[m][j] = 0;
+        }
         for (; r < seg_end; r += 4) {
           uint32_t w[4], col[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             w[i] = __ldg(qw + (size_t)(r + i) * words_per_row + (n0 / kColsPerThread));
           transpose4x4(w, col);
-          const int w4 = (r - c0) / 4;
+          const int4* x4 = reinterpret_cast<const int4*>(xs + (r - c0) / 4 * kTileM);
+          const int4 a0 = x4[0], a1 = x4[1];
+          const int xv[kTileM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-          for (int h = 0; h < H; ++h) {
-            int code[kColsPerThread];
+          for (int m = 0; m < kTileM; ++m) {
+            isum[m] += __dp4a(xv[m], 0x01010101, 0);
 #pragma unroll
-            for (int j = 0; j < kColsPerThread; ++j) {
-              code[j] = !NIB4 ? (int)col[j]
-                      : h == 0 ? (int)(col[j] & 0x0F0F0F0Fu)
-                               : (int)(((col[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
-            }
-            const int4* x4 = reinterpret_cast<const int4*>(xs + (h * kStage4 + w4) * kTileM);
-            const int4 a0 = x4[0], a1 = x4[1];
-            const int xv[kTileM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-            for (int m = 0; m < kTileM; ++m) {
-              isum[h][m] += __dp4a(xv[m], 0x01010101, 0);
-#pragma unroll
-              for (int j = 0; j < kColsPerThread; ++j)
-                ia[h][m][j] = __dp4a(xv[m], code[j], ia[h][m][j]);
-            }
+            for (int j = 0; j < kColsPerThread; ++j)
+              ia[m][j] = __dp4a(xv[m], (int)col[j], ia[m][j]);
           }
         }
 #pragma unroll
-        for (int h = 0; h < H; ++h)
+        for (int m = 0; m < kTileM; ++m) {
+          const float xsum = (float)isum[m];
 #pragma unroll
-          for (int m = 0; m < kTileM; ++m) {
-            const float xsum = (float)isum[h][m];
-#pragma unroll
-            for (int j = 0; j < kColsPerThread; ++j)
-              acc[m][j] = acc[m][j] + (float)ia[h][m][j] * sg[h][j] -
-                          xsum * (sg[h][j] * zg[h][j]);
-          }
+          for (int j = 0; j < kColsPerThread; ++j)
+            acc[m][j] = acc[m][j] + (float)ia[m][j] * sg[j] - xsum * (sg[j] * zg[j]);
+        }
       }
     }
   }
@@ -417,15 +391,15 @@ cudaError_t quantize_rows(const void* x, int x_bf16, int k_logical, int k_stored
 // The whole A8 call: row pass, partial products, reduce.  x is [M,
 // k_logical] contiguous; xq [M, K_stored] int8 and sx [M] f32 are scratch
 // from the wrapper, as is ws [splits, M, N].  Kp is the number of packed
-// rows the kernel walks: K/2 (nib4), K (byte) or the B rows Kb = K/8 (s21).
+// rows the kernel walks: K (byte) or the B rows Kb = K/8 (s21).
 template <int LAYOUT>
 int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
               const void* qw, const void* s, long long s_rs, long long s_cs,
               const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
               void* ws, void* out, int M, int N, int n_out, int Kp, int G, int kc,
               int splits, void* stream) {
-  static_assert(LAYOUT == kNib4 || LAYOUT == kByte || LAYOUT == kS21, "an affine layout");
-  const int k_stored = LAYOUT == kNib4 ? 2 * Kp : LAYOUT == kS21 ? 8 * Kp : Kp;
+  static_assert(LAYOUT == kByte || LAYOUT == kS21, "the byte or s21 layout");
+  const int k_stored = LAYOUT == kS21 ? 8 * Kp : Kp;
   if (M <= 0 || N <= 0 || N % kColsPerThread || n_out > N || Kp <= 0 || Kp % 4 ||
       G <= 0 || G % 4 || Kp % G || kc <= 0 || kc % 4 || splits <= 0 ||
       (long long)kc * splits < Kp || k_logical <= 0 || k_logical > k_stored)
@@ -441,7 +415,7 @@ int launch_wa(const void* x, int x_bf16, int k_logical, int norm, float eps,
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
         z_cs, static_cast<float*>(ws), N, Kp, G, kc);
   else
-    wa_partial_kernel<LAYOUT == kNib4><<<grid, block, 0, st>>>(
+    wa_partial_kernel<<<grid, block, 0, st>>>(
         static_cast<const int8_t*>(xq), k_stored, M, static_cast<const uint32_t*>(qw),
         static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs,
         z_cs, static_cast<float*>(ws), N, Kp, G, kc);

@@ -1,12 +1,13 @@
-// A16 dequant-matmul on Hopper's int8 tensor cores (sm_90a):
+// A16 and A8 dequant-matmul on Hopper's int8 tensor cores (sm_90a):
 //   y[M,N] = sx[M] * ((256*hi + lo)[M,K] @ dequant(qw)[K,N]),
 // split-plane 16-bit activations against 4-bit (nib4), 8-bit (byte) or
 // 3-bit (s21) affine codes, or 4-bit (nib4) or 6-bit (nq42) minifloat codes
-// decoded to their exact int8 grid; and its bf16 family (below) on the bf16
-// tensor cores,
-//   y[M,N] = x[M,K] @ dequant(qw)[K,N]  (times r[M] for the W4 prenorm
-// form), bf16 x, the nib4, nq42 and byte LUT layouts and the s21, nib4 and
-// byte affine ones, codes decoded to their exact bf16 values.
+// decoded to their exact int8 grid; with one plane (A8, PLANES = 1), y =
+// sx * (q @ dequant(qw)) on the affine layouts; and its bf16 family (below)
+// on the bf16 tensor cores,
+//   y[M,N] = x[M,K] @ dequant(qw)[K,N]  (times r[M] for the W4 and W8
+// prenorm forms), bf16 x, the nib4, nq42 and byte LUT layouts and the s21,
+// nib4 and byte affine ones, codes decoded to their exact bf16 values.
 //
 // Replaces the Pallas TPU kernels in
 // iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:
@@ -19,9 +20,13 @@
 //   _lut4_kernel_a16 (:771, called at :1607) and its stacked form
 //       _lut4_kernel_a16_pfx (:806, through :1927);
 //   _lut6_kernel_a16 (:892) and its stacked form _lut6_kernel_a16_pfx (:934),
-//       both through _call_lut6 (:939).
-// All reduce to _group_accum_a16 (:253-286) and _lut_accum_a16 (:698): per
-// group and plane an int32 product turned f32, part = 256*pa + pb, then
+//       both through _call_lut6 (:939);
+//   one plane: _int4_kernel (:319, body :293) with int8 x, the int path of
+//       _group_accum (:226-249), called at :1680, and its stacked form
+//       _int4_kernel_pfx (:1712, through :1927).
+// All reduce to _group_accum_a16 (:253-286), _lut_accum_a16 (:698) and the
+// int path of _group_accum: per group and plane an int32 product turned
+// f32, part = 256*pa + pb (A8: part = pa, xsum = sum(q)), then
 //   affine (nib4, byte, s21): acc += part*(s*mult) - xsum*(s*(z - zshift)),
 //   LUT (nib4, nq42):         acc += part*(s*2^-t) [+ xsum*z where the artifact has zeros],
 // with xsum = 256*sum(hi) + sum(lo) over the group's activations; mult = 1,
@@ -48,9 +53,10 @@
 //     quantize_activations; optionally after the weightless RMSNorm, whose
 //     sum of squares and the row's absmax come from one pass), written per
 //     slab with each slab padded to Kb32 = Kb rounded up to 32 rows
-//     ([2][M][S][Kb32], zero beyond Kb and beyond the logical K); one warp
-//     quantizes a group and sums its codes by shuffles into xsum[M][S*Kb/G]
-//     (256*hi + lo, groups in K order: the JAX xsum as integers).  A LUT
+//     ([2][M][S][Kb32], A8 [1][M][S][Kb32], zero beyond Kb and beyond the
+//     logical K); one warp quantizes a group and sums its codes by
+//     shuffles into xsum[M][S*Kb/G] (256*hi + lo, A8 the sum of q, groups
+//     in K order: the JAX xsum as integers).  A LUT
 //     artifact without zero points skips the sums, and the product kernel
 //     never reads them.
 //  2. wa_slab_mma_kernel: the products on the tensor cores,
@@ -68,7 +74,8 @@
 //     two codes), in the wider tiles two warps a slab.  All warps walk the
 //     windows of their part in step.  Decode (NT = 1): BN = 64 (s21) or
 //     128, two blocks an SM, so that one block's barrier stalls only its
-//     own warps; more rows: NT = 2 (s21) or 4, BN = 64, one block an SM, so
+//     own warps; more rows: NT = 2 (s21) or 4 (affine nib4 with one plane: 8),
+//     BN = 64, one block an SM, so
 //     a weight window is decoded ceil(M / MT) times, not M / 8.  A ring of 4
 //     stages in shared memory takes each window by cp.async: 32 rows of the
 //     block's columns of each packed array (s21, nq42: three) or each part
@@ -123,8 +130,10 @@
 // copies x; the reduce starts as the product kernel's blocks finish.
 //
 // What bounds it: at decode (M = 8) the bytes: codes (1, 3/8, 1/2 or 3/4
-// byte a weight) + f32 sides + two int8 planes of x + output over 3.35
-// TB/s; at prefill the 2 * 2*M*K*N int8 operations over 1,979 TOP/s.  The
+// byte a weight) + f32 sides + two int8 planes of x (A8: one) + output over
+// 3.35 TB/s; at prefill the 2 * 2*M*K*N int8 operations (A8: 2*M*K*N) over
+// 1,979 TOP/s.  One plane halves the staged x, the B fragments, the s32
+// accumulators and the MMAs of a window.  The
 // design moves the products from __dp4a (five a code at M = 8, the
 // activation sum among them) to one m16n8k32 per 512 codes and plane, takes
 // the activation sums out of the loop (once per row and group, in the row
@@ -135,13 +144,14 @@
 //
 // The bf16 family (LAYOUT kLut4B, kLut6B, kS21B, kNib4B, kByteB, kLut8B:
 // the bf16-x calls of lut4_matmul, lut6_matmul, w3_matmul, w4_matmul and
-// w4_matmul_prenorm, w8_matmul and lut8_matmul; w8_matmul_prenorm stays on
-// w8_common.cuh).  Replaces _lut4_kernel (:739, pfx :1732), _lut6_kernel
-// (:835, pfx :887, through _call_lut6 :939), _lut8_kernel (:811, pfx
-// :1737), _int3_kernel with bf16 x (:467, pfx :1360, through _call_int3
-// :1365), _int4_kernel (:319, body :293, pfx :1712) and _int4_kernel_prenorm
-// (:328, pfx :408) with bf16 x, and _int8_kernel (:1057, body :1040, pfx
-// :1717) with bf16 x: per group acc += (x_g @ val_g) * s (+ xsum_g * z),
+// w4_matmul_prenorm, w8_matmul and w8_matmul_prenorm, and lut8_matmul).
+// Replaces _lut4_kernel (:739, pfx :1732), _lut6_kernel (:835, pfx :887,
+// through _call_lut6 :939), _lut8_kernel (:811, pfx :1737), _int3_kernel
+// with bf16 x (:467, pfx :1360, through _call_int3 :1365), _int4_kernel
+// (:319, body :293, pfx :1712) and _int4_kernel_prenorm (:328, pfx :408)
+// with bf16 x, and _int8_kernel (:1057, body :1040, pfx :1717) and
+// _int8_kernel_prenorm (:380, pfx :413) with bf16 x: per group acc += (x_g
+// @ val_g) * s (+ xsum_g * z),
 // _lut_accum (:724), with val the exact minifloat value in x's dtype, or acc
 // += (x_g @ q_g) * s - xsum_g * (s * z), _group_accum (:226) over the twelve
 // masked s21 fields (their powers of two folded into the epilogue), the two
@@ -166,8 +176,9 @@
 //    without a prenorm kernel) into a copy of x, and where x is not
 //    16-byte aligned (a raw copy).  A call without a pre-norm is one
 //    kernel, or two with a K-split;
-//  - the W4 prenorm form (template flag NORM) keeps _int4_kernel_prenorm's
-//    function: no copy, no normalized x.  The product kernel reads the raw
+//  - the W4 and W8 prenorm forms (template flag NORM; kNib4B, kByteB) keep
+//    _int4_kernel_prenorm's and _int8_kernel_prenorm's function: no copy,
+//    no normalized x.  The product kernel reads the raw
 //    x, and beside each segment's sums of x (below) each lane of the warps
 //    of channel part 0 (a warp-uniform branch: the other warps stage the
 //    same rows) sums the squares of the same staged values for its token;
@@ -520,16 +531,20 @@ __device__ __forceinline__ float block_reduce_warps(float v, float* red) {
   return out;
 }
 
-// Row pass of the slab kernel: int8 planes [2][M][S][Kb32] (slab i's rows
-// r < Kb hold K column i*Kb + r, the rest zero) and sx [M] from x [M, ldx],
-// and, if xsum is not null, xsum [M][S*Kb/G] = 256*sum(hi) + sum(lo) per
-// group of G K columns: a warp quantizes a group and sums its codes by
-// shuffles.  The codes are quantize_rows_kernel's.
-template <typename XT, bool NORM>
+// Row pass of the slab kernel: int8 planes [PLANES][M][S][Kb32] (slab i's
+// rows r < Kb hold K column i*Kb + r, the rest zero) and sx [M] from x [M,
+// ldx], and, if xsum is not null, xsum [M][S*Kb/G], the sum of the group's
+// codes (A16: 256*sum(hi) + sum(lo); A8: sum(q)) per group of G K columns:
+// a warp quantizes a group and sums its codes by shuffles.  The codes are
+// quantize_rows_kernel's: A16 (PLANES = 2) sx = max|x| / 32512, hi and lo
+// of rint(x / sx); A8 (PLANES = 1) sx = max|x| / 127, q = clip(rint(x /
+// sx), +-127).
+template <typename XT, bool NORM, int PLANES>
 __global__ void __launch_bounds__(kSlabRowThreads)
 quantize_rows_slab_kernel(const XT* __restrict__ x, int ldx, int k_logical, int S, int Kb,
                           int Kb32, int G, float eps, int8_t* __restrict__ xq,
                           float* __restrict__ sx, int* __restrict__ xsum, int M) {
+  static_assert(PLANES == 1 || PLANES == 2, "A8: one plane; A16: two");
   __shared__ float red[kSlabRowThreads / kLanes];
   griddep_launch_dependents();  // the product kernel may start its weight copies
   const int m = blockIdx.x;
@@ -555,11 +570,11 @@ quantize_rows_slab_kernel(const XT* __restrict__ x, int ldx, int k_logical, int 
     const float v = to_f32(xr[k]);
     return NORM ? round_to(v * r, XT()) : v;
   };
-  const float s = fmaxf(amax, 1e-8f) / 32512.0f;
+  const float s = fmaxf(amax, 1e-8f) / (PLANES == 1 ? 127.0f : 32512.0f);
   if (t == 0) sx[m] = s;
   const int row_len = S * Kb32;
   int8_t* q0 = xq + (size_t)m * row_len;
-  int8_t* q1 = q0 + (size_t)M * row_len;  // the lo plane
+  int8_t* q1 = q0 + (size_t)M * row_len;  // A16: the lo plane
   // one warp a group (G K columns of one slab): the codes and their sum
   const int lane = t % kLanes, warp = t / kLanes;
   const int ng = S * (Kb / G);
@@ -572,13 +587,18 @@ quantize_rows_slab_kernel(const XT* __restrict__ x, int ldx, int k_logical, int 
     for (int j = lane; j < G; j += kLanes) {
       int hi = 0, lo = 0;
       if (k0 + j < k_logical) {
-        const int xi = (int)rintf(val(k0 + j) / s);
-        hi = (xi + 128) >> 8;
-        lo = xi - (hi << 8);
+        const float q = rintf(val(k0 + j) / s);
+        if (PLANES == 1) {
+          hi = (int)fminf(fmaxf(q, -127.f), 127.f);
+        } else {
+          const int xi = (int)q;
+          hi = (xi + 128) >> 8;
+          lo = xi - (hi << 8);
+        }
       }
       p0[j] = (int8_t)hi;
-      p1[j] = (int8_t)lo;
-      acc += 256 * hi + lo;
+      if (PLANES == 2) p1[j] = (int8_t)lo;
+      acc += PLANES == 1 ? hi : 256 * hi + lo;
     }
     if (xsum != nullptr) {
 #pragma unroll
@@ -591,7 +611,7 @@ quantize_rows_slab_kernel(const XT* __restrict__ x, int ldx, int k_logical, int 
   for (int i = t; i < S * pad; i += kSlabRowThreads) {
     const int at = (i / pad) * Kb32 + Kb + i % pad;
     q0[at] = 0;
-    q1[at] = 0;
+    if (PLANES == 2) q1[at] = 0;
   }
 }
 
@@ -633,12 +653,12 @@ rows_bf16_slab_kernel(const __nv_bfloat16* __restrict__ x, int ldx, int k_logica
 // Partial products of one (BN-channel, MT-token, K-split) block into ws;
 // with one split (gridDim.z == 1) the block finishes the output itself:
 // out [M, n_out] = cast(sx * sum), the reduce kernel's arithmetic.
-// xsrc: int8 planes [2][M][S][Kb32]; xsum [M][S*Kb/G] int32 (null: LUT
+// xsrc: int8 planes [PLANES][M][S][Kb32]; xsum [M][S*Kb/G] int32 (null: LUT
 // without zeros).  The bf16 family: xsrc bf16, token m's row r of slab i at
 // m * x_ld + i * x_ls + r (valid for r < Kb; x_ld, x_ls multiples of 8,
 // 16-byte aligned), no xsum (the kernel sums x itself where BZ: the
 // artifact has zeros, z not null; always for s21 and affine nib4), no sx,
-// bf16 out.  NORM (bf16 affine nib4, with BZ): the kernel also sums x^2 of
+// bf16 out.  NORM (bf16 affine nib4 or byte, with BZ): the kernel also sums x^2 of
 // the rows it stages, per token; with one split it scales the output by
 // rsqrt(sum / k_logical + eps), else the blocks of channel tile 0 write
 // their split's sums to xsq [splits, M] for the reduce.
@@ -646,7 +666,7 @@ rows_bf16_slab_kernel(const __nv_bfloat16* __restrict__ x, int ldx, int k_logica
 // mant_bits = 3; nq42 exp_bits 1 or 2 (bf16: any E + M = 5), mant_bits 5 -
 // exp_bits; byte (bf16) any 1 + E + M <= 8; z may be null.  Affine (nib4,
 // byte, s21): z not null, the format arguments unused.
-template <int LAYOUT, int NT, bool VEC16, bool BZ = false, bool NORM = false>
+template <int LAYOUT, int NT, bool VEC16, bool BZ = false, bool NORM = false, int PLANES = 2>
 __global__ void __launch_bounds__(SlabTile<LAYOUT, NT>::THREADS,
                                   SlabTile<LAYOUT, NT>::BLOCKS_PER_SM)
 wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum, int M,
@@ -664,7 +684,9 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
   constexpr int S = T::S, A = T::A, P = T::P, V = T::V, SW = T::SW, CT = T::CT, W = T::W;
   constexpr int MT = T::MT;
   constexpr int BN = T::BN, NTH = T::THREADS, STAGES = T::STAGES, PITCH = T::PITCH;
-  static_assert(!NORM || (BF && BZ && L == kNib4), "the epilogue norm: bf16 affine nib4");
+  static_assert(!NORM || (BF && BZ && (LAYOUT == kNib4B || LAYOUT == kByteB)),
+                "the epilogue norm: bf16 affine nib4 or byte");
+  static_assert(PLANES == 2 || (!BF && !LUT), "one plane (A8): the int8 affine layouts");
   extern __shared__ __align__(16) uint8_t slab_smem[];
   const int8_t* xq = static_cast<const int8_t*>(xsrc);
   const int tid = threadIdx.x;
@@ -719,7 +741,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
   constexpr int WCH = (WTOTAL + NTH - 1) / NTH;            // weight chunks a thread
   constexpr bool SHARED_ROW = NTH % CPA == 0;
   constexpr int NP = SHARED_ROW ? 1 : WCH;                 // carried pointers
-  constexpr int XTOTAL = S * P * 2 * MT * 2;               // x chunks a window
+  constexpr int XTOTAL = S * P * (BF ? 2 : PLANES) * MT * 2;  // x chunks a window
   constexpr int XCH = (XTOTAL + NTH - 1) / NTH;
   static_assert(SHARED_ROW || CPA % NTH == 0, "whole rounds");
   const uint32_t smem0 = smem_u32(slab_smem);
@@ -759,12 +781,13 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
           : nullptr;
       x_dst[j] = T::W_BYTES + (v * MT + tok) * 2 * kSlabWin + 16 * h;
     } else {
-      const int h = i % 2, tok = (i / 2) % MT, sp = i / (2 * MT);  // (part * S + slab) * 2 + plane
+      // sp = (part * S + slab) * PLANES + plane
+      const int h = i % 2, tok = (i / 2) % MT, sp = i / (2 * MT);
       const int m = m0 + tok;
-      const int v = sp / 2, rows0 = k0 + (P == 1 ? 0 : v / S) * kq + 16 * h;
+      const int v = sp / PLANES, rows0 = k0 + (P == 1 ? 0 : v / S) * kq + 16 * h;
       x_row[j] = rows0;
       x_src[j] = i < XTOTAL && m < M
-          ? xq + (((size_t)(sp % 2) * M + m) * S + v % S) * Kb32 + rows0 : nullptr;
+          ? xq + (((size_t)(sp % PLANES) * M + m) * S + v % S) * Kb32 + rows0 : nullptr;
       x_dst[j] = T::W_BYTES + (sp * MT + tok) * kSlabWin + 16 * h;
     }
   }
@@ -809,8 +832,8 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
   };
 
   float acc[CT][NT][4];
-  // per slab of the warp, per group: int8: per plane (hi, lo) int32; bf16: f32
-  int ia[SW][CT][NT][BF ? 1 : 2][4];
+  // per slab of the warp, per group: int8: per plane (A16: hi, lo) int32; bf16: f32
+  int ia[SW][CT][NT][BF ? 1 : PLANES][4];
   float pf[SW][CT][NT][BF ? 4 : 1];
 #pragma unroll
   for (int c = 0; c < CT; ++c)
@@ -824,8 +847,8 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
           if constexpr (BF) {
             pf[sw][c][nt][i] = 0.f;
           } else {
-            ia[sw][c][nt][0][i] = 0;
-            ia[sw][c][nt][1][i] = 0;
+#pragma unroll
+            for (int p = 0; p < PLANES; ++p) ia[sw][c][nt][p][i] = 0;
           }
         }
       }
@@ -1029,17 +1052,17 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
     }
     // B fragments (int8): token 8 nt + g, rows 8t..8t+7 of each plane of
     // each slab; bf16: loaded per token tile below
-    uint32_t xb[SW][2][BF ? 1 : NT][2];
+    uint32_t xb[SW][BF ? 1 : PLANES][BF ? 1 : NT][2];
     if constexpr (!BF) {
 #pragma unroll
       for (int sw = 0; sw < SW; ++sw)
 #pragma unroll
-        for (int p = 0; p < 2; ++p)
+        for (int p = 0; p < PLANES; ++p)
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             const int xs = part * S + slab + sw;
             const uint2 v = *reinterpret_cast<const uint2*>(
-                base + T::W_BYTES + ((xs * 2 + p) * MT + 8 * nt + g) * kSlabWin + 8 * t);
+                base + T::W_BYTES + ((xs * PLANES + p) * MT + 8 * nt + g) * kSlabWin + 8 * t);
             xb[sw][p][nt][0] = v.x;
             xb[sw][p][nt][1] = v.y;
           }
@@ -1093,7 +1116,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-              for (int p = 0; p < 2; ++p)
+              for (int p = 0; p < PLANES; ++p)
                 mma_s8(ia[sw][c][nt][p], afr[sw][c][0], xb[sw][p][nt][0] & keep0,
                        xb[sw][p][nt][1] & keep1);
       }
@@ -1115,8 +1138,9 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
                   if (BZ) acc[c][nt][i] = acc[c][nt][i] + xk[sw][nt][u] * zv;
                   pf[sw][c][nt][i] = 0.f;
                 } else {
-                  const float part_f =
-                      (float)ia[sw][c][nt][0][i] * 256.f + (float)ia[sw][c][nt][1][i];
+                  const float part_f = PLANES == 1 ? (float)ia[sw][c][nt][0][i]
+                                       : (float)ia[sw][c][nt][0][i] * 256.f +
+                                             (float)ia[sw][c][nt][PLANES - 1][i];
                   if (LUT) {
                     acc[c][nt][i] = acc[c][nt][i] + part_f * (sv * mult);
                     if (has_z && first) acc[c][nt][i] = acc[c][nt][i] + xs_f[sw][nt][u] * zv;
@@ -1125,8 +1149,8 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
                   } else {
                     acc[c][nt][i] = acc[c][nt][i] + part_f * sv;
                   }
-                  ia[sw][c][nt][0][i] = 0;
-                  ia[sw][c][nt][1][i] = 0;
+#pragma unroll
+                  for (int p = 0; p < PLANES; ++p) ia[sw][c][nt][p][i] = 0;
                 }
               }
         if constexpr (BZ)
@@ -1225,13 +1249,13 @@ cudaError_t launch_after(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t
 
 // Bytes of the xq scratch the wrapper allocates (must match
 // slab_scratch_bytes in ops/kernels/dequant_matmul.py): the planes
-// [2][M][S][Kb32], then, where the kernel reads sums, xsum [M][S*Kb/G]
-// int32 (the planes' size is a multiple of 64 bytes).
-inline long long slab_planes_bytes(int M, int S, int Kb) {
-  return 2LL * M * S * ((Kb + kSlabWin - 1) / kSlabWin * kSlabWin);
+// [PLANES][M][S][Kb32], then, where the kernel reads sums, xsum
+// [M][S*Kb/G] int32 (the planes' size is a multiple of 32 bytes).
+inline long long slab_planes_bytes(int planes, int M, int S, int Kb) {
+  return (long long)planes * M * S * ((Kb + kSlabWin - 1) / kSlabWin * kSlabWin);
 }
 
-template <bool NORM>
+template <bool NORM, int PLANES>
 cudaError_t launch_rows_slab(const void* x, int x_bf16, int k_logical, int S, int Kb, int G,
                              float eps, void* xq, void* sx, int* xsum, int M,
                              cudaStream_t st) {
@@ -1239,25 +1263,26 @@ cudaError_t launch_rows_slab(const void* x, int x_bf16, int k_logical, int S, in
   int8_t* q = static_cast<int8_t*>(xq);
   float* sp = static_cast<float*>(sx);
   if (x_bf16)
-    quantize_rows_slab_kernel<__nv_bfloat16, NORM><<<M, kSlabRowThreads, 0, st>>>(
+    quantize_rows_slab_kernel<__nv_bfloat16, NORM, PLANES><<<M, kSlabRowThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), k_logical, k_logical, S, Kb, Kb32, G, eps, q,
         sp, xsum, M);
   else
-    quantize_rows_slab_kernel<float, NORM><<<M, kSlabRowThreads, 0, st>>>(
+    quantize_rows_slab_kernel<float, NORM, PLANES><<<M, kSlabRowThreads, 0, st>>>(
         static_cast<const float*>(x), k_logical, k_logical, S, Kb, Kb32, G, eps, q, sp, xsum,
         M);
   return cudaGetLastError();
 }
 
-inline cudaError_t rows_slab(const void* x, int x_bf16, int k_logical, int S, int Kb, int G,
-                             int norm, float eps, void* xq, void* sx, int* xsum, int M,
-                             cudaStream_t st) {
-  return norm ? launch_rows_slab<true>(x, x_bf16, k_logical, S, Kb, G, eps, xq, sx, xsum, M, st)
-              : launch_rows_slab<false>(x, x_bf16, k_logical, S, Kb, G, eps, xq, sx, xsum, M,
-                                        st);
+template <int PLANES>
+cudaError_t rows_slab(const void* x, int x_bf16, int k_logical, int S, int Kb, int G, int norm,
+                      float eps, void* xq, void* sx, int* xsum, int M, cudaStream_t st) {
+  return norm ? launch_rows_slab<true, PLANES>(x, x_bf16, k_logical, S, Kb, G, eps, xq, sx,
+                                               xsum, M, st)
+              : launch_rows_slab<false, PLANES>(x, x_bf16, k_logical, S, Kb, G, eps, xq, sx,
+                                                xsum, M, st);
 }
 
-template <int LAYOUT, int NT, bool BZ = false, bool NORM = false>
+template <int LAYOUT, int NT, bool BZ = false, bool NORM = false, int PLANES = 2>
 cudaError_t launch_slab_mma_nt(const void* xq, const void* xsum, int M, const void* qw,
                                const void* s, long long s_rs, long long s_cs, const void* z,
                                long long z_rs, long long z_cs, void* ws, void* out,
@@ -1269,10 +1294,11 @@ cudaError_t launch_slab_mma_nt(const void* xq, const void* xsum, int M, const vo
   constexpr int SM = T::SMEM;
   static bool attr_set = false;  // one attribute call per instantiation
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, true, BZ, NORM>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
+    cudaError_t err =
+        cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, true, BZ, NORM, PLANES>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, false, BZ, NORM>,
+      err = cudaFuncSetAttribute(wa_slab_mma_kernel<LAYOUT, NT, false, BZ, NORM, PLANES>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SM);
     if (err != cudaSuccess) return err;
     attr_set = true;
@@ -1282,8 +1308,8 @@ cudaError_t launch_slab_mma_nt(const void* xq, const void* xsum, int M, const vo
   // 16-byte weight copies where every row of the block's columns is 16-byte aligned
   const bool vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
   return launch_after(
-      vec16 ? wa_slab_mma_kernel<LAYOUT, NT, true, BZ, NORM>
-            : wa_slab_mma_kernel<LAYOUT, NT, false, BZ, NORM>,
+      vec16 ? wa_slab_mma_kernel<LAYOUT, NT, true, BZ, NORM, PLANES>
+            : wa_slab_mma_kernel<LAYOUT, NT, false, BZ, NORM, PLANES>,
       grid, dim3(T::THREADS), SM, st, xq, xsum, M, static_cast<const uint8_t*>(qw),
       static_cast<const float*>(s), s_rs, s_cs, static_cast<const float*>(z), z_rs, z_cs,
       static_cast<float*>(ws), out, static_cast<const float*>(sx), x_bf16, N, n_out, Kb, Kb32,
@@ -1296,8 +1322,10 @@ cudaError_t launch_slab_mma_nt(const void* xq, const void* xsum, int M, const vo
 // rows: K (byte), K/2 (nib4, affine and LUT), the B rows K/8 (s21) or the
 // quad rows K/4 (nq42); qw is [Kb, N] (byte, nib4) or [3 Kb, N].  kc is a
 // multiple of 32 P (SlabTile::P).  exp_bits, mant_bits: the LUT format
-// (nib4: fp4, E + M = 3; nq42: E1M4 or E2M3); its z may be null.
-template <int LAYOUT>
+// (nib4: fp4, E + M = 3; nq42: E1M4 or E2M3); its z may be null.  PLANES:
+// 2 for A16, 1 for A8 (the affine layouts: one int8 plane, sx = max|x| /
+// 127, half the staged x and half the MMAs).
+template <int LAYOUT, int PLANES = 2>
 int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps,
                    const void* qw, const void* s, long long s_rs, long long s_cs,
                    const void* z, long long z_rs, long long z_cs, void* xq, void* sx,
@@ -1307,7 +1335,8 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
                     LAYOUT == kLut6,
                 "an int8 slab layout");
   constexpr bool LUT = LAYOUT == kLut4 || LAYOUT == kLut6;
-  constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT);
+  static_assert(PLANES == 2 || (PLANES == 1 && !LUT), "A8: the affine layouts");
+  constexpr int NT_WIDE = slab_tile_nt(9, LAYOUT, PLANES);
   constexpr int S = SlabTile<LAYOUT, 1>::S, P = SlabTile<LAYOUT, 1>::P;
   static_assert(SlabTile<LAYOUT, NT_WIDE>::P == P, "one part count a layout");
   if (M <= 0 || N <= 0 || N % 4 || n_out > N || Kb <= 0 || Kb % 4 || G <= 0 || G % 4 ||
@@ -1321,16 +1350,17 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* planes = static_cast<int8_t*>(xq);
   int* xsum = LUT && z == nullptr
-      ? nullptr : reinterpret_cast<int*>(planes + slab_planes_bytes(M, S, Kb));
-  cudaError_t err = rows_slab(x, x_bf16, k_logical, S, Kb, G, norm, eps, xq, sx, xsum, M, st);
+      ? nullptr : reinterpret_cast<int*>(planes + slab_planes_bytes(PLANES, M, S, Kb));
+  cudaError_t err = rows_slab<PLANES>(x, x_bf16, k_logical, S, Kb, G, norm, eps, xq, sx, xsum,
+                                      M, st);
   if (err != cudaSuccess) return (int)err;
-  err = slab_tile_nt(M, LAYOUT) == 1
-      ? launch_slab_mma_nt<LAYOUT, 1>(planes, xsum, M, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws,
-                                      out, sx, x_bf16, N, n_out, Kb, G, kc, splits, exp_bits,
-                                      mant_bits, st)
-      : launch_slab_mma_nt<LAYOUT, NT_WIDE>(planes, xsum, M, qw, s, s_rs, s_cs, z, z_rs, z_cs,
-                                            ws, out, sx, x_bf16, N, n_out, Kb, G, kc, splits,
-                                            exp_bits, mant_bits, st);
+  err = slab_tile_nt(M, LAYOUT, PLANES) == 1
+      ? launch_slab_mma_nt<LAYOUT, 1, false, false, PLANES>(
+            planes, xsum, M, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws, out, sx, x_bf16, N, n_out,
+            Kb, G, kc, splits, exp_bits, mant_bits, st)
+      : launch_slab_mma_nt<LAYOUT, NT_WIDE, false, false, PLANES>(
+            planes, xsum, M, qw, s, s_rs, s_cs, z, z_rs, z_cs, ws, out, sx, x_bf16, N, n_out,
+            Kb, G, kc, splits, exp_bits, mant_bits, st);
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)M * n_out;
   const dim3 rgrid((unsigned)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096));
@@ -1371,7 +1401,8 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
                    int mant_bits, void* stream) {
   static_assert(SlabTile<LAYOUT, 1>::BF,
                 "a bf16 layout: kLut4B, kLut6B, kS21B, kNib4B, kByteB or kLut8B");
-  static_assert(!EPI_NORM || LAYOUT == kNib4B, "the epilogue norm: affine nib4 (w4 prenorm)");
+  static_assert(!EPI_NORM || LAYOUT == kNib4B || LAYOUT == kByteB,
+                "the epilogue norm: affine nib4 or byte (the w4 and w8 prenorm forms)");
   constexpr bool LUT = LAYOUT == kLut4B || LAYOUT == kLut6B || LAYOUT == kLut8B;
   // the LUT formats each layout takes: nib4 E + M = 3, nq42 E + M = 5,
   // byte 1 + E + M <= 8 (lut8's: fp8, and fp3, fp5, fp7 and the
@@ -1394,7 +1425,7 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
       (LUT && !fmt_ok) ||
       (!LUT && (exp_bits != 0 || mant_bits != 0 || z == nullptr)) ||
       // affine nib4 and byte: no normalized copy (the JAX prenorm kernels
-      // scale the f32 sum); w8_matmul_prenorm stays on w8_common.cuh
+      // scale the f32 sum): a pre-norm is the epilogue norm
       ((LAYOUT == kNib4B || LAYOUT == kByteB) && (norm != 0) != EPI_NORM) ||
       (!copy && (ldx % 8 || Kb % 8 || reinterpret_cast<uintptr_t>(x) % 16)) ||
       (copy && xs == nullptr))
@@ -1442,15 +1473,18 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
 }  // namespace iwoq
 
 // The slab kernels' row pass alone, for checking its codes and sums against
-// the plain versions: planes [2][M][slabs][Kb32] and sx [M] into xq and sx,
-// and the group sums [M][slabs*Kb/G] into xsum (null: none).
+// the plain versions: planes [bits / 8][M][slabs][Kb32] and sx [M] into xq
+// and sx, and the group sums [M][slabs*Kb/G] into xsum (null: none).
 extern "C" int iwoq_quantize_rows_slab(const void* x, int x_bf16, int k_logical, int slabs,
-                                       int Kb, int G, int norm, float eps, void* xq, void* sx,
-                                       void* xsum, int M, void* stream) {
+                                       int Kb, int G, int bits, int norm, float eps, void* xq,
+                                       void* sx, void* xsum, int M, void* stream) {
   if (M <= 0 || k_logical <= 0 || (slabs != 1 && slabs != 2 && slabs != 4 && slabs != 8) ||
-      Kb <= 0 ||
-      k_logical > slabs * Kb || G <= 0 || Kb % G)
+      Kb <= 0 || k_logical > slabs * Kb || G <= 0 || Kb % G || (bits != 8 && bits != 16))
     return (int)cudaErrorInvalidValue;
-  return (int)iwoq::rows_slab(x, x_bf16, k_logical, slabs, Kb, G, norm, eps, xq, sx,
-                              static_cast<int*>(xsum), M, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* sums = static_cast<int*>(xsum);
+  return (int)(bits == 8 ? iwoq::rows_slab<1>(x, x_bf16, k_logical, slabs, Kb, G, norm, eps,
+                                               xq, sx, sums, M, st)
+                         : iwoq::rows_slab<2>(x, x_bf16, k_logical, slabs, Kb, G, norm, eps,
+                                               xq, sx, sums, M, st));
 }

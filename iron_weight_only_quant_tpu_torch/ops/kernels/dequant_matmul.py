@@ -9,10 +9,10 @@ f32 side info, per storage layout:
                 x: design notes in ``csrc/w4_common.cuh``),
                 ``csrc/w4a8_matmul.cu``, ``csrc/w4a16_matmul.cu``
                 (``csrc/wa_slab_mma.cuh``);
-  byte (int8, bfp8):  ``csrc/w8_matmul.cu`` (bf16 x: the bf16 family of
-                ``csrc/wa_slab_mma.cuh``; f32 x: design notes in
-                ``csrc/w8_common.cuh``), ``csrc/w8_matmul_prenorm.cu``
-                (``csrc/w8_common.cuh``), ``csrc/w8a8_matmul.cu``,
+  byte (int8, bfp8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
+                (bf16 x: the bf16 family of ``csrc/wa_slab_mma.cuh``; f32
+                x: design notes in ``csrc/w8_common.cuh``),
+                ``csrc/w8a8_matmul.cu`` (``csrc/wa_common.cuh``),
                 ``csrc/w8a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
   s21 (3-bit):  ``csrc/w3_matmul.cu`` (bf16 x: the bf16 family of
                 ``csrc/wa_slab_mma.cuh``; f32 x: design notes in
@@ -37,12 +37,12 @@ minifloat value from the format's exponent and mantissa widths (never from
 the artifact's codebook) and computes ``w = val*s (+ z)``.  The nib4, nq42
 and byte LUT kernels (``lut4``, ``lut6``, ``lut8``), the s21 kernel
 (``w3``), the affine nib4 kernels (``w4_matmul``, ``w4_matmul_prenorm``)
-and the flat affine byte kernel (``w8_matmul``) (:data:`BF16_MMA`) take
-bf16 x on the bf16 tensor cores (:func:`bf16_mma_route`; ``w8_matmul_prenorm``
-stays on its CUDA-core kernel): the codes decode to their exact bf16 values,
+and the affine byte kernels (``w8_matmul``, ``w8_matmul_prenorm``)
+(:data:`BF16_MMA`) take bf16 x on the bf16 tensor cores
+(:func:`bf16_mma_route`): the codes decode to their exact bf16 values,
 ``mma.sync`` m16n8k16 sums each group's products in f32, ``acc += part*s
 (+ xsum*z)`` (affine: ``- xsum*(s*z)``), the kernel summing each group's
-x itself for the zeros.  ``w4_matmul_prenorm`` keeps its epilogue norm
+x itself for the zeros.  The two prenorm kernels keep their epilogue norm
 there: the kernel reads the raw x, sums its squares too and scales the f32
 sum by the row factor.  Elsewhere a row pass runs only where a
 ``pre_norm`` is given, which it then applies to a copy of x (the same
@@ -52,12 +52,13 @@ and launch count.
 The ``a8``/``a16`` kernels take ``activation_bits`` 8 or 16: a row pass
 quantizes x to one int8 plane (A8, ``sx = absmax/127``) or two (A16, ``x
 ~= sx*(256*hi + lo)``, ``sx = absmax/32512``), the product runs on integer
-codes, and the f32 result is scaled by the row's ``sx``.  The A8 kernels
-(design notes in ``csrc/wa_common.cuh``) run on ``__dp4a``; every A16
-kernel (``w4a16``, ``w8a16``, ``w3a16``, ``lut4a16``, ``lut6a16``:
-:data:`SLAB_MMA`) runs its products on the int8 tensor cores and takes the
-slab kernel's K-split plan (:func:`plan_slab_splits`); its row pass also
-writes each group's activation sum (:func:`activation_group_sums`).
+codes, and the f32 result is scaled by the row's ``sx``.  Every A16
+kernel (``w4a16``, ``w8a16``, ``w3a16``, ``lut4a16``, ``lut6a16``) and
+``w4a8`` (one plane) (:data:`SLAB_MMA`) runs its products on the int8
+tensor cores and takes the slab kernel's K-split plan
+(:func:`plan_slab_splits`); its row pass also writes each group's
+activation sum (:func:`activation_group_sums`).  ``w8a8`` and ``w3a8``
+(design notes in ``csrc/wa_common.cuh``) run on ``__dp4a``.
 Under activation bits a ``pre_norm`` is applied to x before quantizing (in
 the row pass), as the JAX package does, so no prenorm kernel runs.  LUT
 artifacts take A16 where the format's exact values form an int8 grid (fp4 E2M1 and E1M2: ``lut4a16``; fp6 E2M3 in the nq42
@@ -190,7 +191,8 @@ _ARGTYPES_ROWS = [  # iwoq_quantize_rows, the row pass alone
 ]
 _ARGTYPES_ROWS_SLAB = [  # iwoq_quantize_rows_slab, the slab kernels' row pass alone
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, x_bf16, k_logical, slabs
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,       # Kb, G, norm, eps
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # Kb, G, bits
+    ctypes.c_int, ctypes.c_float,                                   # norm, eps
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,              # xq, sx, xsum
     ctypes.c_int, ctypes.c_void_p,                                  # M, stream
 ]
@@ -223,19 +225,25 @@ SLAB_TILES = {
     "byte_bf16": (1, (8, 128, 4), (64, 256, 1)),
     "lut8_bf16": (1, (8, 128, 4), (64, 256, 1)),
 }
+# The one-plane (A8) wide tile where it is not the layout's wide tile:
+# slab_tile_nt with planes 1 gives the affine nib4 layout (w4a8) the
+# 64-token tile (the same test holds it to csrc/slab_tile.cuh).
+SLAB_TILES_A8 = {"nib4": (64, 64, 2)}
 SLAB_WINDOW = 32  # kSlabWin: slab rows a window
-# The A16 kernels on the int8 tensor cores, by layout.
-SLAB_MMA = {W4A16: "nib4", W8A16: "byte", W3A16: "s21", LUT4A16: "lut4", LUT6A16: "lut6"}
+# The int-activation kernels on the int8 tensor cores, by layout: every A16
+# kernel (two planes) and w4a8 (one plane, on the layout w4a16 takes).
+SLAB_MMA = {W4A16: "nib4", W8A16: "byte", W3A16: "s21", LUT4A16: "lut4", LUT6A16: "lut6",
+            W4A8: "nib4"}
 # The bf16-x calls of the nib4, nq42 and byte LUT kernels, of the s21
-# kernel, of the two affine nib4 kernels (w4_matmul, w4_matmul_prenorm: one
-# layout, the prenorm form with its row factor in the epilogue) and of the
-# flat affine byte kernel (w8_matmul; w8_matmul_prenorm stays on
-# csrc/w8_common.cuh) on the bf16 tensor cores, by layout; f32 x stays on
-# their CUDA-core kernels (csrc/lut_common.cuh, csrc/w3_common.cuh,
-# csrc/w4_common.cuh, csrc/w8_common.cuh).  Name and launch count are the
-# kernel's either way.
+# kernel, of the two affine nib4 kernels (w4_matmul, w4_matmul_prenorm) and
+# of the two affine byte kernels (w8_matmul, w8_matmul_prenorm) on the bf16
+# tensor cores, by layout (a prenorm form shares its flat kernel's layout,
+# its row factor in the epilogue); f32 x stays on their CUDA-core kernels
+# (csrc/lut_common.cuh, csrc/w3_common.cuh, csrc/w4_common.cuh,
+# csrc/w8_common.cuh).  Name and launch count are the kernel's either way.
 BF16_MMA = {LUT4: "lut4_bf16", LUT6: "lut6_bf16", LUT8: "lut8_bf16", W3: "s21_bf16",
-            W4: "nib4_bf16", W4_PRENORM: "nib4_bf16", W8: "byte_bf16"}
+            W4: "nib4_bf16", W4_PRENORM: "nib4_bf16", W8: "byte_bf16",
+            W8_PRENORM: "byte_bf16"}
 # Layouts whose K-split plan never starts a partial round of blocks (see
 # plan_slab_splits): byte, which decodes nothing, and affine nib4 and byte
 # in both families, whose decode is a few masks and permutes a word (on the
@@ -382,12 +390,11 @@ def bf16_mma_route(qt: QuantizedTensor, dtype: torch.dtype,
     ``dtype`` and ``pre_norm`` takes the bf16 tensor-core route of its
     kernel (:data:`BF16_MMA`): bf16 x on the nib4 (fp4), nq42 (fp6) or byte
     (fp8) LUT layout or the s21 (3-bit), nib4 (int4, bfp4) or byte (int8,
-    bfp8; not its prenorm kernel) affine one, whose slab rows and group are
-    multiples of 4.  There a ``pre_norm`` runs in the kernel's row pass, or,
-    for the affine nib4 prenorm kernel, in its epilogue; f32 x, the byte
-    prenorm kernel, and the rare shapes outside the rule, take the
-    CUDA-core kernel of the same name (s21 and LUT after x is normalized in
-    torch)."""
+    bfp8) affine one, whose slab rows and group are multiples of 4.  There
+    a ``pre_norm`` runs in the kernel's row pass, or, for the affine nib4
+    and byte prenorm kernels, in their epilogue; f32 x and the rare shapes
+    outside the rule take the CUDA-core kernel of the same name (s21 and
+    LUT after x is normalized in torch)."""
     if dtype != torch.bfloat16:
         return False
     name = kernel_name(qt, pre_norm)
@@ -482,13 +489,15 @@ def quantize_activations(x2: torch.Tensor, bits: int) -> Tuple[torch.Tensor, tor
 
 
 def activation_group_sums(planes: torch.Tensor, g: int) -> torch.Tensor:
-    """The A16 activation sum ``256*Σhi + Σlo`` of every row and group of
-    ``g`` K columns, int64 ``[M, K/g]``, of planes ``[2, M, K]`` (the
-    ``xsum`` of ``_group_accum_a16`` and ``_lut_accum_a16`` in the JAX
-    package, exact integers)."""
+    """The activation sum of every row and group of ``g`` K columns, int64
+    ``[M, K/g]``: A16 ``256*Σhi + Σlo`` of planes ``[2, M, K]`` (the ``xsum``
+    of ``_group_accum_a16`` and ``_lut_accum_a16`` in the JAX package), A8
+    ``Σq`` of planes ``[1, M, K]`` (that of ``_group_accum``'s int path),
+    exact integers."""
     p = planes.to(torch.int64)
     m, k = p.shape[1], p.shape[2]
-    return (p[0] * 256 + p[1]).reshape(m, k // g, g).sum(dim=-1)
+    codes = p[0] if p.shape[0] == 1 else p[0] * 256 + p[1]
+    return codes.reshape(m, k // g, g).sum(dim=-1)
 
 
 def _side_rows(qt: QuantizedTensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -683,19 +692,23 @@ def plan_splits(m: int, n: int, kp: int, sm_count: int) -> Tuple[int, int]:
     return kc, math.ceil(kp / kc)
 
 
-def slab_tile(m: int, layout: str) -> Tuple[int, int, int]:
+def slab_tile(m: int, layout: str, planes: int = 2) -> Tuple[int, int, int]:
     """(tokens, channels, parts) a block of the slab kernel takes for ``m``
-    activation rows in ``layout`` (:data:`SLAB_TILES`): the decode tile at
-    M <= 8, else the layout's wide tile.  A block splits its K range into
+    activation rows in ``layout`` (:data:`SLAB_TILES`) with ``planes`` int8
+    activation planes (A16: 2, A8: 1; the bf16 family: any): the decode
+    tile at M <= 8, else the layout's wide tile (:data:`SLAB_TILES_A8` for
+    one plane where it has the layout).  A block splits its K range into
     ``parts`` over its warps."""
+    if m > 8 and planes == 1 and layout in SLAB_TILES_A8:
+        return SLAB_TILES_A8[layout]
     return SLAB_TILES[layout][1 if m <= 8 else 2]
 
 
 def plan_slab_splits(m: int, n: int, kb: int, layout: str,
-                     sm_count: int) -> Tuple[int, int]:
+                     sm_count: int, planes: int = 2) -> Tuple[int, int]:
     """(slab rows per K-split, number of K-splits) of the slab kernel of
-    ``layout`` (:data:`SLAB_MMA`, :data:`BF16_MMA`) for an [m, n] output
-    over ``kb`` slab rows.
+    ``layout`` (:data:`SLAB_MMA`, :data:`BF16_MMA`) with ``planes``
+    activation planes for an [m, n] output over ``kb`` slab rows.
 
     A block splits its range into ``P`` parts (:func:`slab_tile`) over its
     warps, each a whole number of windows (32 rows), so ``kc`` is a multiple
@@ -708,7 +721,7 @@ def plan_slab_splits(m: int, n: int, kb: int, layout: str,
     or nothing and stream their bytes, never start a partial second round,
     which would cost them a whole one.
     """
-    tokens, channels, parts = slab_tile(m, layout)
+    tokens, channels, parts = slab_tile(m, layout, planes)
     step = SLAB_WINDOW * parts
     base = math.ceil(n / channels) * math.ceil(m / tokens)
     slots = (2 if m <= 8 else 1) * sm_count
@@ -719,15 +732,16 @@ def plan_slab_splits(m: int, n: int, kb: int, layout: str,
     return kc, math.ceil(kb / kc)
 
 
-def slab_scratch_bytes(m: int, kb: int, layout: str, g: int, sums: bool) -> int:
-    """Bytes of the int8 scratch of a slab A16 launch in ``layout``: the
-    activation planes ``[2, M, slabs, Kb32]`` (each slab padded to a
-    multiple of 32 rows), then, where the kernel reads them (every affine
-    artifact, a LUT one with zeros), the int32 group sums ``[M, slabs * kb /
-    g]`` (``launch_wa_slab`` in ``csrc/wa_slab_mma.cuh``)."""
+def slab_scratch_bytes(m: int, kb: int, layout: str, g: int, sums: bool, planes: int) -> int:
+    """Bytes of the int8 scratch of a slab launch (:data:`SLAB_MMA`) in
+    ``layout``: the activation planes ``[planes, M, slabs, Kb32]`` (A16: 2,
+    A8: 1; each slab padded to a multiple of 32 rows), then, where the
+    kernel reads them (every affine artifact, a LUT one with zeros), the
+    int32 group sums ``[M, slabs * kb / g]`` (``launch_wa_slab`` in
+    ``csrc/wa_slab_mma.cuh``)."""
     slabs = SLAB_TILES[layout][0]
     kb32 = math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
-    return 2 * m * slabs * kb32 + (4 * m * slabs * (kb // g) if sums else 0)
+    return planes * m * slabs * kb32 + (4 * m * slabs * (kb // g) if sums else 0)
 
 
 def bf16_mma_scratch_bytes(m: int, kb: int, layout: str) -> int:
@@ -844,11 +858,11 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
     if ``pre_norm`` (affine nib4, byte), its int-activation form if
     ``activation_bits``; a LUT kernel of minifloat format ``fmt`` where one
-    is given (``zeros`` may then be None).  The LUT kernels, the s21 one,
-    the affine nib4 ones and the flat affine byte one take bf16 x on their
-    bf16 tensor-core route (:data:`BF16_MMA`, :func:`bf16_mma_route`; a
-    ``pre_norm`` then runs in its row pass, or, for ``w4_matmul_prenorm``,
-    in its epilogue; ``w8_matmul_prenorm`` keeps its CUDA-core kernel).
+    is given (``zeros`` may then be None).  The LUT kernels, the s21 one
+    and the affine nib4 and byte ones take bf16 x on their bf16 tensor-core
+    route (:data:`BF16_MMA`, :func:`bf16_mma_route`; a ``pre_norm`` then
+    runs in its row pass, or, for the two prenorm kernels, in their
+    epilogue).
 
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
@@ -892,9 +906,10 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     out = torch.empty((m, n_out), dtype=x2.dtype, device=dev)
     if m == 0:
         return out
+    planes = 2 if activation_bits is None else activation_bits // 8  # int8 x planes
     if name in SLAB_MMA or mma:
         kc, splits = plan_slab_splits(m, n, kp, (BF16_MMA if mma else SLAB_MMA)[name],
-                                      _sm_count(dev))
+                                      _sm_count(dev), planes)
     else:
         kc, splits = plan_splits(m, n, kp, _sm_count(dev))
     # the prenorm kernel's route keeps its norm in the epilogue: with a
@@ -936,10 +951,9 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
                      m, n, n_out, kp, g, kc, splits, k_logical, eps, stream)
     else:
         if name in SLAB_MMA:  # the planes padded per slab, then the group sums
-            nbytes = slab_scratch_bytes(m, kp, SLAB_MMA[name], g, zeros is not None)
+            nbytes = slab_scratch_bytes(m, kp, SLAB_MMA[name], g, zeros is not None, planes)
             xq = torch.empty((nbytes,), dtype=torch.int8, device=dev)
         else:
-            planes = 1 if activation_bits == 8 else 2
             xq = torch.empty((planes, m, ks), dtype=torch.int8, device=dev)
         sx = torch.empty((m,), dtype=torch.float32, device=dev)
         args = (x2.data_ptr(), x_bf16, k_logical, int(pre_norm is not None), eps,
@@ -988,37 +1002,40 @@ def quantize_activations_kernel(x2: torch.Tensor, bits: int, k_stored: int,
 
 
 def quantize_activations_slab_kernel(x2: torch.Tensor, slabs: int, kb: int, g: int,
-                                     pre_norm: Optional[float] = None
+                                     pre_norm: Optional[float] = None, bits: int = 16
                                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The slab A16 kernels' row pass alone, on the card: ``(planes [2, M,
+    """The slab kernels' row pass alone, on the card: ``(planes [P, M,
     slabs*kb] int8, sx [M] f32, sums [M, slabs*kb/g] int32)`` for ``x2``
-    ``[M, K]``, K <= slabs*kb (``pre_norm`` normalizes each row first).  The
-    pass writes each slab padded to a multiple of 32 rows; the planes come
-    back in K order.  It is part of every launch of a :data:`SLAB_MMA`
-    kernel (``slabs`` 1, 2, 4 or 8); this entry point exists to hold its
-    codes and sums against :func:`quantize_activations` and
-    :func:`activation_group_sums` and is not counted."""
+    ``[M, K]``, K <= slabs*kb (``pre_norm`` normalizes each row first), P =
+    2 for ``bits`` 16 and 1 for 8.  The pass writes each slab padded to a
+    multiple of 32 rows; the planes come back in K order.  It is part of
+    every launch of a :data:`SLAB_MMA` kernel (``slabs`` 1, 2, 4 or 8); this
+    entry point exists to hold its codes and sums against
+    :func:`quantize_activations` and :func:`activation_group_sums` and is
+    not counted."""
     _check(x2.is_cuda and x2.dim() == 2 and x2.is_contiguous()
            and x2.dtype in (torch.bfloat16, torch.float32),
            "x must be a contiguous 2-D bf16/f32 CUDA tensor")
     m, k = x2.shape
-    _check(slabs in (1, 2, 4, 8) and 0 < k <= slabs * kb and m > 0 and g > 0 and kb % g == 0,
-           f"slabs={slabs}, Kb={kb}, G={g}, K={k}, M={m}")
+    _check(slabs in (1, 2, 4, 8) and 0 < k <= slabs * kb and m > 0 and g > 0 and kb % g == 0
+           and bits in ACTIVATION_BITS, f"slabs={slabs}, Kb={kb}, G={g}, K={k}, M={m}, "
+           f"bits={bits}")
     dev = x2.device
     kb32 = math.ceil(kb / SLAB_WINDOW) * SLAB_WINDOW
-    xq = torch.empty((2, m, slabs, kb32), dtype=torch.int8, device=dev)
+    planes = bits // 8
+    xq = torch.empty((planes, m, slabs, kb32), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
     sums = torch.empty((m, slabs * (kb // g)), dtype=torch.int32, device=dev)
     lib, fn = _load_fn(W3A16, "iwoq_quantize_rows_slab", _ARGTYPES_ROWS_SLAB)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), k, slabs, kb, g,
+        err = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), k, slabs, kb, g, bits,
                  int(pre_norm is not None), 0.0 if pre_norm is None else float(pre_norm),
                  xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), m, stream)
     _raise_if(err, lib, "iwoq_quantize_rows_slab")
     if xq[..., kb:].any():
         raise RuntimeError("the slab row pass wrote codes beyond a slab's end")
-    return xq[..., :kb].reshape(2, m, slabs * kb), sx, sums
+    return xq[..., :kb].reshape(planes, m, slabs * kb), sx, sums
 
 
 def _prep_x(x: torch.Tensor, qt: QuantizedTensor,

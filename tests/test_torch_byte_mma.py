@@ -1,12 +1,12 @@
 """The bf16 routes of ``w8_matmul`` and ``lut8_matmul`` against the JAX
 package and the kernels' own tables, on the CPU.
 
-The bf16-x calls of both kernels run as the byte layouts of the bf16 family
-of ``csrc/wa_slab_mma.cuh``: ``kByteB`` (affine, the stored byte read as
-int8) and ``kLut8B`` (byte minifloats, stored as code - 128).
-``w8_matmul_prenorm`` stays on its CUDA-core kernel.  What the kernels
-compute is held to the plain versions on the card (``tests/test_torch_cuda.py
--k byte_mma``).  Here:
+The bf16-x calls of both kernels, and of ``w8_matmul_prenorm``, run as the
+byte layouts of the bf16 family of ``csrc/wa_slab_mma.cuh``: ``kByteB``
+(affine, the stored byte read as int8; the prenorm form with its row factor
+in the epilogue) and ``kLut8B`` (byte minifloats, stored as code - 128).
+What the kernels compute is held to the plain versions on the card
+(``tests/test_torch_cuda.py -k byte_mma``).  Here:
 
 * a numpy model of each decode, over all 256 byte values in every byte of a
   word: ``byte_codes_bf16`` (the low seven bits under bf16's exponent byte
@@ -20,8 +20,12 @@ compute is held to the plain versions on the card (``tests/test_torch_cuda.py
   ``_lut8_kernel`` (interpret mode) at bf16 and f32 x on g128 asymmetric
   and per-channel symmetric W8 and on fp8 E4M3 g128 symmetric and
   per-channel asymmetric artifacts, and so does the port's plain version;
+  the affine model times ``rsqrt(sum(x^2) / K + eps)`` applied to its f32
+  sum equals the JAX ``_int8_kernel_prenorm``;
 * dispatch: bf16 W8 calls ``iwoq_w8_matmul_mma``, with a pre-norm
-  ``iwoq_w8_matmul_prenorm``; bf16 lut8 calls ``iwoq_lut8_matmul_mma`` with
+  ``iwoq_w8_matmul_prenorm_mma`` (no copy of x; its scratch holds the
+  splits' sums of x^2 after the partials); bf16 lut8 calls
+  ``iwoq_lut8_matmul_mma`` with
   and without a pre-norm (then in its row pass, on a copy of x); f32 x, the
   byte-per-code fp6 (K % 4 != 0) and shapes outside the route's rule take
   the CUDA-core entry points; stacked calls read their layer; each counts
@@ -274,6 +278,40 @@ def test_route_model_equals_jax_int8_and_lut8_kernels(case, dtype):
             assert np.abs(y - want).max() <= 1e-2 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["w8_g128_asym", "w8_perchannel_sym"])
+def test_prenorm_route_model_equals_jax_int8_kernel_prenorm(case, dtype):
+    """The prenorm form of the route: the affine model's f32 sum times ``r =
+    rsqrt(sum(x^2) / K + eps)`` of the raw x (not x normalized first), as
+    the kernel's epilogue or its K-split reduce applies it, equals
+    ``_int8_kernel_prenorm`` (interpret mode), and so does the port's plain
+    version: at the Pallas tests' tolerance for f32 x, within 1e-2 of the
+    largest output for bf16 x."""
+    jq, tq = _artifact(case)
+    assert dm.prenorm_supported(tq) and dm.kernel_name(tq, EPS) == dm.W8_PRENORM
+    x = _x((6, 512), seed=8, scale=2.0)
+    xj = jnp.asarray(x).astype(dtype)
+    want = np.asarray(j_dm.fused_quantized_matmul(xj, jq, pre_norm=EPS, interpret=True),
+                      dtype=np.float32)
+    xr = np.array(xj.astype(jnp.float32))  # x as the kernel reads it
+    s = np.asarray(jq.scales, np.float32)
+    acc = _route_model(xr, np.asarray(jq.qweight), s, np.asarray(jq.zeros, np.float32),
+                       512 // s.shape[0], None)
+    r = np.float32(1) / np.sqrt((xr * xr).sum(1, dtype=np.float32) / np.float32(512)
+                                + np.float32(EPS))
+    got = acc * r[:, None]
+    xt = torch.from_numpy(xr).to(torch.float32 if dtype == np.float32 else torch.bfloat16)
+    dm.reset_counts()
+    plain = dm.fused_quantized_matmul(xt, tq, pre_norm=EPS).float().numpy()
+    assert dm.PLAIN_CALLS[dm.W8_PRENORM] == 1 == sum(dm.PLAIN_CALLS.values())
+    if dtype == np.float32:
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(plain, want, **TOL)
+    else:
+        for y in (got, plain):
+            assert np.abs(y - want).max() <= 1e-2 * np.abs(want).max()
+
+
 # ---------------------------------------------------------------- dispatch
 
 class _Library:
@@ -343,36 +381,31 @@ def _quantized(case, seed=0):
 @pytest.mark.parametrize("case", list(DISPATCH))
 def test_bf16_byte_calls_take_their_route_and_f32_the_cuda_core_kernel(card_free_launch, case,
                                                                       m, pre_norm):
-    """bf16 x: ``iwoq_w8_matmul_mma`` or ``iwoq_lut8_matmul_mma`` on the
-    layout's plan, the format widths for lut8 (0, 0 for W8); a lut8
-    pre-norm in the route's row pass (norm 1, a scratch copy of x); a W8
-    pre-norm on ``iwoq_w8_matmul_prenorm``, off the route.  f32 x:
-    ``iwoq_<name>``.  One launch each under the kernel's name."""
+    """bf16 x: ``iwoq_w8_matmul_mma``, ``iwoq_w8_matmul_prenorm_mma`` or
+    ``iwoq_lut8_matmul_mma`` on the layout's plan, the format widths for
+    lut8 (0, 0 for W8); a lut8 pre-norm in the route's row pass (norm 1, a
+    scratch copy of x), a W8 pre-norm in the epilogue (norm 1, no copy).
+    f32 x: ``iwoq_<name>``.  One launch each under the kernel's name."""
     qt = _quantized(case)
     lut = qt.mode == "lut"
     name = dm.kernel_name(qt, pre_norm)
     assert dm.packed_bits(qt) == 8 and name == (
         dm.LUT8 if lut else dm.W8 if pre_norm is None else dm.W8_PRENORM)
-    routed = name in dm.BF16_MMA
-    assert routed == (lut or pre_norm is None)
-    assert dm.bf16_mma_route(qt, torch.bfloat16, pre_norm) == routed
+    assert name in dm.BF16_MMA and dm.bf16_mma_route(qt, torch.bfloat16, pre_norm)
     assert not dm.bf16_mma_route(qt, torch.float32, pre_norm)
     ks, n = qt.k_stored, qt.qweight.shape[1]
     x = torch.from_numpy(_x((m, qt.shape[0]), seed=2))
     _launch(qt, x.to(torch.bfloat16), pre_norm)
     (lib_name, symbol, args), = card_free_launch.calls
-    if routed:
-        layout = "lut8_bf16" if lut else "byte_bf16"
-        assert dm.BF16_MMA[name] == layout and (lib_name, symbol) == (name, f"iwoq_{name}_mma")
-        kc, splits = dm.plan_slab_splits(m, n, ks, layout, 132)
-        assert args[1:6] == (ks, 0, qt.shape[0], int(pre_norm is not None), pre_norm or 0.0)
-        assert (args[13] is None) == (pre_norm is None)  # the row pass's copy
-        fmt = qt.spec.float_format if lut else None
-        assert args[19:25] == (ks, dm._group_size(qt, qt.scales.shape[0]), kc, splits,
-                               fmt.exp_bits if lut else 0, fmt.mant_bits if lut else 0)
-        assert (args[10] is None) == (qt.zeros is None)
-    else:
-        assert (lib_name, symbol) == (dm.W8_PRENORM, "iwoq_w8_matmul_prenorm")
+    layout = "lut8_bf16" if lut else "byte_bf16"
+    assert dm.BF16_MMA[name] == layout and (lib_name, symbol) == (name, f"iwoq_{name}_mma")
+    kc, splits = dm.plan_slab_splits(m, n, ks, layout, 132)
+    assert args[1:6] == (ks, 0, qt.shape[0], int(pre_norm is not None), pre_norm or 0.0)
+    assert (args[13] is None) == (pre_norm is None or not lut)  # the row pass's copy
+    fmt = qt.spec.float_format if lut else None
+    assert args[19:25] == (ks, dm._group_size(qt, qt.scales.shape[0]), kc, splits,
+                           fmt.exp_bits if lut else 0, fmt.mant_bits if lut else 0)
+    assert (args[10] is None) == (qt.zeros is None)
     card_free_launch.calls.clear()
     if lut and pre_norm is not None:  # f32 x: normalized in torch first (no kernel takes it)
         _launch(qt, dm._rms_nogamma(x, pre_norm))
@@ -383,18 +416,22 @@ def test_bf16_byte_calls_take_their_route_and_f32_the_cuda_core_kernel(card_free
     assert dm.LAUNCHES[name] == 2 == sum(dm.LAUNCHES.values())
 
 
+def _stacked(qts):
+    """Layer-stacked artifact of ``qts``, side info padded by 2 rows."""
+    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 2))  # noqa: E731
+    return qts[0].replace(qweight=torch.stack([q.qweight for q in qts]),
+                          scales=torch.stack([pad(q.scales) for q in qts]),
+                          zeros=torch.stack([pad(q.zeros) if q.zeros.shape[0] > 1 else q.zeros
+                                             for q in qts]), side_pad=2)
+
+
 @pytest.mark.parametrize("case", ["w8_g128_asym", "fp8_e4m3_perchannel_asym"])
 def test_stacked_byte_calls_take_the_route_at_their_layer(card_free_launch, case):
     """A layer-stacked artifact (side info padded by 2 rows): the route
     reads layer 1's weights and sides in place."""
-    qts = [_quantized(case, seed=i) for i in range(2)]
-    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 2))  # noqa: E731
-    st = qts[0].replace(qweight=torch.stack([q.qweight for q in qts]),
-                        scales=torch.stack([pad(q.scales) for q in qts]),
-                        zeros=torch.stack([pad(q.zeros) if q.zeros.shape[0] > 1 else q.zeros
-                                           for q in qts]), side_pad=2)
+    st = _stacked([_quantized(case, seed=i) for i in range(2)])
     assert dm.kernel_supported_stacked(st) and dm.bf16_mma_route(st, torch.bfloat16)
-    x = torch.from_numpy(_x((8, qts[0].shape[0]), seed=3)).to(torch.bfloat16)
+    x = torch.from_numpy(_x((8, st.shape[0]), seed=3)).to(torch.bfloat16)
     _launch(st, x, layer=1)
     (name, symbol, args), = card_free_launch.calls
     assert symbol == f"iwoq_{dm.kernel_name(st)}_mma"
@@ -413,6 +450,51 @@ def test_unaligned_x_is_copied_raw(card_free_launch):
         _launch(qt, x)
     for _, symbol, args in card_free_launch.calls:
         assert symbol.endswith("_mma") and args[2:5] == (1, 1024, 0) and args[13] is not None
+
+
+@pytest.mark.parametrize("layer", [None, 1], ids=["flat", "stacked"])
+@pytest.mark.parametrize("m", [1, 8, 64, 256])
+def test_bf16_w8_prenorm_calls_take_the_route_with_the_epilogue_norm(card_free_launch,
+                                                                    monkeypatch, m, layer):
+    """bf16 ``w8_matmul_prenorm``, flat and stacked at its layer:
+    ``iwoq_w8_matmul_prenorm_mma`` on the byte_bf16 plan, norm 1, no copy
+    of x, and ``ws`` of ``splits*M*N`` partials then ``splits*M`` sums of
+    x^2; an unaligned x is copied raw (norm 1 still); f32 x takes
+    ``iwoq_w8_matmul_prenorm``.  Each counts as one ``w8_matmul_prenorm``
+    launch."""
+    sizes = []
+    real = torch.empty
+
+    def empty(*a, **kw):  # the f32 scratch the wrapper allocates: ws
+        t = real(*a, **kw)
+        if kw.get("dtype") == torch.float32 and t.dim() == 1:
+            sizes.append(t.numel())
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    qts = [_quantized("w8_g128_asym", seed=i) for i in range(2)]
+    qt = qts[0] if layer is None else _stacked(qts)
+    ks, n = qts[0].k_stored, qts[0].qweight.shape[1]
+    x = torch.from_numpy(_x((m, ks), seed=6)).to(torch.bfloat16)
+    _launch(qt, x, EPS, layer)
+    (name, symbol, args), = card_free_launch.calls
+    kc, splits = dm.plan_slab_splits(m, n, ks, "byte_bf16", 132)
+    assert (name, symbol) == (dm.W8_PRENORM, "iwoq_w8_matmul_prenorm_mma")
+    assert args[1:6] == (ks, 0, ks, 1, EPS) and args[13] is None
+    assert args[19:25] == (ks, 128, kc, splits, 0, 0)
+    assert sizes == [splits * m * n + splits * m]
+    if layer is not None:
+        assert args[6] == qt.qweight[1].data_ptr() and args[7] == qt.scales[1].data_ptr()
+    xu = real((m * ks + 1,), dtype=torch.bfloat16)[1:].view(m, ks)
+    xu.copy_(x)
+    assert dm.x_needs_copy(xu, ks)
+    _launch(qt, xu, EPS, layer)
+    assert card_free_launch.calls[-1][1] == "iwoq_w8_matmul_prenorm_mma"
+    assert card_free_launch.calls[-1][2][2:5] == (1, ks, 1)  # copied, raw
+    assert card_free_launch.calls[-1][2][13] is not None
+    _launch(qt, x.float(), EPS, layer)
+    assert card_free_launch.calls[-1][1] == "iwoq_w8_matmul_prenorm"
+    assert dm.LAUNCHES[dm.W8_PRENORM] == 3 == sum(dm.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("bits", [6, 8])

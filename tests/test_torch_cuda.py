@@ -15,13 +15,14 @@ info, which the TPU kernel refuses, included); the int-activation row pass
 must give the plain version's codes bit for bit.  The LUT (minifloat)
 kernels run the nib4 (fp4), nq42 (fp6; K/4 a multiple of the group) and
 byte (fp8, byte-per-code fp6) layouts with and without zero points, fp4
-and fp6 E2M3 also under A16; every A16 kernel runs on the tensor-core slab
-kernel (``-k slab``: token tiles, ragged groups, side layouts, stacked
-calls, unaligned x), and the bf16-x calls of ``lut4``, ``lut6``, ``lut8``,
-``w3``, ``w4``, ``w4_prenorm`` and ``w8`` on its bf16 family (``-k mma``:
-the W4, W8 and fp8 routes also at the five LLaMA-2-7B shapes, the W4 row
-factor with one split and with a K-split, every byte of the byte layouts
-decoded exactly); BFP artifacts run on the W4 and W8 kernels;
+and fp6 E2M3 also under A16; every A16 kernel and ``w4a8`` (one plane) run
+on the tensor-core slab kernel (``-k slab``: token tiles, ragged groups,
+side layouts, stacked calls, unaligned x, the row pass), and the bf16-x
+calls of ``lut4``, ``lut6``, ``lut8``, ``w3``, ``w4``, ``w4_prenorm``,
+``w8`` and ``w8_prenorm`` on its bf16 family (``-k mma``: the W4, W8 and
+fp8 routes also at the five LLaMA-2-7B shapes, the W4 and W8 row factors
+with one split and with a K-split, every byte of the byte layouts decoded
+exactly); BFP artifacts run on the W4 and W8 kernels;
 card-built fp/bfp artifacts must equal CPU-built ones byte for byte.  The
 W4 inner-loop probe kernel runs both its decodes on the W4 shapes.
 Artifacts the JAX package computes on its XLA path take the route
@@ -651,15 +652,16 @@ SLAB_SIDES = {  # the side layouts of the earlier kernel tests
 }
 
 
-def _slab_call(dev, case, m, dtype, pre_norm=None, seed=3):
+def _slab_call(dev, case, m, dtype, pre_norm=None, seed=3, abits=16):
     name, spec, k, n, kw = case
     qt = _artifact(dev, k, n, spec, seed=seed, **kw)
-    assert dm.kernel_supported(qt, 16) and dm.kernel_name(qt, pre_norm, 16) == name
+    assert dm.kernel_supported(qt, abits) and dm.kernel_name(qt, pre_norm, abits) == name
+    assert name in dm.SLAB_MMA
     x = _x(dev, (m, k), dtype) * 3
     dm.reset_counts()
-    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm, activation_bits=16)
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm, activation_bits=abits)
     assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
-    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm, activation_bits=16), dtype)
+    _close_a(y, dm.dequant_matmul_plain(x, qt, pre_norm, activation_bits=abits), dtype)
 
 
 @pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
@@ -738,6 +740,74 @@ def test_slab_row_pass_codes_and_sums_are_bit_equal_to_plain(dev, slabs, kb, g, 
     padded = torch.nn.functional.pad(want, (0, 8))
     if pre_norm is None:
         assert torch.equal(sums.long(), dm.activation_group_sums(padded, g))
+
+
+# ------------------------------- w4a8 on the int8 slab kernel, one plane
+
+# (kernel, spec, K, N, quantize_tensor kwargs): the main-path group, and the
+# affine nib4 artifacts of the A16 slab tests (ragged groups and slabs, K
+# halves straddled, N padding and 4-byte copies, K padding, BFP4, side
+# layouts), now under A8
+SLAB_A8 = {"w4a8": (dm.W4A8, SPECS["g128_asym"], 1024, 256, {}),
+           **{c.replace("w4_", "w4a8_").replace("bfp4_", "bfp4a8_"): (dm.W4A8, *v[1:])
+              for c, v in {**SLAB_RAGGED, **SLAB_SIDES}.items() if v[0] == dm.W4A16}}
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 512])
+def test_slab_a8_kernel_matches_plain_token_tiles(dev, m, dtype, pre_norm):
+    """``w4a8``: the decode tile, the wide tiles, one and several K-splits,
+    the pre-norm in the row pass, against the plain version."""
+    _slab_call(dev, SLAB_A8["w4a8"], m, dtype, pre_norm, abits=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [3, 8, 40])
+@pytest.mark.parametrize("case", [c for c in SLAB_A8 if c != "w4a8"])
+def test_slab_a8_kernel_takes_ragged_groups_and_side_layouts(dev, case, m, dtype):
+    _slab_call(dev, SLAB_A8[case], m, dtype, abits=8)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_slab_a8_stacked_kernel_reads_layer_2_of_3_and_unaligned_x(dev, m):
+    name, spec, k, n, _ = SLAB_A8["w4a8"]
+    qts = [_artifact(dev, k, n, spec, seed=20 + i) for i in range(3)]
+    st = _stacked(qts)
+    assert dm.kernel_supported_stacked(st, 8)
+    x = _x(dev, (m, k), torch.float32)
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul_stacked(x, st, 2, activation_bits=8)
+    assert dm.LAUNCHES[name] == 1
+    _close_a(y, dm.dequant_matmul_plain(x, qts[2], activation_bits=8), torch.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        xu = torch.empty((m * k + 1,), dtype=dtype, device=dev)[1:].view(m, k)
+        xu.copy_(x * 3)
+        y = dm.fused_quantized_matmul(xu, qts[0], pre_norm=EPS, activation_bits=8)
+        _close_a(y, dm.dequant_matmul_plain(xu, qts[0], EPS, activation_bits=8), dtype)
+
+
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slabs,kb,g", [(2, 704, 64), (2, 2048, 128), (2, 544, 544),
+                                        (1, 1024, 128), (8, 136, 136)])
+def test_slab_a8_row_pass_codes_and_sums_are_bit_equal_to_plain(dev, slabs, kb, g, dtype,
+                                                                pre_norm):
+    """The one-plane row pass: codes and row scales bit-equal to
+    ``quantize_activations(x, 8)`` (of the normalized x under pre_norm), K
+    padding zero, and its per-group sums (the plain sums of the codes)
+    equal to ``activation_group_sums`` of the one plane."""
+    k = slabs * kb - 8
+    x = _x(dev, (9, k), dtype) * 3
+    x[4] = 0
+    planes, sx, sums = dm.quantize_activations_slab_kernel(x, slabs, kb, g, pre_norm, bits=8)
+    assert planes.shape == (1, 9, slabs * kb)
+    xn = x if pre_norm is None else qmatmul._rms_nogamma(x, pre_norm)
+    want, want_sx = dm.quantize_activations(xn, 8)
+    if pre_norm is None:  # the plain norm reduces in another order
+        assert torch.equal(planes[..., :k], want) and torch.equal(sx, want_sx)
+    assert not planes[..., k:].any()
+    assert torch.equal(sums.long(), dm.activation_group_sums(planes, g))
 
 
 # ------------------------------- bf16-x LUT calls on the bf16 tensor cores
@@ -1028,11 +1098,12 @@ def test_w4_mma_copies_x_it_cannot_read_in_place(dev, case, m, pre_norm):
 
 # ------------- bf16-x W8 and lut8 calls on the bf16 tensor cores (byte layouts)
 
-# (spec, K, N, quantize_tensor kwargs) of the bf16 routes of w8_matmul (the
-# affine byte case kByteB of the bf16 family) and lut8_matmul (the byte LUT
-# case kLut8B): the five LLaMA-2-7B shapes (N padded to 512; lut8's qkv and
-# gate_up with the pre-norm in the row pass, w8's flat: its pre-norm calls
-# are w8_matmul_prenorm, on the CUDA cores), the side layouts, and the
+# (spec, K, N, quantize_tensor kwargs) of the bf16 routes of w8_matmul and
+# w8_matmul_prenorm (the affine byte case kByteB of the bf16 family, the
+# prenorm form's row factor in its epilogue) and lut8_matmul (the byte LUT
+# case kLut8B): the five LLaMA-2-7B shapes (N padded to 512; qkv and
+# gate_up with the pre-norm: lut8's in the row pass, w8's the prenorm
+# kernel), the side layouts, and the
 # ragged cases: per-channel K = 1088 (the range ends inside a window, a part
 # or a K-split cuts a group), groups of 16 rows (two a window), N = 300
 # stored as 512 (n_pad) and as 300 (4-byte weight copies), K padding, BFP8,
@@ -1068,10 +1139,9 @@ BYTE_MMA_CASES = {
 
 
 def _byte_mma_check(dev, case, m, pre_norm, x=None, layer=None):
-    """One bf16-x call of a byte artifact: on the route (``_lut_mma_call``)
-    where its kernel is ``w8_matmul`` or ``lut8_matmul``; a W8 pre-norm call
-    is one launch of ``w8_matmul_prenorm`` (CUDA cores); against the plain
-    version.  Returns the artifact(s) and x."""
+    """One bf16-x call of a byte artifact on the route (``_lut_mma_call``:
+    one launch of ``w8_matmul``, ``w8_matmul_prenorm`` or ``lut8_matmul``)
+    against the plain version.  Returns the artifact(s) and x."""
     spec, k, n, kw = case
     qts = [_artifact(dev, k, n, spec, seed=60 + i, **kw) for i in range(3 if layer else 1)]
     qt = _stacked(qts) if layer else qts[0]
@@ -1079,14 +1149,7 @@ def _byte_mma_check(dev, case, m, pre_norm, x=None, layer=None):
         x = _x(dev, (m, k), torch.bfloat16) * 3
     name = dm.kernel_name(qt, pre_norm)
     assert dm.packed_bits(qt) == 8 and name in (dm.W8, dm.W8_PRENORM, dm.LUT8)
-    if name == dm.W8_PRENORM:
-        assert not dm.bf16_mma_route(qt, torch.bfloat16, pre_norm)
-        dm.reset_counts()
-        y = (dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm) if layer is None else
-             dm.fused_quantized_matmul_stacked(x, qt, layer, pre_norm=pre_norm))
-        assert dm.LAUNCHES == {**{k_: 0 for k_ in dm.LAUNCHES}, name: 1}
-    else:
-        y = _lut_mma_call(dev, qt, x, pre_norm, layer)
+    y = _lut_mma_call(dev, qt, x, pre_norm, layer)
     _close_a(y, dm.dequant_matmul_plain(x, qts[-1], pre_norm), torch.bfloat16)
     return qt, x
 
@@ -1094,11 +1157,11 @@ def _byte_mma_check(dev, case, m, pre_norm, x=None, layer=None):
 @pytest.mark.parametrize("m", [1, 8, 64, 256])
 @pytest.mark.parametrize("case", list(BYTE_MMA_7B))
 def test_byte_mma_route_matches_plain_7b_shapes(dev, case, m):
-    """The main paths' five shapes at decode and prefill row counts: W8
-    flat (its qkv and gate_up calls are the prenorm kernel's), fp8 qkv and
-    gate_up with the pre-norm in the route's row pass."""
-    lut = case.startswith("fp8")
-    pre_norm = EPS if lut and case.endswith(("_qkv", "_gate_up")) else None
+    """The main paths' five shapes at decode and prefill row counts, qkv
+    and gate_up with the pre-norm as the main paths call them: W8's on the
+    prenorm kernel (its row factor in the epilogue), fp8's in the route's
+    row pass."""
+    pre_norm = EPS if case.endswith(("_qkv", "_gate_up")) else None
     _byte_mma_check(dev, BYTE_MMA_7B[case], m, pre_norm)
 
 
@@ -1116,6 +1179,17 @@ def test_byte_mma_route_matches_plain(dev, case, m, pre_norm):
         y = dm.fused_quantized_matmul(xf, qt, pre_norm=pre_norm)
         assert dm.LAUNCHES[dm.kernel_name(qt, pre_norm)] == 1 == sum(dm.LAUNCHES.values())
         _close(y, dm.dequant_matmul_plain(xf, qt, pre_norm), torch.float32)
+
+
+@pytest.mark.parametrize("m,k,n,one_split", [(256, 4096, 12288, True), (8, 1024, 256, False),
+                                             (8, 4096, 32256, True), (64, 4096, 4096, False)])
+def test_w8_mma_prenorm_with_one_split_and_with_a_k_split(dev, m, k, n, one_split):
+    """The W8 row factor where the output is formed: in the product
+    kernel's epilogue with one split, in the reduce (from the splits' sums
+    of x^2) with a K-split."""
+    splits = dm.plan_slab_splits(m, n, k, "byte_bf16", dm._sm_count(dev))[1]
+    assert (splits == 1) == one_split
+    _byte_mma_check(dev, (W8_SPEC, k, n, {}), m, EPS)
 
 
 @pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])

@@ -91,18 +91,19 @@ def test_bf16_x_takes_the_mma_route_and_f32_x_the_cuda_core_kernel(case):
 
 def test_the_route_keeps_the_kernels_names_and_leaves_other_layouts():
     """No new launch counter; fp8 (the byte layout) takes the route under
-    its kernel's name, as does ``w8_matmul`` but not ``w8_matmul_prenorm``
+    its kernel's name, as do ``w8_matmul`` and ``w8_matmul_prenorm``
     (tests/test_torch_byte_mma.py); the A16 kernels and a nib4 artifact
     whose K/2 slab rows are no multiple of 4 stay off it (which also takes
     the s21 kernel, tests/test_torch_w4a16_w3_mma.py, and the two affine
     nib4 kernels, tests/test_torch_w4_mma.py)."""
     assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.LUT8, dm.W3, dm.W4, dm.W4_PRENORM,
-                                dm.W8} <= set(dm.LAUNCHES)
+                                dm.W8, dm.W8_PRENORM} <= set(dm.LAUNCHES)
     assert set(dm.LAUNCHES) == set(dm.PLAIN_CALLS)
     assert len(dm.LAUNCHES) == 18  # sixteen serving kernels, the probe's two modes
     fp8 = _port(fp_spec("fp8", 4, 3, group_size=128), 512)
     assert dm.kernel_name(fp8) == dm.LUT8 and dm.bf16_mma_route(fp8, torch.bfloat16)
-    assert dm.BF16_MMA[dm.LUT8] == "lut8_bf16" and dm.W8_PRENORM not in dm.BF16_MMA
+    assert dm.BF16_MMA[dm.LUT8] == "lut8_bf16"
+    assert dm.BF16_MMA[dm.W8_PRENORM] == dm.BF16_MMA[dm.W8] == "byte_bf16"
     ragged = _port(fp_spec("fp4", 2, 1, group_size=PER_CHANNEL), 1090)
     assert dm.kernel_supported(ragged) and dm.kernel_name(ragged) == dm.LUT4
     assert not dm.bf16_mma_route(ragged, torch.bfloat16)  # K/2 = 545 rows

@@ -97,6 +97,8 @@ template <int L> void layout() {
   tile<L, 1>();
   tile<L, slab_tile_nt(9, L)>();
   for (int m : {%ROWS%}) std::printf(" %d", slab_tile_nt(m, L));
+  tile<L, slab_tile_nt(9, L, 1)>();  // one activation plane (A8)
+  for (int m : {%ROWS%}) std::printf(" %d", slab_tile_nt(m, L, 1));
   std::printf("\n");
 }
 int main() {
@@ -109,8 +111,9 @@ int main() {
 
 @pytest.fixture(scope="module")
 def cuda_tiles(tmp_path_factory):
-    """{layout id: (slabs, decode tile, wide tile, NT per row count)} as the
-    C++ header computes them, each tile (tokens, channels, parts, NT)."""
+    """{layout id: (slabs, decode tile, wide tile, NT per row count, the
+    one-plane wide tile, its NT per row count)} as the C++ header computes
+    them, each tile (tokens, channels, parts, NT)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     assert cxx, "a host C++ compiler is needed to read csrc/slab_tile.cuh"
     d = tmp_path_factory.mktemp("slab_tile")
@@ -123,40 +126,53 @@ def cuda_tiles(tmp_path_factory):
     out = subprocess.run([str(exe)], check=True, capture_output=True, text=True,
                          timeout=60).stdout
     tiles = {}
+    n = len(ROWS)
     for line in out.splitlines():
         v = [int(t) for t in line.split()]
-        assert v[1] == v[6]  # one slab count a layout
-        tiles[v[0]] = (v[1], tuple(v[2:6]), tuple(v[7:11]), tuple(v[11:]))
+        a8 = 11 + n  # the one-plane wide tile's fields
+        assert v[1] == v[6] == v[a8] and len(v) == a8 + 5 + n  # one slab count a layout
+        tiles[v[0]] = (v[1], tuple(v[2:6]), tuple(v[7:11]), tuple(v[11:a8]),
+                       tuple(v[a8 + 1:a8 + 5]), tuple(v[a8 + 5:]))
     return tiles
 
 
 @pytest.mark.parametrize("layout", list(dm.SLAB_TILES))
 def test_python_tiles_equal_the_cuda_tiles(cuda_tiles, layout):
     """SLAB_TILES holds SlabTile's S and its (MT, BN, P) at NT = 1 and at
-    the wide NT, and :func:`slab_tile` picks the tile slab_tile_nt picks at
-    every row count, for every layout of the Layout enum."""
+    the wide NT, SLAB_TILES_A8 the one-plane wide tile where slab_tile_nt
+    gives one plane another NT, and :func:`slab_tile` picks the tile
+    slab_tile_nt picks at every row count, with two planes and with one,
+    for every layout of the Layout enum."""
     assert sorted(dm.SLAB_LAYOUT_IDS.values()) == sorted(cuda_tiles) == list(range(11))
-    slabs, decode, wide, nts = cuda_tiles[dm.SLAB_LAYOUT_IDS[layout]]
+    slabs, decode, wide, nts, wide_a8, nts_a8 = cuda_tiles[dm.SLAB_LAYOUT_IDS[layout]]
     assert dm.SLAB_TILES[layout] == (slabs, decode[:3], wide[:3])
     assert decode[3] == 1 and decode[0] == 8
-    for m, nt in zip(ROWS, nts):
-        assert dm.slab_tile(m, layout) == (decode if nt == 1 else wide)[:3]
-        assert dm.slab_tile(m, layout)[0] == 8 * nt
+    assert (layout in dm.SLAB_TILES_A8) == (wide_a8 != wide)
+    assert dm.SLAB_TILES_A8.get(layout, wide[:3]) == wide_a8[:3]
+    for planes, wide_p, nts_p in ((2, wide, nts), (1, wide_a8, nts_a8)):
+        for m, nt in zip(ROWS, nts_p):
+            assert dm.slab_tile(m, layout, planes) == (decode if nt == 1 else wide_p)[:3]
+            assert dm.slab_tile(m, layout, planes)[0] == 8 * nt
 
 
 def test_every_slab_kernel_has_its_layout():
-    """The A16 kernels and the bf16 route name a layout each, but the two
-    affine nib4 kernels of the bf16 route (``w4_matmul`` and its prenorm
-    form), which share one; the nib4 packing is shared by the affine and LUT
-    layouts of each family, and the byte packing by the bf16 family's
-    affine and LUT layouts, with the same tiles."""
-    assert set(dm.SLAB_MMA) == {dm.W4A16, dm.W8A16, dm.W3A16, dm.LUT4A16, dm.LUT6A16}
+    """The slab kernels and the bf16 route name a layout each, but for
+    three pairs that share one: ``w4a8`` (one plane) and ``w4a16`` (two) on
+    the affine nib4 layout of the int8 family, and each prenorm kernel of
+    the bf16 route with its flat kernel (``w4_matmul``, ``w8_matmul``); the
+    nib4 packing is shared by the affine and LUT layouts of each family,
+    and the byte packing by the bf16 family's affine and LUT layouts, with
+    the same tiles."""
+    assert set(dm.SLAB_MMA) == {dm.W4A16, dm.W8A16, dm.W3A16, dm.LUT4A16, dm.LUT6A16,
+                                dm.W4A8}
     assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.LUT8, dm.W3, dm.W4, dm.W4_PRENORM,
-                                dm.W8}
+                                dm.W8, dm.W8_PRENORM}
+    assert dm.SLAB_MMA[dm.W4A8] == dm.SLAB_MMA[dm.W4A16] == "nib4"
     assert dm.BF16_MMA[dm.W4] == dm.BF16_MMA[dm.W4_PRENORM] == "nib4_bf16"
+    assert dm.BF16_MMA[dm.W8] == dm.BF16_MMA[dm.W8_PRENORM] == "byte_bf16"
     layouts = list(dm.SLAB_MMA.values()) + list(dm.BF16_MMA.values())
     assert sorted(set(layouts)) == sorted(dm.SLAB_TILES)
-    assert len(set(layouts)) == len(layouts) - 1
+    assert len(set(layouts)) == len(layouts) - 3
     assert dm.SLAB_TILES["nib4"] == dm.SLAB_TILES["lut4"]  # the same packing and tiles
     assert dm.SLAB_TILES["nib4_bf16"] == dm.SLAB_TILES["lut4_bf16"]
     assert dm.SLAB_TILES["byte_bf16"] == dm.SLAB_TILES["lut8_bf16"]
@@ -407,7 +423,7 @@ def test_w4a16_launches_the_slab_kernel(card_free_launch, monkeypatch, m, k):
     g = 128 if kp % 128 == 0 else 64
     kc, splits = dm.plan_slab_splits(m, 256, kp, "nib4", 132)
     assert args[2:4] == (k, 1) and args[19:23] == (kp, g, kc, splits)
-    assert scratch == [(m, kp, "nib4", g, True)]
+    assert scratch == [(m, kp, "nib4", g, True, 2)]  # two planes
     assert kc % (dm.SLAB_WINDOW * 2) == 0 and kc * splits >= kp > kc * (splits - 1)
     assert dm.LAUNCHES[dm.W4A16] == 1 == sum(dm.LAUNCHES.values())
 
