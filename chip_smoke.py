@@ -71,20 +71,23 @@ models, whose kernels those paths do not carry but which add time, run
    quantizing, as the main path calls them), timed at M=8 and M=256 as in
    phase 2, untimed at the other main-path row counts; per kernel also a
    layer-stacked call, a ``k_pad`` artifact, a per-channel symmetric one
-   and an f32 x; and the row passes' int8 planes and row scales bit-equal
-   to the plain ``quantize_activations`` on the card (the ``__dp4a``
-   kernels' and the slab kernel's, one plane and two, its group sums
-   too).  ``w4a8_matmul`` runs as the one-plane (A8) mode of the
-   tensor-core slab kernel (affine nib4), ``w8a8_matmul`` on ``__dp4a``.
-   Then
-   ``w8a16_matmul`` (the byte case of the tensor-core slab kernel,
-   ``csrc/wa_slab_mma.cuh``) on a per-channel asymmetric K=1088 artifact
+   and an f32 x; and the slab kernel's row pass (its int8 planes, row
+   scales and group sums) bit-equal to the plain ``quantize_activations``
+   and ``activation_group_sums`` on the card, in its byte, nib4 and s21
+   layouts (one, two and eight slabs), one plane and two; with the norm,
+   its sums equal those of its own planes and its codes and scales stay
+   within one code and one step of x's type of the plain version's (the
+   norm's sum of squares is reduced in another order).  ``w4a8_matmul`` and
+   ``w8a8_matmul`` run as the one-plane (A8) mode of the tensor-core slab
+   kernel (``csrc/wa_slab_mma.cuh``; affine nib4, byte), ``w4a16_matmul``
+   and ``w8a16_matmul`` as its two-plane (A16) mode.  Then
+   ``w8a16_matmul`` on a per-channel asymmetric K=1088 artifact
    (the last of its range's four parts ends early) and groups of 16, at
    M=8 and 64, bf16 and f32 x, and its SASS counts and registers as in
-   phase 12; and ``w4a16_matmul`` (the affine nib4 case of the same
-   kernel) likewise, with a K=1408 g128 artifact (groups straddle the K
-   halves: split in two per call), and ``w4a8_matmul`` on the same three
-   artifacts (SASS: IMMA, no IDP in its product kernels).
+   phase 12, and ``w8a8_matmul`` on the same two artifacts; and
+   ``w4a16_matmul`` likewise, with a K=1408 g128 artifact (groups straddle
+   the K halves: split in two per call), and ``w4a8_matmul`` on the same
+   three artifacts (SASS: IMMA, no IDP in every product kernel).
 9. Two-layer logits with activation bits: phase 3 under A8 and A16, W4
    and W8.
 10. W4 A-serve: the 32-layer W4 model of phase 4, ``serve`` of phase 7's
@@ -103,12 +106,13 @@ models, whose kernels those paths do not carry but which add time, run
     pass of the bf16 route of ``w3_matmul`` and of the A-kernels); per kernel also
     an f32 x, g128 symmetric, per-channel asymmetric and per-tensor
     symmetric artifacts, and a layer-stacked call (layer 2 of 3, side info
-    padded by 2 rows).  Then ``w3a16_matmul`` (the tensor-core slab kernel
-    of ``csrc/wa_slab_mma.cuh``) on a per-channel K=1088 artifact (K/8 = 136
-    slab rows, no multiple of its 32-row window) and groups of 16, at M=8
-    and 64, bf16 and f32 x; the static SASS counts of its kernels (IMMA, no
-    IDP in the product kernels, else the phase fails) and their
-    ``-Xptxas -v`` registers, spills and shared memory.  The bf16-x calls
+    padded by 2 rows).  Then ``w3a16_matmul`` and ``w3a8_matmul`` (the s21
+    case of the tensor-core slab kernel of ``csrc/wa_slab_mma.cuh``, two
+    planes and one) on a per-channel K=1088 artifact (K/8 = 136 slab rows,
+    no multiple of its 32-row window) and groups of 16, at M=8 and 64, bf16
+    and f32 x; the static SASS counts of their kernels (IMMA, no IDP in the
+    product kernels, else the phase fails) and their ``-Xptxas -v``
+    registers, spills and shared memory.  The bf16-x calls
     of ``w3_matmul`` run on the bf16 tensor cores (the s21 case of the bf16
     family of ``csrc/wa_slab_mma.cuh``; a ``pre_norm`` in its row pass), the
     f32-x call on its CUDA-core kernel; the bf16 route is also checked as
@@ -865,14 +869,18 @@ def a_runner(pre, abits, layer=None):
 
 
 def check_row_pass(torch, gen, device):
-    """The int-activation kernels' row passes against the plain
-    ``quantize_activations`` on the card: int8 planes and f32 row scales
-    bit-equal, at the main path's K (4096, 11008 padded to 11264) and row
-    counts, bf16 and f32 x, with an all-zero row; for the ``__dp4a``
-    kernels' pass (``wa_common.cuh``) and for the slab kernel's in its
-    nib4 layout (two slabs of K/2 rows, groups of 128; A8: one plane, as
-    ``w4a8`` runs it; A16: two, as ``w4a16``), whose group sums must also
-    equal ``activation_group_sums``."""
+    """The slab kernel's row pass against the plain ``quantize_activations``
+    on the card, at the main path's K (4096, 11008 padded to 11264) and row
+    counts, bf16 and f32 x, with an all-zero row, one plane (A8) and two
+    (A16), in the byte (one slab of K rows), nib4 (two of K/2) and s21
+    (eight of K/8) layouts, groups of 128: int8 planes, f32 row scales and
+    group sums bit-equal to the plain version's and its
+    ``activation_group_sums``.  With the norm (``pre_norm``) the pass's sum
+    of squares is reduced in another order than torch's, so its group sums
+    are held to its own planes, and its codes and row scales to within one
+    code and one step of x's type (bf16: 2^-8 relative; f32: 1e-6) of the
+    plain version on the normalized x."""
+    from iron_weight_only_quant_tpu_torch.ops import qmatmul
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     checked = 0
@@ -883,22 +891,41 @@ def check_row_pass(torch, gen, device):
                     x = (torch.randn((m, k), generator=gen, device=device) * 3).to(dtype)
                     x[1] = 0
                     want, want_sx = dm.quantize_activations(x, bits)
-                    planes, sx = dm.quantize_activations_kernel(x, bits, k_stored)
-                    slab, slab_sx, sums = dm.quantize_activations_slab_kernel(
-                        x, 2, k_stored // 2, 128, bits=bits)
-                    torch.cuda.synchronize()
                     padded = torch.nn.functional.pad(want, (0, k_stored - k))
-                    for what, p, s in (("", planes, sx), (" (slab)", slab, slab_sx)):
-                        if not (torch.equal(p[..., :k], want) and torch.equal(s, want_sx)
-                                and not p[..., k:].any()):
-                            fail(f"row pass{what} A{bits} K={k} M={m} {dtype}: codes or row "
-                                 "scales differ from quantize_activations")
-                    if not torch.equal(sums.long(), dm.activation_group_sums(padded, 128)):
-                        fail(f"row pass (slab) A{bits} K={k} M={m} {dtype}: group sums "
-                             "differ from activation_group_sums")
-                    checked += 2
-    print(f"  row pass: int8 planes and row scales bit-equal to the plain version "
-          f"in {checked} calls, the slab pass's group sums equal", flush=True)
+                    want_sums = dm.activation_group_sums(padded, 128)
+                    for slabs in (1, 2, 8):
+                        what = f"row pass A{bits} S={slabs} K={k} M={m} {dtype}"
+                        planes, sx, sums = dm.quantize_activations_slab_kernel(
+                            x, slabs, k_stored // slabs, 128, bits=bits)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(planes[..., :k], want) and torch.equal(sx, want_sx)
+                                and not planes[..., k:].any()):
+                            fail(f"{what}: codes or row scales differ from "
+                                 "quantize_activations")
+                        if not torch.equal(sums.long(), want_sums):
+                            fail(f"{what}: group sums differ from activation_group_sums")
+                        checked += 1
+                    if m != DECODE_M:
+                        continue
+                    xn = qmatmul._rms_nogamma(x, 1e-5)
+                    want, want_sx = dm.quantize_activations(xn, bits)
+                    for slabs in (1, 2, 8):
+                        what = f"row pass with the norm A{bits} S={slabs} K={k} {dtype}"
+                        planes, sx, sums = dm.quantize_activations_slab_kernel(
+                            x, slabs, k_stored // slabs, 128, 1e-5, bits=bits)
+                        torch.cuda.synchronize()
+                        code_gap = (planes[..., :k].int() - want.int()).abs().max().item()
+                        sx_gap = ((sx - want_sx).abs() / want_sx).max().item()
+                        sx_tol = 2.0**-8 if dtype == torch.bfloat16 else 1e-6
+                        if code_gap > 1 or sx_gap > sx_tol or planes[..., k:].any():
+                            fail(f"{what}: codes {code_gap} or row scales {sx_gap:.2e} off "
+                                 "the plain version's")
+                        if not torch.equal(sums.long(), dm.activation_group_sums(planes, 128)):
+                            fail(f"{what}: group sums differ from those of its planes")
+                        checked += 1
+    print(f"  row pass: int8 planes, row scales and group sums bit-equal to the plain "
+          f"version in {checked} calls (S = 1, 2, 8; one plane and two; the normed calls "
+          "within one code)", flush=True)
     return checked
 
 
@@ -1030,7 +1057,7 @@ def slab_kernel_report(name):
     """The static SASS counts (``build.sass``, counted by the probe's
     ``sass_counts``) and the ``-Xptxas -v`` registers, spills and shared
     memory of the slab kernels (``csrc/wa_slab_mma.cuh``) of a library: the
-    A16 slab kernels and ``w4a8`` (one plane: "A8"), or the bf16 route of
+    A16 slab kernels and the A8 ones (one plane: "A8"), or the bf16 route of
     ``lut4_matmul``, ``lut6_matmul``, ``lut8_matmul``, ``w3_matmul``,
     ``w4_matmul``, ``w4_matmul_prenorm``, ``w8_matmul`` and
     ``w8_matmul_prenorm`` (the prenorm forms' epilogue norm: "norm"); fails
@@ -1658,6 +1685,13 @@ def main() -> int:
                                             symmetric=False), 1088),
         "g16_asym": (QuantSpec(fmt="int", bits=8, group_size=16, symmetric=False), 4096)}, 13)
     slab_kernel_report(dm.W8A16)
+    print("  -- w8a8 (one plane): as w8a16; SASS and registers", flush=True)
+    check_slab_ragged(torch, device, {
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=8, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=8, group_size=16, symmetric=False), 4096)}, 25,
+        abits=8)
+    slab_kernel_report(dm.W8A8)
     print("  -- w4a16: ranges whose last part ends early, groups off the 32-row window, "
           "groups straddling the K halves; SASS and registers", flush=True)
     check_slab_ragged(torch, device, {
@@ -1701,6 +1735,13 @@ def main() -> int:
                                             symmetric=False), 1088),
         "g16_asym": (QuantSpec(fmt="int", bits=3, group_size=16, symmetric=False), 4096)}, 11)
     slab_kernel_report(dm.W3A16)
+    print("  -- w3a8 (one plane): as w3a16; SASS and registers", flush=True)
+    check_slab_ragged(torch, device, {
+        "perchannel_asym_k1088": (QuantSpec(fmt="int", bits=3, group_size=PER_CHANNEL,
+                                            symmetric=False), 1088),
+        "g16_asym": (QuantSpec(fmt="int", bits=3, group_size=16, symmetric=False), 4096)}, 26,
+        abits=8)
+    slab_kernel_report(dm.W3A8)
     print("  -- w3 bf16 route: groups and slabs off the 32-row window, x copied; SASS and "
           "registers", flush=True)
     check_bf16_mma_ragged(torch, device, {

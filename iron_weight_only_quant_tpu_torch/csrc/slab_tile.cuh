@@ -82,15 +82,16 @@ struct SlabTile {
 // The token tile NT (8 NT tokens a block) of the slab kernel for M
 // activation rows and `planes` int8 activation planes (A16: 2, A8: 1; the
 // bf16 family: any): the decode tile at M <= 8, else the layout's wide
-// tile.  The affine nib4 layout with one plane (w4a8) takes the 64-token
-// tile: one plane halves its s32 accumulators and B fragments, and on the
-// H100 64 tokens beat 32 at every prefill row count from 64 up, spills and
-// all.
+// tile.  One plane (A8) halves the s32 accumulators and B fragments, so it
+// takes twice the tokens of two: the affine nib4 (w4a8) and byte (w8a8)
+// layouts 64 (on the H100 64 tokens beat 32 at every prefill row count
+// from 64 up, spills and all), s21 (w3a8) 32.
 constexpr int slab_tile_nt(int M, int layout, int planes = 2) {
   return M <= 8 ? 1
-         : layout == kS21 ? 2
+         : layout == kS21 ? (planes == 1 ? 4 : 2)
          : layout == kLut4B || layout == kLut6B || layout == kNib4B || layout == kByteB ||
-                   layout == kLut8B || (layout == kNib4 && planes == 1) ? 8 : 4;
+                   layout == kLut8B || ((layout == kNib4 || layout == kByte) && planes == 1)
+               ? 8 : 4;
 }
 
 }  // namespace iwoq

@@ -16,8 +16,7 @@
 // range split into two parts over its warps; a cp.async ring of weight
 // windows; deterministic K-split) is the affine nib4 case of
 // wa_slab_mma.cuh.  Kp = K/2, the packed rows; xq is the scratch of
-// slab_planes_bytes plus the group sums.  The library also exports the A8/A16
-// row pass alone (iwoq_quantize_rows, wa_common.cuh).
+// slab_planes_bytes plus the group sums.
 #include "wa_slab_mma.cuh"
 
 extern "C" int iwoq_w4a16_matmul(const void* x, int x_bf16, int k_logical, int norm,

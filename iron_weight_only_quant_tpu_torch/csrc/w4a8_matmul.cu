@@ -13,8 +13,8 @@
 // 0xF0F0F0F0 read as int8, 16 q - 128, whose group epilogue takes s / 16
 // and z - 8; products on the int8 tensor cores by mma.sync m16n8k32; the
 // group sums of the codes in the row pass; a cp.async ring; deterministic
-// K-split) with one plane: the row pass writes the A8 codes of
-// wa_common.cuh (sx = max|x| / 127, q = clip(rint(x / sx), +-127)) and their
+// K-split) with one plane: the row pass writes the A8 codes
+// (sx = max|x| / 127, q = clip(rint(x / sx), +-127)) and their
 // plain group sums, and the product kernel stages and multiplies that one
 // plane, part = pa.  Kp = K/2, the packed rows; xq is the scratch of
 // slab_planes_bytes (one plane) plus the group sums.

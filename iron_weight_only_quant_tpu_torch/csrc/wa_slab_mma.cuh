@@ -21,9 +21,13 @@
 //       _lut4_kernel_a16_pfx (:806, through :1927);
 //   _lut6_kernel_a16 (:892) and its stacked form _lut6_kernel_a16_pfx (:934),
 //       both through _call_lut6 (:939);
-//   one plane: _int4_kernel (:319, body :293) with int8 x, the int path of
-//       _group_accum (:226-249), called at :1680, and its stacked form
-//       _int4_kernel_pfx (:1712, through :1927).
+//   one plane, the int path of _group_accum (:226-249) with int8 x:
+//       _int4_kernel (:319, body :293), called at :1680, and its stacked form
+//       _int4_kernel_pfx (:1712, through :1927); _int8_kernel (:1057, body
+//       _int8_body :1040), called at :1700, and its stacked form
+//       _int8_kernel_pfx (:1717, through :1927); _int3_kernel (:467) and its
+//       stacked form _int3_kernel_pfx (:1360), both through _call_int3
+//       (:1365) from :1572 and :1794.
 // All reduce to _group_accum_a16 (:253-286), _lut_accum_a16 (:698) and the
 // int path of _group_accum: per group and plane an int32 product turned
 // f32, part = 256*pa + pb (A8: part = pa, xsum = sum(q)), then
@@ -49,9 +53,16 @@
 //
 // Two or three kernels per call, on one stream:
 //  1. quantize_rows_slab_kernel, one 1024-thread block per activation row:
-//     the codes of wa_common.cuh's row pass (bit-equal to the plain
-//     quantize_activations; optionally after the weightless RMSNorm, whose
-//     sum of squares and the row's absmax come from one pass), written per
+//     the activation codes (the JAX _prep_x :1270-1316, which quantized
+//     them in XLA: A8 sx = max(max|x|, 1e-8) / 127, q = clip(rint(x / sx),
+//     +-127); A16 sx = max(max|x|, 1e-8) / 32512, xi = rint(x / sx), hi =
+//     (xi + 128) >> 8, lo = xi - (hi << 8); IEEE division and rintf, round
+//     half to even as jnp.round, so bit-equal to the plain
+//     quantize_activations; optionally after the weightless RMSNorm, x * 1 /
+//     sqrt(mean(x^2) + eps) over the real columns cast back to x's type, as
+//     fused_quantized_matmul applies a pre-norm under activation bits at
+//     :1518-1522; its sum of squares and the row's absmax come from one
+//     pass), written per
 //     slab with each slab padded to Kb32 = Kb rounded up to 32 rows
 //     ([2][M][S][Kb32], A8 [1][M][S][Kb32], zero beyond Kb and beyond the
 //     logical K); one warp quantizes a group and sums its codes by
@@ -74,8 +85,8 @@
 //     two codes), in the wider tiles two warps a slab.  All warps walk the
 //     windows of their part in step.  Decode (NT = 1): BN = 64 (s21) or
 //     128, two blocks an SM, so that one block's barrier stalls only its
-//     own warps; more rows: NT = 2 (s21) or 4 (affine nib4 with one plane: 8),
-//     BN = 64, one block an SM, so
+//     own warps; more rows: NT = 2 (s21; with one plane 4) or 4 (affine
+//     nib4 and byte with one plane: 8), BN = 64, one block an SM, so
 //     a weight window is decoded ceil(M / MT) times, not M / 8.  A ring of 4
 //     stages in shared memory takes each window by cp.async: 32 rows of the
 //     block's columns of each packed array (s21, nq42: three) or each part
@@ -133,11 +144,10 @@
 // byte a weight) + f32 sides + two int8 planes of x (A8: one) + output over
 // 3.35 TB/s; at prefill the 2 * 2*M*K*N int8 operations (A8: 2*M*K*N) over
 // 1,979 TOP/s.  One plane halves the staged x, the B fragments, the s32
-// accumulators and the MMAs of a window.  The
-// design moves the products from __dp4a (five a code at M = 8, the
-// activation sum among them) to one m16n8k32 per 512 codes and plane, takes
-// the activation sums out of the loop (once per row and group, in the row
-// pass), and keeps the weight bytes in flight by asynchronous copies.  What
+// accumulators and the MMAs of a window.  The design runs one m16n8k32 per
+// 512 codes and plane, takes the activation sums out of the loop (once per
+// row and group, in the row pass), and keeps the weight bytes in flight by
+// asynchronous copies.  What
 // limits it is instruction issue in the decode (nq42 most: about 20 integer
 // operations a word of four codes) and, on small shapes, the fixed cost of
 // two or three kernels a call.
@@ -241,10 +251,29 @@
 //    2*M*K*N over 989 TFLOP/s.
 #pragma once
 
+#include "lut_common.cuh"
 #include "slab_tile.cuh"
-#include "wa_common.cuh"
 
 namespace iwoq {
+
+// v in x's type: unchanged for f32, rounded to nearest even for bf16.
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Four packed rows w[0..3] of four byte columns -> four words, word j
+// holding column j's bytes of rows 0..3 (byte i = row i).
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&c)[4]) {
+  const uint32_t a_lo = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
+  const uint32_t a_hi = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
+  const uint32_t b_lo = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t b_hi = __byte_perm(w[2], w[3], 0x7362);
+  c[0] = __byte_perm(a_lo, b_lo, 0x5410);
+  c[1] = __byte_perm(a_lo, b_lo, 0x7632);
+  c[2] = __byte_perm(a_hi, b_hi, 0x5410);
+  c[3] = __byte_perm(a_hi, b_hi, 0x7632);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -535,10 +564,9 @@ __device__ __forceinline__ float block_reduce_warps(float v, float* red) {
 // rows r < Kb hold K column i*Kb + r, the rest zero) and sx [M] from x [M,
 // ldx], and, if xsum is not null, xsum [M][S*Kb/G], the sum of the group's
 // codes (A16: 256*sum(hi) + sum(lo); A8: sum(q)) per group of G K columns:
-// a warp quantizes a group and sums its codes by shuffles.  The codes are
-// quantize_rows_kernel's: A16 (PLANES = 2) sx = max|x| / 32512, hi and lo
-// of rint(x / sx); A8 (PLANES = 1) sx = max|x| / 127, q = clip(rint(x /
-// sx), +-127).
+// a warp quantizes a group and sums its codes by shuffles.  The codes:
+// A16 (PLANES = 2) sx = max|x| / 32512, hi and lo of rint(x / sx); A8
+// (PLANES = 1) sx = max|x| / 127, q = clip(rint(x / sx), +-127).
 template <typename XT, bool NORM, int PLANES>
 __global__ void __launch_bounds__(kSlabRowThreads)
 quantize_rows_slab_kernel(const XT* __restrict__ x, int ldx, int k_logical, int S, int Kb,

@@ -12,8 +12,8 @@ f32 side info, per storage layout:
   byte (int8, bfp8):  ``csrc/w8_matmul.cu``, ``csrc/w8_matmul_prenorm.cu``
                 (bf16 x: the bf16 family of ``csrc/wa_slab_mma.cuh``; f32
                 x: design notes in ``csrc/w8_common.cuh``),
-                ``csrc/w8a8_matmul.cu`` (``csrc/wa_common.cuh``),
-                ``csrc/w8a16_matmul.cu`` (``csrc/wa_slab_mma.cuh``);
+                ``csrc/w8a8_matmul.cu``, ``csrc/w8a16_matmul.cu``
+                (``csrc/wa_slab_mma.cuh``);
   s21 (3-bit):  ``csrc/w3_matmul.cu`` (bf16 x: the bf16 family of
                 ``csrc/wa_slab_mma.cuh``; f32 x: design notes in
                 ``csrc/w3_common.cuh``), ``csrc/w3a8_matmul.cu``,
@@ -52,13 +52,14 @@ and launch count.
 The ``a8``/``a16`` kernels take ``activation_bits`` 8 or 16: a row pass
 quantizes x to one int8 plane (A8, ``sx = absmax/127``) or two (A16, ``x
 ~= sx*(256*hi + lo)``, ``sx = absmax/32512``), the product runs on integer
-codes, and the f32 result is scaled by the row's ``sx``.  Every A16
-kernel (``w4a16``, ``w8a16``, ``w3a16``, ``lut4a16``, ``lut6a16``) and
-``w4a8`` (one plane) (:data:`SLAB_MMA`) runs its products on the int8
+codes, and the f32 result is scaled by the row's ``sx``.  Every
+int-activation kernel (:data:`SLAB_MMA`: the A16 kernels ``w4a16``,
+``w8a16``, ``w3a16``, ``lut4a16``, ``lut6a16`` with two planes, the A8
+kernels ``w4a8``, ``w8a8``, ``w3a8`` with one) is a layout of the int8
+slab kernel (``csrc/wa_slab_mma.cuh``): it runs its products on the int8
 tensor cores and takes the slab kernel's K-split plan
 (:func:`plan_slab_splits`); its row pass also writes each group's
-activation sum (:func:`activation_group_sums`).  ``w8a8`` and ``w3a8``
-(design notes in ``csrc/wa_common.cuh``) run on ``__dp4a``.
+activation sum (:func:`activation_group_sums`).
 Under activation bits a ``pre_norm`` is applied to x before quantizing (in
 the row pass), as the JAX package does, so no prenorm kernel runs.  LUT
 artifacts take A16 where the format's exact values form an int8 grid (fp4 E2M1 and E1M2: ``lut4a16``; fp6 E2M3 in the nq42
@@ -154,7 +155,7 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
     ctypes.c_int, ctypes.c_float, ctypes.c_void_p,                  # k_logical, eps, stream
 ]
-_ARGTYPES_A = [  # the int-activation kernels (csrc/wa_common.cuh launch_wa)
+_ARGTYPES_A = [  # the int-activation kernels (csrc/wa_slab_mma.cuh launch_wa_slab)
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, x_bf16, k_logical, norm
     ctypes.c_float, ctypes.c_void_p,                                # eps, qw
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # s, s_rs, s_cs
@@ -182,13 +183,8 @@ _ARGTYPES_BF16_MMA = [  # the bf16 route (csrc/wa_slab_mma.cuh launch_bf16_mma)
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,                    # exp_bits, mant_bits, stream
 ]
-_ARGTYPES_A_LUT = _ARGTYPES_A[:-1] + [  # the LUT A16 kernel: launch_wa's, then
+_ARGTYPES_A_LUT = _ARGTYPES_A[:-1] + [  # the LUT A16 kernels: the affine ones', then
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # exp_bits, mant_bits, stream
-_ARGTYPES_ROWS = [  # iwoq_quantize_rows, the row pass alone
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, x_bf16, k_logical, k_stored
-    ctypes.c_int, ctypes.c_int, ctypes.c_float,                     # bits, norm, eps
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # xq, sx, M, stream
-]
 _ARGTYPES_ROWS_SLAB = [  # iwoq_quantize_rows_slab, the slab kernels' row pass alone
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, x_bf16, k_logical, slabs
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # Kb, G, bits
@@ -226,14 +222,16 @@ SLAB_TILES = {
     "lut8_bf16": (1, (8, 128, 4), (64, 256, 1)),
 }
 # The one-plane (A8) wide tile where it is not the layout's wide tile:
-# slab_tile_nt with planes 1 gives the affine nib4 layout (w4a8) the
-# 64-token tile (the same test holds it to csrc/slab_tile.cuh).
-SLAB_TILES_A8 = {"nib4": (64, 64, 2)}
+# slab_tile_nt with planes 1 gives the affine nib4 (w4a8) and byte (w8a8)
+# layouts the 64-token tile and s21 (w3a8) the 32-token one (the same test
+# holds them to csrc/slab_tile.cuh).
+SLAB_TILES_A8 = {"nib4": (64, 64, 2), "byte": (64, 64, 4), "s21": (32, 64, 1)}
 SLAB_WINDOW = 32  # kSlabWin: slab rows a window
 # The int-activation kernels on the int8 tensor cores, by layout: every A16
-# kernel (two planes) and w4a8 (one plane, on the layout w4a16 takes).
+# kernel (two planes) and every A8 kernel (one plane, on the layout of the
+# A16 kernel of its storage bits).
 SLAB_MMA = {W4A16: "nib4", W8A16: "byte", W3A16: "s21", LUT4A16: "lut4", LUT6A16: "lut6",
-            W4A8: "nib4"}
+            W4A8: "nib4", W8A8: "byte", W3A8: "s21"}
 # The bf16-x calls of the nib4, nq42 and byte LUT kernels, of the s21
 # kernel, of the two affine nib4 kernels (w4_matmul, w4_matmul_prenorm) and
 # of the two affine byte kernels (w8_matmul, w8_matmul_prenorm) on the bf16
@@ -436,7 +434,7 @@ def _layout_supported(qt: QuantizedTensor, rows: int,
         return False
     activation_bits = _effective_activation_bits(qt, activation_bits)
     if activation_bits is not None and _group_size(qt, rows) % 4:
-        return False  # __dp4a takes K four at a time (the group divides K)
+        return False  # the slab kernel's segments end on rows in fours
     if qt.zeros is None:
         return True
     z_rows = qt.zeros.shape[-2] - (qt.side_pad if qt.zeros.shape[-2] > 1 else 0)
@@ -950,11 +948,9 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
                      None if rnorm is None else rnorm.data_ptr(), out.data_ptr(),
                      m, n, n_out, kp, g, kc, splits, k_logical, eps, stream)
     else:
-        if name in SLAB_MMA:  # the planes padded per slab, then the group sums
-            nbytes = slab_scratch_bytes(m, kp, SLAB_MMA[name], g, zeros is not None, planes)
-            xq = torch.empty((nbytes,), dtype=torch.int8, device=dev)
-        else:
-            xq = torch.empty((planes, m, ks), dtype=torch.int8, device=dev)
+        # the planes padded per slab, then the group sums
+        nbytes = slab_scratch_bytes(m, kp, SLAB_MMA[name], g, zeros is not None, planes)
+        xq = torch.empty((nbytes,), dtype=torch.int8, device=dev)
         sx = torch.empty((m,), dtype=torch.float32, device=dev)
         args = (x2.data_ptr(), x_bf16, k_logical, int(pre_norm is not None), eps,
                 qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z_ptr, z_rs, z_cs,
@@ -971,34 +967,6 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     _raise_if(err, lib, name)
     LAUNCHES[name] += 1
     return out
-
-
-def quantize_activations_kernel(x2: torch.Tensor, bits: int, k_stored: int,
-                                pre_norm: Optional[float] = None
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The int-activation kernels' row pass alone, on the card: ``(planes
-    [P, M, k_stored] int8, sx [M] f32)`` for ``x2`` ``[M, K]`` (``pre_norm``
-    normalizes each row first).  It is part of every ``a8``/``a16`` launch;
-    this entry point exists to hold its codes against
-    :func:`quantize_activations` and is not counted."""
-    _check(x2.is_cuda and x2.dim() == 2 and x2.is_contiguous()
-           and x2.dtype in (torch.bfloat16, torch.float32),
-           "x must be a contiguous 2-D bf16/f32 CUDA tensor")
-    m, k = x2.shape
-    _check(bits in ACTIVATION_BITS and k <= k_stored and m > 0,
-           f"bits={bits}, K={k}, k_stored={k_stored}, M={m}")
-    dev = x2.device
-    xq = torch.empty((1 if bits == 8 else 2, m, k_stored), dtype=torch.int8, device=dev)
-    sx = torch.empty((m,), dtype=torch.float32, device=dev)
-    name = W4A8 if bits == 8 else W4A16  # every int-activation library has the pass
-    lib, fn = _load_fn(name, "iwoq_quantize_rows", _ARGTYPES_ROWS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), k, k_stored, bits,
-                 int(pre_norm is not None), 0.0 if pre_norm is None else float(pre_norm),
-                 xq.data_ptr(), sx.data_ptr(), m, stream)
-    _raise_if(err, lib, "iwoq_quantize_rows")
-    return xq, sx
 
 
 def quantize_activations_slab_kernel(x2: torch.Tensor, slabs: int, kb: int, g: int,

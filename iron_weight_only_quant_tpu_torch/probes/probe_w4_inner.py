@@ -19,8 +19,9 @@ Variants, on one ``QuantSpec(int, 4, 128, asym)`` artifact per shape:
          group)
   magic  ``w4_inner_matmul(mode="magic")``: the bf16 bias-trick decode, no
          arithmetic convert, the same factored form
-  w4a8   ``activation_bits=8`` (``w4a8_matmul``, raw codes in ``__dp4a``;
-         no error check: its activations are quantized)
+  w4a8   ``activation_bits=8`` (``w4a8_matmul``, the one-plane slab
+         kernel on the int8 tensor cores; no error check: its activations
+         are quantized)
   a16    ``activation_bits=16`` (``w4a16_matmul``)
 
 One line per shape and variant: time, GB/s over ``k*n/2 +

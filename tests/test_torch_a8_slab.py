@@ -1,12 +1,12 @@
-"""``w4a8_matmul`` as the one-plane (A8) mode of the int8 slab kernel,
-against the JAX package, on the CPU.
+"""``w4a8_matmul``, ``w8a8_matmul`` and ``w3a8_matmul`` as the one-plane
+(A8) mode of the int8 slab kernel, against the JAX package, on the CPU.
 
-``w4a8_matmul`` runs as the affine nib4 layout of the int8 slab kernel
-(``csrc/wa_slab_mma.cuh``, ``PLANES = 1``): the row pass writes one int8
-plane per slab and the plain sum of each group's codes, and the product
-kernel multiplies that plane against the nib4 codes on the int8 tensor
-cores.  What it computes is held to the plain version on the card
-(``tests/test_torch_cuda.py -k slab_a8``).  Here:
+The three A8 kernels run as the affine nib4, byte and s21 layouts of the
+int8 slab kernel (``csrc/wa_slab_mma.cuh``, ``PLANES = 1``): the row pass
+writes one int8 plane per slab and the plain sum of each group's codes,
+and the product kernel multiplies that plane against the layout's codes on
+the int8 tensor cores.  What they compute is held to the plain versions on
+the card (``tests/test_torch_cuda.py -k slab_a8``).  Here:
 
 * a numpy model of the one-plane arithmetic (the nib4 decode of the int8
   family, the low codes ``w & 0x0F0F0F0F`` and the high ones ``w &
@@ -15,22 +15,27 @@ cores.  What it computes is held to the plain version on the card
   ``s/16`` and ``16z - 128``; then ``acc * sx``) equals the JAX
   ``_int4_kernel`` with int8 x (interpret mode), and so does the port's
   plain version, on g128 asymmetric, per-channel symmetric, g64 and
-  ``k_pad`` artifacts, bf16 and f32 x;
-* the one-plane row pass's layout (each slab padded to 32 rows) and group
-  sums, modelled from the port's ``quantize_activations``, hold the JAX
-  ``_prep_x`` codes and their integer group sums, and fill the scratch that
-  ``slab_scratch_bytes`` sizes;
-* the one-plane tiles (the decode tile of ``w4a16``, the 64-token wide
-  tile) and their split plan, which covers every slab row once at the 7B
-  shapes;
-* dispatch: bf16 and f32 ``w4a8`` calls (flat and stacked) reach
-  ``iwoq_w4a8_matmul`` with the one-plane plan and scratch, while
-  ``w8a8`` and ``w3a8`` stay on their ``__dp4a`` kernels (the wrapper called
-  on CPU tensors with a recording stand-in for the library).
+  ``k_pad`` artifacts, bf16 and f32 x; likewise numpy models of the byte
+  layout (the stored byte read as int8 is the code) and of the s21 layout
+  (``slab_codes`` of each slab's A and B words, ``f + 4h``) against
+  ``_int8_kernel`` and ``_int3_kernel`` with int8 x;
+* the one-plane row pass's layout (each slab padded to 32 rows; one slab
+  for byte, two for nib4, eight for s21) and group sums, modelled from the
+  port's ``quantize_activations``, hold the JAX ``_prep_x`` codes and their
+  integer group sums, and fill the scratch that ``slab_scratch_bytes``
+  sizes;
+* the one-plane tiles (each layout's decode tile; the 64-token wide tile
+  of nib4 and byte, the 32-token one of s21) and their split plans, which
+  cover every slab row once at the 7B shapes;
+* dispatch: bf16 and f32 ``w4a8``, ``w8a8`` and ``w3a8`` calls (flat and
+  stacked) reach ``iwoq_w4a8_matmul``, ``iwoq_w8a8_matmul`` and
+  ``iwoq_w3a8_matmul`` with the one-plane plan and scratch (the wrapper
+  called on CPU tensors with a recording stand-in for the library).
 """
 
 import contextlib
 import functools
+import sys
 import types
 
 import jax
@@ -68,14 +73,26 @@ def _x(shape, seed=1, scale=1.0):
     return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
 
 
-CASES = {  # id: (JAX spec, K, quantize_tensor kwargs) at N = 256
+CASES = {  # id: (JAX spec, K, quantize_tensor kwargs) at N = 256, K_stored 512 (s21: 1024)
     "g128_asym": (JSpec(fmt="int", bits=4, group_size=128, symmetric=False), 512, {}),
     "perchannel_sym": (JSpec(fmt="int", bits=4, group_size=J_PER_CHANNEL, symmetric=True),
                        512, {}),
     "g64_asym": (JSpec(fmt="int", bits=4, group_size=64, symmetric=False), 512, {}),
     "g128_asym_kpad": (JSpec(fmt="int", bits=4, group_size=128, symmetric=False), 384,
                        dict(pad_k_to=512)),
+    "byte_g128_asym": (JSpec(fmt="int", bits=8, group_size=128, symmetric=False), 512, {}),
+    "byte_perchannel_sym": (JSpec(fmt="int", bits=8, group_size=J_PER_CHANNEL,
+                                  symmetric=True), 512, {}),
+    "byte_g128_asym_kpad": (JSpec(fmt="int", bits=8, group_size=128, symmetric=False), 384,
+                            dict(pad_k_to=512)),
+    "s21_g128_asym": (JSpec(fmt="int", bits=3, group_size=128, symmetric=False), 1024, {}),
+    "s21_perchannel_sym": (JSpec(fmt="int", bits=3, group_size=J_PER_CHANNEL,
+                                 symmetric=True), 1024, {}),
+    "s21_g128_asym_kpad": (JSpec(fmt="int", bits=3, group_size=128, symmetric=False), 896,
+                           dict(pad_k_to=1024)),
 }
+NIB4_CASES = [c for c in CASES if CASES[c][0].bits == 4]
+LAYOUT_OF = {4: ("nib4", 2, dm.W4A8), 8: ("byte", 1, dm.W8A8), 3: ("s21", 8, dm.W3A8)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,37 +143,109 @@ def _a8_kernel_model(plane, sx, qw, s, z):
     return acc * sx[:, None]
 
 
-@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", list(CASES))
-def test_one_plane_model_equals_jax_int4_kernel_a8(case, dtype):
-    """The model on the port's A8 codes equals ``_int4_kernel`` with int8 x
-    (interpret mode) at the Pallas tests' tolerance for f32 x and within
-    1e-2 of the largest output for bf16 x (the JAX kernel rounds its output
-    to bf16), and so does the port's plain version."""
+def _slab_codes(a, b, i):
+    """``slab_codes<false>`` of csrc/wa_slab_mma.cuh: slab i's four s21 codes
+    from an A word and a B word: field i / 2 of A (field 3 flipped back)
+    plus 4 * bit i of B (rotated to bit 2 of each byte)."""
+    rot = (i + 30) & 31
+    rotr = ((b >> U32(rot)) | (b << U32((32 - rot) & 31))) if rot else b
+    f = (a >> U32(2 * (i >> 1))) & U32(0x03030303)
+    return (f ^ U32(0x02020202 if (i >> 1) == 3 else 0)) | (rotr & U32(0x04040404))
+
+
+def _slab_kernel_model(plane, sx, qw, s, z, bits):
+    """The byte (``bits`` 8) or s21 (3) case of the int8 slab kernel with one
+    plane, in numpy.  Each slab's codes as the kernel reads them: the byte
+    layout's stored bytes read as int8 (the JAX bitcast; zeros stored
+    shifted alike), or ``slab_codes`` of slab i's A rows ((i % 2) Kb ..)
+    and the B rows (2 Kb ..), a word holding four channels.  Per slab and
+    group (side row ``slab * Kb / g + r``, load_sides' grow; per-channel:
+    the one row): part = pa, xsum the plain sum of the group's codes, acc +=
+    part * s - xsum * (s * z); then acc * sx."""
+    rows_q, n = qw.shape
+    if bits == 8:
+        slabs, kb = 1, rows_q
+        codes = [qw.view(np.int8).astype(np.int64)]
+    else:
+        slabs, kb = 8, rows_q // 3
+        words = qw.reshape(rows_q, n // 4, 4).copy().view(U32)[..., 0]
+        a_rows, b_rows = (words[:kb], words[kb:2 * kb]), words[2 * kb:]
+        codes = [_slab_codes(a_rows[i % 2], b_rows, i).copy().view(np.uint8)
+                 .reshape(kb, n).astype(np.int64) for i in range(slabs)]
+    g = kb if s.shape[0] == 1 else slabs * kb // s.shape[0]
+    acc = np.zeros((plane.shape[0], n), np.float32)
+    for slab in range(slabs):
+        xp = plane[:, slab * kb:(slab + 1) * kb].astype(np.int64)
+        for r in range(kb // g):
+            sl = slice(r * g, (r + 1) * g)
+            part = (xp[:, sl] @ codes[slab][sl]).astype(np.float32)
+            xsum = xp[:, sl].sum(1).astype(np.float32)
+            row = slab * (kb // g) + r if s.shape[0] > 1 else 0
+            sv, zv = s[row], z[row if z.shape[0] > 1 else 0]
+            acc = acc + part * sv - xsum[:, None] * (sv * zv)
+    return acc * sx[:, None]
+
+
+def _a8_reference(case, dtype):
+    """(JAX ``fused_quantized_matmul`` with int8 x in interpret mode, the
+    port's plain version, the port's A8 plane [M, K_stored] and sx, the
+    f32 scales and zeros) for one case, x of ``dtype``."""
     jq, tq = _artifact(case)
-    k = CASES[case][1]
-    assert j_dm._layout_supported(jq, jq.scales.shape[0]) and tq.k_pad == 512 - k
-    assert dm.kernel_name(tq, None, 8) == dm.W4A8 and dm.SLAB_MMA[dm.W4A8] == "nib4"
+    spec, k, _ = CASES[case]
+    layout, _, name = LAYOUT_OF[spec.bits]
+    assert j_dm._layout_supported(jq, jq.scales.shape[0])
+    assert tq.k_pad == tq.k_stored - k and tq.k_stored in (512, 1024)
+    assert dm.kernel_name(tq, None, 8) == name and dm.SLAB_MMA[name] == layout
     x = _x((6, k), seed=7, scale=2.0)
     xj = jnp.asarray(x).astype(dtype)
     want = np.asarray(j_dm.fused_quantized_matmul(xj, jq, activation_bits=8, interpret=True),
                       dtype=np.float32)
     xt = torch.from_numpy(np.array(xj.astype(jnp.float32)))
     planes, sx = dm.quantize_activations(xt, 8)
-    plane = np.pad(planes[0].numpy(), ((0, 0), (0, 512 - k)))
-    s, z = (np.asarray(a, np.float32) for a in (jq.scales, jq.zeros))
-    got = _a8_kernel_model(plane, sx.numpy(), np.asarray(jq.qweight), s, z)
+    plane = np.pad(planes[0].numpy(), ((0, 0), (0, tq.k_stored - k)))
     dm.reset_counts()
     plain = dm.fused_quantized_matmul(xt.to(torch.float32 if dtype == np.float32
                                             else torch.bfloat16), tq,
                                       activation_bits=8).float().numpy()
-    assert dm.PLAIN_CALLS[dm.W4A8] == 1 == sum(dm.PLAIN_CALLS.values())
+    assert dm.PLAIN_CALLS[name] == 1 == sum(dm.PLAIN_CALLS.values())
+    s, z = (np.asarray(a, np.float32) for a in (jq.scales, jq.zeros))
+    return want, plain, plane, sx.numpy(), s, z
+
+
+def _assert_a8_close(got, plain, want, dtype):
+    """f32 x: the Pallas tests' tolerance; bf16 x: within 1e-2 of the
+    largest output (the JAX kernel rounds its output to bf16)."""
     if dtype == np.float32:
         np.testing.assert_allclose(got, want, **TOL)
         np.testing.assert_allclose(plain, want, **TOL)
     else:
         for y in (got, plain):
             assert np.abs(y - want).max() <= 1e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [c for c in CASES if c not in NIB4_CASES])
+def test_one_plane_byte_and_s21_models_equal_jax_int8_and_int3_kernels_a8(case, dtype):
+    """The byte and s21 models on the port's A8 codes equal ``_int8_kernel``
+    and ``_int3_kernel`` with int8 x (interpret mode), and so does the
+    port's plain version."""
+    want, plain, plane, sx, s, z = _a8_reference(case, dtype)
+    jq, _ = _artifact(case)
+    got = _slab_kernel_model(plane, sx, np.asarray(jq.qweight), s, z, CASES[case][0].bits)
+    _assert_a8_close(got, plain, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", NIB4_CASES)
+def test_one_plane_model_equals_jax_int4_kernel_a8(case, dtype):
+    """The model on the port's A8 codes equals ``_int4_kernel`` with int8 x
+    (interpret mode) at the Pallas tests' tolerance for f32 x and within
+    1e-2 of the largest output for bf16 x (the JAX kernel rounds its output
+    to bf16), and so does the port's plain version."""
+    want, plain, plane, sx, s, z = _a8_reference(case, dtype)
+    jq, _ = _artifact(case)
+    got = _a8_kernel_model(plane, sx, np.asarray(jq.qweight), s, z)
+    _assert_a8_close(got, plain, want, dtype)
 
 
 # ------------------------------------------------------------ the row pass
@@ -184,10 +273,11 @@ def test_one_plane_row_pass_holds_the_jax_codes_and_sums(case, dtype):
     its row scales are the JAX ``sx`` bit for bit, its group sums (also
     ``activation_group_sums`` of the one plane) are the JAX xsum (the plain
     int sum of the group's codes), and plane and sums fill
-    ``slab_scratch_bytes`` with one plane."""
+    ``slab_scratch_bytes`` with one plane: S = 2 (nib4), 1 (byte), 8 (s21)."""
     jq, tq = _artifact(case)
     k, ks = CASES[case][1], tq.k_stored
-    kb = ks // 2
+    layout, slabs, _ = LAYOUT_OF[CASES[case][0].bits]
+    kb = ks // slabs
     g = dm._group_size(tq, tq.scales.shape[0])
     x = _x((5, k), seed=3, scale=3.0)
     x[2] = 0
@@ -204,8 +294,9 @@ def test_one_plane_row_pass_holds_the_jax_codes_and_sums(case, dtype):
     np.testing.assert_array_equal(sums, want)
     padded = torch.from_numpy(xq.astype(np.int8))[None]
     np.testing.assert_array_equal(dm.activation_group_sums(padded, g).numpy(), want)
-    assert dm.slab_scratch_bytes(m, kb, "nib4", g, True, 1) == plane.nbytes + sums.nbytes
-    assert dm.slab_scratch_bytes(m, kb, "nib4", g, True, 2) == 2 * plane.nbytes + sums.nbytes
+    assert plane.shape[2] == slabs and sums.shape[1] == ks // g
+    assert dm.slab_scratch_bytes(m, kb, layout, g, True, 1) == plane.nbytes + sums.nbytes
+    assert dm.slab_scratch_bytes(m, kb, layout, g, True, 2) == 2 * plane.nbytes + sums.nbytes
 
 
 # ------------------------------------------------------- tiles and plan
@@ -214,19 +305,27 @@ SHAPES_7B = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
              "down": (11008, 4096), "lm_head": (4096, 32256)}
 
 
+# the one-plane wide tile of each layout (tokens, channels, parts)
+WIDE_A8 = {"nib4": (64, 64, 2), "byte": (64, 64, 4), "s21": (32, 64, 1)}
+
+
+@pytest.mark.parametrize("layout", list(WIDE_A8))
 @pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 296, 512])
 @pytest.mark.parametrize("shape", list(SHAPES_7B))
-def test_one_plane_split_plan_covers_every_row_once(shape, m):
-    """One plane: the decode tile is w4a16's (8 tokens, 128 channels, two
-    parts), the wide tile 64 tokens of 64 channels in two parts; every
-    split and every part starts on a window, the splits and their parts
-    cover the K/2 slab rows once in order, and the plan depends on the
+def test_one_plane_split_plan_covers_every_row_once(shape, m, layout):
+    """One plane: the decode tile is the layout's A16 one (nib4: 8 tokens,
+    128 channels, two parts; byte: four parts; s21: 64 channels, one part),
+    the wide tile 64 tokens of 64 channels in two (nib4) or four (byte)
+    parts, or 32 tokens (s21); every split and every part starts on a
+    window, the splits and their parts cover the slab rows (K/2, K, the K/8
+    B rows of K padded to 1024) once in order, and the plan depends on the
     shapes alone."""
     k, n = SHAPES_7B[shape]
-    kb = k // 2
-    tile = dm.slab_tile(m, "nib4", 1)
-    assert tile == (dm.slab_tile(m, "nib4") if m <= 8 else (64, 64, 2))
-    kc, splits = dm.plan_slab_splits(m, n, kb, "nib4", 132, planes=1)
+    slabs = {"nib4": 2, "byte": 1, "s21": 8}[layout]
+    kb = (-(-k // 1024) * 1024 if layout == "s21" else k) // slabs
+    tile = dm.slab_tile(m, layout, 1)
+    assert tile == (dm.slab_tile(m, layout) if m <= 8 else WIDE_A8[layout])
+    kc, splits = dm.plan_slab_splits(m, n, kb, layout, 132, planes=1)
     parts = tile[2]
     assert kc % (dm.SLAB_WINDOW * parts) == 0 and kc * splits >= kb > kc * (splits - 1)
     kq, rows = kc // parts, []
@@ -237,7 +336,7 @@ def test_one_plane_split_plan_covers_every_row_once(shape, m):
             assert p0 % dm.SLAB_WINDOW == 0
             rows += range(p0, p1)
     assert rows == list(range(kb))
-    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, "nib4", 132, planes=1)
+    assert (kc, splits) == dm.plan_slab_splits(m, n, kb, layout, 132, planes=1)
 
 
 # ---------------------------------------------------------------- dispatch
@@ -352,20 +451,81 @@ def test_stacked_w4a8_reads_its_layer(card_free_launch):
     assert args[7:9] == (256, 1) and dm.LAUNCHES[dm.W4A8] == 1
 
 
+A8_DISPATCH = {  # id: (K, quantize_tensor kwargs) of a w8a8 and a w3a8 artifact, N = 256
+    "g128_asym": (1024, {}),
+    "perchannel_asym_k1088": (1088, dict(group_size=PER_CHANNEL)),
+    "g16_asym": (1024, dict(group_size=16)),
+    "g128_kpad": (896, dict(pad_k_to=1024)),
+}
+
+
+@pytest.mark.parametrize("case", list(A8_DISPATCH))
 @pytest.mark.parametrize("bits", [8, 3])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_w8a8_and_w3a8_stay_on_their_dp4a_kernels(card_free_launch, bits, dtype):
-    """``w8a8`` and ``w3a8`` keep the ``__dp4a`` kernels of
-    ``csrc/wa_common.cuh``: off the slab table, the CUDA-core split plan
-    and one plane ``[1, M, K_stored]`` of scratch."""
-    spec = QuantSpec(fmt="int", bits=bits, group_size=128, symmetric=False)
-    qt = quantize_tensor(torch.from_numpy(_x((1024, 256), scale=0.05)), spec)
-    name = dm.kernel_name(qt, None, 8)
-    assert name == (dm.W8A8 if bits == 8 else dm.W3A8) and name not in dm.SLAB_MMA
-    _launch(qt, torch.from_numpy(_x((64, 1024), seed=5)).to(dtype))
-    (lib_name, symbol, args), = card_free_launch.calls
-    assert (lib_name, symbol) == (name, f"iwoq_{name}")
-    kp = 1024 if bits == 8 else 1024 // 8
-    kc, splits = dm.plan_splits(64, 256, kp, 132)
-    assert args[19:23] == (kp, 128, kc, splits)
-    assert dm.LAUNCHES[name] == 1 == sum(dm.LAUNCHES.values())
+def test_w8a8_and_w3a8_launch_the_one_plane_slab_kernel(card_free_launch, monkeypatch, bits,
+                                                        dtype, case):
+    """``w8a8`` and ``w3a8`` are the byte and s21 layouts of the slab
+    kernel with one plane: at M = 1, 8, 9 and 256, flat, with the pre-norm,
+    and stacked at layer 1 (side info padded by 2 rows), a call reaches
+    ``iwoq_w8a8_matmul`` or ``iwoq_w3a8_matmul`` with its slab rows (K, or
+    the K/8 B rows), its group in slab rows, ``plan_slab_splits(...,
+    planes=1)``'s ``kc, splits`` and the scratch of one plane and the group
+    sums; one launch each."""
+    k, kw = A8_DISPATCH[case]
+    kw = dict(kw)
+    spec = QuantSpec(fmt="int", bits=bits, group_size=kw.pop("group_size", 128),
+                     symmetric=False)
+    qts = [quantize_tensor(torch.from_numpy(_x((k, 256), seed=i, scale=0.05)), spec, **kw)
+           for i in range(2)]
+    qt = qts[0]
+    name, layout = (dm.W8A8, "byte") if bits == 8 else (dm.W3A8, "s21")
+    assert dm.kernel_supported(qt, 8) and dm.kernel_name(qt, EPS, 8) == name
+    assert dm.SLAB_MMA[name] == layout
+    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 2))  # noqa: E731
+    st = qt.replace(qweight=torch.stack([q.qweight for q in qts]),
+                    scales=torch.stack([pad(q.scales) for q in qts]),
+                    zeros=torch.stack([pad(q.zeros) for q in qts]), side_pad=2)
+    assert dm.kernel_supported_stacked(st, 8)
+    scratch = []
+    real = dm.slab_scratch_bytes
+    monkeypatch.setattr(dm, "slab_scratch_bytes", lambda *a: scratch.append(a) or real(*a))
+    ks = qt.k_stored
+    kp = ks if bits == 8 else ks // 8
+    g = dm._group_size(qt, qt.scales.shape[0])
+    calls = [(m, None, None) for m in (1, 8, 9, 256)] + [(8, EPS, None), (9, None, 1)]
+    for m, pre_norm, layer in calls:
+        card_free_launch.calls.clear()
+        x = torch.from_numpy(_x((m, k), seed=5)).to(dtype)
+        _launch(st if layer is not None else qt, x, pre_norm, layer)
+        (lib_name, symbol, args), = card_free_launch.calls
+        assert (lib_name, symbol) == (name, f"iwoq_{name}")
+        assert args[1:5] == (int(dtype == torch.bfloat16), k, int(pre_norm is not None),
+                             pre_norm or 0.0)
+        if layer is not None:
+            assert args[5] == st.qweight[layer].data_ptr()
+            assert args[6] == st.scales[layer].data_ptr()
+        kc, splits = dm.plan_slab_splits(m, 256, kp, layout, 132, planes=1)
+        assert kc % (dm.SLAB_WINDOW * dm.slab_tile(m, layout, 1)[2]) == 0
+        assert args[16:23] == (m, 256, 256, kp, g, kc, splits)
+        assert scratch.pop() == (m, kp, layout, g, True, 1)  # one plane, then the sums
+    assert dm.LAUNCHES[name] == len(calls) == sum(dm.LAUNCHES.values())
+
+
+def test_step_times_probe_times_the_int_activation_kernels(monkeypatch):
+    """The A/B harness ``probes/step_times.py`` (a file run on the card)
+    names each int-activation kernel of the affine layouts with the storage
+    bits that dispatch to it, and refuses to run without a card."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(dm.__file__).parents[2] / "probes" / "step_times.py"
+    spec = importlib.util.spec_from_file_location("step_times", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert set(mod.KERNELS) == {n for n in dm.SLAB_MMA if not n.startswith("lut")}
+    for name, (bits, pad_k, _) in mod.KERNELS.items():
+        assert dm._KERNELS[bits][2 + dm.ACTIVATION_BITS.index(8 if "a8" in name else 16)] == name
+        assert pad_k == (1024 if bits == 3 else 1)
+    if not torch.cuda.is_available():
+        monkeypatch.setattr(sys, "path", list(sys.path))  # main puts the tree first
+        assert mod.main(["--kernels", "w8a8_matmul", "--ms", "8"]) == 1

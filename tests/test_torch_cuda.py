@@ -416,17 +416,6 @@ def test_a_stacked_kernel_reads_the_layer_in_place(dev, layer, kern):
     _close_a(y, dm.dequant_matmul_plain(x, qts[layer], activation_bits=abits), torch.float32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("bits", [8, 16])
-def test_row_pass_codes_are_bit_equal_to_plain(dev, bits, dtype):
-    x = _x(dev, (17, 1408), dtype) * 3
-    x[4] = 0
-    planes, sx = dm.quantize_activations_kernel(x, bits, 1536)
-    want, want_sx = dm.quantize_activations(x, bits)
-    assert torch.equal(planes[..., :1408], want) and not planes[..., 1408:].any()
-    assert torch.equal(sx, want_sx)
-
-
 # ------------------------------------------------------------- LUT kernels
 
 @pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
@@ -742,36 +731,45 @@ def test_slab_row_pass_codes_and_sums_are_bit_equal_to_plain(dev, slabs, kb, g, 
         assert torch.equal(sums.long(), dm.activation_group_sums(padded, g))
 
 
-# ------------------------------- w4a8 on the int8 slab kernel, one plane
+# ------------------- w4a8, w8a8, w3a8 on the int8 slab kernel, one plane
 
-# (kernel, spec, K, N, quantize_tensor kwargs): the main-path group, and the
-# affine nib4 artifacts of the A16 slab tests (ragged groups and slabs, K
-# halves straddled, N padding and 4-byte copies, K padding, BFP4, side
-# layouts), now under A8
-SLAB_A8 = {"w4a8": (dm.W4A8, SPECS["g128_asym"], 1024, 256, {}),
-           **{c.replace("w4_", "w4a8_").replace("bfp4_", "bfp4a8_"): (dm.W4A8, *v[1:])
-              for c, v in {**SLAB_RAGGED, **SLAB_SIDES}.items() if v[0] == dm.W4A16}}
+# (kernel, spec, K, N, quantize_tensor kwargs): the main-path group of each
+# A8 kernel (w4a8, w8a8, w3a8: the affine nib4, byte and s21 layouts with
+# one plane), and the affine artifacts of the A16 slab tests on the same
+# layouts (ragged groups and slabs, ranges whose last part ends early, K
+# halves straddled, N padding and 4-byte copies, K padding, BFP4, BFP8,
+# side layouts), now under A8
+_A8_OF = {dm.W4A16: dm.W4A8, dm.W8A16: dm.W8A8, dm.W3A16: dm.W3A8}
+SLAB_A8_MAIN = {"w4a8": (dm.W4A8, SPECS["g128_asym"], 1024, 256, {}),
+                "w8a8": (dm.W8A8, W8_SPEC, 1024, 256, {}),
+                "w3a8": (dm.W3A8, W3_SPEC, 1024, 256, {})}
+SLAB_A8 = {**SLAB_A8_MAIN,
+           **{c.replace("_", "a8_", 1): (_A8_OF[v[0]], *v[1:])
+              for c, v in {**SLAB_RAGGED, **SLAB_SIDES}.items() if v[0] in _A8_OF}}
 
 
 @pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("m", [1, 8, 9, 64, 256, 512])
-def test_slab_a8_kernel_matches_plain_token_tiles(dev, m, dtype, pre_norm):
-    """``w4a8``: the decode tile, the wide tiles, one and several K-splits,
-    the pre-norm in the row pass, against the plain version."""
-    _slab_call(dev, SLAB_A8["w4a8"], m, dtype, pre_norm, abits=8)
+@pytest.mark.parametrize("kern", list(SLAB_A8_MAIN))
+def test_slab_a8_kernel_matches_plain_token_tiles(dev, kern, m, dtype, pre_norm):
+    """``w4a8``, ``w8a8``, ``w3a8``: the decode tile, the wide tiles, one
+    and several K-splits, the pre-norm in the row pass, against the plain
+    version."""
+    _slab_call(dev, SLAB_A8[kern], m, dtype, pre_norm, abits=8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("m", [3, 8, 40])
-@pytest.mark.parametrize("case", [c for c in SLAB_A8 if c != "w4a8"])
+@pytest.mark.parametrize("case", [c for c in SLAB_A8 if c not in SLAB_A8_MAIN])
 def test_slab_a8_kernel_takes_ragged_groups_and_side_layouts(dev, case, m, dtype):
     _slab_call(dev, SLAB_A8[case], m, dtype, abits=8)
 
 
 @pytest.mark.parametrize("m", [8, 64])
-def test_slab_a8_stacked_kernel_reads_layer_2_of_3_and_unaligned_x(dev, m):
-    name, spec, k, n, _ = SLAB_A8["w4a8"]
+@pytest.mark.parametrize("kern", list(SLAB_A8_MAIN))
+def test_slab_a8_stacked_kernel_reads_layer_2_of_3_and_unaligned_x(dev, kern, m):
+    name, spec, k, n, _ = SLAB_A8[kern]
     qts = [_artifact(dev, k, n, spec, seed=20 + i) for i in range(3)]
     st = _stacked(qts)
     assert dm.kernel_supported_stacked(st, 8)
@@ -790,7 +788,8 @@ def test_slab_a8_stacked_kernel_reads_layer_2_of_3_and_unaligned_x(dev, m):
 @pytest.mark.parametrize("pre_norm", [None, EPS], ids=["flat", "pre_norm"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("slabs,kb,g", [(2, 704, 64), (2, 2048, 128), (2, 544, 544),
-                                        (1, 1024, 128), (8, 136, 136)])
+                                        (1, 1024, 128), (1, 1088, 1088), (1, 1024, 16),
+                                        (8, 136, 136), (8, 1408, 128), (8, 128, 16)])
 def test_slab_a8_row_pass_codes_and_sums_are_bit_equal_to_plain(dev, slabs, kb, g, dtype,
                                                                 pre_norm):
     """The one-plane row pass: codes and row scales bit-equal to

@@ -157,22 +157,28 @@ def test_python_tiles_equal_the_cuda_tiles(cuda_tiles, layout):
 
 def test_every_slab_kernel_has_its_layout():
     """The slab kernels and the bf16 route name a layout each, but for
-    three pairs that share one: ``w4a8`` (one plane) and ``w4a16`` (two) on
-    the affine nib4 layout of the int8 family, and each prenorm kernel of
-    the bf16 route with its flat kernel (``w4_matmul``, ``w8_matmul``); the
-    nib4 packing is shared by the affine and LUT layouts of each family,
-    and the byte packing by the bf16 family's affine and LUT layouts, with
-    the same tiles."""
+    five pairs that share one: each A8 kernel (one plane) and the A16
+    kernel (two) of its storage bits on the affine nib4, byte and s21
+    layouts of the int8 family (``w4a8`` and ``w4a16``, ``w8a8`` and
+    ``w8a16``, ``w3a8`` and ``w3a16``), and each prenorm kernel of the bf16
+    route with its flat kernel (``w4_matmul``, ``w8_matmul``); the nib4
+    packing is shared by the affine and LUT layouts of each family, and the
+    byte packing by the bf16 family's affine and LUT layouts, with the same
+    tiles.  Every int-activation kernel is a slab kernel."""
     assert set(dm.SLAB_MMA) == {dm.W4A16, dm.W8A16, dm.W3A16, dm.LUT4A16, dm.LUT6A16,
-                                dm.W4A8}
+                                dm.W4A8, dm.W8A8, dm.W3A8}
     assert set(dm.BF16_MMA) == {dm.LUT4, dm.LUT6, dm.LUT8, dm.W3, dm.W4, dm.W4_PRENORM,
                                 dm.W8, dm.W8_PRENORM}
+    assert {n for table in (dm._KERNELS, dm._LUT_KERNELS) for names in table.values()
+            for n in names[2:] if n is not None} == set(dm.SLAB_MMA)
     assert dm.SLAB_MMA[dm.W4A8] == dm.SLAB_MMA[dm.W4A16] == "nib4"
+    assert dm.SLAB_MMA[dm.W8A8] == dm.SLAB_MMA[dm.W8A16] == "byte"
+    assert dm.SLAB_MMA[dm.W3A8] == dm.SLAB_MMA[dm.W3A16] == "s21"
     assert dm.BF16_MMA[dm.W4] == dm.BF16_MMA[dm.W4_PRENORM] == "nib4_bf16"
     assert dm.BF16_MMA[dm.W8] == dm.BF16_MMA[dm.W8_PRENORM] == "byte_bf16"
     layouts = list(dm.SLAB_MMA.values()) + list(dm.BF16_MMA.values())
     assert sorted(set(layouts)) == sorted(dm.SLAB_TILES)
-    assert len(set(layouts)) == len(layouts) - 3
+    assert len(set(layouts)) == len(layouts) - 5
     assert dm.SLAB_TILES["nib4"] == dm.SLAB_TILES["lut4"]  # the same packing and tiles
     assert dm.SLAB_TILES["nib4_bf16"] == dm.SLAB_TILES["lut4_bf16"]
     assert dm.SLAB_TILES["byte_bf16"] == dm.SLAB_TILES["lut8_bf16"]
