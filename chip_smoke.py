@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through twenty-five
-phases; any failing phase ends the run with a non-zero exit code.  The W4,
-fp4 and fp6 models run all 32 layers of LLaMA-2-7B; the W8, W3 and fp8
-models, whose kernels those paths do not carry but which add time, run
-``CUT_LAYERS`` (8) layers at full width.
+Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through thirty
+phases; any failing phase ends the run with a non-zero exit code.  The W4
+model, the main path, runs all 32 layers of LLaMA-2-7B; the W8, W3, fp4,
+fp8 and fp6 models, whose kernels it does not carry but which add time,
+run ``CUT_LAYERS`` (8) layers at full width.
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
    per source, all at once) and print the card's name and power limit.
@@ -95,6 +95,37 @@ models, whose kernels those paths do not carry but which add time, run
     (waves on W4A8, the slab kernel's one-plane mode; decode steps on
     W4A16); warm-up, median of 3, one profiled run; launch counts exact per
     run.
+10a. KV codec on the card: the int8 and int4 (split-D nibble-packed) KV
+    encode and decode of seeded bf16 and f32 k ``[8, S, 32, 128]``, S = 1
+    and 64, groups of 128 and 64: codes, scales, zeros and decoded values
+    bit-equal to the same calls on the CPU; paged write/read round trips:
+    a 16-bit pool read back exactly, an int8 pool equal to the contiguous
+    int8 cache.
+10b. Two-layer 7B-width W4 logits with ``kv_bits`` 8 and 4 (the forward
+    writes and reads a quantized cache), kernels vs the plain path on the
+    CPU, as phase 3; limits ``LOGITS_TOL_KV``.
+10c. KV-mode serves: the 32-layer W4 model of phase 4, ``serve`` of phase
+    7's traffic (median of 3, profiled run; no warm-up, the kernels are
+    warm) with paged 16-bit pages (``KV_PAGE`` = 32 tokens), int8 paged,
+    int4 contiguous and paged, and int8 paged in the least pool that
+    traffic runs in (its peak plus the garbage page: pages are recycled).
+    The cache holds 96 columns, three pages, so paged and contiguous
+    timelines are equally long: paged tokens equal the contiguous serve's
+    of the same ``kv_bits`` (16-bit: phase 4's; int8: one untimed run),
+    the small pool's the full pool's.  Per serve also the bytes the KV
+    buffers hold.
+10d. Long-context ``generate``: phase 4's prompts on the same model with
+    an int8 paged cache of 2048 columns (LLaMA-2's context), 32 new
+    tokens; wall ms per decode step (gather and decode read the whole
+    timeline each step).
+10e. Artifact round trip: a dense 2-layer 7B-width LLaMA (bf16 embedding
+    and lm_head) quantized to W4 g128 on the card by
+    ``quantize_model_params`` (the lm_head excluded), saved by
+    ``save_artifact`` under ``build/`` and loaded onto the card by
+    ``load_artifact``: every tensor and artifact field bit-equal, and
+    ``generate``'s tokens equal the in-memory model's (every quantized
+    linear on ``w4_matmul``); the file's size and the save and load
+    seconds.
 11. W8 A-serve: the 8-layer W8 model of phase 7 with ``prefill_activation_bits=16``
     and ``activation_bits=8`` (waves on W8A16, decode steps on W8A8).
 12. W3 kernels vs plain: the three s21 3-bit kernels (``w3_matmul``,
@@ -134,9 +165,10 @@ models, whose kernels those paths do not carry but which add time, run
     once (``ROUTE_CALLS``, no launch) and match the same route on the CPU;
     an fp6 nq42 E3M2 g128 artifact launches ``lut6_matmul`` once.
 16. Format zoo on the card: for a K=4096 and a K=11008 weight, the
-    card-built fp4 E2M1 g128 asymmetric, fp8 E4M3 g128 symmetric, bfp4 g128
-    and bfp8 g128 artifacts (``pad_n_to=512``) are byte-equal to CPU-built
-    ones, scales, zeros and codebooks included.
+    card-built fp4 E2M1 g128 asymmetric, fp8 E4M3 g128 symmetric, bfp4 g128,
+    bfp8 g128, int4 g128 asymmetric and int8 g128 symmetric artifacts
+    (``pad_n_to=512``) are byte-equal to CPU-built ones, scales, zeros and
+    codebooks included.
 17. LUT kernels vs plain: ``lut4_matmul`` (fp4 E2M1 g128 asymmetric),
     ``lut4a16_matmul`` (the same under A16) and ``lut8_matmul`` (fp8 E4M3
     g128 symmetric) at the five main-path shapes, timed at M=8 and M=256
@@ -165,7 +197,7 @@ models, whose kernels those paths do not carry but which add time, run
     one), and its SASS as ``lut4_matmul``'s.
 18. Two-layer 7B-width fp4 (also under A16) and fp8 logits, kernels vs
     the plain path on the CPU, as phase 3.
-19. FP4 full model: 32-layer 7B-width fp4 E2M1 g128 asymmetric model built
+19. FP4 model: ``CUT_LAYERS``-layer 7B-width fp4 E2M1 g128 asymmetric model built
     on the card (``pad_n_to=512``, the lm_head included); ``generate`` as
     in phase 4, ``serve`` of phase 7's traffic (warm-up, median of 3,
     profiled run) and a serve with A16 waves and A16 decode (LUT has no
@@ -187,7 +219,7 @@ models, whose kernels those paths do not carry but which add time, run
     ``lut6_matmul`` as in phase 17, on those artifacts and E3M2 g128.
 22. FP6 two-layer 7B-width logits (bf16/f32 activations and A16), kernels
     vs the plain path on the CPU, as phase 3.
-23. FP6 full model: 32-layer 7B-width fp6 E2M3 g128 symmetric model built
+23. FP6 model: ``CUT_LAYERS``-layer 7B-width fp6 E2M3 g128 symmetric model built
     on the card (``pad_n_to=512``, ``pad_k_to=1024``, the lm_head
     included); ``generate`` as in phase 4, ``serve`` of phase 7's traffic
     (warm-up, median of 3, profiled run) and a serve with A16 waves and A16
@@ -289,8 +321,19 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
 }
 W3_PAD_K = 1024  # down's K=11008 stored as 11264: K/8 = 1408 = 11 groups of 128
 FP6_PAD_K = 1024  # the same for nq42: K/4 = 2816 = 22 groups of 128
-CUT_LAYERS = 8  # depth of the earlier full-model paths whose kernels the
-#                 32-layer W4, fp4 and fp6 paths already drive at full depth
+CUT_LAYERS = 8  # depth of the model paths beside the 32-layer W4 main path
+KV_PAGE = 32  # page size of the paged serves: the 96-column cache is 3 pages
+LONG_CONTEXT = 2048  # LLaMA-2's context, for the long-context generate
+# Card vs CPU two-layer logits with a quantized KV cache.  A k or v element
+# whose card and CPU values straddle a rounding boundary lands one code
+# apart: a step of 1/255 (int8) or 1/15 (int4) of its group's range, far
+# above rounding.  On the CPU (hidden 1024, 2 layers, W4 g128, four seeds)
+# a bf16-sized perturbation (bf16 vs f32 logits, 0.9-1.0e-2 with a 16-bit
+# cache) moved the logits 1.3-1.5e-2 with int8 KV and 6.6-8.9e-2 with int4
+# KV; the int4 cache itself moves them 0.20 from the 16-bit one, so 1e-1
+# still catches a cache that skipped the int4 quantization.  int8 keeps
+# the 16-bit bf16 limit.
+LOGITS_TOL_KV = {8: 3e-2, 4: 1e-1}
 
 
 def fail(msg: str) -> None:
@@ -504,12 +547,17 @@ def phase_kernels(torch, device, spec, names, extra_specs=()):
 
 # ------------------------------------------------------------- phase 3
 
-def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,), pad_k_to=1):
+def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,), pad_k_to=1,
+                     kv_bits_list=(16,)):
     """Two-layer logits, kernels on the card against the plain path on the
     CPU, in f32 and bf16, under each activation-bits setting of
-    ``abits_list`` (None: bf16/f32 activations)."""
+    ``abits_list`` (None: bf16/f32 activations) and each KV cache of
+    ``kv_bits_list`` (16: no cache; 8, 4: the forward writes its k and v
+    into a quantized cache and attends over their decoded values)."""
     import dataclasses
 
+    from iron_weight_only_quant_tpu_torch.config import KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine.kvcache import make_caches
     from iron_weight_only_quant_tpu_torch.interop import params_from_numpy
     from iron_weight_only_quant_tpu_torch.models.llama import (
         fuse_llama_projections,
@@ -525,13 +573,22 @@ def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,), pad_k_to
     cpu_params = params_from_numpy(params, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
     out = {}
-    for dtype, abits in [(d, a) for a in abits_list for d in (torch.float32, torch.bfloat16)]:
+    for dtype, abits, kv_bits in [(d, a, b) for a in abits_list for b in kv_bits_list
+                                  for d in (torch.float32, torch.bfloat16)]:
         for p in (params, cpu_params):
             p["embed"] = p["embed"].to(dtype)
             p["final_norm"] = p["final_norm"].to(dtype)
+
+        def caches(dev):
+            if kv_bits >= 16:
+                return None
+            return make_caches(cfg.num_layers, tokens.shape[0], cfg.num_kv_heads, cfg.hd,
+                               KVCacheConfig(max_seq_len=tokens.shape[1], kv_bits=kv_bits),
+                               dtype, dev)
+
         with torch.inference_mode(), activation_quant(abits):
-            lg, _ = llama_forward(params, tokens, cfg)
-            lg_ref, _ = llama_forward(cpu_params, tokens.cpu(), cfg)
+            lg, _ = llama_forward(params, tokens, cfg, caches=caches(device))
+            lg_ref, _ = llama_forward(cpu_params, tokens.cpu(), cfg, caches=caches("cpu"))
         torch.cuda.synchronize()
         lg, lg_ref = lg.float().cpu(), lg_ref.float()
         if not torch.isfinite(lg).all():
@@ -541,6 +598,8 @@ def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,), pad_k_to
         name = str(dtype).split(".")[-1]
         label = name if abits is None else f"{name} A{abits}"
         tol = LOGITS_TOL_A8 if abits == 8 else LOGITS_TOL[name]
+        if kv_bits < 16:
+            label, tol = f"{label} KV{kv_bits}", max(tol, LOGITS_TOL_KV[kv_bits])
         out[label] = {"rel_err": rel, "tol": tol, "argmax_agree": agree}
         print(f"  logits {label}: max|d|/max|ref| = {rel:.3e} (tol "
               f"{tol}), argmax agreement {agree:.4f}", flush=True)
@@ -686,17 +745,18 @@ def percentile_ms(series, q):
     return float(np.percentile(np.asarray(series, np.float64) * 1e3, q))
 
 
-def serve_engine(torch, params, cfg, **ecfg):
+def serve_engine(torch, params, cfg, kv=None, **ecfg):
     """(engine, requests) of the serving traffic; the cache holds the
-    longest request plus the new tokens, as bench.py sizes it.  ``ecfg``
-    adds engine options (the activation bits)."""
+    longest request plus the new tokens, as bench.py sizes it.  ``kv``
+    adds KV cache options (``kv_bits``, paging), ``ecfg`` engine options
+    (the activation bits)."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
 
     reqs = serve_requests(cfg.vocab_size)
     t_need = max(len(r) for r in reqs) + NEW_TOKENS
-    ecfg = EngineConfig(kv=KVCacheConfig(max_seq_len=t_need),
+    ecfg = EngineConfig(kv=KVCacheConfig(max_seq_len=t_need, **(kv or {})),
                         max_batch_size=SERVE_SLOTS, fuse_projections=True, **ecfg)
     eng = InferenceEngine(params, cfg, llama_forward, family="llama",
                           engine_cfg=ecfg, dtype=torch.bfloat16,
@@ -746,8 +806,9 @@ def profile_serve(torch, eng, reqs):
     return res
 
 
-def phase_serve(torch, params, cfg, names, runs, card, abits=None):
-    """``InferenceEngine.serve`` of the serving traffic: one warm-up run,
+def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warmup=True):
+    """``InferenceEngine.serve`` of the serving traffic: one warm-up run
+    (unless ``warmup`` is false: the model's kernels are warm already),
     then ``runs`` timed runs (the median run is reported, the best wall
     time beside it), then one profiled run.  ``params`` may be fused
     already (fusing is idempotent).  Every counted run must launch
@@ -756,15 +817,20 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None):
     every run.  With ``abits`` = (prefill_activation_bits,
     activation_bits), ``names`` are the (wave, decode) int-activation
     kernels: the waves (one per combo) launch the first, the other device
-    steps the second."""
+    steps the second.  ``kv``: KV cache options (``kv_bits``, paging).  The
+    result holds the tokens (``tokens``) and the bytes the KV buffers hold
+    (``kv_bytes``); under paging also the pages handed out and the most
+    held at once."""
+    from iron_weight_only_quant_tpu_torch.engine.kvcache import cache_bytes
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     ecfg = {} if abits is None else dict(prefill_activation_bits=abits[0],
                                          activation_bits=abits[1])
-    eng, reqs = serve_engine(torch, params, cfg, **ecfg)
+    eng, reqs = serve_engine(torch, params, cfg, kv=kv, **ecfg)
+    kv_bytes = cache_bytes(eng._fresh_caches(SERVE_SLOTS))
     first = None
     timed = []
-    for i in range(1 + runs):
+    for i in range(1 - int(warmup), 1 + runs):
         stats = {}
         torch.cuda.synchronize()
         dm.reset_counts()
@@ -812,15 +878,19 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None):
         "tpot_p50_ms": percentile_ms(stats["tpot_s"], 50),
         "tpot_p95_ms": percentile_ms(stats["tpot_s"], 95),
         "latency_granularity": "host sync (a token counts when the host fetches it)",
-        "launches": launches, "card": card,
+        "launches": launches, "card": card, "kv": kv or {}, "kv_bytes": kv_bytes,
+        "tokens": first,
     }
+    if "pages_peak" in stats:
+        res.update(n_page_allocs=stats["n_page_allocs"], pages_peak=stats["pages_peak"])
     print(f"  serve {res['toks_per_s']:.1f} generated tok/s, "
           f"{res['total_toks_per_s']:.1f} total tok/s, wall {wall:.3f} s (median of "
           f"{runs}; best {res['best_toks_per_s']:.1f} tok/s), {res['syncs']} syncs, "
           f"{res['device_steps']} device steps; "
           f"TTFT p50/p95 {res['ttft_p50_ms']:.1f}/{res['ttft_p95_ms']:.1f} ms, "
           f"TPOT p50/p95 {res['tpot_p50_ms']:.1f}/{res['tpot_p95_ms']:.1f} ms "
-          f"(measured at sync granularity), on {card}", flush=True)
+          f"(measured at sync granularity), KV buffers {kv_bytes / 2**20:.1f} MiB, "
+          f"on {card}", flush=True)
     print("  first tokens: " + json.dumps([o[:8] for o in first[:2]]), flush=True)
     res["profile"] = profile_serve(torch, eng, reqs)
     del eng
@@ -842,6 +912,255 @@ def phase_w8_serve(torch, device, spec, cfg, card, names=None, label="W8"):
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
     return res, params  # params kept for the A-serve of phase 11
+
+
+# ------------------------------------------------------- phases 10a-10e
+
+def phase_kv_codec(torch, device):
+    """The KV codec on the card bit-equal to the CPU, and paged round trips."""
+    from iron_weight_only_quant_tpu_torch.config import KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import kvcache as kvc
+
+    gen = torch.Generator().manual_seed(5)
+    checks = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in (1, 64):
+            x = (torch.randn((8, s, 32, 128), generator=gen) * 2).to(dtype)
+            x_card = x.to(device)
+            for bits in (8, 4):
+                for g in (128, 64):
+                    packed = bits == 4
+                    card = kvc._encode(x_card, bits, g, packed)
+                    cpu = kvc._encode(x, bits, g, packed)
+                    card += (kvc._decode(*card, 128, dtype, packed),)
+                    cpu += (kvc._decode(*cpu, 128, dtype, packed),)
+                    for what, a, b in zip(("codes", "scales", "zeros", "decoded"), card, cpu):
+                        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                            fail(f"KV codec {dtype} S={s} bits={bits} g={g}: the card's "
+                                 f"{what} differ from the CPU's")
+                    checks += 1
+    print(f"  KV codec: {checks} encode/decode calls bit-equal to the CPU "
+          "(codes, scales, zeros, decoded values)", flush=True)
+
+    # paged round trips: two appends of 40 and 24 tokens into 32-token pages
+    k = torch.randn((8, 64, 32, 128), generator=gen).to(device, torch.bfloat16)
+    v = torch.randn((8, 64, 32, 128), generator=gen).to(device, torch.bfloat16)
+    read = {}
+    for label, kv in (("paged 16-bit", dict(paged=True)), ("paged int8", dict(paged=True, kv_bits=8)),
+                      ("contiguous int8", dict(kv_bits=8))):
+        cfg = KVCacheConfig(max_seq_len=256, page_size=KV_PAGE, **kv)
+        (view,) = kvc.make_caches(1, 8, 32, 128, cfg, torch.bfloat16, device)
+        for a, b in ((0, 40), (40, 64)):
+            view, k_all, v_all = kvc.update_and_fetch(view, k[:, a:b], v[:, a:b])
+        read[label] = (k_all[:, :64], v_all[:, :64])
+    if not (torch.equal(read["paged 16-bit"][0], k) and torch.equal(read["paged 16-bit"][1], v)):
+        fail("paged 16-bit KV: the pool does not read back what was written")
+    if not all(torch.equal(a, b) for a, b in zip(read["paged int8"], read["contiguous int8"])):
+        fail("paged int8 KV reads other values than the contiguous int8 cache")
+    torch.cuda.synchronize()
+    print("  paged KV: a 16-bit pool reads back exactly; an int8 pool reads the "
+          "contiguous int8 cache's values", flush=True)
+    return checks
+
+
+def serve_once(torch, params, cfg, kv):
+    """The serving traffic's tokens from one untimed serve run with the
+    KV cache ``kv`` (W4 kernels, exact launches)."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    eng, reqs = serve_engine(torch, params, cfg, kv=kv)
+    stats = {}
+    dm.reset_counts()
+    out = eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK, stats=stats)
+    torch.cuda.synchronize()
+    check_counts(f"serve, KV {kv}", expected_launches((dm.W4, dm.W4_PRENORM),
+                                                      stats["n_steps"], cfg.num_layers))
+    return {"tokens": out}
+
+
+def phase_kv_serves(torch, params, cfg, card, serve_16):
+    """``serve`` of the serving traffic under each KV cache of the phase
+    (three timed runs and a profiled one each; the kernels are warm from
+    phase 4); paged tokens must equal the contiguous serve's of the same
+    ``kv_bits`` (16-bit: ``serve_16``, phase 4's; int8: one untimed
+    run)."""
+    from iron_weight_only_quant_tpu_torch.engine.kvcache import pool_pages
+    from iron_weight_only_quant_tpu_torch.config import KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    t_need = max(len(r) for r in serve_requests(cfg.vocab_size)) + NEW_TOKENS
+    if t_need % KV_PAGE:
+        fail(f"the serve cache's {t_need} columns are no whole number of {KV_PAGE}-token "
+             "pages: paged and contiguous timelines would differ in length")
+    paged = dict(paged=True, page_size=KV_PAGE)
+    settings = [("paged16", paged), ("paged_kv8", {**paged, "kv_bits": 8}),
+                ("kv4", dict(kv_bits=4)), ("paged_kv4", {**paged, "kv_bits": 4})]
+    runs = {}
+
+    def run(label, kv):
+        print(f"  -- serve, KV {label}: {kv}", flush=True)
+        runs[label] = phase_serve(torch, params, cfg, (dm.W4, dm.W4_PRENORM), SERVE_RUNS,
+                                  card, kv=kv, warmup=False)
+
+    for label, kv in settings:
+        run(label, kv)
+    kv8 = serve_once(torch, params, cfg, dict(kv_bits=8))
+    # the least pool this traffic runs in: its peak and the garbage page
+    full = pool_pages(SERVE_SLOTS, KVCacheConfig(max_seq_len=t_need, **paged))
+    small = runs["paged_kv8"]["pages_peak"] + 1
+    run("paged_kv8_small_pool", {**paged, "kv_bits": 8, "num_pages": small})
+    pool = runs["paged_kv8_small_pool"]
+    print(f"  small pool: {small} of {full} pages, {pool['n_page_allocs']} pages handed out, "
+          f"at most {pool['pages_peak']} held", flush=True)
+    if not (small < full and pool["n_page_allocs"] > small - 1):
+        fail("the small pool is not smaller than the full pool, or recycled no page")
+    for got, want in (("paged16", serve_16), ("paged_kv8", kv8),
+                      ("paged_kv4", runs["kv4"]), ("paged_kv8_small_pool", runs["paged_kv8"])):
+        if runs[got]["tokens"] != want["tokens"]:
+            fail(f"serve with KV {got} gave other tokens than its contiguous (or full-pool) "
+                 "serve")
+    print("  paged serves: the tokens of their contiguous serves; the small pool: the full "
+          "pool's", flush=True)
+    return runs
+
+
+def phase_long_generate(torch, params, cfg, card, step_ms_short):
+    """``generate`` of phase 4's prompt lengths on an int8 paged cache of
+    ``LONG_CONTEXT`` columns: wall ms per decode step."""
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.engine.kvcache import cache_bytes
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    kv = KVCacheConfig(max_seq_len=LONG_CONTEXT, kv_bits=8, paged=True, page_size=KV_PAGE)
+    eng = InferenceEngine(params, cfg, llama_forward, family="llama",
+                          engine_cfg=EngineConfig(fuse_projections=True, kv=kv),
+                          dtype=torch.bfloat16, device=params["embed"].device)
+    gen = torch.Generator(device=eng.device).manual_seed(4)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device=eng.device).tolist() for n in PROMPT_LENS]
+    kv_bytes = cache_bytes(eng._fresh_caches(BATCH))
+    warm = eng.generate(prompts, max_new_tokens=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    dm.reset_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check_counts("long-context generate", expected_launches(
+        (dm.W4, dm.W4_PRENORM), NEW_TOKENS, cfg.num_layers))
+    if any(len(o) != NEW_TOKENS or o[:2] != w for o, w in zip(out, warm)):
+        fail("long-context generate: wrong token counts, or tokens that differ between runs")
+    step_ms = (gen_s - prefill_s) * 1e3 / (NEW_TOKENS - 1)
+    res = {"max_seq_len": LONG_CONTEXT, "kv": "int8 paged", "page_size": KV_PAGE,
+           "prefill_s": prefill_s, "generate_s": gen_s, "decode_step_ms": step_ms,
+           "decode_step_ms_phase4": step_ms_short, "kv_bytes": kv_bytes, "card": card}
+    print(f"  {LONG_CONTEXT}-column int8 paged cache ({kv_bytes / 2**30:.2f} GiB): decode "
+          f"{step_ms:.2f} ms/step at batch {BATCH} (phase 4, 16-bit, "
+          f"{max(PROMPT_LENS) + NEW_TOKENS + 8} columns: {step_ms_short:.2f}), on {card}",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_artifact(torch, device, spec, cfg_full, card):
+    """A dense 2-layer model quantized on the card, saved, loaded onto the
+    card: equal tensors and fields, equal ``generate`` tokens."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward, llama_init
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.quantize import QuantizedTensor
+    from iron_weight_only_quant_tpu_torch.quantize.artifact import load_artifact, save_artifact
+    from iron_weight_only_quant_tpu_torch.quantize.model_pass import quantize_model_params
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(6)
+    dense = llama_init(cfg, gen, device=device)
+    dense["embed"] = dense["embed"].to(torch.bfloat16)
+    dense["lm_head"]["w"] = dense["lm_head"]["w"].to(torch.bfloat16)
+    t0 = time.perf_counter()
+    params, report = quantize_model_params(dense, spec, device=device)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del dense
+    if (report["n_quantized"] != 7 * cfg.num_layers or report["n_skipped"] != 1
+            or "lm_head" in report["names"]):
+        fail(f"model pass: {report['n_quantized']} linears quantized, {report['n_skipped']} "
+             "skipped")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="smoke_artifact_", dir=root)
+    try:
+        t0 = time.perf_counter()
+        save_artifact(path, "llama", cfg, params)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        family, cfg2, loaded = load_artifact(path, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path)
+    if family != "llama" or cfg2 != cfg:
+        fail("load_artifact gave another family or config")
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, list):
+            return [x for v in t for x in leaves(v)]
+        if isinstance(t, QuantizedTensor):
+            return [(t.spec, t.shape, t.mode, t.k_shards, t.n_pad, t.k_pad)] + [
+                getattr(t, f) for f in ("qweight", "scales", "zeros", "codebook")]
+        return [t]
+
+    got, saved = leaves(loaded), leaves(params)
+    if len(got) != len(saved):
+        fail("the loaded tree has another structure")
+    for a, b in zip(got, saved):
+        same = (a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                if torch.is_tensor(b) else a == b)
+        if not same:
+            fail("a loaded tensor or artifact field differs from the saved one")
+    print(f"  {len(saved)} leaves bit-equal after save and load", flush=True)
+
+    prompts = [[(13 * i + j) % (cfg.vocab_size - 1) + 1 for j in range(n)]
+               for i, n in enumerate(PROMPT_LENS)]
+    toks = []
+    for p in (params, loaded):
+        eng = InferenceEngine(p, cfg, llama_forward, family="llama",
+                              engine_cfg=EngineConfig(fuse_projections=True, kv=KVCacheConfig(
+                                  max_seq_len=max(PROMPT_LENS) + 8)),
+                              dtype=torch.bfloat16, device=device)
+        dm.reset_counts()
+        toks.append(eng.generate(prompts, max_new_tokens=8))
+        torch.cuda.synchronize()
+        # gammas not folded: every fused and unfused quantized linear on
+        # w4_matmul (4 a layer), the dense lm_head in torch
+        want = {name: 0 for name in dm.LAUNCHES}
+        want[dm.W4] = 8 * 4 * cfg.num_layers
+        check_counts("artifact generate", want)
+    if toks[0] != toks[1]:
+        fail("the loaded artifact generates other tokens than the in-memory model")
+    res = {"layers": cfg.num_layers, "file_bytes": nbytes, "quantize_s": quant_s,
+           "save_s": save_s, "load_s": load_s, "leaves": len(saved), "card": card}
+    print(f"  artifact: {nbytes / 2**20:.1f} MiB, quantize {quant_s:.2f} s, save "
+          f"{save_s:.2f} s, load onto the card {load_s:.2f} s; generate tokens equal, on "
+          f"{card}", flush=True)
+    del params, loaded
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------------------- phase 8
@@ -1318,7 +1637,7 @@ def phase_route(torch, device):
 # ------------------------------------------------------------- phase 16
 
 def phase_zoo_bytes(torch, device):
-    """Card-built fp4/fp8/bfp artifacts byte-equal to CPU-built ones."""
+    """Card-built int4/int8/fp4/fp8/bfp artifacts byte-equal to CPU-built ones."""
     from iron_weight_only_quant_tpu_torch.config import QuantSpec, fp_spec
     from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
 
@@ -1327,7 +1646,9 @@ def phase_zoo_bytes(torch, device):
     specs = {"fp4_e2m1_g128_asym": fp_spec("fp4", 2, 1, group_size=128, symmetric=False),
              "fp8_e4m3_g128_sym": fp_spec("fp8", 4, 3, group_size=128),
              "bfp4_g128": QuantSpec(fmt="bfp", bits=4, group_size=128),
-             "bfp8_g128": QuantSpec(fmt="bfp", bits=8, group_size=128)}
+             "bfp8_g128": QuantSpec(fmt="bfp", bits=8, group_size=128),
+             "int4_g128_asym": QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False),
+             "int8_g128_sym": QuantSpec(fmt="int", bits=8, group_size=128, symmetric=True)}
     checked = 0
     for k in (4096, 11008):
         w = torch.randn((k, 4096), generator=gen, device=device) * k**-0.5
@@ -1717,8 +2038,28 @@ def main() -> int:
     header("== phase 10: 32-layer 7B-width W4 serve, A8 waves, A16 decode")
     serve_w4_a = phase_serve(torch, params_w4, cfg, (dm.W4A8, dm.W4A16), SERVE_RUNS,
                              card, abits=(8, 16))
+
+    header("== phase 10a: KV codec on the card vs the CPU, paged round trips")
+    kv_codec_checks = phase_kv_codec(torch, device)
+
+    header("== phase 10b: W4 two-layer 7B-width logits with int8 and int4 KV caches, "
+           f"kernels vs plain path (limits {LOGITS_TOL_KV})")
+    phase_two_layers(torch, device, w4, cfg, kv_bits_list=(8, 4))
+
+    header("== phase 10c: 32-layer 7B-width W4 serve with paged, int8 and int4 KV caches")
+    serve_kv = phase_kv_serves(torch, params_w4, cfg, card, serve_w4)
+
+    header(f"== phase 10d: 32-layer 7B-width W4 generate on a {LONG_CONTEXT}-column int8 "
+           "paged cache")
+    long_gen = phase_long_generate(
+        torch, params_w4, cfg, card,
+        (res["generate_s"] - res["prefill_s"]) * 1e3 / (NEW_TOKENS - 1))
     del params_w4
     torch.cuda.empty_cache()
+
+    header("== phase 10e: artifact round trip: a two-layer 7B-width model quantized on the "
+           "card, saved, loaded onto the card")
+    artifact = phase_artifact(torch, device, w4, cfg, card)
 
     header(f"== phase 11: {CUT_LAYERS}-layer 7B-width W8 serve, A16 waves, A8 decode")
     serve_w8_a = phase_serve(torch, params_w8, cfg_cut, (dm.W8A16, dm.W8A8), SERVE_RUNS,
@@ -1818,13 +2159,13 @@ def main() -> int:
     phase_two_layers(torch, device, fp4, cfg, abits_list=(None, 16))
     phase_two_layers(torch, device, fp8, cfg)
 
-    header("== phase 19: 32-layer 7B-width fp4 generate, serve, and serve with A16 "
+    header(f"== phase 19: {CUT_LAYERS}-layer 7B-width fp4 generate, serve, and serve with A16 "
            "waves and decode")
     res_fp4, serve_fp4, params_fp4 = phase_generate(
-        torch, device, fp4, cfg, card, names=(dm.LUT4, dm.LUT4), label="FP4",
+        torch, device, fp4, cfg_cut, card, names=(dm.LUT4, dm.LUT4), label="FP4",
         serve_runs=SERVE_RUNS)
     print("  -- FP4 serve, A16 waves, A16 decode", flush=True)
-    serve_fp4_a = phase_serve(torch, params_fp4, cfg, (dm.LUT4A16, dm.LUT4A16), SERVE_RUNS,
+    serve_fp4_a = phase_serve(torch, params_fp4, cfg_cut, (dm.LUT4A16, dm.LUT4A16), SERVE_RUNS,
                               card, abits=(16, 16))
     del params_fp4
     torch.cuda.empty_cache()
@@ -1869,13 +2210,13 @@ def main() -> int:
     header("== phase 22: fp6 two-layer 7B-width logits (also A16), kernels vs plain path")
     phase_two_layers(torch, device, fp6, cfg, abits_list=(None, 16), pad_k_to=FP6_PAD_K)
 
-    header("== phase 23: 32-layer 7B-width fp6 generate, serve, and serve with A16 "
+    header(f"== phase 23: {CUT_LAYERS}-layer 7B-width fp6 generate, serve, and serve with A16 "
            "waves and decode")
     res_fp6, serve_fp6, params_fp6 = phase_generate(
-        torch, device, fp6, cfg, card, names=(dm.LUT6, dm.LUT6), label="FP6",
+        torch, device, fp6, cfg_cut, card, names=(dm.LUT6, dm.LUT6), label="FP6",
         pad_k_to=FP6_PAD_K, serve_runs=SERVE_RUNS)
     print("  -- FP6 serve, A16 waves, A16 decode", flush=True)
-    serve_fp6_a = phase_serve(torch, params_fp6, cfg, (dm.LUT6A16, dm.LUT6A16), SERVE_RUNS,
+    serve_fp6_a = phase_serve(torch, params_fp6, cfg_cut, (dm.LUT6A16, dm.LUT6A16), SERVE_RUNS,
                               card, abits=(16, 16))
     del params_fp6
     torch.cuda.empty_cache()
@@ -1902,22 +2243,31 @@ def main() -> int:
                 dm.W4_INNER_MAGIC: probe_counts[dm.W4_INNER_MAGIC]}
     rows = kernel_rows(per_kernel, launches)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"generate": {k: v for k, v in res.items() if k != "launches"}}))
-    print(json.dumps({"serve_w4": serve_w4}))
-    print(json.dumps({"serve_w8": serve_w8}))
-    print(json.dumps({"serve_w4_a8_waves_a16_decode": serve_w4_a}))
-    print(json.dumps({"serve_w8_a16_waves_a8_decode": serve_w8_a}))
-    print(json.dumps({"generate_w3": {k: v for k, v in res_w3.items() if k != "launches"}}))
-    print(json.dumps({"serve_w3": serve_w3}))
-    print(json.dumps({"serve_w3_a8_waves_a16_decode": serve_w3_a}))
+
+    def report(key, run, drop=("tokens",)):
+        print(json.dumps({key: {k: v for k, v in run.items() if k not in drop}}))
+
+    report("generate", res, ("launches",))
+    report("serve_w4", serve_w4)
+    report("serve_w8", serve_w8)
+    report("serve_w4_a8_waves_a16_decode", serve_w4_a)
+    for label, run in serve_kv.items():
+        report(f"serve_w4_{label}", run)
+    report("generate_w4_long_context", long_gen)
+    report("artifact_round_trip", artifact)
+    print(json.dumps({"kv_codec_bit_equal_calls": kv_codec_checks}))
+    report("serve_w8_a16_waves_a8_decode", serve_w8_a)
+    report("generate_w3", res_w3, ("launches",))
+    report("serve_w3", serve_w3)
+    report("serve_w3_a8_waves_a16_decode", serve_w3_a)
     print(json.dumps({"row_pass_bit_equal_calls": row_pass_checks}))
-    print(json.dumps({"generate_fp4": {k: v for k, v in res_fp4.items() if k != "launches"}}))
-    print(json.dumps({"serve_fp4": serve_fp4}))
-    print(json.dumps({"serve_fp4_a16": serve_fp4_a}))
-    print(json.dumps({"serve_fp8": serve_fp8}))
-    print(json.dumps({"generate_fp6": {k: v for k, v in res_fp6.items() if k != "launches"}}))
-    print(json.dumps({"serve_fp6": serve_fp6}))
-    print(json.dumps({"serve_fp6_a16": serve_fp6_a}))
+    report("generate_fp4", res_fp4, ("launches",))
+    report("serve_fp4", serve_fp4)
+    report("serve_fp4_a16", serve_fp4_a)
+    report("serve_fp8", serve_fp8)
+    report("generate_fp6", res_fp6, ("launches",))
+    report("serve_fp6", serve_fp6)
+    report("serve_fp6_a16", serve_fp6_a)
     print(json.dumps({"route": route, "zoo_bytes_equal_artifacts": zoo_checks}))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -20,9 +20,13 @@ decode steps through the int-activation kernels, and
 prefill and ``serve``'s waves, by the ambient ``activation_quant`` setting
 around each phase, as the reference does.
 
-Single device only.  Meshes, tensor parallelism, the scan path and
-quantized or paged KV caches are still to be ported (ROADMAP queue A);
-asking for them raises.
+KV caches: contiguous 16-bit, quantized int8/int4 (``KVCacheConfig.kv_bits``)
+and paged (``KVCacheConfig.paged``), 16-bit or quantized.  Under paging
+``serve`` owns the page allocator and sends the page table to the device
+inside the sync's one packed meta copy.
+
+Single device only.  Meshes, tensor parallelism and the scan path are
+still to be ported (ROADMAP queue A); asking for them raises.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 from ..config import EngineConfig
 from ..device import resolve_device
 from ..ops.qmatmul import activation_quant
-from .kvcache import cache_max_len, make_caches
+from .kvcache import PageAllocator, cache_max_len, make_caches, pool_pages
 
 
 def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -84,15 +88,27 @@ def _generate_chunk(params, tok0, pads, cur0, caches, generator, forward, cfg,
     return torch.stack(sampled, dim=1), caches
 
 
-def _stamp(caches, lens: torch.Tensor, valid: Optional[torch.Tensor]):
-    """Set the per-slot lengths ``[B]`` (and ``valid``) on every layer's view.
+def _stamp(caches, lens: torch.Tensor, valid: Optional[torch.Tensor],
+           page_table: Optional[torch.Tensor] = None):
+    """Set the per-slot lengths ``[B]``, ``valid`` and (paged caches) the
+    page table ``[B, MP]`` on every layer's view.
 
-    Both are slices of the one meta vector copied to the device per sync,
-    so no per-layer host->device copy is made.  The reference also stamps
-    a paged cache's page table and a layer-stacked view; neither cache is
-    ported yet, so ``caches`` is always a list of views.
+    All three are slices of the one meta vector copied to the device per
+    sync, so no per-layer host->device copy is made.  The reference also
+    stamps a layer-stacked view; the scan path is not ported yet, so
+    ``caches`` is always a list of views.
     """
-    return [c._replace(length=lens, valid=valid) for c in caches]
+    upd = {"length": lens, "valid": valid}
+    if page_table is not None:
+        upd["page_table"] = page_table
+    return [c._replace(**upd) for c in caches]
+
+
+def _take_table(meta: torch.Tensor, ns: int, mp: int):
+    """(meta without its trailing page table, the table [ns, mp] or None)."""
+    if not mp:
+        return meta, None
+    return meta[: -ns * mp], meta[-ns * mp :].reshape(ns, mp)
 
 
 def _clear_valid(caches):
@@ -125,19 +141,21 @@ def _serve_steps(params, tok, caches, lens, feed_next, feed_len, generator,
 
 
 def _serve_chunk(params, meta, caches, generator, forward, cfg, temperature,
-                 top_k, t_max, c, abits=None):
+                 top_k, t_max, c, abits=None, mp=0):
     """``c`` decode steps between two host syncs (continuous batching).
 
     ``meta`` packs [tok0 | feed_next.ravel | feed_len | lens0] into ONE int
-    vector on the device (one host->device copy per sync).  Returns the
-    [B, c] sampled tokens; the host decides which are real outputs.
+    vector on the device (one host->device copy per sync), followed under
+    paging by the page table ``[ns, mp]``.  Returns the [B, c] sampled
+    tokens; the host decides which are real outputs.
     """
-    ns = meta.shape[0] // (c + 3)
+    ns = meta.shape[0] // (c + 3 + mp)
+    meta, table = _take_table(meta, ns, mp)
     tok0 = meta[:ns][:, None]
     feed_next = meta[ns : ns + ns * c].reshape(ns, c)
     feed_len = meta[ns + ns * c : 2 * ns + ns * c]
     lens0 = meta[2 * ns + ns * c :]
-    caches = _stamp(caches, lens0, None)
+    caches = _stamp(caches, lens0, None, table)
     cols = torch.arange(t_max, device=meta.device)
     return _serve_steps(params, tok0, caches, lens0, feed_next, feed_len,
                         generator, forward, cfg, temperature, top_k, cols,
@@ -145,7 +163,7 @@ def _serve_chunk(params, meta, caches, generator, forward, cfg, temperature,
 
 
 def _serve_combo(params, meta, caches, generator, forward, cfg, temperature,
-                 top_k, t_max, s_len, c, abits=None, p_abits=None):
+                 top_k, t_max, s_len, c, abits=None, p_abits=None, mp=0):
     """One prefill wave (under ``p_abits``) + ``c`` decode steps (under
     ``abits``) between two host syncs.
 
@@ -158,10 +176,12 @@ def _serve_combo(params, meta, caches, generator, forward, cfg, temperature,
     through the chunk's feed (``_serve_chunk`` conventions).
 
     ``meta`` packs [toks.ravel | n_valid | lens0 | tok_src | tok0_else |
-    feed_next.ravel | feed_len] into ONE int vector, and the wave sample
-    rides as column 0 of the returned [B, 1 + c] tensor (one fetch).
+    feed_next.ravel | feed_len] into ONE int vector, followed under paging
+    by the page table ``[ns, mp]``, and the wave sample rides as column 0
+    of the returned [B, 1 + c] tensor (one fetch).
     """
-    ns = meta.shape[0] // (s_len + c + 5)
+    ns = meta.shape[0] // (s_len + c + 5 + mp)
+    meta, table = _take_table(meta, ns, mp)
     off = 0
 
     def take(count):
@@ -178,7 +198,7 @@ def _serve_combo(params, meta, caches, generator, forward, cfg, temperature,
     feed_next = take(ns * c).reshape(ns, c)
     feed_len = take(ns)
 
-    caches = _stamp(caches, lens0, n_valid)
+    caches = _stamp(caches, lens0, n_valid, table)
     dev = meta.device
     cols = torch.arange(t_max, device=dev)
     lens_c = torch.clamp(lens0, max=t_max - 1)
@@ -367,11 +387,19 @@ class InferenceEngine:
         tokens).  A slot that finishes inside a chunk computes garbage for
         the rest of it; the host discards it and recycles the slot.
 
+        Under paging (``KVCacheConfig.paged``) this loop owns the page
+        allocator: a slot gets pages as its length crosses a page boundary,
+        before each wave and each chunk, and returns them when its request
+        completes; an idle slot waits for admission while the pool has no
+        free page.  The table rides in the sync's meta vector.
+
         ``stats`` (if given) receives the reference's keys: ``n_combos``,
         ``n_chunks``, ``n_steps``, ``n_generated``, ``n_prompt_fed``,
         ``t_combos_s``, ``t_chunks_s``, and per-request ``ttft_s`` and
         ``tpot_s`` taken at sync granularity (a token is visible to a
-        client when the host fetches it).
+        client when the host fetches it).  Under paging also
+        ``n_page_allocs`` (pages handed out in all) and ``pages_peak``
+        (most pages held at once).
         """
         if any(len(r) == 0 for r in requests):
             raise ValueError("empty prompts are not allowed")
@@ -401,6 +429,20 @@ class InferenceEngine:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
 
+        kv = self.engine_cfg.kv
+        paged = kv.paged
+        mp = t_max // kv.page_size if paged else 0
+        if paged:
+            allocator = PageAllocator(pool_pages(nslots, kv))
+            slot_pages: List[List[int]] = [[] for _ in range(nslots)]
+            table_np = np.zeros((nslots, mp), np.int64)
+            if allocator.num_pages < 2:
+                # no page beside the garbage page: no request could ever be
+                # admitted, and the loop below would never end
+                raise ValueError(f"KVCacheConfig.num_pages={allocator.num_pages}: "
+                                 "the pool needs a page beside the reserved page 0")
+            page_stats = {"n_page_allocs": 0, "pages_peak": 0}
+
         def note_tok(rid):
             if len(results[rid]) == 1:
                 first_tok_t[rid] = sync_t[0]
@@ -409,6 +451,10 @@ class InferenceEngine:
             done_t[slot_req[s]] = sync_t[0]
             slot_req[s] = -1
             slot_len[s] = 0
+            if paged:
+                allocator.free(slot_pages[s])
+                slot_pages[s] = []
+                table_np[s, :] = 0
 
         def admit(s):
             rid = queue.pop(0)
@@ -418,6 +464,25 @@ class InferenceEngine:
             slot_gen[s] = 0
             results[rid] = []
             pending_tok[s] = requests[rid][0]
+
+        def ensure_pages(last_col):
+            """Give every live slot the pages up to column ``last_col[s]``."""
+            for s in range(nslots):
+                if slot_req[s] < 0:
+                    continue
+                while len(slot_pages[s]) <= last_col[s] // kv.page_size:
+                    pg = allocator.alloc()
+                    table_np[s, len(slot_pages[s])] = pg
+                    slot_pages[s].append(pg)
+                    page_stats["n_page_allocs"] += 1
+            page_stats["pages_peak"] = max(page_stats["pages_peak"],
+                                           allocator.num_pages - 1 - allocator.free_count)
+
+        def to_device(meta):
+            """The one host->device copy of a sync (the page table last)."""
+            if paged:
+                meta = np.concatenate([meta, table_np.ravel()])
+            return torch.from_numpy(meta).to(dev)
 
         def fetch(out):
             """The one device->host copy of a sync; returns (tokens, dt)."""
@@ -434,7 +499,7 @@ class InferenceEngine:
                          t_combos_s=0.0, t_chunks_s=0.0)
         while queue or any(r >= 0 for r in slot_req):
             for s in range(nslots):
-                if slot_req[s] < 0 and queue:
+                if slot_req[s] < 0 and queue and (not paged or allocator.free_count > 0):
                     admit(s)
 
             remaining = np.array([
@@ -485,6 +550,9 @@ class InferenceEngine:
                         feed_next[s, : max(nfeed - 1, 0)] = rem[1:nfeed]
                         feed_len[s] = nfeed
                 lens_np = np.minimum(slot_len, t_max - 1)
+                if paged:
+                    ensure_pages(np.minimum(lens_np + np.maximum(valid_np, 1) - 1 + c,
+                                            t_max - 1))
                 if stats is not None:
                     stats["n_combos"] += 1
                     stats["n_steps"] += 1 + c  # wave ~= one step + c chunk
@@ -493,10 +561,10 @@ class InferenceEngine:
                     tok0_else, feed_next.ravel(), feed_len,
                 ])
                 out, caches = _serve_combo(
-                    self.params, torch.from_numpy(meta).to(dev), caches,
+                    self.params, to_device(meta), caches,
                     generator, self.forward, self.cfg, temperature, top_k,
                     t_max, sbkt, c, self.engine_cfg.activation_bits,
-                    self.engine_cfg.prefill_abits())
+                    self.engine_cfg.prefill_abits(), mp)
                 out_np, dt = fetch(out)
                 if stats is not None:
                     stats["t_combos_s"] = round(stats["t_combos_s"] + dt, 4)
@@ -527,18 +595,21 @@ class InferenceEngine:
             else:
                 # ---- pure decode: prompts all fed, no wave needed.  Idle
                 # slots keep writing (and reading) garbage nothing consumes
+                # (under paging in the reserved garbage page)
                 feed_next = np.zeros((nslots, c), np.int64)
                 feed_len = np.zeros(nslots, np.int64)
                 lens_np = np.minimum(slot_len, t_max - 1)
+                if paged:
+                    ensure_pages(np.minimum(lens_np + c - 1, t_max - 1))
                 if stats is not None:
                     stats["n_chunks"] += 1
                     stats["n_steps"] += c
                 meta = np.concatenate([pending_tok, feed_next.ravel(),
                                        feed_len, lens_np])
                 out, caches = _serve_chunk(
-                    self.params, torch.from_numpy(meta).to(dev), caches,
+                    self.params, to_device(meta), caches,
                     generator, self.forward, self.cfg, temperature, top_k,
-                    t_max, c, self.engine_cfg.activation_bits)
+                    t_max, c, self.engine_cfg.activation_bits, mp)
                 sampled, dt = fetch(out)
                 if stats is not None:
                     stats["t_chunks_s"] = round(stats["t_chunks_s"] + dt, 4)
@@ -568,6 +639,8 @@ class InferenceEngine:
                     pending_tok[s] = (prompt[slot_fed[s]] if slot_fed[s] < len(prompt)
                                       else int(sampled[s, c - 1]))
         if stats is not None:
+            if paged:
+                stats.update(page_stats)
             stats["ttft_s"] = [round(first_tok_t[r] - t_serve0, 4)
                                for r in sorted(first_tok_t)]
             stats["tpot_s"] = [

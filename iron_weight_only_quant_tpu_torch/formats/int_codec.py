@@ -9,7 +9,10 @@
               q     = clamp(round(w / scale) + zero, 0, max_int)
 
 All math in float32; ``torch.round`` rounds half to even, as ``jnp.round``
-does, so codes and side info are bit-identical to the JAX package's.
+does, and ``max_int`` divides as a tensor (on CUDA torch turns division by
+a Python scalar into a product with the reciprocal, which is not the IEEE
+quotient), so codes and side info are bit-identical to the JAX package's
+functions, on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from .minifloat import _div
 
 SCALE_EPS = 1e-5
 
@@ -35,13 +40,13 @@ def encode_int(
     min_int, max_int = int_range(bits, symmetric)
     if symmetric:
         absmax = g.abs().amax(dim=1, keepdim=True).clamp(min=SCALE_EPS)
-        scales = absmax / max_int
+        scales = _div(absmax, max_int)
         zeros = None
         q = torch.round(g / scales).clamp(min_int, max_int)
     else:
         hi = g.amax(dim=1, keepdim=True)
         lo = g.amin(dim=1, keepdim=True)
-        scales = (hi - lo).clamp(min=SCALE_EPS) / max_int
+        scales = _div((hi - lo).clamp(min=SCALE_EPS), max_int)
         # "+ 0.0" turns the -0.0 that round(-0/s) gives for an all-zero
         # group (padding) into +0.0, as jnp.clip does, so the stored bytes
         # match the JAX package's

@@ -28,9 +28,11 @@ _QT_FIELDS = ("qweight", "scales", "zeros", "codebook", "spec", "shape", "mode")
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """numpy array (bfloat16 from ``ml_dtypes`` included) -> tensor on device."""
+    """numpy array -> tensor on device.  bfloat16 is read from ``ml_dtypes``'
+    type or, as numpy without ``ml_dtypes`` loads an artifact's bf16 array,
+    from a 2-byte void type (the only one the artifacts hold)."""
     a = np.array(a)  # a writable copy: torch refuses read-only buffers
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 

@@ -163,49 +163,61 @@ def causal_mask(s: int, t: Optional[int] = None, offset: int = 0,
 def update_kv_cache(
     cache: KVCacheView, k_new: torch.Tensor, v_new: torch.Tensor
 ) -> KVCacheView:
-    """Write S new tokens at position ``cache.length``.
+    """Write S new tokens at position ``cache.length`` (see
+    :func:`write_columns`); the returned view shares the buffers, which are
+    updated IN PLACE (the reference returned new arrays), and carries the
+    advanced length."""
+    length = write_columns((cache.k, cache.v), (k_new, v_new), cache.length,
+                           cache.valid)
+    return KVCacheView(cache.k, cache.v, length)
 
-    The buffers are updated IN PLACE (the reference returned new arrays);
-    the returned view shares them and carries the advanced length.  As in
-    the reference, a start too close to the end is clamped so that the S
-    tokens fit, and a ``[B]`` length writes each row at its own start.
 
-    With ``valid``, token i of slot b lands at column ``start[b] + i`` when
-    ``i < valid[b]`` and the column exists, and is dropped otherwise (the
-    reference's ``mode="drop"`` scatter).  No boolean mask selects the kept
-    tokens (on a CUDA tensor that would be a device->host sync per layer):
-    every token is written, the dropped ones to the slot's first column with
-    the bytes that column ends up holding anyway -- its kept token 0 if the
-    slot keeps any, else its current content -- so duplicate writes carry
-    equal bytes and the result does not depend on their order.
+def write_columns(bufs, news, start: Union[int, torch.Tensor],
+                  valid: Optional[torch.Tensor] = None):
+    """Write the S new tokens of each ``news[i]`` ``[B, S, ...]`` into
+    ``bufs[i]`` ``[B, T_max, ...]`` in place, at column ``start``; returns
+    the advanced length.  Every buffer of a cache (k and v, or the codes,
+    scales and zeros of a quantized one) takes the same columns.
+
+    As in the reference, a start too close to the end is clamped so that
+    the S tokens fit, and a ``[B]`` start writes each row at its own column.
+
+    With ``valid`` (``[B]``, slot-local starts only), token i of slot b
+    lands at column ``start[b] + i`` when ``i < valid[b]`` and the column
+    exists, and is dropped otherwise (the reference's ``mode="drop"``
+    scatter); the length advances by ``valid``.  No boolean mask selects
+    the kept tokens (on a CUDA tensor that would be a device->host sync per
+    layer): every token is written, the dropped ones to the slot's first
+    column with the bytes that column ends up holding anyway -- its kept
+    token 0 if the slot keeps any, else its current content -- so duplicate
+    writes carry equal bytes and the result does not depend on their order.
     """
-    start = cache.length
-    s = k_new.shape[1]
-    t_max = cache.k.shape[1]
-    bsz = cache.k.shape[0]
-    if cache.valid is not None:
+    s = news[0].shape[1]
+    t_max = bufs[0].shape[1]
+    bsz = bufs[0].shape[0]
+    if valid is not None:
         if not (torch.is_tensor(start) and start.dim() == 1):
-            raise ValueError("KVCacheView.valid requires [B] slot-local lengths")
+            raise ValueError("valid requires [B] slot-local lengths")
         ar = torch.arange(s, device=start.device)
         t = start[:, None] + ar[None, :]  # [B, S]
-        keep = (ar[None, :] < cache.valid[:, None]) & (t < t_max)
+        keep = (ar[None, :] < valid[:, None]) & (t < t_max)
         first = start.clamp(0, t_max - 1)[:, None]  # [B, 1]
         col = torch.where(keep, t, first)
         b_idx = torch.arange(bsz, device=start.device)[:, None]
-        for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        for buf, new in zip(bufs, news):
             new = new.to(buf.dtype)
             anchor = torch.where(keep[:, :1, None, None], new[:, :1],
                                  buf[b_idx, first])
             buf[b_idx, col] = torch.where(keep[:, :, None, None], new, anchor)
-        return KVCacheView(cache.k, cache.v, start + cache.valid)
+        return start + valid
     if torch.is_tensor(start) and start.dim() == 1:
         st = start.clamp(0, t_max - s)
         t = st[:, None] + torch.arange(s, device=start.device)[None, :]
         b_idx = torch.arange(bsz, device=start.device)[:, None]
-        cache.k[b_idx, t] = k_new.to(cache.k.dtype)
-        cache.v[b_idx, t] = v_new.to(cache.v.dtype)
+        for buf, new in zip(bufs, news):
+            buf[b_idx, t] = new.to(buf.dtype)
     else:
         st = min(max(int(start), 0), t_max - s)
-        cache.k[:, st : st + s] = k_new.to(cache.k.dtype)
-        cache.v[:, st : st + s] = v_new.to(cache.v.dtype)
-    return KVCacheView(cache.k, cache.v, start + s)
+        for buf, new in zip(bufs, news):
+            buf[:, st : st + s] = new.to(buf.dtype)
+    return start + s

@@ -73,6 +73,26 @@ class QuantizedTensor:
                             zeros=opt(self.zeros), codebook=opt(self.codebook))
 
 
+def repack_k_shards(qt: QuantizedTensor, k_shards: int) -> QuantizedTensor:
+    """Re-pack an artifact so sub-byte code pairing is confined to each of
+    ``k_shards`` contiguous K segments.
+
+    Row-parallel sharding slices the packed array at segment boundaries; a
+    ``k_shards=1`` artifact pairs codes (k, k + K/2) in one byte, so a bare
+    row slice is not self-contained until it is repacked (one unpack and
+    pack pass).
+    """
+    if qt.k_shards == k_shards:
+        return qt
+    from ..ops.packing import pack_codes_sharded, unpack_codes_sharded
+    from ..ops.qmatmul import packed_bits
+
+    bits = packed_bits(qt)
+    codes = unpack_codes_sharded(qt.qweight, bits, qt.k_stored, qt.k_shards)
+    return qt.replace(qweight=pack_codes_sharded(codes, bits, k_shards),
+                      k_shards=k_shards)
+
+
 def concat_n(qts: Sequence[QuantizedTensor]) -> QuantizedTensor:
     """Concatenate packed artifacts along the output (N) dimension.
 

@@ -23,13 +23,16 @@ calls of ``lut4``, ``lut6``, ``lut8``, ``w3``, ``w4``, ``w4_prenorm``,
 fp8 routes also at the five LLaMA-2-7B shapes, the W4 and W8 row factors
 with one split and with a K-split, every byte of the byte layouts decoded
 exactly); BFP artifacts run on the W4 and W8 kernels;
-card-built fp/bfp artifacts must equal CPU-built ones byte for byte.  The
+card-built int/fp/bfp artifacts must equal CPU-built ones byte for byte.  The
 W4 inner-loop probe kernel runs both its decodes on the W4 shapes.
 Artifacts the JAX package computes on its XLA path take the route
 (``ROUTE_CALLS``) on the card too.  The serve loop's KV write, a wave and a
-chunk (also under activation bits, and on a W3 model) and tiny ``serve``
-runs (also fp4, fp6 and fp8) are checked for host syncs, launch counts and
-repeatability.
+chunk (also under activation bits, on a W3 model, and on paged caches) and
+tiny ``serve`` runs (also fp4, fp6 and fp8, and on int8, int4 and paged KV
+caches, the paged ones against their contiguous caches' tokens) are
+checked for host syncs, launch counts and repeatability; the KV codec on
+the card must give the CPU's bits; an artifact saved and loaded onto the
+card must give the same tensors and tokens.
 """
 
 import contextlib
@@ -550,9 +553,16 @@ def test_bfp_artifacts_run_on_the_int_kernels(dev, kern):
                                   LUT_SPECS["fp8_e4m3_g128_sym"][0],
                                   fp_spec("fp6", 3, 2, group_size=64, symmetric=False),
                                   QuantSpec(fmt="bfp", bits=4, group_size=128),
-                                  QuantSpec(fmt="bfp", bits=8, group_size=128)],
-                         ids=["fp4", "fp8", "fp6", "bfp4", "bfp8"])
+                                  QuantSpec(fmt="bfp", bits=8, group_size=128),
+                                  SPECS["g128_asym"],
+                                  QuantSpec(fmt="int", bits=8, group_size=128, symmetric=True),
+                                  QuantSpec(fmt="int", bits=3, group_size=PER_CHANNEL,
+                                            symmetric=False)],
+                         ids=["fp4", "fp8", "fp6", "bfp4", "bfp8", "int4", "int8_sym",
+                              "int3_perchannel"])
 def test_card_built_artifacts_equal_cpu_built(dev, spec):
+    """Every format, int included: the int codec divides by a tensor (a
+    Python-scalar divisor is a reciprocal product on CUDA)."""
     g = torch.Generator(device=dev)
     g.manual_seed(5)
     w = torch.randn((1408, 300), generator=g, device=dev) * 0.05
@@ -1311,10 +1321,10 @@ def test_valid_kv_write_does_not_sync(dev):
     assert out.k[1, 4:].eq(0).all() and out.k[2, 11].eq(1).all() and out.k[3].eq(0).all()
 
 
-def _tiny_engine(dev, bits, spec=None, **ecfg):
+def _tiny_engine(dev, bits, spec=None, kv=None, **ecfg):
     """Tiny 2-layer LLaMA, every linear ``bits``-bit g128 (or ``spec``); W3
     at hidden 1024 and FFN 2048, the least widths whose K/8 the group
-    divides."""
+    divides.  ``kv``: the KV cache (default contiguous 16-bit, 48 columns)."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models import llama
@@ -1330,7 +1340,7 @@ def _tiny_engine(dev, bits, spec=None, **ecfg):
                                       if isinstance(v, dict)]:
         lin["w"] = quantize_tensor(lin["w"], spec, pad_n_to=512)
     return InferenceEngine(params, cfg, llama.llama_forward, family="llama",
-                           engine_cfg=EngineConfig(kv=KVCacheConfig(max_seq_len=48),
+                           engine_cfg=EngineConfig(kv=kv or KVCacheConfig(max_seq_len=48),
                                                    max_batch_size=4, fuse_projections=True,
                                                    **ecfg),
                            dtype=torch.bfloat16, device=dev)
@@ -1369,22 +1379,26 @@ def test_w3_serve_device_calls_do_not_sync(dev, abits):
     _serve_wave_and_chunk_without_sync(dev, 3, abits)
 
 
-def _serve_wave_and_chunk_without_sync(dev, bits, abits):
+def _serve_wave_and_chunk_without_sync(dev, bits, abits, kv=None):
     from iron_weight_only_quant_tpu_torch.engine.engine import _serve_chunk, _serve_combo
 
     p_abits, d_abits = abits or (None, None)
-    eng = _tiny_engine(dev, bits)
+    eng = _tiny_engine(dev, bits, kv=kv)
     c, s_len, ns = 4, 8, 4
+    # under paging the page table [ns, mp] follows each meta vector
+    mp = 48 // kv.page_size if kv is not None and kv.paged else 0
+    table = torch.arange(1, 1 + ns * mp).reshape(ns, mp)
+    table[3] = 0  # an idle slot: the garbage page
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     combo_meta = torch.cat([
         torch.randint(1, 255, (ns * s_len,)), torch.tensor([8, 3, 1, 0]),
         torch.zeros(ns, dtype=torch.long), torch.tensor([1, 1, 1, 0]),
         torch.zeros(ns, dtype=torch.long), torch.zeros(ns * c, dtype=torch.long),
-        torch.zeros(ns, dtype=torch.long)]).to(dev)
+        torch.zeros(ns, dtype=torch.long), table.ravel()[: ns * mp]]).to(dev)
     chunk_meta = torch.cat([torch.tensor([5, 6, 7, 8]), torch.zeros(ns * c, dtype=torch.long),
                             torch.zeros(ns, dtype=torch.long),
-                            torch.tensor([12, 7, 5, 0])]).to(dev)
+                            torch.tensor([12, 7, 5, 0]), table.ravel()[: ns * mp]]).to(dev)
     caches = eng._fresh_caches(ns)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1392,9 +1406,9 @@ def _serve_wave_and_chunk_without_sync(dev, bits, abits):
         with torch.inference_mode():
             dm.reset_counts()
             out, caches = _serve_combo(eng.params, combo_meta, caches, gen, eng.forward,
-                                       eng.cfg, 0.0, 0, 48, s_len, c, d_abits, p_abits)
+                                       eng.cfg, 0.0, 0, 48, s_len, c, d_abits, p_abits, mp)
             out2, caches = _serve_chunk(eng.params, chunk_meta, caches, gen, eng.forward,
-                                        eng.cfg, 0.0, 0, 48, c, d_abits)
+                                        eng.cfg, 0.0, 0, 48, c, d_abits, mp)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.shape == (ns, 1 + c) and out2.shape == (ns, c)
@@ -1451,3 +1465,116 @@ def test_tiny_lut_serve_on_the_card_is_repeatable(dev, case):
     assert dm.LAUNCHES == {**{k: 0 for k in dm.LAUNCHES},
                            name: stats["n_steps"] * per_forward}
     assert not any(dm.PLAIN_CALLS.values()) and not any(dm.ROUTE_CALLS.values())
+
+
+# ------------------------------------------------------ quantized and paged KV
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", [128, 64])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_codec_on_the_card_is_bit_equal_to_the_cpu(dev, bits, g, dtype):
+    """Codes, scales, zeros and decoded values: no reciprocal product on the
+    card (the int codec divides by a tensor)."""
+    from iron_weight_only_quant_tpu_torch.engine import kvcache as kvc
+
+    gen = torch.Generator().manual_seed(bits * g)
+    for s in (1, 64):
+        x = (torch.randn((8, s, 32, 128), generator=gen) * 3).to(dtype)
+        on_card = kvc._encode(x.to(dev), bits, g, bits == 4)
+        on_cpu = kvc._encode(x, bits, g, bits == 4)
+        for a, b in zip(on_card, on_cpu):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        for out in (dtype, torch.float32):
+            dec = kvc._decode(*on_card, 128, out, bits == 4)
+            assert torch.equal(dec.cpu(), kvc._decode(*on_cpu, 128, out, bits == 4))
+
+
+KV_CASES = {
+    "kv8": dict(kv_bits=8),
+    "kv4": dict(kv_bits=4),
+    "paged16": dict(paged=True, page_size=16),
+    "paged_kv8": dict(paged=True, page_size=16, kv_bits=8),
+    # the traffic's peak of 6 pages and the garbage page: 11 pages recycled
+    "paged_kv4_small_pool": dict(paged=True, page_size=16, kv_bits=4, num_pages=7),
+}
+
+
+@pytest.mark.parametrize("case", list(KV_CASES))
+def test_tiny_kv_serve_on_the_card_is_repeatable(dev, case):
+    """W4 serves under each KV cache: repeatable tokens, exact launches, no
+    plain call; a paged cache gives its contiguous cache's tokens."""
+    from iron_weight_only_quant_tpu_torch.config import KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine.kvcache import pool_pages
+
+    reqs = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
+    kw = KV_CASES[case]
+    eng = _tiny_engine(dev, 4, kv=KVCacheConfig(max_seq_len=48, **kw))
+    outs, stats = [], {}
+    for _ in range(2):
+        dm.reset_counts()
+        outs.append(eng.serve(reqs, max_new_tokens=8, chunk=4, stats=stats))
+    assert outs[0] == outs[1] and [len(o) for o in outs[0]] == [8] * 6
+    n_layers = eng.cfg.num_layers
+    assert dm.LAUNCHES[dm.W4] == stats["n_steps"] * (2 * n_layers + 1)
+    assert dm.LAUNCHES[dm.W4_PRENORM] == stats["n_steps"] * 2 * n_layers
+    assert sum(dm.LAUNCHES.values()) == stats["n_steps"] * (4 * n_layers + 1)
+    assert not any(dm.PLAIN_CALLS.values()) and not any(dm.ROUTE_CALLS.values())
+    if kw.get("paged"):
+        flat = {k: v for k, v in kw.items() if k not in ("paged", "page_size", "num_pages")}
+        contiguous = _tiny_engine(dev, 4, kv=KVCacheConfig(max_seq_len=48, **flat))
+        assert contiguous.serve(reqs, max_new_tokens=8, chunk=4) == outs[0]
+        assert stats["pages_peak"] <= pool_pages(4, eng.engine_cfg.kv) - 1
+        assert stats["n_page_allocs"] > stats["pages_peak"]  # pages were recycled
+
+
+@pytest.mark.parametrize("kv", ["paged16", "paged_kv8"])
+def test_paged_serve_device_calls_do_not_sync(dev, kv):
+    """The page table rides in the meta vector: no host sync is added."""
+    from iron_weight_only_quant_tpu_torch.config import KVCacheConfig
+
+    _serve_wave_and_chunk_without_sync(dev, 4, None,
+                                       kv=KVCacheConfig(max_seq_len=48, **KV_CASES[kv]))
+
+
+def test_artifact_round_trip_onto_the_card(dev, tmp_path):
+    """A W4 tree quantized on the card, saved and loaded back onto the card:
+    every tensor bit-equal, and ``generate`` gives the same tokens."""
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models import llama
+    from iron_weight_only_quant_tpu_torch.quantize.artifact import load_artifact, save_artifact
+    from iron_weight_only_quant_tpu_torch.quantize.model_pass import quantize_model_params
+
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                            num_layers=2, num_heads=4, num_kv_heads=2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dense = llama.llama_init(cfg, gen, device=dev)
+    dense["embed"] = dense["embed"].to(torch.bfloat16)
+    params, report = quantize_model_params(
+        dense, QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False), device=dev)
+    assert report["n_quantized"] == 14 and report["n_skipped"] == 1
+    save_artifact(str(tmp_path), "llama", cfg, params)
+    family, cfg2, loaded = load_artifact(str(tmp_path), device=dev)
+    assert family == "llama" and cfg2 == cfg
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, list):
+            return [x for v in t for x in leaves(v)]
+        if dataclasses.is_dataclass(t):
+            return [t.spec, t.shape, t.mode] + [getattr(t, f) for f in
+                                                ("qweight", "scales", "zeros", "codebook")]
+        return [t]
+
+    for a, b in zip(leaves(loaded), leaves(params), strict=True):
+        if torch.is_tensor(b):
+            assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert a == b
+    prompts = [[5, 6, 7, 8], [1, 2]]
+    toks = [InferenceEngine(p, cfg, llama.llama_forward, family="llama",
+                            engine_cfg=EngineConfig(kv=KVCacheConfig(max_seq_len=32)),
+                            dtype=torch.bfloat16, device=dev).generate(prompts, max_new_tokens=6)
+            for p in (params, loaded)]
+    assert toks[0] == toks[1]

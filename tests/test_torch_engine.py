@@ -115,9 +115,7 @@ def test_sampling_is_seeded_and_top_k_bounded():
 
 @pytest.mark.parametrize("ecfg", [
     dict(mesh=MeshConfig(model=2)),
-    dict(kv=KVCacheConfig(kv_bits=8)),
-    dict(kv=KVCacheConfig(paged=True)),
-], ids=["mesh", "kv_int8", "paged"])
+], ids=["mesh"])
 def test_unported_engine_options_raise(models, ecfg):
     _, tp = models
     for entry in ("generate", "serve"):
