@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through thirty
-phases; any failing phase ends the run with a non-zero exit code.  The W4
-model, the main path, runs all 32 layers of LLaMA-2-7B; the W8, W3, fp4,
-fp8 and fp6 models, whose kernels it does not carry but which add time,
-run ``CUT_LAYERS`` (8) layers at full width.
+Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through
+thirty-four phases; any failing phase ends the run with a non-zero exit
+code.  The W4 model, the main path, runs all 32 layers of LLaMA-2-7B,
+flat and on the scan path (layer-stacked params and caches); its A-serve
+and KV-mode serves, the W8, W3, fp4, fp8 and fp6 models, and the OPT and
+BLOOM models, whose kernels or paths the main path does not carry but
+which add time, run ``CUT_LAYERS`` (8) layers at full width.
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
    per source, all at once) and print the card's name and power limit.
@@ -15,7 +17,11 @@ run ``CUT_LAYERS`` (8) layers at full width.
    the five main-path shapes of a LLaMA-2-7B W4 g128 model, at decode M=8
    and a prefill M, plus a ``k_pad`` artifact, an f32 x and a layer-stacked
    call with layer > 0; untimed, at every other row count the main paths
-   give the kernels (serve's prefill waves, generate's prefill).  Prints
+   give the kernels (serve's prefill waves, generate's prefill).  The
+   stacked forms (rows ``w4_matmul_pfx``, ``w4_matmul_prenorm_pfx``; in
+   phase 5 the W8 ones) are timed at the five shapes too, at M=8 and
+   M=256, on stacked artifacts of as many layers as a cold L2 needs, the
+   calls rotating through the layers.  Prints
    error, kernel time, plain time, ``torch.matmul`` on a pre-dequantized
    bf16 weight (a yardstick, never used by the port) and the byte/operation
    bound of each call.  The bf16-x calls of ``w4_matmul`` and
@@ -90,8 +96,9 @@ run ``CUT_LAYERS`` (8) layers at full width.
    three artifacts (SASS: IMMA, no IDP in every product kernel).
 9. Two-layer logits with activation bits: phase 3 under A8 and A16, W4
    and W8.
-10. W4 A-serve: the 32-layer W4 model of phase 4, ``serve`` of phase 7's
-    traffic with ``prefill_activation_bits=8`` and ``activation_bits=16``
+10. W4 A-serve: the first ``CUT_LAYERS`` layers of phase 4's W4 model,
+    ``serve`` of phase 7's traffic with ``prefill_activation_bits=8`` and
+    ``activation_bits=16``
     (waves on W4A8, the slab kernel's one-plane mode; decode steps on
     W4A16); warm-up, median of 3, one profiled run; launch counts exact per
     run.
@@ -104,15 +111,15 @@ run ``CUT_LAYERS`` (8) layers at full width.
 10b. Two-layer 7B-width W4 logits with ``kv_bits`` 8 and 4 (the forward
     writes and reads a quantized cache), kernels vs the plain path on the
     CPU, as phase 3; limits ``LOGITS_TOL_KV``.
-10c. KV-mode serves: the 32-layer W4 model of phase 4, ``serve`` of phase
-    7's traffic (median of 3, profiled run; no warm-up, the kernels are
-    warm) with paged 16-bit pages (``KV_PAGE`` = 32 tokens), int8 paged,
+10c. KV-mode serves: the first ``CUT_LAYERS`` layers of phase 4's W4 model,
+    ``serve`` of phase 7's traffic (median of 3, profiled run; no warm-up,
+    the kernels are warm) with paged 16-bit pages (``KV_PAGE`` = 32 tokens), int8 paged,
     int4 contiguous and paged, and int8 paged in the least pool that
     traffic runs in (its peak plus the garbage page: pages are recycled).
     The cache holds 96 columns, three pages, so paged and contiguous
     timelines are equally long: paged tokens equal the contiguous serve's
-    of the same ``kv_bits`` (16-bit: phase 4's; int8: one untimed run),
-    the small pool's the full pool's.  Per serve also the bytes the KV
+    of the same ``kv_bits`` (one untimed run each, 16-bit and int8), the
+    small pool's the full pool's.  Per serve also the bytes the KV
     buffers hold.
 10d. Long-context ``generate``: phase 4's prompts on the same model with
     an int8 paged cache of 2048 columns (LLaMA-2's context), 32 new
@@ -126,8 +133,32 @@ run ``CUT_LAYERS`` (8) layers at full width.
     ``generate``'s tokens equal the in-memory model's (every quantized
     linear on ``w4_matmul``); the file's size and the save and load
     seconds.
+10f. The scan path: phase 4's 32-layer W4 model; two-layer logits of
+    ``llama_forward_scan`` against ``llama_forward`` on the card; one
+    untimed flat serve with an int8 cache; then the fused params stacked
+    (``stack_model_layers``, a copy), ``generate`` of phase 4's prompts
+    through ``llama_forward_scan``; ``serve`` of phase 7's traffic with the
+    16-bit cache, scan and flat in turns (scan, flat, flat, scan, scan,
+    flat: both meet the same host; medians and best), a profiled scan
+    run, and the int8 cache on the scan path (median of 3): the flat
+    path's tokens, and every linear but the lm_head on the stacked kernels
+    (``dm.STACKED_LAUNCHES``: ``2L`` a forward for each W4 kernel).
 11. W8 A-serve: the 8-layer W8 model of phase 7 with ``prefill_activation_bits=16``
     and ``activation_bits=8`` (waves on W8A16, decode steps on W8A8).
+11a. W8 on the scan path: phase 7's model stacked in place
+    (``consume=True``: each layer's buffers free as they are copied), one
+    timed ``serve`` of phase 7's traffic and one with A16 waves and A8
+    decode: phase 7's and phase 11's tokens, the stacked launches exact.
+11b. OPT: an 8-layer W4 model at OPT-6.7B widths (``OPTConfig.opt_6_7b()``,
+    random from a seed, every linear W4 g128 with ``pad_n_to=512`` and a
+    bf16 bias); two-layer logits on the card against the plain path on
+    the CPU (float32, bfloat16) and scan against flat; the params stacked
+    (a copy), ``generate`` flat and scan, ``serve`` one untimed run then
+    scan and flat in turns as in 10f, with the flat tokens.  Every linear
+    takes ``w4_matmul`` (no fusion, no pre-norm): ``6L`` a forward, all
+    stacked on the scan path; the tied head is a plain matmul.
+11c. BLOOM: phase 11b at BLOOM-7b1 widths (hidden 4096, 32 heads, FFN
+    16384, vocab 250880).
 12. W3 kernels vs plain: the three s21 3-bit kernels (``w3_matmul``,
     ``w3a8_matmul``, ``w3a16_matmul``) against their plain versions at the
     five main-path shapes of a LLaMA-2-7B W3 g128 model (down's K=11008
@@ -314,6 +345,16 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
                     "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:835"),
     "lut6a16_matmul": ("iron_weight_only_quant_tpu_torch/csrc/lut6a16_matmul.cu",
                        "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:892"),
+    # the reference's layer-stacked forms, timed as rows of their own: the
+    # same kernels reading layer l of [L, ...] buffers
+    "w4_matmul_pfx": ("iron_weight_only_quant_tpu_torch/csrc/w4_matmul.cu",
+                      "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:1712"),
+    "w4_matmul_prenorm_pfx": ("iron_weight_only_quant_tpu_torch/csrc/w4_matmul_prenorm.cu",
+                              "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:408"),
+    "w8_matmul_pfx": ("iron_weight_only_quant_tpu_torch/csrc/w8_matmul.cu",
+                      "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:1717"),
+    "w8_matmul_prenorm_pfx": ("iron_weight_only_quant_tpu_torch/csrc/w8_matmul_prenorm.cu",
+                              "iron_weight_only_quant_tpu/ops/pallas/dequant_matmul.py:413"),
     "w4_inner_f32": ("iron_weight_only_quant_tpu_torch/csrc/w4_inner_matmul.cu",
                      "scripts/probe_w4_inner.py:67"),
     "w4_inner_magic": ("iron_weight_only_quant_tpu_torch/csrc/w4_inner_matmul.cu",
@@ -321,6 +362,7 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
 }
 W3_PAD_K = 1024  # down's K=11008 stored as 11264: K/8 = 1408 = 11 groups of 128
 FP6_PAD_K = 1024  # the same for nq42: K/4 = 2816 = 22 groups of 128
+PFX = "_pfx"  # suffix of a kernel's stacked-form row in the report
 CUT_LAYERS = 8  # depth of the model paths beside the 32-layer W4 main path
 KV_PAGE = 32  # page size of the paged serves: the 96-column cache is 3 pages
 LONG_CONTEXT = 2048  # LLaMA-2's context, for the long-context generate
@@ -437,8 +479,11 @@ def bound(nbytes: int, ops: int, peak: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_call(torch, name, qt, x, run, run_plain, w_lib=None, abits=None):
-    """One kernel call against its plain version; records errors and times."""
+def check_call(torch, name, qt, x, run, run_plain, w_lib=None, abits=None, rotate=None):
+    """One kernel call against its plain version; records errors and times.
+    ``rotate`` = (kernel call, plain call) of (x, i): the timed calls run
+    those, which rotate through the layers of a stacked artifact, in place
+    of copies of ``qt`` (then one layer's artifact, for the bound)."""
     y = run(x, qt)
     y_ref = run_plain(x, qt)
     torch.cuda.synchronize()
@@ -456,16 +501,19 @@ def check_call(torch, name, qt, x, run, run_plain, w_lib=None, abits=None):
         from iron_weight_only_quant_tpu_torch.utils.timing import copies_for, device_ms
 
         nbytes, ops, peak = call_cost(qt, x.shape[0], x.element_size(), abits)
-        reps = copies_for(qt.qweight.numel())
-        qts = [qt] + [qt.map_arrays(torch.clone) for _ in range(reps - 1)]
-        rec["ms"] = device_ms(lambda i: run(x, qts[i % reps]), 20)
-        rec["plain_ms"] = device_ms(lambda i: run_plain(x, qts[i % reps]), 4)
+        if rotate is None:
+            reps = copies_for(qt.qweight.numel())
+            qts = [qt] + [qt.map_arrays(torch.clone) for _ in range(reps - 1)]
+            rotate = (lambda x, i: run(x, qts[i % reps]),
+                      lambda x, i: run_plain(x, qts[i % reps]))
+        rec["ms"] = device_ms(lambda i: rotate[0](x, i), 20)
+        rec["plain_ms"] = device_ms(lambda i: rotate[1](x, i), 4)
         lib_reps = copies_for(w_lib.numel() * w_lib.element_size())
         ws = [w_lib] + [w_lib.clone() for _ in range(lib_reps - 1)]
         rec["library_ms"] = device_ms(lambda i: torch.matmul(x, ws[i % lib_reps]), 20)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, peak)
         rec["bytes"], rec["ops"], rec["peak"] = nbytes, ops, peak
-        del qts, ws
+        del rotate, ws
     print("  " + json.dumps(rec), flush=True)
     if not ok:
         fail(f"{name}: kernel vs plain rel err {rel:.3e} > {tol}")
@@ -476,13 +524,20 @@ def phase_kernels(torch, device, spec, names, extra_specs=()):
     """Both kernels of a layout (``names``: flat, prenorm) against their
     plain versions; ``extra_specs`` are further (label, spec) artifacts
     checked once at the down shape, untimed, as are an f32 x on the
-    ``k_pad`` artifact and a stacked call."""
+    ``k_pad`` artifact and a stacked call.  At each main-path shape also
+    the stacked form (rows ``<kernel>_pfx``), timed at M=8 and M=256 on a
+    stacked artifact of as many layers as the L2 needs to be cold, the
+    calls rotating through its layers as a scan forward does."""
     from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
+    from iron_weight_only_quant_tpu_torch.models.common import stack_model_layers
+    from iron_weight_only_quant_tpu_torch.utils.timing import copies_for
+
     per_kernel = {name: [] for name in names}
+    per_kernel.update({name + PFX: [] for name in names})
     eps = 1e-5
 
     def runner(prenorm, layer=None):
@@ -508,7 +563,26 @@ def phase_kernels(torch, device, spec, names, extra_specs=()):
             rec.update(kernel=kname, shape=name, per_step=per_step,
                        stored_n=qt.qweight.shape[-1], spans=spans)
             per_kernel[kname].append(rec)
-        del qt, w_lib
+        n_layers = copies_for(qt.qweight.numel())
+        layers = [qt] + [make_artifact(torch, gen, spec, k, widths, device)[0]
+                         for _ in range(n_layers - 1)]
+        st = stack_model_layers({"layers": [{"lin": {"w": q, "b": None}} for q in layers]},
+                                consume=True)["layers_stacked"]["lin"]["w"]
+        del layers
+        run_st, plain_st = runner(prenorm, n_layers - 1)
+        rotate = (lambda x, i: runner(prenorm, i % n_layers)[0](x, st),
+                  lambda x, i: runner(prenorm, i % n_layers)[1](x, st))
+        for m in (DECODE_M, PREFILL_M):
+            x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+            # checked at the last layer; the bound is one layer's (qt's)
+            rec = check_call(torch, f"{kname}{PFX}:{name}:M={m}:L={n_layers}", qt, x,
+                             lambda x, _: run_st(x, st), lambda x, _: plain_st(x, st),
+                             w_lib, rotate=rotate)
+            rec.update(kernel=kname + PFX, shape=name, per_step=per_step,
+                       stored_n=qt.qweight.shape[-1], spans=spans, layers=n_layers,
+                       side_pad=st.side_pad)
+            per_kernel[kname + PFX].append(rec)
+        del qt, w_lib, st, rotate
         torch.cuda.empty_cache()
 
     # a k_pad artifact (K=11008 stored as 11264) and a stacked call, layer 2
@@ -612,42 +686,51 @@ def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,), pad_k_to
 
 # ------------------------------------------------------------- phase 4
 
-def expected_launches(names, forwards: int, n_layers: int):
+def expected_launches(names, forwards: int, n_layers: int, stacked: bool = False):
     """Launch counts of ``forwards`` model forwards whose linears all take
     the kernels ``names`` (flat, prenorm): o, down and the lm_head go to the
     flat kernel, the fused qkv and gate_up to the prenorm one (the same
-    kernel for W3, whose pre-norm runs in torch)."""
+    kernel for W3, whose pre-norm runs in torch).  ``stacked``: the stacked
+    launches among them on the scan path, every linear but the lm_head."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     want = {name: 0 for name in dm.LAUNCHES}
-    want[names[0]] += forwards * (2 * n_layers + 1)
+    want[names[0]] += forwards * (2 * n_layers + int(not stacked))
     want[names[1]] += forwards * 2 * n_layers
     return want
 
 
-def expected_a_launches(names, waves: int, steps: int, n_layers: int):
+def expected_a_launches(names, waves: int, steps: int, n_layers: int,
+                        stacked: bool = False):
     """Launch counts of ``waves`` prefill forwards on ``names[0]`` and
     ``steps`` decode forwards on ``names[1]``: under activation bits every
     linear of a forward (4 per layer and the lm_head) takes the phase's
-    int-activation kernel."""
+    int-activation kernel.  ``stacked``: those of the layers, without the
+    lm_head (the scan path's stacked launches)."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     want = {name: 0 for name in dm.LAUNCHES}
-    want[names[0]] += waves * (4 * n_layers + 1)
-    want[names[1]] += steps * (4 * n_layers + 1)
+    want[names[0]] += waves * (4 * n_layers + int(not stacked))
+    want[names[1]] += steps * (4 * n_layers + int(not stacked))
     return want
 
 
-def check_counts(what, want):
-    """Read the counters after a run: exactly the launches ``want``, no
+def check_counts(what, want, want_stacked=None):
+    """Read the counters after a run: exactly the launches ``want``, of
+    them exactly ``want_stacked`` on stacked artifacts (None: none), no
     plain call, no call of the XLA route."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     launches, plain = dict(dm.LAUNCHES), dict(dm.PLAIN_CALLS)
-    print(f"  {what}: launches {launches}, expected {want}, plain calls {plain}, "
+    stacked = dict(dm.STACKED_LAUNCHES)
+    want_stacked = want_stacked or {name: 0 for name in dm.LAUNCHES}
+    print(f"  {what}: launches {launches}, expected {want}; stacked "
+          f"{ {k: v for k, v in stacked.items() if v} }; plain calls {plain}, "
           f"route calls {dm.ROUTE_CALLS}", flush=True)
     if launches != want:
         fail(f"{what}: kernel launches {launches} != expected {want}")
+    if stacked != want_stacked:
+        fail(f"{what}: stacked launches {stacked} != expected {want_stacked}")
     if any(plain.values()):
         fail(f"{what}: the plain path ran on the main path: {plain}")
     if any(dm.ROUTE_CALLS.values()):
@@ -685,6 +768,25 @@ def phase_generate(torch, device, spec, cfg, card, names=None, label="W4", pad_k
                           engine_cfg=ecfg, dtype=torch.bfloat16, device=device)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
                              device=device).tolist() for n in PROMPT_LENS]
+    res = run_generate(torch, eng, prompts, cfg, card,
+                       lambda f: (expected_launches(names, f, cfg.num_layers), None))
+    res["build_s"] = build_s
+
+    print(f"  -- {label} serve (one warm-up run, {serve_runs} timed)", flush=True)
+    serve = phase_serve(torch, eng.params, cfg, names, serve_runs, card)
+    fused = eng.params  # kept for the A-serve
+    del eng, params
+    torch.cuda.empty_cache()
+    return res, serve, fused
+
+
+def run_generate(torch, eng, prompts, cfg, card, expect, label="generate"):
+    """``eng.generate`` of ``prompts``, greedy: a warm-up run of 2 tokens, a
+    prefill-only run (its wall time), then ``NEW_TOKENS`` with the counters
+    zeroed before and read after: ``expect(forwards)`` gives the launches
+    and the stacked launches (None: none) the run must make.  The result
+    holds the tokens and the prompts (dropped from the report)."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     warm = eng.generate(prompts, max_new_tokens=2)
     torch.cuda.synchronize()
@@ -699,32 +801,28 @@ def phase_generate(torch, device, spec, cfg, card, names=None, label="W4", pad_k
     out = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = check_counts("generate", expected_launches(
-        names, 1 + (NEW_TOKENS - 1), cfg.num_layers))
-    if len(out) != BATCH or any(len(o) != NEW_TOKENS for o in out):
-        fail(f"generate returned {[len(o) for o in out]} tokens")
+    want, want_stacked = expect(1 + (NEW_TOKENS - 1))
+    launches = check_counts(label, want, want_stacked)
+    if len(out) != len(prompts) or any(len(o) != NEW_TOKENS for o in out):
+        fail(f"{label} returned {[len(o) for o in out]} tokens")
     if any(not 0 <= t < cfg.vocab_size for o in out for t in o):
-        fail("a generated token is out of the vocabulary")
+        fail(f"{label}: a generated token is out of the vocabulary")
     if any(o[:2] != w for o, w in zip(out, warm)):
-        fail("greedy tokens differ between two runs of the same prompts")
+        fail(f"{label}: greedy tokens differ between two runs of the same prompts")
     decode_s = gen_s - prefill_s
-    tok_s = BATCH * (NEW_TOKENS - 1) / decode_s
-    res = {"build_s": build_s, "prefill_s": prefill_s, "generate_s": gen_s,
-           "decode_tok_per_s": tok_s, "prefill_tokens": BATCH * max(PROMPT_LENS),
+    tok_s = len(prompts) * (NEW_TOKENS - 1) / decode_s
+    res = {"prefill_s": prefill_s, "generate_s": gen_s,
+           "decode_tok_per_s": tok_s, "decode_step_ms": decode_s * 1e3 / (NEW_TOKENS - 1),
+           "prefill_tokens": len(prompts) * max(len(p) for p in prompts),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": launches, "card": card}
-    print(f"  decode {tok_s:.1f} tok/s at batch {BATCH} "
-          f"({decode_s * 1e3 / (NEW_TOKENS - 1):.2f} ms/step), prefill "
-          f"{prefill_s * 1e3:.1f} ms for {BATCH}x{max(PROMPT_LENS)} tokens, on {card}",
+           "launches": launches, "stacked_launches": dict(dm.STACKED_LAUNCHES),
+           "card": card, "tokens": out, "prompts": prompts}
+    print(f"  {label}: decode {tok_s:.1f} tok/s at batch {len(prompts)} "
+          f"({res['decode_step_ms']:.2f} ms/step), prefill "
+          f"{prefill_s * 1e3:.1f} ms for {res['prefill_tokens']} tokens, on {card}",
           flush=True)
     print("  first tokens: " + json.dumps([o[:8] for o in out[:2]]), flush=True)
-
-    print(f"  -- {label} serve (one warm-up run, {serve_runs} timed)", flush=True)
-    serve = phase_serve(torch, eng.params, cfg, names, serve_runs, card)
-    fused = eng.params  # kept for the A-serve
-    del eng, params
-    torch.cuda.empty_cache()
-    return res, serve, fused
+    return res
 
 
 # ------------------------------------------------------------- phase 7
@@ -745,11 +843,12 @@ def percentile_ms(series, q):
     return float(np.percentile(np.asarray(series, np.float64) * 1e3, q))
 
 
-def serve_engine(torch, params, cfg, kv=None, **ecfg):
+def serve_engine(torch, params, cfg, kv=None, forward=None, family="llama", **ecfg):
     """(engine, requests) of the serving traffic; the cache holds the
     longest request plus the new tokens, as bench.py sizes it.  ``kv``
     adds KV cache options (``kv_bits``, paging), ``ecfg`` engine options
-    (the activation bits)."""
+    (the activation bits); ``forward`` is ``llama_forward`` unless given
+    (a LLaMA engine fuses q|k|v and gate|up)."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
@@ -757,8 +856,9 @@ def serve_engine(torch, params, cfg, kv=None, **ecfg):
     reqs = serve_requests(cfg.vocab_size)
     t_need = max(len(r) for r in reqs) + NEW_TOKENS
     ecfg = EngineConfig(kv=KVCacheConfig(max_seq_len=t_need, **(kv or {})),
-                        max_batch_size=SERVE_SLOTS, fuse_projections=True, **ecfg)
-    eng = InferenceEngine(params, cfg, llama_forward, family="llama",
+                        max_batch_size=SERVE_SLOTS, fuse_projections=family == "llama",
+                        **ecfg)
+    eng = InferenceEngine(params, cfg, forward or llama_forward, family=family,
                           engine_cfg=ecfg, dtype=torch.bfloat16,
                           device=params["embed"].device)
     return eng, reqs
@@ -806,7 +906,60 @@ def profile_serve(torch, eng, reqs):
     return res
 
 
-def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warmup=True):
+def ab_serve(torch, sides, reqs, card, rounds=SERVE_RUNS, warmup=False):
+    """The serving traffic on two engines in turns, A B B A A B ..., so
+    that both meet the same host (after one untimed run of A if
+    ``warmup``): ``sides`` = [(label, engine, expect)], ``expect(stats)`` =
+    (launches, stacked launches) each run must make.  Both sides must give
+    the same tokens.  Per side the median run's wall time, tok/s and
+    TTFT/TPOT percentiles, the best tok/s, every wall time, and the tokens;
+    ``<A>_over_<B>``: the ratio of the median tok/s."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    if warmup:
+        sides[0][1].serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK)
+    order = [sides[(i + i // 2) % 2] for i in range(2 * rounds)]
+    runs = {label: [] for label, _, _ in sides}
+    for label, eng, expect in order:
+        stats = {}
+        torch.cuda.synchronize()
+        dm.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_counts(f"serve ({label})", *expect(stats))
+        runs[label].append((wall, stats, launches, out))
+        print(f"  serve ({label}): {wall:.3f} s", flush=True)
+    res = {}
+    for label, rs in runs.items():
+        if any(r[3] != rs[0][3] for r in rs) or rs[0][3] != runs[sides[0][0]][0][3]:
+            fail(f"serve ({label}): tokens differ between runs or from the other side's")
+        rs = sorted(rs, key=lambda r: r[0])
+        wall, stats, launches, out = rs[len(rs) // 2]
+        n_gen = sum(len(o) for o in out)
+        res[label] = {
+            "wall_s": wall, "toks_per_s": n_gen / wall, "best_toks_per_s": n_gen / rs[0][0],
+            "walls_s": [r[0] for r in rs], "timed_runs": len(rs),
+            "ttft_p50_ms": percentile_ms(stats["ttft_s"], 50),
+            "ttft_p95_ms": percentile_ms(stats["ttft_s"], 95),
+            "tpot_p50_ms": percentile_ms(stats["tpot_s"], 50),
+            "tpot_p95_ms": percentile_ms(stats["tpot_s"], 95),
+            "device_steps": stats["n_steps"], "launches": launches, "card": card,
+            "tokens": out}
+        print(f"  serve ({label}) {res[label]['toks_per_s']:.1f} generated tok/s (median of "
+              f"{len(rs)}, in turns; best {res[label]['best_toks_per_s']:.1f}), TTFT p50/p95 "
+              f"{res[label]['ttft_p50_ms']:.1f}/{res[label]['ttft_p95_ms']:.1f} ms, TPOT p50/p95 "
+              f"{res[label]['tpot_p50_ms']:.1f}/{res[label]['tpot_p95_ms']:.1f} ms, on {card}",
+              flush=True)
+    (a, _, _), (b, _, _) = sides
+    res[f"{a}_over_{b}"] = res[a]["toks_per_s"] / res[b]["toks_per_s"]
+    print(f"  {a} / {b} generated tok/s (medians): {res[f'{a}_over_{b}']:.3f}", flush=True)
+    return res
+
+
+def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warmup=True,
+                forward=None, profile=True):
     """``InferenceEngine.serve`` of the serving traffic: one warm-up run
     (unless ``warmup`` is false: the model's kernels are warm already),
     then ``runs`` timed runs (the median run is reported, the best wall
@@ -820,13 +973,17 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warm
     steps the second.  ``kv``: KV cache options (``kv_bits``, paging).  The
     result holds the tokens (``tokens``) and the bytes the KV buffers hold
     (``kv_bytes``); under paging also the pages handed out and the most
-    held at once."""
+    held at once.  ``forward`` (``llama_forward`` unless given) is the
+    model's forward; on a scan forward every linear but the lm_head must
+    take the stacked kernels.  ``profile=False`` skips the profiled run."""
     from iron_weight_only_quant_tpu_torch.engine.kvcache import cache_bytes
+    from iron_weight_only_quant_tpu_torch.models.common import is_scan_forward
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     ecfg = {} if abits is None else dict(prefill_activation_bits=abits[0],
                                          activation_bits=abits[1])
-    eng, reqs = serve_engine(torch, params, cfg, kv=kv, **ecfg)
+    eng, reqs = serve_engine(torch, params, cfg, kv=kv, forward=forward, **ecfg)
+    scan = forward is not None and is_scan_forward(forward)
     kv_bytes = cache_bytes(eng._fresh_caches(SERVE_SLOTS))
     first = None
     timed = []
@@ -840,12 +997,14 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warm
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if abits is None:
-            want = expected_launches(names, stats["n_steps"], cfg.num_layers)
+            want, want_stacked = (expected_launches(names, stats["n_steps"], cfg.num_layers,
+                                                    stacked=st) for st in (False, True))
         else:  # one wave per combo
-            want = expected_a_launches(names, stats["n_combos"],
-                                       stats["n_steps"] - stats["n_combos"],
-                                       cfg.num_layers)
-        launches = check_counts(f"serve run {i}", want)
+            want, want_stacked = (expected_a_launches(
+                names, stats["n_combos"], stats["n_steps"] - stats["n_combos"],
+                cfg.num_layers, stacked=st) for st in (False, True))
+        launches = check_counts(f"serve run {i}", want, want_stacked if scan else None)
+        stacked_launches = dict(dm.STACKED_LAUNCHES)
         if [len(o) for o in out] != [NEW_TOKENS] * len(reqs):
             fail(f"serve returned {[len(o) for o in out]} tokens")
         if any(not 0 <= t < cfg.vocab_size for o in out for t in o):
@@ -856,9 +1015,9 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warm
             fail("greedy serve tokens differ between runs of the same requests")
         print(f"  serve run {i}{' (warm-up)' if i == 0 else ''}: {wall:.3f} s", flush=True)
         if i > 0:
-            timed.append((wall, stats, launches))
+            timed.append((wall, stats, launches, stacked_launches))
     timed.sort(key=lambda t: t[0])
-    wall, stats, launches = timed[len(timed) // 2]
+    wall, stats, launches, stacked_launches = timed[len(timed) // 2]
     n_gen = sum(len(o) for o in first)
     n_prompt = sum(len(r) for r in reqs)
     res = {
@@ -878,8 +1037,8 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warm
         "tpot_p50_ms": percentile_ms(stats["tpot_s"], 50),
         "tpot_p95_ms": percentile_ms(stats["tpot_s"], 95),
         "latency_granularity": "host sync (a token counts when the host fetches it)",
-        "launches": launches, "card": card, "kv": kv or {}, "kv_bytes": kv_bytes,
-        "tokens": first,
+        "launches": launches, "stacked_launches": stacked_launches, "card": card,
+        "kv": kv or {}, "kv_bytes": kv_bytes, "tokens": first,
     }
     if "pages_peak" in stats:
         res.update(n_page_allocs=stats["n_page_allocs"], pages_peak=stats["pages_peak"])
@@ -892,7 +1051,8 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warm
           f"(measured at sync granularity), KV buffers {kv_bytes / 2**20:.1f} MiB, "
           f"on {card}", flush=True)
     print("  first tokens: " + json.dumps([o[:8] for o in first[:2]]), flush=True)
-    res["profile"] = profile_serve(torch, eng, reqs)
+    if profile:
+        res["profile"] = profile_serve(torch, eng, reqs)
     del eng
     return res
 
@@ -978,12 +1138,11 @@ def serve_once(torch, params, cfg, kv):
     return {"tokens": out}
 
 
-def phase_kv_serves(torch, params, cfg, card, serve_16):
+def phase_kv_serves(torch, params, cfg, card):
     """``serve`` of the serving traffic under each KV cache of the phase
     (three timed runs and a profiled one each; the kernels are warm from
     phase 4); paged tokens must equal the contiguous serve's of the same
-    ``kv_bits`` (16-bit: ``serve_16``, phase 4's; int8: one untimed
-    run)."""
+    ``kv_bits`` (one untimed run each, 16-bit and int8)."""
     from iron_weight_only_quant_tpu_torch.engine.kvcache import pool_pages
     from iron_weight_only_quant_tpu_torch.config import KVCacheConfig
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
@@ -1004,6 +1163,7 @@ def phase_kv_serves(torch, params, cfg, card, serve_16):
 
     for label, kv in settings:
         run(label, kv)
+    serve_16 = serve_once(torch, params, cfg, None)
     kv8 = serve_once(torch, params, cfg, dict(kv_bits=8))
     # the least pool this traffic runs in: its peak and the garbage page
     full = pool_pages(SERVE_SLOTS, KVCacheConfig(max_seq_len=t_need, **paged))
@@ -1159,6 +1319,254 @@ def phase_artifact(torch, device, spec, cfg_full, card):
           f"{save_s:.2f} s, load onto the card {load_s:.2f} s; generate tokens equal, on "
           f"{card}", flush=True)
     del params, loaded
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------- phases 10f-10i
+
+def scan_expect(names, n_layers):
+    """``expect`` of :func:`run_generate` on the LLaMA scan path: the flat
+    counts, of which every linear but the lm_head on a stacked artifact."""
+    return lambda f: (expected_launches(names, f, n_layers),
+                      expected_launches(names, f, n_layers, stacked=True))
+
+
+def compare_logits(torch, what, got, want, tol):
+    """max|got - want| / max|want| <= ``tol``, else the phase fails."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{what}: logits of shape {tuple(got.shape)} (want {tuple(want.shape)}) or "
+             "not finite")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"  logits {what}: max|d|/max|ref| = {rel:.3e} (tol {tol}), argmax agreement "
+          f"{agree:.4f}, bit-equal {torch.equal(got, want)}", flush=True)
+    if rel > tol:
+        fail(f"logits {what}: rel err {rel:.3e} > {tol}")
+    return {"rel_err": rel, "tol": tol, "argmax_agree": agree,
+            "bit_equal": torch.equal(got, want)}
+
+
+def phase_scan_w4(torch, params, cfg, card, flat_gen, flat_serve):
+    """The W4 main path on the scan path: two-layer logits, scan vs flat on
+    the card; one untimed flat serve with an int8 cache; then the flat
+    model's fused params stacked (a copy: the flat ones stay for the A/B),
+    ``generate`` through ``llama_forward_scan``, ``serve`` with the 16-bit
+    cache, scan and flat in turns (:func:`ab_serve`), then a profiled scan
+    serve, and the int8 scan serve (median of 3).  The scan tokens must
+    equal the flat path's (phase 4's; the int8 flat serve's) and its every
+    linear but the lm_head must launch the stacked kernels."""
+    import dataclasses
+
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models.common import stack_model_layers
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward, llama_forward_scan
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    names = (dm.W4, dm.W4_PRENORM)
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    two = {**params, "layers": params["layers"][:2]}
+    gen = torch.Generator(device=params["embed"].device).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=gen.device)
+    with torch.inference_mode():
+        flat, _ = llama_forward(two, tokens, cfg2)
+        scan, _ = llama_forward_scan(stack_model_layers(two), tokens, cfg2)
+    logits = compare_logits(torch, "bfloat16 two layers, scan vs flat", scan, flat,
+                            LOGITS_TOL["bfloat16"])
+    del two, flat, scan
+    kv8_tokens = serve_once(torch, params, cfg, dict(kv_bits=8))["tokens"]
+
+    t0 = time.perf_counter()
+    stacked = stack_model_layers(params)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    print(f"  stacked {cfg.num_layers} layers in {stack_s:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+    eng = InferenceEngine(stacked, cfg, llama_forward_scan, family="llama",
+                          engine_cfg=EngineConfig(fuse_projections=True, kv=KVCacheConfig(
+                              max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)),
+                          dtype=torch.bfloat16, device=params["embed"].device)
+    gen_res = run_generate(torch, eng, flat_gen["prompts"], cfg, card,
+                           scan_expect(names, cfg.num_layers), "scan generate")
+    del eng
+    if gen_res["tokens"] != flat_gen["tokens"]:
+        fail("scan generate gave other tokens than the flat path's (phase 4)")
+    gen_res["stack_s"] = stack_s
+
+    print("  -- serve, 16-bit KV cache: scan and flat in turns", flush=True)
+    scan_eng, reqs = serve_engine(torch, stacked, cfg, forward=llama_forward_scan)
+    flat_eng, _ = serve_engine(torch, params, cfg)
+    n_layers = cfg.num_layers
+    ab = ab_serve(torch, [
+        ("scan", scan_eng, lambda st: scan_expect(names, n_layers)(st["n_steps"])),
+        ("flat", flat_eng, lambda st: (expected_launches(names, st["n_steps"], n_layers),
+                                       None))], reqs, card)
+    if ab["scan"]["tokens"] != flat_serve["tokens"]:
+        fail("scan serve (16-bit KV) gave other tokens than the flat path's (phase 4)")
+    ab["scan"]["profile"] = profile_serve(torch, scan_eng, reqs)
+    del scan_eng, flat_eng
+    print("  -- scan serve, int8 KV cache", flush=True)
+    kv8 = phase_serve(torch, stacked, cfg, names, SERVE_RUNS, card, kv=dict(kv_bits=8),
+                      warmup=False, forward=llama_forward_scan, profile=False)
+    if kv8["tokens"] != kv8_tokens:
+        fail("scan serve (int8 KV) gave other tokens than the flat path's")
+    print("  scan generate and serves: the flat path's tokens", flush=True)
+    del stacked
+    torch.cuda.empty_cache()
+    return {"logits_scan_vs_flat": logits, "generate": gen_res, "serve_ab": ab,
+            "serve_kv8": kv8}
+
+
+def phase_scan_w8(torch, params, cfg, card, flat_serve, flat_serve_a):
+    """The W8 model of phase 7 stacked in place, ``serve`` of phase 7's
+    traffic and one serve with A16 waves and A8 decode (phase 11) through
+    ``llama_forward_scan``: one timed run each, the flat serves' tokens, every
+    linear but the lm_head on the stacked kernels."""
+    from iron_weight_only_quant_tpu_torch.models.common import stack_model_layers
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward_scan
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    stacked = stack_model_layers(params, consume=True)
+    serve = phase_serve(torch, stacked, cfg, (dm.W8, dm.W8_PRENORM), 1, card, warmup=False,
+                        forward=llama_forward_scan, profile=False)
+    print("  -- scan serve, A16 waves, A8 decode", flush=True)
+    serve_a = phase_serve(torch, stacked, cfg, (dm.W8A16, dm.W8A8), 1, card, abits=(16, 8),
+                          warmup=False, forward=llama_forward_scan, profile=False)
+    for got, want, what in ((serve, flat_serve, "serve"), (serve_a, flat_serve_a, "A-serve")):
+        if got["tokens"] != want["tokens"]:
+            fail(f"W8 scan {what} gave other tokens than the flat path's")
+    print("  W8 scan serves: the flat serves' tokens", flush=True)
+    del stacked
+    torch.cuda.empty_cache()
+    return serve, serve_a
+
+
+def build_quantized_family(torch, family, cfg, spec, device, seed):
+    """A random OPT or BLOOM model built on the card, every linear a
+    ``spec`` artifact with N padded to 512 (its bias bf16), LayerNorms of
+    ones and zeros, a bf16 embedding (the tied lm_head)."""
+    from iron_weight_only_quant_tpu_torch.models.opt import POS_OFFSET
+    from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = cfg.hidden_size
+    ffn = cfg.ffn_dim if family == "opt" else 4 * h
+    bf16 = torch.bfloat16
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+
+    def qlin(kin, kout):
+        return {"w": quantize_tensor(normal(kin, kout) * kin**-0.5, spec, pad_n_to=512),
+                "b": (normal(kout) * 0.02).to(bf16)}
+
+    def ln():
+        return {"w": torch.ones((h,), dtype=bf16, device=device),
+                "b": torch.zeros((h,), dtype=bf16, device=device)}
+
+    norm2 = "final_norm" if family == "opt" else "post_norm"
+    layers = [{"attn_norm": ln(), "q": qlin(h, h), "k": qlin(h, h), "v": qlin(h, h),
+               "o": qlin(h, h), norm2: ln(), "fc1": qlin(h, ffn), "fc2": qlin(ffn, h)}
+              for _ in range(cfg.num_layers)]
+    params = {"embed": (normal(cfg.vocab_size, h) * 0.02).to(bf16), "layers": layers,
+              "final_norm": ln()}
+    if family == "opt":
+        params["embed_pos"] = (normal(cfg.max_position_embeddings + POS_OFFSET, h)
+                               * 0.02).to(bf16)
+    else:
+        params["embed_norm"] = ln()
+    return params, gen
+
+
+def cast_dense(tree, dtype):
+    """``tree`` with its floating dense tensors cast to ``dtype`` (packed
+    artifacts as they are)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: cast_dense(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_dense(v, dtype) for v in tree]
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def phase_family(torch, device, family, cfg, spec, card, seed):
+    """An 8-layer OPT or BLOOM W4 model at published widths: two-layer
+    logits, kernels on the card vs the plain path on the CPU (float32 and
+    bfloat16), and scan vs flat on the card; the params stacked (a copy),
+    ``generate`` flat and scan, and ``serve`` (one untimed run, then scan
+    and flat in turns, :func:`ab_serve`), with the flat path's tokens.
+    Every linear (q, k, v, o, fc1, fc2; no fusion, no pre-norm) takes
+    ``w4_matmul``: 6 launches a layer and forward, all stacked on the scan
+    path; the tied lm_head is a plain matmul."""
+    import dataclasses
+
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.interop import params_from_numpy
+    from iron_weight_only_quant_tpu_torch.models import bloom, opt
+    from iron_weight_only_quant_tpu_torch.models.common import stack_model_layers
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    mod = opt if family == "opt" else bloom
+    fwd, fwd_scan = getattr(mod, f"{family}_forward"), getattr(mod, f"{family}_forward_scan")
+    t0 = time.perf_counter()
+    params, gen = build_quantized_family(torch, family, cfg, spec, device, seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"  built {cfg.num_layers}-layer {family} W4 model in {build_s:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
+    logits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        two = cast_dense({**params, "layers": params["layers"][:2]}, dtype)
+        with torch.inference_mode():
+            lg, _ = fwd(two, tokens, cfg2)
+            lg_ref, _ = fwd(params_from_numpy(two, "cpu"), tokens.cpu(), cfg2)
+            logits[name] = compare_logits(torch, f"{family} {name} two layers, kernels vs "
+                                          "plain", lg, lg_ref, LOGITS_TOL[name])
+            if dtype == torch.bfloat16:
+                lg_scan, _ = fwd_scan(stack_model_layers(two), tokens, cfg2)
+                logits["scan_vs_flat"] = compare_logits(
+                    torch, f"{family} {name} two layers, scan vs flat", lg_scan, lg,
+                    LOGITS_TOL[name])
+        del two
+    torch.cuda.empty_cache()
+
+    def want(forwards, stacked):
+        w = {name: 0 for name in dm.LAUNCHES}
+        w[dm.W4] = forwards * 6 * cfg.num_layers
+        return w, (w if stacked else None)
+
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device=device).tolist() for n in PROMPT_LENS]
+    ecfg = EngineConfig(kv=KVCacheConfig(max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8))
+    res = {"build_s": build_s, "logits": logits, "card": card}
+    stacked = stack_model_layers(params)  # a copy: the flat params stay for the A/B
+    for path, forward, p in (("flat", fwd, params), ("scan", fwd_scan, stacked)):
+        eng = InferenceEngine(p, cfg, forward, engine_cfg=ecfg, dtype=torch.bfloat16,
+                              device=device)
+        res[f"generate_{path}"] = run_generate(
+            torch, eng, prompts, cfg, card, lambda f: want(f, path == "scan"),
+            f"{path} generate")
+        del eng
+    if res["generate_scan"]["tokens"] != res["generate_flat"]["tokens"]:
+        fail(f"{family}: the scan generate gave other tokens than the flat one")
+    print(f"  -- {family} serve: scan and flat in turns", flush=True)
+    scan_eng, reqs = serve_engine(torch, stacked, cfg, forward=fwd_scan, family=None)
+    flat_eng, _ = serve_engine(torch, params, cfg, forward=fwd, family=None)
+    res["serve_ab"] = ab_serve(torch, [
+        ("scan", scan_eng, lambda st: want(st["n_steps"], True)),
+        ("flat", flat_eng, lambda st: want(st["n_steps"], False))], reqs, card, warmup=True)
+    print(f"  {family}: scan generate and serve give the flat path's tokens", flush=True)
+    del params, stacked, scan_eng, flat_eng
     torch.cuda.empty_cache()
     return res
 
@@ -1866,11 +2274,16 @@ def phase_w4_inner(torch, device, spec):
 
 # --------------------------------------------------------------- report
 
-def kernel_rows(per_kernel, launches):
+def kernel_rows(per_kernel, launches, stacked):
     """One row per kernel: times summed over the launches one decode step
     (M=8) makes at each main-path shape, and the same sums of the M=256
     records (``prefill_*``: one such launch per shape and step's launch);
-    ``launches`` from the run of the kernel's main path."""
+    ``launches`` from the run of the kernel's flat main path, ``stacked``
+    the stacked launches of its scan main path.  A kernel's row gives its
+    flat launches (``launches_flat`` = ``launches``) and, beside them, the
+    stacked ones of the same kernel (``launches_stacked``); its stacked-form
+    row (``<kernel>_pfx``, timed on stacked calls) gives the stacked ones as
+    its ``launches``."""
     rows = []
     for name, recs in per_kernel.items():
         def at(m):  # (sum of key over the step's launches at M=m, bound, bound_by)
@@ -1879,9 +2292,14 @@ def kernel_rows(per_kernel, launches):
             return step, bound(step("bytes"), step("ops"), sel[0]["peak"])
         step, (bound_ms, bound_by) = at(DECODE_M)
         pstep, (pbound_ms, _) = at(PREFILL_M)
+        base = name[:-len(PFX)] if name.endswith(PFX) else name
+        n_stacked = stacked.get(base, 0)
+        n_flat = 0 if base != name else launches[name]
         rows.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
-            "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
+            "replaces": KERNEL_SOURCES[name][1],
+            "launches": n_stacked if base != name else n_flat,
+            "launches_flat": n_flat, "launches_stacked": n_stacked,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": step("ms"), "plain_ms": step("plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2035,9 +2453,9 @@ def main() -> int:
     for spec in (w4, w8):
         phase_two_layers(torch, device, spec, cfg, abits_list=dm.ACTIVATION_BITS)
 
-    header("== phase 10: 32-layer 7B-width W4 serve, A8 waves, A16 decode")
-    serve_w4_a = phase_serve(torch, params_w4, cfg, (dm.W4A8, dm.W4A16), SERVE_RUNS,
-                             card, abits=(8, 16))
+    header(f"== phase 10: {CUT_LAYERS}-layer 7B-width W4 serve, A8 waves, A16 decode")
+    serve_w4_a = phase_serve(torch, {**params_w4, "layers": params_w4["layers"][:CUT_LAYERS]},
+                             cfg_cut, (dm.W4A8, dm.W4A16), SERVE_RUNS, card, abits=(8, 16))
 
     header("== phase 10a: KV codec on the card vs the CPU, paged round trips")
     kv_codec_checks = phase_kv_codec(torch, device)
@@ -2046,14 +2464,20 @@ def main() -> int:
            f"kernels vs plain path (limits {LOGITS_TOL_KV})")
     phase_two_layers(torch, device, w4, cfg, kv_bits_list=(8, 4))
 
-    header("== phase 10c: 32-layer 7B-width W4 serve with paged, int8 and int4 KV caches")
-    serve_kv = phase_kv_serves(torch, params_w4, cfg, card, serve_w4)
+    header(f"== phase 10c: {CUT_LAYERS}-layer 7B-width W4 serve with paged, int8 and int4 KV "
+           "caches")
+    serve_kv = phase_kv_serves(torch, {**params_w4, "layers": params_w4["layers"][:CUT_LAYERS]},
+                               cfg_cut, card)
 
     header(f"== phase 10d: 32-layer 7B-width W4 generate on a {LONG_CONTEXT}-column int8 "
            "paged cache")
     long_gen = phase_long_generate(
         torch, params_w4, cfg, card,
         (res["generate_s"] - res["prefill_s"]) * 1e3 / (NEW_TOKENS - 1))
+
+    header("== phase 10f: 32-layer 7B-width W4 on the scan path (layer-stacked params and "
+           "KV caches): generate, serve with 16-bit and int8 caches")
+    scan_w4 = phase_scan_w4(torch, params_w4, cfg, card, res, serve_w4)
     del params_w4
     torch.cuda.empty_cache()
 
@@ -2064,8 +2488,25 @@ def main() -> int:
     header(f"== phase 11: {CUT_LAYERS}-layer 7B-width W8 serve, A16 waves, A8 decode")
     serve_w8_a = phase_serve(torch, params_w8, cfg_cut, (dm.W8A16, dm.W8A8), SERVE_RUNS,
                              card, abits=(16, 8))
+
+    header(f"== phase 11a: {CUT_LAYERS}-layer 7B-width W8 serve on the scan path, and with "
+           "A16 waves, A8 decode")
+    serve_w8_scan, serve_w8_scan_a = phase_scan_w8(torch, params_w8, cfg_cut, card, serve_w8,
+                                                   serve_w8_a)
     del params_w8
     torch.cuda.empty_cache()
+
+    from iron_weight_only_quant_tpu_torch.models import BloomConfig, OPTConfig
+
+    header(f"== phase 11b: {CUT_LAYERS}-layer OPT-6.7B-width W4, flat and scan")
+    opt_res = phase_family(torch, device, "opt",
+                           dataclasses.replace(OPTConfig.opt_6_7b(), num_layers=CUT_LAYERS),
+                           w4, card, 30)
+    header(f"== phase 11c: {CUT_LAYERS}-layer BLOOM-7b1-width W4, flat and scan")
+    bloom_res = phase_family(torch, device, "bloom",
+                             BloomConfig(vocab_size=250880, hidden_size=4096,
+                                         num_layers=CUT_LAYERS, num_heads=32),
+                             w4, card, 31)
 
     w3 = QuantSpec(fmt="int", bits=3, group_size=128, symmetric=False)
     header(f"== phase 12: W3 kernels vs plain versions ({tol_a})")
@@ -2228,6 +2669,13 @@ def main() -> int:
     header("== phase 25: report")
     names_of = lambda run, names: {k: v for k, v in run["launches"].items()  # noqa: E731
                                    if k in names}
+    # stacked launches of the scan main paths: the W4 scan generate, the W8
+    # scan serves (the flat main paths launch none)
+    stacked = {k: 0 for k in dm.LAUNCHES}
+    for run, names in ((scan_w4["generate"], (dm.W4, dm.W4_PRENORM)),
+                       (serve_w8_scan, (dm.W8, dm.W8_PRENORM)),
+                       (serve_w8_scan_a, (dm.W8A16, dm.W8A8))):
+        stacked.update({k: run["stacked_launches"][k] for k in names})
     launches = {**names_of(res, (dm.W4, dm.W4_PRENORM)),
                 **names_of(serve_w8, (dm.W8, dm.W8_PRENORM)),
                 **names_of(serve_w4_a, (dm.W4A8, dm.W4A16)),
@@ -2241,10 +2689,11 @@ def main() -> int:
                 **names_of(serve_fp6_a, (dm.LUT6A16,)),
                 dm.W4_INNER_F32: probe_counts[dm.W4_INNER_F32],
                 dm.W4_INNER_MAGIC: probe_counts[dm.W4_INNER_MAGIC]}
-    rows = kernel_rows(per_kernel, launches)
+    rows = kernel_rows(per_kernel, launches, stacked)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    def report(key, run, drop=("tokens",)):
+    def report(key, run, drop=()):
+        drop += ("tokens", "prompts")
         print(json.dumps({key: {k: v for k, v in run.items() if k not in drop}}))
 
     report("generate", res, ("launches",))
@@ -2256,7 +2705,23 @@ def main() -> int:
     report("generate_w4_long_context", long_gen)
     report("artifact_round_trip", artifact)
     print(json.dumps({"kv_codec_bit_equal_calls": kv_codec_checks}))
+    report("generate_w4_scan", scan_w4["generate"])
+    for side in ("scan", "flat"):
+        report(f"serve_w4_{side}_in_turns", scan_w4["serve_ab"][side])
+    report("serve_w4_scan_kv8", scan_w4["serve_kv8"])
+    print(json.dumps({"logits_w4_scan_vs_flat": scan_w4["logits_scan_vs_flat"],
+                      "serve_w4_scan_over_flat": scan_w4["serve_ab"]["scan_over_flat"]}))
     report("serve_w8_a16_waves_a8_decode", serve_w8_a)
+    report("serve_w8_scan", serve_w8_scan)
+    report("serve_w8_scan_a16_waves_a8_decode", serve_w8_scan_a)
+    for family, fam_res in (("opt", opt_res), ("bloom", bloom_res)):
+        print(json.dumps({f"logits_{family}": fam_res["logits"],
+                          f"build_s_{family}": fam_res["build_s"]}))
+        for path in ("flat", "scan"):
+            report(f"generate_{family}_{path}", fam_res[f"generate_{path}"])
+            report(f"serve_{family}_{path}_in_turns", fam_res["serve_ab"][path])
+        print(json.dumps({f"serve_{family}_scan_over_flat":
+                          fam_res["serve_ab"]["scan_over_flat"]}))
     report("generate_w3", res_w3, ("launches",))
     report("serve_w3", serve_w3)
     report("serve_w3_a8_waves_a16_decode", serve_w3_a)

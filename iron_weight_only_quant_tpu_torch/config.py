@@ -164,11 +164,9 @@ def fp_spec(kind: str, exp_bits: int, mant_bits: int, **kw) -> QuantSpec:
 
 @dataclass(frozen=True)
 class KVCacheConfig:
-    """KV-cache layout + quantization (same fields as the JAX package's).
-
-    The port has contiguous 16-bit caches only so far; ``kv_bits`` 8 / 4 and
-    ``paged`` are still to be ported and its ``make_caches`` raises for them.
-    """
+    """KV-cache layout + quantization (same fields as the JAX package's):
+    contiguous or paged, 16-bit or int8/int4 codes
+    (``engine/kvcache.py``); the scan path takes contiguous caches only."""
 
     max_seq_len: int = 2048
     kv_bits: int = 16  # 16 = no quantization

@@ -25,8 +25,14 @@ and paged (``KVCacheConfig.paged``), 16-bit or quantized.  Under paging
 ``serve`` owns the page allocator and sends the page table to the device
 inside the sync's one packed meta copy.
 
-Single device only.  Meshes, tensor parallelism and the scan path are
-still to be ported (ROADMAP queue A); asking for them raises.
+The scan path: a forward marked by ``models.common.scan_forward`` (the
+LLaMA, OPT and BLOOM ``*_forward_scan``) runs layer-stacked params
+(``params["layers_stacked"]``; flat params are stacked here, after the
+projections are fused) with ONE stacked contiguous cache view, 16-bit or
+quantized; paged caches raise on it, as in the reference.
+
+Single device only.  Meshes and tensor parallelism are still to be ported
+(ROADMAP queue A); asking for them raises.
 """
 
 from __future__ import annotations
@@ -40,8 +46,16 @@ import torch
 
 from ..config import EngineConfig
 from ..device import resolve_device
+from ..models.common import first_cache as _cache0
+from ..models.common import is_scan_forward, stacked_depth
 from ..ops.qmatmul import activation_quant
-from .kvcache import PageAllocator, cache_max_len, make_caches, pool_pages
+from .kvcache import (
+    PageAllocator,
+    cache_max_len,
+    make_caches,
+    make_stacked_caches,
+    pool_pages,
+)
 
 
 def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -88,20 +102,29 @@ def _generate_chunk(params, tok0, pads, cur0, caches, generator, forward, cfg,
     return torch.stack(sampled, dim=1), caches
 
 
+def _is_view_list(caches) -> bool:
+    """A per-layer list of views, not one (stacked) view."""
+    return _cache0(caches) is not caches
+
+
 def _stamp(caches, lens: torch.Tensor, valid: Optional[torch.Tensor],
            page_table: Optional[torch.Tensor] = None):
     """Set the per-slot lengths ``[B]``, ``valid`` and (paged caches) the
-    page table ``[B, MP]`` on every layer's view.
+    page table ``[B, MP]`` on every layer's view, or on the one stacked
+    view, whose lengths become ``[L, B]``: ``lens`` once a layer (a tuple,
+    see ``kvcache._stacked_update_and_fetch``), while ``valid`` stays
+    ``[B]``, shared by the layers.
 
     All three are slices of the one meta vector copied to the device per
-    sync, so no per-layer host->device copy is made.  The reference also
-    stamps a layer-stacked view; the scan path is not ported yet, so
-    ``caches`` is always a list of views.
+    sync, so no per-layer host->device copy is made.
     """
     upd = {"length": lens, "valid": valid}
     if page_table is not None:
         upd["page_table"] = page_table
-    return [c._replace(**upd) for c in caches]
+    if _is_view_list(caches):
+        return [c._replace(**upd) for c in caches]
+    upd["length"] = (lens,) * len(caches.length)
+    return caches._replace(**upd)
 
 
 def _take_table(meta: torch.Tensor, ns: int, mp: int):
@@ -113,7 +136,9 @@ def _take_table(meta: torch.Tensor, ns: int, mp: int):
 
 def _clear_valid(caches):
     """valid=None on every view (per-slot partial-write scope ends)."""
-    return [c._replace(valid=None) for c in caches]
+    if _is_view_list(caches):
+        return [c._replace(valid=None) for c in caches]
+    return caches._replace(valid=None)
 
 
 def _serve_steps(params, tok, caches, lens, feed_next, feed_len, generator,
@@ -244,10 +269,8 @@ class InferenceEngine:
             raise NotImplementedError(
                 "multi-device engines (mesh, tp_block) are not ported yet "
                 "(ROADMAP queue A, 'Parallelism'); the port runs on one device")
-        if "layers" not in params:
-            raise NotImplementedError(
-                "layer-stacked params (the scan path) are not ported yet "
-                "(ROADMAP queue A); pass per-layer params under 'layers'")
+        if "layers" not in params and "layers_stacked" not in params:
+            raise ValueError("params hold neither 'layers' nor 'layers_stacked'")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
@@ -263,19 +286,31 @@ class InferenceEngine:
                 "EngineConfig.fuse_projections is set but family is None: "
                 "the fused qkv/gate_up path only applies with family='llama'",
                 stacklevel=2)
-        if engine_cfg.fuse_projections and family == "llama":
+        if engine_cfg.fuse_projections and family == "llama" and "layers" in params:
+            # stacked params cannot be fused here: fuse each layer before
+            # stacking (fuse_llama_layer); the stacked views keep the fusion
             from ..models.llama import fuse_llama_projections
 
             params = fuse_llama_projections(params)
+        if "layers" in params and is_scan_forward(forward):
+            # flat params with a scan forward: stack them here, after the
+            # fusion above (the caller's tree is not consumed)
+            from ..models.common import stack_model_layers
+
+            params = stack_model_layers(params)
         self.params = params
 
     def _n_kv_heads(self):
         return getattr(self.cfg, "num_kv_heads", getattr(self.cfg, "num_heads"))
 
     def _fresh_caches(self, batch: int):
-        return make_caches(len(self.params["layers"]), batch, self._n_kv_heads(),
-                           self.cfg.hd, self.engine_cfg.kv, self.dtype,
-                           self.device)
+        """Per-layer views for flat params; one stacked view (no paging,
+        as in the reference) for layer-stacked ones."""
+        args = (batch, self._n_kv_heads(), self.cfg.hd, self.engine_cfg.kv,
+                self.dtype, self.device)
+        if "layers_stacked" in self.params:
+            return make_stacked_caches(stacked_depth(self.params["layers_stacked"]), *args)
+        return make_caches(len(self.params["layers"]), *args)
 
     @staticmethod
     def _left_pad(prompts: Sequence[Sequence[int]], pad_token: int):
@@ -303,7 +338,7 @@ class InferenceEngine:
         b = len(prompts)
         toks, pads, L = self._left_pad(prompts, self.pad_token)
         caches = self._fresh_caches(b)
-        t_max = cache_max_len(caches[0])
+        t_max = cache_max_len(_cache0(caches))
         if L + max_new_tokens > t_max:
             raise ValueError(
                 f"prompt ({L}) + max_new ({max_new_tokens}) exceeds "
@@ -406,7 +441,7 @@ class InferenceEngine:
         dev = self.device
         nslots = min(self.engine_cfg.max_batch_size, max(1, len(requests)))
         caches = self._fresh_caches(nslots)
-        t_max = cache_max_len(caches[0])
+        t_max = cache_max_len(_cache0(caches))
         for r in requests:
             if len(r) + max_new_tokens > t_max:
                 raise ValueError(

@@ -15,6 +15,12 @@ A cache is one view per layer:
   slots, 16-bit or quantized with the same codec, and a per-slot page
   table; pool memory follows the live tokens.
 
+The scan path (layer-stacked params) takes ONE contiguous view, 16-bit or
+quantized, whose buffers carry a leading layer axis, ``[L, B, T_max, ...]``
+(:func:`make_stacked_caches`); the forward hands layer ``l`` a
+:class:`StackedCacheAt`.  Paged caches have no stacked form, as in the
+reference.
+
 Every buffer is updated in place by index, with no host sync
 (``models.common.write_columns`` for the contiguous views).  Quantizing
 and dequantizing are plain torch ops, as they were plain XLA in the
@@ -290,8 +296,63 @@ def _paged_update_and_fetch(cache: PagedKVCacheView, k_new, v_new):
     return cache, k_all, v_all
 
 
+class StackedCacheAt:
+    """Layer ``idx``'s handle into a stacked (``[L, ...]``) cache view: the
+    scan forwards thread the whole stacked view through the layers, and
+    :func:`update_and_fetch` writes the new tokens into ``buf[idx]`` in
+    place and reads ``buf[idx]`` back, a view, never a copy of the slab."""
+
+    __slots__ = ("caches", "idx")
+
+    def __init__(self, caches, idx: int):
+        self.caches = caches
+        self.idx = idx
+
+
+def _stacked_update_and_fetch(caches, l: int, k_new: torch.Tensor, v_new: torch.Tensor):
+    """Layer-``l`` append on a stacked cache view.
+
+    ``length`` holds one entry a layer, the view's ``[L]`` or ``[L, B]``
+    lengths as a tuple: Python ints (``generate``'s shared timeline, kept
+    on the host, so no layer reads a device value) or ``[B]`` tensors
+    (slot-local timelines, ``serve``); layer ``l``'s entry is replaced by
+    its advanced length.
+    ``valid`` (``[B]``) is shared by the layers and KEPT on write -- every
+    layer of a wave reads the same mask -- and the engine clears it between
+    the wave and the chunk phase.  Writes take the flat views' rule
+    (``write_columns``): a start too close to the end is clamped so the S
+    tokens fit.  The reference's stacked scatter drops such columns
+    instead; they occur only in slots whose request has ended (``serve``
+    refuses a request that would outgrow the cache), whose columns are
+    written again before they are read, and the clamp needs fewer device
+    operations a layer than a masked write.
+    """
+    if isinstance(caches, KVCacheView):
+        bufs = (caches.k[l], caches.v[l])
+        news = (k_new, v_new)
+    elif isinstance(caches, QuantKVCacheView):
+        bufs = tuple(b[l] for b in caches[:6])
+        news = (*_encode(k_new, caches.bits, caches.group, caches.packed),
+                *_encode(v_new, caches.bits, caches.group, caches.packed))
+    else:
+        raise NotImplementedError(
+            f"stacked scan caches not supported for {type(caches).__name__}")
+    length = caches.length
+    new = write_columns(bufs, news, length[l], caches.valid)
+    caches = caches._replace(length=length[:l] + (new,) + length[l + 1:])
+    if isinstance(caches, KVCacheView):
+        return caches, bufs[0].to(k_new.dtype), bufs[1].to(v_new.dtype)
+    d = k_new.shape[-1]
+    k_all = _decode(*bufs[:3], d, k_new.dtype, caches.packed)
+    v_all = _decode(*bufs[3:], d, v_new.dtype, caches.packed)
+    return caches, k_all, v_all
+
+
 def update_and_fetch(cache: CacheView, k_new: torch.Tensor, v_new: torch.Tensor):
     """Append S new tokens; return (cache', k_all, v_all) in compute dtype."""
+    if isinstance(cache, StackedCacheAt):
+        new, k_all, v_all = _stacked_update_and_fetch(cache.caches, cache.idx, k_new, v_new)
+        return StackedCacheAt(new, cache.idx), k_all, v_all
     if isinstance(cache, PagedKVCacheView):
         return _paged_update_and_fetch(cache, k_new, v_new)
     if isinstance(cache, KVCacheView):
@@ -310,18 +371,57 @@ def update_and_fetch(cache: CacheView, k_new: torch.Tensor, v_new: torch.Tensor)
     return cache, k_all, v_all
 
 
+def make_stacked_caches(
+    n_layers: int,
+    batch: int,
+    n_kv_heads: int,
+    head_dim: int,
+    kv_cfg: KVCacheConfig,
+    dtype=torch.bfloat16,
+    device=None,
+):
+    """One cache view with a leading layer axis, ``[L, B, T_max, ...]``,
+    for the scan forwards: allocated whole (not L caches and a stack), its
+    lengths a tuple of L zeros (see :func:`_stacked_update_and_fetch`).
+    Paged caches have no stacked form."""
+    if kv_cfg.paged:
+        raise NotImplementedError(
+            "paged KV caches do not compose with scan-over-layers params; use "
+            "contiguous (quantized) caches for the scan path or flat layers for paging")
+    device = resolve_device(device)
+    t = kv_cfg.max_seq_len
+    zero = (0,) * n_layers
+    if kv_cfg.kv_bits >= 16:
+        shape = (n_layers, batch, t, n_kv_heads, head_dim)
+        return KVCacheView(torch.zeros(shape, dtype=dtype, device=device),
+                           torch.zeros(shape, dtype=dtype, device=device), zero)
+    g, packed, d_store, code_dtype = _quant_layout(kv_cfg, head_dim)
+    codes_shape = (n_layers, batch, t, n_kv_heads, d_store)
+    side_shape = (n_layers, batch, t, n_kv_heads, head_dim // g)
+
+    def half():
+        return (torch.zeros(codes_shape, dtype=code_dtype, device=device),
+                torch.ones(side_shape, dtype=torch.float32, device=device),
+                torch.zeros(side_shape, dtype=torch.float32, device=device))
+
+    return QuantKVCacheView(*half(), *half(), zero, kv_cfg.kv_bits, g, packed)
+
+
 def cache_max_len(cache: CacheView) -> int:
-    """T_max of a per-layer view."""
+    """T_max of a per-layer (``[B, T, ...]``) or stacked (``[L, B, T, ...]``)
+    view."""
     if isinstance(cache, PagedKVCacheView):
         return cache.page_table.shape[1] * cache.page_size
-    if isinstance(cache, QuantKVCacheView):
-        return cache.k_codes.shape[1]
-    return cache.k.shape[1]
+    buf = cache.k_codes if isinstance(cache, QuantKVCacheView) else cache.k
+    return buf.shape[1 if buf.dim() == 4 else 2]
 
 
 def cache_bytes(caches) -> int:
-    """Bytes the KV buffers of ``caches`` hold (codes, pages, scales, zeros;
-    not the lengths or page tables)."""
+    """Bytes the KV buffers of ``caches`` (a list of views, or one stacked
+    view) hold: codes, pages, scales, zeros; not the lengths or page
+    tables."""
+    if hasattr(caches, "_fields"):
+        caches = [caches]
     skip = ("length", "valid", "page_table")
     return sum(t.numel() * t.element_size() for c in caches
                for name, t in zip(c._fields, c) if name not in skip and torch.is_tensor(t))

@@ -1,10 +1,26 @@
-"""Model families ported so far: LLaMA.
+"""Model families: LLaMA, OPT and BLOOM, each with a forward over per-layer
+params and a scan forward over layer-stacked ones.
 
 Linear weights may be dense tensors or packed
 :class:`~iron_weight_only_quant_tpu_torch.quantize.QuantizedTensor`
 artifacts; the model code is agnostic (``models/common.py`` ``linear``).
-OPT and BLOOM are still to be ported (ROADMAP queue A).
+The HF checkpoint converter and the chat templates are still to be ported
+(ROADMAP queue A, with the CLI).
 """
 
-from .common import linear  # noqa: F401
-from .llama import LlamaConfig, llama_forward, llama_init  # noqa: F401
+from .bloom import (  # noqa: F401
+    BloomConfig,
+    bloom_forward,
+    bloom_forward_scan,
+    bloom_init,
+    stack_bloom_layers,
+)
+from .common import linear, stack_model_layers  # noqa: F401
+from .llama import (  # noqa: F401
+    LlamaConfig,
+    llama_forward,
+    llama_forward_scan,
+    llama_init,
+    stack_llama_layers,
+)
+from .opt import OPTConfig, opt_forward, opt_forward_scan, opt_init, stack_opt_layers  # noqa: F401

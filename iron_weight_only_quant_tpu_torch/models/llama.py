@@ -2,6 +2,9 @@
 
 Functional, as in the JAX package: ``params`` is a dict whose linear weights
 are dense ``[K, N]`` tensors or packed :class:`QuantizedTensor` artifacts.
+:func:`llama_forward` runs the per-layer list ``params["layers"]``,
+:func:`llama_forward_scan` the layer-stacked ``params["layers_stacked"]``
+(:func:`stack_llama_layers`) with one stacked cache view.
 """
 
 from __future__ import annotations
@@ -18,11 +21,16 @@ from .common import (
     KVCacheView,
     apply_rope,
     attend,
-    causal_mask,
     linear,
+    positions_and_mask,
     rmsnorm,
     rope_tables,
+    run_layers,
+    scan_forward,
+    stack_model_layers,
 )
+
+stack_llama_layers = stack_model_layers
 
 
 @dataclass(frozen=True)
@@ -174,40 +182,37 @@ def llama_forward(
 
     Runs on the device the params lie on; ``tokens`` are moved there.
     """
+    return _forward(params, tokens, cfg, caches, positions, attn_mask, scan=False)
+
+
+@scan_forward
+def llama_forward_scan(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    caches=None,  # one stacked cache view ([L, ...] buffers), or None
+    positions: Optional[torch.Tensor] = None,
+    attn_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Any]]:
+    """:func:`llama_forward` over layer-stacked params: a loop over the
+    layer index into the ``[L, ...]`` buffers, the stacked kernels reading
+    each layer's packed weights in place.  ``caches`` is one stacked view
+    (``engine.kvcache.make_stacked_caches``)."""
+    return _forward(params, tokens, cfg, caches, positions, attn_mask, scan=True)
+
+
+def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool):
     embed = params["embed"]
     dev = embed.device
     tokens = tokens.to(dev)
-    b, s = tokens.shape
+    s = tokens.shape[1]
     x = embed[tokens]
-
-    if caches is None:
-        if positions is None:
-            positions = torch.arange(s, device=dev)
-        mask = causal_mask(s, device=dev) if attn_mask is None else attn_mask
-    else:
-        start = caches[0].length
-        if positions is None:
-            positions = start + torch.arange(s, device=dev)
-        if attn_mask is None:
-            from ..engine.kvcache import cache_max_len
-
-            t_max = cache_max_len(caches[0])
-            cols = torch.arange(t_max, device=dev)[None, :]
-            qpos = positions if positions.dim() == 1 else positions[0]
-            mask = (cols <= qpos[:, None])[None, None]
-        else:
-            mask = attn_mask
-
+    positions, mask = positions_and_mask(caches, s, positions, attn_mask, dev)
     cos, sin = rope_tables(positions.to(dev), cfg.hd, cfg.rope_theta,
                            cfg.condense_ratio)
 
-    new_caches = [] if caches is not None else None
-    for i, p in enumerate(params["layers"]):
-        cache_i = caches[i] if caches is not None else None
-        x, cache_i = _block(x, p, cfg, cos, sin, mask, cache_i)
-        if new_caches is not None:
-            new_caches.append(cache_i)
-
+    x, new_caches = run_layers(
+        x, params, caches, lambda x, p, c: _block(x, p, cfg, cos, sin, mask, c), scan)
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
         logits = x @ embed.t().to(x.dtype)

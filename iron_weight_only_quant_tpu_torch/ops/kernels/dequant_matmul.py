@@ -91,10 +91,11 @@ activation quantization included; this deliberately differs from the JAX
 package's XLA path, which ignores activation bits: here the CPU path stands
 in for the kernel.
 
-``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the plain
+``LAUNCHES`` counts kernel launches, ``STACKED_LAUNCHES`` those of them
+on a layer-stacked artifact, ``PLAIN_CALLS`` calls of the plain
 version per name of the kernel it stands in for (an artifact no kernel
 takes is not counted), ``ROUTE_CALLS`` the route's calls;
-:func:`reset_counts` zeroes all three.  The two modes of the W4 inner-loop
+:func:`reset_counts` zeroes all four.  The two modes of the W4 inner-loop
 probe kernel (``ops/kernels/w4_inner.py``, no serving path) count here too.
 """
 
@@ -143,6 +144,10 @@ LAUNCHES: Dict[str, int] = {name: 0 for table in (_KERNELS, _LUT_KERNELS)
                             if name is not None}
 LAUNCHES.update({W4_INNER_F32: 0, W4_INNER_MAGIC: 0})
 PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
+# the launches of LAUNCHES made by fused_quantized_matmul_stacked (a
+# layer-stacked artifact, the reference's `_pfx` kernels): LAUNCHES counts
+# every launch, this the stacked ones among them
+STACKED_LAUNCHES: Dict[str, int] = dict(LAUNCHES)
 ROUTE = "xla_route"
 ROUTE_CALLS: Dict[str, int] = {ROUTE: 0}
 
@@ -256,7 +261,7 @@ _SM_COUNT: Dict[int, int] = {}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS, ROUTE_CALLS):
+    for d in (LAUNCHES, STACKED_LAUNCHES, PLAIN_CALLS, ROUTE_CALLS):
         for k in d:
             d[k] = 0
 
@@ -852,7 +857,8 @@ def _check_operands(x2: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
 def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
             qw: torch.Tensor, scales: torch.Tensor, zeros: Optional[torch.Tensor],
             rows: int, k_logical: int, n_out: int,
-            activation_bits: Optional[int] = None, fmt=None) -> torch.Tensor:
+            activation_bits: Optional[int] = None, fmt=None,
+            stacked: bool = False) -> torch.Tensor:
     """Launch the ``bits``-storage kernel on 2-D operands: its prenorm form
     if ``pre_norm`` (affine nib4, byte), its int-activation form if
     ``activation_bits``; a LUT kernel of minifloat format ``fmt`` where one
@@ -865,7 +871,9 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
     x2 is [M, K_stored] contiguous, or under ``activation_bits`` [M, K]
     contiguous (the row pass appends the K padding to the int8 planes).
     The s21 and nq42 kernels walk the rows of one slab (``qw`` rows / 3):
-    the K/8 B rows, or the K/4 quad rows.
+    the K/8 B rows, or the K/4 quad rows.  ``stacked`` (operands of one
+    layer of a stacked artifact) counts the launch in ``STACKED_LAUNCHES``
+    too.
     """
     names = (_KERNELS if fmt is None else _LUT_KERNELS)[bits]
     if activation_bits is not None:
@@ -966,6 +974,8 @@ def _launch(bits: int, pre_norm: Optional[float], x2: torch.Tensor,
             err = fn(*args, stream)
     _raise_if(err, lib, name)
     LAUNCHES[name] += 1
+    if stacked:
+        STACKED_LAUNCHES[name] += 1
     return out
 
 
@@ -1116,5 +1126,5 @@ def fused_quantized_matmul_stacked(x: torch.Tensor, qt: QuantizedTensor,
     out = _launch(packed_bits(qt), pre_norm, _prep_x(x, qt, activation_bits),
                   qt.qweight[layer], qt.scales[layer],
                   None if qt.zeros is None else qt.zeros[layer], rows,
-                  qt.shape[0], qt.shape[1], activation_bits, _lut_format(qt))
+                  qt.shape[0], qt.shape[1], activation_bits, _lut_format(qt), stacked=True)
     return out.reshape(x.shape[:-1] + (qt.shape[1],))

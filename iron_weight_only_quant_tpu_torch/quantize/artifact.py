@@ -154,13 +154,9 @@ def load_artifact(path: str, dtype=None, device=None) -> Tuple[str, Any, Dict[st
             f"v{_FORMAT_VERSION}; re-run quantization (the sub-byte packing "
             "layout changed)")
     family = manifest["family"]
-    if family in ("opt", "bloom"):
-        raise NotImplementedError(
-            f"{family} artifacts: the OPT and BLOOM models are not ported yet "
-            "(ROADMAP queue A item 6)")
-    from ..models.llama import LlamaConfig
+    from ..models import BloomConfig, LlamaConfig, OPTConfig
 
-    cfg_cls = {"llama": LlamaConfig}[family]
+    cfg_cls = {"llama": LlamaConfig, "opt": OPTConfig, "bloom": BloomConfig}[family]
     cfg_fields = {f.name for f in dataclasses.fields(cfg_cls)}
     cfg = cfg_cls(**{k: v for k, v in manifest["config"].items() if k in cfg_fields})
 

@@ -165,12 +165,22 @@ def test_load_casts_dense_floats_only(tmp_path, jax_trees):
 
 
 def test_other_families_and_versions_raise(tmp_path):
+    """OPT and BLOOM manifests load into their configs (as in the JAX
+    package; tests/test_torch_opt_bloom.py holds whole models); a family
+    neither package knows, and another format version, raise."""
+    from iron_weight_only_quant_tpu_torch.models import BloomConfig, OPTConfig
+
     j_art.save_artifact(str(tmp_path), "llama", J_CFG, {"embed": jnp.ones((4, 8))})
     manifest = json.loads((tmp_path / "manifest.json").read_text())
-    for family in ("opt", "bloom"):
+    for family, cls in (("opt", OPTConfig), ("bloom", BloomConfig)):
         (tmp_path / "manifest.json").write_text(json.dumps({**manifest, "family": family}))
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            t_art.load_artifact(str(tmp_path), device="cpu")
+        fam, cfg, _ = t_art.load_artifact(str(tmp_path), device="cpu")
+        assert fam == family and type(cfg) is cls and cfg.hidden_size == J_CFG.hidden_size
+    (tmp_path / "manifest.json").write_text(json.dumps({**manifest, "family": "gpt2"}))
+    with pytest.raises(KeyError):
+        j_art.load_artifact(str(tmp_path))
+    with pytest.raises(KeyError):
+        t_art.load_artifact(str(tmp_path), device="cpu")
     (tmp_path / "manifest.json").write_text(json.dumps({**manifest, "version": 1}))
     with pytest.raises(ValueError, match="format v1"):
         t_art.load_artifact(str(tmp_path), device="cpu")

@@ -32,7 +32,10 @@ tiny ``serve`` runs (also fp4, fp6 and fp8, and on int8, int4 and paged KV
 caches, the paged ones against their contiguous caches' tokens) are
 checked for host syncs, launch counts and repeatability; the KV codec on
 the card must give the CPU's bits; an artifact saved and loaded onto the
-card must give the same tensors and tokens.
+card must give the same tensors and tokens.  The scan path (stacked params
+and caches) gives the flat path's tokens with exact stacked launches, on
+LLaMA (W4, W8; 16-bit and int8 caches), OPT and BLOOM, and its waves,
+chunks and decode steps do not sync.
 """
 
 import contextlib
@@ -1321,10 +1324,11 @@ def test_valid_kv_write_does_not_sync(dev):
     assert out.k[1, 4:].eq(0).all() and out.k[2, 11].eq(1).all() and out.k[3].eq(0).all()
 
 
-def _tiny_engine(dev, bits, spec=None, kv=None, **ecfg):
+def _tiny_engine(dev, bits, spec=None, kv=None, scan=False, **ecfg):
     """Tiny 2-layer LLaMA, every linear ``bits``-bit g128 (or ``spec``); W3
     at hidden 1024 and FFN 2048, the least widths whose K/8 the group
-    divides.  ``kv``: the KV cache (default contiguous 16-bit, 48 columns)."""
+    divides.  ``kv``: the KV cache (default contiguous 16-bit, 48 columns);
+    ``scan``: the scan forward (the engine stacks the fused params)."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models import llama
@@ -1339,7 +1343,8 @@ def _tiny_engine(dev, bits, spec=None, kv=None, **ecfg):
     for lin in [params["lm_head"]] + [v for p in params["layers"] for v in p.values()
                                       if isinstance(v, dict)]:
         lin["w"] = quantize_tensor(lin["w"], spec, pad_n_to=512)
-    return InferenceEngine(params, cfg, llama.llama_forward, family="llama",
+    forward = llama.llama_forward_scan if scan else llama.llama_forward
+    return InferenceEngine(params, cfg, forward, family="llama",
                            engine_cfg=EngineConfig(kv=kv or KVCacheConfig(max_seq_len=48),
                                                    max_batch_size=4, fuse_projections=True,
                                                    **ecfg),
@@ -1379,11 +1384,11 @@ def test_w3_serve_device_calls_do_not_sync(dev, abits):
     _serve_wave_and_chunk_without_sync(dev, 3, abits)
 
 
-def _serve_wave_and_chunk_without_sync(dev, bits, abits, kv=None):
+def _serve_wave_and_chunk_without_sync(dev, bits, abits, kv=None, scan=False):
     from iron_weight_only_quant_tpu_torch.engine.engine import _serve_chunk, _serve_combo
 
     p_abits, d_abits = abits or (None, None)
-    eng = _tiny_engine(dev, bits, kv=kv)
+    eng = _tiny_engine(dev, bits, kv=kv, scan=scan)
     c, s_len, ns = 4, 8, 4
     # under paging the page table [ns, mp] follows each meta vector
     mp = 48 // kv.page_size if kv is not None and kv.paged else 0
@@ -1413,12 +1418,116 @@ def _serve_wave_and_chunk_without_sync(dev, bits, abits, kv=None):
         torch.cuda.set_sync_debug_mode("default")
     assert out.shape == (ns, 1 + c) and out2.shape == (ns, c)
     per_forward = 4 * eng.cfg.num_layers + 1
+    if scan:  # every linear but the lm_head on the stacked kernels
+        assert sum(dm.STACKED_LAUNCHES.values()) == (1 + 2 * c) * 4 * eng.cfg.num_layers
     if abits is not None:  # the wave on A8, the 2 * c steps on A16
         wave, step = (dm.W8A8, dm.W8A16) if bits == 8 else (dm.W3A8, dm.W3A16)
         assert dm.LAUNCHES[wave] == per_forward
         assert dm.LAUNCHES[step] == 2 * c * per_forward
     elif bits == 3:
         assert dm.LAUNCHES[dm.W3] == (1 + 2 * c) * per_forward
+
+
+# ------------------------------------------------------------ scan path
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_tiny_scan_serve_gives_the_flat_tokens(dev, bits, kv_bits):
+    """The scan path (stacked params and caches) gives the flat path's
+    generate and serve tokens on the card, every linear but the lm_head on
+    the stacked kernels."""
+    from iron_weight_only_quant_tpu_torch.config import KVCacheConfig
+
+    kv = KVCacheConfig(max_seq_len=48, kv_bits=kv_bits)
+    flat, scan = (_tiny_engine(dev, bits, kv=kv, scan=s) for s in (False, True))
+    assert "layers_stacked" in scan.params
+    n_layers = scan.cfg.num_layers
+    names = (dm.W4, dm.W4_PRENORM) if bits == 4 else (dm.W8, dm.W8_PRENORM)
+    reqs = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
+    prompts = reqs[:4]
+    outs = []
+    for eng in (flat, scan):
+        stats = {}
+        dm.reset_counts()
+        outs.append((eng.generate(prompts, max_new_tokens=6),
+                     eng.serve(reqs, max_new_tokens=8, chunk=4, stats=stats)))
+        stacked = dm.STACKED_LAUNCHES
+        assert dm.LAUNCHES[names[0]] == (6 + stats["n_steps"]) * (2 * n_layers + 1)
+        assert dm.LAUNCHES[names[1]] == (6 + stats["n_steps"]) * 2 * n_layers
+        if eng is scan:
+            assert stacked[names[0]] == stacked[names[1]] == (6 + stats["n_steps"]) * 2 * n_layers
+        else:
+            assert not any(stacked.values())
+        assert not any(dm.PLAIN_CALLS.values())
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("abits", [None, (8, 16)], ids=["bf16", "a8_wave_a16_chunk"])
+def test_scan_serve_device_calls_do_not_sync(dev, abits):
+    """The stacked caches' [L, B] lengths advance on the card: a wave and a
+    chunk on the scan path do not sync either."""
+    _serve_wave_and_chunk_without_sync(dev, 8, abits, scan=True)
+
+
+def test_scan_generate_chunk_does_not_sync(dev):
+    """``generate``'s stacked lengths stay on the host: its decode steps
+    read no device value."""
+    from iron_weight_only_quant_tpu_torch.engine.engine import _generate_chunk
+
+    eng = _tiny_engine(dev, 4, scan=True)
+    caches = eng._fresh_caches(2)
+    pads = torch.zeros(2, dtype=torch.long, device=dev)
+    tok = torch.tensor([[3], [5]], device=dev)
+    cols = torch.arange(48, device=dev)
+    gen = torch.Generator(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            sampled, caches = _generate_chunk(eng.params, tok, pads, 0, caches, gen,
+                                              eng.forward, eng.cfg, 0.0, 0, cols, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sampled.shape == (2, 4) and caches.length == (4,) * eng.cfg.num_layers
+
+
+@pytest.mark.parametrize("family", ["opt", "bloom"])
+def test_tiny_opt_bloom_scan_gives_the_flat_tokens(dev, family):
+    """Tiny W4 OPT and BLOOM, flat and scan: equal tokens, 6 launches a
+    layer and forward (q, k, v, o, fc1, fc2), all stacked on the scan
+    path; the tied head is a plain matmul."""
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models import bloom, opt
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    if family == "opt":
+        cfg = opt.OPTConfig(vocab_size=256, hidden_size=256, ffn_dim=512, num_layers=2,
+                            num_heads=4, max_position_embeddings=64)
+        params, fwds = opt.opt_init(cfg, g, device=dev), (opt.opt_forward, opt.opt_forward_scan)
+    else:
+        cfg = bloom.BloomConfig(vocab_size=256, hidden_size=256, num_layers=2, num_heads=4)
+        params = bloom.bloom_init(cfg, g, device=dev)
+        fwds = (bloom.bloom_forward, bloom.bloom_forward_scan)
+    params["embed"] = params["embed"].to(torch.bfloat16)
+    spec = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+    for lin in [v for p in params["layers"] for v in p.values() if v["w"].dim() == 2]:
+        lin["w"] = quantize_tensor(lin["w"], spec, pad_n_to=512)
+    reqs = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
+    outs = []
+    for fwd in fwds:
+        eng = InferenceEngine(params, cfg, fwd, engine_cfg=EngineConfig(
+            kv=KVCacheConfig(max_seq_len=48), max_batch_size=4), dtype=torch.bfloat16,
+            device=dev)
+        stats = {}
+        dm.reset_counts()
+        outs.append((eng.generate(reqs[:4], max_new_tokens=6),
+                     eng.serve(reqs, max_new_tokens=8, chunk=4, stats=stats)))
+        want = (6 + stats["n_steps"]) * 6 * cfg.num_layers
+        assert dm.LAUNCHES[dm.W4] == sum(dm.LAUNCHES.values()) == want
+        assert dm.STACKED_LAUNCHES[dm.W4] == (want if fwd is fwds[1] else 0)
+        assert not any(dm.PLAIN_CALLS.values())
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("abits", [(8, 16), (16, 8)], ids=["a8_waves", "a16_waves"])
