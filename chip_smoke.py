@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through
-thirty-four phases; any failing phase ends the run with a non-zero exit
+thirty-five phases; any failing phase ends the run with a non-zero exit
 code.  The W4 model, the main path, runs all 32 layers of LLaMA-2-7B,
 flat and on the scan path (layer-stacked params and caches); its A-serve
-and KV-mode serves, the W8, W3, fp4, fp8 and fp6 models, and the OPT and
-BLOOM models, whose kernels or paths the main path does not carry but
-which add time, run ``CUT_LAYERS`` (8) layers at full width.
+and KV-mode serves, the W8, W3, fp4, fp8 and fp6 models, the OPT and
+BLOOM models and the GPTQ-calibrated W4 model, whose kernels or paths the
+main path does not carry but which add time, run ``CUT_LAYERS`` (8)
+layers at full width.
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
    per source, all at once) and print the card's name and power limit.
@@ -125,7 +126,7 @@ which add time, run ``CUT_LAYERS`` (8) layers at full width.
     an int8 paged cache of 2048 columns (LLaMA-2's context), 32 new
     tokens; wall ms per decode step (gather and decode read the whole
     timeline each step).
-10e. Artifact round trip: a dense 2-layer 7B-width LLaMA (bf16 embedding
+10e. Artifact round trip: a dense 1-layer 7B-width LLaMA (bf16 embedding
     and lm_head) quantized to W4 g128 on the card by
     ``quantize_model_params`` (the lm_head excluded), saved by
     ``save_artifact`` under ``build/`` and loaded onto the card by
@@ -267,6 +268,24 @@ which add time, run ``CUT_LAYERS`` (8) layers at full width.
     ``w4a8``, ``a16``), no plain call, no route call.  Its ``base`` is
     ``w4_matmul`` with bf16 x: the bf16 route of phase 2, so the probe
     kernel is read against the redesigned W4 kernel.
+26. GPTQ (run before the report): the path of ``cli/quantize.py`` and
+    ``cli/eval_ppl.py`` on a ``CUT_LAYERS``-layer 7B-width LLaMA with
+    random f32 weights: ``fold_llama_norms``, ``quantize_model_gptq`` (W4
+    g128 asym, 16 ``synthetic`` windows of 512 tokens) with exact launch
+    counts (its quantized re-forwards: 5 prenorm and 2 flat calls a sample
+    and layer, f32 x, unpadded N), seconds per layer (Hessian forwards,
+    solve, quantized re-forward), each linear's proxy loss
+    ``tr(dW H dW^T)`` below its RTN artifact's, layer 0's q solved on the
+    card against the CPU solve of the same H (at least 99.5% of q equal,
+    all within 0.3 max|w|) and once more under ``torch.profiler`` (the
+    column loop's device busy time, and the same bits); the artifacts'
+    calls of ``w4_matmul`` and ``w4_matmul_prenorm`` against their plain
+    versions (f32 x at M=512, bf16 x at M=8); then fused and in bf16 the
+    perplexity through the kernels against that of
+    ``dequantize_model_params`` (``|d ln PPL| <= PPL_TOL``; the RTN and
+    dense models' beside them), ``generate`` and ``serve`` (the lm_head
+    dense: ``2L`` launches of each kernel a forward), and a one-layer
+    artifact round trip with bit-equal logits.
 25. Report: the generate and serve JSON lines, the card line, the
     per-kernel JSON line (per kernel also ``prefill_ms``,
     ``prefill_bound_ms`` and ``prefill_library_ms``: the M=256 records
@@ -686,16 +705,18 @@ def phase_two_layers(torch, device, spec, cfg_full, abits_list=(None,), pad_k_to
 
 # ------------------------------------------------------------- phase 4
 
-def expected_launches(names, forwards: int, n_layers: int, stacked: bool = False):
+def expected_launches(names, forwards: int, n_layers: int, stacked: bool = False,
+                      dense_head: bool = False):
     """Launch counts of ``forwards`` model forwards whose linears all take
     the kernels ``names`` (flat, prenorm): o, down and the lm_head go to the
     flat kernel, the fused qkv and gate_up to the prenorm one (the same
     kernel for W3, whose pre-norm runs in torch).  ``stacked``: the stacked
-    launches among them on the scan path, every linear but the lm_head."""
+    launches among them on the scan path, every linear but the lm_head.
+    ``dense_head``: the lm_head is a dense matmul (GPTQ models)."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     want = {name: 0 for name in dm.LAUNCHES}
-    want[names[0]] += forwards * (2 * n_layers + int(not stacked))
+    want[names[0]] += forwards * (2 * n_layers + int(not (stacked or dense_head)))
     want[names[1]] += forwards * 2 * n_layers
     return want
 
@@ -864,6 +885,20 @@ def serve_engine(torch, params, cfg, kv=None, forward=None, family="llama", **ec
     return eng, reqs
 
 
+def device_time_by_name(prof):
+    """{kernel name: (count, us)} of a trace's device records, read from
+    the profiler's raw records (``prof.events()`` would first build a
+    Python event for each host and device record, which is slow)."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, us = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return by_name
+
+
 def profile_serve(torch, eng, reqs):
     """One more serve run under ``torch.profiler``: its wall time, the
     device's busy time (the sum of its kernel and copy intervals: one
@@ -873,8 +908,6 @@ def profile_serve(torch, eng, reqs):
     profiler's raw records: ``prof.events()`` would first build a Python
     event for each of the run's host and device records, hundreds of
     thousands, which is slow."""
-    from torch.autograd import DeviceType
-
     from iron_weight_only_quant_tpu_torch.utils.profiling import trace
 
     torch.cuda.synchronize()
@@ -883,11 +916,7 @@ def profile_serve(torch, eng, reqs):
         eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            n, us = by_name.get(e.name(), (0, 0.0))
-            by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    by_name = device_time_by_name(prof)
     if not by_name:
         print("  profiler: no device events; device busy time not measured", flush=True)
         return {"wall_s": wall, "device_busy_ms": "not measured",
@@ -959,7 +988,7 @@ def ab_serve(torch, sides, reqs, card, rounds=SERVE_RUNS, warmup=False):
 
 
 def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warmup=True,
-                forward=None, profile=True):
+                forward=None, profile=True, dense_head=False):
     """``InferenceEngine.serve`` of the serving traffic: one warm-up run
     (unless ``warmup`` is false: the model's kernels are warm already),
     then ``runs`` timed runs (the median run is reported, the best wall
@@ -975,7 +1004,8 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warm
     (``kv_bytes``); under paging also the pages handed out and the most
     held at once.  ``forward`` (``llama_forward`` unless given) is the
     model's forward; on a scan forward every linear but the lm_head must
-    take the stacked kernels.  ``profile=False`` skips the profiled run."""
+    take the stacked kernels.  ``profile=False`` skips the profiled run;
+    ``dense_head``: the lm_head is a dense matmul (GPTQ models)."""
     from iron_weight_only_quant_tpu_torch.engine.kvcache import cache_bytes
     from iron_weight_only_quant_tpu_torch.models.common import is_scan_forward
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
@@ -998,7 +1028,8 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warm
         wall = time.perf_counter() - t0
         if abits is None:
             want, want_stacked = (expected_launches(names, stats["n_steps"], cfg.num_layers,
-                                                    stacked=st) for st in (False, True))
+                                                    stacked=st, dense_head=dense_head)
+                                  for st in (False, True))
         else:  # one wave per combo
             want, want_stacked = (expected_a_launches(
                 names, stats["n_combos"], stats["n_steps"] - stats["n_combos"],
@@ -1229,35 +1260,33 @@ def phase_long_generate(torch, params, cfg, card, step_ms_short):
     return res
 
 
-def phase_artifact(torch, device, spec, cfg_full, card):
-    """A dense 2-layer model quantized on the card, saved, loaded onto the
-    card: equal tensors and fields, equal ``generate`` tokens."""
-    import dataclasses
+def artifact_leaves(t):
+    """The tensors and artifact fields of a param tree in a fixed order;
+    None leaves (folded norms, absent biases) are left out, as a saved
+    artifact leaves them out."""
+    from iron_weight_only_quant_tpu_torch.quantize import QuantizedTensor
+
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in artifact_leaves(t[k])]
+    if isinstance(t, list):
+        return [x for v in t for x in artifact_leaves(v)]
+    if isinstance(t, QuantizedTensor):
+        return [(t.spec, t.shape, t.mode, t.k_shards, t.n_pad, t.k_pad)] + [
+            getattr(t, f) for f in ("qweight", "scales", "zeros", "codebook")
+            if getattr(t, f) is not None]
+    return [] if t is None else [t]
+
+
+def round_trip(torch, device, cfg, params):
+    """Save ``params`` under ``build/``, load them onto the card: (loaded
+    params, file bytes, save s, load s); the phase fails unless every
+    loaded tensor equals the saved one in device, dtype and bits and every
+    artifact field is equal."""
     import shutil
     import tempfile
 
-    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
-    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
-    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward, llama_init
-    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
-    from iron_weight_only_quant_tpu_torch.quantize import QuantizedTensor
     from iron_weight_only_quant_tpu_torch.quantize.artifact import load_artifact, save_artifact
-    from iron_weight_only_quant_tpu_torch.quantize.model_pass import quantize_model_params
 
-    cfg = dataclasses.replace(cfg_full, num_layers=2)
-    gen = torch.Generator(device=device).manual_seed(6)
-    dense = llama_init(cfg, gen, device=device)
-    dense["embed"] = dense["embed"].to(torch.bfloat16)
-    dense["lm_head"]["w"] = dense["lm_head"]["w"].to(torch.bfloat16)
-    t0 = time.perf_counter()
-    params, report = quantize_model_params(dense, spec, device=device)
-    torch.cuda.synchronize()
-    quant_s = time.perf_counter() - t0
-    del dense
-    if (report["n_quantized"] != 7 * cfg.num_layers or report["n_skipped"] != 1
-            or "lm_head" in report["names"]):
-        fail(f"model pass: {report['n_quantized']} linears quantized, {report['n_skipped']} "
-             "skipped")
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
     path = tempfile.mkdtemp(prefix="smoke_artifact_", dir=root)
@@ -1274,18 +1303,7 @@ def phase_artifact(torch, device, spec, cfg_full, card):
         shutil.rmtree(path)
     if family != "llama" or cfg2 != cfg:
         fail("load_artifact gave another family or config")
-
-    def leaves(t):
-        if isinstance(t, dict):
-            return [x for k in sorted(t) for x in leaves(t[k])]
-        if isinstance(t, list):
-            return [x for v in t for x in leaves(v)]
-        if isinstance(t, QuantizedTensor):
-            return [(t.spec, t.shape, t.mode, t.k_shards, t.n_pad, t.k_pad)] + [
-                getattr(t, f) for f in ("qweight", "scales", "zeros", "codebook")]
-        return [t]
-
-    got, saved = leaves(loaded), leaves(params)
+    got, saved = artifact_leaves(loaded), artifact_leaves(params)
     if len(got) != len(saved):
         fail("the loaded tree has another structure")
     for a, b in zip(got, saved):
@@ -1294,6 +1312,35 @@ def phase_artifact(torch, device, spec, cfg_full, card):
         if not same:
             fail("a loaded tensor or artifact field differs from the saved one")
     print(f"  {len(saved)} leaves bit-equal after save and load", flush=True)
+    return loaded, nbytes, save_s, load_s, len(saved)
+
+
+def phase_artifact(torch, device, spec, cfg_full, card):
+    """A dense 1-layer model quantized on the card, saved, loaded onto the
+    card: equal tensors and fields, equal ``generate`` tokens."""
+    import dataclasses
+
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward, llama_init
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.quantize.model_pass import quantize_model_params
+
+    cfg = dataclasses.replace(cfg_full, num_layers=1)
+    gen = torch.Generator(device=device).manual_seed(6)
+    dense = llama_init(cfg, gen, device=device)
+    dense["embed"] = dense["embed"].to(torch.bfloat16)
+    dense["lm_head"]["w"] = dense["lm_head"]["w"].to(torch.bfloat16)
+    t0 = time.perf_counter()
+    params, report = quantize_model_params(dense, spec, device=device)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del dense
+    if (report["n_quantized"] != 7 * cfg.num_layers or report["n_skipped"] != 1
+            or "lm_head" in report["names"]):
+        fail(f"model pass: {report['n_quantized']} linears quantized, {report['n_skipped']} "
+             "skipped")
+    loaded, nbytes, save_s, load_s, n_leaves = round_trip(torch, device, cfg, params)
 
     prompts = [[(13 * i + j) % (cfg.vocab_size - 1) + 1 for j in range(n)]
                for i, n in enumerate(PROMPT_LENS)]
@@ -1314,7 +1361,7 @@ def phase_artifact(torch, device, spec, cfg_full, card):
     if toks[0] != toks[1]:
         fail("the loaded artifact generates other tokens than the in-memory model")
     res = {"layers": cfg.num_layers, "file_bytes": nbytes, "quantize_s": quant_s,
-           "save_s": save_s, "load_s": load_s, "leaves": len(saved), "card": card}
+           "save_s": save_s, "load_s": load_s, "leaves": n_leaves, "card": card}
     print(f"  artifact: {nbytes / 2**20:.1f} MiB, quantize {quant_s:.2f} s, save "
           f"{save_s:.2f} s, load onto the card {load_s:.2f} s; generate tokens equal, on "
           f"{card}", flush=True)
@@ -2272,6 +2319,270 @@ def phase_w4_inner(torch, device, spec):
     return per_kernel, res, launches
 
 
+# ------------------------------------------------------------- phase 26
+
+GPTQ_SAMPLES = 16  # calibration windows (GPTQConfig.nsamples) ...
+GPTQ_SEQLEN = 512  # ... of 512 tokens: 8192 tokens a Hessian
+# |ln PPL through the kernels - ln PPL dequantized|, both bf16.  Set between
+# the two readings of the H100 run that first held it: 1.591e-4 for this
+# pair, 9.2e-3 for the dense model against the GPTQ one, so that a forward
+# that skipped the quantized weights would fail
+PPL_TOL = 2e-3
+
+
+def proxy_loss(h, w, qt):
+    """``tr(dW^T H dW)`` with ``dW = dequant(qt) - w`` (``[K, N]``): the
+    output error the calibration Hessian predicts for an artifact."""
+    from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
+
+    d = dequantize_weight(qt) - w.float()
+    return ((h @ d) * d).sum().item()
+
+
+def phase_gptq(torch, device, cfg_full, card):
+    """The GPTQ path of ``cli/quantize.py`` and ``cli/eval_ppl.py`` at
+    7B width, ``CUT_LAYERS`` layers: dense f32 params, norms folded,
+    ``quantize_model_gptq`` (W4 g128 asym, 16 synthetic windows of 512
+    tokens) with exact launch counts, seconds per layer (Hessian forwards,
+    solve, quantized re-forward), each linear's proxy loss against the RTN
+    artifact's (GPTQ must be lower for every one), layer 0's q solved on
+    the card against the CPU solve of the same H, the artifacts' calls of
+    rows 1 and 2 against their plain versions; then fused, bf16: the
+    perplexity through the kernels against ``dequantize_model_params``'s,
+    ``generate`` and ``serve`` (the lm_head dense), and a one-layer
+    artifact round trip with equal logits."""
+    import dataclasses
+
+    from iron_weight_only_quant_tpu_torch.config import (
+        EngineConfig,
+        GPTQConfig,
+        KVCacheConfig,
+        QuantSpec,
+    )
+    from iron_weight_only_quant_tpu_torch.data import get_loaders
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.evals import SequentialPPLEvaluator
+    from iron_weight_only_quant_tpu_torch.models.llama import (
+        fold_llama_norms,
+        fuse_llama_projections,
+        llama_forward,
+        llama_init,
+    )
+    from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.quantize import QuantizedTensor, quantize_tensor
+    from iron_weight_only_quant_tpu_torch.quantize.gptq import gptq_quantize
+    from iron_weight_only_quant_tpu_torch.quantize.gptq_model import quantize_model_gptq
+    from iron_weight_only_quant_tpu_torch.quantize.model_pass import (
+        dequantize_model_params,
+        quantize_model_params,
+    )
+    from iron_weight_only_quant_tpu_torch.utils.profiling import trace
+
+    cfg = dataclasses.replace(cfg_full, num_layers=CUT_LAYERS)
+    n_layers = cfg.num_layers
+    names = (dm.W4, dm.W4_PRENORM)
+    spec = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+    gcfg = GPTQConfig(nsamples=GPTQ_SAMPLES)
+    gen = torch.Generator(device=device).manual_seed(40)
+    t0 = time.perf_counter()
+    dense = fold_llama_norms(llama_init(cfg, gen, device=device))
+    torch.cuda.synchronize()
+    print(f"  dense f32 {n_layers}-layer model, norms folded, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    train, _ = get_loaders("synthetic", nsamples=GPTQ_SAMPLES, seed=0, seqlen=GPTQ_SEQLEN,
+                           vocab_size=cfg.vocab_size)
+
+    losses, kept = [], {}
+    stats = [{"hessian_s": 0.0, "solve_s": 0.0, "forward_s": 0.0} for _ in range(n_layers)]
+
+    def observer(li, phase, secs, info):
+        stats[li][f"{phase}_s"] += secs
+        if phase != "solve":
+            return
+        name, h, w, new_w = info["name"], info["h"], info["w"], info["new_w"]
+        g = proxy_loss(h, w, new_w)
+        r = proxy_loss(h, w, quantize_tensor(w, spec))
+        losses.append({"layer": li, "linear": name, "gptq": g, "rtn": r, "ratio": g / r})
+        if li == 0 and name == "q":
+            kept.update(h=h.cpu(), w=w.t().contiguous().cpu(),
+                        q=dequantize_weight(new_w).t().cpu())
+
+    dm.reset_counts()
+    t0 = time.perf_counter()
+    params = quantize_model_gptq(dense, cfg, "llama", [s.input_ids for s in train], spec,
+                                 gcfg, progress=None, observer=observer)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    # the quantized re-forwards: q, k, v, gate, up on the prenorm kernel,
+    # o and down on the flat one, a sample and a layer, f32 x
+    want = {name: 0 for name in dm.LAUNCHES}
+    want[dm.W4_PRENORM] = 5 * GPTQ_SAMPLES * n_layers
+    want[dm.W4] = 2 * GPTQ_SAMPLES * n_layers
+    calib_launches = check_counts("GPTQ calibration", want)
+    for li, st in enumerate(stats):
+        print(f"  layer {li}: Hessian forwards {st['hessian_s']:.3f} s, solve "
+              f"{st['solve_s']:.3f} s, quantized re-forward {st['forward_s']:.3f} s", flush=True)
+    per_layer = {k: sum(st[k] for st in stats) / n_layers for k in stats[0]}
+    print(f"  calibration {calib_s:.1f} s in all ({n_layers} layers, {GPTQ_SAMPLES} x "
+          f"{GPTQ_SEQLEN} tokens, proxy losses and RTN artifacts included); per layer: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per_layer.items()) + f", on {card}",
+          flush=True)
+    for rec in losses:
+        print(f"  proxy loss tr(dW H dW^T) layer {rec['layer']} {rec['linear']:5s}: GPTQ "
+              f"{rec['gptq']:.6g}, RTN {rec['rtn']:.6g} (ratio {rec['ratio']:.4f})", flush=True)
+    worse = [(r["layer"], r["linear"]) for r in losses if not r["gptq"] < r["rtn"]]
+    if len(losses) != 7 * n_layers or worse:
+        fail(f"GPTQ proxy loss not below RTN's for {worse} ({len(losses)} linears)")
+    for li, layer in enumerate(params["layers"]):
+        for key in ("q", "k", "v", "o", "gate", "up", "down"):
+            qt = layer[key]["w"]
+            if not isinstance(qt, QuantizedTensor) or qt.n_pad or qt.spec != spec:
+                fail(f"layer {li} {key}: not an unpadded {spec} artifact")
+    if isinstance(params["lm_head"]["w"], QuantizedTensor):
+        fail("the lm_head was quantized; GPTQ calibrates the layers only")
+
+    t0 = time.perf_counter()
+    ref = gptq_quantize(kept["w"], kept["h"], bits=4, sym=False, groupsize=128,
+                        blocksize=gcfg.blocksize, percdamp=gcfg.percdamp)
+    cpu_solve_s = time.perf_counter() - t0
+    equal = torch.isclose(kept["q"], ref.q, rtol=1e-5, atol=1e-7).float().mean().item()
+    worst = (kept["q"] - ref.q).abs().max().item()
+    limit = 0.3 * kept["w"].abs().max().item()
+    print(f"  layer 0 q ({' x '.join(map(str, kept['w'].shape))}) solved on the card vs the "
+          f"CPU, same H: {equal:.6f} "
+          f"of q equal (rtol 1e-5, atol 1e-7; need > 0.995), max |dq| {worst:.3e} (limit "
+          f"{limit:.3e}); CPU solve {cpu_solve_s:.1f} s", flush=True)
+    if equal <= 0.995 or worst > limit:
+        fail("the card's GPTQ solve of layer 0 q differs from the CPU's")
+    # the same solve again on the card, traced: its device busy time
+    # against its wall time says whether the column loop is host-bound
+    w0, h0 = kept["w"].to(device), kept["h"].to(device)
+    torch.cuda.synchronize()
+    with trace() as prof:
+        t0 = time.perf_counter()
+        again = gptq_quantize(w0, h0, bits=4, sym=False, groupsize=128,
+                              blocksize=gcfg.blocksize, percdamp=gcfg.percdamp)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    if not torch.equal(again.q.cpu(), kept["q"]):
+        fail("two card solves of layer 0 q with the same H differ")
+    by_name = device_time_by_name(prof)
+    solve_trace = {"wall_s": traced_s, "columns": w0.shape[1]}
+    if by_name:
+        busy = sum(us for _, us in by_name.values()) / 1e3
+        events = sum(n for n, _ in by_name.values())
+        solve_trace.update(device_busy_ms=busy, device_idle_share=1 - busy / (traced_s * 1e3),
+                           device_events=events, events_per_column=events / w0.shape[1])
+        print(f"  layer 0 q solve again on the card, traced: wall {traced_s:.3f} s, device "
+              f"busy {busy:.1f} ms (idle {100 * solve_trace['device_idle_share']:.1f}%), "
+              f"{events} device events ({events / w0.shape[1]:.1f} a column); repeatable",
+              flush=True)
+    else:
+        solve_trace.update(device_busy_ms="not measured", device_idle_share="not measured")
+        print("  profiler: no device events; the solve's device busy time not measured",
+              flush=True)
+    del kept, ref, w0, h0, again, prof
+
+    eps = cfg.rms_norm_eps
+    kernel_checks = []
+    for key, pre in (("q", eps), ("gate", eps), ("o", None), ("down", None)):
+        qt = params["layers"][0][key]["w"]
+        kname = dm.kernel_name(qt, pre)
+        if kname != names[pre is not None]:
+            fail(f"GPTQ {key} dispatches to {kname}")
+        for m, dtype in ((GPTQ_SEQLEN, torch.float32), (DECODE_M, torch.bfloat16)):
+            x = torch.randn((m, qt.shape[0]), generator=gen, device=device).to(dtype)
+            kernel_checks.append(check_call(
+                torch, f"{kname}:gptq_{key}:M={m}", qt, x,
+                lambda x, qt, pre=pre: dm.fused_quantized_matmul(x, qt, pre_norm=pre),
+                lambda x, qt, pre=pre: dm.dequant_matmul_plain(x, qt, pre_norm=pre)))
+
+    fused = fuse_llama_projections(params)
+    if not all("qkv" in layer and "gate_up" in layer for layer in fused["layers"]):
+        fail("GPTQ artifacts did not fuse")
+    model = cast_dense(fused, torch.bfloat16)
+    del fused
+
+    def ppl(p, label, expect=None):
+        ev = SequentialPPLEvaluator(p, llama_forward, cfg, seqlen=GPTQ_SEQLEN)
+        dm.reset_counts()
+        t0 = time.perf_counter()
+        value, n_tok, n_chunks = ev.calculate_ppl("synthetic")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if expect is not None:
+            check_counts(f"PPL ({label})", expect(-(-n_chunks // ev.batch_size)))
+        if not math.isfinite(value):
+            fail(f"PPL ({label}) is not finite")
+        print(f"  PPL ({label}, bf16): {value:.4f} over {n_tok} tokens in {n_chunks} chunks "
+              f"of {GPTQ_SEQLEN}, {secs:.2f} s", flush=True)
+        return {"ppl": value, "tokens": n_tok, "chunks": n_chunks, "s": secs}
+
+    ppls = {"gptq_kernels": ppl(model, "GPTQ W4 through the kernels", lambda f: (
+        expected_launches(names, f, n_layers, dense_head=True)))}
+    deq = cast_dense(dequantize_model_params(params), torch.bfloat16)
+    ppls["gptq_dequantized"] = ppl(deq, "GPTQ W4 dequantized, dense matmuls")
+    del deq
+    rtn, _ = quantize_model_params(dense, spec, device=device)
+    ppls["rtn_kernels"] = ppl(cast_dense(fuse_llama_projections(rtn), torch.bfloat16),
+                              "RTN W4 of the same weights, through the kernels")
+    ppls["dense"] = ppl(cast_dense(dense, torch.bfloat16), "the dense model")
+    del rtn, dense
+    torch.cuda.empty_cache()
+    d_ln = abs(math.log(ppls["gptq_kernels"]["ppl"]) - math.log(ppls["gptq_dequantized"]["ppl"]))
+    print(f"  |ln PPL(kernels) - ln PPL(dequantized)| = {d_ln:.3e} (limit {PPL_TOL})",
+          flush=True)
+    if d_ln > PPL_TOL:
+        fail(f"GPTQ PPL through the kernels is {d_ln:.3e} in ln from the dequantized model's")
+
+    print("  -- GPTQ W4 generate and serve (bf16, 16-bit cache, the lm_head dense)",
+          flush=True)
+    ecfg = EngineConfig(fuse_projections=True,
+                        kv=KVCacheConfig(max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8))
+    eng = InferenceEngine(model, cfg, llama_forward, family="llama", engine_cfg=ecfg,
+                          dtype=torch.bfloat16, device=device)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device=device).tolist() for n in PROMPT_LENS]
+    gen_res = run_generate(torch, eng, prompts, cfg, card, lambda f: (
+        expected_launches(names, f, n_layers, dense_head=True), None), "GPTQ generate")
+    del eng
+    serve = phase_serve(torch, model, cfg, names, SERVE_RUNS, card, dense_head=True)
+    del model
+    torch.cuda.empty_cache()
+
+    print("  -- one-layer GPTQ artifact round trip (bf16 embedding and lm_head)", flush=True)
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    one = cast_dense({**params, "layers": params["layers"][:1]}, torch.bfloat16)
+    del params
+    loaded, nbytes, save_s, load_s, n_leaves = round_trip(torch, device, cfg1, one)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
+    with torch.inference_mode():
+        lg = llama_forward(one, tokens, cfg1)[0]
+        lg_loaded = llama_forward(loaded, tokens, cfg1)[0]
+    if not torch.equal(lg, lg_loaded):
+        fail("the loaded GPTQ artifact gives other logits than the saved one")
+    print(f"  GPTQ artifact: {nbytes / 2**20:.1f} MiB, save {save_s:.2f} s, load onto the "
+          f"card {load_s:.2f} s; logits equal, on {card}", flush=True)
+    del one, loaded
+    torch.cuda.empty_cache()
+    return {
+        "layers": n_layers, "samples": GPTQ_SAMPLES, "seqlen": GPTQ_SEQLEN,
+        "calibration_s": calib_s, "per_layer_s": per_layer, "layers_s": stats,
+        "calibration_launches": calib_launches, "proxy_losses": losses,
+        "gptq_over_rtn_max": max(r["ratio"] for r in losses),
+        "solve_card_vs_cpu": {"equal": equal, "max_abs": worst, "limit": limit,
+                              "cpu_solve_s": cpu_solve_s},
+        "solve_trace": solve_trace,
+        "kernel_checks": [{k: r[k] for k in ("call", "max_abs_err", "rel_err", "tol")}
+                          for r in kernel_checks],
+        "ppl": ppls, "ppl_d_ln": d_ln, "generate": gen_res, "serve": serve,
+        "artifact": {"layers": 1, "file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                     "leaves": n_leaves},
+        "card": card,
+    }
+
+
 # --------------------------------------------------------------- report
 
 def kernel_rows(per_kernel, launches, stacked):
@@ -2481,7 +2792,7 @@ def main() -> int:
     del params_w4
     torch.cuda.empty_cache()
 
-    header("== phase 10e: artifact round trip: a two-layer 7B-width model quantized on the "
+    header("== phase 10e: artifact round trip: a one-layer 7B-width model quantized on the "
            "card, saved, loaded onto the card")
     artifact = phase_artifact(torch, device, w4, cfg, card)
 
@@ -2666,6 +2977,10 @@ def main() -> int:
     per_kernel_inner, _, probe_counts = phase_w4_inner(torch, device, w4)
     per_kernel.update(per_kernel_inner)
 
+    header(f"== phase 26: {CUT_LAYERS}-layer 7B-width GPTQ W4 calibration, perplexity, "
+           "generate and serve")
+    gptq = phase_gptq(torch, device, cfg, card)
+
     header("== phase 25: report")
     names_of = lambda run, names: {k: v for k, v in run["launches"].items()  # noqa: E731
                                    if k in names}
@@ -2734,6 +3049,9 @@ def main() -> int:
     report("serve_fp6", serve_fp6)
     report("serve_fp6_a16", serve_fp6_a)
     print(json.dumps({"route": route, "zoo_bytes_equal_artifacts": zoo_checks}))
+    report("gptq_w4", {k: v for k, v in gptq.items() if k not in ("generate", "serve")})
+    report("generate_gptq_w4", gptq["generate"], ("launches",))
+    report("serve_gptq_w4", gptq["serve"])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from .config import (  # noqa: F401
     AlignSpec,
     EngineConfig,
     FloatFormat,
+    GPTQConfig,
     KVCacheConfig,
     MeshConfig,
     QuantSpec,

@@ -163,6 +163,30 @@ def fp_spec(kind: str, exp_bits: int, mant_bits: int, **kw) -> QuantSpec:
 
 
 @dataclass(frozen=True)
+class GPTQConfig:
+    """GPTQ solver knobs (the JAX package's fields and defaults; reference
+    ``gptq/gptq.py:60-61`` fasterquant arguments)."""
+
+    nsamples: int = 128
+    blocksize: int = 128
+    percdamp: float = 0.01
+    act_order: bool = False
+    static_groups: bool = False
+    mse: bool = False  # grid-shrink scale search (reference quant.py:78-95)
+    trits: bool = False  # ternary {min, 0, max} mode (reference quant.py:33-34)
+    calib_dataset: str = "wikitext2"
+    calib_seqlen: int = 2048
+    seed: int = 0
+    # the TrueOBS variant solver (reference zeroShot/models/fast_trueobs.py):
+    # per-channel params found once; optional sparse fp-outlier escape and
+    # propagation-free nearest rounding.  sparseout output is fake-quant
+    # dense (fp outliers are not grid-representable).
+    solver: str = "gptq"  # "gptq" | "trueobs"
+    sparseout: bool = False
+    nearest: bool = False
+
+
+@dataclass(frozen=True)
 class KVCacheConfig:
     """KV-cache layout + quantization (same fields as the JAX package's):
     contiguous or paged, 16-bit or int8/int4 codes

@@ -25,6 +25,37 @@ from ..ops.qmatmul import _rms_nogamma, quantized_matmul, quantized_matmul_stack
 from ..quantize.qtensor import QuantizedTensor
 
 
+_LINEAR_RECORDER: Optional[Callable[[str, torch.Tensor], None]] = None
+
+
+class recording_linears:
+    """Context manager: call ``cb(name, x)`` with the input of every named
+    linear (the calibration seam, the functional counterpart of the
+    reference's forward hooks, gptq_utils.py:153-160).
+
+    Only linear param dicts that carry a ``"name"`` key are recorded
+    (``quantize.gptq_model.annotate_linears``), never a
+    :class:`StackedLinear` or a :class:`FusedLinear`.  With a ``pre_norm``
+    the callback receives the normalized input, also where the quantized
+    path would normalize inside the kernel.  With no recorder set,
+    :func:`linear` does no work for it.
+    """
+
+    def __init__(self, cb: Callable[[str, torch.Tensor], None]):
+        self.cb = cb
+
+    def __enter__(self):
+        global _LINEAR_RECORDER
+        self._prev = _LINEAR_RECORDER
+        _LINEAR_RECORDER = self.cb
+        return self
+
+    def __exit__(self, *exc):
+        global _LINEAR_RECORDER
+        _LINEAR_RECORDER = self._prev
+        return False
+
+
 @dataclass
 class FusedLinear:
     """Several projections sharing one input, packed as ONE artifact.
@@ -274,6 +305,8 @@ def linear(x: torch.Tensor, p: Any,
             return quantized_matmul_stacked(x, w, p.idx, bias=b, pre_norm=pre_norm)
         w = w[p.idx]
     else:
+        if _LINEAR_RECORDER is not None and "name" in p:
+            _LINEAR_RECORDER(p["name"], x if pre_norm is None else _rms_nogamma(x, pre_norm))
         w, b = p["w"], p.get("b")
     if isinstance(w, QuantizedTensor):
         return quantized_matmul(x, w, bias=b, pre_norm=pre_norm)

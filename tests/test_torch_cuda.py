@@ -35,7 +35,11 @@ the card must give the CPU's bits; an artifact saved and loaded onto the
 card must give the same tensors and tokens.  The scan path (stacked params
 and caches) gives the flat path's tokens with exact stacked launches, on
 LLaMA (W4, W8; 16-bit and int8 caches), OPT and BLOOM, and its waves,
-chunks and decode steps do not sync.
+chunks and decode steps do not sync.  The GPTQ solver on the card meets
+``tests/test_gptq.py``'s criterion against its CPU solve (4-bit g128,
+3-bit per-channel, 8-bit, with TF32 left on by the caller), and an
+unpadded N = 11008 W4 artifact (GPTQ artifacts carry no ``pad_n_to``)
+goes through ``w4_matmul`` and ``w4_matmul_prenorm`` at M = 1, 8, 512.
 """
 
 import contextlib
@@ -1687,3 +1691,65 @@ def test_artifact_round_trip_onto_the_card(dev, tmp_path):
                             dtype=torch.bfloat16, device=dev).generate(prompts, max_new_tokens=6)
             for p in (params, loaded)]
     assert toks[0] == toks[1]
+
+
+def _gptq_problem(dev, rows, cols, seed):
+    """(w [rows, cols], H from 2 * cols tokens of correlated inputs), on ``dev``."""
+    from iron_weight_only_quant_tpu_torch.quantize.gptq import hessian_update
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((rows, cols), generator=g, device=dev) * cols**-0.5
+    mix = torch.randn((cols, cols), generator=g, device=dev) * 0.3 + torch.eye(cols, device=dev)
+    h, n = torch.zeros((cols, cols), device=dev), torch.zeros((), device=dev)
+    for _ in range(4):
+        x = torch.randn((cols // 2, cols), generator=g, device=dev) @ mix
+        h, n = hessian_update(h, n, x)
+    return w, h
+
+
+@pytest.mark.parametrize("bits,sym,groupsize", [(4, False, 128), (3, True, -1), (8, False, 128)],
+                         ids=["w4_g128", "w3_perchannel_sym", "w8_g128"])
+def test_gptq_solver_on_the_card_matches_the_cpu(dev, bits, sym, groupsize):
+    """The same H and weights solved on the card and on the CPU: at least
+    99.5% of q equal (rtol 1e-5, atol 1e-7), all within 0.3 max|w|
+    (tests/test_gptq.py's criterion); TF32 left on by the caller changes
+    nothing (the solver turns it off); the 8-bit artifact decodes to q."""
+    from iron_weight_only_quant_tpu_torch.ops.qmatmul import dequantize_weight
+    from iron_weight_only_quant_tpu_torch.quantize.gptq import gptq_quantize
+    from iron_weight_only_quant_tpu_torch.quantize.gptq_model import gptq_result_to_qtensor
+
+    w, h = _gptq_problem(dev, 512, 1024, 7)
+    kw = dict(bits=bits, sym=sym, groupsize=groupsize, blocksize=128)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        res = gptq_quantize(w, h, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    ref = gptq_quantize(w.cpu(), h.cpu(), **kw)
+    q, q_ref = res.q.cpu(), ref.q
+    exact = torch.isclose(q, q_ref, rtol=1e-5, atol=1e-7).float().mean().item()
+    assert exact > 0.995, exact
+    assert (q - q_ref).abs().max().item() <= 0.3 * w.abs().max().item()
+    spec = QuantSpec(fmt="int", bits=bits, group_size=groupsize if groupsize > 0 else PER_CHANNEL,
+                     symmetric=sym)
+    qt = gptq_result_to_qtensor(res, spec, w.shape[1], w.shape[0])
+    assert torch.equal(dequantize_weight(qt).t(), res.q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pre_norm", [None, EPS], ids=["w4", "w4_prenorm"])
+@pytest.mark.parametrize("m", [1, 8, 512])
+def test_unpadded_gptq_width_through_rows_1_and_2(dev, m, pre_norm, dtype):
+    """GPTQ artifacts carry no ``pad_n_to``: gate and up (N = 11008) take
+    the W4 kernels unpadded during calibration (f32 x, M = 512 tokens a
+    sample) and in a bf16 forward."""
+    qt = _artifact(dev, 4096, 11008, SPECS["g128_asym"], seed=8)
+    assert qt.n_pad == 0 and dm.kernel_supported(qt)
+    name = dm.kernel_name(qt, pre_norm)
+    assert name == (dm.W4 if pre_norm is None else dm.W4_PRENORM)
+    x = _x(dev, (m, 4096), dtype) * 3
+    dm.reset_counts()
+    y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
+    assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
+    _close(y, dm.dequant_matmul_plain(x, qt, pre_norm), dtype)
