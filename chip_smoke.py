@@ -10,10 +10,12 @@ flat and on the scan path (layer-stacked params and caches); its A-serve
 and KV-mode serves, the W8, W3, fp4, fp8 and fp6 models, the OPT and
 BLOOM models and the GPTQ-calibrated W4 model, whose kernels or paths the
 main path does not carry but which add time, run ``CUT_LAYERS`` (8)
-layers at full width.
+layers at full width; the CLI phase runs ``CLI_LAYERS`` (2).
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
-   per source, all at once) and print the card's name and power limit.
+   per source, all at once) and the host library
+   (``csrc/host/iwoq_native.cpp``) with ``g++``, each with its time, and
+   print the card's name and power limit.
 2. W4 kernels vs plain: each W4 kernel against its plain PyTorch version at
    the five main-path shapes of a LLaMA-2-7B W4 g128 model, at decode M=8
    and a prefill M, plus a ``k_pad`` artifact, an f32 x and a layer-stacked
@@ -126,14 +128,34 @@ layers at full width.
     an int8 paged cache of 2048 columns (LLaMA-2's context), 32 new
     tokens; wall ms per decode step (gather and decode read the whole
     timeline each step).
-10e. Artifact round trip: a dense 1-layer 7B-width LLaMA (bf16 embedding
-    and lm_head) quantized to W4 g128 on the card by
-    ``quantize_model_params`` (the lm_head excluded), saved by
-    ``save_artifact`` under ``build/`` and loaded onto the card by
-    ``load_artifact``: every tensor and artifact field bit-equal, and
-    ``generate``'s tokens equal the in-memory model's (every quantized
-    linear on ``w4_matmul``); the file's size and the save and load
-    seconds.
+10e. The CLI, as a user runs it (on the card by default), at LLaMA-2-7B
+    widths and ``CLI_LAYERS`` layers (the depth is cut because the save
+    is host deflate, most of it the bf16 embedding and lm_head): (a) a
+    float16 HF checkpoint (``config.json``, ``model.safetensors``) written
+    by the script; (b) ``cli.quantize --model_path ... --w_bits 4
+    --w_group_size 128 --pad_n 512`` (RTN on the card, where the weights
+    are: its summary must name no host-library linear; no kernel launch)
+    into the run's only artifact save, loaded onto the card: every leaf
+    bit-equal to ``quantize_model_params`` of the same converted weights
+    quantized on the card, and ``generate``'s tokens equal; the host
+    library's RTN (``--platform cpu``'s) timed alone on two linears, its
+    bytes equal to the card's; (c)
+    ``cli.generate`` on the artifact, plain and ``--continuous``, with
+    integer prompts: the printed tokens equal ``InferenceEngine`` called
+    directly, launches exact (every linear on ``w4_matmul``: the norms are
+    not folded, so ``w4_matmul_prenorm`` launches none), no plain or route
+    call; (d) ``cli.eval_ppl --w_bits 16 --datasets synthetic``: the PPL
+    equal to ``SequentialPPLEvaluator``'s bit for bit, launches exact;
+    (e) ``cli.eval_zeroshot`` on piqa, arc_easy, boolq, copa and lambada
+    (local documents in place of ``tasks._load``; launches exact): its
+    results equal ``evaluate`` through the kernels, and are held against
+    ``evaluate`` on the CPU's plain path with the same documents and
+    token ids (every pair's loglikelihood within ``ZS_LL_TOL``, the dense
+    model's distance beside it; per-task results equal unless a decision
+    flips); then ``greedy_until`` (launches exact); (f) ``tokenshard:``
+    windows through ``get_loaders`` equal to a numpy read of the file; (g)
+    ``analysis.stats.codeword_histogram`` of a linear equal on the card
+    and the CPU.  The seconds of each step.
 10f. The scan path: phase 4's 32-layer W4 model; two-layer logits of
     ``llama_forward_scan`` against ``llama_forward`` on the card; one
     untimed flat serve with an int8 cache; then the fused params stacked
@@ -284,8 +306,9 @@ layers at full width.
     perplexity through the kernels against that of
     ``dequantize_model_params`` (``|d ln PPL| <= PPL_TOL``; the RTN and
     dense models' beside them), ``generate`` and ``serve`` (the lm_head
-    dense: ``2L`` launches of each kernel a forward), and a one-layer
-    artifact round trip with bit-equal logits.
+    dense: ``2L`` launches of each kernel a forward).  Its save and load
+    are the CLI phase's (10e), whose artifact holds the same leaf kinds
+    (W4 nib4 tensors, a bf16 embedding, a dense lm_head).
 25. Report: the generate and serve JSON lines, the card line, the
     per-kernel JSON line (per kernel also ``prefill_ms``,
     ``prefill_bound_ms`` and ``prefill_library_ms``: the M=256 records
@@ -1260,6 +1283,30 @@ def phase_long_generate(torch, params, cfg, card, step_ms_short):
     return res
 
 
+# ------------------------------------------------------------- phase 10e
+
+CLI_LAYERS = 2  # depth of the CLI phase's model (its save is host deflate)
+CLI_NEW_TOKENS = 8
+CLI_SEQ = 64  # --max_seq_len of the CLI's generate: the longest prompt's 33 tokens, 8 new
+CLI_PPL_SEQLEN = 512
+CLI_PPL_CHUNKS = 8  # two batches of four chunks
+ZS_TASKS = ("piqa", "arc_easy", "boolq", "copa", "lambada")
+ZS_LIMIT = 16  # documents a task
+# pairs a batch of the CPU's plain path: two batches, as each batch
+# dequantizes every linear anew (batches of 32 took 36.1 s on the H100's host)
+ZS_CPU_BATCH = 88
+# the linears the host library's RTN is timed on alone: a 4096-row one and
+# the 11008-row one
+HOST_RTN_LINEARS = ("q", "down")
+# |loglikelihood through the kernels - the CPU plain path's|, bf16, summed
+# over a continuation's tokens, the largest over a run's pairs.  Set
+# between the readings of the H100 runs that first held it: 4.105e-2 over
+# all 176 pairs (9.491e-3, 1.964e-2, 4.281e-2 over 6), and the dense
+# model against the W4 one up to 1.030-2.135 (median 0.343), so that a
+# forward that skipped the quantized weights would fail
+ZS_LL_TOL = 1e-1
+
+
 def artifact_leaves(t):
     """The tensors and artifact fields of a param tree in a fixed order;
     None leaves (folded norms, absent biases) are left out, as a saved
@@ -1277,96 +1324,454 @@ def artifact_leaves(t):
     return [] if t is None else [t]
 
 
-def round_trip(torch, device, cfg, params):
-    """Save ``params`` under ``build/``, load them onto the card: (loaded
-    params, file bytes, save s, load s); the phase fails unless every
-    loaded tensor equals the saved one in device, dtype and bits and every
-    artifact field is equal."""
-    import shutil
-    import tempfile
-
-    from iron_weight_only_quant_tpu_torch.quantize.artifact import load_artifact, save_artifact
-
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(root, exist_ok=True)
-    path = tempfile.mkdtemp(prefix="smoke_artifact_", dir=root)
-    try:
-        t0 = time.perf_counter()
-        save_artifact(path, "llama", cfg, params)
-        save_s = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
-        t0 = time.perf_counter()
-        family, cfg2, loaded = load_artifact(path, device=device)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(path)
-    if family != "llama" or cfg2 != cfg:
-        fail("load_artifact gave another family or config")
-    got, saved = artifact_leaves(loaded), artifact_leaves(params)
-    if len(got) != len(saved):
-        fail("the loaded tree has another structure")
-    for a, b in zip(got, saved):
+def check_same_leaves(torch, what, got, want):
+    """Every tensor of ``got`` equals ``want``'s in device, dtype and bits,
+    every artifact field is equal; else the phase fails.  Returns the count."""
+    got, want = artifact_leaves(got), artifact_leaves(want)
+    if len(got) != len(want):
+        fail(f"{what}: the trees have other structures")
+    for a, b in zip(got, want):
         same = (a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
                 if torch.is_tensor(b) else a == b)
         if not same:
-            fail("a loaded tensor or artifact field differs from the saved one")
-    print(f"  {len(saved)} leaves bit-equal after save and load", flush=True)
-    return loaded, nbytes, save_s, load_s, len(saved)
+            fail(f"{what}: a tensor or artifact field differs")
+    return len(want)
 
 
-def phase_artifact(torch, device, spec, cfg_full, card):
-    """A dense 1-layer model quantized on the card, saved, loaded onto the
-    card: equal tensors and fields, equal ``generate`` tokens."""
-    import dataclasses
+def write_hf_checkpoint(torch, path, cfg, seed, device):
+    """A LLaMA checkpoint in the HF layout, float16 (the published LLaMA-2-7B
+    checkpoint's dtype), random from ``seed``: ``config.json`` and one
+    ``model.safetensors`` written here (an 8-byte little-endian header
+    length, a JSON header padded to 8 bytes, the raw bytes).  Returns the
+    file's bytes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, hd = cfg.hidden_size, cfg.hd
+    qdim, kvdim = cfg.num_heads * hd, cfg.num_kv_heads * hd
 
-    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
-    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
-    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward, llama_init
-    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
-    from iron_weight_only_quant_tpu_torch.quantize.model_pass import quantize_model_params
+    def lin(rows, cols):  # HF [out, in]
+        return (torch.randn((rows, cols), generator=gen, device=device)
+                * cols**-0.5).to(torch.float16)
 
-    cfg = dataclasses.replace(cfg_full, num_layers=1)
-    gen = torch.Generator(device=device).manual_seed(6)
-    dense = llama_init(cfg, gen, device=device)
-    dense["embed"] = dense["embed"].to(torch.bfloat16)
-    dense["lm_head"]["w"] = dense["lm_head"]["w"].to(torch.bfloat16)
+    def norm():
+        return (1 + 0.1 * torch.randn((h,), generator=gen, device=device)).to(torch.float16)
+
+    tensors = {"model.embed_tokens.weight": (torch.randn(
+        (cfg.vocab_size, h), generator=gen, device=device) * 0.02).to(torch.float16)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        tensors.update({
+            p + "input_layernorm.weight": norm(),
+            p + "self_attn.q_proj.weight": lin(qdim, h),
+            p + "self_attn.k_proj.weight": lin(kvdim, h),
+            p + "self_attn.v_proj.weight": lin(kvdim, h),
+            p + "self_attn.o_proj.weight": lin(h, qdim),
+            p + "post_attention_layernorm.weight": norm(),
+            p + "mlp.gate_proj.weight": lin(cfg.intermediate_size, h),
+            p + "mlp.up_proj.weight": lin(cfg.intermediate_size, h),
+            p + "mlp.down_proj.weight": lin(h, cfg.intermediate_size),
+        })
+    tensors["model.norm.weight"] = norm()
+    tensors["lm_head.weight"] = lin(cfg.vocab_size, h)
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        header[name] = {"dtype": "F16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + 2 * t.numel()]}
+        offset += 2 * t.numel()
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(os.path.join(path, "model.safetensors"), "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for t in tensors.values():
+            f.write(t.cpu().numpy().tobytes())
+    config = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+              "torch_dtype": "float16", "vocab_size": cfg.vocab_size, "hidden_size": h,
+              "intermediate_size": cfg.intermediate_size,
+              "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+              "num_key_value_heads": cfg.num_kv_heads,
+              "max_position_embeddings": cfg.max_position_embeddings,
+              "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+              "tie_word_embeddings": cfg.tie_word_embeddings}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    return 8 + len(head) + offset
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its standard output captured: (return value,
+    printed lines, seconds).  The lines are echoed, indented."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    params, report = quantize_model_params(dense, spec, device=device)
-    torch.cuda.synchronize()
-    quant_s = time.perf_counter() - t0
-    del dense
-    if (report["n_quantized"] != 7 * cfg.num_layers or report["n_skipped"] != 1
-            or "lm_head" in report["names"]):
-        fail(f"model pass: {report['n_quantized']} linears quantized, {report['n_skipped']} "
-             "skipped")
-    loaded, nbytes, save_s, load_s, n_leaves = round_trip(torch, device, cfg, params)
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines[:40]:
+        print(f"    | {line}", flush=True)
+    return out, lines, secs
 
-    prompts = [[(13 * i + j) % (cfg.vocab_size - 1) + 1 for j in range(n)]
-               for i, n in enumerate(PROMPT_LENS)]
-    toks = []
-    for p in (params, loaded):
-        eng = InferenceEngine(p, cfg, llama_forward, family="llama",
-                              engine_cfg=EngineConfig(fuse_projections=True, kv=KVCacheConfig(
-                                  max_seq_len=max(PROMPT_LENS) + 8)),
-                              dtype=torch.bfloat16, device=device)
-        dm.reset_counts()
-        toks.append(eng.generate(prompts, max_new_tokens=8))
-        torch.cuda.synchronize()
-        # gammas not folded: every fused and unfused quantized linear on
-        # w4_matmul (4 a layer), the dense lm_head in torch
+
+def zeroshot_docs(task, n, seed):
+    """``n`` local documents of ``task`` (the fields its prompts read), made
+    from ``seed``: the card machine has no ``datasets`` and no network."""
+    import random
+
+    rng = random.Random(f"{task}-{seed}")
+    words = ("the a cat dog sun rain water fire stone tree bird fish red blue green old "
+             "new runs jumps sleeps eats holds opens falls grows because then").split()
+
+    def s(k):
+        return " ".join(rng.choice(words) for _ in range(k))
+
+    docs = []
+    for i in range(n):
+        if task == "piqa":
+            docs.append({"goal": s(8), "sol1": s(6), "sol2": s(7), "label": i % 2})
+        elif task == "arc_easy":
+            docs.append({"question": s(10), "choices": {"text": [s(3) for _ in range(4)],
+                                                        "label": list("ABCD")},
+                         "answerKey": "ABCD"[i % 4]})
+        elif task == "boolq":
+            docs.append({"passage": s(30), "question": s(6), "label": i % 2})
+        elif task == "copa":
+            docs.append({"premise": s(7) + ".", "question": ("cause", "effect")[i % 2],
+                         "choice1": "He " + s(4), "choice2": "She " + s(4), "label": i % 2})
+        elif task == "lambada":
+            docs.append({"text": s(24)})
+    return docs
+
+
+# the datasets the zero-shot phase's tasks would load (tasks.py ``dataset``)
+ZS_DATASETS = {("piqa", None): "piqa", ("ai2_arc", "ARC-Easy"): "arc_easy",
+               ("super_glue", "boolq"): "boolq", ("super_glue", "copa"): "copa",
+               ("EleutherAI/lambada_openai", "default"): "lambada"}
+ZS_CHOICES = {"piqa": 2, "arc_easy": 4, "boolq": 2, "copa": 2, "lambada": 1}
+
+
+def phase_cli(torch, device, cfg_full, card):
+    """The CLI path (``cli.quantize``, ``cli.generate``, ``cli.eval_ppl``,
+    ``cli.eval_zeroshot``) at LLaMA-2-7B widths and ``CLI_LAYERS`` layers,
+    run as a user runs it, on the card by default: a float16 HF checkpoint
+    written here, quantized to W4 g128 (``--pad_n 512``) on the card (RTN
+    runs where the weights are) into the run's only artifact save, then
+    served, scored and evaluated from that artifact; the zero-shot results
+    are held against ``evaluate`` on the CPU's plain path.  The host
+    library's RTN (what ``--platform cpu`` runs) is timed on its own on
+    two of layer 0's linears and held to the card's bytes.  The depth is cut because the save is
+    host deflate, most of it the bf16 embedding and lm_head; two layers
+    keep a layer-to-layer path.  Also ``tokenshard:`` windows and
+    ``analysis.stats`` on the artifact."""
+    import dataclasses
+    import random
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from iron_weight_only_quant_tpu_torch.analysis import codeword_histogram
+    from iron_weight_only_quant_tpu_torch.cli import eval_ppl as cli_ppl
+    from iron_weight_only_quant_tpu_torch.cli import eval_zeroshot as cli_zs
+    from iron_weight_only_quant_tpu_torch.cli import generate as cli_generate
+    from iron_weight_only_quant_tpu_torch.cli import quantize as cli_quantize
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig, QuantSpec
+    from iron_weight_only_quant_tpu_torch.data import get_loaders
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.evals import EvalLM, SequentialPPLEvaluator
+    from iron_weight_only_quant_tpu_torch.evals.zeroshot import evaluate
+    from iron_weight_only_quant_tpu_torch.evals.zeroshot import tasks as zs_tasks
+    from iron_weight_only_quant_tpu_torch.interop import params_from_numpy
+    from iron_weight_only_quant_tpu_torch.models.convert_hf import load_checkpoint_dir
+    from iron_weight_only_quant_tpu_torch.models.llama import fuse_llama_projections, llama_forward
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
+    from iron_weight_only_quant_tpu_torch.quantize.artifact import load_artifact
+    from iron_weight_only_quant_tpu_torch.quantize.model_pass import quantize_model_params
+    from iron_weight_only_quant_tpu_torch.quantize.rtn import native_quantize_tensor
+
+    cfg = dataclasses.replace(cfg_full, num_layers=CLI_LAYERS)
+    n_layers = cfg.num_layers
+    spec = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+    res = {"layers": n_layers, "card": card}
+
+    def w4_only(forwards, per_forward):
         want = {name: 0 for name in dm.LAUNCHES}
-        want[dm.W4] = 8 * 4 * cfg.num_layers
-        check_counts("artifact generate", want)
-    if toks[0] != toks[1]:
-        fail("the loaded artifact generates other tokens than the in-memory model")
-    res = {"layers": cfg.num_layers, "file_bytes": nbytes, "quantize_s": quant_s,
-           "save_s": save_s, "load_s": load_s, "leaves": n_leaves, "card": card}
-    print(f"  artifact: {nbytes / 2**20:.1f} MiB, quantize {quant_s:.2f} s, save "
-          f"{save_s:.2f} s, load onto the card {load_s:.2f} s; generate tokens equal, on "
-          f"{card}", flush=True)
-    del params, loaded
+        want[dm.W4] = forwards * per_forward * n_layers
+        return want
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_cli_", dir=root)
+    try:
+        ckpt, art = os.path.join(tmp, "ckpt"), os.path.join(tmp, "art")
+        os.makedirs(ckpt)
+        print("  -- a: a float16 HF checkpoint", flush=True)
+        t0 = time.perf_counter()
+        res["checkpoint_bytes"] = write_hf_checkpoint(torch, ckpt, cfg, 50, device)
+        res["write_s"] = time.perf_counter() - t0
+        print(f"  checkpoint: {res['checkpoint_bytes'] / 2**20:.1f} MiB written in "
+              f"{res['write_s']:.2f} s", flush=True)
+
+        print("  -- b: cli.quantize (RTN on the card, W4 g128, --pad_n 512): the run's only "
+              "artifact save", flush=True)
+        dm.reset_counts()
+        _, lines, res["quantize_cli_s"] = run_cli(cli_quantize.main, [
+            "--model_path", ckpt, "--w_bits", "4", "--w_group_size", "128", "--pad_n", "512",
+            "--out", art])
+        torch.cuda.synchronize()
+        check_counts("cli quantize", w4_only(0, 0))
+        if not lines or f"quantized {7 * n_layers} linears (int4 g128)" not in lines[-1] \
+                or "via native lib" in lines[-1]:
+            # a weight on the card is quantized there, never through the host
+            fail(f"cli quantize printed {lines[-1:]}")
+        res["artifact_bytes"] = sum(os.path.getsize(os.path.join(art, f))
+                                    for f in os.listdir(art))
+        t0 = time.perf_counter()
+        family, cfg2, loaded = load_artifact(art, device=device)
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t0
+        if family != "llama" or cfg2 != cfg:
+            fail("load_artifact gave another family or config")
+        t0 = time.perf_counter()
+        cfg3, dense, _ = load_checkpoint_dir(ckpt, device=device)
+        torch.cuda.synchronize()
+        res["checkpoint_load_s"] = time.perf_counter() - t0
+        if cfg3 != cfg or dense["embed"].dtype != torch.bfloat16:
+            fail("load_checkpoint_dir gave another config or dtype")
+        t0 = time.perf_counter()
+        ref, report = quantize_model_params(
+            dense, spec, quantize_fn=lambda w, path: quantize_tensor(w, spec, pad_n_to=512),
+            device=device)
+        torch.cuda.synchronize()
+        res["rtn_card_s"] = time.perf_counter() - t0
+        if report["n_quantized"] != 7 * n_layers or report["n_skipped"] != 1:
+            fail(f"model pass: {report['n_quantized']} quantized, {report['n_skipped']} skipped")
+        res["leaves"] = check_same_leaves(torch, "the CLI's artifact vs RTN on the card",
+                                          loaded, ref)
+        print(f"  artifact: {res['artifact_bytes'] / 2**20:.1f} MiB; cli.quantize "
+              f"{res['quantize_cli_s']:.2f} s (checkpoint read, card RTN, save); load onto "
+              f"the card {res['load_s']:.2f} s; the checkpoint alone read onto the card in "
+              f"{res['checkpoint_load_s']:.2f} s, quantized there in {res['rtn_card_s']:.2f} s: "
+              f"{res['leaves']} leaves bit-equal", flush=True)
+        # the host library alone (what --platform cpu runs), on two of layer
+        # 0's linears already in host memory, against the card's RTN of them
+        host_s = card_s = 0.0
+        n_weights = 0
+        for name in HOST_RTN_LINEARS:
+            w = dense["layers"][0][name]["w"]
+            w_host = w.cpu()
+            t0 = time.perf_counter()
+            host_qt = native_quantize_tensor(w_host, spec, pad_n_to=512)
+            host_s += time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            quantize_tensor(w, spec, pad_n_to=512)
+            torch.cuda.synchronize()
+            card_s += time.perf_counter() - t0
+            n_weights += w.numel()
+            check_same_leaves(torch, f"the host library vs the card's RTN ({name})", host_qt,
+                              ref["layers"][0][name]["w"].map_arrays(lambda a: a.cpu()))
+        res["host_rtn"] = {"linears": HOST_RTN_LINEARS, "weights": n_weights,
+                           "host_s": host_s, "card_s": card_s}
+        print(f"  RTN of layer 0's {' and '.join(HOST_RTN_LINEARS)} ({n_weights / 1e6:.1f} M "
+              f"weights): "
+              f"the host library {host_s:.3f} s (one thread, from host memory), the card "
+              f"{card_s:.4f} s; bytes equal", flush=True)
+        docs = {t: zeroshot_docs(t, ZS_LIMIT, 52) for t in ZS_TASKS}
+        tasks = [zs_tasks.get_task(t, docs=docs[t]) for t in ZS_TASKS]
+
+        def encode(s):  # the CLI's demo tokenizer: Python's hash, salted per
+            # process, so these are the CLI's ids only within this process
+            return [(hash(w) % (cfg.vocab_size - 2)) + 2 for w in s.split()] or [1]
+
+        # the pairs evaluate() builds, in its order
+        pairs = [(encode(r.context), encode(r.continuation)) for t in tasks
+                 for d in docs[t.name][:ZS_LIMIT] for r in t.requests(d)]
+        # what a forward that skipped the quantized weights would read: the
+        # dense bf16 model's loglikelihoods
+        dense_ll = EvalLM(dense, llama_forward, cfg).loglikelihood(pairs)
+        del dense
+
+        gen = torch.Generator(device=device).manual_seed(51)
+        prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen, device=device).tolist()
+                   for n in PROMPT_LENS[::2]]
+        ecfg = EngineConfig(fuse_projections=True, kv=KVCacheConfig(max_seq_len=CLI_SEQ))
+        engines = {k: InferenceEngine(p, cfg, llama_forward, family="llama", engine_cfg=ecfg,
+                                      device=device) for k, p in (("ref", ref), ("art", loaded))}
+        del ref
+        toks = {}
+        for k, eng in engines.items():
+            dm.reset_counts()
+            toks[k] = eng.generate(prompts, max_new_tokens=CLI_NEW_TOKENS)
+            torch.cuda.synchronize()
+            # gammas not folded: the fused and unfused linears (4 a layer)
+            # on w4_matmul, the dense lm_head in torch
+            check_counts(f"generate ({k})", w4_only(CLI_NEW_TOKENS, 4))
+        if toks["ref"] != toks["art"]:
+            fail("the loaded artifact generates other tokens than the card-quantized model")
+        eng = engines["art"]
+        stats = {}
+        served = eng.serve(prompts, max_new_tokens=CLI_NEW_TOKENS, stats=stats)
+        del engines
+
+        print("  -- c: cli.generate, plain and --continuous", flush=True)
+        argv = ["--artifact", art, "--max_new_tokens", str(CLI_NEW_TOKENS), "--max_seq_len",
+                str(CLI_SEQ), "--prompt"] + [" ".join(map(str, p)) for p in prompts]
+        for extra, want_toks, forwards in (([], toks["art"], CLI_NEW_TOKENS),
+                                           (["--continuous"], served, stats["n_steps"])):
+            dm.reset_counts()
+            outs, lines, secs = run_cli(cli_generate.main, argv + extra)
+            torch.cuda.synchronize()
+            label = "cli generate" + (" --continuous" if extra else "")
+            res["cli_generate" + ("_continuous" if extra else "")] = {
+                "s": secs, "launches": check_counts(label, w4_only(forwards, 4))}
+            printed = [f"prompt {p} -> {o}" for p, o in zip(prompts, want_toks)]
+            if outs != want_toks or [ln for ln in lines if "->" in ln] != printed:
+                fail(f"{label} gave other tokens than InferenceEngine called directly")
+        res["generate_tokens"] = [o[:CLI_NEW_TOKENS] for o in toks["art"][:2]]
+
+        print("  -- d: cli.eval_ppl (--w_bits 16 on the W4 artifact, fused)", flush=True)
+        dm.reset_counts()
+        out, _, secs = run_cli(cli_ppl.main, [
+            "--artifact", art, "--w_bits", "16", "--datasets", "synthetic", "--ppl_seqlen",
+            str(CLI_PPL_SEQLEN), "--sample_size", str(CLI_PPL_CHUNKS)])
+        torch.cuda.synchronize()
+        ppl_launches = check_counts("cli eval_ppl", w4_only(-(-CLI_PPL_CHUNKS // 4), 4))
+        got = out["w16_int_group128"]["datasets"]["synthetic"]
+        ev = SequentialPPLEvaluator(fuse_llama_projections(loaded), llama_forward, cfg,
+                                    seqlen=CLI_PPL_SEQLEN)
+        want = ev.calculate_ppl("synthetic", max_chunks=CLI_PPL_CHUNKS)
+        if (got["perplexity"], got["num_tokens"], got["num_chunks"]) != want:
+            fail(f"cli eval_ppl gave {got}, SequentialPPLEvaluator {want}")
+        res["ppl"] = {"ppl": want[0], "tokens": want[1], "chunks": want[2], "s": secs,
+                      "launches": ppl_launches}
+        print(f"  PPL {want[0]:.4f} over {want[1]} tokens, equal to SequentialPPLEvaluator's "
+              f"bit for bit", flush=True)
+
+        print(f"  -- e: cli.eval_zeroshot ({', '.join(ZS_TASKS)}; local documents)", flush=True)
+        n_pairs = sum(ZS_CHOICES[t] * len(docs[t]) for t in ZS_TASKS)
+        if n_pairs != len(pairs):
+            fail(f"{len(pairs)} zero-shot pairs, {n_pairs} expected")
+        load_docs = zs_tasks._load
+        zs_tasks._load = lambda path, name, split: docs[ZS_DATASETS[(path, name)]]
+        try:
+            dm.reset_counts()
+            out, _, secs = run_cli(cli_zs.main, ["--artifact", art, "--w_bits", "16",
+                                                 "--tasks", *ZS_TASKS, "--limit", str(ZS_LIMIT)])
+            torch.cuda.synchronize()
+        finally:
+            zs_tasks._load = load_docs
+        # unfused: q, k, v, o, gate, up, down on w4_matmul, batches of 8 pairs
+        zs_launches = check_counts("cli eval_zeroshot", w4_only(-(-n_pairs // 8), 7))
+        if list(out["w16"]) != list(ZS_TASKS) or not all(
+                0.0 <= r["acc"] <= 1.0 for r in out["w16"].values()):
+            fail(f"cli eval_zeroshot gave {out}")
+        res["zeroshot"] = {"results": out["w16"], "pairs": n_pairs, "s": secs,
+                           "launches": zs_launches}
+
+        class Scored:
+            """An EvalLM that keeps what evaluate() had it score."""
+
+            def __init__(self, lm):
+                self.lm = lm
+
+            def loglikelihood(self, requests):
+                self.pairs, self.scores = requests, self.lm.loglikelihood(requests)
+                return self.scores
+
+        lm = EvalLM(loaded, llama_forward, cfg)
+        on_card = Scored(lm)
+        if evaluate(on_card, tasks, encode, limit=ZS_LIMIT) != out["w16"] \
+                or on_card.pairs != pairs:
+            fail("cli eval_zeroshot's results differ from evaluate() through the kernels")
+        t0 = time.perf_counter()
+        on_cpu = Scored(EvalLM(params_from_numpy(loaded, "cpu"), llama_forward, cfg,
+                               batch_size=ZS_CPU_BATCH))
+        cpu_res = evaluate(on_cpu, tasks, encode, limit=ZS_LIMIT)
+        cpu_s = time.perf_counter() - t0
+        if on_cpu.pairs != pairs:
+            fail("evaluate() on the CPU scored other pairs")
+        card_ll, cpu_ll = on_card.scores, on_cpu.scores
+        d_ll = max(abs(a[0] - b[0]) for a, b in zip(card_ll, cpu_ll))
+        d_dense = sorted(abs(a[0] - b[0]) for a, b in zip(card_ll, dense_ll))
+        if not all(math.isfinite(a[0]) for a in card_ll) or d_ll > ZS_LL_TOL:
+            fail(f"loglikelihood through the kernels is {d_ll:.3e} from the CPU's plain path")
+        # a document's decision may differ from the CPU's only where its lls
+        # are within ZS_LL_TOL of a tie (or, for lambada's greedy flag, its
+        # logits are); a task holds the CPU's results exactly unless one did
+        flips, at = {}, 0
+        for t in tasks:
+            flips[t.name] = 0
+            for d in docs[t.name][:ZS_LIMIT]:
+                n = len(t.requests(d))
+                a = t.process_results(d, card_ll[at:at + n])
+                b = t.process_results(d, cpu_ll[at:at + n])
+                flips[t.name] += any(a[k] != b[k] for k in a if k != "nll")
+                at += n
+        for name, want in cpu_res.items():
+            for m, v in want.items():
+                got = out["w16"][name][m]
+                if m == "ppl":  # exp(mean nll): within the lls' limit in log
+                    ok = abs(math.log(got / v)) <= ZS_LL_TOL
+                elif not flips[name]:
+                    ok = got == v
+                else:  # a mean over documents moves 1/limit a flip
+                    ok = m.endswith("_stderr") or abs(got - v) <= flips[name] / ZS_LIMIT + 1e-12
+                if not ok:
+                    fail(f"cli eval_zeroshot {name} {m} is {got}; evaluate() on the CPU's plain "
+                         f"path gives {v} ({flips[name]} decisions differ)")
+        print(f"  cli.eval_zeroshot == evaluate() through the kernels; vs evaluate() on the "
+              f"CPU's plain path ({cpu_s:.1f} s, {len(pairs)} pairs): max |d ll| {d_ll:.3e} "
+              f"(limit {ZS_LL_TOL}; the dense model is {d_dense[0]:.3e} to {d_dense[-1]:.3e} "
+              f"away, median {d_dense[len(d_dense) // 2]:.3e}), decisions differing {flips}; "
+              f"per-task results {'equal' if not any(flips.values()) else 'within the flips'}",
+              flush=True)
+        dm.reset_counts()
+        outs = lm.greedy_until([(p[0], []) for p in pairs[:2]], max_gen=4)
+        torch.cuda.synchronize()
+        check_counts("greedy_until", w4_only(2 * 4, 7))
+        if [len(o) for o in outs] != [4, 4] or any(not 0 <= t < cfg.vocab_size
+                                                     for o in outs for t in o):
+            fail(f"greedy_until gave {outs}")
+        res["zeroshot"].update(cpu_results=cpu_res, ll_pairs_vs_cpu=len(pairs),
+                               ll_max_abs_diff=d_ll, ll_tol=ZS_LL_TOL,
+                               ll_abs_diff_dense=[d_dense[0], d_dense[-1]],
+                               decisions_differing=flips, cpu_s=cpu_s, greedy_until=outs)
+
+        print("  -- f: tokenshard: windows through get_loaders vs a numpy read", flush=True)
+        shard = os.path.join(tmp, "corpus.tokens")
+        tokens = np.random.default_rng(53).integers(0, cfg.vocab_size, 300_000, dtype=np.int32)
+        tokens.tofile(shard)
+        t0 = time.perf_counter()
+        train, test = get_loaders("tokenshard:" + shard, nsamples=4, seed=5,
+                                  seqlen=CLI_PPL_SEQLEN)
+        shard_s = time.perf_counter() - t0
+        disk = np.fromfile(shard, np.int32)
+        draw = random.Random(5)
+        offs = [draw.randint(0, len(disk) - CLI_PPL_SEQLEN - 1) for _ in range(4)]
+        if [s.input_ids.tolist() for s in train] != \
+                [[disk[o:o + CLI_PPL_SEQLEN].tolist()] for o in offs] \
+                or test.input_ids.tolist() != [disk[:256 * CLI_PPL_SEQLEN].tolist()]:
+            fail("tokenshard windows differ from a numpy read of the file")
+        res["tokenshard_s"] = shard_s
+
+        print("  -- g: analysis.stats.codeword_histogram, card vs CPU", flush=True)
+        qt = loaded["layers"][0]["gate"]["w"]
+        got = codeword_histogram(qt)
+        want = codeword_histogram(qt.map_arrays(lambda a: a.cpu()))
+        if any(a.dtype != b.dtype or not np.array_equal(a, b) for a, b in zip(got, want)) \
+                or int(got[1].sum()) != qt.k * qt.qweight.shape[1]:
+            fail("codeword_histogram on the card differs from the CPU's")
+        print(f"  tokenshard windows equal ({shard_s:.3f} s); gate codeword histogram equal on "
+              f"card and CPU ({len(got[0])} codes)", flush=True)
+    finally:
+        shutil.rmtree(tmp)
+    del loaded
     torch.cuda.empty_cache()
+    print(f"  CLI phase on {card}: write {res['write_s']:.1f} s, quantize+save "
+          f"{res['quantize_cli_s']:.1f} s, load {res['load_s']:.1f} s, host RTN of two "
+          f"linears {res['host_rtn']['host_s']:.2f} s", flush=True)
     return res
 
 
@@ -2349,8 +2754,9 @@ def phase_gptq(torch, device, cfg_full, card):
     the card against the CPU solve of the same H, the artifacts' calls of
     rows 1 and 2 against their plain versions; then fused, bf16: the
     perplexity through the kernels against ``dequantize_model_params``'s,
-    ``generate`` and ``serve`` (the lm_head dense), and a one-layer
-    artifact round trip with equal logits."""
+    ``generate`` and ``serve`` (the lm_head dense).  Its artifacts' save
+    and load are the CLI phase's (10e: W4 nib4 tensors, a bf16 embedding,
+    a dense lm_head)."""
     import dataclasses
 
     from iron_weight_only_quant_tpu_torch.config import (
@@ -2551,20 +2957,7 @@ def phase_gptq(torch, device, cfg_full, card):
     del model
     torch.cuda.empty_cache()
 
-    print("  -- one-layer GPTQ artifact round trip (bf16 embedding and lm_head)", flush=True)
-    cfg1 = dataclasses.replace(cfg, num_layers=1)
-    one = cast_dense({**params, "layers": params["layers"][:1]}, torch.bfloat16)
     del params
-    loaded, nbytes, save_s, load_s, n_leaves = round_trip(torch, device, cfg1, one)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
-    with torch.inference_mode():
-        lg = llama_forward(one, tokens, cfg1)[0]
-        lg_loaded = llama_forward(loaded, tokens, cfg1)[0]
-    if not torch.equal(lg, lg_loaded):
-        fail("the loaded GPTQ artifact gives other logits than the saved one")
-    print(f"  GPTQ artifact: {nbytes / 2**20:.1f} MiB, save {save_s:.2f} s, load onto the "
-          f"card {load_s:.2f} s; logits equal, on {card}", flush=True)
-    del one, loaded
     torch.cuda.empty_cache()
     return {
         "layers": n_layers, "samples": GPTQ_SAMPLES, "seqlen": GPTQ_SEQLEN,
@@ -2577,8 +2970,6 @@ def phase_gptq(torch, device, cfg_full, card):
         "kernel_checks": [{k: r[k] for k in ("call", "max_abs_err", "rel_err", "tol")}
                           for r in kernel_checks],
         "ppl": ppls, "ppl_d_ln": d_ln, "generate": gen_res, "serve": serve,
-        "artifact": {"layers": 1, "file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
-                     "leaves": n_leaves},
         "card": card,
     }
 
@@ -2651,9 +3042,15 @@ def main() -> int:
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
     from iron_weight_only_quant_tpu_torch.utils.profiling import card_line
 
+    from iron_weight_only_quant_tpu_torch import native
+
     t0 = time.perf_counter()
     paths = kbuild.build()
     print(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    host_lib = native.build()
+    print(f"  built the host library {os.path.basename(host_lib)} (g++) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in paths:
         for line in kbuild.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -2792,9 +3189,10 @@ def main() -> int:
     del params_w4
     torch.cuda.empty_cache()
 
-    header("== phase 10e: artifact round trip: a one-layer 7B-width model quantized on the "
-           "card, saved, loaded onto the card")
-    artifact = phase_artifact(torch, device, w4, cfg, card)
+    header(f"== phase 10e: the CLI at 7B width, {CLI_LAYERS} layers: an f16 HF checkpoint "
+           "through cli.quantize (the run's only artifact save), cli.generate, cli.eval_ppl, "
+           "cli.eval_zeroshot; tokenshard and analysis")
+    cli = phase_cli(torch, device, cfg, card)
 
     header(f"== phase 11: {CUT_LAYERS}-layer 7B-width W8 serve, A16 waves, A8 decode")
     serve_w8_a = phase_serve(torch, params_w8, cfg_cut, (dm.W8A16, dm.W8A8), SERVE_RUNS,
@@ -3018,7 +3416,7 @@ def main() -> int:
     for label, run in serve_kv.items():
         report(f"serve_w4_{label}", run)
     report("generate_w4_long_context", long_gen)
-    report("artifact_round_trip", artifact)
+    report("cli", cli)
     print(json.dumps({"kv_codec_bit_equal_calls": kv_codec_checks}))
     report("generate_w4_scan", scan_w4["generate"])
     for side in ("scan", "flat"):

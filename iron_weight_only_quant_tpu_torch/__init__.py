@@ -7,7 +7,9 @@ W3), BFP and exact-minifloat (fp4, fp6, fp8) artifacts, with bf16/f32 or
 int8/A16 activations, run as hand-written CUDA kernels (``csrc/``), built
 with ``nvcc`` at first use; every other op is plain PyTorch.  ``probes/``
 holds measurements that no serving path runs (the W4 inner-loop probe),
-``utils/`` the timers and roofline accounting.
+``utils/`` the timers, roofline accounting and results files, ``cli/``
+the command-line tools, ``native/`` the bindings of the host C++ library
+(``csrc/host/``, built with ``g++`` at first use).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device named and no GPU present they raise.

@@ -13,8 +13,8 @@ Kept for PPL parity:
 Token arrays are numpy.  ``synthetic`` gives deterministic random tokens
 for offline runs, bit-equal to the JAX package's for the same seed.  The
 real datasets need ``datasets`` and ``transformers``, imported only when
-asked for; ``tokenshard:`` needs the host library ``native/``, which is
-not ported yet.
+asked for; ``tokenshard:<path>`` reads a pre-tokenized raw int32 file
+through the host library's memory-mapped reader (``native/``).
 """
 
 from __future__ import annotations
@@ -175,6 +175,27 @@ def get_synthetic(nsamples, seed, seqlen, model=None, vocab_size: int = 256):
     return _windows(train, nsamples, seed, seqlen), TokenizedText(test)
 
 
+def get_tokenshard(path: str, nsamples, seed, seqlen):
+    """Pre-tokenized raw-int32 shard (memory-mapped via the host library's
+    reader, ``csrc/host/iwoq_native.cpp``): seeded random calibration
+    windows + the first ``256 * seqlen`` tokens (or all) as the test
+    split, as in the JAX package."""
+    from .. import native
+
+    with native.TokenShardReader(path) as reader:
+        total = len(reader)
+        if total < seqlen + 1:
+            raise ValueError(f"token shard {path} shorter than seqlen")
+        rng = random.Random(seed)
+        offs = [rng.randint(0, total - seqlen - 1) for _ in range(nsamples)]
+        batch = reader.batch(offs, seqlen)
+        samples = [CalibSample(batch[i : i + 1].astype(np.int64))
+                   for i in range(nsamples)]
+        n_test = min(total, 256 * seqlen)
+        test = reader.batch([0], n_test).astype(np.int64)
+    return samples, TokenizedText(test)
+
+
 def get_loaders(
     name: str,
     nsamples: int = 128,
@@ -184,11 +205,10 @@ def get_loaders(
     vocab_size: int = 256,
 ) -> Tuple[Optional[List[CalibSample]], TokenizedText]:
     """The reference's ``datautils.get_loaders`` dispatch (lines 205-217),
-    with ``synthetic`` (offline random tokens) beside it."""
+    with ``synthetic`` (offline random tokens) and ``tokenshard:<path>``
+    (a pre-tokenized corpus, memory-mapped) beside it."""
     if name.startswith("tokenshard:"):
-        raise NotImplementedError(
-            "tokenshard: datasets need the host library native/ (iwoq_native), "
-            "which the port has not ported yet (ROADMAP queue A item 10)")
+        return get_tokenshard(name.split(":", 1)[1], nsamples, seed, seqlen)
     if "synthetic" in name:
         return get_synthetic(nsamples, seed, seqlen, model, vocab_size)
     if "wikitext2" in name or name == "wikitext":

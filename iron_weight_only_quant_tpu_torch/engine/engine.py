@@ -268,7 +268,7 @@ class InferenceEngine:
         if engine_cfg.mesh.ndevices > 1 or tp_block:
             raise NotImplementedError(
                 "multi-device engines (mesh, tp_block) are not ported yet "
-                "(ROADMAP queue A, 'Parallelism'); the port runs on one device")
+                "(ROADMAP queue A item 9, parallelism); the port runs on one device")
         if "layers" not in params and "layers_stacked" not in params:
             raise ValueError("params hold neither 'layers' nor 'layers_stacked'")
         self.device = resolve_device(device)

@@ -1,6 +1,11 @@
-"""Evaluation harnesses: the sequential perplexity evaluator.  The
-language-model wrapper, the zero-shot tasks, the metrics and the
-lm-evaluation-harness adapter are still to be ported (ROADMAP queue A
-item 8)."""
+"""Evaluation harnesses: the sequential perplexity evaluator, the
+loglikelihood API (``EvalLM``) and the zero-shot tasks over it, and the
+metrics.
 
+``lm_eval_adapter`` (external lm-evaluation-harness glue, reference
+main.py:427-466) is import-gated on the optional ``lm_eval`` package and
+not re-exported here.
+"""
+
+from .lm import EvalLM  # noqa: F401
 from .ppl import SequentialPPLEvaluator  # noqa: F401

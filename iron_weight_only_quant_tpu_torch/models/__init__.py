@@ -4,8 +4,8 @@ params and a scan forward over layer-stacked ones.
 Linear weights may be dense tensors or packed
 :class:`~iron_weight_only_quant_tpu_torch.quantize.QuantizedTensor`
 artifacts; the model code is agnostic (``models/common.py`` ``linear``).
-The HF checkpoint converter and the chat templates are still to be ported
-(ROADMAP queue A, with the CLI).
+``convert_hf`` reads HF checkpoints (``config.json`` + ``*.safetensors``)
+into these trees, ``chat`` formats chat prompts.
 """
 
 from .bloom import (  # noqa: F401

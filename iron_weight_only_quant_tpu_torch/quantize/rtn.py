@@ -11,6 +11,9 @@ array when symmetric.
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +37,45 @@ def _kernel_layout(per_group_col: torch.Tensor, k: int, n: int, group_size: int)
         return per_group_col.reshape(1, n)
     kg = k // group_size
     return per_group_col.reshape(n, kg).t().contiguous()
+
+
+def native_quantize_tensor(
+    w: torch.Tensor, spec: QuantSpec, pad_n_to: int = 1
+) -> Optional[QuantizedTensor]:
+    """Quantize+pack on the host through the C++ library
+    (``csrc/host/iwoq_native.cpp``): the artifact of :func:`quantize_tensor`
+    byte for byte, on ``w``'s device.
+
+    Covers the int4/int8 per-group affine layouts; returns None for every
+    other spec or shape (the layouts the JAX package's version leaves out),
+    and the caller quantizes with :func:`quantize_tensor`.  A library that
+    cannot be built or loaded raises.  The weight goes to the host as
+    float32 and the packed fields come back to its device; ``cli.quantize``
+    calls it only for weights in host memory (a card weight is quantized on
+    the card by :func:`quantize_tensor`).
+    """
+    from .. import native
+
+    if (spec.fmt != "int" or spec.bits not in (4, 8) or spec.group_size <= 0
+            or spec.quant_axis != 0 or w.ndim != 2):
+        return None
+    k, n = w.shape
+    if k % spec.group_size or (spec.bits == 4 and k % 2):
+        return None
+    w_np = w.detach().to("cpu", torch.float32).numpy()
+    n_pad = 0
+    if pad_n_to > 1 and n % pad_n_to != 0:
+        n_pad = pad_n_to - n % pad_n_to
+        w_np = np.pad(w_np, ((0, 0), (0, n_pad)))
+    fn = (native.native_quantize_int4 if spec.bits == 4
+          else native.native_quantize_int8)
+    packed, scales, zeros = fn(w_np, spec.group_size, spec.symmetric)
+    if spec.symmetric:
+        # quantize_tensor stores symmetric zero-points as a broadcast scalar
+        zeros = zeros[:1, :1].copy()
+    on = lambda a: torch.from_numpy(a).to(w.device)  # noqa: E731
+    return QuantizedTensor(on(packed), on(scales), on(zeros), None, spec, (k, n),
+                           "affine", 1, n_pad)
 
 
 def quantize_tensor(

@@ -40,6 +40,10 @@ chunks and decode steps do not sync.  The GPTQ solver on the card meets
 3-bit per-channel, 8-bit, with TF32 left on by the caller), and an
 unpadded N = 11008 W4 artifact (GPTQ artifacts carry no ``pad_n_to``)
 goes through ``w4_matmul`` and ``w4_matmul_prenorm`` at M = 1, 8, 512.
+The host library quantizes card weights into the card RTN's bytes, an
+f16 checkpoint loads onto the card as on the CPU, ``cli.quantize`` of it
+quantizes on the card into the host library's bytes, and ``EvalLM``
+through the kernels matches the CPU's plain path.
 """
 
 import contextlib
@@ -1753,3 +1757,141 @@ def test_unpadded_gptq_width_through_rows_1_and_2(dev, m, pre_norm, dtype):
     y = dm.fused_quantized_matmul(x, qt, pre_norm=pre_norm)
     assert dm.LAUNCHES[name] == 1 and sum(dm.LAUNCHES.values()) == 1
     _close(y, dm.dequant_matmul_plain(x, qt, pre_norm), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits,sym", [(4, False), (4, True), (8, False)])
+def test_native_quantize_of_a_card_weight_equals_card_rtn(dev, bits, sym, dtype):
+    """The host library quantizes a card weight (via the host) into the
+    bytes that the card's own RTN writes, padded columns included, and
+    gives the artifact back on the card."""
+    from iron_weight_only_quant_tpu_torch.quantize.rtn import native_quantize_tensor
+
+    spec = QuantSpec(fmt="int", bits=bits, group_size=128, symmetric=sym)
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = (torch.randn((1024, 300), generator=g, device=dev) * 0.05).to(dtype)
+    got = native_quantize_tensor(w, spec, pad_n_to=512)
+    want = quantize_tensor(w, spec, pad_n_to=512)
+    for f in ("qweight", "scales", "zeros"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.device == b.device == w.device and a.dtype == b.dtype and torch.equal(a, b), f
+    assert (got.n_pad, got.shape) == (want.n_pad, want.shape)
+
+
+def _write_tiny_checkpoint(path):
+    """A 2-layer LLaMA checkpoint in the HF layout, float16 from a seed:
+    ``config.json`` and one ``model.safetensors``.  Returns its config."""
+    import json
+
+    import numpy as np
+
+    from iron_weight_only_quant_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
+                            num_layers=2, num_heads=4, num_kv_heads=2)
+    rng = np.random.default_rng(0)
+    shapes = {"model.embed_tokens.weight": (256, 128), "model.norm.weight": (128,),
+              "lm_head.weight": (256, 128)}
+    for i in range(2):
+        p = f"model.layers.{i}."
+        shapes.update({p + "input_layernorm.weight": (128,),
+                       p + "post_attention_layernorm.weight": (128,),
+                       p + "self_attn.q_proj.weight": (128, 128),
+                       p + "self_attn.k_proj.weight": (64, 128),
+                       p + "self_attn.v_proj.weight": (64, 128),
+                       p + "self_attn.o_proj.weight": (128, 128),
+                       p + "mlp.gate_proj.weight": (256, 128),
+                       p + "mlp.up_proj.weight": (256, 128),
+                       p + "mlp.down_proj.weight": (128, 256)})
+    header, blobs, off = {}, [], 0
+    for k, s in shapes.items():
+        a = rng.normal(size=s).astype(np.float16)
+        header[k] = {"dtype": "F16", "shape": list(s), "data_offsets": [off, off + a.nbytes]}
+        blobs.append(a.tobytes())
+        off += a.nbytes
+    head = json.dumps(header).encode()
+    (path / "model.safetensors").write_bytes(len(head).to_bytes(8, "little") + head
+                                             + b"".join(blobs))
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": 256, "hidden_size": 128,
+        "intermediate_size": 256, "num_hidden_layers": 2, "num_attention_heads": 4,
+        "num_key_value_heads": 2, "max_position_embeddings": 2048, "rms_norm_eps": 1e-5}))
+    return cfg
+
+
+def test_checkpoint_dir_onto_the_card_equals_the_cpu_load(dev, tmp_path):
+    """``load_checkpoint_dir`` puts an f16 checkpoint's weights on the card,
+    each equal to the CPU load of the same files."""
+    from iron_weight_only_quant_tpu_torch.models.convert_hf import load_checkpoint_dir
+
+    cfg = _write_tiny_checkpoint(tmp_path)
+    c1, on_card, _ = load_checkpoint_dir(str(tmp_path), device=dev)
+    c2, on_cpu, _ = load_checkpoint_dir(str(tmp_path), device="cpu")
+    assert c1 == c2 == cfg
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, list):
+            return [x for v in t for x in leaves(v)]
+        return [] if t is None else [t]
+
+    for a, b in zip(leaves(on_card), leaves(on_cpu), strict=True):
+        assert a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("bits", ["4", "8"])
+def test_cli_quantize_on_the_card_writes_the_host_library_bytes(dev, tmp_path, capsys, bits):
+    """``cli.quantize`` quantizes a checkpoint loaded onto the card there,
+    not through the host library, and writes the bytes that the host
+    library writes under ``--platform cpu``."""
+    from iron_weight_only_quant_tpu_torch.cli import quantize as cli_quantize
+
+    (tmp_path / "ckpt").mkdir()
+    _write_tiny_checkpoint(tmp_path / "ckpt")
+    argv = ["--model_path", str(tmp_path / "ckpt"), "--w_bits", bits, "--w_group_size", "32",
+            "--pad_n", "96"]
+    lines = {}
+    for side, extra in (("card", []), ("host", ["--platform", "cpu"])):
+        cli_quantize.main(argv + ["--out", str(tmp_path / side)] + extra)
+        lines[side] = capsys.readouterr().out.strip().splitlines()[-1]
+    assert "quantized 14 linears" in lines["card"] and "native" not in lines["card"]
+    assert ", 14 via native lib" in lines["host"]
+    for f in ("params.npz", "manifest.json"):
+        assert (tmp_path / "card" / f).read_bytes() == (tmp_path / "host" / f).read_bytes(), f
+
+
+def test_evallm_through_the_kernels_matches_the_cpu_plain_path(dev):
+    """``EvalLM`` on a W4 model on the card (rows 1 and 2's kernels, f32
+    activations) against the same model on the CPU (plain versions):
+    loglikelihoods within 1e-3 and exact launch counts; ``greedy_until``
+    gives in-vocabulary tokens; ``codeword_histogram`` equal on both."""
+    import numpy as np
+
+    from iron_weight_only_quant_tpu_torch.analysis import codeword_histogram
+    from iron_weight_only_quant_tpu_torch.evals import EvalLM
+    from iron_weight_only_quant_tpu_torch.interop import params_from_numpy
+    from iron_weight_only_quant_tpu_torch.models import llama
+    from iron_weight_only_quant_tpu_torch.quantize.model_pass import quantize_model_params
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                            num_layers=2, num_heads=4, num_kv_heads=2)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    params, _ = quantize_model_params(
+        llama.llama_init(cfg, gen, device=dev),
+        QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False), device=dev)
+    cpu = params_from_numpy(params, "cpu")
+    pairs = [([3, 5, 7, 11], [13, 17]), ([], [4, 9, 2]), (list(range(1, 40)), [8])]
+    dm.reset_counts()
+    card_ll = EvalLM(params, llama.llama_forward, cfg, batch_size=2).loglikelihood(pairs)
+    torch.cuda.synchronize()
+    assert dm.LAUNCHES[dm.W4] == 2 * 7 * 2 and not any(dm.PLAIN_CALLS.values())
+    cpu_ll = EvalLM(cpu, llama.llama_forward, cfg, batch_size=2).loglikelihood(pairs)
+    for (a, _), (b, _) in zip(card_ll, cpu_ll):
+        assert abs(a - b) <= 1e-3
+    outs = EvalLM(params, llama.llama_forward, cfg).greedy_until([([3, 5], [])], max_gen=3)
+    assert len(outs[0]) == 3 and all(0 <= t < cfg.vocab_size for t in outs[0])
+    qt = params["layers"][0]["gate"]["w"]
+    for a, b in zip(codeword_histogram(qt), codeword_histogram(cpu["layers"][0]["gate"]["w"])):
+        assert np.array_equal(a, b)

@@ -4,7 +4,8 @@
   imports in a process where ``jax``, ``flax`` and the JAX package cannot
   be imported, and importing builds no kernel;
 * an AST scan finds no import of those packages in the port's sources;
-* an entry point given no device raises on a machine with no GPU.
+* an entry point given no device raises on a machine with no GPU (the
+  CLI's commands: ``tests/test_torch_cli.py``).
 """
 
 import ast
@@ -19,6 +20,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "iron_weight_only_quant_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "iron_weight_only_quant_tpu")
+# the modules of the CLI slice, which the walk must reach
+NEW_MODULES = ("cli.common", "cli.quantize", "cli.generate", "cli.eval_ppl",
+               "cli.eval_zeroshot", "cli.sweep", "evals.lm", "evals.metrics",
+               "evals.lm_eval_adapter", "evals.zeroshot.base", "evals.zeroshot.tasks",
+               "models.convert_hf", "models.chat", "utils.results_io", "native.lib",
+               "analysis.stats", "analysis.plots")
 
 
 def _sources():
@@ -35,8 +42,12 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from iron_weight_only_quant_tpu_torch.native import lib as host_lib
 from iron_weight_only_quant_tpu_torch.ops.kernels import build
 assert build._LIBS == {{}}, "importing must not build or load a kernel"
+assert host_lib._lib is None, "importing must not build or load the host library"
+for name in {NEW_MODULES!r}:
+    assert "iron_weight_only_quant_tpu_torch." + name in names, name
 assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v)
 print(len(names))
 """
@@ -84,6 +95,13 @@ def test_entry_points_without_a_device_raise(no_gpu):
         llama_init(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_caches(2, 1, 2, 16, KVCacheConfig(max_seq_len=8))
+    from iron_weight_only_quant_tpu_torch.cli.common import apply_platform
+    from iron_weight_only_quant_tpu_torch.models.convert_hf import load_checkpoint_dir
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_checkpoint_dir("/nowhere")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        apply_platform(type("Args", (), {"platform": None})())
     params = llama_init(cfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(params, cfg, llama_forward, family="llama",

@@ -3,7 +3,8 @@
 * ``get_synthetic`` and ``get_loaders("synthetic")`` give the JAX
   package's arrays bit for bit (calibration windows and test split); the
   real datasets raise a clear ImportError without ``datasets``, and
-  ``tokenshard:`` names the unported host library.
+  ``tokenshard:`` reads through the host library (a missing file raises;
+  its windows are checked in ``tests/test_torch_native.py``).
 * ``SequentialPPLEvaluator`` on a tiny LLaMA, dense and W4-quantized, in
   float32: perplexity within rel 1e-5 of the JAX evaluator's, token and
   chunk counts equal, also with ``max_chunks`` (a partial batch) and the
@@ -87,7 +88,7 @@ def test_real_datasets_need_their_packages(monkeypatch, name):
 
 
 def test_other_dataset_names():
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(OSError, match="cannot open token shard /nowhere.bin"):
         t_loaders.get_loaders("tokenshard:/nowhere.bin")
     with pytest.raises(ValueError, match="unknown dataset"):
         t_loaders.get_loaders("imagenet")
