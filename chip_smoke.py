@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Drives ``iron_weight_only_quant_tpu_torch`` only (no JAX) through
-thirty-five phases; any failing phase ends the run with a non-zero exit
+thirty-six phases; any failing phase ends the run with a non-zero exit
 code.  The W4 model, the main path, runs all 32 layers of LLaMA-2-7B,
-flat and on the scan path (layer-stacked params and caches); its A-serve
+flat, on the scan path (layer-stacked params and caches) and through the
+tensor-parallel forward at world size 1 (phase 27); its A-serve
 and KV-mode serves, the W8, W3, fp4, fp8 and fp6 models, the OPT and
-BLOOM models and the GPTQ-calibrated W4 model, whose kernels or paths the
+BLOOM models and the two ranks of phase 27, whose kernels or paths the
 main path does not carry but which add time, run ``CUT_LAYERS`` (8)
-layers at full width; the CLI phase runs ``CLI_LAYERS`` (2).
+layers at full width; the GPTQ-calibrated W4 model ``GPTQ_LAYERS`` (4),
+the CLI phase ``CLI_LAYERS`` (2).
 
 1. Build: compile the CUDA kernels in ``csrc/`` with ``nvcc`` (one process
    per source, all at once) and the host library
@@ -290,8 +292,27 @@ layers at full width; the CLI phase runs ``CLI_LAYERS`` (2).
     ``w4a8``, ``a16``), no plain call, no route call.  Its ``base`` is
     ``w4_matmul`` with bf16 x: the bf16 route of phase 2, so the probe
     kernel is read against the redesigned W4 kernel.
+27. Parallelism (``parallel/``; run after 10f, on phase 4's model): at
+    world size 1, ``tp_block=True`` on the 32-layer W4 model, unfused
+    (``unfuse_llama``: its fused linears sliced back into their members)
+    and re-fused shard-blocked by the engine (d = 1): prefill logits
+    against the one-device forward (bf16 tolerance), ``generate`` and one
+    ``serve`` of the serving traffic against phase 4's tokens (equal where
+    the logits were bit-equal, else the agreement reported), exact
+    launches of rows 1 and 2, then the scan ``generate`` (the engine
+    prepares and stacks), its tokens the flat TP ones, rows 3 and 4
+    exact.  Then ``TP_RANKS`` (2) ranks sharing the one card (gloo; NCCL
+    refuses two ranks on one device), model = 2, on a ``CUT_LAYERS``-layer
+    W4 model with an unpadded lm_head, each rank building it from the same
+    seed: prefill logits, ``generate`` and ``serve`` against one process
+    on the same weights (logits within the bf16 tolerance, token agreement
+    reported; both ranks' tokens equal), each rank's launches exact (its
+    shards: down's local K = 5504), no plain or route call; then a
+    two-stage ``make_pp_llama_forward`` pass of 2 micro-batches against
+    ``llama_forward`` on rank 0, with each stage's stacked launches.  The
+    kernels are built before the ranks start, which only load them.
 26. GPTQ (run before the report): the path of ``cli/quantize.py`` and
-    ``cli/eval_ppl.py`` on a ``CUT_LAYERS``-layer 7B-width LLaMA with
+    ``cli/eval_ppl.py`` on a ``GPTQ_LAYERS``-layer 7B-width LLaMA with
     random f32 weights: ``fold_llama_norms``, ``quantize_model_gptq`` (W4
     g128 asym, 16 ``synthetic`` windows of 512 tokens) with exact launch
     counts (its quantized re-forwards: 5 prenorm and 2 flat calls a sample
@@ -887,12 +908,14 @@ def percentile_ms(series, q):
     return float(np.percentile(np.asarray(series, np.float64) * 1e3, q))
 
 
-def serve_engine(torch, params, cfg, kv=None, forward=None, family="llama", **ecfg):
+def serve_engine(torch, params, cfg, kv=None, forward=None, family="llama", tp_block=False,
+                 **ecfg):
     """(engine, requests) of the serving traffic; the cache holds the
     longest request plus the new tokens, as bench.py sizes it.  ``kv``
     adds KV cache options (``kv_bits``, paging), ``ecfg`` engine options
-    (the activation bits); ``forward`` is ``llama_forward`` unless given
-    (a LLaMA engine fuses q|k|v and gate|up)."""
+    (the activation bits, the mesh); ``forward`` is ``llama_forward``
+    unless given (a LLaMA engine fuses q|k|v and gate|up); ``tp_block``
+    asks for the tensor-parallel forward."""
     from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
     from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
     from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
@@ -904,7 +927,7 @@ def serve_engine(torch, params, cfg, kv=None, forward=None, family="llama", **ec
                         **ecfg)
     eng = InferenceEngine(params, cfg, forward or llama_forward, family=family,
                           engine_cfg=ecfg, dtype=torch.bfloat16,
-                          device=params["embed"].device)
+                          device=params["embed"].device, tp_block=tp_block)
     return eng, reqs
 
 
@@ -2726,13 +2749,16 @@ def phase_w4_inner(torch, device, spec):
 
 # ------------------------------------------------------------- phase 26
 
+GPTQ_LAYERS = 4  # phase 26's depth: its solve takes 5-10 s a layer on an H100, and phase 27's
+# time there (46 s) was paid from it
 GPTQ_SAMPLES = 16  # calibration windows (GPTQConfig.nsamples) ...
 GPTQ_SEQLEN = 512  # ... of 512 tokens: 8192 tokens a Hessian
 # |ln PPL through the kernels - ln PPL dequantized|, both bf16.  Set between
-# the two readings of the H100 run that first held it: 1.591e-4 for this
-# pair, 9.2e-3 for the dense model against the GPTQ one, so that a forward
-# that skipped the quantized weights would fail
-PPL_TOL = 2e-3
+# the two readings of an H100 run at GPTQ_LAYERS = 4, about 8x from each:
+# 3.583e-5 for this pair, 2.524e-3 for the dense model against the GPTQ
+# one, so that a forward that skipped the quantized weights would fail (at
+# 8 layers the readings were 1.591e-4 and 9.2e-3)
+PPL_TOL = 3e-4
 
 
 def proxy_loss(h, w, qt):
@@ -2746,7 +2772,7 @@ def proxy_loss(h, w, qt):
 
 def phase_gptq(torch, device, cfg_full, card):
     """The GPTQ path of ``cli/quantize.py`` and ``cli/eval_ppl.py`` at
-    7B width, ``CUT_LAYERS`` layers: dense f32 params, norms folded,
+    7B width, ``GPTQ_LAYERS`` layers: dense f32 params, norms folded,
     ``quantize_model_gptq`` (W4 g128 asym, 16 synthetic windows of 512
     tokens) with exact launch counts, seconds per layer (Hessian forwards,
     solve, quantized re-forward), each linear's proxy loss against the RTN
@@ -2785,7 +2811,7 @@ def phase_gptq(torch, device, cfg_full, card):
     )
     from iron_weight_only_quant_tpu_torch.utils.profiling import trace
 
-    cfg = dataclasses.replace(cfg_full, num_layers=CUT_LAYERS)
+    cfg = dataclasses.replace(cfg_full, num_layers=GPTQ_LAYERS)
     n_layers = cfg.num_layers
     names = (dm.W4, dm.W4_PRENORM)
     spec = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
@@ -2975,6 +3001,358 @@ def phase_gptq(torch, device, cfg_full, card):
 
 
 # --------------------------------------------------------------- report
+
+# ------------------------------------------------------------- phase 27
+
+TP_RANKS = 2  # model-axis ranks of the two-rank run (gloo, sharing the one card)
+PP_MICRO = 2  # micro-batches of the two-stage pipeline scoring pass
+
+
+def unfuse_llama(params):
+    """Fused LLaMA params (phase 4's) with each fused linear split back
+    into its members' logical columns (``tp_block._slice_cols``: views, no
+    copy; the members' N padding is dropped)."""
+    from iron_weight_only_quant_tpu_torch.parallel.tp_block import _slice_cols
+
+    layers = []
+    for p in params["layers"]:
+        p = dict(p)
+        for fused, names in (("qkv", ("q", "k", "v")), ("gate_up", ("gate", "up"))):
+            fl = p.pop(fused)
+            for name, (a, b) in zip(names, fl.spans):
+                p[name] = {"w": _slice_cols(fl.w, a, b), "b": None}
+        layers.append(p)
+    return {**params, "layers": layers}
+
+
+def token_agreement(got, want):
+    """The share of generated tokens equal to ``want``'s, position by position."""
+    pairs = [(g, w) for go, wo in zip(got, want) for g, w in zip(go, wo)]
+    return sum(g == w for g, w in pairs) / max(len(pairs), 1)
+
+
+def hold_tokens(what, got, want, logits):
+    """Greedy tokens against another path's: where the logits were
+    bit-equal the whole computation is, and the tokens must be equal; else
+    the logits bound held and the agreement is reported."""
+    agree = token_agreement(got, want)
+    print(f"  {what}: token agreement {agree:.4f} with the one-device engine's", flush=True)
+    if logits["bit_equal"] and got != want:
+        fail(f"{what}: bit-equal logits, yet other tokens than the one-device engine's")
+    return agree
+
+
+def ab_generate(torch, sides, prompts, card, rounds=SERVE_RUNS):
+    """``generate`` of ``prompts`` (``NEW_TOKENS`` new) on two engines in
+    turns, A B B A A B ..., so that both meet the same host: per side the
+    median wall time and every wall time, and A's median over B's."""
+    walls = {label: [] for label, _ in sides}
+    for i in range(2 * rounds):
+        label, eng = sides[(i + i // 2) % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        walls[label].append(time.perf_counter() - t0)
+    res = {label: {"median_s": sorted(w)[len(w) // 2], "walls_s": w}
+           for label, w in walls.items()}
+    (a, _), (b, _) = sides
+    res[f"{a}_over_{b}"] = res[a]["median_s"] / res[b]["median_s"]
+    print(f"  generate in turns: {a} {res[a]['median_s']:.3f} s, {b} {res[b]['median_s']:.3f} s "
+          f"(medians of {rounds}), {a} / {b} = {res[f'{a}_over_{b}']:.3f}, on {card}", flush=True)
+    return res
+
+
+def phase_tp_one_rank(torch, params, cfg, card, flat_gen, flat_serve):
+    """``tp_block=True`` at world size 1 on phase 4's 32-layer W4 model,
+    unfused and re-fused shard-blocked (``parallel.tp_block``, d = 1):
+    logits against the one-device forward, ``generate`` and one ``serve``
+    against phase 4's tokens (``generate`` also timed in turns with the
+    one-device engine's), then the scan ``generate`` (prepared and
+    stacked by the engine), whose tokens must equal the flat TP ones;
+    exact launches of rows 1 and 2 (and 3 and 4 on the scan path), no
+    plain or route call."""
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward, llama_forward_scan
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    names, n_layers = (dm.W4, dm.W4_PRENORM), cfg.num_layers
+    device = params["embed"].device
+    unfused = unfuse_llama(params)
+    ecfg = EngineConfig(fuse_projections=True,
+                        kv=KVCacheConfig(max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8))
+    t0 = time.perf_counter()
+    eng = InferenceEngine(unfused, cfg, llama_forward, family="llama", engine_cfg=ecfg,
+                          dtype=torch.bfloat16, device=device, tp_block=True)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    l0 = eng.params["layers"][0]
+    widths = {k: l0[k].w.shape[1] for k in ("qkv", "gate_up")}
+    print(f"  prepared (shard-blocked fusion, d = 1) in {prepare_s:.2f} s: fused widths "
+          f"{widths}, world {eng.mesh.world}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"on the card, on {card}", flush=True)
+    hd, pad = cfg.hd, lambda n: -(-n // 128) * 128  # noqa: E731 (the blocks' pad_to)
+    if eng.mesh.world != 1 or widths != {
+            "qkv": pad((cfg.num_heads + 2 * cfg.num_kv_heads) * hd),
+            "gate_up": pad(2 * cfg.intermediate_size)}:
+        fail(f"tp_block at d = 1: world {eng.mesh.world}, fused widths {widths}")
+
+    gen = torch.Generator(device=device).manual_seed(27)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
+    with torch.inference_mode():
+        got, _ = eng.forward(eng.params, tokens, cfg)
+        want, _ = llama_forward(params, tokens, cfg)
+    logits = compare_logits(torch, f"bfloat16 {n_layers} layers, TP d = 1 vs one device", got,
+                            want, LOGITS_TOL["bfloat16"])
+    del got, want
+
+    t0 = time.perf_counter()
+    gen_res = run_generate(torch, eng, flat_gen["prompts"], cfg, card,
+                           lambda f: (expected_launches(names, f, n_layers), None),
+                           "TP d = 1 generate")
+    gen_res["token_agreement"] = hold_tokens("TP d = 1 generate", gen_res["tokens"],
+                                             flat_gen["tokens"], logits)
+    gen_res["phase_s"] = time.perf_counter() - t0
+    one_eng = InferenceEngine(params, cfg, llama_forward, family="llama", engine_cfg=ecfg,
+                              dtype=torch.bfloat16, device=device)
+    gen_res["ab"] = ab_generate(torch, [("tp_d1", eng), ("one_device", one_eng)],
+                                flat_gen["prompts"], card)
+    del one_eng
+
+    # the serve engine takes the prepared params: at d = 1 they pass through
+    serve_eng, reqs = serve_engine(torch, eng.params, cfg, tp_block=True)
+    stats = {}
+    torch.cuda.synchronize()
+    dm.reset_counts()
+    t0 = time.perf_counter()
+    out = serve_eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_counts("TP d = 1 serve", expected_launches(names, stats["n_steps"],
+                                                                n_layers))
+    n_gen = sum(len(o) for o in out)
+    serve_res = {"wall_s": wall, "toks_per_s": n_gen / wall, "device_steps": stats["n_steps"],
+                 "launches": launches, "card": card,
+                 "token_agreement": hold_tokens("TP d = 1 serve", out, flat_serve["tokens"],
+                                                logits)}
+    print(f"  TP d = 1 serve: {wall:.3f} s, {serve_res['toks_per_s']:.1f} generated tok/s "
+          f"(one run), on {card}", flush=True)
+    del serve_eng, eng
+
+    t0 = time.perf_counter()
+    scan_eng = InferenceEngine(unfused, cfg, llama_forward_scan, family="llama",
+                               engine_cfg=ecfg, dtype=torch.bfloat16, device=device,
+                               tp_block=True)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    print(f"  prepared and stacked (d = 1) in {stack_s:.2f} s, on {card}", flush=True)
+    scan_res = run_generate(torch, scan_eng, flat_gen["prompts"], cfg, card,
+                            scan_expect(names, n_layers), "TP d = 1 scan generate")
+    if scan_res["tokens"] != gen_res["tokens"]:
+        fail("TP d = 1 scan generate gave other tokens than the flat TP generate")
+    scan_res.update(stack_s=stack_s,
+                    token_agreement=token_agreement(scan_res["tokens"], flat_gen["tokens"]))
+    del scan_eng, unfused
+    torch.cuda.empty_cache()
+    return {"logits": logits, "prepare_s": prepare_s, "generate": gen_res,
+            "serve": serve_res, "scan_generate": scan_res}
+
+
+def build_tp_llama(torch, cfg, seed, device):
+    """:func:`build_quantized_llama` from ``seed`` with its lm_head
+    quantized again without N padding (a padded column-parallel head is
+    refused under d > 1); the same numbers on every process of one card."""
+    from iron_weight_only_quant_tpu_torch.config import QuantSpec
+    from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
+
+    w4 = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = build_quantized_llama(cfg, gen, w4, torch.bfloat16, device)
+    head = torch.randn((cfg.hidden_size, cfg.vocab_size), generator=gen, device=device) * 0.02
+    params["lm_head"] = {"w": quantize_tensor(head, w4), "b": None}
+    return params
+
+
+def tp_inputs(torch, cfg, device):
+    """(prompts, requests, logits tokens, pipeline tokens) of the two-rank run."""
+    gen = torch.Generator(device=device).manual_seed(28)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen, device=device).tolist()
+               for n in PROMPT_LENS]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
+    pp_tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen, device=device)
+    return prompts, serve_requests(cfg.vocab_size), tokens.cpu(), pp_tokens.cpu()
+
+
+def counts_now(torch):
+    """The launch, stacked launch, plain and route counters after a sync."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"launches": dict(dm.LAUNCHES), "stacked": dict(dm.STACKED_LAUNCHES),
+            "plain": dict(dm.PLAIN_CALLS), "route": dict(dm.ROUTE_CALLS)}
+
+
+def run_tp_model(torch, params, cfg, device, prompts, reqs, tokens, mesh_cfg, tp_block):
+    """Logits of ``tokens``, ``generate`` of ``prompts`` and ``serve`` of
+    ``reqs`` on one engine (``mesh_cfg``), each timed, with its launch
+    counts (zeroed before, read after)."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    eng, _ = serve_engine(torch, params, cfg, tp_block=tp_block, mesh=mesh_cfg)
+    res = {}
+    with torch.inference_mode():
+        res["logits"] = eng.forward(eng.params, tokens.to(device), cfg)[0].float().cpu()
+    dm.reset_counts()
+    t0 = time.perf_counter()
+    res["generate"] = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+    res["generate_counts"] = counts_now(torch)
+    res["generate_s"] = time.perf_counter() - t0
+    stats = {}
+    dm.reset_counts()
+    t0 = time.perf_counter()
+    res["serve"] = eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK, stats=stats)
+    res["serve_counts"] = counts_now(torch)
+    res["serve_s"] = time.perf_counter() - t0
+    res["serve_steps"] = stats["n_steps"]
+    return res
+
+
+def tp_rank_main(rank, world, device, cfg, seed, inputs, out_prefix):
+    """One rank of the two-rank run: the TP engine (model = 2) on the
+    model built from ``seed``, then the two-stage pipeline scoring pass
+    and, on rank 0, ``llama_forward`` of the same tokens on the whole
+    model; writes its results to ``{out_prefix}.{rank}``."""
+    import torch
+
+    from iron_weight_only_quant_tpu_torch.config import MeshConfig
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.parallel import pp
+    from iron_weight_only_quant_tpu_torch.parallel.mesh import make_mesh
+    from iron_weight_only_quant_tpu_torch.parallel.sharding import apply_sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts, reqs, tokens, pp_tokens = inputs
+    t0 = time.perf_counter()
+    params = build_tp_llama(torch, cfg, seed, device)
+    res = {"build_s": time.perf_counter() - t0}
+    res.update(run_tp_model(torch, params, cfg, device, prompts, reqs, tokens,
+                            MeshConfig(model=world), True))
+    print(f"  [rank {rank}] generate {res['generate_s']:.2f} s, serve {res['serve_s']:.2f} s",
+          flush=True)
+
+    mesh = make_mesh(MeshConfig(model=world), device)
+    staged = pp.stage_stack_llama_layers(params, world)
+    staged = apply_sharding(staged, pp.pp_param_specs(staged), mesh)
+    fwd = pp.make_pp_llama_forward(cfg, mesh, PP_MICRO)
+    with torch.inference_mode():
+        fwd(staged, pp_tokens.to(device))  # warm-up
+        dm.reset_counts()
+        t0 = time.perf_counter()
+        res["pp_logits"] = fwd(staged, pp_tokens.to(device)).float().cpu()
+        res["pp_counts"] = counts_now(torch)
+        res["pp_s"] = time.perf_counter() - t0
+        if rank == 0:
+            res["pp_ref"] = llama_forward(params, pp_tokens.to(device), cfg)[0].float().cpu()
+    torch.save(res, f"{out_prefix}.{rank}")
+
+
+def pp_expected(cfg, stage, n_stages):
+    """Launches of stage ``stage``'s part of one pipeline pass: its
+    ``L/S`` layers (q, k, v, gate, up on the stacked prenorm kernel, o and
+    down on the stacked flat one) per micro-batch, and the packed lm_head
+    (flat) on the last stage."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    per = PP_MICRO * cfg.num_layers // n_stages
+    stacked = {name: 0 for name in dm.LAUNCHES}
+    stacked.update({dm.W4: 2 * per, dm.W4_PRENORM: 5 * per})
+    launches = dict(stacked)
+    launches[dm.W4] += int(stage == n_stages - 1)
+    return launches, stacked
+
+
+def phase_tp_two_ranks(torch, device, cfg, card):
+    """Two gloo ranks sharing the one card, model = 2, on a ``cfg``-layer
+    W4 model with an unpadded head: logits, ``generate`` and ``serve``
+    against one process on the same weights (logits within the bf16
+    tolerance, token agreement reported), each rank's exact launches;
+    then a two-stage ``make_pp_llama_forward`` pass against
+    ``llama_forward``."""
+    import shutil
+
+    from iron_weight_only_quant_tpu_torch.config import MeshConfig
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.parallel.mesh import spawn_ranks
+
+    names = (dm.W4, dm.W4_PRENORM)
+    inputs = tp_inputs(torch, cfg, device)
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase27")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    spawn_ranks(tp_rank_main, TP_RANKS, (cfg, 29, inputs, os.path.join(folder, "out")),
+                platform="cuda")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(folder, f"out.{r}"), weights_only=False)
+             for r in range(TP_RANKS)]
+    shutil.rmtree(folder, ignore_errors=True)
+    print(f"  {TP_RANKS} ranks ran in {ranks_s:.1f} s (spawn, build, runs), on {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    params = build_tp_llama(torch, cfg, 29, device)
+    one = run_tp_model(torch, params, cfg, device, *inputs[:3], MeshConfig(), False)
+    one_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+
+    res = {"ranks_s": ranks_s, "one_process_s": one_s, "card": card, "ranks": []}
+    for r, got in enumerate(ranks):
+        logits = compare_logits(torch, f"bfloat16 {cfg.num_layers} layers, rank {r} of TP "
+                                f"d = {TP_RANKS} vs one process", got["logits"],
+                                one["logits"], LOGITS_TOL["bfloat16"])
+        for what, forwards in (("generate", NEW_TOKENS), ("serve", got["serve_steps"])):
+            counts = got[f"{what}_counts"]
+            want = expected_launches(names, forwards, cfg.num_layers)
+            print(f"  [rank {r}] {what}: launches {counts['launches']}, plain "
+                  f"{counts['plain']}, route {counts['route']}", flush=True)
+            if (counts["launches"] != want or any(counts["plain"].values())
+                    or any(counts["route"].values())):
+                fail(f"rank {r} {what}: launches {counts} != expected {want}")
+        want, want_stacked = pp_expected(cfg, r, TP_RANKS)
+        pc = got["pp_counts"]
+        print(f"  [rank {r}] pipeline pass: launches {pc['launches']}, stacked "
+              f"{ {k: v for k, v in pc['stacked'].items() if v} }", flush=True)
+        if (pc["launches"] != want or pc["stacked"] != want_stacked
+                or any(pc["plain"].values()) or any(pc["route"].values())):
+            fail(f"rank {r} pipeline pass: counts {pc} != expected {want}, {want_stacked}")
+        res["ranks"].append({
+            "logits": logits, "build_s": got["build_s"], "generate_s": got["generate_s"],
+            "serve_s": got["serve_s"], "pp_s": got["pp_s"],
+            "generate_launches": got["generate_counts"]["launches"],
+            "serve_launches": got["serve_counts"]["launches"],
+            "pp_launches": pc["launches"],
+            "generate_agreement": token_agreement(got["generate"], one["generate"]),
+            "serve_agreement": token_agreement(got["serve"], one["serve"])})
+        print(f"  [rank {r}] token agreement with one process: generate "
+              f"{res['ranks'][-1]['generate_agreement']:.4f}, serve "
+              f"{res['ranks'][-1]['serve_agreement']:.4f}; generate "
+              f"{got['generate_s']:.2f} s, serve {got['serve_s']:.2f} s, on {card}", flush=True)
+        if got["generate"] != ranks[0]["generate"] or got["serve"] != ranks[0]["serve"]:
+            fail(f"rank {r} gave other tokens than rank 0")
+    res["pp_logits"] = compare_logits(
+        torch, f"bfloat16 {cfg.num_layers} layers, {TP_RANKS}-stage pipeline vs llama_forward",
+        ranks[0]["pp_logits"], ranks[0]["pp_ref"], LOGITS_TOL["bfloat16"])
+    if not torch.equal(ranks[1]["pp_logits"], ranks[0]["pp_logits"]):
+        fail("the pipeline's logits differ between the ranks")
+    res["pp_s"] = ranks[0]["pp_s"]
+    res["one_process"] = {"generate_s": one["generate_s"], "serve_s": one["serve_s"]}
+    return res
+
 
 def kernel_rows(per_kernel, launches, stacked):
     """One row per kernel: times summed over the launches one decode step
@@ -3186,8 +3564,16 @@ def main() -> int:
     header("== phase 10f: 32-layer 7B-width W4 on the scan path (layer-stacked params and "
            "KV caches): generate, serve with 16-bit and int8 caches")
     scan_w4 = phase_scan_w4(torch, params_w4, cfg, card, res, serve_w4)
+
+    header("== phase 27: parallelism: tp_block at world size 1 on the 32-layer W4 model, "
+           f"then {TP_RANKS} gloo ranks on the card (model = {TP_RANKS}, {CUT_LAYERS} "
+           "layers) and a two-stage pipeline")
+    tp_one = phase_tp_one_rank(torch, params_w4, cfg, card, res, serve_w4)
     del params_w4
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_two = phase_tp_two_ranks(torch, device, cfg_cut, card)
+    print(f"  phase 27 two-rank part: {time.perf_counter() - t0:.1f} s, on {card}", flush=True)
 
     header(f"== phase 10e: the CLI at 7B width, {CLI_LAYERS} layers: an f16 HF checkpoint "
            "through cli.quantize (the run's only artifact save), cli.generate, cli.eval_ppl, "
@@ -3375,7 +3761,7 @@ def main() -> int:
     per_kernel_inner, _, probe_counts = phase_w4_inner(torch, device, w4)
     per_kernel.update(per_kernel_inner)
 
-    header(f"== phase 26: {CUT_LAYERS}-layer 7B-width GPTQ W4 calibration, perplexity, "
+    header(f"== phase 26: {GPTQ_LAYERS}-layer 7B-width GPTQ W4 calibration, perplexity, "
            "generate and serve")
     gptq = phase_gptq(torch, device, cfg, card)
 
@@ -3447,6 +3833,11 @@ def main() -> int:
     report("serve_fp6", serve_fp6)
     report("serve_fp6_a16", serve_fp6_a)
     print(json.dumps({"route": route, "zoo_bytes_equal_artifacts": zoo_checks}))
+    print(json.dumps({"tp_d1": {"logits": tp_one["logits"], "prepare_s": tp_one["prepare_s"]}}))
+    report("generate_w4_tp_d1", tp_one["generate"], ("launches",))
+    report("serve_w4_tp_d1", tp_one["serve"])
+    report("generate_w4_tp_d1_scan", tp_one["scan_generate"], ("launches",))
+    report("tp_two_ranks", tp_two)
     report("gptq_w4", {k: v for k, v in gptq.items() if k not in ("generate", "serve")})
     report("generate_gptq_w4", gptq["generate"], ("launches",))
     report("serve_gptq_w4", gptq["serve"])

@@ -31,8 +31,18 @@ LLaMA, OPT and BLOOM ``*_forward_scan``) runs layer-stacked params
 projections are fused) with ONE stacked contiguous cache view, 16-bit or
 quantized; paged caches raise on it, as in the reference.
 
-Single device only.  Meshes and tensor parallelism are still to be ported
-(ROADMAP queue A); asking for them raises.
+Parallelism (``EngineConfig.mesh``, ``tp_block``): one process a rank,
+joined by ``torch.distributed`` (``parallel.mesh``).  Over the model axis
+every rank holds its shard of the params and runs the rank-per-shard
+tensor-parallel forward (``parallel.tp_block``: row-parallel linears
+repacked to ``k_shards=d``, LLaMA's q|k|v and gate|up fused shard-blocked,
+all-reduces after the row-parallel linears, the lm_head's logits
+all-gathered), with caches of the rank's ``heads / d`` KV heads, paged ones
+included; the same forward serves ``tp_block=False`` (the JAX package's
+GSPMD route has no torch counterpart) and ``tp_block=True`` on one rank.
+Over the data axis the prompts (``generate``) or requests (``serve``) are
+split between the data ranks, and every rank gets all outputs back in the
+caller's order.  ``serve``'s ``stats`` are those of the rank's own share.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from .kvcache import (
     cache_max_len,
     make_caches,
     make_stacked_caches,
+    pages_per_seq,
     pool_pages,
 )
 
@@ -250,7 +261,7 @@ def _serve_combo(params, meta, caches, generator, forward, cfg, temperature,
 
 
 class InferenceEngine:
-    """Batch generation over a (possibly quantized) model on one device."""
+    """Batch generation over a (possibly quantized, possibly sharded) model."""
 
     def __init__(
         self,
@@ -265,10 +276,6 @@ class InferenceEngine:
         tp_block: bool = False,
         device=None,
     ):
-        if engine_cfg.mesh.ndevices > 1 or tp_block:
-            raise NotImplementedError(
-                "multi-device engines (mesh, tp_block) are not ported yet "
-                "(ROADMAP queue A item 9, parallelism); the port runs on one device")
         if "layers" not in params and "layers_stacked" not in params:
             raise ValueError("params hold neither 'layers' nor 'layers_stacked'")
         self.device = resolve_device(device)
@@ -281,6 +288,16 @@ class InferenceEngine:
         self.eos_token = eos_token
         self.pad_token = pad_token
         self.dtype = dtype
+        self.mesh = None
+        if engine_cfg.mesh.ndevices > 1 or tp_block:
+            if family is None:
+                raise ValueError("family required for sharded engines")
+            from ..parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(engine_cfg.mesh, self.device)
+            if self.mesh.model > 1 or tp_block:
+                self.params = self._tensor_parallel(params, forward, family)
+                return
         if engine_cfg.fuse_projections and family is None:
             warnings.warn(
                 "EngineConfig.fuse_projections is set but family is None: "
@@ -300,8 +317,63 @@ class InferenceEngine:
             params = stack_model_layers(params)
         self.params = params
 
+    def _tensor_parallel(self, params, forward, family: str):
+        """This rank's shard of TP-prepared params, and the rank-per-shard
+        forward in ``self.forward`` (JAX engine ``tp_block`` branch)."""
+        from ..parallel import tp_block as tpb
+        from ..parallel.sharding import apply_sharding, param_specs
+
+        d = self.mesh.model
+        stacked = "layers_stacked" in params or is_scan_forward(forward)
+        # built first: it refuses head counts that do not divide d
+        self.forward = tpb.make_tp_forward(self.cfg, self.mesh, family, stacked)
+        fuse = self.engine_cfg.fuse_projections
+        if "layers_stacked" in params:
+            # stacked params cannot be repacked or fused in place: they must
+            # arrive TP-prepared (parallel.tp_block.prepare_tp_stacked)
+            tpb.validate_tp_stacked(params, d, family)
+        elif stacked:
+            params = tpb.prepare_tp_stacked(params, d, fuse=fuse, family=family)
+        else:
+            # row-parallel artifacts repacked to k_shards=d (each rank's row
+            # slice self-contained, in whole quantization groups), LLaMA's
+            # projections fused shard-blocked
+            params = {**params, "layers": [tpb.tp_prepare_layer(p, d, fuse, family=family)
+                                           for p in params["layers"]]}
+        specs = param_specs(family, params)
+        specs["embed"] = ()  # the forwards read the embedding whole
+        return apply_sharding(params, specs, self.mesh)
+
     def _n_kv_heads(self):
-        return getattr(self.cfg, "num_kv_heads", getattr(self.cfg, "num_heads"))
+        """KV heads of this rank's caches: its ``1/d`` share under TP."""
+        n = getattr(self.cfg, "num_kv_heads", getattr(self.cfg, "num_heads"))
+        return n // (self.mesh.model if self.mesh is not None else 1)
+
+    def _t_max(self) -> int:
+        """The columns of a slot's cache timeline (the caches' ``T_max``)."""
+        kv = self.engine_cfg.kv
+        return pages_per_seq(kv) * kv.page_size if kv.paged else kv.max_seq_len
+
+    def _over_data(self, run, items, max_new_tokens: int, what: str, **kw):
+        """``run(items, ...)`` with the items split over the data ranks
+        (rank i takes items i, i + data, ...), the outputs gathered to every
+        rank in the items' order.  Refusals are made on the whole list
+        first, so that no rank raises while the others wait to gather."""
+        if any(len(p) == 0 for p in items):
+            raise ValueError("empty prompts are not allowed")
+        longest = max(len(p) for p in items)
+        if longest + max_new_tokens > self._t_max():
+            raise ValueError(f"{what} ({longest} tokens) + max_new ({max_new_tokens}) "
+                             f"exceeds kv.max_seq_len ({self._t_max()})")
+        from ..parallel.mesh import all_gather_object
+
+        m = self.mesh
+        mine = list(items)[m.data_index::m.data]
+        outs = run(mine, max_new_tokens=max_new_tokens, **kw) if mine else []
+        result: List[Any] = [None] * len(items)
+        for i, part in enumerate(all_gather_object(outs, m.data_group)):
+            result[i::m.data] = part
+        return result
 
     def _fresh_caches(self, batch: int):
         """Per-layer views for flat params; one stacked view (no paging,
@@ -332,6 +404,12 @@ class InferenceEngine:
         seed: int = 0,
     ) -> List[List[int]]:
         """Generate continuations; returns newly generated tokens per prompt."""
+        if self.mesh is not None and self.mesh.data > 1:
+            return self._over_data(self._generate, prompts, max_new_tokens, "prompt",
+                                   temperature=temperature, top_k=top_k, seed=seed)
+        return self._generate(prompts, max_new_tokens, temperature, top_k, seed)
+
+    def _generate(self, prompts, max_new_tokens, temperature, top_k, seed):
         if any(len(p) == 0 for p in prompts):
             raise ValueError("empty prompts are not allowed")
         dev = self.device
@@ -436,6 +514,13 @@ class InferenceEngine:
         ``n_page_allocs`` (pages handed out in all) and ``pages_peak``
         (most pages held at once).
         """
+        if self.mesh is not None and self.mesh.data > 1:
+            return self._over_data(self._serve, requests, max_new_tokens, "request",
+                                   temperature=temperature, top_k=top_k, seed=seed,
+                                   chunk=chunk, stats=stats)
+        return self._serve(requests, max_new_tokens, temperature, top_k, seed, chunk, stats)
+
+    def _serve(self, requests, max_new_tokens, temperature, top_k, seed, chunk, stats):
         if any(len(r) == 0 for r in requests):
             raise ValueError("empty prompts are not allowed")
         dev = self.device

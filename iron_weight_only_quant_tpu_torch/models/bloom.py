@@ -92,9 +92,13 @@ def _slopes_on(n_heads: int, device: torch.device) -> torch.Tensor:
     return alibi_slopes(n_heads, device)
 
 
-def _alibi_bias(cfg: BloomConfig, t: int, device) -> torch.Tensor:
-    """[1, H, 1, T] bias: slope_h * key position (shift-invariant by row)."""
-    slopes = _slopes_on(cfg.num_heads, torch.device(device))
+def _alibi_bias(cfg: BloomConfig, t: int, device, head_shard=(0, 1)) -> torch.Tensor:
+    """[1, H, 1, T] bias: slope_h * key position (shift-invariant by row).
+    ``head_shard`` = (i, d): ``cfg`` holds shard ``i`` of ``d`` of the
+    heads, which take slopes ``[i * H, (i + 1) * H)`` of the ``d * H``."""
+    i, d = head_shard
+    h = cfg.num_heads
+    slopes = _slopes_on(h * d, torch.device(device))[i * h:(i + 1) * h]
     return (slopes[:, None, None]
             * torch.arange(t, dtype=torch.float32, device=device)[None, None, :])[None]
 
@@ -152,7 +156,11 @@ def bloom_forward_scan(
     return _forward(params, tokens, cfg, caches, positions, attn_mask, scan=True)
 
 
-def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool):
+def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool,
+             reduce=None, head_shard=(0, 1)):
+    """The forward of both layouts; ``reduce`` and ``head_shard`` are the
+    tensor-parallel seams of :func:`_block` and :func:`_alibi_bias`
+    (``parallel.tp_block``: ``cfg`` shard-local)."""
     embed = params["embed"]
     dev = embed.device
     tokens = tokens.to(dev)
@@ -172,12 +180,13 @@ def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool):
             mask = (torch.arange(t, device=dev)[None, :] <= qpos[:, None])[None, None]
         else:
             mask = attn_mask
-    bias = _alibi_bias(cfg, t, dev)
+    bias = _alibi_bias(cfg, t, dev, head_shard)
 
     x = layernorm(embed[tokens], params["embed_norm"]["w"], params["embed_norm"]["b"],
                   cfg.layer_norm_eps)
     x, new_caches = run_layers(x, params, caches,
-                               lambda x, p, c: _block(x, p, cfg, mask, bias, c), scan)
+                               lambda x, p, c: _block(x, p, cfg, mask, bias, c, reduce),
+                               scan)
     x = layernorm(x, params["final_norm"]["w"], params["final_norm"]["b"], cfg.layer_norm_eps)
     logits = x @ embed.t().to(x.dtype)  # tied lm_head
     return logits, new_caches

@@ -127,8 +127,13 @@ def _block(
     sin: torch.Tensor,
     mask: torch.Tensor,
     cache: Optional[KVCacheView],
+    reduce=None,
 ) -> Tuple[torch.Tensor, Optional[KVCacheView]]:
-    """One transformer block."""
+    """One transformer block.  ``reduce`` (optional) is applied to the o and
+    down projection outputs before the residual add: the tensor-parallel
+    seam, where each rank computes a partial row-parallel output and
+    ``reduce`` is the all-reduce over the model ranks
+    (``parallel.tp_block``); ``cfg`` then carries shard-local head counts."""
     b, s, h = x.shape
     hd = cfg.hd
 
@@ -155,7 +160,10 @@ def _block(
 
         cache, k, v = update_and_fetch(cache, k, v)
     attn = attend(q, k, v, mask)
-    x = x + linear(attn.reshape(b, s, cfg.num_heads * hd), p["o"])
+    o_out = linear(attn.reshape(b, s, cfg.num_heads * hd), p["o"])
+    if reduce is not None:
+        o_out = reduce(o_out)
+    x = x + o_out
 
     pre_mlp = cfg.rms_norm_eps if p.get("post_norm") is None else None
     mlp_in = x if pre_mlp is not None else rmsnorm(
@@ -166,7 +174,10 @@ def _block(
         gate = linear(mlp_in, p["gate"], pre_norm=pre_mlp)
         up = linear(mlp_in, p["up"], pre_norm=pre_mlp)
     gate = F.silu(gate.to(torch.float32)).to(x.dtype)
-    x = x + linear(gate * up, p["down"])
+    down_out = linear(gate * up, p["down"])
+    if reduce is not None:
+        down_out = reduce(down_out)
+    x = x + down_out
     return x, cache
 
 
@@ -201,7 +212,11 @@ def llama_forward_scan(
     return _forward(params, tokens, cfg, caches, positions, attn_mask, scan=True)
 
 
-def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool):
+def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool,
+             reduce=None):
+    """The forward of both layouts; ``reduce`` is the tensor-parallel seam
+    of :func:`_block` (``parallel.tp_block``: ``cfg`` shard-local, the
+    lm_head this rank's vocab slice)."""
     embed = params["embed"]
     dev = embed.device
     tokens = tokens.to(dev)
@@ -212,7 +227,8 @@ def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool):
                            cfg.condense_ratio)
 
     x, new_caches = run_layers(
-        x, params, caches, lambda x, p, c: _block(x, p, cfg, cos, sin, mask, c), scan)
+        x, params, caches, lambda x, p, c: _block(x, p, cfg, cos, sin, mask, c, reduce),
+        scan)
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
         logits = x @ embed.t().to(x.dtype)

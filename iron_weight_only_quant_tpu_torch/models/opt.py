@@ -98,7 +98,7 @@ def opt_init(cfg: OPTConfig, generator: torch.Generator, dtype=torch.float32,
 
 def _row_tp(x: torch.Tensor, lin: Any, reduce=None) -> torch.Tensor:
     """A row-parallel linear: without ``reduce`` the plain linear; with it
-    (the tensor-parallel seam, still to be ported) the product without the
+    (the tensor-parallel seam, ``parallel.tp_block``) the product without the
     bias, ``reduce`` (the all-reduce over the model axis), then the bias
     once -- adding it on every shard before the reduce would count it d
     times.  ``lin`` is a param dict or a :class:`StackedLinear`."""
@@ -176,14 +176,18 @@ def opt_forward_scan(
     return _forward(params, tokens, cfg, caches, positions, attn_mask, scan=True)
 
 
-def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool):
+def _forward(params, tokens, cfg, caches, positions, attn_mask, scan: bool,
+             reduce=None):
+    """The forward of both layouts; ``reduce`` is the tensor-parallel seam
+    of :func:`_block` (``parallel.tp_block``: ``cfg`` shard-local; the tied
+    head reads the whole embedding, so the logits are whole)."""
     embed = params["embed"]
     dev = embed.device
     tokens = tokens.to(dev)
     positions, mask = positions_and_mask(caches, tokens.shape[1], positions, attn_mask, dev)
     x = embed[tokens] + params["embed_pos"][positions.to(dev) + POS_OFFSET]
     x, new_caches = run_layers(x, params, caches,
-                               lambda x, p, c: _block(x, p, cfg, mask, c), scan)
+                               lambda x, p, c: _block(x, p, cfg, mask, c, reduce), scan)
     if cfg.do_layer_norm_before and "final_norm" in params:
         x = layernorm(x, params["final_norm"]["w"], params["final_norm"]["b"],
                       cfg.layer_norm_eps)

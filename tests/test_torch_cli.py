@@ -17,8 +17,9 @@ A dense tiny LLaMA source artifact is made once by the JAX CLI (``quantize
 * GPTQ through the port's CLI writes the bytes of ``quantize_model_gptq``
   called directly (the JAX GPTQ CLI is not run: its solver's compiles
   dominate);
-* with no ``--platform`` on a machine without a GPU every command raises,
-  and ``--data_parallel``/``--model_parallel`` above 1 names the queue.
+* with no ``--platform`` on a machine without a GPU every command raises;
+* ``--data_parallel 2`` and ``--model_parallel 2`` run two CPU ranks that
+  print the one-process tokens, and ``--no_tp_block`` is accepted.
 """
 
 import json
@@ -265,9 +266,24 @@ def test_sweep_without_a_gpu_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--data_parallel", "--model_parallel"])
-def test_multi_device_names_the_queue(flag):
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        t_generate.main(["--demo", flag, "2"] + CPU)
+def test_multi_device_names_the_queue(int4, capfd, flag):
+    """``--data_parallel 2`` / ``--model_parallel 2`` start two CPU ranks
+    (gloo) that print, from rank 0, the tokens of one process."""
+    args = ["--artifact", int4, "--max_new_tokens", "4", "--max_seq_len", "64",
+            "--prompt", "1 5 9 12", "2 8 300", "7"] + CPU
+    want_outs = t_generate.main(args)
+    want = _printed(capfd)
+    outs = t_generate.main(args + [flag, "2"])
+    out = capfd.readouterr().out
+    assert "torch.distributed: 2 ranks, backend gloo" in out
+    assert [ln for ln in out.splitlines() if "->" in ln] == want and outs == want_outs
+    assert len(want) == 3
+
+
+def test_no_tp_block_is_accepted(int4, capsys):
+    args = ["--artifact", int4, "--max_new_tokens", "3", "--max_seq_len", "64"] + CPU
+    want = t_generate.main(args)
+    assert t_generate.main(args + ["--no_tp_block"]) == want
 
 
 def test_platform_takes_cpu_or_cuda(capsys):

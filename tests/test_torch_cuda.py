@@ -1895,3 +1895,128 @@ def test_evallm_through_the_kernels_matches_the_cpu_plain_path(dev):
     qt = params["layers"][0]["gate"]["w"]
     for a, b in zip(codeword_histogram(qt), codeword_histogram(cpu["layers"][0]["gate"]["w"])):
         assert np.array_equal(a, b)
+
+
+# ------------------------------------------------------------ parallelism
+
+TP_PROMPTS = [[3, 5, 7, 11], [13, 17], [2, 4, 6, 8, 10, 12], [9]]
+TP_REQS = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
+
+
+def _tp_model(dev):
+    """Tiny W4 g128 LLaMA (hidden 256, FFN 512, 4 heads, 2 KV heads) with
+    folded norms, no N padding anywhere (the one-device and shard-blocked
+    fusions then have equal widths), drawn from a fixed seed on ``dev``."""
+    from iron_weight_only_quant_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                            num_layers=2, num_heads=4, num_kv_heads=2)
+    g = torch.Generator(device=dev).manual_seed(21)
+    params = llama.fold_llama_norms(llama.llama_init(cfg, g, device=dev))
+    spec = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+    for lin in [params["lm_head"]] + [v for p in params["layers"] for v in p.values()
+                                      if isinstance(v, dict)]:
+        lin["w"] = quantize_tensor(lin["w"], spec)
+    params["embed"] = params["embed"].to(torch.bfloat16)
+    return cfg, params
+
+
+def _tp_engine(dev, cfg, params, scan=False, tp_block=False, **mesh):
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig, MeshConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models import llama
+
+    fwd = llama.llama_forward_scan if scan else llama.llama_forward
+    return InferenceEngine(params, cfg, fwd, family="llama", engine_cfg=EngineConfig(
+        kv=KVCacheConfig(max_seq_len=48), max_batch_size=4, fuse_projections=True,
+        mesh=MeshConfig(**mesh)), dtype=torch.bfloat16, device=dev, tp_block=tp_block)
+
+
+def _tp_run(eng):
+    """(generate tokens, serve tokens, launches of each, serve's device steps)."""
+    dm.reset_counts()
+    gen = eng.generate(TP_PROMPTS, max_new_tokens=6)
+    torch.cuda.synchronize()
+    gen_counts = (dict(dm.LAUNCHES), dict(dm.STACKED_LAUNCHES), dict(dm.PLAIN_CALLS))
+    stats = {}
+    dm.reset_counts()
+    serve = eng.serve(TP_REQS, max_new_tokens=8, chunk=4, stats=stats)
+    torch.cuda.synchronize()
+    serve_counts = (dict(dm.LAUNCHES), dict(dm.STACKED_LAUNCHES), dict(dm.PLAIN_CALLS))
+    return gen, serve, gen_counts, serve_counts, stats["n_steps"]
+
+
+def _assert_tp_launches(counts, forwards, n_layers, scan=False):
+    """Every forward: the fused qkv and gate_up on the prenorm kernel, o,
+    down and the lm_head on the flat one (all but the head stacked on the
+    scan path); no plain call."""
+    launches, stacked, plain = counts
+    assert launches[dm.W4] == forwards * (2 * n_layers + 1)
+    assert launches[dm.W4_PRENORM] == forwards * 2 * n_layers
+    assert sum(launches.values()) == forwards * (4 * n_layers + 1)
+    assert sum(stacked.values()) == (forwards * 4 * n_layers if scan else 0)
+    assert not any(plain.values())
+
+
+@pytest.mark.parametrize("scan", [False, True], ids=["flat", "scan"])
+def test_tp_block_on_one_rank_gives_the_one_device_tokens(dev, scan):
+    """``tp_block=True`` at world size 1 on the card: the shard-blocked
+    fusion (d = 1) has the one-device fusion's widths here, so the kernels
+    compute the same bits and the tokens are equal; exact launches."""
+    cfg, params = _tp_model(dev)
+    one = _tp_run(_tp_engine(dev, cfg, params, scan=scan))
+    tp = _tp_run(_tp_engine(dev, cfg, params, scan=scan, tp_block=True))
+    assert tp[:2] == one[:2]
+    _assert_tp_launches(tp[2], 6, cfg.num_layers, scan)
+    _assert_tp_launches(tp[3], tp[4], cfg.num_layers, scan)
+
+
+def _tp_rank(rank, world, device, out):
+    """One of two gloo ranks sharing card 0: model = 2 (flat and scan) and
+    data = 2 runs of the tiny model, and the logits of one prefill."""
+    cfg, params = _tp_model(device)
+    res = {}
+    for scan in (False, True):
+        eng = _tp_engine(device, cfg, params, scan=scan, tp_block=True, model=2)
+        res["model", scan] = _tp_run(eng)
+        with torch.inference_mode():
+            toks = torch.tensor([TP_PROMPTS[2]], device=device)
+            res["logits", scan] = eng.forward(eng.params, toks, cfg)[0].float().cpu()
+    res["data"] = _tp_run(_tp_engine(device, cfg, params, data=2))
+    torch.save(res, f"{out}.{rank}")
+
+
+def test_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two ranks on the one card (gloo: NCCL refuses two ranks on one
+    device; the collectives of CUDA tensors go through host memory):
+
+    * model = 2, flat and scan: the logits of one prefill within the bf16
+      tolerance of one process's, both ranks' tokens equal, each rank's
+      launches exact (its shards' kernels, K = 256 for down), flat and
+      scan tokens equal;
+    * data = 2: each rank serves half of the prompts and requests, and the
+      gathered tokens equal one process's runs of those same halves."""
+    from iron_weight_only_quant_tpu_torch.parallel.mesh import spawn_ranks
+
+    spawn_ranks(_tp_rank, 2, (str(tmp_path / "out"),), platform="cuda")
+    ranks = [torch.load(str(tmp_path / f"out.{r}"), weights_only=False) for r in range(2)]
+    cfg, params = _tp_model(dev)
+    one = _tp_engine(dev, cfg, params)
+    with torch.inference_mode():
+        want = one.forward(one.params, torch.tensor([TP_PROMPTS[2]], device=dev),
+                           cfg)[0].float().cpu()
+    for res in ranks:
+        for scan in (False, True):
+            got = res["logits", scan]
+            assert ((got - want).abs().max() / want.abs().max()).item() <= 3e-2
+            gen, serve, gen_counts, serve_counts, steps = res["model", scan]
+            assert (gen, serve) == ranks[0]["model", scan][:2] == ranks[0]["model", False][:2]
+            _assert_tp_launches(gen_counts, 6, cfg.num_layers, scan)
+            _assert_tp_launches(serve_counts, steps, cfg.num_layers, scan)
+    halves = [(one.generate(TP_PROMPTS[r::2], max_new_tokens=6),
+               one.serve(TP_REQS[r::2], max_new_tokens=8, chunk=4)) for r in range(2)]
+    want_gen, want_serve = [None] * len(TP_PROMPTS), [None] * len(TP_REQS)
+    for r, (gen, serve) in enumerate(halves):
+        want_gen[r::2], want_serve[r::2] = gen, serve
+    for res in ranks:
+        assert res["data"][:2] == (want_gen, want_serve)

@@ -117,12 +117,13 @@ def test_sampling_is_seeded_and_top_k_bounded():
     dict(mesh=MeshConfig(model=2)),
 ], ids=["mesh"])
 def test_unported_engine_options_raise(models, ecfg):
+    """A mesh of more ranks than the process's world (here one process with
+    no group) is refused: no engine runs on fewer ranks than it was given
+    (the mesh itself runs across ranks: tests/test_torch_parallel_ranks.py)."""
     _, tp = models
-    for entry in ("generate", "serve"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng = InferenceEngine(tp, T_CFG, t_llama.llama_forward, family="llama",
-                                  engine_cfg=EngineConfig(**ecfg), device="cpu")
-            getattr(eng, entry)(PROMPTS, max_new_tokens=2)
+    with pytest.raises(ValueError, match="world size 1 differs from data x model"):
+        InferenceEngine(tp, T_CFG, t_llama.llama_forward, family="llama",
+                        engine_cfg=EngineConfig(**ecfg), device="cpu")
 
 
 def test_generate_refuses_an_overlong_request(models):
