@@ -846,14 +846,17 @@ def phase_generate(torch, device, spec, cfg, card, names=None, label="W4", pad_k
 
 
 def run_generate(torch, eng, prompts, cfg, card, expect, label="generate"):
-    """``eng.generate`` of ``prompts``, greedy: a warm-up run of 2 tokens, a
-    prefill-only run (its wall time), then ``NEW_TOKENS`` with the counters
-    zeroed before and read after: ``expect(forwards)`` gives the launches
-    and the stacked launches (None: none) the run must make.  The result
-    holds the tokens and the prompts (dropped from the report)."""
+    """``eng.generate`` of ``prompts``, greedy: a warm-up run of
+    ``NEW_TOKENS`` (on the card it captures the decode chunks' CUDA graphs,
+    16 and 15 steps), a prefill-only run (its wall time), then
+    ``NEW_TOKENS`` with the counters zeroed before and read after (the
+    chunks replay): ``expect(forwards)`` gives the launches and the stacked
+    launches (None: none) the run must make, and the tokens must be the
+    warm-up's.  The result holds the tokens and the prompts (dropped from
+    the report) and the engine's graph counts."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
-    warm = eng.generate(prompts, max_new_tokens=2)
+    warm = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.generate(prompts, max_new_tokens=1)
@@ -872,7 +875,7 @@ def run_generate(torch, eng, prompts, cfg, card, expect, label="generate"):
         fail(f"{label} returned {[len(o) for o in out]} tokens")
     if any(not 0 <= t < cfg.vocab_size for o in out for t in o):
         fail(f"{label}: a generated token is out of the vocabulary")
-    if any(o[:2] != w for o, w in zip(out, warm)):
+    if out != warm:
         fail(f"{label}: greedy tokens differ between two runs of the same prompts")
     decode_s = gen_s - prefill_s
     tok_s = len(prompts) * (NEW_TOKENS - 1) / decode_s
@@ -881,7 +884,7 @@ def run_generate(torch, eng, prompts, cfg, card, expect, label="generate"):
            "prefill_tokens": len(prompts) * max(len(p) for p in prompts),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launches, "stacked_launches": dict(dm.STACKED_LAUNCHES),
-           "card": card, "tokens": out, "prompts": prompts}
+           "graphs": graph_stats(eng), "card": card, "tokens": out, "prompts": prompts}
     print(f"  {label}: decode {tok_s:.1f} tok/s at batch {len(prompts)} "
           f"({res['decode_step_ms']:.2f} ms/step), prefill "
           f"{prefill_s * 1e3:.1f} ms for {res['prefill_tokens']} tokens, on {card}",
@@ -983,26 +986,33 @@ def profile_serve(torch, eng, reqs):
 
 def ab_serve(torch, sides, reqs, card, rounds=SERVE_RUNS, warmup=False):
     """The serving traffic on two engines in turns, A B B A A B ..., so
-    that both meet the same host (after one untimed run of A if
-    ``warmup``): ``sides`` = [(label, engine, expect)], ``expect(stats)`` =
-    (launches, stacked launches) each run must make.  Both sides must give
-    the same tokens.  Per side the median run's wall time, tok/s and
-    TTFT/TPOT percentiles, the best tok/s, every wall time, and the tokens;
-    ``<A>_over_<B>``: the ratio of the median tok/s."""
+    that both meet the same host (after one untimed run of each side if
+    ``warmup``: on the card it captures the engine's CUDA graphs):
+    ``sides`` = [(label, engine, expect)], ``expect(stats)`` = (launches,
+    stacked launches) each run must make.  Both sides must give the same
+    tokens.  Per side the median run's wall time, tok/s and TTFT/TPOT
+    percentiles, the best tok/s, every wall time, the most device memory
+    allocated in a run, the engine's graph counts after the runs, and the
+    tokens; ``<A>_over_<B>``: the ratio of the median tok/s."""
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     if warmup:
-        sides[0][1].serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK)
+        for _, eng, _ in sides:
+            eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK)
     order = [sides[(i + i // 2) % 2] for i in range(2 * rounds)]
-    runs = {label: [] for label, _, _ in sides}
+    engines = {label: eng for label, eng, _ in sides}
+    runs = {label: [] for label in engines}
+    peak = {label: 0 for label in engines}
     for label, eng, expect in order:
         stats = {}
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         dm.reset_counts()
         t0 = time.perf_counter()
         out = eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK, stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak[label] = max(peak[label], torch.cuda.max_memory_allocated())
         launches = check_counts(f"serve ({label})", *expect(stats))
         runs[label].append((wall, stats, launches, out))
         print(f"  serve ({label}): {wall:.3f} s", flush=True)
@@ -1020,7 +1030,9 @@ def ab_serve(torch, sides, reqs, card, rounds=SERVE_RUNS, warmup=False):
             "ttft_p95_ms": percentile_ms(stats["ttft_s"], 95),
             "tpot_p50_ms": percentile_ms(stats["tpot_s"], 50),
             "tpot_p95_ms": percentile_ms(stats["tpot_s"], 95),
-            "device_steps": stats["n_steps"], "launches": launches, "card": card,
+            "device_steps": stats["n_steps"], "launches": launches,
+            "peak_gib": peak[label] / 2**30,
+            "graphs": graph_stats(engines[label]), "card": card,
             "tokens": out}
         print(f"  serve ({label}) {res[label]['toks_per_s']:.1f} generated tok/s (median of "
               f"{len(rs)}, in turns; best {res[label]['best_toks_per_s']:.1f}), TTFT p50/p95 "
@@ -1115,7 +1127,7 @@ def phase_serve(torch, params, cfg, names, runs, card, abits=None, kv=None, warm
         "tpot_p95_ms": percentile_ms(stats["tpot_s"], 95),
         "latency_granularity": "host sync (a token counts when the host fetches it)",
         "launches": launches, "stacked_launches": stacked_launches, "card": card,
-        "kv": kv or {}, "kv_bytes": kv_bytes, "tokens": first,
+        "kv": kv or {}, "kv_bytes": kv_bytes, "graphs": graph_stats(eng), "tokens": first,
     }
     if "pages_peak" in stats:
         res.update(n_page_allocs=stats["n_page_allocs"], pages_peak=stats["pages_peak"])
@@ -1278,7 +1290,7 @@ def phase_long_generate(torch, params, cfg, card, step_ms_short):
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
                              device=eng.device).tolist() for n in PROMPT_LENS]
     kv_bytes = cache_bytes(eng._fresh_caches(BATCH))
-    warm = eng.generate(prompts, max_new_tokens=2)
+    warm = eng.generate(prompts, max_new_tokens=NEW_TOKENS)  # captures the chunks' graphs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.generate(prompts, max_new_tokens=1)
@@ -1291,12 +1303,13 @@ def phase_long_generate(torch, params, cfg, card, step_ms_short):
     gen_s = time.perf_counter() - t0
     check_counts("long-context generate", expected_launches(
         (dm.W4, dm.W4_PRENORM), NEW_TOKENS, cfg.num_layers))
-    if any(len(o) != NEW_TOKENS or o[:2] != w for o, w in zip(out, warm)):
+    if any(len(o) != NEW_TOKENS for o in out) or out != warm:
         fail("long-context generate: wrong token counts, or tokens that differ between runs")
     step_ms = (gen_s - prefill_s) * 1e3 / (NEW_TOKENS - 1)
     res = {"max_seq_len": LONG_CONTEXT, "kv": "int8 paged", "page_size": KV_PAGE,
            "prefill_s": prefill_s, "generate_s": gen_s, "decode_step_ms": step_ms,
-           "decode_step_ms_phase4": step_ms_short, "kv_bytes": kv_bytes, "card": card}
+           "decode_step_ms_phase4": step_ms_short, "kv_bytes": kv_bytes,
+           "graphs": graph_stats(eng), "card": card}
     print(f"  {LONG_CONTEXT}-column int8 paged cache ({kv_bytes / 2**30:.2f} GiB): decode "
           f"{step_ms:.2f} ms/step at batch {BATCH} (phase 4, 16-bit, "
           f"{max(PROMPT_LENS) + NEW_TOKENS + 8} columns: {step_ms_short:.2f}), on {card}",
@@ -1823,6 +1836,174 @@ def compare_logits(torch, what, got, want, tol):
             "bit_equal": torch.equal(got, want)}
 
 
+# ------------------------------------------------------------- phase 28
+
+def graph_stats(eng):
+    """The engine's CUDA graph counts (None where it holds no graphs: the
+    eager side of an A/B, a rank mesh): keys captured, seconds spent
+    capturing (each key's eager warm-up included), replays, and the GiB of
+    the graphs' memory pool."""
+    g = eng._graphs
+    if g is None:
+        return None
+    return {"captures": g.captures, "capture_s": g.capture_s, "replays": g.replays,
+            "pool_gib": g.pool_bytes() / 2**30}
+
+
+def eager_side(eng):
+    """The eager side of a graphs A/B: an engine that holds no graphs runs
+    the module's eager chunk functions (``_generate_chunk``, ``_serve_chunk``,
+    ``_serve_combo``), as it does on the CPU; the rest of its path is the
+    graphed engine's."""
+    eng._graphs = None
+    return eng
+
+
+def ab_decode_step(torch, sides, prompts, cfg, card, rounds=SERVE_RUNS):
+    """``generate`` at batch 8 on two engines in turns (A B B A ...), after
+    one untimed ``NEW_TOKENS`` run of each (the graphed side captures its
+    chunks): per side a prefill-only run and a ``NEW_TOKENS`` run a round,
+    exact launches, the same tokens on both sides and in every round; the
+    decode wall ms a step, (median generate - median prefill) / 31."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    names = (dm.W4, dm.W4_PRENORM)
+    want = {label: eng.generate(prompts, max_new_tokens=NEW_TOKENS) for label, eng in sides}
+    if len({json.dumps(w) for w in want.values()}) != 1:
+        fail("generate: the graphed engine's tokens differ from the eager bodies'")
+    times = {label: ([], []) for label, _ in sides}
+    for i in range(2 * rounds):
+        label, eng = sides[(i + i // 2) % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dm.reset_counts()
+        out = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check_counts(f"generate ({label})", expected_launches(names, NEW_TOKENS, cfg.num_layers))
+        if out != want[label]:
+            fail(f"generate ({label}): tokens differ between runs")
+        times[label][0].append(t1 - t0)
+        times[label][1].append(t2 - t1)
+    res = {}
+    for label, (pre, gen) in times.items():
+        med_pre, med_gen = sorted(pre)[len(pre) // 2], sorted(gen)[len(gen) // 2]
+        res[label] = {"prefill_s": med_pre, "generate_s": med_gen,
+                      "decode_step_ms": (med_gen - med_pre) * 1e3 / (NEW_TOKENS - 1),
+                      "generate_walls_s": gen, "prefill_walls_s": pre}
+    (a, _), (b, _) = sides
+    res[f"{a}_over_{b}"] = res[a]["decode_step_ms"] / res[b]["decode_step_ms"]
+    print(f"  generate at batch {len(prompts)}, in turns: decode {a} "
+          f"{res[a]['decode_step_ms']:.2f} ms/step, {b} {res[b]['decode_step_ms']:.2f} ms/step "
+          f"(medians of {rounds}); tokens equal: yes; on {card}", flush=True)
+    return res
+
+
+def phase_graphs(torch, params, cfg, card):
+    """CUDA graphs against the eager chunk bodies on phase 4's 32-layer W4
+    model (fused params): two engines over the same params, one graphed
+    (the engine's rule on a card), one running the module's eager chunk
+    functions (:func:`eager_side`), in turns, ``SERVE_RUNS`` rounds each:
+
+    * ``generate`` at batch 8: the decode wall ms a step;
+    * ``serve`` of the serving traffic: tok/s, TTFT and TPOT p50/p95, the
+      most device memory allocated in a run, then one profiled graphed
+      serve (busy time, idle share);
+    * the same serve A/B on the 32-layer scan path (the params stacked
+      once, shared by both engines) and on 8 layers with an int8 paged KV
+      cache.
+
+    Every run has exact launches; the two sides' tokens must be equal;
+    the graphed engines' timed runs capture nothing new (their keys came
+    in the warm-up runs).  Per graphed engine: captures, seconds spent
+    capturing, replays, the graph pool's GiB."""
+    import dataclasses
+
+    from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig
+    from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+    from iron_weight_only_quant_tpu_torch.models.common import stack_model_layers
+    from iron_weight_only_quant_tpu_torch.models.llama import llama_forward, llama_forward_scan
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+
+    names = (dm.W4, dm.W4_PRENORM)
+    res = {"card": card}
+
+    def graphed_and_eager(make):
+        graphed, eager = make(), eager_side(make())
+        if graphed._graphs is None:
+            fail("the engine on the card holds no CUDA graphs")
+        return graphed, eager
+
+    def captured_nothing(what, eng, before):
+        if eng._graphs.captures != before:
+            fail(f"{what}: the graphed engine captured {eng._graphs.captures - before} keys "
+                 "in its timed runs (the warm-up run had them)")
+
+    print("  -- generate, graphed and eager in turns", flush=True)
+    ecfg = EngineConfig(fuse_projections=True,
+                        kv=KVCacheConfig(max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8))
+    graphed, eager = graphed_and_eager(lambda: InferenceEngine(
+        params, cfg, llama_forward, family="llama", engine_cfg=ecfg, dtype=torch.bfloat16,
+        device=params["embed"].device))
+    gen = torch.Generator(device=params["embed"].device).manual_seed(28)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device=gen.device).tolist() for n in PROMPT_LENS]
+    res["generate"] = ab_decode_step(torch, [("graphed", graphed), ("eager", eager)],
+                                     prompts, cfg, card)
+    g = graph_stats(graphed)
+    # one key a chunk length (16 and 15 steps), all from the warm-up run
+    lengths = {min(ecfg.decode_chunk, NEW_TOKENS - 1 - i)
+               for i in range(0, NEW_TOKENS - 1, ecfg.decode_chunk)}
+    if g["captures"] != len(lengths):
+        fail(f"generate: {g['captures']} captures, not {len(lengths)}")
+    res["generate"]["graphs"] = g
+    del graphed, eager
+
+    def serve_ab(label, params_, cfg_, kv=None, forward=None, profile=False):
+        print(f"  -- serve ({label}), graphed and eager in turns", flush=True)
+        scan = forward is llama_forward_scan
+        graphed, eager = graphed_and_eager(
+            lambda: serve_engine(torch, params_, cfg_, kv=kv, forward=forward)[0])
+        reqs = serve_requests(cfg_.vocab_size)
+
+        def expect(st):
+            want, want_stacked = (expected_launches(names, st["n_steps"], cfg_.num_layers,
+                                                    stacked=s) for s in (False, True))
+            return want, (want_stacked if scan else None)
+
+        for eng in (graphed, eager):  # untimed; the graphed one captures its keys
+            eng.serve(reqs, max_new_tokens=NEW_TOKENS, chunk=SERVE_CHUNK)
+        before = graphed._graphs.captures
+        ab = ab_serve(torch, [("graphed", graphed, expect), ("eager", eager, expect)], reqs,
+                      card)
+        captured_nothing(f"serve ({label})", graphed, before)
+        g = ab["graphed"]["graphs"]
+        print(f"  serve ({label}): tokens equal: yes; {g['captures']} captures in "
+              f"{g['capture_s']:.2f} s, {g['replays']} replays, graph pool "
+              f"{g['pool_gib']:.3f} GiB; peak allocated graphed "
+              f"{ab['graphed']['peak_gib']:.2f} GiB, eager {ab['eager']['peak_gib']:.2f} GiB",
+              flush=True)
+        if profile:
+            ab["graphed"]["profile"] = profile_serve(torch, graphed, reqs)
+        return ab
+
+    res["serve"] = serve_ab("32 layers, 16-bit KV", params, cfg, profile=True)
+    stacked = stack_model_layers(params)
+    res["serve_scan"] = serve_ab("32 layers, scan, 16-bit KV", stacked, cfg,
+                                 forward=llama_forward_scan)
+    del stacked
+    torch.cuda.empty_cache()
+    cfg_cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+    res["serve_paged_kv8"] = serve_ab(
+        f"{CUT_LAYERS} layers, int8 paged KV", {**params, "layers": params["layers"][:CUT_LAYERS]},
+        cfg_cut, kv=dict(kv_bits=8, paged=True, page_size=KV_PAGE))
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_scan_w4(torch, params, cfg, card, flat_gen, flat_serve):
     """The W4 main path on the scan path: two-layer logits, scan vs flat on
     the card; one untimed flat serve with an int8 cache; then the flat
@@ -1897,18 +2078,19 @@ def phase_scan_w4(torch, params, cfg, card, flat_gen, flat_serve):
 def phase_scan_w8(torch, params, cfg, card, flat_serve, flat_serve_a):
     """The W8 model of phase 7 stacked in place, ``serve`` of phase 7's
     traffic and one serve with A16 waves and A8 decode (phase 11) through
-    ``llama_forward_scan``: one timed run each, the flat serves' tokens, every
-    linear but the lm_head on the stacked kernels."""
+    ``llama_forward_scan``: a warm-up run (the engine's graph captures) and
+    one timed run each, the flat serves' tokens, every linear but the
+    lm_head on the stacked kernels."""
     from iron_weight_only_quant_tpu_torch.models.common import stack_model_layers
     from iron_weight_only_quant_tpu_torch.models.llama import llama_forward_scan
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
 
     stacked = stack_model_layers(params, consume=True)
-    serve = phase_serve(torch, stacked, cfg, (dm.W8, dm.W8_PRENORM), 1, card, warmup=False,
+    serve = phase_serve(torch, stacked, cfg, (dm.W8, dm.W8_PRENORM), 1, card,
                         forward=llama_forward_scan, profile=False)
     print("  -- scan serve, A16 waves, A8 decode", flush=True)
     serve_a = phase_serve(torch, stacked, cfg, (dm.W8A16, dm.W8A8), 1, card, abits=(16, 8),
-                          warmup=False, forward=llama_forward_scan, profile=False)
+                          forward=llama_forward_scan, profile=False)
     for got, want, what in ((serve, flat_serve, "serve"), (serve_a, flat_serve_a, "A-serve")):
         if got["tokens"] != want["tokens"]:
             fail(f"W8 scan {what} gave other tokens than the flat path's")
@@ -3565,6 +3747,12 @@ def main() -> int:
            "KV caches): generate, serve with 16-bit and int8 caches")
     scan_w4 = phase_scan_w4(torch, params_w4, cfg, card, res, serve_w4)
 
+    header("== phase 28: CUDA graphs against the eager chunk bodies: 32-layer W4 generate "
+           f"and serve, the scan serve, the {CUT_LAYERS}-layer int8 paged serve")
+    t0 = time.perf_counter()
+    graphs_ab = phase_graphs(torch, params_w4, cfg, card)
+    print(f"  phase 28: {time.perf_counter() - t0:.1f} s, on {card}", flush=True)
+
     header("== phase 27: parallelism: tp_block at world size 1 on the 32-layer W4 model, "
            f"then {TP_RANKS} gloo ranks on the card (model = {TP_RANKS}, {CUT_LAYERS} "
            "layers) and a two-stage pipeline")
@@ -3808,6 +3996,12 @@ def main() -> int:
     for side in ("scan", "flat"):
         report(f"serve_w4_{side}_in_turns", scan_w4["serve_ab"][side])
     report("serve_w4_scan_kv8", scan_w4["serve_kv8"])
+    report("graphs_generate_w4", graphs_ab["generate"])
+    for key in ("serve", "serve_scan", "serve_paged_kv8"):
+        for side in ("graphed", "eager"):
+            report(f"graphs_{key}_w4_{side}", graphs_ab[key][side])
+        print(json.dumps({f"graphs_{key}_w4_graphed_over_eager":
+                          graphs_ab[key]["graphed_over_eager"]}))
     print(json.dumps({"logits_w4_scan_vs_flat": scan_w4["logits_scan_vs_flat"],
                       "serve_w4_scan_over_flat": scan_w4["serve_ab"]["scan_over_flat"]}))
     report("serve_w8_a16_waves_a8_decode", serve_w8_a)

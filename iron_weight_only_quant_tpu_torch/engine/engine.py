@@ -8,11 +8,22 @@ over a request queue with slot-local KV timelines, prefill waves that
 decode-ready slots ride along in, and ``chunk`` decode steps on the device
 between two host syncs.
 
-PyTorch runs eagerly, so the JAX package's jitted ``_prefill`` /
-``_generate_chunk`` / ``_serve_chunk`` / ``_serve_combo`` become plain
-functions.  They keep the property the JIT gave: between two host syncs
-nothing reads a device value on the host, so the host enqueues a whole
-chunk of steps while the device runs them.
+The JAX package's jitted decode programs ``_generate_chunk``,
+``_serve_chunk`` and ``_serve_combo`` are plain functions here, the eager
+bodies, in which nothing reads a device value on the host between two host
+syncs.  On a CUDA device the engine runs each as a CUDA graph
+(``engine/graphs.py``): captured once per key (JAX's static arguments and
+the body's shapes) and replayed for every later chunk with that key, over
+buffers that stay put: the engine keeps one cache set per batch size and
+resets it in place at the start of each call, keeps one generator and
+re-seeds it per call, and ``generate``'s shared timeline is a 0-d device
+tensor, as the JAX engine's ``cur_j``.  By an explicit rule the eager
+bodies run instead on the CPU (the plain path, as a kernel's plain
+version is) and under a rank mesh (gloo collectives of CUDA tensors go
+through host memory and cannot be captured; NCCL ranks have not been run
+under graphs).  ``generate``'s chunked ``_prefill`` stays eager on every
+device: its shapes follow each prompt length and each is used once (JAX
+compiles it per length too).
 
 ``EngineConfig.activation_bits`` (8 or 16) runs every linear of the
 decode steps through the int-activation kernels, and
@@ -47,6 +58,7 @@ caller's order.  ``serve``'s ``stats`` are those of the rank's own share.
 
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -59,13 +71,16 @@ from ..device import resolve_device
 from ..models.common import first_cache as _cache0
 from ..models.common import is_scan_forward, stacked_depth
 from ..ops.qmatmul import activation_quant
+from .graphs import ChunkGraphs, graph_key
 from .kvcache import (
     PageAllocator,
+    PagedKVCacheView,
     cache_max_len,
     make_caches,
     make_stacked_caches,
     pages_per_seq,
     pool_pages,
+    reset_caches,
 )
 
 
@@ -94,13 +109,28 @@ def _prefill(params, tokens, positions, mask, caches, forward, cfg, abits=None):
     return logits[:, -1], caches
 
 
+def _stamp_timeline(caches, cur: torch.Tensor):
+    """``generate``'s shared timeline ``cur`` (a 0-d device tensor) as the
+    length of every view: 0-d on the contiguous views, ``[B]`` on the paged
+    ones, one entry a layer on the stacked view."""
+    if _is_view_list(caches):
+        return [c._replace(length=cur.expand(c.page_table.shape[0])
+                           if isinstance(c, PagedKVCacheView) else cur) for c in caches]
+    return caches._replace(length=(cur,) * len(caches.length))
+
+
 def _generate_chunk(params, tok0, pads, cur0, caches, generator, forward, cfg,
-                    temperature, top_k, cols, c, abits=None):
+                    temperature, top_k, t_max, c, abits=None):
     """``c`` decode steps on the shared left-padded timeline, with no host
-    sync.  Returns ([B, c] sampled tokens on the device, caches)."""
+    sync: the timeline ``cur0`` is a 0-d device tensor, stamped on the
+    caches as their length.  Returns ([B, c] sampled tokens on the device,
+    caches)."""
+    caches = _stamp_timeline(caches, cur0)
+    cols = torch.arange(t_max, device=tok0.device)
     tok = tok0
     sampled = []
-    for cur in range(cur0, cur0 + c):
+    for i in range(c):
+        cur = cur0 + i
         positions = (cur - pads)[:, None]
         mask = ((cols[None, None, None, :] <= cur)
                 & (cols[None, None, None, :] >= pads[:, None, None, None]))
@@ -111,6 +141,13 @@ def _generate_chunk(params, tok0, pads, cur0, caches, generator, forward, cfg,
         sampled.append(nxt)
         tok = nxt[:, None]
     return torch.stack(sampled, dim=1), caches
+
+
+def _tokens_of(program, *args, **kw) -> torch.Tensor:
+    """The sampled tokens of a decode program (not the caches it returns:
+    the engine passes its kept views to every chunk, and each chunk stamps
+    their lengths anew)."""
+    return program(*args, **kw)[0]
 
 
 def _is_view_list(caches) -> bool:
@@ -295,6 +332,16 @@ class InferenceEngine:
             from ..parallel.mesh import make_mesh
 
             self.mesh = make_mesh(engine_cfg.mesh, self.device)
+        # one generator, re-seeded per call, and one cache set per batch
+        # size, reset in place per call: the buffers the CUDA graphs read
+        self._generator = torch.Generator(device=self.device)
+        self._cache_sets: Dict[int, Any] = {}
+        # the decode programs run as CUDA graphs on a card, and as their
+        # eager bodies on the CPU and under a rank mesh (module docstring)
+        self._graphs = None
+        if self.device.type == "cuda" and self.mesh is None:
+            self._graphs = ChunkGraphs(self.device, self._generator)
+        if self.mesh is not None:
             if self.mesh.model > 1 or tp_block:
                 self.params = self._tensor_parallel(params, forward, family)
                 return
@@ -384,6 +431,27 @@ class InferenceEngine:
             return make_stacked_caches(stacked_depth(self.params["layers_stacked"]), *args)
         return make_caches(len(self.params["layers"]), *args)
 
+    def _caches(self, batch: int):
+        """The engine's cache set for ``batch`` slots, allocated at its
+        first use and reset in place at every later one (the KV config and
+        the flat or stacked layout are the engine's own): the counterpart
+        of the JAX engine's donated caches."""
+        caches = self._cache_sets.get(batch)
+        if caches is None:
+            caches = self._cache_sets[batch] = self._fresh_caches(batch)
+        else:
+            reset_caches(caches)
+        return caches
+
+    def _chunk(self, key, body: Callable[..., torch.Tensor],
+               inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One decode program, ``body(**inputs)``: a replay of ``key``'s CUDA
+        graph on a card (captured at the key's first use), or the eager
+        body where the engine holds no graphs (the CPU, a rank mesh)."""
+        if self._graphs is None:
+            return body(**inputs)
+        return self._graphs.run(key, body, inputs)
+
     @staticmethod
     def _left_pad(prompts: Sequence[Sequence[int]], pad_token: int):
         lens = np.array([len(p) for p in prompts])
@@ -415,7 +483,7 @@ class InferenceEngine:
         dev = self.device
         b = len(prompts)
         toks, pads, L = self._left_pad(prompts, self.pad_token)
-        caches = self._fresh_caches(b)
+        caches = self._caches(b)
         t_max = cache_max_len(_cache0(caches))
         if L + max_new_tokens > t_max:
             raise ValueError(
@@ -430,34 +498,42 @@ class InferenceEngine:
         chunk = max(1, self.engine_cfg.prefill_chunk)
         toks_t = torch.as_tensor(toks, device=dev)
         logits = None
+        filled = caches
         for start in range(0, L, chunk):
             end = min(start + chunk, L)
             ar = torch.arange(start, end, device=dev)
             positions = (ar[None, :] - pads_t[:, None]).clamp(min=0)
             mask = ((cols[None, None, None, :] <= ar[None, None, :, None])
                     & (cols[None, None, None, :] >= pads_t[:, None, None, None]))
-            logits, caches = _prefill(self.params, toks_t[:, start:end],
-                                      positions, mask, caches, self.forward,
+            logits, filled = _prefill(self.params, toks_t[:, start:end],
+                                      positions, mask, filled, self.forward,
                                       self.cfg, self.engine_cfg.prefill_abits())
 
-        generator = torch.Generator(device=dev)
+        generator = self._generator
         generator.manual_seed(seed)
         next_tok = sample_tokens(logits, generator, temperature, top_k)
 
         first = next_tok.cpu().tolist()
         out = [[t] for t in first]
         done = np.array([t == self.eos_token for t in first])
-        cur = L
+        # the shared timeline on the device (the JAX engine's cur_j); each
+        # chunk stamps it on the kept views as their length
+        cur = torch.full((), L, dtype=torch.int64, device=dev)
         chunk_c = max(1, self.engine_cfg.decode_chunk)
+        abits = self.engine_cfg.activation_bits
         tok = next_tok[:, None]
         remaining = max_new_tokens - 1
         while remaining > 0 and not done.all():
             step_c = min(chunk_c, remaining)
-            sampled, caches = _generate_chunk(
-                self.params, tok, pads_t, cur, caches, generator,
-                self.forward, self.cfg, temperature, top_k, cols, step_c,
-                self.engine_cfg.activation_bits)
-            cur += step_c
+            key = graph_key("_generate_chunk", forward=self.forward, cfg=self.cfg,
+                            temperature=temperature, top_k=top_k, t_max=t_max, c=step_c,
+                            abits=abits, batch=b)
+            body = functools.partial(_tokens_of, _generate_chunk, self.params, caches=caches,
+                                     generator=generator, forward=self.forward, cfg=self.cfg,
+                                     temperature=temperature, top_k=top_k, t_max=t_max,
+                                     c=step_c, abits=abits)
+            sampled = self._chunk(key, body, {"tok0": tok, "pads": pads_t, "cur0": cur})
+            cur = cur + step_c
             remaining -= step_c
             toks_np = sampled.cpu().numpy()  # the one host sync per chunk
             for i in range(b):
@@ -525,7 +601,7 @@ class InferenceEngine:
             raise ValueError("empty prompts are not allowed")
         dev = self.device
         nslots = min(self.engine_cfg.max_batch_size, max(1, len(requests)))
-        caches = self._fresh_caches(nslots)
+        caches = self._caches(nslots)
         t_max = cache_max_len(_cache0(caches))
         for r in requests:
             if len(r) + max_new_tokens > t_max:
@@ -546,7 +622,7 @@ class InferenceEngine:
         slot_gen = np.zeros(nslots, np.int64)     # tokens generated
         pending_tok = np.zeros(nslots, np.int64)  # next token to feed
 
-        generator = torch.Generator(device=dev)
+        generator = self._generator
         generator.manual_seed(seed)
 
         kv = self.engine_cfg.kv
@@ -613,6 +689,14 @@ class InferenceEngine:
         chunk = max(1, int(chunk))
         c = chunk
         prefill_cap = max(8, self.engine_cfg.prefill_chunk)
+        abits, p_abits = self.engine_cfg.activation_bits, self.engine_cfg.prefill_abits()
+        # every chunk gets the kept views; each stamps their lengths, valid
+        # counts and page table from its meta vector
+        static = dict(caches=caches, generator=generator, forward=self.forward, cfg=self.cfg,
+                      temperature=temperature, top_k=top_k, t_max=t_max, c=c, abits=abits,
+                      mp=mp)
+        keyed = dict(forward=self.forward, cfg=self.cfg, temperature=temperature, top_k=top_k,
+                     t_max=t_max, c=c, abits=abits, ns=nslots, mp=mp)
         if stats is not None:
             stats.update(n_combos=0, n_chunks=0, n_steps=0,
                          n_generated=0, n_prompt_fed=0,
@@ -680,11 +764,11 @@ class InferenceEngine:
                     toks_np.ravel(), valid_np, lens_np, tok_src.astype(np.int64),
                     tok0_else, feed_next.ravel(), feed_len,
                 ])
-                out, caches = _serve_combo(
-                    self.params, to_device(meta), caches,
-                    generator, self.forward, self.cfg, temperature, top_k,
-                    t_max, sbkt, c, self.engine_cfg.activation_bits,
-                    self.engine_cfg.prefill_abits(), mp)
+                out = self._chunk(
+                    graph_key("_serve_combo", s_len=sbkt, p_abits=p_abits, **keyed),
+                    functools.partial(_tokens_of, _serve_combo, self.params, s_len=sbkt,
+                                      p_abits=p_abits, **static),
+                    {"meta": to_device(meta)})
                 out_np, dt = fetch(out)
                 if stats is not None:
                     stats["t_combos_s"] = round(stats["t_combos_s"] + dt, 4)
@@ -726,10 +810,10 @@ class InferenceEngine:
                     stats["n_steps"] += c
                 meta = np.concatenate([pending_tok, feed_next.ravel(),
                                        feed_len, lens_np])
-                out, caches = _serve_chunk(
-                    self.params, to_device(meta), caches,
-                    generator, self.forward, self.cfg, temperature, top_k,
-                    t_max, c, self.engine_cfg.activation_bits, mp)
+                out = self._chunk(
+                    graph_key("_serve_chunk", **keyed),
+                    functools.partial(_tokens_of, _serve_chunk, self.params, **static),
+                    {"meta": to_device(meta)})
                 sampled, dt = fetch(out)
                 if stats is not None:
                     stats["t_chunks_s"] = round(stats["t_chunks_s"] + dt, 4)

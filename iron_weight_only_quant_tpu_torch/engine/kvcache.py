@@ -313,8 +313,9 @@ def _stacked_update_and_fetch(caches, l: int, k_new: torch.Tensor, v_new: torch.
     """Layer-``l`` append on a stacked cache view.
 
     ``length`` holds one entry a layer, the view's ``[L]`` or ``[L, B]``
-    lengths as a tuple: Python ints (``generate``'s shared timeline, kept
-    on the host, so no layer reads a device value) or ``[B]`` tensors
+    lengths as a tuple: Python ints (``generate``'s prefill), 0-d device
+    tensors (``generate``'s decode chunks: the shared timeline on the
+    device, so a chunk reads no value on the host) or ``[B]`` tensors
     (slot-local timelines, ``serve``); layer ``l``'s entry is replaced by
     its advanced length.
     ``valid`` (``[B]``) is shared by the layers and KEPT on write -- every
@@ -405,6 +406,23 @@ def make_stacked_caches(
                 torch.zeros(side_shape, dtype=torch.float32, device=device))
 
     return QuantKVCacheView(*half(), *half(), zero, kv_cfg.kv_bits, g, packed)
+
+
+def reset_caches(caches) -> None:
+    """Return a cache set (a list of views, or one stacked view) to its
+    state at allocation, in place: codes, pages and zeros to 0, scales to
+    1, as :func:`make_caches` fills them.  The engine keeps its cache
+    sets and resets them at the start of each call, so its CUDA graphs
+    read the same buffers in every call.  The lengths, page tables and
+    ``valid`` are left alone: a view's are never written in place (a write
+    returns a view with the advanced length), so the kept views still hold
+    those of allocation."""
+    views = [caches] if hasattr(caches, "_fields") else caches
+    skip = ("length", "valid", "page_table")
+    for view in views:
+        for name, t in zip(view._fields, view):
+            if name not in skip and torch.is_tensor(t):
+                t.fill_(1 if name.endswith("scales") else 0)
 
 
 def cache_max_len(cache: CacheView) -> int:

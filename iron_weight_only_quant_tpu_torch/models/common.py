@@ -381,12 +381,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 class KVCacheView(NamedTuple):
     """Per-layer cache slab: k/v ``[B, T_max, H_kv, D]`` + current length.
 
-    ``length`` is a Python int (one shared timeline) or a ``[B]`` int tensor
-    (slot-local timelines).  ``valid`` (optional, ``[B]``, slot-local only)
+    ``length`` is a Python int or a 0-d int tensor on the device (one
+    shared timeline: ``generate``'s prefill, its decode chunks) or a
+    ``[B]`` int tensor (slot-local timelines).  ``valid`` (optional, ``[B]``, slot-local only)
     marks how many of the next write's S tokens are real per slot: writes
     beyond a slot's count are dropped and its length advances by the count.
     The stacked form of the scan path has ``[L, B, T_max, H_kv, D]`` buffers
-    and a tuple of L lengths, ints or ``[B]`` tensors
+    and a tuple of L lengths, each of those kinds
     (``engine.kvcache.make_stacked_caches``).
     """
 
@@ -513,6 +514,9 @@ def write_columns(bufs, news, start: Union[int, torch.Tensor],
 
     As in the reference, a start too close to the end is clamped so that
     the S tokens fit, and a ``[B]`` start writes each row at its own column.
+    A 0-d tensor start (``generate``'s timeline on the device) writes the
+    bytes of its int start, by an ``index_copy_`` at the clamped start
+    plus ``arange(S)``: no value is read on the host.
 
     With ``valid`` (``[B]``, slot-local starts only), token i of slot b
     lands at column ``start[b] + i`` when ``i < valid[b]`` and the column
@@ -548,8 +552,12 @@ def write_columns(bufs, news, start: Union[int, torch.Tensor],
         b_idx = torch.arange(bsz, device=start.device)[:, None]
         for buf, new in zip(bufs, news):
             buf[b_idx, t] = new.to(buf.dtype)
+    elif torch.is_tensor(start):
+        cols = start.clamp(0, t_max - s) + torch.arange(s, device=start.device)
+        for buf, new in zip(bufs, news):
+            buf.index_copy_(1, cols, new.to(buf.dtype))
     else:
-        st = min(max(int(start), 0), t_max - s)
+        st = min(max(start, 0), t_max - s)
         for buf, new in zip(bufs, news):
             buf[:, st : st + s] = new.to(buf.dtype)
     return start + s

@@ -97,6 +97,9 @@ version per name of the kernel it stands in for (an artifact no kernel
 takes is not counted), ``ROUTE_CALLS`` the route's calls;
 :func:`reset_counts` zeroes all four.  The two modes of the W4 inner-loop
 probe kernel (``ops/kernels/w4_inner.py``, no serving path) count here too.
+The counts are taken in Python where a launch is issued; the engine's CUDA
+graphs take a capture's counts back and add them at every replay
+(``engine/graphs.py``), so the counters count launches that ran.
 """
 
 from __future__ import annotations
@@ -150,6 +153,9 @@ PLAIN_CALLS: Dict[str, int] = dict(LAUNCHES)
 STACKED_LAUNCHES: Dict[str, int] = dict(LAUNCHES)
 ROUTE = "xla_route"
 ROUTE_CALLS: Dict[str, int] = {ROUTE: 0}
+# every dispatch counter (the engine's CUDA graphs add a replay's counts to
+# each: engine/graphs.py)
+COUNTERS = (LAUNCHES, STACKED_LAUNCHES, PLAIN_CALLS, ROUTE_CALLS)
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,   # x, x_bf16, ldx, qw
@@ -261,7 +267,7 @@ _SM_COUNT: Dict[int, int] = {}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, STACKED_LAUNCHES, PLAIN_CALLS, ROUTE_CALLS):
+    for d in COUNTERS:
         for k in d:
             d[k] = 0
 

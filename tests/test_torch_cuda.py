@@ -1478,25 +1478,26 @@ def test_scan_serve_device_calls_do_not_sync(dev, abits):
 
 
 def test_scan_generate_chunk_does_not_sync(dev):
-    """``generate``'s stacked lengths stay on the host: its decode steps
-    read no device value."""
+    """``generate``'s shared timeline is a 0-d device tensor, stamped on the
+    stacked lengths: its decode steps read no device value."""
     from iron_weight_only_quant_tpu_torch.engine.engine import _generate_chunk
 
     eng = _tiny_engine(dev, 4, scan=True)
     caches = eng._fresh_caches(2)
     pads = torch.zeros(2, dtype=torch.long, device=dev)
     tok = torch.tensor([[3], [5]], device=dev)
-    cols = torch.arange(48, device=dev)
+    cur0 = torch.zeros((), dtype=torch.long, device=dev)
     gen = torch.Generator(device=dev)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.inference_mode():
-            sampled, caches = _generate_chunk(eng.params, tok, pads, 0, caches, gen,
-                                              eng.forward, eng.cfg, 0.0, 0, cols, 4)
+            sampled, caches = _generate_chunk(eng.params, tok, pads, cur0, caches, gen,
+                                              eng.forward, eng.cfg, 0.0, 0, 48, 4)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert sampled.shape == (2, 4) and caches.length == (4,) * eng.cfg.num_layers
+    assert sampled.shape == (2, 4) and len(caches.length) == eng.cfg.num_layers
+    assert all(length.dim() == 0 and int(length) == 4 for length in caches.length)
 
 
 @pytest.mark.parametrize("family", ["opt", "bloom"])
@@ -2020,3 +2021,189 @@ def test_two_gloo_ranks_share_the_card(dev, tmp_path):
         want_gen[r::2], want_serve[r::2] = gen, serve
     for res in ranks:
         assert res["data"][:2] == (want_gen, want_serve)
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+GRAPH_CASES = {  # _tiny_engine arguments: bits, spec, KV cache, scan, engine options
+    "w4": (4, None, {}, False, {}),
+    "w4_scan": (4, None, {}, True, {}),
+    "w8": (8, None, {}, False, {}),
+    "w8_scan_kv8": (8, None, dict(kv_bits=8), True, {}),
+    "fp4": (4, "fp4", {}, False, {}),
+    "fp6_a16": (4, "fp6", {}, False, dict(activation_bits=16)),
+    "w4_a8_waves_a16_decode": (4, None, {}, False,
+                               dict(prefill_activation_bits=8, activation_bits=16)),
+    "w8_a16_waves_a8_decode": (8, None, {}, False,
+                               dict(prefill_activation_bits=16, activation_bits=8)),
+    "kv8": (4, None, dict(kv_bits=8), False, {}),
+    "kv4": (4, None, dict(kv_bits=4), False, {}),
+    "paged16": (4, None, dict(paged=True, page_size=16), False, {}),
+    "paged_kv8": (4, None, dict(paged=True, page_size=16, kv_bits=8), False, {}),
+    "paged_kv4_small_pool": (4, None, dict(paged=True, page_size=16, kv_bits=4, num_pages=7),
+                             False, {}),
+}
+GRAPH_PROMPTS = [[3, 5, 7, 11], [13, 17], [2, 4, 6, 8, 10, 12], [9]]
+GRAPH_REQS = [[(7 * i + j) % 255 + 1 for j in range(3 + 5 * i)] for i in range(6)]
+
+
+def _graph_engines(dev, case):
+    """(an engine that runs the eager chunk bodies, one that graphs them)
+    over the same tiny model of ``case``."""
+    from iron_weight_only_quant_tpu_torch.config import KVCacheConfig
+
+    bits, spec, kv, scan, ecfg = GRAPH_CASES[case]
+    spec = {"fp4": LUT_SPECS["fp4_e2m1_g128_asym"][0],
+            "fp6": fp_spec("fp6", 2, 3, group_size=64)}.get(spec)
+    eager, graphed = (_tiny_engine(dev, bits, spec=spec, kv=KVCacheConfig(max_seq_len=48, **kv),
+                                   scan=scan, **ecfg) for _ in range(2))
+    assert eager._graphs is not None and graphed._graphs is not None
+    eager._graphs = None  # the engine's CPU rule: the module's eager chunk functions
+    return eager, graphed
+
+
+def _graph_run(eng, **sampling):
+    """generate (7 new tokens: one prefill forward, one chunk of 6 steps;
+    not on a pool too small for its default page table, whose slots past
+    the pool share the garbage page) and serve (chunk 4); the tokens, every
+    counter, the forwards run."""
+    dm.reset_counts()
+    stats = {}
+    gen = None if eng.engine_cfg.kv.num_pages else eng.generate(
+        GRAPH_PROMPTS, max_new_tokens=7, **sampling)
+    toks = (gen, eng.serve(GRAPH_REQS, max_new_tokens=8, chunk=4, stats=stats, **sampling))
+    torch.cuda.synchronize()
+    return toks, tuple(dict(c) for c in dm.COUNTERS), stats["n_steps"] + 7 * (gen is not None)
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_engine_gives_the_eager_bodies_tokens(dev, case):
+    """On the card ``generate`` and ``serve`` replay a CUDA graph per key:
+    greedy tokens equal the eager bodies' in the first call (the keys'
+    warm-ups and captures) and the second (replays only); the counters,
+    counted per replay, equal the eager run's and the launch formula; the
+    second call captures nothing."""
+    eager, graphed = _graph_engines(dev, case)
+    want = _graph_run(eager)
+    first = _graph_run(graphed)
+    graphs = graphed._graphs
+    captures, replays = graphs.captures, graphs.replays
+    second = _graph_run(graphed)
+    assert first == want and second == want
+    assert graphs.captures == captures == len(graphs.keys()) and graphs.replays > replays
+    # generate: one chunk of 6 steps (one key); serve: its pure chunk and
+    # one combo key a prefill bucket
+    programs = [k[0] for k in graphs.keys()]
+    assert programs.count("_generate_chunk") == int(want[0][0] is not None)
+    assert programs.count("_serve_chunk") == 1 and programs.count("_serve_combo") >= 1
+    launches, stacked, plain, route = want[1]
+    forwards = want[2]
+    n_layers = graphed.cfg.num_layers
+    assert sum(launches.values()) == forwards * (4 * n_layers + 1)
+    assert sum(stacked.values()) == (forwards * 4 * n_layers if GRAPH_CASES[case][3] else 0)
+    assert not any(plain.values()) and not any(route.values())
+
+
+@pytest.mark.parametrize("case", ["w4", "w4_scan", "w8", "fp6_a16", "kv4", "paged_kv8"])
+def test_graphed_decode_step_logits_are_bit_equal(dev, case):
+    """One decode step as a graph (``ChunkGraphs.run``: the warm-up, then
+    replays) gives the eager step's logits bit for bit, step after step on
+    a cache of its own."""
+    from iron_weight_only_quant_tpu_torch.engine.engine import _stamp_timeline
+    from iron_weight_only_quant_tpu_torch.engine.graphs import ChunkGraphs
+    from iron_weight_only_quant_tpu_torch.ops.qmatmul import activation_quant
+
+    eng = _graph_engines(dev, case)[1]
+    t_max, b = 48, 4
+    cols = torch.arange(t_max, device=dev)
+    pads = torch.tensor([0, 1, 0, 2], device=dev)
+
+    def step(caches, tok, cur):
+        mask = (cols[None, None, None, :] <= cur) & (cols[None, None, None, :]
+                                                    >= pads[:, None, None, None])
+        with activation_quant(eng.engine_cfg.activation_bits):
+            logits, _ = eng.forward(eng.params, tok, eng.cfg,
+                                    caches=_stamp_timeline(caches, cur),
+                                    positions=(cur - pads)[:, None], attn_mask=mask)
+        return logits.float()
+
+    graphs = ChunkGraphs(dev, torch.Generator(device=dev))
+    mine, theirs = eng._fresh_caches(b), eng._fresh_caches(b)
+    with torch.inference_mode():
+        for i in range(4):
+            tok = torch.randint(1, 255, (b, 1), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(i))
+            cur = torch.full((), 5 + i, dtype=torch.long, device=dev)
+            want = step(theirs, tok, cur)
+            got = graphs.run(("step",), lambda tok, cur: step(mine, tok, cur),
+                             {"tok": tok, "cur": cur})
+            assert torch.equal(got, want), f"step {i}"
+    assert graphs.captures == 1 and graphs.replays == 3
+
+
+def test_graphed_sampling_with_a_seed_gives_the_eager_tokens(dev):
+    """temperature 0.8, top-k 20: the engine's one generator, registered
+    with every graph and re-seeded per call, draws the eager bodies'
+    numbers; another seed draws other tokens, again the eager ones."""
+    eager, graphed = _graph_engines(dev, "w4")
+    runs = {}
+    for seed in (5, 6):
+        sampling = dict(temperature=0.8, top_k=20, seed=seed)
+        want = _graph_run(eager, **sampling)
+        assert _graph_run(graphed, **sampling) == want
+        assert _graph_run(graphed, **sampling) == want
+        runs[seed] = want[0]
+    assert runs[5] != runs[6]
+    assert graphed._graphs.captures == len(graphed._graphs.keys())
+
+
+def test_a_host_read_in_a_decode_program_makes_the_capture_raise(dev):
+    """A forward that reads a device value on the host runs eagerly (the
+    key's warm-up) but cannot be captured: ``generate`` raises, and no
+    eager body runs in its place.  In a process of its own: a failed
+    capture leaves the process's CUDA generator state unusable."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = f"""
+import sys
+sys.path.insert(0, {str(root)!r})
+import torch
+from iron_weight_only_quant_tpu_torch.config import EngineConfig, KVCacheConfig, QuantSpec
+from iron_weight_only_quant_tpu_torch.engine import InferenceEngine
+from iron_weight_only_quant_tpu_torch.models import llama
+from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
+
+dev = torch.device("cuda", 0)
+cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                        num_layers=2, num_heads=4, num_kv_heads=2)
+params = llama.fold_llama_norms(llama.llama_init(
+    cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+spec = QuantSpec(fmt="int", bits=4, group_size=128, symmetric=False)
+for lin in [params["lm_head"]] + [v for p in params["layers"] for v in p.values()
+                                  if isinstance(v, dict)]:
+    lin["w"] = quantize_tensor(lin["w"], spec, pad_n_to=512)
+reads = []
+
+def reading_forward(params, tokens, cfg, **kw):
+    logits, caches = llama.llama_forward(params, tokens, cfg, **kw)
+    reads.append(float(logits.abs().amax()))  # a host read
+    return logits, caches
+
+eng = InferenceEngine(params, cfg, reading_forward, family="llama",
+                      engine_cfg=EngineConfig(kv=KVCacheConfig(max_seq_len=32)),
+                      dtype=torch.bfloat16, device=dev)
+try:
+    out = eng.generate([[3, 5, 7], [9]], max_new_tokens=4)
+except Exception as e:
+    print("RAISED", type(e).__name__, "captures", eng._graphs.captures, "reads", len(reads))
+else:
+    print("RETURNED", out)
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-2000:]
+    # the prefill and the chunk's 3 eager steps read; the capture then raises
+    assert last.startswith("RAISED") and " captures 0 " in last, last
