@@ -316,12 +316,19 @@ the CLI phase ``CLI_LAYERS`` (2).
     random f32 weights: ``fold_llama_norms``, ``quantize_model_gptq`` (W4
     g128 asym, 16 ``synthetic`` windows of 512 tokens) with exact launch
     counts (its quantized re-forwards: 5 prenorm and 2 flat calls a sample
-    and layer, f32 x, unpadded N), seconds per layer (Hessian forwards,
+    and layer, f32 x, unpadded N; every solve's blocks on the block
+    kernel ``csrc/gptq_block.cu``, ``ceil(cols / 128)`` launches a solve,
+    no plain block call), seconds per layer (Hessian forwards,
     solve, quantized re-forward), each linear's proxy loss
     ``tr(dW H dW^T)`` below its RTN artifact's, layer 0's q solved on the
     card against the CPU solve of the same H (at least 99.5% of q equal,
     all within 0.3 max|w|) and once more under ``torch.profiler`` (the
-    column loop's device busy time, and the same bits); the artifacts'
+    solve's device busy time, idle share and device events a column, and
+    the same bits); the block kernel against the plain block loop on the
+    card, in turns (layer 0's q and down and a TrueOBS ``sparseout`` solve
+    of q bit-equal, their wall seconds; one block's time at 4096 and 11008
+    rows against its bound, summed over a layer's launches for the
+    ``gptq_block`` row of the report); the artifacts'
     calls of ``w4_matmul`` and ``w4_matmul_prenorm`` against their plain
     versions (f32 x at M=512, bf16 x at M=8); then fused and in bf16 the
     perplexity through the kernels against that of
@@ -333,7 +340,8 @@ the CLI phase ``CLI_LAYERS`` (2).
 25. Report: the generate and serve JSON lines, the card line, the
     per-kernel JSON line (per kernel also ``prefill_ms``,
     ``prefill_bound_ms`` and ``prefill_library_ms``: the M=256 records
-    summed as the decode step's), and as the last line ``{"ok": true,
+    summed as the decode step's; the ``gptq_block`` row a 7B layer's
+    launches, from phase 26), and as the last line ``{"ok": true,
     "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -422,6 +430,9 @@ KERNEL_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
                      "scripts/probe_w4_inner.py:67"),
     "w4_inner_magic": ("iron_weight_only_quant_tpu_torch/csrc/w4_inner_matmul.cu",
                        "scripts/probe_w4_inner.py:67"),
+    # no Pallas kernel: the JAX solvers' compiled column loop (lax.fori_loop)
+    "gptq_block": ("iron_weight_only_quant_tpu_torch/csrc/gptq_block.cu",
+                   "iron_weight_only_quant_tpu/quantize/gptq.py:263"),
 }
 W3_PAD_K = 1024  # down's K=11008 stored as 11264: K/8 = 1408 = 11 groups of 128
 FP6_PAD_K = 1024  # the same for nq42: K/4 = 2816 = 22 groups of 128
@@ -2952,14 +2963,141 @@ def proxy_loss(h, w, qt):
     return ((h @ d) * d).sum().item()
 
 
+def gptq_block_cost(rows: int, count: int, gsize: int):
+    """(bytes, operations) of one block's column loop: the block of w in
+    (the refresh reads the same columns when the group is the block), the
+    factor's upper triangle in, each group's scale and zero out, q, codes
+    and err1 out; the rank-1 updates (a product and a difference an element
+    of the triangle a row) and about a dozen operations a column."""
+    nbytes = 4 * (rows * count + count * (count + 1) // 2 + 2 * rows * -(-count // gsize)
+                  + 3 * rows * count)
+    return nbytes, rows * (count * (count - 1) + 12 * count)
+
+
+def ab_solve(torch, label, w, h, kw, solve, blocks, card):
+    """The solve of ``w`` with ``h`` through the plain block loop and the
+    kernel on the card, in turns (plain, kernel, kernel, plain): the wall
+    seconds of each, exact launches and plain calls, each side repeatable,
+    the kernel's result bit-equal to the plain loop's (no ``mse``)."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import gptq_block as gb
+    from iron_weight_only_quant_tpu_torch.quantize.gptq import gptq_block, gptq_block_plain
+
+    secs, res = {"plain": [], "kernel": []}, {}
+    for side in ("plain", "kernel", "kernel", "plain"):
+        gb.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(w, h, gptq_block if side == "kernel" else gptq_block_plain, **kw)
+        torch.cuda.synchronize()
+        secs[side].append(time.perf_counter() - t0)
+        want = {"kernel": (blocks, 0), "plain": (0, blocks)}[side]
+        got = (gb.LAUNCHES[gb.GPTQ_BLOCK], gb.PLAIN_CALLS[gb.GPTQ_BLOCK])
+        if got != want:
+            fail(f"{label} ({side}): launches, plain calls {got} != {want}")
+        for name, a, b in zip(out._fields, out, res.get(side, out)):
+            if torch.is_tensor(a) and not torch.equal(a, b):
+                fail(f"{label}: two {side} solves differ in {name}")
+        res[side] = out
+    max_err = (res["kernel"].q - res["plain"].q).abs().max().item()
+    for name, a, b in zip(res["kernel"]._fields, res["kernel"], res["plain"]):
+        if torch.is_tensor(a) and not torch.equal(
+                a.view(torch.int32) if a.dtype == torch.float32 else a,
+                b.view(torch.int32) if b.dtype == torch.float32 else b):
+            fail(f"{label}: the kernel's {name} is not the plain loop's bit for bit "
+                 f"(max |dq| {max_err:.3e})")
+    print(f"  {label} ({w.shape[0]} x {w.shape[1]}, {blocks} blocks): kernel solve "
+          f"{secs['kernel'][0]:.3f} / {secs['kernel'][1]:.3f} s, plain loop "
+          f"{secs['plain'][0]:.3f} / {secs['plain'][1]:.3f} s in turns, "
+          f"{blocks} launches a solve; q, codes and params bit-equal; on {card}", flush=True)
+    return {"rows": w.shape[0], "cols": w.shape[1], "blocks": blocks, "kernel_s": secs["kernel"],
+            "plain_s": secs["plain"], "max_abs_err": max_err}
+
+
+def phase_gptq_block(torch, kept, shapes, gcfg, card):
+    """The block kernel against the plain loop on the card, at layer 0's
+    shapes: whole solves of q and down (4096 x 4096 and 4096 x 11008, the
+    calibration's H, W4 g128 asym) and one TrueOBS ``sparseout`` solve of
+    q, timed in turns; each block's device time at 4096 rows (q) and at
+    11008 rows (gate) with its bound, and a layer's sum over its
+    launches (``shapes``: name -> (rows, cols) of layer 0's linears)."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import gptq_block as gb
+    from iron_weight_only_quant_tpu_torch.quantize.gptq import (
+        ColumnLoop,
+        damped_hinv_upper,
+        gptq_block_plain,
+        solve_gptq,
+    )
+    from iron_weight_only_quant_tpu_torch.quantize.trueobs import solve_trueobs
+    from iron_weight_only_quant_tpu_torch.utils.profiling import H100_F32_TFLOPS
+    from iron_weight_only_quant_tpu_torch.utils.timing import device_ms
+
+    bs = gcfg.blocksize
+    kw = dict(bits=4, sym=False, groupsize=128, blocksize=bs, percdamp=gcfg.percdamp)
+    out = {"solves": {}}
+    for name in ("q", "down"):
+        w, h = kept[name]
+        out["solves"][name] = ab_solve(torch, f"GPTQ {name}", w, h, kw, solve_gptq,
+                                       -(-w.shape[1] // bs), card)
+    w, h = kept["q"]
+    out["solves"]["q_trueobs_sparseout"] = ab_solve(
+        torch, "TrueOBS sparseout q", w, h, dict(bits=4, sym=False, blocksize=bs,
+                                                  percdamp=gcfg.percdamp, sparseout=True),
+        solve_trueobs, -(-w.shape[1] // bs), card)
+    # one block's time by CUDA events (the block's inputs warm in L2); the
+    # plain loop's ~1,700 launches a block outrun the launch queue behind
+    # device_ms's sleep kernel, so its time includes host gaps
+    per_block = {}
+    for name in ("q", "gate"):
+        w, h = kept[name]
+        rows, cols = w.shape
+        hinv = damped_hinv_upper(h, gcfg.percdamp)
+        n_groups = -(-cols // 128)
+        loop = ColumnLoop(w.new_zeros((rows, n_groups)), w.new_zeros((rows, n_groups)), None,
+                          128, True, 4, False, False, False, torch.zeros_like(w),
+                          torch.zeros_like(w))
+        gb.reset_counts()
+        ms = device_ms(lambda i: gb.gptq_block_kernel(w, hinv, 0, bs, loop), 20)
+        plain_ms = device_ms(lambda i: gptq_block_plain(w, hinv, 0, bs, loop), 1)
+        nbytes, ops = gptq_block_cost(rows, bs, 128)
+        bound_ms, bound_by = bound(nbytes, ops, H100_F32_TFLOPS * 1e12)
+        per_block[rows] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+        print(f"  one block's column loop, {rows} x {bs} (layer 0 {name}, g128): kernel "
+              f"{ms:.4f} ms, plain loop {plain_ms:.3f} ms (CUDA events, host gaps included), "
+              f"bound {bound_ms:.4f} "
+              f"ms ({bound_by}: {nbytes} bytes, {ops} operations over 3.35 TB/s and "
+              f"{H100_F32_TFLOPS:.0f} TFLOP/s f32; the chain of {bs} columns a row is "
+              f"serial), on {card}", flush=True)
+        del hinv, loop
+    # a layer's launches by rows (every block of a 7B layer is a full one)
+    layer_blocks = {}
+    for rows, cols in shapes.values():
+        if cols % bs or rows not in per_block:
+            fail(f"GPTQ block timing: no timed block of {rows} rows and {bs} columns")
+        layer_blocks[rows] = layer_blocks.get(rows, 0) + cols // bs
+    layer = {k: sum(n * per_block[r][k] for r, n in layer_blocks.items())
+             for k in ("ms", "plain_ms", "bytes", "ops")}
+    layer["bound_ms"], layer["bound_by"] = bound(layer["bytes"], layer["ops"],
+                                                 H100_F32_TFLOPS * 1e12)
+    print(f"  a layer's {sum(layer_blocks.values())} launches "
+          f"({', '.join(f'{n} of {r} rows' for r, n in layer_blocks.items())}): kernel "
+          f"{layer['ms']:.3f} ms, plain loop {layer['plain_ms']:.1f} ms, bound "
+          f"{layer['bound_ms']:.3f} ms, on {card}", flush=True)
+    out.update(per_block=per_block, layer_blocks=layer_blocks, layer=layer)
+    return out
+
+
 def phase_gptq(torch, device, cfg_full, card):
     """The GPTQ path of ``cli/quantize.py`` and ``cli/eval_ppl.py`` at
     7B width, ``GPTQ_LAYERS`` layers: dense f32 params, norms folded,
     ``quantize_model_gptq`` (W4 g128 asym, 16 synthetic windows of 512
     tokens) with exact launch counts, seconds per layer (Hessian forwards,
-    solve, quantized re-forward), each linear's proxy loss against the RTN
-    artifact's (GPTQ must be lower for every one), layer 0's q solved on
-    the card against the CPU solve of the same H, the artifacts' calls of
+    solve, quantized re-forward), every solve's blocks on the block kernel
+    (``ceil(cols / blocksize)`` launches a solve, no plain block call), each
+    linear's proxy loss against the RTN artifact's (GPTQ must be lower for
+    every one), layer 0's q solved on the card against the CPU solve of the
+    same H, traced, then the block kernel against the plain block loop on
+    the card (:func:`phase_gptq_block`), the artifacts' calls of
     rows 1 and 2 against their plain versions; then fused, bf16: the
     perplexity through the kernels against ``dequantize_model_params``'s,
     ``generate`` and ``serve`` (the lm_head dense).  Its artifacts' save
@@ -2984,6 +3122,7 @@ def phase_gptq(torch, device, cfg_full, card):
     )
     from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.ops.kernels import gptq_block as gb
     from iron_weight_only_quant_tpu_torch.quantize import QuantizedTensor, quantize_tensor
     from iron_weight_only_quant_tpu_torch.quantize.gptq import gptq_quantize
     from iron_weight_only_quant_tpu_torch.quantize.gptq_model import quantize_model_gptq
@@ -3007,7 +3146,7 @@ def phase_gptq(torch, device, cfg_full, card):
     train, _ = get_loaders("synthetic", nsamples=GPTQ_SAMPLES, seed=0, seqlen=GPTQ_SEQLEN,
                            vocab_size=cfg.vocab_size)
 
-    losses, kept = [], {}
+    losses, kept, kept_card, shapes = [], {}, {}, {}
     stats = [{"hessian_s": 0.0, "solve_s": 0.0, "forward_s": 0.0} for _ in range(n_layers)]
 
     def observer(li, phase, secs, info):
@@ -3018,11 +3157,16 @@ def phase_gptq(torch, device, cfg_full, card):
         g = proxy_loss(h, w, new_w)
         r = proxy_loss(h, w, quantize_tensor(w, spec))
         losses.append({"layer": li, "linear": name, "gptq": g, "rtn": r, "ratio": g / r})
+        if li == 0:
+            shapes[name] = (w.shape[1], w.shape[0])  # the solve's rows, cols
+            if name in ("q", "gate", "down"):  # [rows, cols] and H, on the card
+                kept_card[name] = (w.t().contiguous().float(), h.clone())
         if li == 0 and name == "q":
             kept.update(h=h.cpu(), w=w.t().contiguous().cpu(),
                         q=dequantize_weight(new_w).t().cpu())
 
     dm.reset_counts()
+    gb.reset_counts()
     t0 = time.perf_counter()
     params = quantize_model_gptq(dense, cfg, "llama", [s.input_ids for s in train], spec,
                                  gcfg, progress=None, observer=observer)
@@ -3034,6 +3178,15 @@ def phase_gptq(torch, device, cfg_full, card):
     want[dm.W4_PRENORM] = 5 * GPTQ_SAMPLES * n_layers
     want[dm.W4] = 2 * GPTQ_SAMPLES * n_layers
     calib_launches = check_counts("GPTQ calibration", want)
+    # every solve's blocks on the block kernel: ceil(cols / blocksize) a solve
+    want_blocks = n_layers * sum(-(-cols // gcfg.blocksize) for _, cols in shapes.values())
+    block_launches = gb.LAUNCHES[gb.GPTQ_BLOCK]
+    print(f"  GPTQ calibration: gptq_block launches {block_launches}, expected {want_blocks} "
+          f"({want_blocks // n_layers} a layer: ceil(cols / {gcfg.blocksize}) a solve of "
+          f"{sorted(shapes.values())}); plain block calls {gb.PLAIN_CALLS[gb.GPTQ_BLOCK]}",
+          flush=True)
+    if len(shapes) != 7 or block_launches != want_blocks or gb.PLAIN_CALLS[gb.GPTQ_BLOCK]:
+        fail("GPTQ calibration did not solve every block through the block kernel")
     for li, st in enumerate(stats):
         print(f"  layer {li}: Hessian forwards {st['hessian_s']:.3f} s, solve "
               f"{st['solve_s']:.3f} s, quantized re-forward {st['forward_s']:.3f} s", flush=True)
@@ -3097,6 +3250,22 @@ def phase_gptq(torch, device, cfg_full, card):
         print("  profiler: no device events; the solve's device busy time not measured",
               flush=True)
     del kept, ref, w0, h0, again, prof
+    print(f"  -- the block kernel against the plain loop on the card, in turns", flush=True)
+    block_ab = phase_gptq_block(torch, kept_card, shapes, gcfg, card)
+    del kept_card
+    torch.cuda.empty_cache()
+    errs = [r["max_abs_err"] for r in block_ab["solves"].values()]
+    layer = block_ab["layer"]
+    block_row = {
+        "name": "gptq_block", "route": "cuda", "source": KERNEL_SOURCES["gptq_block"][0],
+        "replaces": KERNEL_SOURCES["gptq_block"][1], "launches": block_launches,
+        "max_abs_err": max(errs), "ms": layer["ms"], "plain_ms": layer["plain_ms"],
+        "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"], "library_ms": None,
+        "per": f"one layer's {sum(block_ab['layer_blocks'].values())} launches",
+        "block_ms": {r: b["ms"] for r, b in block_ab["per_block"].items()},
+        "block_plain_ms": {r: b["plain_ms"] for r, b in block_ab["per_block"].items()},
+        "block_bound_ms": {r: b["bound_ms"] for r, b in block_ab["per_block"].items()},
+    }
 
     eps = cfg.rms_norm_eps
     kernel_checks = []
@@ -3174,7 +3343,8 @@ def phase_gptq(torch, device, cfg_full, card):
         "gptq_over_rtn_max": max(r["ratio"] for r in losses),
         "solve_card_vs_cpu": {"equal": equal, "max_abs": worst, "limit": limit,
                               "cpu_solve_s": cpu_solve_s},
-        "solve_trace": solve_trace,
+        "solve_trace": solve_trace, "block_launches": block_launches,
+        "block_ab": block_ab, "block_row": block_row,
         "kernel_checks": [{k: r[k] for k in ("call", "max_abs_err", "rel_err", "tol")}
                           for r in kernel_checks],
         "ppl": ppls, "ppl_d_ln": d_ln, "generate": gen_res, "serve": serve,
@@ -3949,8 +4119,8 @@ def main() -> int:
     per_kernel_inner, _, probe_counts = phase_w4_inner(torch, device, w4)
     per_kernel.update(per_kernel_inner)
 
-    header(f"== phase 26: {GPTQ_LAYERS}-layer 7B-width GPTQ W4 calibration, perplexity, "
-           "generate and serve")
+    header(f"== phase 26: {GPTQ_LAYERS}-layer 7B-width GPTQ W4 calibration through the block "
+           "kernel, the kernel vs the plain loop, perplexity, generate and serve")
     gptq = phase_gptq(torch, device, cfg, card)
 
     header("== phase 25: report")
@@ -3976,7 +4146,7 @@ def main() -> int:
                 **names_of(serve_fp6_a, (dm.LUT6A16,)),
                 dm.W4_INNER_F32: probe_counts[dm.W4_INNER_F32],
                 dm.W4_INNER_MAGIC: probe_counts[dm.W4_INNER_MAGIC]}
-    rows = kernel_rows(per_kernel, launches, stacked)
+    rows = kernel_rows(per_kernel, launches, stacked) + [gptq["block_row"]]
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def report(key, run, drop=()):
@@ -4032,7 +4202,8 @@ def main() -> int:
     report("serve_w4_tp_d1", tp_one["serve"])
     report("generate_w4_tp_d1_scan", tp_one["scan_generate"], ("launches",))
     report("tp_two_ranks", tp_two)
-    report("gptq_w4", {k: v for k, v in gptq.items() if k not in ("generate", "serve")})
+    report("gptq_w4", {k: v for k, v in gptq.items()
+                       if k not in ("generate", "serve", "block_row")})
     report("generate_gptq_w4", gptq["generate"], ("launches",))
     report("serve_gptq_w4", gptq["serve"])
     print(card)

@@ -25,7 +25,7 @@ KERNEL_SOURCES = ("w4_matmul", "w4_matmul_prenorm", "w8_matmul", "w8_matmul_pren
                   "w4a8_matmul", "w4a16_matmul", "w8a8_matmul", "w8a16_matmul",
                   "w3_matmul", "w3a8_matmul", "w3a16_matmul",
                   "lut4_matmul", "lut4a16_matmul", "lut8_matmul",
-                  "lut6_matmul", "lut6a16_matmul", "w4_inner_matmul")
+                  "lut6_matmul", "lut6a16_matmul", "w4_inner_matmul", "gptq_block")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -7,9 +7,16 @@ quantized through the upper Cholesky factor of the damped inverse Hessian
 Blocks of ``blocksize`` columns are solved with a rank-1 update a column;
 one product per block carries the block's errors to the columns after it.
 
-The column loop is eager torch on the device of the weight: about a dozen
-small operations a column, each one dispatched by the host.  The JAX
-package had no Pallas kernel here either (its loop was a ``lax.fori_loop``).
+A block's column loop is one function, :func:`gptq_block`: on a CUDA
+tensor one launch of the hand-written kernel ``csrc/gptq_block.cu``
+(``ops/kernels/gptq_block.py``), which takes the place of the JAX
+package's compiled ``lax.fori_loop`` (it had no Pallas kernel here); on a
+CPU tensor its plain version, :func:`gptq_block_plain`, about a dozen
+small torch operations a column.  The damped factor, dead columns,
+act-order, the static groups' tables and the cross-block product stay in
+torch around it, as the JAX package keeps them outside its loop.
+:func:`solve_gptq` takes the block function as an argument, so that the
+plain loop can be run on the card beside the kernel.
 
 Behaviour kept from the JAX package (held against ``tests/golden/gptq.npz``
 and the JAX solver): dead columns, the damped Cholesky inverse's upper
@@ -23,10 +30,12 @@ solver runs in TF32 on the card, whatever the caller has set.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.kernels import gptq_block as gb
 
 
 class GPTQResult(NamedTuple):
@@ -157,6 +166,104 @@ def drop_dead_columns(w: torch.Tensor, h: torch.Tensor) -> Tuple[torch.Tensor, t
     return torch.where(dead[None, :], 0.0, w), h
 
 
+class ColumnLoop(NamedTuple):
+    """What a block's column loop reads and writes beside ``w`` and the
+    factor, for every block of one solve (the JAX ``fori_loop``'s carry).
+
+    Column ``col``'s grid params are column ``g`` of ``scales`` and
+    ``zeros`` (``[rows, n_groups]`` f32), ``g = gidx[col]`` (int32
+    ``[cols]``: static groups under act-order) or ``col // gsize``.  With
+    ``refresh`` (groups, not static) the loop finds them itself at each
+    group boundary, from the outer ``w`` as it was before the block, and
+    writes them there; otherwise it only reads them.  TrueOBS sets
+    ``losses`` (and, with ``sparseout``, ``outliers`` and ``thresh``) and
+    may set ``nearest``.
+    """
+
+    scales: torch.Tensor
+    zeros: torch.Tensor
+    gidx: Optional[torch.Tensor]
+    gsize: int
+    refresh: bool
+    bits: int
+    sym: bool
+    mse: bool
+    trits: bool
+    q: torch.Tensor       # [rows, cols] f32, written
+    codes: torch.Tensor   # [rows, cols] f32, written
+    losses: Optional[torch.Tensor] = None    # [rows, cols] f32, written
+    outliers: Optional[torch.Tensor] = None  # [rows, cols] bool, written
+    thresh: Optional[torch.Tensor] = None    # [rows] f32: 0.25 * scale^2
+    nearest: bool = False
+
+
+BlockFn = Callable[[torch.Tensor, torch.Tensor, int, int, ColumnLoop], torch.Tensor]
+
+
+def gptq_block_plain(w: torch.Tensor, hinv: torch.Tensor, i1: int, i2: int,
+                     loop: ColumnLoop) -> torch.Tensor:
+    """Plain PyTorch version of one block's column loop (columns ``i1`` to
+    ``i2`` of ``w`` ``[rows, cols]``, with the upper factor ``hinv``),
+    on any device: writes the block's columns of ``loop.q``,
+    ``loop.codes`` (and the TrueOBS outputs), the group params found in
+    it, and returns the block's scaled errors ``err1`` ``[rows, i2 -
+    i1]``.  ``w`` is read, never written."""
+    gb.PLAIN_CALLS[gb.GPTQ_BLOCK] += 1
+    cols = w.shape[1]
+    gsize = loop.gsize
+    maxq = float(2**loop.bits - 1)
+    w1 = w[:, i1:i2].clone()
+    err1 = torch.zeros_like(w1)
+    hinv1 = hinv[i1:i2, i1:i2]
+    groups: List[int] = (loop.gidx[i1:i2].tolist() if loop.gidx is not None
+                         else [col // gsize for col in range(i1, i2)])
+    scale = zero = None
+    g_now = -1
+    for i in range(i2 - i1):
+        col = i1 + i
+        g = groups[i]
+        if loop.refresh and col % gsize == 0:
+            # the outer w, as it was before this block; the JAX package's
+            # dynamic_slice keeps the slice inside the matrix, so a last
+            # partial group reads the last gsize columns
+            start = min(col, cols - gsize)
+            scale, zero = _find_params(w[:, start:start + gsize], loop.bits, loop.sym,
+                                       loop.mse, trits=loop.trits)
+            loop.scales[:, g] = scale
+            loop.zeros[:, g] = zero
+        elif g != g_now:
+            scale, zero = loop.scales[:, g], loop.zeros[:, g]
+        g_now = g
+        wcol = w1[:, i]
+        d = hinv1[i, i]
+        qcol, code = _quantize_col(wcol, scale, zero, maxq, trits=loop.trits)
+        if loop.losses is not None:
+            loss = (wcol - qcol) ** 2 / d**2
+            if loop.thresh is not None:
+                sel = (wcol - qcol) ** 2 > loop.thresh
+                loss = torch.where(sel, 0.0, loss)
+                qcol = torch.where(sel, wcol, qcol)
+                loop.outliers[:, col] = sel
+            loop.losses[:, col] = loss / 2.0  # fast_trueobs.py:147
+        err = (wcol - qcol) / d
+        if not loop.nearest:
+            # the update includes column i itself, as the JAX package's mask
+            w1[:, i:] -= err[:, None] * hinv1[i, i:][None, :]
+        loop.q[:, col] = qcol
+        loop.codes[:, col] = code
+        err1[:, i] = err
+    return err1
+
+
+def gptq_block(w: torch.Tensor, hinv: torch.Tensor, i1: int, i2: int,
+               loop: ColumnLoop) -> torch.Tensor:
+    """One block's column loop: a CPU tensor takes :func:`gptq_block_plain`,
+    a CUDA tensor one launch of ``csrc/gptq_block.cu`` (or raises)."""
+    if w.device.type == "cpu":
+        return gptq_block_plain(w, hinv, i1, i2, loop)
+    return gb.gptq_block_kernel(w, hinv, i1, i2, loop)
+
+
 def gptq_quantize(
     w: torch.Tensor,  # [rows, cols] -- [out, in] orientation
     h: torch.Tensor,  # [cols, cols] accumulated Hessian
@@ -173,8 +280,29 @@ def gptq_quantize(
 ) -> GPTQResult:
     """Solve one linear: the quantized weights, codes and grid params, on
     ``w``'s device.  ``groupsize`` -1 is one group per row."""
+    return solve_gptq(w, h, gptq_block, bits=bits, sym=sym, groupsize=groupsize,
+                      blocksize=blocksize, percdamp=percdamp, actorder=actorder,
+                      static_groups=static_groups, mse=mse, trits=trits)
+
+
+def solve_gptq(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    block: BlockFn,
+    *,
+    bits: int = 4,
+    sym: bool = False,
+    groupsize: int = -1,
+    blocksize: int = 128,
+    percdamp: float = 0.01,
+    actorder: bool = False,
+    static_groups: bool = False,
+    mse: bool = False,
+    trits: bool = False,
+) -> GPTQResult:
+    """:func:`gptq_quantize` with ``block`` solving each block's columns
+    (:func:`gptq_block`, or :func:`gptq_block_plain` on any device)."""
     rows, cols = w.shape
-    maxq = float(2**bits - 1)
     w, h = drop_dead_columns(w.to(torch.float32), h.to(torch.float32))
 
     # a group wider than the matrix is one group over all columns (torch
@@ -185,67 +313,39 @@ def gptq_quantize(
     if static_groups:  # scales fixed from the weights before any update
         params = [_find_params(w[:, g * gsize:(g + 1) * gsize], bits, sym, mse, trits=trits)
                   for g in range(n_groups)]
-        sg_scales = torch.stack([s for s, _ in params], dim=1)
-        sg_zeros = torch.stack([z for _, z in params], dim=1)
+        scales = torch.stack([s for s, _ in params], dim=1)
+        zeros = torch.stack([z for _, z in params], dim=1)
 
-    perm = None
+    perm = gidx = None
     if actorder:
         perm = torch.argsort(-torch.diagonal(h), stable=True)
         w = w[:, perm]
         h = h[perm][:, perm]
-        perm_host = perm.tolist()
+        if static_groups:
+            gidx = torch.div(perm, gsize, rounding_mode="floor").to(torch.int32)
 
     hinv = damped_hinv_upper(h, percdamp)
     del h
 
-    if groupsize == -1 and not static_groups:
+    refresh = groupsize != -1 and not static_groups
+    if refresh:
+        scales = w.new_zeros((rows, n_groups))
+        zeros = w.new_zeros((rows, n_groups))
+    elif not static_groups:
         scale, zero = _find_params(w, bits, sym, mse, trits=trits)
-    else:
-        scale = zero = None
-    q_out = torch.zeros_like(w)
-    codes_out = torch.zeros_like(w)
-    if static_groups:
-        scales_out, zeros_out = sg_scales, sg_zeros
-    else:
-        scales_out = w.new_zeros((rows, n_groups))
-        zeros_out = w.new_zeros((rows, n_groups))
+        scales, zeros = scale[:, None].contiguous(), zero[:, None].contiguous()
+    loop = ColumnLoop(scales, zeros, gidx, gsize, refresh, bits, sym, mse, trits,
+                      torch.zeros_like(w), torch.zeros_like(w))
 
     for i1 in range(0, cols, blocksize):
         i2 = min(i1 + blocksize, cols)
-        w1 = w[:, i1:i2].clone()
-        err1 = torch.zeros_like(w1)
-        hinv1 = hinv[i1:i2, i1:i2]
-        for i in range(i2 - i1):
-            col = i1 + i
-            if groupsize != -1 and not static_groups:
-                if col % gsize == 0:
-                    # the outer w, as it was before this block; the JAX
-                    # package's dynamic_slice keeps the slice inside the
-                    # matrix, so a last partial group reads the last gsize
-                    # columns
-                    start = min(col, cols - gsize)
-                    scale, zero = _find_params(w[:, start:start + gsize], bits, sym, mse,
-                                               trits=trits)
-                    scales_out[:, col // gsize] = scale
-                    zeros_out[:, col // gsize] = zero
-            elif static_groups:
-                g = (perm_host[col] if actorder else col) // gsize
-                scale, zero = sg_scales[:, g], sg_zeros[:, g]
-            wcol = w1[:, i]
-            qcol, code = _quantize_col(wcol, scale, zero, maxq, trits=trits)
-            err = (wcol - qcol) / hinv1[i, i]
-            # the update includes column i itself, as the JAX package's mask
-            w1[:, i:] -= err[:, None] * hinv1[i, i:][None, :]
-            q_out[:, col] = qcol
-            codes_out[:, col] = code
-            err1[:, i] = err
+        err1 = block(w, hinv, i1, i2, loop)
         with no_tf32():  # the block's errors to the columns after it
             w[:, i2:] -= err1 @ hinv[i1:i2, i2:]
 
-    if groupsize == -1 and not static_groups:
-        scales_out, zeros_out = scale[:, None], zero[:, None]
+    q_out, codes_out = loop.q, loop.codes
     if actorder:
         invperm = torch.argsort(perm)
         q_out = q_out[:, invperm]
         codes_out = codes_out[:, invperm]
-    return GPTQResult(q_out, codes_out.to(torch.int32), scales_out, zeros_out, perm)
+    return GPTQResult(q_out, codes_out.to(torch.int32), scales, zeros, perm)

@@ -14,7 +14,9 @@ plain GPTQ it offers:
 
 The grid params are found once, per row, on the whole matrix
 (fast_trueobs.py:72-73): no group refresh.  The skeleton is the GPTQ
-solver's (:mod:`.gptq`).
+solver's (:mod:`.gptq`), and so is the block's column loop: the same
+kernel, ``csrc/gptq_block.cu``, in its TrueOBS mode on a CUDA tensor, and
+:func:`.gptq.gptq_block_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -23,7 +25,15 @@ from typing import NamedTuple
 
 import torch
 
-from .gptq import _find_params, _quantize_col, damped_hinv_upper, drop_dead_columns, no_tf32
+from .gptq import (
+    BlockFn,
+    ColumnLoop,
+    _find_params,
+    damped_hinv_upper,
+    drop_dead_columns,
+    gptq_block,
+    no_tf32,
+)
 
 
 class TrueOBSResult(NamedTuple):
@@ -49,50 +59,51 @@ def trueobs_quantize(
     nearest: bool = False,
 ) -> TrueOBSResult:
     """Solve one linear with per-row grid params, on ``w``'s device."""
-    rows, cols = w.shape
-    maxq = float(2**bits - 1)
+    return solve_trueobs(w, h, gptq_block, bits=bits, sym=sym, blocksize=blocksize,
+                         percdamp=percdamp, mse=mse, sparseout=sparseout, nearest=nearest)
+
+
+def solve_trueobs(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    block: BlockFn,
+    *,
+    bits: int = 4,
+    sym: bool = False,
+    blocksize: int = 128,
+    percdamp: float = 0.01,
+    mse: bool = False,
+    sparseout: bool = False,
+    nearest: bool = False,
+) -> TrueOBSResult:
+    """:func:`trueobs_quantize` with ``block`` solving each block's columns
+    (:func:`.gptq.gptq_block`, or :func:`.gptq.gptq_block_plain` on any
+    device)."""
+    cols = w.shape[1]
     w = w.to(torch.float32)
     # the params come from the weights before the dead columns are zeroed
     # (fast_trueobs.py:72-73, then :93-95)
     scale, zero = _find_params(w, bits, sym, mse)
-    outlier_thresh = 0.25 * scale**2  # fast_trueobs.py:108
     w, h = drop_dead_columns(w, h.to(torch.float32))
     hinv = damped_hinv_upper(h, percdamp)
     del h
 
-    q_out = torch.zeros_like(w)
-    codes_out = torch.zeros_like(w)
-    outlier_out = torch.zeros(w.shape, dtype=torch.bool, device=w.device)
-    losses_out = torch.zeros_like(w)
+    outliers = torch.zeros(w.shape, dtype=torch.bool, device=w.device)
+    loop = ColumnLoop(
+        scale[:, None].contiguous(), zero[:, None].contiguous(), None, cols, False, bits, sym,
+        mse, False, torch.zeros_like(w), torch.zeros_like(w), losses=torch.zeros_like(w),
+        outliers=outliers if sparseout else None,
+        thresh=0.25 * scale**2 if sparseout else None,  # fast_trueobs.py:108
+        nearest=nearest)
 
     for i1 in range(0, cols, blocksize):
         i2 = min(i1 + blocksize, cols)
-        w1 = w[:, i1:i2].clone()
-        err1 = torch.zeros_like(w1)
-        hinv1 = hinv[i1:i2, i1:i2]
-        for i in range(i2 - i1):
-            col = i1 + i
-            wcol = w1[:, i]
-            d = hinv1[i, i]
-            qcol, code = _quantize_col(wcol, scale, zero, maxq)
-            loss = (wcol - qcol) ** 2 / d**2
-            if sparseout:
-                sel = (wcol - qcol) ** 2 > outlier_thresh
-                loss = torch.where(sel, 0.0, loss)
-                qcol = torch.where(sel, wcol, qcol)
-                outlier_out[:, col] = sel
-            err = (wcol - qcol) / d
-            if not nearest:
-                w1[:, i:] -= err[:, None] * hinv1[i, i:][None, :]
-            q_out[:, col] = qcol
-            codes_out[:, col] = code
-            losses_out[:, col] = loss / 2.0  # fast_trueobs.py:147
-            err1[:, i] = err
+        err1 = block(w, hinv, i1, i2, loop)
         if not nearest:
             with no_tf32():
                 w[:, i2:] -= err1 @ hinv[i1:i2, i2:]
 
     return TrueOBSResult(
-        q_out, codes_out.to(torch.int32), outlier_out, scale, zero, losses_out,
-        outlier_out.to(torch.float32).mean(),
+        loop.q, loop.codes.to(torch.int32), outliers, scale, zero, loop.losses,
+        outliers.to(torch.float32).mean(),
     )

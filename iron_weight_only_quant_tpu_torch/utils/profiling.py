@@ -20,6 +20,7 @@ from typing import Optional
 H100_HBM_GBPS = 3350.0
 H100_BF16_TFLOPS = 989.0
 H100_INT8_TOPS = 1979.0
+H100_F32_TFLOPS = 67.0  # f32 on the CUDA cores, outside the tensor cores
 
 
 def card_line() -> str:

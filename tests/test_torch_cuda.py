@@ -40,6 +40,11 @@ chunks and decode steps do not sync.  The GPTQ solver on the card meets
 3-bit per-channel, 8-bit, with TF32 left on by the caller), and an
 unpadded N = 11008 W4 artifact (GPTQ artifacts carry no ``pad_n_to``)
 goes through ``w4_matmul`` and ``w4_matmul_prenorm`` at M = 1, 8, 512.
+The GPTQ block kernel (``-k gptq_block``) gives the plain block loop's q,
+codes, scales, zeros and errors bit for bit in every mode without ``mse``
+(TrueOBS: its losses and outliers too), on partial blocks and groups,
+11008 rows, and blocks wider than its registers or its shared memory hold;
+``mse`` within the criterion; one launch a block, no plain call.
 The host library quantizes card weights into the card RTN's bytes, an
 f16 checkpoint loads onto the card as on the CPU, ``cli.quantize`` of it
 quantizes on the card into the host library's bytes, and ``EvalLM``
@@ -1740,6 +1745,151 @@ def test_gptq_solver_on_the_card_matches_the_cpu(dev, bits, sym, groupsize):
                      symmetric=sym)
     qt = gptq_result_to_qtensor(res, spec, w.shape[1], w.shape[0])
     assert torch.equal(dequantize_weight(qt).t(), res.q)
+
+
+# The GPTQ block kernel (csrc/gptq_block.cu) against the plain block loop on
+# the card: (rows, cols, solver kwargs).  1100 columns end in a partial
+# block of 76 and a partial group of 76 (g128: refreshed from the last 128
+# columns); g256 spans two blocks, g32 refreshes four times a block; 11008
+# rows are gate's and up's; blocksize 200 keeps the row in global memory
+# and reads its factor there (80.4 KB > 48 KB), 150 keeps the row in
+# global memory and the factor in shared memory.
+GPTQ_BLOCK_CASES = {
+    "g128_partial_block": (256, 1100, dict(bits=4, groupsize=128)),
+    "g256_over_blocks": (256, 1100, dict(bits=4, groupsize=256)),
+    "g32_sym": (256, 1100, dict(bits=4, sym=True, groupsize=32)),
+    "perchannel_w3": (256, 1100, dict(bits=3, groupsize=-1)),
+    "w8_g128": (256, 640, dict(bits=8, groupsize=128)),
+    "trits": (256, 640, dict(bits=2, sym=True, groupsize=-1, trits=True)),
+    "static_actorder": (256, 1100, dict(bits=4, groupsize=128, static_groups=True,
+                                        actorder=True)),
+    "static": (256, 640, dict(bits=4, groupsize=64, static_groups=True)),
+    "actorder_perchannel": (256, 640, dict(bits=4, groupsize=-1, actorder=True)),
+    "actorder_g128": (256, 640, dict(bits=4, groupsize=128, actorder=True)),
+    "rows_11008_g128": (11008, 384, dict(bits=4, groupsize=128)),
+    "blocksize_200_global": (128, 600, dict(bits=4, groupsize=128, blocksize=200)),
+    "blocksize_150_smem": (128, 450, dict(bits=4, groupsize=64, blocksize=150)),
+    "blocksize_32": (128, 200, dict(bits=4, groupsize=16, blocksize=32)),
+}
+GPTQ_BLOCK_MSE = {
+    "mse_g128": (256, 1100, dict(bits=4, groupsize=128, mse=True)),
+    "mse_g64_sym_w3": (256, 640, dict(bits=3, sym=True, groupsize=64, mse=True)),
+}
+OBS_BLOCK_CASES = {
+    "plain": dict(bits=4), "nearest": dict(bits=4, nearest=True),
+    "sparseout": dict(bits=2, sparseout=True), "mse_sparseout": dict(bits=3, sparseout=True,
+                                                                   mse=True),
+}
+
+
+def _float_bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_same(got, want):
+    for name, a, b in zip(got._fields, got, want):
+        if torch.is_tensor(a):
+            assert torch.equal(_float_bits(a), _float_bits(b)), name
+        else:
+            assert a is None and b is None, name
+
+
+def _recording(fn, errs):
+    def block(*args):
+        errs.append(fn(*args).clone())
+        return errs[-1]
+    return block
+
+
+@contextlib.contextmanager
+def _tf32(on):
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _gptq_block_solves(dev, rows, cols, kw, solver="gptq"):
+    """(kernel result, plain result, kernel errs, plain errs) of one problem
+    on the card, with exact launches and no plain call on the kernel side;
+    TF32 is left on around the kernel solve (the solver turns it off)."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import gptq_block as gb
+    from iron_weight_only_quant_tpu_torch.quantize import gptq, trueobs
+
+    w, h = _gptq_problem(dev, rows, cols, 11)
+    public, solve = ((gptq.gptq_quantize, gptq.solve_gptq) if solver == "gptq"
+                     else (trueobs.trueobs_quantize, trueobs.solve_trueobs))
+    gb.reset_counts()
+    with _tf32(True):
+        res = public(w, h, **kw)
+    torch.cuda.synchronize()
+    blocks = -(-cols // kw.get("blocksize", 128))
+    assert gb.LAUNCHES == {gb.GPTQ_BLOCK: blocks} and gb.PLAIN_CALLS == {gb.GPTQ_BLOCK: 0}
+    errs_k, errs_p = [], []
+    with _tf32(True):
+        again = solve(w, h, _recording(gptq.gptq_block, errs_k), **kw)
+    plain = solve(w, h, _recording(gptq.gptq_block_plain, errs_p), **kw)
+    torch.cuda.synchronize()
+    assert gb.LAUNCHES == {gb.GPTQ_BLOCK: 2 * blocks}
+    assert gb.PLAIN_CALLS == {gb.GPTQ_BLOCK: blocks}
+    _assert_same(again, res)
+    return res, plain, errs_k, errs_p, w
+
+
+@pytest.mark.parametrize("case", list(GPTQ_BLOCK_CASES))
+def test_gptq_block_kernel_equals_plain(dev, case):
+    """Bit-equal q, codes, scales, zeros and every block's err."""
+    rows, cols, kw = GPTQ_BLOCK_CASES[case]
+    res, plain, errs_k, errs_p, _ = _gptq_block_solves(dev, rows, cols, kw)
+    _assert_same(res, plain)
+    assert len(errs_k) == len(errs_p)
+    for a, b in zip(errs_k, errs_p):
+        assert torch.equal(_float_bits(a), _float_bits(b))
+
+
+@pytest.mark.parametrize("case", list(GPTQ_BLOCK_MSE))
+def test_gptq_block_kernel_mse_meets_the_criterion(dev, case):
+    """The mse shrink search sums over a group in the warp's order: q within
+    tests/test_gptq.py's criterion of the plain loop's."""
+    rows, cols, kw = GPTQ_BLOCK_MSE[case]
+    res, plain, _, _, w = _gptq_block_solves(dev, rows, cols, kw)
+    exact = torch.isclose(res.q, plain.q, rtol=1e-5, atol=1e-7).float().mean().item()
+    assert exact > 0.995, exact
+    assert (res.q - plain.q).abs().max().item() <= 0.3 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("case", list(OBS_BLOCK_CASES))
+def test_gptq_block_kernel_trueobs_equals_plain(dev, case):
+    """TrueOBS: q, codes, outliers, losses (and the params) bit-equal."""
+    kw = OBS_BLOCK_CASES[case]
+    res, plain, _, _, _ = _gptq_block_solves(dev, 256, 1100, kw, solver="trueobs")
+    _assert_same(res, plain)
+    if kw.get("sparseout"):
+        assert res.outliers.any()
+
+
+def test_gptq_block_kernel_refuses_and_raises(dev):
+    """What the kernel does not take raises before a launch; a launch the C
+    entry refuses (a group wider than the matrix) raises with its error."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import gptq_block as gb
+    from iron_weight_only_quant_tpu_torch.quantize.gptq import ColumnLoop
+
+    rows, cols = 64, 96
+    w = torch.randn((rows, cols), device=dev)
+    hinv = torch.eye(cols, device=dev)
+    z = torch.zeros((rows, 1), device=dev)
+    loop = ColumnLoop(z.clone(), z.clone(), None, cols + 1, False, 4, False, False, False,
+                      torch.zeros_like(w), torch.zeros_like(w))
+    gb.reset_counts()
+    with pytest.raises(RuntimeError, match="gptq_block launch failed"):
+        gb.gptq_block_kernel(w, hinv, 0, 32, loop)
+    with pytest.raises(ValueError, match="float32"):
+        gb.gptq_block_kernel(w.double(), hinv, 0, 32, loop._replace(gsize=cols))
+    with pytest.raises(ValueError, match="layout"):
+        gb.gptq_block_kernel(w.t().contiguous().t(), hinv, 0, 32, loop._replace(gsize=cols))
+    assert gb.LAUNCHES == {gb.GPTQ_BLOCK: 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -20,14 +20,15 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "iron_weight_only_quant_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "iron_weight_only_quant_tpu")
-# the modules of the CLI, parallel and CUDA-graph slices, which the walk
-# must reach
+# the modules of the CLI, parallel, CUDA-graph and GPTQ-block slices, which
+# the walk must reach
 NEW_MODULES = ("cli.common", "cli.quantize", "cli.generate", "cli.eval_ppl",
                "cli.eval_zeroshot", "cli.sweep", "evals.lm", "evals.metrics",
                "evals.lm_eval_adapter", "evals.zeroshot.base", "evals.zeroshot.tasks",
                "models.convert_hf", "models.chat", "utils.results_io", "native.lib",
                "analysis.stats", "analysis.plots", "parallel.mesh", "parallel.sharding",
-               "parallel.tp", "parallel.tp_block", "parallel.pp", "engine.graphs")
+               "parallel.tp", "parallel.tp_block", "parallel.pp", "engine.graphs",
+               "ops.kernels.gptq_block")
 
 
 def _sources():
