@@ -46,6 +46,9 @@ the CLI phase ``CLI_LAYERS`` (2).
    prenorm kernel with one split and with a K-split (no row pass: its row
    factor in the epilogue or the reduce), and an fp8 call with one split,
    and with the pre-norm (its row pass) with one split and with a K-split.
+   So are the W4 inner-loop probe kernel's calls of phase 24, both modes:
+   its tensor-core routes with one split and with a K-split, and its
+   CUDA-core kernel for f32 x.
 3. W4 two-layer model: ``llama_forward`` logits at full 7B width with the
    kernels on the card against the same params through the plain path on
    the CPU, in float32 and in bfloat16.
@@ -283,15 +286,25 @@ the CLI phase ``CLI_LAYERS`` (2).
     A16): ``forwards * (4L + 1)`` launches, no plain call, no route call.
 24. W4 inner-loop probes: both modes of ``w4_inner_matmul`` (``f32``,
     ``magic``) against their plain versions at the five main-path shapes of
-    a W4 g128 model, timed at M=8 and M=256, plus an f32 x and a ``k_pad``
-    artifact (down, 11008 stored as 11264), and untimed at M=8 at each of
-    the probe's three shapes (4096x11264 among them) with the probe's spec;
-    then the probe entry point
+    a W4 g128 model, at M = 1, 8, 9, 64 and 256 (timed at 8 and 256), plus
+    an f32 x (the CUDA-core kernel, at the f32 tolerance), a ``k_pad``
+    artifact (down, 11008 stored as 11264), an unaligned x, a per-channel
+    artifact, and untimed at M=8 at each of the probe's three shapes
+    (4096x11264 among them) with the probe's spec; every call one launch
+    under its mode's name.  bf16 x takes the tensor-core route (magic on
+    the bf16 tensor cores, f32 on the TF32 ones): one device kernel with
+    one split, two with a K-split, the CUDA-core kernel and its reduce for
+    f32 x (``torch.profiler``, read in phase 2).  The accuracy check of the magic decode's
+    fold (ROADMAP B item 4): x of mean 4 and spread 0.1, one-sign weights
+    with zero points 0 and 15, base, magic and f32 against the f32 oracle
+    at M = 8 and 256, maxrels and the share of outputs off the
+    bf16-rounded oracle.  The product kernels' SASS and registers (as in
+    phase 12); then the probe entry point
     (``probes/probe_w4_inner.py``) at its three shapes, its lines and JSON
     passed through, with exact launch counts (``base``, ``f32``, ``magic``,
     ``w4a8``, ``a16``), no plain call, no route call.  Its ``base`` is
     ``w4_matmul`` with bf16 x: the bf16 route of phase 2, so the probe
-    kernel is read against the redesigned W4 kernel.
+    kernel is read on the redesigned W4 kernel's skeleton.
 27. Parallelism (``parallel/``; run after 10f, on phase 4's model): at
     world size 1, ``tp_block=True`` on the 32-layer W4 model, unfused
     (``unfuse_llama``: its fused linears sliced back into their members)
@@ -2455,7 +2468,8 @@ def slab_kernel_report(name):
     A16 slab kernels and the A8 ones (one plane: "A8"), or the bf16 route of
     ``lut4_matmul``, ``lut6_matmul``, ``lut8_matmul``, ``w3_matmul``,
     ``w4_matmul``, ``w4_matmul_prenorm``, ``w8_matmul`` and
-    ``w8_matmul_prenorm`` (the prenorm forms' epilogue norm: "norm"); fails
+    ``w8_matmul_prenorm`` (the prenorm forms' epilogue norm: "norm"), or the
+    two tensor-core routes of ``w4_inner_matmul`` (TF32 counts as HMMA); fails
     unless the product kernels run their products on
     the tensor cores: the int8 ones (IMMA) with no ``__dp4a`` (IDP), the
     bf16 ones (HMMA or HGMMA).  FFMA is counted beside them (a W4 product
@@ -2565,20 +2579,22 @@ def check_bf16_mma_ragged(torch, device, specs, seed):
     torch.cuda.empty_cache()
 
 
-def device_kernels(torch, fn):
-    """The names of the device kernels one call of ``fn`` runs, read by
-    ``torch.profiler`` (None where it records no device event)."""
-    from torch.autograd import DeviceType
+def check_device_kernels(label, fn, want, first=(), row_pass=False):
+    """The device kernels one call of ``fn`` runs, read by ``torch.profiler``
+    (``device_kernel_names``, up to three traces): exactly ``want`` of them,
+    the first named by one of ``first`` where given, and a row pass
+    (``rows_bf16``) among them exactly when ``row_pass``.  Fails where no
+    trace recorded a device event: an empty trace checks nothing."""
+    from iron_weight_only_quant_tpu_torch.utils.profiling import device_kernel_names
 
-    from iron_weight_only_quant_tpu_torch.utils.profiling import trace
-
-    torch.cuda.synchronize()
-    with trace() as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == DeviceType.CUDA]
-    return names or None
+    names = device_kernel_names(fn, want)
+    print(f"  {label}: device kernels {names}", flush=True)
+    if not names:
+        fail(f"{label}: no device event in three profiler traces")
+    if len(names) != want or (first and not any(p in names[0] for p in first)) \
+            or ("rows_bf16" in " ".join(names)) != row_pass:
+        fail(f"{label}: {len(names)} device kernels, want {want} (the first "
+             f"{first[0] if first else 'any'}, row pass {row_pass}): {names}")
 
 
 # (label, M, K, N, pre_norm) of the calls check_route_kernels counts: W4's
@@ -2627,20 +2643,9 @@ def check_route_kernels(torch, device, spec, seed, calls):
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         check_call(torch, f"{kname}:{label}:M={m}", qt, x, *a_runner(pre, None))
         row_pass = pre is not None and kname not in (dm.W4_PRENORM, dm.W8_PRENORM)
-        want = (1 if splits == 1 else 2) + row_pass
-        # a profiler trace can miss a kernel the call ran (its output
-        # held, PERF.md section 7): trace again, at most twice, only when
-        # it recorded fewer kernels than the call must run
-        for _ in range(3):
-            names = device_kernels(torch,
-                                   lambda: dm.fused_quantized_matmul(x, qt, pre_norm=pre))
-            print(f"  {kname}:{label}: {splits} split(s), device kernels {names}", flush=True)
-            if names is None or len(names) >= want:
-                break
-        if names is not None and (len(names) != want
-                                  or ("rows_bf16" in " ".join(names)) != row_pass):
-            fail(f"{kname}:{label}: {len(names)} device kernels, want {want} "
-                 f"(row pass {row_pass}): {names}")
+        check_device_kernels(f"{kname}:{label}: {splits} split(s)",
+                             lambda: dm.fused_quantized_matmul(x, qt, pre_norm=pre),
+                             (1 if splits == 1 else 2) + row_pass, row_pass=row_pass)
         del qt
     torch.cuda.empty_cache()
 
@@ -2866,17 +2871,158 @@ def probe_launches(probe):
     return want
 
 
+# (label, M, K, N, x dtype) of the calls check_inner_kernels counts for each
+# mode: the tensor-core route with one split (the lm_head at decode, o at
+# prefill) and with a K-split (o at decode), and an f32 x on the CUDA-core
+# kernel, whose K-split reduce always runs
+W4_INNER_KERNEL_CALLS = (("route_one_split", DECODE_M, 4096, 32000, "bfloat16"),
+                         ("route_k_split", DECODE_M, 4096, 4096, "bfloat16"),
+                         ("route_one_split", PREFILL_M, 4096, 4096, "bfloat16"),
+                         ("cuda_core_f32x", DECODE_M, 4096, 4096, "float32"))
+INNER_K, INNER_N = 4096, 4096  # the o shape: the per-channel artifact, the accuracy check
+INNER_ACC_RATIO = 1.5  # magic's maxrel at most this times base's
+# magic's share of outputs off the bf16-rounded oracle at most base's plus
+# this, over the accuracy check's four cases together (2.16M outputs): the
+# maxrel is the output's own bf16 rounding and cannot see the fold's lost
+# bits, this share can (each extra bit of f32 sum lost about doubles it)
+INNER_OFF_SLACK = 5e-5
+
+
+def inner_once(torch, label, qt, x, mode):
+    """One call of ``w4_inner_matmul`` in ``mode``: exactly one launch under
+    the mode's name, no plain call, no route call; its output."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import w4_inner_matmul
+
+    name = dm.W4_INNER_MAGIC if mode == "magic" else dm.W4_INNER_F32
+    dm.reset_counts()
+    y = w4_inner_matmul(x, qt, mode)
+    torch.cuda.synchronize()
+    if dm.LAUNCHES != {**{k: 0 for k in dm.LAUNCHES}, name: 1} or any(
+            dm.PLAIN_CALLS.values()) or any(dm.ROUTE_CALLS.values()):
+        fail(f"{name}:{label}: launches {dict(dm.LAUNCHES)}, plain {dict(dm.PLAIN_CALLS)}")
+    return y
+
+
+def check_inner_kernels(torch, device, spec, seed):
+    """Per mode and call of ``W4_INNER_KERNEL_CALLS``: the device kernels one
+    ``w4_inner_matmul`` call runs, read by ``torch.profiler``: on the route
+    its mode's product kernel (``wa_slab_mma_kernel`` of its layout), alone
+    with one split, then the reduce with a K-split; for f32 x the CUDA-core
+    kernel and its reduce.  Run in phase 2, beside ``check_route_kernels``:
+    in phase 24, after the profiled serves, every such trace came back
+    empty on the H100."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import MODES, w4_inner_matmul
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sm = torch.cuda.get_device_properties(device).multi_processor_count
+    for label, m, k, n, dtype in W4_INNER_KERNEL_CALLS:
+        qt = make_artifact(torch, gen, spec, k, (n,), device)[0]
+        x = torch.randn((m, k), generator=gen, device=device).to(getattr(torch, dtype))
+        route = dtype == "bfloat16"
+        if dm.bf16_mma_route(qt, x.dtype) != route:
+            fail(f"w4_inner:{label}: route rule {not route}")
+        for mode in MODES:
+            name = dm.W4_INNER_MAGIC if mode == "magic" else dm.W4_INNER_F32
+            if route:
+                layout = dm.W4_INNER_MMA[name]
+                splits = dm.plan_slab_splits(m, qt.qweight.shape[1], k // 2, layout, sm)[1]
+                if (splits == 1) != label.endswith("one_split"):
+                    fail(f"{name}:{label}: {splits} splits")
+                lid = dm.SLAB_LAYOUT_IDS[layout]
+                product = (f"wa_slab_mma_kernel<{lid},", f"wa_slab_mma_kernelILi{lid}E")
+                want = 1 if splits == 1 else 2
+            else:
+                product, want = ("w4_inner_partial_kernel",), 2
+            inner_once(torch, label, qt, x, mode)
+            check_device_kernels(f"{name}:{label}:M={m}",
+                                 lambda: w4_inner_matmul(x, qt, mode), want, product)
+        del qt
+    torch.cuda.empty_cache()
+
+
+def inner_accuracy(torch, device, gen):
+    """The accuracy check of folding the W4 bf16 route's 128 into the zero
+    point (the magic decode): x of one sign with a mean far above its
+    spread (``4 + 0.1 N(0, 1)``, bf16), so that each group's sum of x is
+    large, against one-sign weights whose zero points are all 0 and all 15;
+    base (``w4_matmul``'s bf16 route), magic and f32, each against the f32
+    oracle (``dequantize_weight`` to f32, an f32 matmul with TF32 off), at
+    M = 8 and 256: each maxrel at most ``REL_TOL_BF16`` and magic's within
+    ``INNER_ACC_RATIO`` of base's; over the four cases together, magic's
+    share of outputs that are not the oracle rounded to bf16 at most base's
+    plus ``INNER_OFF_SLACK``."""
+    from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
+    from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import w4_inner_matmul
+    from iron_weight_only_quant_tpu_torch.probes import probe_w4_inner as probe
+    from iron_weight_only_quant_tpu_torch.quantize import quantize_tensor
+
+    k, n = INNER_K, INNER_N
+    out = []
+    off_count = {"base": 0, "magic": 0, "f32": 0}
+    for zero, sign in ((0, 1.0), (15, -1.0)):
+        w = torch.randn((k, n), generator=gen, device=device).abs() * (0.02 * sign)
+        qt = quantize_tensor(w, probe.SPEC)
+        if not bool((qt.zeros == zero).all()):
+            fail(f"accuracy check: the artifact's zero points are not all {zero}")
+        w_ref = dequantize_weight(qt, torch.float32)
+        for m in (DECODE_M, PREFILL_M):
+            x = (4.0 + 0.1 * torch.randn((m, k), generator=gen, device=device)).to(torch.bfloat16)
+            ref = x.float() @ w_ref
+            ys = {"base": dm.fused_quantized_matmul(x, qt),
+                  "magic": w4_inner_matmul(x, qt, "magic"),
+                  "f32": w4_inner_matmul(x, qt, "f32")}
+            torch.cuda.synchronize()
+            rel = {tag: ((y.float() - ref).abs().max() / ref.abs().max()).item()
+                   for tag, y in ys.items()}
+            # below the output's rounding: the outputs that are not the
+            # oracle rounded to bf16
+            ref_bf = ref.to(torch.bfloat16)
+            off = {tag: int((y != ref_bf).sum().item()) for tag, y in ys.items()}
+            for tag in off:
+                off_count[tag] += off[tag]
+            rec = {"zero": zero, "M": m, "K": k, "N": n, "maxrel": rel,
+                   "magic_over_base": rel["magic"] / max(rel["base"], 1e-30),
+                   "share_not_rounded_oracle": {t: c / (m * n) for t, c in off.items()}}
+            print("  accuracy " + json.dumps(rec), flush=True)
+            if max(rel.values()) > REL_TOL_BF16 or \
+                    rel["magic"] > INNER_ACC_RATIO * rel["base"]:
+                fail(f"accuracy check, zero {zero}, M={m}: {rel}")
+            out.append(rec)
+        del qt, w, w_ref
+    torch.cuda.empty_cache()
+    total = 2 * (DECODE_M + PREFILL_M) * n
+    share = {tag: c / total for tag, c in off_count.items()}
+    print("  accuracy, four cases: share of outputs off the bf16-rounded oracle "
+          + json.dumps(share) + f"; magic at most base + {INNER_OFF_SLACK}", flush=True)
+    if share["magic"] > share["base"] + INNER_OFF_SLACK:
+        fail(f"accuracy check: magic's share off the rounded oracle {share}")
+    out.append({"four_cases_share_not_rounded_oracle": share})
+    return out
+
+
 def phase_w4_inner(torch, device, spec):
     """Both modes of ``w4_inner_matmul`` against their plain versions at the
-    main-path shapes and at the probe's own shapes; then the probe entry
-    point's run (as its ``main`` calls it) on its main path, the launch
-    counters zeroed before it and read after it.  The kernel
-    records of the qkv and gate_up shapes count no launch a decode step: as
-    row 1, the probe kernel stands for o, down and the lm_head."""
+    main-path shapes (M = 1, 8, 9, 64 and 256; timed at 8 and 256) and at
+    the probe's own shapes, each call with exact launches: bf16 x on the
+    tensor-core route (one and several K-splits, ``n_pad``, ``k_pad``, a
+    per-channel side, an unaligned x), f32 x on the CUDA-core kernel (the
+    device kernels of a call are read in phase 2: ``check_inner_kernels``);
+    the accuracy check; the SASS and registers of the product kernels; then
+    the probe entry point's run (as its ``main``
+    calls it) on its main path, the launch counters zeroed before it and
+    read after it.  The kernel records of the qkv and gate_up shapes count
+    no launch a decode step: as row 1, the probe kernel stands for o, down
+    and the lm_head."""
+    from iron_weight_only_quant_tpu_torch.config import PER_CHANNEL, QuantSpec
     from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
     from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import (
         MODES,
+        SOURCE,
         w4_inner_matmul,
         w4_inner_plain,
     )
@@ -2888,18 +3034,27 @@ def phase_w4_inner(torch, device, spec):
     names = {"f32": dm.W4_INNER_F32, "magic": dm.W4_INNER_MAGIC}
     runners = {mode: (lambda x, qt, md=mode: w4_inner_matmul(x, qt, md),
                       lambda x, qt, md=mode: w4_inner_plain(x, qt, md)) for mode in MODES}
+
+    def check(label, qt, x, mode, w_lib=None):
+        inner_once(torch, label, qt, x, mode)
+        return check_call(torch, f"{names[mode]}:{label}", qt, x, *runners[mode], w_lib)
+
     per_kernel = {}
     for name, k, widths, prenorm, per_step in MAIN_SHAPES:
         qt, spans = make_artifact(torch, gen, spec, k, widths, device)
+        if not dm.bf16_mma_route(qt, torch.bfloat16):
+            fail(f"w4_inner:{name}: not on the tensor-core route")
         w_lib = dequantize_weight(qt, torch.bfloat16)
         for mode in MODES:
-            for m in (DECODE_M, PREFILL_M):
+            for m in (1, DECODE_M, 9, 64, PREFILL_M):
                 x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-                rec = check_call(torch, f"{names[mode]}:{name}:M={m}", qt, x,
-                                 *runners[mode], w_lib)
-                rec.update(kernel=names[mode], shape=name, per_step=0 if prenorm else per_step,
-                           stored_n=qt.qweight.shape[-1], spans=spans)
-                per_kernel.setdefault(names[mode], []).append(rec)
+                timed = m in (DECODE_M, PREFILL_M)
+                rec = check(f"{name}:M={m}", qt, x, mode, w_lib if timed else None)
+                if timed:
+                    rec.update(kernel=names[mode], shape=name,
+                               per_step=0 if prenorm else per_step,
+                               stored_n=qt.qweight.shape[-1], spans=spans)
+                    per_kernel.setdefault(names[mode], []).append(rec)
         del qt, w_lib
         torch.cuda.empty_cache()
 
@@ -2907,11 +3062,23 @@ def phase_w4_inner(torch, device, spec):
     qt_kp = make_artifact(torch, gen, spec, EXTRA_K, (EXTRA_N,), device, pad_k_to=1024)[0]
     if qt_kp.k_pad == 0:
         fail("the k_pad artifact has no padding")
+    qt_pc = make_artifact(torch, gen, QuantSpec(fmt="int", bits=4, group_size=PER_CHANNEL,
+                                                symmetric=False), INNER_K, (INNER_N,), device)[0]
     x = torch.randn((DECODE_M, EXTRA_K), generator=gen, device=device)
+    xu = torch.empty((DECODE_M * EXTRA_K + 1,), dtype=torch.bfloat16, device=device)[1:]
+    xu = xu.view(DECODE_M, EXTRA_K)
+    xu.copy_(x)
+    if not dm.x_needs_copy(xu, EXTRA_K // 2):
+        fail("the unaligned x is read in place")
     for mode in MODES:
-        check_call(torch, f"{names[mode]}:f32", qt, x, *runners[mode])
-        check_call(torch, f"{names[mode]}:k_pad", qt_kp, x.to(torch.bfloat16), *runners[mode])
-    del qt, qt_kp
+        check("f32", qt, x, mode)  # the CUDA-core kernel, at the f32 tolerance
+        check("k_pad", qt_kp, x.to(torch.bfloat16), mode)
+        check("unaligned_x", qt, xu, mode)
+        for m in (DECODE_M, 64):
+            check(f"per_channel:M={m}", qt_pc,
+                  torch.randn((m, INNER_K), generator=gen, device=device).to(torch.bfloat16),
+                  mode)
+    del qt, qt_kp, qt_pc
     torch.cuda.empty_cache()
 
     for k, n in probe.SHAPES:  # the probe's own shapes, as it quantizes them
@@ -2919,14 +3086,17 @@ def phase_w4_inner(torch, device, spec):
                              probe.SPEC)
         x = torch.randn((probe.M, k), generator=gen, device=device).to(torch.bfloat16)
         for mode in MODES:
-            check_call(torch, f"{names[mode]}:probe:{k}x{n}", qt, x, *runners[mode])
+            check(f"probe:{k}x{n}", qt, x, mode)
         del qt
     torch.cuda.empty_cache()
+
+    accuracy = inner_accuracy(torch, device, gen)
+    slab_kernel_report(SOURCE)
 
     print(f"  -- the probe entry point at {len(probe.SHAPES)} shapes, M={probe.M}, "
           f"{probe.ROUNDS} rounds of {probe.ITERS} timed calls; errors and times read "
           "against its base, w4_matmul on its bf16 tensor-core route (the redesigned W4 "
-          "kernel)", flush=True)
+          "kernel); f32 and magic on their tensor-core routes", flush=True)
     torch.cuda.synchronize()
     dm.reset_counts()
     res = probe.run(device, out=lambda line: print("  " + line, flush=True))
@@ -2937,6 +3107,10 @@ def phase_w4_inner(torch, device, spec):
         for tag, rec in shape["variants"].items():
             if not (0 < rec["us"] < math.inf) or rec["maxrel"] > REL_TOL_BF16:
                 fail(f"probe {shape['k']}x{shape['n']} {tag}: {rec}")
+    for tag in ("base", "magic", "f32"):
+        if not any(k.startswith(f"{tag}-mma/NT=") and c["HMMA"] for k, c in res["sass"].items()):
+            fail(f"probe: no {tag}-mma product kernel with HMMA in its SASS: {res['sass']}")
+    res["accuracy"] = accuracy
     return per_kernel, res, launches
 
 
@@ -3819,6 +3993,9 @@ def main() -> int:
           flush=True)
     check_route_kernels(torch, device, w8, 22, W8_ROUTE_CALLS)
     check_route_kernels(torch, device, fp8, 24, LUT8_ROUTE_CALLS)
+    print("  -- device kernels a call of the W4 inner-loop probe kernel (phase 24's), both "
+          "modes: the tensor-core routes, and the CUDA-core kernel for f32 x", flush=True)
+    check_inner_kernels(torch, device, w4, 26)
     slab_kernel_report(dm.W4)
     slab_kernel_report(dm.W4_PRENORM)
 

@@ -10,10 +10,13 @@ namespace iwoq {
 // affine; the nib4 (fp4) and nq42 (fp6) LUT layouts; kLut4B, kLut6B, kS21B,
 // kNib4B, kByteB and kLut8B are the nib4 LUT, nq42 LUT, s21, affine nib4,
 // affine byte and byte LUT (fp8) layouts with bf16 activations and bf16
-// products (the slab kernel's bf16 family)
+// products (the slab kernel's bf16 family); kNib4M and kNib4T are the two
+// decodes of the W4 inner-loop probe on the affine nib4 packing, bf16 x:
+// "magic" (codes left as bf16(128 + q), the 128 folded into the zero
+// point; bf16 products) and "f32" (codes converted to f32, TF32 products)
 enum Layout {
   kNib4 = 0, kByte = 1, kS21 = 2, kLut4 = 3, kLut6 = 4, kLut4B = 5, kLut6B = 6, kS21B = 7,
-  kNib4B = 8, kByteB = 9, kLut8B = 10
+  kNib4B = 8, kByteB = 9, kLut8B = 10, kNib4M = 11, kNib4T = 12
 };
 
 constexpr int kSlabWin = 32;  // slab rows a window: one int8 MMA's K
@@ -28,9 +31,10 @@ constexpr int kSlabWin = 32;  // slab rows a window: one int8 MMA's K
 // 128, two blocks an SM (each barrier stalls only its own block); wider
 // token tiles: one block an SM (their accumulators need more registers a
 // thread; all but s21 then take 2 tiles a warp, BN = 64).  The bf16 family
-// (kLut4B, kLut6B, kS21B, kNib4B, kByteB, kLut8B) has the decode tile of its
-// packed layout and one wide tile, the warps of a slab each their own
-// channels, P = 1, so a block decodes each weight once: NT = 8 (64 tokens)
+// (kLut4B, kLut6B, kS21B, kNib4B, kByteB, kLut8B, and the probe's kNib4M,
+// kNib4T) has the decode tile of its packed layout and one wide tile, the
+// warps of a slab each their own channels, P = 1, so a block decodes each
+// weight once: NT = 8 (64 tokens)
 // with 2 tiles a warp (BN = 128 nib4, LUT and affine, 64 nq42, 256 byte:
 // its one slab takes all eight warps, and the split plan's K-split fills
 // the SMs where N leaves too few blocks; on the H100 this beat four warps a
@@ -41,11 +45,12 @@ constexpr int kSlabWin = 32;  // slab rows a window: one int8 MMA's K
 template <int LAYOUT, int NT>
 struct SlabTile {
   static constexpr bool BF = LAYOUT == kLut4B || LAYOUT == kLut6B || LAYOUT == kS21B ||
-                             LAYOUT == kNib4B || LAYOUT == kByteB || LAYOUT == kLut8B;
+                             LAYOUT == kNib4B || LAYOUT == kByteB || LAYOUT == kLut8B ||
+                             LAYOUT == kNib4M || LAYOUT == kNib4T;
   static constexpr int L = LAYOUT == kLut4B ? kLut4   // the packing
                          : LAYOUT == kLut6B ? kLut6
                          : LAYOUT == kS21B ? kS21
-                         : LAYOUT == kNib4B ? kNib4
+                         : LAYOUT == kNib4B || LAYOUT == kNib4M || LAYOUT == kNib4T ? kNib4
                          : LAYOUT == kByteB || LAYOUT == kLut8B ? kByte : LAYOUT;
   static constexpr int S = L == kS21 ? 8 : L == kLut6 ? 4 : L == kLut4 || L == kNib4 ? 2 : 1;
   static constexpr int A = L == kS21 || L == kLut6 ? 3 : 1;  // packed arrays
@@ -90,7 +95,8 @@ constexpr int slab_tile_nt(int M, int layout, int planes = 2) {
   return M <= 8 ? 1
          : layout == kS21 ? (planes == 1 ? 4 : 2)
          : layout == kLut4B || layout == kLut6B || layout == kNib4B || layout == kByteB ||
-                   layout == kLut8B || ((layout == kNib4 || layout == kByte) && planes == 1)
+                   layout == kLut8B || layout == kNib4M || layout == kNib4T ||
+                   ((layout == kNib4 || layout == kByte) && planes == 1)
                ? 8 : 4;
 }
 

@@ -17,31 +17,41 @@
 //          signed view v = (int8)(byte & 0xF0) = 16 * (code - 8)
 //          (mult 1/16, zshift 8): one int -> float convert per code.
 //   magic: v = bf16(0x4300 | code) = 128 + code exactly (the code fits the
-//          7-bit mantissa), mult 1, zshift -128, for both halves: one lop3
-//          per pair of codes, (w & 0x000F000F) | 0x43004300 for low
-//          nibbles and ((w >> 4) & 0x000F000F) ^ 0x43084308 for high ones
-//          (the XOR undoes the MSB flip), then a shift or a mask widens each
-//          bf16 lane to f32.  No arithmetic convert.  The +128 cancels in
-//          the epilogue; with the bias at 128 (as the TPU kernel has it)
-//          the correction costs about 7 bits of the f32 sum, where the f32
-//          trick's 2^23 would cost all 24.
+//          7-bit mantissa), mult 1, zshift -128, for both halves: no
+//          arithmetic convert.  The +128 cancels in the epilogue; with the
+//          bias at 128 (as the TPU kernel has it) the correction costs
+//          about 7 bits of the f32 sum, where the f32 trick's 2^23 would
+//          cost all 24.
 //
 // The TPU kernel kept the high half of "magic" on the mask-and-convert
 // path only because its vector unit had no 8-bit shift; here both halves
 // take the bias trick.
 //
+// Two routes, one name and one launch count per mode, as w4_matmul.cu's:
+//  - bf16 x whose shape the bf16 family of wa_slab_mma.cuh takes (slab rows
+//    and group multiples of 4) runs iwoq_w4_inner_matmul_mma, the family's
+//    layouts kNib4M (magic: the codes bf16(128 + q) on the bf16 tensor
+//    cores, the 128 folded into the zero point) and kNib4T (f32: the codes
+//    converted to f32, the products on the TF32 tensor cores); kNib4B's
+//    tiles, ring, split plan and K-split reduce (design notes there).  TF32
+//    is exact for bf16 x only, so f32 x never takes it;
+//  - f32 x, and bf16 x off that rule, run iwoq_w4_inner_matmul below: the
+//    simple first version, on the CUDA cores.
+//
 // What bounds it: as w4_matmul, bytes at decode (M = 8): packed weights +
-// f32 scales and zeros + x + output over 3.35 TB/s.  What the design does:
-// w4_matmul's tile shape (128 columns, 8 rows, 8 warps splitting K), grid
-// K-split and deterministic reduce (store_partials, w4_reduce_kernel).  Per
-// code only the decode and one FMA per activation row remain in the loop:
-// the scale, zero and activation sums are applied once per group segment
-// (a warp's packed rows of one group within the staged x tile), from sums
-// taken over the staged x in shared memory after the code loop.  That costs
-// two partial-sum registers per (row, column) beside the accumulator.  The
-// kernel measures what the decode costs; it is a simple first version:
-// CUDA-core FMAs, no tensor cores, no TMA.
+// f32 scales and zeros + x + output over 3.35 TB/s; at M = 256 the
+// operations, 2*M*K*N over 989 TFLOP/s (bf16; TF32, the f32 route: 495).
+// What the CUDA-core kernel does: w4_matmul's tile shape (128 columns, 8
+// rows, 8 warps splitting K), grid K-split and deterministic reduce
+// (store_partials, w4_reduce_kernel).  Per code only the decode and one FMA
+// per activation row remain in the loop: the scale, zero and activation
+// sums are applied once per group segment (a warp's packed rows of one
+// group within the staged x tile), from sums taken over the staged x in
+// shared memory after the code loop.  That costs two partial-sum registers
+// per (row, column) beside the accumulator.  CUDA-core FMAs, no tensor
+// cores, no TMA.
 #include "w4_common.cuh"
+#include "wa_slab_mma.cuh"
 
 namespace iwoq {
 
@@ -249,4 +259,22 @@ extern "C" int iwoq_w4_inner_matmul(const void* x, int x_bf16, int ldx, const vo
             : iwoq::launch_inner_x<false>(x, x_bf16, ldx, qw, s, s_rs, s_cs, z, z_rs, z_cs,
                                           ws, out, M, N, n_out, Kp, G, kc, splits, st);
   return (int)err;
+}
+
+// The tensor-core route: bf16 x [M, ldx] (ldx = 2 Kp), Kp packed rows, qw
+// [Kp, N]; magic picks kNib4M, else kNib4T.  x_copy: the row pass copies x
+// into xs first (x not 16-byte aligned, or Kp no multiple of 8); ws
+// [splits, M, N] f32; kc a multiple of 32 P (dequant_matmul.plan_slab_splits).
+extern "C" int iwoq_w4_inner_matmul_mma(const void* x, int ldx, int x_copy, int k_logical,
+                                        const void* qw, const void* s, long long s_rs,
+                                        long long s_cs, const void* z, long long z_rs,
+                                        long long z_cs, void* xs, void* ws, void* out, int M,
+                                        int N, int n_out, int Kp, int G, int kc, int splits,
+                                        int magic, void* stream) {
+  return magic ? iwoq::launch_bf16_mma<iwoq::kNib4M>(x, ldx, x_copy, k_logical, 0, 0.f, qw, s,
+                                                     s_rs, s_cs, z, z_rs, z_cs, xs, ws, out, M,
+                                                     N, n_out, Kp, G, kc, splits, 0, 0, stream)
+               : iwoq::launch_bf16_mma<iwoq::kNib4T>(x, ldx, x_copy, k_logical, 0, 0.f, qw, s,
+                                                     s_rs, s_cs, z, z_rs, z_cs, xs, ws, out, M,
+                                                     N, n_out, Kp, G, kc, splits, 0, 0, stream);
 }

@@ -249,6 +249,32 @@
 //    decoded tile (nor ldmatrix) is needed.  Bound: at decode the bytes
 //    (codes + f32 sides + bf16 x + output) over 3.35 TB/s; at prefill
 //    2*M*K*N over 989 TFLOP/s.
+//
+// The W4 inner-loop probe's two decodes (iwoq_w4_inner_matmul_mma in
+// w4_inner_matmul.cu; the TPU probe _kernel_variant of
+// scripts/probe_w4_inner.py, modes "magic" and "f32") are two more layouts
+// of the affine nib4 packing, kNib4B's tiles, ring, split plan and reduce,
+// each changing only the decode and the sides of its epilogue:
+//  - kNib4M (magic): nib4_bf16x2 / nib4_codes without the bf16x2 fma that
+//    subtracts 128: each code under the exponent byte 0x43 is bf16(128 +
+//    q) exactly and becomes the A fragment; the epilogue folds the 128 into
+//    the zero point, zc = -(s * (z + 128)), on both slabs (the JAX mode's
+//    zshift -128).  The cancellation costs about 7 bits of each group's f32
+//    sum (128 = 2^7 over codes of 0..15), against the 24 that an f32 bias
+//    of 2^23 would cost (w4_inner_matmul.cu);
+//  - kNib4T (f32): the codes converted to f32 by an int -> float convert,
+//    the low ones q and the high ones (int8)(byte & 0xF0) = 16 (q - 8), the
+//    staged bf16 x widened to f32 by a 16-bit shift, and the products on
+//    the TF32 tensor cores, mma.sync m16n8k8 (A 16 x 8: four f32 registers
+//    a lane, B 8 x 8: two).  No transpose: step k of a window takes rows
+//    8t+2k (K slot t) and 8t+2k+1 (slot t + 4) of lane t, so each staged
+//    word gives four channels' A registers of one row, decoded inside the
+//    segment, a step at a time (a window's A fragments at once would need
+//    twice kNib4B's registers).  The epilogue keeps the JAX mode's mult and
+//    zshift per slab: the low slab s and -(s * z), the high slab s / 16 and
+//    -(s * (z - 8)).  Exact: bf16 x has 8 significant bits, a code at most
+//    8, and TF32 keeps 11, so each product is the mode's f32 product; the
+//    TF32 rate (495 TFLOP/s) is half the bf16 one.
 #pragma once
 
 #include "lut_common.cuh"
@@ -443,14 +469,24 @@ __device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
   return bf16x2_fma(a, b, 0x80008000u);
 }
 
+// Four integer codes q < 128 (bytes of c, in K order) -> the bf16 values of
+// 128 + q, pairs (0, 1) and (2, 3): a byte q under the high byte 0x43 is
+// the bf16 of 128 + q (the exponent of 128 and q in the mantissa), exactly.
+// The probe's magic decode (kNib4M) takes these as they are.
+__device__ __forceinline__ void biased_codes_bf16(uint32_t c, uint32_t& p01, uint32_t& p23) {
+  constexpr uint32_t kHi = 0x43434343u;
+  p01 = __byte_perm(c, kHi, 0x5140);
+  p23 = __byte_perm(c, kHi, 0x7362);
+}
+
 // Four integer codes q < 128 (bytes of c, in K order: s21's f + 4h, nib4's
-// 0..15) -> their bf16 values, pairs (0, 1) and (2, 3): a byte q under the
-// high byte 0x43 is the bf16 of 128 + q (the exponent of 128 and q in the
-// mantissa), and q * 1 - 128 in one bf16x2 fma is q exactly.
+// 0..15) -> their bf16 values, pairs (0, 1) and (2, 3): biased_codes_bf16,
+// then (128 + q) * 1 - 128 in one bf16x2 fma is q exactly.
 __device__ __forceinline__ void int_codes_bf16(uint32_t c, uint32_t& p01, uint32_t& p23) {
-  constexpr uint32_t kHi = 0x43434343u, kOne = 0x3F803F80u, kMinus128 = 0xC300C300u;
-  p01 = bf16x2_fma(__byte_perm(c, kHi, 0x5140), kOne, kMinus128);
-  p23 = bf16x2_fma(__byte_perm(c, kHi, 0x7362), kOne, kMinus128);
+  constexpr uint32_t kOne = 0x3F803F80u, kMinus128 = 0xC300C300u;
+  biased_codes_bf16(c, p01, p23);
+  p01 = bf16x2_fma(p01, kOne, kMinus128);
+  p23 = bf16x2_fma(p23, kOne, kMinus128);
 }
 
 // Four signed byte codes (bytes of c, in K order: the stored byte read as
@@ -532,10 +568,39 @@ __device__ __forceinline__ void lut4_bf16x2(uint32_t w, const uint32_t (&tab)[4]
 // channel, each the low nibble's code of slab 0 and the MSB-flipped high
 // nibble's of slab 1) -> their bf16 values, slab 0's rows (0, 1) and (2, 3)
 // in s0, slab 1's in s1: one mask gives the low codes, one shift and one
-// LOP3 (mask, flip) the logical high codes q, int_codes_bf16 their values.
+// LOP3 (mask, flip) the logical high codes q, int_codes_bf16 their values
+// (MAGIC, kNib4M: biased_codes_bf16, the values 128 + q).
+template <bool MAGIC = false>
 __device__ __forceinline__ void nib4_bf16x2(uint32_t w, uint32_t (&s0)[2], uint32_t (&s1)[2]) {
-  int_codes_bf16(w & 0x0F0F0F0Fu, s0[0], s0[1]);
-  int_codes_bf16(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, s1[0], s1[1]);
+  const uint32_t lo = w & 0x0F0F0F0Fu, hi = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  if constexpr (MAGIC) {
+    biased_codes_bf16(lo, s0[0], s0[1]);
+    biased_codes_bf16(hi, s1[0], s1[1]);
+  } else {
+    int_codes_bf16(lo, s0[0], s0[1]);
+    int_codes_bf16(hi, s1[0], s1[1]);
+  }
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in (f32 registers), f32 sums.
+// Lane (g, t): a = A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]; b =
+// B[t][g], B[t + 4][g]; d as mma_bf16's.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The probe's f32 decode (kNib4T) of byte j of a packed nib4 word w (the
+// four bytes: four channels of one row): the f32 of the low code q (slab
+// 0), or of the high nibble read as int8, (int8)(byte & 0xF0) = 16 (q - 8)
+// (slab 1), as f32 bits; one int -> float convert a code.
+__device__ __forceinline__ uint32_t nib4_f32(uint32_t w, int j, bool high) {
+  const uint32_t b = (w >> (8 * j)) & 0xFFu;
+  const int v = high ? (int)(int8_t)(b & 0xF0u) : (int)(b & 0x0Fu);
+  return __float_as_uint((float)v);
 }
 
 constexpr int kSlabRowThreads = 1024;  // threads of the slab row pass, one block a row
@@ -709,6 +774,7 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
   constexpr bool BF = T::BF;
   constexpr int L = T::L;
   constexpr bool LUT = L == kLut4 || L == kLut6 || LAYOUT == kLut8B;
+  constexpr bool TF = LAYOUT == kNib4T;  // the probe's f32 decode: TF32 products
   constexpr int S = T::S, A = T::A, P = T::P, V = T::V, SW = T::SW, CT = T::CT, W = T::W;
   constexpr int MT = T::MT;
   constexpr int BN = T::BN, NTH = T::THREADS, STAGES = T::STAGES, PITCH = T::PITCH;
@@ -935,6 +1001,26 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
             sc[sw][c][h] *= 0.0625f;
             zc[sw][c][h] = fmaf(zc[sw][c][h], 16.f, -128.f);
           }
+      } else if (LAYOUT == kNib4M) {
+        // the probe's magic decode: values 128 + q, so zshift -128: zc =
+        // -(s * (z + 128)), the 128 folded into the zero point
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            zc[sw][c][h] = -(sc[sw][c][h] * (zc[sw][c][h] + 128.f));
+      } else if (TF) {
+        // the probe's f32 decode: the high slab's values 16 (q - 8), so
+        // the JAX mode's mult 1/16 and zshift 8: sc = s / 16, zc = -(s * (z
+        // - 8)); the low slab's q: zc = -(s * z)
+        const bool high = slab + sw == 1;
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            zc[sw][c][h] = -(sc[sw][c][h] * (high ? zc[sw][c][h] - 8.f : zc[sw][c][h]));
+            if (high) sc[sw][c][h] *= 0.0625f;
+          }
       } else if (BF && !LUT) {
 #pragma unroll
         for (int c = 0; c < CT; ++c)
@@ -1001,9 +1087,10 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
     // int8: one m16n8k32 (MMA K slots 4t..4t+3, 16+4t..16+4t+3: rows
     // 8t..8t+7); bf16: MMA q (m16n8k16) takes rows 8t+4q..8t+4q+3 (K slots
     // 2t, 2t+1: rows +0, +1; 2t+8, 2t+9: rows +2, +3)
+    // (TF: none here; each MMA step decodes its two rows in the segment)
     uint32_t afr[SW][CT][BF ? 2 : 1][4];
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < (TF ? 0 : 2); ++q) {
       uint32_t code[4][W];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1039,9 +1126,11 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
           for (int j = 0; j < 4; ++j) {
             uint32_t d[SW][2];
             if constexpr (SW == 2 && L == kNib4)
-              nib4_bf16x2(col[0][j], d[0], d[1]);
+              nib4_bf16x2<LAYOUT == kNib4M>(col[0][j], d[0], d[1]);
             else if constexpr (SW == 2)
               lut4_bf16x2(col[0][j], tab, d[0], d[1]);
+            else if constexpr (LAYOUT == kNib4M)  // the values 128 + q
+              biased_codes_bf16(col[0][j], d[0][0], d[0][1]);
             else if constexpr (L == kS21 || L == kNib4)
               int_codes_bf16(col[0][j], d[0][0], d[0][1]);
             else if constexpr (LAYOUT == kByteB)
@@ -1106,6 +1195,8 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
         keep1 = row0 + 4 >= r && row0 + 4 < se ? 0xFFFFFFFFu : 0u;
       }
       if constexpr (BF) {
+        // TF: the segment's x words, kept for the MMA steps below
+        uint32_t xt[SW][TF ? NT : 1][4];
 #pragma unroll
         for (int sw = 0; sw < SW; ++sw)
 #pragma unroll
@@ -1113,8 +1204,8 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
             const uint4 v = *reinterpret_cast<const uint4*>(
                 base + T::W_BYTES + ((part * S + slab + sw) * MT + 8 * nt + g) * 2 * kSlabWin +
                 16 * t);
+            const uint32_t xv[4] = {v.x & keep0, v.y & keep0, v.z & keep1, v.w & keep1};
             if constexpr (BZ) {  // the segment's sum of x: token g here, tokens 2t, 2t + 1 kept
-              const uint32_t xv[4] = {v.x & keep0, v.y & keep0, v.z & keep1, v.w & keep1};
               float sm = 0.f;
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
@@ -1130,12 +1221,47 @@ wa_slab_mma_kernel(const void* __restrict__ xsrc, const void* __restrict__ xsum,
               xk[sw][nt][0] += __shfl_sync(0xffffffffu, sm, 8 * t);
               xk[sw][nt][1] += __shfl_sync(0xffffffffu, sm, 8 * t + 4);
             }
+            if constexpr (TF) {
 #pragma unroll
-            for (int c = 0; c < CT; ++c) {
-              mma_bf16(pf[sw][c][nt], afr[sw][c][0], v.x & keep0, v.y & keep0);
-              mma_bf16(pf[sw][c][nt], afr[sw][c][1], v.z & keep1, v.w & keep1);
+              for (int e = 0; e < 4; ++e) xt[sw][nt][e] = xv[e];
+            } else {
+#pragma unroll
+              for (int c = 0; c < CT; ++c) {
+                mma_bf16(pf[sw][c][nt], afr[sw][c][0], xv[0], xv[1]);
+                mma_bf16(pf[sw][c][nt], afr[sw][c][1], xv[2], xv[3]);
+              }
             }
           }
+        if constexpr (TF) {
+          // m16n8k8 step k takes rows 8t+2k (K slot t) and 8t+2k+1 (slot t +
+          // 4) of each lane t: the A fragment holds their codes as f32, the
+          // B fragment x word k of token g widened to f32 by a shift
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            uint32_t a[SW][CT][4];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {  // row 8t + 2k + e, staged at position 4 (2k + e) + t
+              uint32_t aw[W];
+              lds_words<W>(wst + (arow * kSlabWin + 4 * (2 * k + e) + t) * PITCH + cb / 4 + g * W,
+                           aw);
+#pragma unroll
+              for (int v = 0; v < W; ++v)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)  // channel 4v + j: row g + 8 (j % 2) of tile 2v + j / 2
+#pragma unroll
+                  for (int sw = 0; sw < SW; ++sw)
+                    a[sw][2 * v + j / 2][2 * e + j % 2] = nib4_f32(aw[v], j, slab + sw == 1);
+            }
+#pragma unroll
+            for (int sw = 0; sw < SW; ++sw)
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int c = 0; c < CT; ++c)
+                  mma_tf32(pf[sw][c][nt], a[sw][c], xt[sw][nt][k] << 16,
+                           xt[sw][nt][k] & 0xFFFF0000u);
+          }
+        }
       } else {
 #pragma unroll
         for (int sw = 0; sw < SW; ++sw)
@@ -1403,7 +1529,7 @@ int launch_wa_slab(const void* x, int x_bf16, int k_logical, int norm, float eps
 
 
 // The bf16 family's whole call (LAYOUT kLut4B, kLut6B, kS21B, kNib4B,
-// kByteB or kLut8B): y
+// kByteB, kLut8B, or the probe's kNib4M, kNib4T, which take no norm): y
 // = x @ dequant(qw), bf16 x [M, ldx] (ldx = S*Kb, zero beyond k_logical),
 // bf16 out [M, n_out].  The row pass runs only where the call needs it:
 // with norm on a layout without the epilogue norm, or x_copy (x is not
@@ -1428,7 +1554,7 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
                    int M, int N, int n_out, int Kb, int G, int kc, int splits, int exp_bits,
                    int mant_bits, void* stream) {
   static_assert(SlabTile<LAYOUT, 1>::BF,
-                "a bf16 layout: kLut4B, kLut6B, kS21B, kNib4B, kByteB or kLut8B");
+                "a bf16 layout: kLut4B, kLut6B, kS21B, kNib4B, kByteB, kLut8B, kNib4M or kNib4T");
   static_assert(!EPI_NORM || LAYOUT == kNib4B || LAYOUT == kByteB,
                 "the epilogue norm: affine nib4 or byte (the w4 and w8 prenorm forms)");
   constexpr bool LUT = LAYOUT == kLut4B || LAYOUT == kLut6B || LAYOUT == kLut8B;
@@ -1455,6 +1581,8 @@ int launch_bf16_mma(const void* x, int ldx, int x_copy, int k_logical, int norm,
       // affine nib4 and byte: no normalized copy (the JAX prenorm kernels
       // scale the f32 sum): a pre-norm is the epilogue norm
       ((LAYOUT == kNib4B || LAYOUT == kByteB) && (norm != 0) != EPI_NORM) ||
+      // the probe's layouts: no pre-norm
+      ((LAYOUT == kNib4M || LAYOUT == kNib4T) && norm != 0) ||
       (!copy && (ldx % 8 || Kb % 8 || reinterpret_cast<uintptr_t>(x) % 16)) ||
       (copy && xs == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -210,10 +210,13 @@ _BLOCKS_PER_SM = 3
 # csrc/slab_tile.cuh, whose values these are): the int8 family (A16) takes
 # the affine nib4, byte and s21 layouts and the nib4 and nq42 LUT ones; the
 # bf16 family (bf16 x, bf16 products) the nib4, nq42 and byte LUT layouts,
-# s21, affine nib4 and affine byte.
+# s21, affine nib4 and affine byte, and the W4 inner-loop probe's two
+# decodes of the affine nib4 packing (bf16 x: magic on bf16 products, f32
+# on TF32 ones).
 SLAB_LAYOUT_IDS = {"nib4": 0, "byte": 1, "s21": 2, "lut4": 3, "lut6": 4,
                    "lut4_bf16": 5, "lut6_bf16": 6, "s21_bf16": 7, "nib4_bf16": 8,
-                   "byte_bf16": 9, "lut8_bf16": 10}
+                   "byte_bf16": 9, "lut8_bf16": 10, "nib4_magic_bf16": 11,
+                   "nib4_tf32_bf16": 12}
 # layout -> (slabs: K streams a packed row, row r of slab i holding K column
 # i*Kb + r; then (tokens, channels, parts) a block takes at decode, M <= 8,
 # and beyond): SlabTile's S, and its MT, BN and P at NT = 1 and at
@@ -231,6 +234,8 @@ SLAB_TILES = {
     "nib4_bf16": (2, (8, 128, 2), (64, 128, 1)),
     "byte_bf16": (1, (8, 128, 4), (64, 256, 1)),
     "lut8_bf16": (1, (8, 128, 4), (64, 256, 1)),
+    "nib4_magic_bf16": (2, (8, 128, 2), (64, 128, 1)),
+    "nib4_tf32_bf16": (2, (8, 128, 2), (64, 128, 1)),
 }
 # The one-plane (A8) wide tile where it is not the layout's wide tile:
 # slab_tile_nt with planes 1 gives the affine nib4 (w4a8) and byte (w8a8)
@@ -253,6 +258,10 @@ SLAB_MMA = {W4A16: "nib4", W8A16: "byte", W3A16: "s21", LUT4A16: "lut4", LUT6A16
 BF16_MMA = {LUT4: "lut4_bf16", LUT6: "lut6_bf16", LUT8: "lut8_bf16", W3: "s21_bf16",
             W4: "nib4_bf16", W4_PRENORM: "nib4_bf16", W8: "byte_bf16",
             W8_PRENORM: "byte_bf16"}
+# The bf16-x calls of the W4 inner-loop probe kernel (ops/kernels/w4_inner.py)
+# on the same family, by mode: magic on the bf16 tensor cores, f32 on the
+# TF32 ones; the rule and the f32-x kernel are w4_matmul's.
+W4_INNER_MMA = {W4_INNER_MAGIC: "nib4_magic_bf16", W4_INNER_F32: "nib4_tf32_bf16"}
 # Layouts whose K-split plan never starts a partial round of blocks (see
 # plan_slab_splits): byte, which decodes nothing, and affine nib4 and byte
 # in both families, whose decode is a few masks and permutes a word (on the
@@ -261,8 +270,12 @@ BF16_MMA = {LUT4: "lut4_bf16", LUT6: "lut6_bf16", LUT8: "lut8_bf16", W3: "s21_bf
 # more at qkv, and won over a decode step; the bf16 byte layout's flat W8
 # calls, o, down and the lm_head, get the same plan either way).  The LUT
 # byte layout keeps the rounded plan: at the fp8 decode step it won at
-# gate_up by more than it lost at qkv.
-SLAB_WHOLE_ROUNDS = ("byte", "nib4", "nib4_bf16", "byte_bf16")
+# gate_up by more than it lost at qkv.  The probe's two layouts, like
+# nib4_bf16: on the H100 whole rounds won at qkv by more than they lost at
+# gate_up (the only shapes whose plan differs), for the f32 decode's
+# converts too.
+SLAB_WHOLE_ROUNDS = ("byte", "nib4", "nib4_bf16", "byte_bf16", "nib4_magic_bf16",
+                     "nib4_tf32_bf16")
 _SM_COUNT: Dict[int, int] = {}
 
 

@@ -13,11 +13,17 @@ weight: per group segment ``acc += (x_g . v_g) * s * mult - sum(x_g) * s
 ``f32``: ``v`` is the low code (mult 1, zshift 0) or the high nibble's
 signed view ``16 * (code - 8)`` (mult 1/16, zshift 8), each by an int ->
 float convert.  ``magic``: ``v = 128 + code`` for both halves, decoded by
-the bf16 bias trick (mult 1, zshift -128).  The CUDA kernel is
-``csrc/w4_inner_matmul.cu`` (design notes there); :func:`w4_inner_plain` is
-its plain PyTorch version, which a CPU tensor takes.  Launches count in
-``dequant_matmul.LAUNCHES`` and plain calls in ``PLAIN_CALLS``, under
-``w4_inner_f32`` and ``w4_inner_magic``.
+the bf16 bias trick (mult 1, zshift -128).  The kernels are in
+``csrc/w4_inner_matmul.cu`` (design notes there), with two routes per mode,
+as ``w4_matmul``'s: bf16 x whose shape meets the bf16 family's rule
+(``dequant_matmul.bf16_mma_route``) runs on the tensor cores
+(``dequant_matmul.W4_INNER_MMA``: magic on bf16 products, f32 on TF32
+ones, in ``csrc/wa_slab_mma.cuh``); f32 x, for which TF32 would not be
+exact, and shapes off that rule run the CUDA-core kernel.
+:func:`w4_inner_plain` is their plain PyTorch version, which a CPU tensor
+takes.  Launches count in ``dequant_matmul.LAUNCHES`` and plain calls in
+``PLAIN_CALLS``, under ``w4_inner_f32`` and ``w4_inner_magic``, one name
+for both routes.
 """
 
 from __future__ import annotations
@@ -37,6 +43,16 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # s, s_rs, s_cs
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # z, z_rs, z_cs
     ctypes.c_void_p, ctypes.c_void_p,                               # ws, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,         # M, N, n_out, Kp
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
+    ctypes.c_int, ctypes.c_void_p,                                  # magic, stream
+]
+_ARGTYPES_MMA = [  # iwoq_w4_inner_matmul_mma, the tensor-core route
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,      # x, ldx, x_copy, k_logical
+    ctypes.c_void_p,                                                # qw
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # s, s_rs, s_cs
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,          # z, z_rs, z_cs
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,              # xs or NULL, ws, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,         # M, N, n_out, Kp
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # G, kc, splits
     ctypes.c_int, ctypes.c_void_p,                                  # magic, stream
@@ -87,14 +103,24 @@ def w4_inner_matmul(x: torch.Tensor, qt: QuantizedTensor, mode: str) -> torch.Te
     """``y = x @ dequant(qt)`` for ``x`` ``[..., K]`` by the factored group
     form in ``mode`` (``"f32"`` or ``"magic"``), output in ``x.dtype``.  A
     CPU tensor takes :func:`w4_inner_plain`; a CUDA tensor launches
-    ``csrc/w4_inner_matmul.cu``.  Raises for any artifact ``w4_matmul``
-    does not take on the card."""
-    name = _checked(x, qt, mode)
+    ``csrc/w4_inner_matmul.cu``: bf16 x on the rule of
+    ``dequant_matmul.bf16_mma_route`` its tensor-core route, anything else
+    its CUDA-core kernel.  Raises for any artifact ``w4_matmul`` does not
+    take on the card."""
+    _checked(x, qt, mode)
     if x.device.type == "cpu":
         return w4_inner_plain(x, qt, mode)
     if not x.is_cuda:
         raise NotImplementedError(f"no W4 inner-loop kernel for device {x.device}")
-    x2 = dm._prep_x(x, qt)
+    return _launch(dm._prep_x(x, qt), qt, mode).reshape(x.shape[:-1] + (qt.n,))
+
+
+def _launch(x2: torch.Tensor, qt: QuantizedTensor, mode: str) -> torch.Tensor:
+    """One launch of ``mode``'s kernel on ``x2`` ``[M, K_stored]``: the
+    tensor-core route for bf16 x whose slab rows and group meet
+    ``dequant_matmul._bf16_mma_fits``, else the CUDA-core kernel (an
+    explicit rule, never a fallback); ``[M, n]`` in ``x2.dtype``."""
+    name = _NAMES[mode]
     qw = qt.qweight
     kp, n = qw.shape
     rows = qt.scales.shape[0]
@@ -105,16 +131,32 @@ def w4_inner_matmul(x: torch.Tensor, qt: QuantizedTensor, mode: str) -> torch.Te
     dev = x2.device
     m = x2.shape[0]
     out = torch.empty((m, qt.n), dtype=x2.dtype, device=dev)
-    if m:
+    if not m:
+        return out
+    mma = x2.dtype == torch.bfloat16 and dm._bf16_mma_fits(kp, g)
+    if mma:
+        layout = dm.W4_INNER_MMA[name]
+        kc, splits = dm.plan_slab_splits(m, n, kp, layout, dm._sm_count(dev))
+        x_copy = dm.x_needs_copy(x2, kp)
+        xs = (torch.empty((dm.bf16_mma_scratch_bytes(m, kp, layout),), dtype=torch.uint8,
+                          device=dev) if x_copy else None)
+        lib, fn = dm._load_fn(SOURCE, f"iwoq_{SOURCE}_mma", _ARGTYPES_MMA)
+    else:
         kc, splits = dm.plan_splits(m, n, kp, dm._sm_count(dev))
-        ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
         lib, fn = dm._load_fn(SOURCE, f"iwoq_{SOURCE}", _ARGTYPES)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if mma:
+            err = fn(x2.data_ptr(), x2.shape[1], int(x_copy), qt.shape[0], qw.data_ptr(),
+                     s2.data_ptr(), s_rs, s_cs, z2.data_ptr(), z_rs, z_cs,
+                     None if xs is None else xs.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                     m, n, qt.n, kp, g, kc, splits, int(mode == "magic"), stream)
+        else:
             err = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), x2.shape[1],
                      qw.data_ptr(), s2.data_ptr(), s_rs, s_cs, z2.data_ptr(), z_rs,
                      z_cs, ws.data_ptr(), out.data_ptr(), m, n, qt.n, kp, g, kc,
                      splits, int(mode == "magic"), stream)
-        dm._raise_if(err, lib, name)
-        dm.LAUNCHES[name] += 1
-    return out.reshape(x.shape[:-1] + (qt.n,))
+    dm._raise_if(err, lib, name)
+    dm.LAUNCHES[name] += 1
+    return out

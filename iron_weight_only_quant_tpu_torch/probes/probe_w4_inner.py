@@ -16,9 +16,13 @@ Variants, on one ``QuantSpec(int, 4, 128, asym)`` artifact per shape:
          epilogue), f32 x its CUDA-core kernel
   f32    ``w4_inner_matmul(mode="f32")``: int -> float converts, the
          factored group form (scales, zeros and activation sums once per
-         group)
+         group); with bf16 x on base's skeleton (the bf16 family of
+         ``csrc/wa_slab_mma.cuh``, layout ``kNib4T``) with TF32 products,
+         ``mma.sync`` m16n8k8
   magic  ``w4_inner_matmul(mode="magic")``: the bf16 bias-trick decode, no
-         arithmetic convert, the same factored form
+         arithmetic convert, the same factored form; with bf16 x base's
+         skeleton too (``kNib4M``): base's decode without its subtraction
+         of 128, which the zero point takes
   w4a8   ``activation_bits=8`` (``w4a8_matmul``, the one-plane slab
          kernel on the int8 tensor cores; no error check: its activations
          are quantized)
@@ -34,9 +38,9 @@ each keeps its minimum.  On the card each timed call rotates
 them between calls, as the layers of a decode step find it; the times are
 CUDA-event device times (``utils.timing.device_ms``), printed with the
 card's name and power limit and with static SASS instruction counts of the
-partial-product kernels of ``w4_inner_matmul`` and ``w4_matmul`` (its
-CUDA-core kernel, and the product kernel of its bf16 route per token tile,
-``base-mma/NT=n``).
+partial-product kernels of ``w4_inner_matmul`` and ``w4_matmul``: their
+CUDA-core kernels, and the product kernels of their tensor-core routes per
+token tile (``base-mma/NT=n``, ``magic-mma/NT=n``, ``f32-mma/NT=n``).
 """
 
 from __future__ import annotations
@@ -77,17 +81,22 @@ VARIANTS: Dict[str, Tuple[str, Callable, bool]] = {
 }
 REFERENCE = "base"  # the variant the errors are taken against
 # opcodes counted in the SASS of each kernel (the decode and the product)
-SASS_OPS = ("I2F", "I2FP", "F2F", "FFMA", "FMUL", "FADD", "LOP3", "SHF", "PRMT",
-            "IMAD", "IDP", "LDS", "LDG")
+SASS_OPS = ("HMMA", "I2F", "I2FP", "F2F", "FFMA", "FMUL", "FADD", "HFMA2", "LOP3", "SHF",
+            "PRMT", "IMAD", "IDP", "LDS", "LDG")
+# slab_tile.cuh's layout of each tensor-core route's product kernel
+_MMA_LAYOUTS = {str(dm.SLAB_LAYOUT_IDS[layout]): tag for layout, tag in
+                (("nib4_bf16", "base"), ("nib4_magic_bf16", "magic"), ("nib4_tf32_bf16", "f32"))}
 
 
 def _probe_key(name: str) -> Optional[str]:
     """The probe's key of a partial-product kernel's mangled name (None:
-    not counted): mode and x type, or the token tile of ``w4_matmul``'s
-    bf16 route (its 16-byte-copy product kernel)."""
-    route = re.search(r"wa_slab_mma_kernelILi\d+ELi(\d+)ELb1E", name)
+    not counted): mode and x type of a CUDA-core kernel, or the variant and
+    token tile of a tensor-core route's product kernel (its 16-byte-copy
+    form): ``w4_matmul``'s (base) or ``w4_inner_matmul``'s (f32, magic)."""
+    route = re.search(r"wa_slab_mma_kernelILi(\d+)ELi(\d+)ELb1E", name)
     if route:
-        return f"base-mma/NT={route.group(1)}"
+        tag = _MMA_LAYOUTS.get(route.group(1))
+        return None if tag is None else f"{tag}-mma/NT={route.group(2)}"
     if "partial_kernel" not in name:
         return None
     mode = ("magic" if "ILb1E" in name else "f32") if "inner" in name else "base"

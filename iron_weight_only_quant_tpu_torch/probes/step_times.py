@@ -1,5 +1,6 @@
-"""Decode-step and prefill sums of the int-activation kernels of a source
-tree, on the card: the A/B harness of kernel redesigns.
+"""Decode-step and prefill sums of the int-activation kernels and of the W4
+inner-loop probe kernel's tensor-core routes of a source tree, on the
+card: the A/B harness of kernel redesigns.
 
     python3 iron_weight_only_quant_tpu_torch/probes/step_times.py \
         [--tree DIR] [--label NAME] [--kernels w8a8_matmul w3a8_matmul] \
@@ -13,7 +14,9 @@ process of its own (two copies of one library in a process break
 launches), interleaved: parent, change, change, parent.
 
 For each kernel (``w4a8``, ``w4a16``, ``w8a8``, ``w8a16``, ``w3a8``,
-``w3a16``) it builds the five LLaMA-2-7B main-path artifacts of
+``w3a16``; ``w4_inner_magic`` and ``w4_inner_f32``, the probe kernel's two
+modes with bf16 x, every shape flat) it builds the five LLaMA-2-7B
+main-path artifacts of
 ``chip_smoke.py`` (g128 asymmetric; 3-bit with ``pad_k_to=1024``), and at
 each row count of ``--ms`` checks one call against the plain version
 (bf16 x, ``max|y - y_ref| / max|y_ref| <= 1e-2``) and times it with CUDA
@@ -37,6 +40,8 @@ import sys
 KERNELS = {"w4a8_matmul": (4, 1, True), "w4a16_matmul": (4, 1, True),
            "w8a8_matmul": (8, 1, True), "w8a16_matmul": (8, 1, True),
            "w3a8_matmul": (3, 1024, False), "w3a16_matmul": (3, 1024, False)}
+# the probe kernel's modes (ops/kernels/w4_inner.py), by launch counter name
+INNER = {"w4_inner_magic": "magic", "w4_inner_f32": "f32"}
 
 
 def main(argv=None) -> int:
@@ -45,7 +50,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=here, help="root of the source tree to time")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--kernels", nargs="+", default=["w8a8_matmul", "w3a8_matmul"],
-                    choices=sorted(KERNELS))
+                    choices=sorted(KERNELS) + sorted(INNER))
     ap.add_argument("--ms", nargs="+", type=int, default=[8, 64, 128, 256])
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
@@ -59,6 +64,10 @@ def main(argv=None) -> int:
     from iron_weight_only_quant_tpu_torch.config import QuantSpec
     from iron_weight_only_quant_tpu_torch.ops.kernels import build as kbuild
     from iron_weight_only_quant_tpu_torch.ops.kernels import dequant_matmul as dm
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import (
+        w4_inner_matmul,
+        w4_inner_plain,
+    )
     from iron_weight_only_quant_tpu_torch.utils.timing import copies_for, device_ms
 
     if not os.path.abspath(dm.__file__).startswith(tree + os.sep):
@@ -66,12 +75,12 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
-    kbuild.build(args.kernels)
+    kbuild.build({"w4_inner_matmul" if k in INNER else k for k in args.kernels})
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     out = {"label": args.label, "tree": tree}
     for kname in args.kernels:
-        bits, pad_k, use_pre = KERNELS[kname]
+        bits, pad_k, use_pre = KERNELS.get(kname, (4, 1, False))
         abits = 8 if "a8" in kname else 16
         spec = QuantSpec(fmt="int", bits=bits, group_size=128, symmetric=False)
         steps = {m: 0.0 for m in args.ms}
@@ -79,10 +88,17 @@ def main(argv=None) -> int:
         for shape, k, widths, prenorm, per_step in cs.MAIN_SHAPES:
             qt = cs.make_artifact(torch, gen, spec, k, widths, device, pad_k_to=pad_k)[0]
             pre = 1e-5 if prenorm and use_pre else None
-            if dm.kernel_name(qt, pre, abits) != kname:
+            if kname in INNER:
+                mode = INNER[kname]
+                ok = dm.kernel_name(qt) == dm.W4 and dm.bf16_mma_route(qt, torch.bfloat16)
+                run = lambda x, qt, md=mode: w4_inner_matmul(x, qt, md)  # noqa: E731
+                run_plain = lambda x, qt, md=mode: w4_inner_plain(x, qt, md)  # noqa: E731
+            else:
+                ok = dm.kernel_name(qt, pre, abits) == kname
+                run, run_plain = cs.a_runner(pre, abits)
+            if not ok:
                 print(f"step_times: {shape} does not dispatch to {kname}", file=sys.stderr)
                 return 1
-            run, run_plain = cs.a_runner(pre, abits)
             reps = copies_for(qt.qweight.numel())
             qts = [qt] + [qt.map_arrays(torch.clone) for _ in range(reps - 1)]
             for m in args.ms:

@@ -1,7 +1,8 @@
 """Profiling and roofline accounting (port of ``utils/profiling.py``).
 
 * :func:`trace` records the enclosed region with ``torch.profiler`` and
-  writes a Chrome trace;
+  writes a Chrome trace; :func:`device_kernel_names` reads the device
+  kernels one call runs from it;
 * :class:`Roofline` turns measured times into fractions of the least time
   the card could take, from its memory rate and matrix-unit peak.
 """
@@ -49,6 +50,27 @@ def trace(logdir: Optional[str] = None):
     if logdir is not None:
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def device_kernel_names(fn, want: int = 1, tries: int = 3) -> list:
+    """The names of the device kernels one call of ``fn`` runs, in order,
+    read by :func:`trace` (empty where no trace recorded a device event).
+    A trace can miss a kernel the call ran, so it traces again, at most
+    ``tries`` times in all, while it records fewer than ``want``."""
+    import torch
+    from torch.autograd import DeviceType
+
+    names: list = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with trace() as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        if len(names) >= want:
+            break
+    return names
 
 
 @dataclass

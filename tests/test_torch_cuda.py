@@ -1318,6 +1318,128 @@ def test_w4_inner_kernel_matches_plain_side_layouts(dev, spec, mode):
     _close(y, dm.dequant_matmul_plain(x, qt), torch.float32)
 
 
+
+def _inner_call(qt, x, mode):
+    """One call of the probe kernel: exactly one launch under the mode's
+    name (either route), no plain call, no route call; the result."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import w4_inner_matmul
+
+    dm.reset_counts()
+    y = w4_inner_matmul(x, qt, mode)
+    name = dm.W4_INNER_MAGIC if mode == "magic" else dm.W4_INNER_F32
+    assert dm.LAUNCHES == {**{k_: 0 for k_ in dm.LAUNCHES}, name: 1}
+    assert not any(dm.PLAIN_CALLS.values()) and not any(dm.ROUTE_CALLS.values())
+    return y
+
+
+def _inner_check(dev, case, m, mode, x=None):
+    """A bf16-x call of the probe kernel on its tensor-core route (magic:
+    bf16 products, f32: TF32 ones) against its plain version."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import w4_inner_plain
+
+    spec, k, n, kw = case
+    qt = _artifact(dev, k, n, spec, **kw)
+    assert dm.bf16_mma_route(qt, torch.bfloat16)
+    if x is None:
+        x = _x(dev, (m, k), torch.bfloat16) * 3
+    _close_a(_inner_call(qt, x, mode), w4_inner_plain(x, qt, mode), torch.bfloat16)
+    return qt, x
+
+
+@pytest.mark.parametrize("mode", ["f32", "magic"])
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 256])
+@pytest.mark.parametrize("case", list(W4_MMA_7B))
+def test_w4_inner_mma_route_matches_plain_7b_shapes(dev, case, m, mode):
+    """Both modes' tensor-core routes at the main path's five shapes (N
+    padded to 512), at decode and prefill row counts."""
+    _inner_check(dev, W4_MMA_7B[case], m, mode)
+
+
+@pytest.mark.parametrize("mode", ["f32", "magic"])
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 256])
+@pytest.mark.parametrize("case", list(W4_MMA_CASES))
+def test_w4_inner_mma_route_matches_plain(dev, case, m, mode):
+    """The decode tile and the 64-token tile, one and several K-splits,
+    ragged groups, side layouts, ``n_pad``, ``k_pad`` and BFP4, against the
+    plain version; f32 x stays on the CUDA-core kernel at the f32
+    tolerance."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import w4_inner_plain
+
+    qt, x = _inner_check(dev, W4_MMA_CASES[case], m, mode)
+    if m == 8:
+        xf = x.float()
+        _close(_inner_call(qt, xf, mode), w4_inner_plain(xf, qt, mode), torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["f32", "magic"])
+@pytest.mark.parametrize("m,n,dtype,one_split", [(8, 32000, torch.bfloat16, True),
+                                                 (8, 4096, torch.bfloat16, False),
+                                                 (256, 4096, torch.bfloat16, True),
+                                                 (8, 4096, torch.float32, False)],
+                         ids=["route_one_split", "route_k_split", "route_wide", "f32x"])
+def test_w4_inner_mma_runs_its_mode_kernel(dev, m, n, dtype, one_split, mode):
+    """bf16 x runs the mode's product kernel (``wa_slab_mma_kernel`` of its
+    layout), alone with one split, with the reduce after it with a K-split;
+    f32 x the CUDA-core kernel and its reduce."""
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import w4_inner_matmul
+    from iron_weight_only_quant_tpu_torch.utils.profiling import device_kernel_names
+
+    qt = _artifact(dev, 4096, n, W4_SPEC, pad_n_to=512)
+    x = _x(dev, (m, 4096), dtype)
+    name = dm.W4_INNER_MAGIC if mode == "magic" else dm.W4_INNER_F32
+    if dtype == torch.bfloat16:
+        layout = dm.W4_INNER_MMA[name]
+        splits = dm.plan_slab_splits(m, qt.qweight.shape[1], 2048, layout, dm._sm_count(dev))[1]
+        assert (splits == 1) == one_split
+        lid = dm.SLAB_LAYOUT_IDS[layout]
+        product = (f"wa_slab_mma_kernel<{lid},", f"wa_slab_mma_kernelILi{lid}E")
+        want = 1 if splits == 1 else 2
+    else:
+        product, want = ("w4_inner_partial_kernel",), 2
+    _inner_call(qt, x, mode)
+    names = device_kernel_names(lambda: w4_inner_matmul(x, qt, mode), want)
+    assert len(names) == want and any(p in names[0] for p in product), names
+
+
+@pytest.mark.parametrize("mode", ["f32", "magic"])
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("case", ["w4_g128_asym", "w4_kpad"])
+def test_w4_inner_mma_copies_x_it_cannot_read_in_place(dev, case, m, mode):
+    """x 2 bytes off a 16-byte boundary: the row pass copies it."""
+    spec, k, n, kw = W4_MMA_CASES[case]
+    x = torch.empty((m * k + 1,), dtype=torch.bfloat16, device=dev)[1:].view(m, k)
+    x.copy_(_x(dev, (m, k), torch.bfloat16) * 3)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _inner_check(dev, W4_MMA_CASES[case], m, mode, x=x)
+
+
+@pytest.mark.parametrize("m", [8, 256])
+@pytest.mark.parametrize("zero", [0, 15])
+def test_w4_inner_mma_fold_accuracy_on_one_sign_inputs(dev, zero, m):
+    """The magic decode's fold of 128 into the zero point: x of mean 4 and
+    spread 0.1, one-sign weights whose zero points are all ``zero``; base
+    (``w4_matmul``'s route), magic and f32 each within 1e-2 of the f32
+    oracle, magic within 1.5 times base's error."""
+    from iron_weight_only_quant_tpu_torch.ops import dequantize_weight
+    from iron_weight_only_quant_tpu_torch.ops.kernels.w4_inner import w4_inner_matmul
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(zero)
+    w = torch.randn((4096, 1024), generator=g, device=dev).abs() * (0.02 if zero == 0 else -0.02)
+    qt = quantize_tensor(w, W4_SPEC)
+    assert bool((qt.zeros == zero).all())
+    x = (4 + 0.1 * torch.randn((m, 4096), generator=g, device=dev)).to(torch.bfloat16)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = x.float() @ dequantize_weight(qt, torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    rel = {tag: ((y.float() - ref).abs().max() / ref.abs().max()).item() for tag, y in (
+        ("base", dm.fused_quantized_matmul(x, qt)), ("magic", w4_inner_matmul(x, qt, "magic")),
+        ("f32", w4_inner_matmul(x, qt, "f32")))}
+    assert max(rel.values()) <= 1e-2 and rel["magic"] <= 1.5 * rel["base"], rel
+
 # ------------------------------------------------------------------- serve
 
 def test_valid_kv_write_does_not_sync(dev):

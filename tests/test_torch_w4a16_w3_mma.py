@@ -104,7 +104,7 @@ template <int L> void layout() {
 int main() {
   layout<kNib4>(); layout<kByte>(); layout<kS21>(); layout<kLut4>(); layout<kLut6>();
   layout<kLut4B>(); layout<kLut6B>(); layout<kS21B>(); layout<kNib4B>(); layout<kByteB>();
-  layout<kLut8B>();
+  layout<kLut8B>(); layout<kNib4M>(); layout<kNib4T>();
 }
 """
 
@@ -143,7 +143,7 @@ def test_python_tiles_equal_the_cuda_tiles(cuda_tiles, layout):
     gives one plane another NT, and :func:`slab_tile` picks the tile
     slab_tile_nt picks at every row count, with two planes and with one,
     for every layout of the Layout enum."""
-    assert sorted(dm.SLAB_LAYOUT_IDS.values()) == sorted(cuda_tiles) == list(range(11))
+    assert sorted(dm.SLAB_LAYOUT_IDS.values()) == sorted(cuda_tiles) == list(range(13))
     slabs, decode, wide, nts, wide_a8, nts_a8 = cuda_tiles[dm.SLAB_LAYOUT_IDS[layout]]
     assert dm.SLAB_TILES[layout] == (slabs, decode[:3], wide[:3])
     assert decode[3] == 1 and decode[0] == 8
@@ -156,13 +156,14 @@ def test_python_tiles_equal_the_cuda_tiles(cuda_tiles, layout):
 
 
 def test_every_slab_kernel_has_its_layout():
-    """The slab kernels and the bf16 route name a layout each, but for
-    five pairs that share one: each A8 kernel (one plane) and the A16
-    kernel (two) of its storage bits on the affine nib4, byte and s21
-    layouts of the int8 family (``w4a8`` and ``w4a16``, ``w8a8`` and
-    ``w8a16``, ``w3a8`` and ``w3a16``), and each prenorm kernel of the bf16
-    route with its flat kernel (``w4_matmul``, ``w8_matmul``); the nib4
-    packing is shared by the affine and LUT layouts of each family, and the
+    """The slab kernels, the bf16 route and the W4 inner-loop probe's two
+    tensor-core routes name a layout each, but for five pairs that share
+    one: each A8 kernel (one plane) and the A16 kernel (two) of its storage
+    bits on the affine nib4, byte and s21 layouts of the int8 family
+    (``w4a8`` and ``w4a16``, ``w8a8`` and ``w8a16``, ``w3a8`` and
+    ``w3a16``), and each prenorm kernel of the bf16 route with its flat
+    kernel (``w4_matmul``, ``w8_matmul``); the nib4 packing is shared by the
+    affine and LUT layouts of each family and by the probe's two, and the
     byte packing by the bf16 family's affine and LUT layouts, with the same
     tiles.  Every int-activation kernel is a slab kernel."""
     assert set(dm.SLAB_MMA) == {dm.W4A16, dm.W8A16, dm.W3A16, dm.LUT4A16, dm.LUT6A16,
@@ -176,12 +177,15 @@ def test_every_slab_kernel_has_its_layout():
     assert dm.SLAB_MMA[dm.W3A8] == dm.SLAB_MMA[dm.W3A16] == "s21"
     assert dm.BF16_MMA[dm.W4] == dm.BF16_MMA[dm.W4_PRENORM] == "nib4_bf16"
     assert dm.BF16_MMA[dm.W8] == dm.BF16_MMA[dm.W8_PRENORM] == "byte_bf16"
-    layouts = list(dm.SLAB_MMA.values()) + list(dm.BF16_MMA.values())
+    layouts = (list(dm.SLAB_MMA.values()) + list(dm.BF16_MMA.values())
+               + list(dm.W4_INNER_MMA.values()))
     assert sorted(set(layouts)) == sorted(dm.SLAB_TILES)
     assert len(set(layouts)) == len(layouts) - 5
     assert dm.SLAB_TILES["nib4"] == dm.SLAB_TILES["lut4"]  # the same packing and tiles
     assert dm.SLAB_TILES["nib4_bf16"] == dm.SLAB_TILES["lut4_bf16"]
     assert dm.SLAB_TILES["byte_bf16"] == dm.SLAB_TILES["lut8_bf16"]
+    assert dm.SLAB_TILES["nib4_bf16"] == dm.SLAB_TILES["nib4_magic_bf16"] \
+        == dm.SLAB_TILES["nib4_tf32_bf16"]
 
 
 # ------------------------------------------- affine nib4: decode and epilogue
